@@ -1,0 +1,143 @@
+"""Paged decode attention: single-token GQA attention against a block pool
+through per-slot block tables, PyTorch port of
+``deepspeed_tpu/ops/decode_attention.py``.
+
+The kernel is ``csrc/paged_decode.cu`` (hand-written CUDA for sm_90a); its
+note says what bounds it and how it is laid out.
+
+Layout: q [S, 1, Nq, D] (one in-flight token per slot); pools
+[NB, Nkv, bs, D]; block_tables [S, MB] int32 (entry 0 = the reserved trash
+block, never valid); seq_lens [S] int32 = rows already in the pool for the
+slot. The CURRENT token's (k, v) row is not in the pool: it arrives as
+kv_row = (k_row, v_row) [S, Nkv, 1, D] and joins the softmax last; the
+caller scatters it into the pool afterwards.
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version; a CUDA
+tensor launches the kernel or raises. Nothing falls back.
+"""
+
+import math
+from typing import Optional
+
+import torch
+
+from deepspeed_tpu_torch.ops._build import PAGED_DECODE, stream_handle
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_MAX_REP = 8
+
+
+def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
+                           kv_row, sm_scale: Optional[float] = None):
+    """Plain version: the block-table gather into a contiguous
+    [S, Nkv, MB*bs, D] view, then the ring-buffer decode math of
+    ``models/transformer._decode_attention`` (per-slot cursor, fresh row as
+    a separate softmax term). Returns [S, 1, Nq, D] in q's dtype."""
+    S, _, Nq, D = q.shape
+    NB, Nkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    rep = Nq // Nkv
+    T = MB * bs
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(D)
+    tables = block_tables.long()
+
+    def view(pool):                          # [S, MB, Nkv, bs, D] -> [S, Nkv, T, D]
+        return pool[tables].permute(0, 2, 1, 3, 4).reshape(S, Nkv, T, D)
+
+    k_row, v_row = kv_row
+    qg = q.reshape(S, Nkv, rep, D)
+    scores = torch.einsum("bgrd,bgtd->bgrt", qg, view(k_pool)).float()
+    scores = scores * sm_scale
+    keep = (torch.arange(T, device=q.device)[None, :]
+            < seq_lens.long()[:, None])
+    scores = torch.where(keep[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    s_self = torch.einsum("bgrd,bgtd->bgrt", qg,
+                          k_row.to(qg.dtype)).float() * sm_scale
+    probs = torch.softmax(torch.cat([scores, s_self], dim=-1), dim=-1)
+    out = torch.einsum("bgrt,bgtd->bgrd", probs[..., :T].to(q.dtype),
+                       view(v_pool))
+    out = out + probs[..., T:].to(q.dtype) * v_row.to(q.dtype)
+    return out.reshape(S, 1, Nq, D)
+
+
+def _check(q, k_pool, v_pool, block_tables, seq_lens, k_row, v_row):
+    tensors = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+               ("k_row", k_row), ("v_row", v_row))
+    for name, t in tensors:
+        if t.dtype != q.dtype:
+            raise TypeError(f"paged_decode: {name} is {t.dtype}, q is "
+                            f"{q.dtype}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_decode takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"paged_decode: {name} must be int32, got {t.dtype}")
+    for name, t in tensors + (("block_tables", block_tables),
+                              ("seq_lens", seq_lens)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"paged_decode: {name} must be contiguous on "
+                             f"{q.device}")
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"paged_decode wants q [S, 1, Nq, D], got "
+                         f"{tuple(q.shape)}")
+    S, _, Nq, D = q.shape
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"pools must be [NB, Nkv, bs, D], got "
+                         f"{tuple(k_pool.shape)} {tuple(v_pool.shape)}")
+    NB, Nkv, bs, Dp = k_pool.shape
+    if Dp != D or D not in _HEAD_DIMS:
+        raise ValueError(f"paged_decode supports head_dim {_HEAD_DIMS}; "
+                         f"q has {D}, pools {Dp}")
+    if Nq % Nkv or Nq // Nkv > _MAX_REP:
+        raise ValueError(f"n_q_heads {Nq} must be a multiple (<= "
+                         f"{_MAX_REP}x) of n_kv_heads {Nkv}")
+    if bs < 1:
+        raise ValueError(f"block_size {bs} must be >= 1")
+    for name, t in tensors:
+        # the kernel reads each lane's D/32 elements in one vector load
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_decode: {name} must be 16-byte aligned")
+    if block_tables.dim() != 2 or block_tables.shape[0] != S \
+            or seq_lens.shape != (S,):
+        raise ValueError(f"block_tables [S, MB] / seq_lens [S] with S={S}, "
+                         f"got {tuple(block_tables.shape)} "
+                         f"{tuple(seq_lens.shape)}")
+    if k_row.shape != (S, Nkv, 1, D) or v_row.shape != (S, Nkv, 1, D):
+        raise ValueError(f"kv_row must be [S, Nkv, 1, D] = {(S, Nkv, 1, D)}")
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
+                           kv_row, sm_scale: Optional[float] = None):
+    """q: [S, 1, Nq, D]; k_pool/v_pool: [NB, Nkv, bs, D]; block_tables:
+    [S, MB] int32; seq_lens: [S] int32; kv_row: (k_row, v_row)
+    [S, Nkv, 1, D]. Returns [S, 1, Nq, D].
+
+    The kernel trusts the tables: every entry below ceil(len/bs) must be a
+    block of the pool and len <= MB * bs (the scheduler guarantees both)."""
+    if kv_row is None:
+        raise ValueError("paged_decode_attention requires the fresh-row "
+                         "fold (kv_row): the decode step never pre-writes "
+                         "the current token into the pool")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return paged_decode_reference(q, k_pool, v_pool, block_tables,
+                                      seq_lens, kv_row=kv_row,
+                                      sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode runs on cuda (or cpu), not {q.device}")
+    k_row, v_row = kv_row
+    _check(q, k_pool, v_pool, block_tables, seq_lens, k_row, v_row)
+    S, _, Nq, D = q.shape
+    _, Nkv, bs, _ = k_pool.shape
+    out = torch.empty_like(q)
+    PAGED_DECODE.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                        block_tables.data_ptr(), seq_lens.data_ptr(),
+                        k_row.data_ptr(), v_row.data_ptr(), out.data_ptr(),
+                        S, Nq, Nkv, D, bs, block_tables.shape[1],
+                        _DTYPES[q.dtype], float(sm_scale), stream_handle(q))
+    return out

@@ -1,0 +1,213 @@
+"""The port's attention ops against the JAX package's.
+
+On the CPU the wrappers take their plain versions, so these hold the
+plain flash forward and the plain paged decode against the JAX kernels
+(Pallas in interpret mode, off TPU) and the JAX gather path. The same
+inputs, made from a seed with numpy, go to both. Tolerances: relative L2
+<= 1e-5 at f32, <= 2e-2 at bf16 (bf16 rounds at different places in the
+two frameworks). ``test_torch_kernels.py`` holds the CUDA kernels against
+these plain versions on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.models.transformer import _paged_attention
+from deepspeed_tpu.ops import decode_attention as jax_decode
+from deepspeed_tpu.ops import flash_attention as jax_flash
+from deepspeed_tpu_torch.ops import _build
+from deepspeed_tpu_torch.ops.decode_attention import paged_decode_attention
+from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_attention_reference)
+
+TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
+
+
+def rel_l2(got, want):
+    got = np.asarray(got, np.float64).ravel()
+    want = np.asarray(want, np.float64).ravel()
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
+
+
+def _t(a, dtype):
+    """numpy f32 -> torch tensor of the case dtype (bf16 rounds once)."""
+    t = torch.from_numpy(np.array(a, np.float32))
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _j(a, dtype):
+    x = jnp.asarray(np.array(a, np.float32))
+    return x.astype(jnp.bfloat16) if dtype == "bfloat16" else x
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# flash forward (B1)
+# ---------------------------------------------------------------------------
+
+def _flash_case(seed, B, S, N, Nkv, D, mask_kind=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, N, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, Nkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, Nkv, D)).astype(np.float32)
+    mask = None
+    if mask_kind == "padding":        # right padding of different lengths
+        lens = rng.integers(S // 2, S, size=B)
+        mask = (np.arange(S)[None, :] < lens[:, None])
+    elif mask_kind == "first_key":    # causal row 0 sees only key 0: masked
+        mask = np.ones((B, S), bool)
+        mask[:, 0] = False
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 4])
+@pytest.mark.parametrize("mask_kind", [None, "padding", "first_key"])
+def test_flash_fwd_matches_jax(causal, rep, mask_kind):
+    B, S, Nkv, D = 2, 128, 2, 64
+    q, k, v, mask = _flash_case(7 * rep + int(causal), B, S, Nkv * rep, Nkv,
+                                D, mask_kind)
+    sm = 1.0 / np.sqrt(D)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o, lse = flash_attention_fwd(_t(q, np.float32), _t(k, np.float32),
+                                 _t(v, np.float32), causal=causal,
+                                 sm_scale=sm, kv_mask=tmask)
+    jmask = None
+    if mask is not None:
+        jmask = jnp.broadcast_to(jnp.asarray(mask, jnp.float32)[:, None, :],
+                                 (B, 8, S))
+    tr = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)      # noqa: E731
+    jo, jlse = jax_flash._fwd(tr(q), tr(k), tr(v), jmask, sm, causal,
+                              jax_flash.DEFAULT_BLOCK_Q,
+                              jax_flash.DEFAULT_BLOCK_K)
+    assert rel_l2(_np(o), _np(tr(jo))) <= TOL[np.float32]
+    assert rel_l2(_np(lse), _np(jlse)) <= TOL[np.float32]
+    if mask_kind == "first_key" and causal:
+        # a fully masked row outputs 0 with LSE M_FLOOR, as the TPU kernel
+        assert torch.all(o[:, 0] == 0)
+        assert torch.all(lse[:, :, 0] == jax_flash.M_FLOOR)
+
+
+def test_flash_bf16_matches_jax_public_api():
+    B, S, N, Nkv, D = 1, 256, 8, 2, 128
+    q, k, v, _ = _flash_case(3, B, S, N, Nkv, D)
+    o = flash_attention(_t(q, "bfloat16"), _t(k, "bfloat16"),
+                        _t(v, "bfloat16"), causal=True)
+    jo = jax_flash.flash_attention(_j(q, "bfloat16"), _j(k, "bfloat16"),
+                                   _j(v, "bfloat16"), causal=True)
+    assert o.dtype == torch.bfloat16
+    assert rel_l2(_np(o), _np(jo)) <= TOL["bfloat16"]
+
+
+def test_flash_reference_is_reference_attention():
+    """Without masked rows the plain version is the JAX
+    ``reference_attention`` (softmax over the visible keys)."""
+    q, k, v, _ = _flash_case(5, 1, 64, 4, 1, 64)
+    o, _ = flash_attention_reference(_t(q, np.float32), _t(k, np.float32),
+                                     _t(v, np.float32), causal=True)
+    ref = jax_flash.reference_attention(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), causal=True)
+    assert rel_l2(_np(o), _np(ref)) <= TOL[np.float32]
+
+
+# ---------------------------------------------------------------------------
+# paged decode (B4)
+# ---------------------------------------------------------------------------
+
+def _decode_case(seed, S, NB, MB, Nkv, rep, bs, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((S, 1, Nkv * rep, D)).astype(np.float32)
+    k_pool = rng.standard_normal((NB, Nkv, bs, D)).astype(np.float32)
+    v_pool = rng.standard_normal((NB, Nkv, bs, D)).astype(np.float32)
+    k_row = rng.standard_normal((S, Nkv, 1, D)).astype(np.float32)
+    v_row = rng.standard_normal((S, Nkv, 1, D)).astype(np.float32)
+    # distinct non-trash blocks per slot, shuffled: a real permutation
+    tables = rng.permutation(np.arange(1, NB))[:S * MB].reshape(S, MB)
+    return q, k_pool, v_pool, tables.astype(np.int32), k_row, v_row
+
+
+def _port_decode(q, kp, vp, tables, lens, kr, vr, dtype):
+    return paged_decode_attention(
+        _t(q, dtype), _t(kp, dtype), _t(vp, dtype),
+        torch.from_numpy(tables), torch.from_numpy(np.asarray(lens, np.int32)),
+        kv_row=(_t(kr, dtype), _t(vr, dtype)))
+
+
+def _jax_decode(q, kp, vp, tables, lens, kr, vr, dtype):
+    args = (_j(q, dtype), _j(kp, dtype), _j(vp, dtype),
+            jnp.asarray(tables), jnp.asarray(lens, jnp.int32))
+    kv = (_j(kr, dtype), _j(vr, dtype))
+    kernel = jax_decode.paged_decode_attention(*args, kv_row=kv)
+    gather = _paged_attention(*args, None, kv_row=kv, backend="xla")
+    return kernel, gather
+
+
+@pytest.mark.parametrize("lens", [[0, 1], [5, 37], [32, 64], [64, 63]])
+@pytest.mark.parametrize("rep", [1, 4])
+def test_paged_decode_matches_jax(lens, rep):
+    """Empty slot, partial block, exact block boundary, full table."""
+    S, NB, MB, Nkv, bs, D = 2, 8, 2, 2, 32, 64
+    case = _decode_case(sum(lens) * 7 + rep, S, NB, MB, Nkv, rep, bs, D)
+    got = _port_decode(*case[:4], lens, *case[4:], np.float32)
+    kernel, gather = _jax_decode(*case[:4], lens, *case[4:], np.float32)
+    assert rel_l2(_np(got), _np(kernel)) <= TOL[np.float32]
+    assert rel_l2(_np(got), _np(gather)) <= TOL[np.float32]
+
+
+def test_paged_decode_bf16_matches_jax():
+    S, NB, MB, Nkv, rep, bs, D = 2, 10, 3, 4, 2, 32, 128
+    case = _decode_case(11, S, NB, MB, Nkv, rep, bs, D)
+    lens = [70, 96]
+    got = _port_decode(*case[:4], lens, *case[4:], "bfloat16")
+    kernel, gather = _jax_decode(*case[:4], lens, *case[4:], "bfloat16")
+    assert got.dtype == torch.bfloat16
+    assert rel_l2(_np(got), _np(kernel)) <= TOL["bfloat16"]
+    assert rel_l2(_np(got), _np(gather)) <= TOL["bfloat16"]
+
+
+def test_paged_decode_ignores_trash_and_stale_rows():
+    """Block 0 and rows past each slot's length hold 1e4 garbage (freed
+    blocks are reused without zeroing): none of it may reach the output,
+    and an empty slot with an all-trash table outputs exactly v_row."""
+    S, NB, MB, Nkv, rep, bs, D = 2, 6, 2, 2, 1, 32, 64
+    q, kp, vp, tables, kr, vr = _decode_case(3, S, NB, MB, Nkv, rep, bs, D)
+    kp[0] = vp[0] = 1e4
+    tables[1] = 0
+    kp[tables[0, 1], :, 8:] = vp[tables[0, 1], :, 8:] = 1e4
+    lens = [40, 0]
+    got = _port_decode(q, kp, vp, tables, lens, kr, vr, np.float32)
+    kernel, gather = _jax_decode(q, kp, vp, tables, lens, kr, vr, np.float32)
+    assert rel_l2(_np(got), _np(kernel)) <= TOL[np.float32]
+    assert rel_l2(_np(got), _np(gather)) <= TOL[np.float32]
+    assert float(got.abs().max()) < 100.0
+    assert torch.equal(got[1], torch.from_numpy(vr[1]).reshape(1, Nkv * rep,
+                                                                D))
+
+
+def test_paged_decode_table_permutation_invariance():
+    S, NB, MB, Nkv, rep, bs, D = 1, 9, 4, 2, 2, 32, 64
+    q, kp, vp, _, kr, vr = _decode_case(5, S, NB, MB, Nkv, rep, bs, D)
+    t1 = np.asarray([[1, 2, 3, 4]], np.int32)
+    t2 = np.asarray([[5, 7, 6, 8]], np.int32)
+    kp2, vp2 = kp.copy(), vp.copy()
+    for a, b in zip(t1[0], t2[0]):
+        kp2[b], vp2[b] = kp[a], vp[a]
+    o1 = _port_decode(q, kp, vp, t1, [100], kr, vr, np.float32)
+    o2 = _port_decode(q, kp2, vp2, t2, [100], kr, vr, np.float32)
+    assert torch.equal(o1, o2)
+
+
+def test_cpu_dispatch_counts_no_launch():
+    """A CPU tensor takes the plain version: no kernel launch is counted."""
+    _build.reset_launch_counts()
+    q, k, v, _ = _flash_case(1, 1, 64, 2, 2, 64)
+    flash_attention(_t(q, np.float32), _t(k, np.float32), _t(v, np.float32))
+    assert _build.launch_counts() == {"flash_fwd": 0, "paged_decode": 0}
