@@ -7,11 +7,12 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. build: the CUDA kernels from ``deepspeed_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together;
-2. kernels: each kernel at the serving path's shapes (and a few more)
-   against its plain PyTorch version on the same inputs (relative L2 <
-   2e-2 in bf16, < 1e-4 in f32), timed with CUDA events beside the plain
-   version, SDPA as a library yardstick, and the least time the card could
-   take (bytes over 3.35 TB/s vs flops over the dtype's peak);
+2. kernels: each kernel at the serving and training paths' shapes (and a
+   few more) against its plain PyTorch version on the same inputs
+   (relative L2 < 2e-2 in bf16, < 1e-4 in f32), timed with CUDA events
+   beside the plain version, SDPA (forward, or its backward for the
+   backward kernels) as a library yardstick, and the least time the card
+   could take (bytes over 3.35 TB/s vs flops over the dtype's peak);
 3. serving: llama-7b at full width and depth (random weights from a seed,
    bf16) through ``init_serving``: 24 requests, prompts of 64..1024 tokens,
    32 new tokens each, on 16 slots. Every request must finish with 32
@@ -19,13 +20,29 @@ Phases, each of which raises on failure (exit code != 0):
    launch counts (zeroed just before the run) must cover every prefill and
    decode step of all 32 layers;
 4. cross-check: on the same weights, one prefill and 4 teacher-forced
-   decode steps through the kernels against the plain versions.
+   decode steps through the kernels against the plain versions;
+5. training: the serving engine freed, llama-1b at full width and depth
+   (random weights from seed 0, bf16 with f32 masters, AdamW, ZeRO-1,
+   dots_saveable remat, chunked loss, fused attention backward: the
+   settings of the JAX bench's ladder row ("1b", 2048, 8)) through
+   ``initialize`` -> ``train_batch`` on one fixed batch of 8 x 2048
+   tokens: 1 warm-up step and 8 timed steps with the launch counts zeroed
+   just before them. Losses must be finite and fall, and the flash
+   forward (with its remat replay) and both backward kernels must have
+   run for every layer of every step. One more step runs under
+   torch.profiler and prints where its device time goes;
+6. training cross-check: llama-1b width, 2 layers, S=512: the loss and
+   the grad of every leaf through the kernels against the plain versions,
+   in f32 under dots_saveable (B1 replayed: 2 launches per layer) and
+   dots_and_attn (B1's outputs kept: 1 launch per layer), and in bf16
+   (the tensor-core kernels) under dots_saveable.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
 """
 
+import gc
 import json
 import subprocess
 import sys
@@ -84,21 +101,28 @@ def nbytes(*ts) -> int:
 # kernel phases
 # --------------------------------------------------------------------------
 
-def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
-    from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_reference)
+def _attn_inputs(B, S, N, Nkv, D, dtype, masked, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((B, S, N, D), generator=g, device="cuda", dtype=dtype)
-    k = torch.randn((B, S, Nkv, D), generator=g, device="cuda", dtype=dtype)
-    v = torch.randn((B, S, Nkv, D), generator=g, device="cuda", dtype=dtype)
-    mask = None
+    q, do = (torch.randn((B, S, N, D), generator=g, device="cuda",
+                         dtype=dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, Nkv, D), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
     keep = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
     keep = keep[None].expand(B, S, S)
+    mask = None
     if masked:                      # right padding, and key 0 masked: the
         lens = torch.tensor([S - S // 4] + [S] * (B - 1), device="cuda")
         mask = torch.arange(S, device="cuda")[None, :] < lens[:, None]
         mask[:, 0] = False          # causal row 0 is then fully masked
         keep = keep & mask[:, None, :]
+    return q, k, v, do, mask, keep
+
+
+def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_fwd, flash_attention_reference)
+    q, k, v, _, mask, keep = _attn_inputs(B, S, N, Nkv, D, dtype, masked,
+                                          seed)
     o, lse = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
     ro, rlse = flash_attention_reference(q, k, v, causal=True, kv_mask=mask)
     torch.cuda.synchronize()
@@ -204,6 +228,81 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     return rec
 
 
+def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
+    """B2 (dQ) and B3 (dK/dV), fused and unfused delta, against the plain
+    backward on the same inputs; then each kernel timed alone, beside its
+    plain part and SDPA's backward."""
+    from deepspeed_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_reference,
+        flash_attention_fwd)
+    q, k, v, do, mask, keep = _attn_inputs(B, S, N, Nkv, D, dtype, masked,
+                                           seed)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                         kv_mask=mask)
+    errs, max_err = {}, {"dq": 0.0, "dkv": 0.0}
+    for fused in (False, True):
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                  kv_mask=mask, fused=fused)
+        torch.cuda.synchronize()
+        for part, a, b in zip(("dq", "dk", "dv"), got, want):
+            if not torch.isfinite(a).all():
+                raise RuntimeError(f"flash_bwd {name}: non-finite {part}")
+            err = rel_l2(a, b)
+            errs[f"{part}{'_fused' if fused else ''}"] = err
+            if err >= TOL[dtype]:
+                raise RuntimeError(f"flash_bwd {name} fused={fused}: rel L2 "
+                                   f"{err:.3g} ({part}) vs the plain version")
+            kern = "dq" if part == "dq" else "dkv"
+            max_err[kern] = max(max_err[kern], max_abs(a, b))
+        if masked and not torch.all(got[0][:, 0] == 0):
+            raise RuntimeError(f"flash_bwd {name}: the fully masked row has "
+                               "a nonzero dQ")
+    del want, got
+    torch.cuda.empty_cache()
+    pairs = float(keep.sum()) * N        # (query head, key) pairs visible
+    recs = {}
+    for part, products in (("dq", 3), ("dkv", 4)):
+        ms = {f: cuda_ms(lambda: flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True, kv_mask=mask, fused=f,
+            parts=(part,))) for f in (True, False)}
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, o, lse, do, causal=True, kv_mask=mask, parts=(part,)),
+            iters=3, warmup=1)
+        outs = (q,) if part == "dq" else (k, v)       # dQ; dK, dV
+        # the fused kernel (the training path's) reads O for delta
+        moved = nbytes(q, do, k, v, lse, o, *outs) \
+            + (0 if mask is None else B * S)
+        flops = 2.0 * D * products * pairs
+        bound_ms, bound_by = bound(moved, flops, dtype)
+        recs[part] = dict(ms=ms[True], ms_unfused=ms[False],
+                          plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, tflops=flops / ms[True] / 1e9)
+    # yardstick: SDPA's backward (dQ, dK and dV in one call) on the same
+    # inputs, in its [B, N, S, D] layout
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if masked:
+        out = sdpa(qt, kt, vt, attn_mask=keep[:, None], enable_gqa=True)
+    else:
+        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    del out, qt, kt, vt
+    shape = (f"B={B} S={S} Nq={N} Nkv={Nkv} D={D} "
+             f"{str(dtype).split('.')[-1]} causal"
+             + (" kv_mask" if masked else ""))
+    out = {}
+    for part in ("dq", "dkv"):
+        out[part] = dict(case=name, shape=shape, rel_l2=errs,
+                         max_abs_err=max_err[part], library_ms=library_ms,
+                         **recs[part])
+        log(f"flash_bwd_{part} " + json.dumps(out[part]))
+    return out
+
+
 def kernel_phase():
     bf, f32 = torch.bfloat16, torch.float32
     flash = [
@@ -213,6 +312,7 @@ def kernel_phase():
         flash_case("llama-7b S=2048", 1, 2048, 32, 32, 128, bf),
         flash_case("llama-70b GQA 64/8 S=1024", 1, 1024, 64, 8, 128, bf),
         flash_case("llama-1b D=64 rep=4 S=1024", 1, 1024, 32, 8, 64, bf),
+        flash_case("llama-1b training B=8 S=2048", 8, 2048, 32, 8, 64, bf),
         flash_case("llama-7b kv_mask S=1000", 2, 1000, 32, 32, 128, bf,
                    masked=True),
         flash_case("llama-7b f32 S=256", 1, 256, 32, 32, 128, f32),
@@ -228,8 +328,16 @@ def kernel_phase():
         decode_case("llama-7b f32 16 slots", 16, 32, 32, 128, 64, 32, lens,
                     f32),
     ]
+    bwd = [
+        bwd_case("llama-1b training B=8 S=2048", 8, 2048, 32, 8, 64, bf),
+        bwd_case("llama-7b S=2048", 1, 2048, 32, 32, 128, bf),
+        bwd_case("llama-70b GQA 64/8 S=1024", 1, 1024, 64, 8, 128, bf),
+        bwd_case("llama-1b kv_mask S=1000", 2, 1000, 32, 8, 64, bf,
+                 masked=True),
+        bwd_case("llama-1b f32 S=256", 2, 256, 32, 8, 64, f32),
+    ]
     torch.cuda.empty_cache()
-    return flash, decode
+    return flash, decode, bwd
 
 
 # --------------------------------------------------------------------------
@@ -418,6 +526,238 @@ def step_times(srv):
     return times
 
 
+# --------------------------------------------------------------------------
+# training phases
+# --------------------------------------------------------------------------
+
+TRAIN_STEPS = 8
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_" in n:
+        return "attention kernels (B1-B3)"
+    if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "matmuls (cuBLAS)"
+    if "memcpy" in n or "memset" in n:
+        return "memcpy/memset"
+    if "reduce" in n:
+        return "reductions"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def device_split(step):
+    """Run ``step`` once under torch.profiler: the device time of every
+    kernel it ran, by class and by kernel, beside the CUDA-event time of
+    the step, and the CPU ops whose own kernels took the most of it.
+    Reported, not checked: a profiler that sees no device activity leaves
+    ``device_busy_ms`` at 0."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+    kernels = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = kernels.setdefault(evt.name, [0.0, 0])
+        k[0] += evt.time_range.elapsed_us() / 1e3
+        k[1] += 1
+    by_class = {}
+    for name, (ms, n) in kernels.items():
+        c = by_class.setdefault(_kernel_class(name), [0.0, 0])
+        c[0] += ms
+        c[1] += n
+    ops = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            ops.append([e.key, us / 1e3, e.count])
+    busy = sum(ms for ms, _ in kernels.values())
+    step_ms = a.elapsed_time(b)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(step_ms_profiled=step_ms, device_busy_ms=busy,
+                idle_share=1.0 - busy / step_ms,
+                by_class=dict(sorted(by_class.items(),
+                                     key=lambda kv: -kv[1][0])),
+                top_kernels=[[k[:90], ms, n] for k, (ms, n) in top],
+                top_ops=sorted(ops, key=lambda o: -o[1])[:12])
+TRAIN_CONFIG = {
+    # bench.py _try_rung / LADDER row ("1b", 2048, 8)
+    "train_batch_size": 8, "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True}, "zero_optimization": {"stage": 1},
+    "transformer": {"fused_backward": True}, "seed": 0}
+
+
+def training_phase(fwd_rec, bwd_rec):
+    """llama-1b, full width and depth, through initialize -> train_batch.
+    ``fwd_rec`` / ``bwd_rec``: the kernel phase's records at this shape,
+    to split the step's time."""
+    from deepspeed_tpu_torch import initialize, llama_config, make_model
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    S, B = 2048, TRAIN_CONFIG["train_batch_size"]
+    cfg = llama_config("1b", max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=S)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=make_model(cfg, "llama-1b"),
+                            config=dict(TRAIN_CONFIG))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    log(f"training: llama-1b {n_params / 1e9:.4f}B params, bf16 + f32 "
+        f"masters, init {time.perf_counter() - t0:.1f}s")
+    ids = np.random.default_rng(0).integers(0, VOCAB, (B, S), dtype=np.int32)
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch)["loss"]]          # warm-up
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    marks, issue_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t1 = time.perf_counter()
+        losses.append(engine.train_batch(batch)["loss"])
+        # host time to issue the step (no sync inside): when it reaches the
+        # step's device time the host, not the card, sets the pace (or the
+        # launch queue is full because the card is behind)
+        issue_ms.append((time.perf_counter() - t1) * 1e3)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    losses = [float(x) for x in losses]
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    L, H = cfg.num_layers, cfg.hidden_size
+    tok_s = B * S * TRAIN_STEPS / wall
+    mfu = tok_s * (6.0 * n_params + 12.0 * L * H * S) / PEAK_FLOPS[
+        torch.bfloat16]
+    n = TRAIN_STEPS
+    per_step = {k: v / n for k, v in launches.items()}
+    attn = {"fwd_ms": fwd_rec["ms"] * L,
+            "replay_ms": fwd_rec["ms"] * (per_step["flash_fwd"] - L),
+            "bwd_ms": (bwd_rec["dq"]["ms"] * per_step["flash_bwd_dq"]
+                       + bwd_rec["dkv"]["ms"] * per_step["flash_bwd_dkv"])}
+    med = float(np.median(step_ms))
+    attn["other_ms"] = med - sum(attn.values())
+    rec = dict(steps=n, warmup_step_s=warm_s, step_ms_cuda_median=med,
+               step_ms_cuda=step_ms, step_ms_wall=wall / n * 1e3,
+               step_issue_ms=issue_ms,
+               tokens_per_s=tok_s, mfu=mfu, n_params=n_params,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               losses=losses, launches=launches,
+               attention_split_per_step=attn)
+    log("training " + json.dumps(rec))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"training: non-finite loss {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"training: loss did not fall {losses}")
+    # dots_saveable replays B1 in the backward (its outputs are not dots)
+    want = {"flash_bwd_dq": n * L, "flash_bwd_dkv": n * L,
+            "flash_fwd": 2 * n * L}
+    short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
+    if short:
+        raise RuntimeError(f"training: launches (got, want) {short}")
+    # where a step's device time goes: one more step, profiled
+    rec["device_split"] = device_split(lambda: engine.train_batch(batch))
+    log("training device split " + json.dumps(rec["device_split"]))
+    del engine, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def training_cross_check():
+    """lm_loss and the grad of every leaf (llama-1b width, 2 layers, S=512,
+    B=2, chunked loss, fused backward) through the kernels and through
+    their plain versions on the same weights. f32 (the CUDA-core kernels;
+    loss within 1e-5 relative, grads within 1e-4 rel L2), under the
+    training phase's remat policy (dots_saveable, which replays B1 in the
+    backward) and under dots_and_attn (which keeps B1's outputs: one
+    launch per layer); then bf16 (the tensor-core kernels the training
+    phase runs; 2e-2) under dots_saveable. Two layers stay far from the
+    rounding amplification of a deep random bf16 stack (cross_check)."""
+    import dataclasses
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.optimizers import cast_tree, tree_leaves
+    L = 2
+    cfg = llama_config("1b", num_layers=L, max_seq_len=512,
+                       dtype=torch.float32, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=512,
+                       fused_backward=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params32 = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
+    ids = np.random.default_rng(2).integers(0, VOCAB, (2, 512))
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+
+    def value_and_grad(params, c, reference):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        _build.reset_launch_counts()
+        loss = tf.lm_loss(params, batch, c, reference=reference)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return float(loss.detach()), grads, _build.launch_counts()
+
+    recs = {}
+    cases = (("f32", "dots_saveable", 2 * L, 1e-5, 1e-4),
+             ("f32", "dots_and_attn", L, 1e-5, 1e-4),
+             ("bf16", "dots_saveable", 2 * L, 2e-2, 2e-2))
+    for dt in ("f32", "bf16"):
+        dtype = torch.float32 if dt == "f32" else torch.bfloat16
+        params = params32
+        if dt == "bf16":
+            with torch.no_grad():
+                params = cast_tree(params32, dtype)
+        cd = dataclasses.replace(cfg, dtype=dtype)
+        lp, gp, npl = value_and_grad(params, cd, True)
+        if any(npl.values()):
+            raise RuntimeError(f"training cross-check {dt}: plain path "
+                               f"launched {npl}")
+        for _, policy, fwd, tol_loss, tol_grad in (
+                c for c in cases if c[0] == dt):
+            lk, gk, nk = value_and_grad(
+                params, dataclasses.replace(cd, remat_policy=policy), False)
+            loss_err = abs(lk - lp) / abs(lp)
+            err = max(rel_l2(a, b) for a, b in zip(gk, gp))
+            recs[f"{dt} {policy}"] = dict(
+                loss_kernels=lk, loss_plain=lp, loss_rel_err=loss_err,
+                grad_rel_l2_max=err, launches=nk)
+            if not loss_err <= tol_loss or not err <= tol_grad:
+                raise RuntimeError(f"training cross-check {dt} {policy}: "
+                                   f"loss rel {loss_err:.3g}, grad rel L2 "
+                                   f"{err:.3g}")
+            want = {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+            if any(nk[k] != v for k, v in want.items()):
+                raise RuntimeError(f"training cross-check {dt} {policy}: "
+                                   f"launches {nk}, want {want}")
+            del gk
+        del params, gp
+    log("training cross-check " + json.dumps(recs))
+    del params32
+    torch.cuda.empty_cache()
+    return recs
+
+
 def kernel_line(name, replaces, launches, cases, main):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -454,20 +794,37 @@ def main() -> int:
     log(f"build: {len(_build.KERNELS)} kernels from source in "
         f"{time.perf_counter() - t0:.1f}s")
 
-    flash, decode = kernel_phase()
+    flash, decode, bwd = kernel_phase()
     srv, st, launches = serving_phase()
     step_times(srv)
     cross_check(srv)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = training_phase(
+        next(c for c in flash if c["case"].startswith("llama-1b training")),
+        bwd[0])
+    training_cross_check()
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
+    tl = train["launches"]
     line = {"kernels": [
         kernel_line("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
-                    launches["flash_fwd"], flash, main_flash),
+                    launches["flash_fwd"] + tl["flash_fwd"], flash,
+                    main_flash),
         kernel_line("paged_decode",
                     "deepspeed_tpu/ops/decode_attention.py:172",
                     launches["paged_decode"], decode, main_decode),
+        kernel_line("flash_bwd_dq", "deepspeed_tpu/ops/flash_attention.py:426",
+                    tl["flash_bwd_dq"], [c["dq"] for c in bwd], bwd[0]["dq"]),
+        kernel_line("flash_bwd_dkv",
+                    "deepspeed_tpu/ops/flash_attention.py:452",
+                    tl["flash_bwd_dkv"], [c["dkv"] for c in bwd],
+                    bwd[0]["dkv"]),
     ]}
+    line["kernels"][0]["launches_by_path"] = {
+        "serving": launches["flash_fwd"], "training": tl["flash_fwd"]}
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

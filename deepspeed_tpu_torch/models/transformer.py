@@ -15,24 +15,43 @@ launch their kernels; ``reference=True`` calls their plain versions by
 name instead (for comparisons), and CPU tensors always take the plain
 versions.
 
+Training: ``lm_loss`` (full or chunked cross-entropy) is differentiable
+through the flash forward and its two backward kernels (B2, B3), with
+layer-level rematerialization on ``torch.utils.checkpoint`` under the
+JAX package's remat policies (``_remat_policy``).
+
+Weights are cast to the activation dtype at every matmul, as ``_wmat`` /
+``_wrow`` / ``lm_head_logits`` do in JAX, so f32 parameters (a trainer's
+storage) run under a bf16 compute config.
+
 What this slice leaves out raises ``NotImplementedError`` naming its
 ROADMAP item: alibi / learned positions, windows, MoE, block-sparse
-attention, int8 KV and int8 weights, and the multi-token span path.
+attention, int8 KV and int8 weights, the multi-token span path, and
+dropout.
 """
 
 import dataclasses
+import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
-from deepspeed_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference)
+from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
+                                                     flash_attention)
 
 Params = Dict[str, Any]
+
+
+REMAT_POLICIES = ("none", "full", "save_nothing", "dots_saveable",
+                  "dots_and_attn")
+_JAX_ONLY_POLICIES = ("dots_with_no_batch_dims", "offload_dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +76,14 @@ class TransformerConfig:
     attn_scale: Optional[float] = None          # None -> 1/sqrt(head_dim)
     dtype: torch.dtype = torch.bfloat16         # activation/compute dtype
     param_dtype: torch.dtype = torch.float32    # storage dtype (engine casts)
+    # training: layer remat (see _remat_policy), chunked cross-entropy
+    # (0 = off), delta inside the attention backward kernels
+    remat: bool = False
+    remat_policy: str = "none"
+    loss_chunk: int = 0
+    fused_backward: bool = False
     # outside this slice (must stay at their defaults)
+    dropout_rate: float = 0.0
     kv_cache_bits: int = 0
     quantized_weights: bool = False
     attn_windows: Optional[Tuple[int, ...]] = None
@@ -78,12 +104,18 @@ class TransformerConfig:
             "position_type": (self.position_type not in ("rotary", "none"),
                               "A11 (learned / alibi positions)"),
             "causal": (not self.causal, "A11 (encoder models)"),
+            "dropout_rate": (self.dropout_rate > 0, "A12 (dropout)"),
+            "remat_policy": (self.remat_policy in _JAX_ONLY_POLICIES,
+                             "A5 (remat sweep policies)"),
         }
         for name, (bad, item) in deferred.items():
             if bad:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"ROADMAP {item}")
+        if self.remat_policy not in REMAT_POLICIES + (None,):
+            raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
+                             f"{REMAT_POLICIES}")
 
     @property
     def kv_heads(self) -> int:
@@ -242,16 +274,21 @@ def _sm_scale(cfg: TransformerConfig, D: int) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(D)
 
 
+def _w(h, w):
+    """h @ w in h's dtype (JAX ``_wmat``/``_wrow``: the weight is cast at
+    the matmul, so f32 storage runs under bf16 compute)."""
+    return h @ w.to(h.dtype)
+
+
 def attention(q, k, v, mask=None, *, causal: bool = True,
               cfg: TransformerConfig, reference: bool = False):
     """q: [B,S,Nq,D], k/v: [B,S,Nkv,D] -> [B,S,Nq,D], through the flash
-    forward (GQA-native: K/V are never repeated). mask: optional [B, S]
-    key-padding mask."""
-    sm = _sm_scale(cfg, q.shape[-1])
-    if reference:
-        return flash_attention_reference(q, k, v, causal=causal, sm_scale=sm,
-                                         kv_mask=mask)[0]
-    return flash_attention(q, k, v, causal=causal, sm_scale=sm, kv_mask=mask)
+    forward and, for gradients, its backward kernels (GQA-native: K/V are
+    never repeated). mask: optional [B, S] key-padding mask."""
+    return flash_attention(q, k, v, causal=causal,
+                           sm_scale=_sm_scale(cfg, q.shape[-1]), kv_mask=mask,
+                           fused_backward=cfg.fused_backward,
+                           reference=reference)
 
 
 def _paged_attention(q, pool_k, pool_v, tables, index,
@@ -284,9 +321,10 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
     if "wqkv" in p:
-        q, k, v = (h @ p["wqkv"]).split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+        q, k, v = _w(h, p["wqkv"]).split([nh * hd, nkv * hd, nkv * hd],
+                                         dim=-1)
     else:
-        q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+        q, k, v = _w(h, p["wq"]), _w(h, p["wk"]), _w(h, p["wv"])
     q = q.reshape(B, S, nh, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
@@ -306,35 +344,49 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                          mask, causal=cfg.causal, cfg=cfg,
                          reference=reference)
         new_kv = (k, v)
-    x = x + attn.reshape(B, S, nh * hd) @ p["wo"]
+    x = x + _w(attn.reshape(B, S, nh * hd), p["wo"])
     h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
     if "w_in_gate" in p:
-        up, gate = (h @ p["w_in_gate"]).chunk(2, dim=-1)
+        up, gate = _w(h, p["w_in_gate"]).chunk(2, dim=-1)
     else:
-        up = h @ p["w_in"]
-        gate = h @ p["w_gate"] if "w_gate" in p else None
-    return x + _activation(up, gate, cfg) @ p["w_out"], new_kv
+        up = _w(h, p["w_in"])
+        gate = _w(h, p["w_gate"]) if "w_gate" in p else None
+    return x + _w(_activation(up, gate, cfg), p["w_out"]), new_kv
 
 
-def _layer(params: Params, i: int) -> Params:
-    return {k: v[i] for k, v in params["layers"].items()}
+def _layers(params: Params) -> List[Params]:
+    """Per-layer views of the stacked [L, ...] leaves, taken once per pass:
+    the backward of ``unbind`` is one stack per leaf, where indexing v[i]
+    in the layer loop would build a zero-filled full stack per layer."""
+    names = list(params["layers"])
+    cols = [torch.unbind(params["layers"][n], 0) for n in names]
+    return [dict(zip(names, vals)) for vals in zip(*cols)]
+
+
+def _head(params):
+    """The [H, V] head in the layout x @ head takes (tied: the [V, H]
+    table, transposed as a view)."""
+    head = params.get("lm_head")
+    return params["tok_embed"].t() if head is None else head
 
 
 def lm_head_logits(x, params):
-    """Final projection to f32 vocab logits (tied: the [V, H] table)."""
-    head = params.get("lm_head")
-    if head is None:
-        head = params["tok_embed"].t()
-    return (x @ head).float()
+    """Final projection to f32 vocab logits, the head cast to x's dtype."""
+    return _w(x, _head(params)).float()
 
 
 def forward(params: Params, input_ids, cfg: TransformerConfig, *,
             attention_mask=None, positions=None, return_kv: bool = False,
-            reference: bool = False):
+            return_hidden: bool = False, reference: bool = False):
     """input_ids [B, S] -> f32 logits [B, S, V]; with ``return_kv`` also
-    the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd]."""
+    the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd];
+    with ``return_hidden`` the final-normed hidden states [B, S, H]
+    instead of logits (the chunked loss projects them chunk by chunk)."""
     x, kvs = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
-                     positions=positions, reference=reference)
+                     positions=positions, reference=reference,
+                     keep_kv=return_kv)
+    if return_hidden:
+        return x
     logits = lm_head_logits(x, params)
     if return_kv:
         return logits, (torch.stack([k for k, _ in kvs]),
@@ -342,28 +394,142 @@ def forward(params: Params, input_ids, cfg: TransformerConfig, *,
     return logits
 
 
+# matmul outputs: what JAX's ``dots_saveable`` keeps (a matmul of a 3-D
+# activation by a 2-D weight reaches the dispatcher as aten.mm)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _remat_policy(cfg: TransformerConfig):
+    """How each layer is rematerialized, as JAX's ``_remat_policy`` picks
+    it: None = no checkpoint; otherwise the ``context_fn`` for
+    ``torch.utils.checkpoint`` ("full", "save_nothing" and ``remat`` with
+    policy "none" save nothing inside the layer: a bare checkpoint).
+
+    "dots_saveable" keeps the matmul outputs and replays the rest,
+    including the flash forward (B1), in the backward. "dots_and_attn" also
+    keeps B1's O and LSE (the custom op ``dstpu_torch::flash_fwd``), so the
+    backward runs straight into B2/B3 without replaying B1."""
+    if not cfg.remat and cfg.remat_policy in ("none", None):
+        return None
+    saved = {"dots_saveable": _DOTS,
+             "dots_and_attn": _DOTS | {FLASH_FWD_OP}}.get(cfg.remat_policy)
+    if saved is None:
+        return noop_context_fn
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
-            reference=False, on_layer_kv: Optional[Callable] = None):
+            reference=False, on_layer_kv: Optional[Callable] = None,
+            keep_kv: bool = False):
     """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
     v)`` consumes each layer's K/V as soon as it exists (the paged prefill
-    writes them straight into the pool); otherwise they are returned."""
+    writes them straight into the pool); ``keep_kv`` returns them. With
+    gradients on, each layer runs under the config's remat policy."""
     B, S = input_ids.shape
-    x = params["tok_embed"][input_ids].to(cfg.dtype)
+    x = params["tok_embed"][input_ids.long()].to(cfg.dtype)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    context_fn = _remat_policy(cfg) if torch.is_grad_enabled() else None
+
+    def layer(x_in, lp):
+        return transformer_layer(x_in, lp, cfg, positions=positions,
+                                 mask=attention_mask, reference=reference)
+
     kvs = []
-    for i in range(cfg.num_layers):
-        x, (k, v) = transformer_layer(x, _layer(params, i), cfg,
-                                      positions=positions,
-                                      mask=attention_mask,
-                                      reference=reference)
+    for i, lp in enumerate(_layers(params)):
+        if context_fn is not None and on_layer_kv is None and not keep_kv:
+            x = checkpoint(lambda a, b: layer(a, b)[0], x, lp,
+                           use_reentrant=False, context_fn=context_fn)
+            continue
+        x, (k, v) = layer(x, lp)
         if on_layer_kv is not None:
             on_layer_kv(i, k, v)
-        else:
+        elif keep_kv:
             kvs.append((k, v))
     x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
               cfg)
     return x, kvs
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def _gold_logit(logits, safe_labels):
+    """logits[..., safe_labels]: a gather, exact in f32 like the JAX
+    one-hot contraction (the mask selects a single element)."""
+    return logits.gather(-1, safe_labels[..., None].long())[..., 0]
+
+
+def _nll_sum(logits, labels, ignore_index: int):
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    logz = torch.logsumexp(logits, dim=-1)
+    return ((logz - _gold_logit(logits, safe)) * valid).sum(), valid.sum()
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Mean next-token CE over the labels that are not ``ignore_index``.
+    logits [B, S, V] f32; labels [B, S] already aligned."""
+    tot, cnt = _nll_sum(logits, labels, ignore_index)
+    return tot / cnt.clamp_min(1)
+
+
+def chunked_cross_entropy(x, head, labels, chunk: int,
+                          ignore_index: int = -100, tied_embed: bool = False):
+    """CE over sequence chunks: each chunk's f32 logits [B, c, V] exist
+    only inside a ``torch.utils.checkpoint`` (the head matmul re-runs in
+    the backward). x: [B, S, H] final hidden (normed); head: [H, V], or
+    with ``tied_embed`` the [V, H] embedding table. c is the largest
+    divisor of S that is <= chunk, as in JAX."""
+    B, S, _ = x.shape
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    if tied_embed:
+        head = head.t()
+
+    def body(xc, lc, w):
+        return _nll_sum(_w(xc, w).float(), lc, ignore_index)[0]
+
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = 0
+    for i in range(S // c):
+        xc, lc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        if torch.is_grad_enabled():
+            tot = tot + checkpoint(body, xc, lc, head, use_reentrant=False)
+        else:
+            tot = tot + body(xc, lc, head)
+        cnt = cnt + (lc != ignore_index).sum()
+    return tot / torch.as_tensor(cnt, device=x.device).clamp_min(1)
+
+
+def lm_loss(params: Params, batch, cfg: TransformerConfig,
+            reference: bool = False):
+    """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
+    input_ids [B, S]; optional labels (default: the ids shifted left, -100
+    at the end) and attention_mask [B, S] (a key mask in attention)."""
+    ids = batch["input_ids"]
+    labels = batch.get("labels")
+    if labels is None:
+        labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)],
+                           dim=1)
+    mask = batch.get("attention_mask")
+    if cfg.loss_chunk and cfg.loss_chunk > 0:
+        x = forward(params, ids, cfg, attention_mask=mask, return_hidden=True,
+                    reference=reference)
+        tied = params.get("lm_head") is None
+        head = params["tok_embed"] if tied else params["lm_head"]
+        return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
+                                     tied_embed=tied)
+    logits = forward(params, ids, cfg, attention_mask=mask,
+                     reference=reference)
+    return cross_entropy_loss(logits, labels)
 
 
 # --------------------------------------------------------------------------
@@ -433,9 +599,9 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
     x = params["tok_embed"][tokens.long()][:, None].to(cfg.dtype)  # [S,1,H]
     positions = seq_lens[:, None]
     k_rows, v_rows = [], []
-    for i in range(cfg.num_layers):
+    for i, lp in enumerate(_layers(params)):
         x, (k_row, v_row) = transformer_layer(
-            x, _layer(params, i), cfg, positions=positions,
+            x, lp, cfg, positions=positions,
             cache=(pools["k"][i], pools["v"][i], seq_lens),
             block_tables=block_tables, reference=reference)
         k_rows.append(k_row[:, :, 0])
@@ -457,18 +623,34 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
 
 
 # --------------------------------------------------------------------------
-# ModelSpec — what the engine consumes
+# ModelSpec — what the engines consume
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class ModelSpec:
-    """The config plus the serving protocol's functions, bound to it."""
+    """The config plus the training and serving functions, bound to it."""
     config: TransformerConfig
     name: str
     init: Callable[..., Params]
+    loss_fn: Callable[..., torch.Tensor]
+    apply: Callable[..., torch.Tensor]
     init_paged_cache: Callable[..., Params]
     prefill_paged: Callable[..., torch.Tensor]
     decode_step_paged: Callable[..., torch.Tensor]
+
+    def flops_per_token(self) -> float:
+        """Approximate train FLOPs/token (6N rule + attention), as JAX."""
+        cfg = self.config
+        n_params = (cfg.vocab_size * cfg.hidden_size
+                    * (1 if cfg.tie_embeddings else 2)
+                    + cfg.num_layers * (
+                        cfg.hidden_size * (cfg.num_heads + 2 * cfg.kv_heads)
+                        * cfg.dim_per_head
+                        + cfg.num_heads * cfg.dim_per_head * cfg.hidden_size
+                        + cfg.hidden_size * cfg.ffn_dim
+                        * (3 if "glu" in cfg.activation else 2)))
+        attn = 6 * cfg.num_layers * cfg.hidden_size * cfg.max_seq_len
+        return 6.0 * n_params + attn
 
 
 def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
@@ -477,6 +659,9 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
         name=name,
         init=lambda generator, device, dtype=None:
             init_params(cfg, generator, device, dtype=dtype),
+        loss_fn=lambda params, batch: lm_loss(params, batch, cfg),
+        apply=lambda params, input_ids, **kw:
+            forward(params, input_ids, cfg, **kw),
         init_paged_cache=lambda num_blocks, block_size, dtype=None,
             device=None: init_paged_cache(cfg, num_blocks, block_size,
                                           dtype=dtype, device=device),

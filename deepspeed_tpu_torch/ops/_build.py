@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` into a shared
 library, loaded with ``ctypes`` (no PyTorch headers: a build takes seconds,
-not minutes). Libraries are named by a hash of their source and flags, so
-an edited source rebuilds and an unchanged one is reused. All missing
+not minutes). Libraries are named by a hash of their source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused. All missing
 libraries build at once, one ``nvcc`` process per source.
 
 Every kernel has a ``Kernel`` handle with a ``launches`` counter: a
@@ -51,7 +52,8 @@ class Kernel:
         self._fn = None
 
     def library_path(self) -> Path:
-        h = hashlib.sha1(self.source.read_bytes()
+        headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+        h = hashlib.sha1(self.source.read_bytes() + headers
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{h}.so"
 
@@ -81,7 +83,12 @@ FLASH_FWD = Kernel("flash_fwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _P])
 PAGED_DECODE = Kernel("paged_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                        _I, _I, _I, _I, _I, _I, _F, _P])
-KERNELS: Dict[str, Kernel] = {k.name: k for k in (FLASH_FWD, PAGED_DECODE)}
+# q, k, v, o, dO, lse, delta, kv_mask, then the outputs; B, S, N, Nkv, D,
+# dtype, causal, sm_scale, stream
+FLASH_BWD_DQ = Kernel("flash_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _P])
+FLASH_BWD_DKV = Kernel("flash_bwd_dkv", [_P] * 10 + [_I] * 7 + [_F, _P])
+KERNELS: Dict[str, Kernel] = {k.name: k for k in (
+    FLASH_FWD, PAGED_DECODE, FLASH_BWD_DQ, FLASH_BWD_DKV)}
 
 
 def nvcc_path() -> str:

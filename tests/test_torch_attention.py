@@ -1,14 +1,17 @@
 """The port's attention ops against the JAX package's.
 
 On the CPU the wrappers take their plain versions, so these hold the
-plain flash forward and the plain paged decode against the JAX kernels
-(Pallas in interpret mode, off TPU) and the JAX gather path. The same
+plain flash forward, the plain flash backward (through the port's
+autograd Function) and the plain paged decode against the JAX kernels
+(Pallas in interpret mode, off TPU; ``jax.grad`` through the JAX
+``custom_vjp`` for the backward) and the JAX gather path. The same
 inputs, made from a seed with numpy, go to both. Tolerances: relative L2
 <= 1e-5 at f32, <= 2e-2 at bf16 (bf16 rounds at different places in the
 two frameworks). ``test_torch_kernels.py`` holds the CUDA kernels against
 these plain versions on the card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,9 +22,9 @@ from deepspeed_tpu.ops import decode_attention as jax_decode
 from deepspeed_tpu.ops import flash_attention as jax_flash
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.decode_attention import paged_decode_attention
-from deepspeed_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_attention_fwd,
-                                                     flash_attention_reference)
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference)
 
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
 
@@ -45,7 +48,7 @@ def _j(a, dtype):
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
@@ -116,6 +119,78 @@ def test_flash_reference_is_reference_attention():
     ref = jax_flash.reference_attention(jnp.asarray(q), jnp.asarray(k),
                                         jnp.asarray(v), causal=True)
     assert rel_l2(_np(o), _np(ref)) <= TOL[np.float32]
+
+
+# ---------------------------------------------------------------------------
+# flash backward (B2 dQ, B3 dK/dV) through the autograd Function
+# ---------------------------------------------------------------------------
+
+# causal, rep, D, mask_kind, fused: covers causal and not, rep 1/2/4, D
+# 64/128, padding and a fully masked row, delta fused and unfused
+BWD_CASES = [(True, 1, 64, None, False), (True, 2, 128, "padding", True),
+             (True, 4, 64, "first_key", False), (True, 4, 128, "first_key", True),
+             (False, 1, 128, "padding", True), (False, 2, 64, None, False),
+             (False, 4, 64, "padding", True), (True, 2, 64, "padding", False)]
+
+
+def _bwd_grads(q, k, v, do, mask, causal, fused, dtype):
+    qt, kt, vt = (_t(a, dtype).requires_grad_() for a in (q, k, v))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o = flash_attention(qt, kt, vt, causal=causal, kv_mask=tmask,
+                        fused_backward=fused)
+    o.backward(_t(do, dtype))
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def loss(a, b, c):
+        out = jax_flash.flash_attention(a, b, c, causal=causal, kv_mask=jmask,
+                                        fused_backward=fused)
+        return jnp.sum(out.astype(jnp.float32) * _j(do, dtype)
+                       .astype(jnp.float32))
+    jg = jax.grad(loss, argnums=(0, 1, 2))(_j(q, dtype), _j(k, dtype),
+                                           _j(v, dtype))
+    return (qt.grad, kt.grad, vt.grad), jg
+
+
+@pytest.mark.parametrize("causal,rep,D,mask_kind,fused", BWD_CASES)
+def test_flash_bwd_matches_jax_grad(causal, rep, D, mask_kind, fused):
+    B, S, Nkv = 2, 128, 2
+    q, k, v, mask = _flash_case(11 * rep + D, B, S, Nkv * rep, Nkv, D,
+                                mask_kind)
+    do = np.random.default_rng(D + rep).standard_normal(q.shape) \
+        .astype(np.float32)
+    got, want = _bwd_grads(q, k, v, do, mask, causal, fused, np.float32)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert rel_l2(_np(a), _np(b)) <= TOL[np.float32], name
+    if mask_kind == "first_key" and causal:
+        assert torch.all(got[0][:, 0] == 0)      # fully masked row: dQ = 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_flash_bwd_bf16_matches_jax_grad(fused):
+    B, S, N, Nkv, D = 1, 128, 8, 2, 128
+    q, k, v, mask = _flash_case(13, B, S, N, Nkv, D, "padding")
+    do = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    got, want = _bwd_grads(q, k, v, do, mask, True, fused, "bfloat16")
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16
+        assert rel_l2(_np(a), _np(b)) <= TOL["bfloat16"], name
+
+
+def test_flash_bwd_reference_is_autograd_of_forward():
+    """The plain backward (the kernels' decomposition written out) equals
+    autograd through the plain forward's arithmetic."""
+    q, k, v, mask = _flash_case(17, 2, 64, 4, 2, 64, "padding")
+    do = torch.from_numpy(np.random.default_rng(4).standard_normal(q.shape)
+                          .astype(np.float32))
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tmask = torch.from_numpy(mask)
+    o, lse = flash_attention_reference(qt, kt, vt, kv_mask=tmask)
+    o.backward(do)
+    got = flash_attention_bwd_reference(qt.detach(), kt.detach(), vt.detach(),
+                                        o.detach(), lse, do, kv_mask=tmask)
+    for a, b in zip(got, (qt.grad, kt.grad, vt.grad)):
+        assert rel_l2(_np(a), _np(b)) <= TOL[np.float32]
 
 
 # ---------------------------------------------------------------------------
@@ -209,5 +284,9 @@ def test_cpu_dispatch_counts_no_launch():
     """A CPU tensor takes the plain version: no kernel launch is counted."""
     _build.reset_launch_counts()
     q, k, v, _ = _flash_case(1, 1, 64, 2, 2, 64)
-    flash_attention(_t(q, np.float32), _t(k, np.float32), _t(v, np.float32))
-    assert _build.launch_counts() == {"flash_fwd": 0, "paged_decode": 0}
+    qt, kt, vt = (_t(a, np.float32).requires_grad_() for a in (q, k, v))
+    flash_attention(qt, kt, vt).sum().backward()
+    counts = _build.launch_counts()
+    assert set(counts) == {"flash_fwd", "paged_decode", "flash_bwd_dq",
+                           "flash_bwd_dkv"}
+    assert not any(counts.values())

@@ -16,8 +16,9 @@ import torch
 from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
                                                       paged_decode_reference)
-from deepspeed_tpu_torch.ops.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_reference)
+from deepspeed_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_reference)
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -95,11 +96,126 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, rep, D, bs):
     assert torch.equal(got[0, 0], row[1][0, :, 0].repeat_interleave(rep, 0))
 
 
+def _bwd_inputs(rng, B, S, N, Nkv, D, dtype, device, masked):
+    q = _randn(rng, (B, S, N, D), dtype, device)
+    k = _randn(rng, (B, S, Nkv, D), dtype, device)
+    v = _randn(rng, (B, S, Nkv, D), dtype, device)
+    do = _randn(rng, (B, S, N, D), dtype, device)
+    mask = None
+    if masked:                          # padding, and key 0 masked: causal
+        lens = torch.tensor([S - S // 3] + [S] * (B - 1), device=device)
+        mask = torch.arange(S, device=device)[None, :] < lens[:, None]
+        mask[:, 0] = False              # row 0 is then fully masked
+    return q, k, v, do, mask
+
+
+# the grid of the CPU parity tests (test_torch_attention.py): causal and
+# not, rep 1/2/4, D 64/128, a key mask with a fully masked row, fused and
+# unfused delta; S=200 leaves a ragged edge for every tile
+BWD_CASES = [(True, 1, 64, False, False), (True, 2, 128, False, True),
+             (True, 4, 64, True, False), (True, 4, 128, True, True),
+             (False, 1, 128, True, True), (False, 2, 64, False, False),
+             (False, 4, 64, True, True), (True, 8, 128, False, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,rep,D,masked,fused", BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, rep, D, masked,
+                                       fused):
+    rng = np.random.default_rng(rep * D + int(causal))
+    B, S, Nkv = 2, 200, 2
+    q, k, v, do, mask = _bwd_inputs(rng, B, S, Nkv * rep, Nkv, D, dtype,
+                                    cuda, masked)
+    o, lse = flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
+    before = (_build.FLASH_BWD_DQ.launches, _build.FLASH_BWD_DKV.launches)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              kv_mask=mask, fused=fused)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
+                                         kv_mask=mask)
+    torch.cuda.synchronize()
+    assert (_build.FLASH_BWD_DQ.launches,
+            _build.FLASH_BWD_DKV.launches) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert torch.isfinite(a).all(), name
+        assert rel_l2(a, b) <= TOL[dtype], name
+    if masked and causal:               # the fully masked row: dQ exactly 0
+        assert torch.all(got[0][:, 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["dq", "dkv"])
+def test_flash_bwd_parts_launch_one_kernel(cuda, part):
+    """Each backward kernel alone (as chip_smoke times them): only its
+    launch is counted and only its gradients come back."""
+    rng = np.random.default_rng(5)
+    q, k, v, do, _ = _bwd_inputs(rng, 1, 128, 8, 2, 64, torch.bfloat16,
+                                 cuda, False)
+    o, lse = flash_attention_reference(q, k, v)
+    before = _build.launch_counts()
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, fused=True,
+                                     parts=(part,))
+    after = _build.launch_counts()
+    assert after["flash_bwd_dq"] - before["flash_bwd_dq"] == (part == "dq")
+    assert after["flash_bwd_dkv"] - before["flash_bwd_dkv"] == (part == "dkv")
+    assert (dq is None) == (part != "dq")
+    assert (dk is None) == (dv is None) == (part != "dkv")
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, parts=(part,))
+    for a, b in zip((dq, dk, dv), want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert rel_l2(a, b) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_flash_autograd_function_on_cuda(cuda, fused):
+    """flash_attention end to end on CUDA tensors: B1 forward, B2 + B3
+    backward, against the same Function on the plain versions."""
+    rng = np.random.default_rng(3)
+    B, S, N, Nkv, D = 2, 256, 8, 2, 64
+    q, k, v, do, mask = _bwd_inputs(rng, B, S, N, Nkv, D, torch.float32,
+                                    cuda, True)
+    grads = []
+    for reference in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _build.launch_counts()
+        o = flash_attention(*leaves, kv_mask=mask, fused_backward=fused,
+                            reference=reference)
+        o.backward(do)
+        after = _build.launch_counts()
+        n = 0 if reference else 1
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert after[name] == before[name] + n, name
+        grads.append([o.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert rel_l2(a, b) <= TOL[torch.float32]
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros((1, 64, 4, 32), device=cuda)     # head_dim 32
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_bwd(q, q, q, q, q.new_zeros((1, 4, 64, 1)), q)
     q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, q, q)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, q, q, q, q.new_zeros((1, 4, 64, 1)).float(), q)
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    lse = q.new_zeros((1, 4, 64, 1))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, q, q, q, lse[..., 0], q)
+    with pytest.raises(ValueError, match="do"):
+        flash_attention_bwd(q, q, q, q, lse, q.transpose(1, 2).contiguous()
+                            .transpose(1, 2))
+    with pytest.raises(ValueError, match="runs on cuda"):
+        m = torch.zeros((1, 64, 4, 64), device="meta")
+        flash_attention_bwd(m, m, m, m, m[..., :1], m)
+    buf = torch.zeros(1 * 64 * 4 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    odd = buf[1:].view(1, 64, 4, 64)          # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(odd, odd, odd)
