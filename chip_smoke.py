@@ -35,15 +35,35 @@ Phases, each of which raises on failure (exit code != 0):
    the grad of every leaf through the kernels against the plain versions,
    in f32 under dots_saveable (B1 replayed: 2 launches per layer) and
    dots_and_attn (B1's outputs kept: 1 launch per layer), and in bf16
-   (the tensor-core kernels) under dots_saveable.
+   (the tensor-core kernels) under dots_saveable;
+7. sparse kernels (B5-B7, in phase 2's place in the run): the training
+   path's shape (BigBird, B=2 S=8192 N=32 D=64, block 128, bf16), the JAX
+   bench's three layouts (``bench.py:893-901``), a non-causal and an f32
+   case, each against the plain version (gathered over the adjacency),
+   timed beside it, beside flex_attention with a BlockMask of the layout
+   (compiled by torch.compile; the library time), beside SDPA with the
+   layout as a dense boolean mask, and beside the bound; B7's longest key
+   column timed alone; the main shape also beside dense B1 + B2 + B3;
+8. sparse training: llama-1b at full width and depth, S=8192, the BigBird
+   layout, B=2, 1 warm-up + 8 timed steps with the counts zeroed just
+   before them: losses must fall, B5 (forward and its replay), B6 and B7
+   must have run for every layer of every step and the flash kernels not
+   at all (no key mask: the sparse route); one step profiled; then the
+   same model dense (B1-B3) at the same B and S, 1 warm-up + 3 steps;
+9. sparse training cross-check: llama-1b width, 2 layers, S=2048, the
+   BigBird layout, loss and every grad through B5-B7 against the plain
+   versions, in f32 (dots_saveable and dots_and_attn: both replay B5)
+   and bf16.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
 """
 
+import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -341,6 +361,236 @@ def kernel_phase():
 
 
 # --------------------------------------------------------------------------
+# block-sparse kernel phase (B5-B7)
+# --------------------------------------------------------------------------
+
+# the JAX bench's BigBird layout (bench.py:1181-1183)
+BIGBIRD_128 = dict(block=128, num_random_blocks=1,
+                   num_sliding_window_blocks=3, num_global_blocks=1)
+
+
+def _layout_mask(cfg, S, causal):
+    """[S, S] bool on the card: the pairs the layout lets a query see (the
+    SDPA yardstick's attn_mask)."""
+    blk = torch.from_numpy(cfg.make_layout(S)).cuda()
+    keep = blk.repeat_interleave(cfg.block, 0).repeat_interleave(cfg.block, 1)
+    return torch.tril(keep) if causal else keep
+
+
+def _flex_yardstick(cfg, S, causal, q, k, v, do, o, grads):
+    """flex_attention (compiled by torch.compile into Triton kernels) with a
+    BlockMask made from the layout: a library call that, like B5-B7, skips
+    the blocks the layout leaves out (SDPA with a boolean mask does all
+    S^2). The BlockMask's tiles are 128 x 128: a tile with every pair
+    visible is full, one with some is partial and masked by position. Its
+    O and grads are held against the kernels' (rel L2 < 2e-2: the same
+    function). Returns (forward ms, whole backward ms, errors)."""
+    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+    F, blk = 128, cfg.block
+    lay = torch.from_numpy(cfg.make_layout(S)).cuda()
+    if causal:
+        lay = torch.tril(lay)
+    n, r = S // F, F // blk
+    sub = lay.reshape(n, r, n, r)
+    listed, full = sub.any(3).any(1), sub.all(3).all(1)
+    if causal:                  # a diagonal tile is never full
+        full &= torch.tril(torch.ones_like(full), -1)
+    partial = listed & ~full
+
+    def kv_table(m):            # counts [1, 1, n], indices [1, 1, n, n]
+        order = torch.argsort((~m).int(), dim=1, stable=True)
+        return m.sum(1).int()[None, None], order.int()[None, None].contiguous()
+
+    def mask_mod(b, h, qi, ki):
+        seen = lay[qi // blk, ki // blk]
+        return seen & (ki <= qi) if causal else seen
+
+    bm = BlockMask.from_kv_blocks(*kv_table(partial), *kv_table(full),
+                                  BLOCK_SIZE=F, mask_mod=mask_mod)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    # the forward timed as training runs it (one compile serves both)
+    fwd_ms = cuda_ms(lambda: flex(qt, kt, vt, block_mask=bm))
+    out = flex(qt, kt, vt, block_mask=bm)
+    dot = do.transpose(1, 2).contiguous()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    lib = (out,) + torch.autograd.grad(out, (qt, kt, vt), dot)
+    errs = {p: rel_l2(a.detach().transpose(1, 2), b)
+            for p, a, b in zip(("o", "dq", "dk", "dv"), lib, (o,) + grads)}
+    if not max(errs.values()) < 2e-2:
+        raise RuntimeError(f"flex_attention yardstick: rel L2 {errs} vs "
+                           "the kernels")
+    return fwd_ms, bwd_ms, errs
+
+
+def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
+                dense=False):
+    """B5, B6 and B7 on one layout, each against its plain version on the
+    same inputs (B6/B7 from B5's O and LSE), then timed alone (B6/B7 with
+    delta precomputed) beside the plain version, flex_attention with a
+    BlockMask of the layout (the library time: its forward; its whole
+    backward for B6/B7), SDPA with the layout as a dense boolean attn_mask
+    and the bound. B7's longest key column (the global one) is timed alone
+    and the rest without it. ``dense``: B1 + B2 + B3 at the same shape
+    with the model's 8 kv heads (the dense route of the same layer)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    cfg = sa.get_sparsity_config(mode, **kw)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B, S, N, D), generator=g, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    o, lse = sa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    ro, rlse = sa.sparse_attention_reference(q, k, v, cfg, causal=causal)
+    got = sa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
+    want = sa.sparse_attention_bwd_reference(q, k, v, o, lse, do, cfg,
+                                             causal=causal)
+    torch.cuda.synchronize()
+    for part, a in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + got):
+        if not torch.isfinite(a).all():
+            raise RuntimeError(f"sparse {name}: non-finite {part}")
+    errs = {"o": rel_l2(o, ro), "lse": rel_l2(lse, rlse)}
+    errs.update((p, rel_l2(a, b)) for p, a, b in zip(("dq", "dk", "dv"),
+                                                     got, want))
+    bad = {p: e for p, e in errs.items()
+           if not e < (1e-4 if p == "lse" else TOL[dtype])}
+    if bad:
+        raise RuntimeError(f"sparse {name}: rel L2 {bad} vs the plain "
+                           "version")
+    max_err = {"fwd": max_abs(o, ro), "dq": max_abs(got[0], want[0]),
+               "dkv": max(max_abs(got[1], want[1]), max_abs(got[2], want[2]))}
+    del ro, rlse, want
+    torch.cuda.empty_cache()
+
+    tables = sa.adjacency_tables(cfg, S, causal, q.device)
+    idx, cnt, cidx, ccnt = tables
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+
+    def bwd(part, tabs=tables):
+        return sa.sparse_bwd_launch(q, k, v, do, lse, delta, cfg, tabs,
+                                    causal=causal, sm_scale=1.0 / D ** 0.5,
+                                    parts=(part,))
+    ms = {"fwd": cuda_ms(lambda: sa.sparse_attention_fwd(q, k, v, cfg,
+                                                         causal=causal)),
+          "dq": cuda_ms(lambda: bwd("dq")), "dkv": cuda_ms(lambda: bwd("dkv"))}
+    plain = {"fwd": cuda_ms(lambda: sa.sparse_attention_reference(
+        q, k, v, cfg, causal=causal), iters=3, warmup=1)}
+    for part in ("dq", "dkv"):
+        plain[part] = cuda_ms(lambda: sa.sparse_attention_bwd_reference(
+            q, k, v, o, lse, do, cfg, causal=causal, parts=(part,)),
+            iters=3, warmup=1)
+    # B7's load: the key block listed most (the global column) alone, then
+    # every other block without it
+    top = int(ccnt.argmax())
+    only, rest = torch.zeros_like(ccnt), ccnt.clone()
+    only[top], rest[top] = ccnt[top], 0
+    tail = {"key_block": top, "its_query_blocks": int(ccnt[top]),
+            "median_query_blocks": float(ccnt.float().median()),
+            "dkv_ms_that_block_alone": cuda_ms(
+                lambda: bwd("dkv", (idx, cnt, cidx, only))),
+            "dkv_ms_all_others": cuda_ms(
+                lambda: bwd("dkv", (idx, cnt, cidx, rest)))}
+    lib_fwd, lib_bwd, lib_err = _flex_yardstick(cfg, S, causal, q, k, v, do,
+                                                o, got)
+    del got
+    # second yardstick: SDPA with the layout as a dense boolean mask
+    keep = _layout_mask(cfg, S, causal)
+    visible = float(keep.sum())
+    am = keep[None, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am))
+    out = sdpa(qt, kt, vt, attn_mask=am)
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                   retain_graph=True))
+    del out, qt, kt, vt, dot, am, keep
+    torch.cuda.empty_cache()
+
+    listed = int(cnt.sum())
+    # the pairs the function computes: every visible (query, key) pair,
+    # so half of each diagonal block under causal masking
+    unit = D * visible * B * N
+    act = B * S * N * D * q.element_size()         # one [B, S, N, D] tensor
+    vec = B * N * S * 4                             # LSE or delta, f32
+    work = {"fwd": (4 * act + vec + nbytes(idx, cnt), 4 * unit),
+            "dq": (5 * act + 2 * vec + nbytes(idx, cnt), 6 * unit),
+            "dkv": (6 * act + 2 * vec + nbytes(cidx, ccnt), 8 * unit)}
+    shape = (f"B={B} S={S} N={N} D={D} {str(dtype).split('.')[-1]} {mode} "
+             f"block {cfg.block} {'causal' if causal else 'non-causal'}, "
+             f"{listed} listed block pairs, {visible / S / S:.4f} of S^2 "
+             "visible")
+    recs = {}
+    for part, (moved, flops) in work.items():
+        bound_ms, bound_by = bound(moved, flops, dtype)
+        recs[part] = dict(case=name, shape=shape, rel_l2=errs,
+                          max_abs_err=max_err[part], ms=ms[part],
+                          plain_ms=plain[part],
+                          library_ms=lib_fwd if part == "fwd" else lib_bwd,
+                          library="flex_attention + BlockMask",
+                          library_rel_l2=lib_err,
+                          sdpa_dense_mask_ms=(sdpa_fwd if part == "fwd"
+                                              else sdpa_bwd),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          tflops=flops / ms[part] / 1e9)
+    recs["dkv"]["tail"] = tail
+    if dense:
+        from deepspeed_tpu_torch.ops.flash_attention import (
+            flash_attention_bwd, flash_attention_fwd)
+        kd, vd = (torch.randn((B, S, 8, D), generator=g, device="cuda",
+                              dtype=dtype) for _ in range(2))
+        od, lsed = flash_attention_fwd(q, kd, vd, causal=causal)
+        dense_ms = {
+            "fwd_ms": cuda_ms(lambda: flash_attention_fwd(q, kd, vd,
+                                                          causal=causal)),
+            "bwd_ms": cuda_ms(lambda: flash_attention_bwd(
+                q, kd, vd, od, lsed, do, causal=causal, fused=True))}
+        dense_ms["sparse_fwd_bwd_ms"] = ms["fwd"] + ms["dq"] + ms["dkv"]
+        dense_ms["dense_fwd_bwd_ms"] = dense_ms["fwd_ms"] + dense_ms["bwd_ms"]
+        recs["fwd"]["dense_flash_same_shape"] = dense_ms
+        del kd, vd, od, lsed
+    for part in ("fwd", "dq", "dkv"):
+        log(f"sparse_{'fwd' if part == 'fwd' else 'bwd_' + part} "
+            + json.dumps(recs[part]))
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sparse_kernel_phase():
+    import torch._dynamo
+    import torch._inductor.config
+    from deepspeed_tpu_torch.ops import _build
+    # flex_attention, the yardstick, compiles through Inductor and Triton:
+    # in this process (no compile workers), caches beside the kernels'
+    # build, once per case
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(_build.BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
+    torch._inductor.config.compile_threads = 1
+    torch._dynamo.config.recompile_limit = 64
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        sparse_case("llama-1b training BigBird B=2 S=8192", "bigbird",
+                    BIGBIRD_128, 2, 8192, 32, 64, bf, dense=True),
+        sparse_case("bench BigBird S=32768", "bigbird", BIGBIRD_128,
+                    1, 32768, 4, 64, bf),
+        sparse_case("bench Fixed S=4096", "fixed",
+                    dict(block=128, num_local_blocks=4, num_global_blocks=1),
+                    2, 4096, 4, 64, bf),
+        sparse_case("bench BSLongformer S=8192 D=128", "bslongformer",
+                    dict(block=128, num_sliding_window_blocks=3),
+                    1, 8192, 4, 128, bf),
+        sparse_case("BigBird non-causal S=8192", "bigbird", BIGBIRD_128,
+                    1, 8192, 4, 64, bf, causal=False),
+        sparse_case("BigBird f32 block 64 S=4096", "bigbird",
+                    dict(BIGBIRD_128, block=64), 1, 4096, 4, 64, f32),
+    ]
+
+
+# --------------------------------------------------------------------------
 # serving phase
 # --------------------------------------------------------------------------
 
@@ -535,8 +785,8 @@ TRAIN_STEPS = 8
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "flash_" in n:
-        return "attention kernels (B1-B3)"
+    if "flash_" in n or "sparse_" in n:
+        return "attention kernels (B1-B7)"
     if any(t in n for t in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "matmuls (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -601,24 +851,21 @@ TRAIN_CONFIG = {
     "transformer": {"fused_backward": True}, "seed": 0}
 
 
-def training_phase(fwd_rec, bwd_rec):
-    """llama-1b, full width and depth, through initialize -> train_batch.
-    ``fwd_rec`` / ``bwd_rec``: the kernel phase's records at this shape,
-    to split the step's time."""
-    from deepspeed_tpu_torch import initialize, llama_config, make_model
+def _train(cfg, name, config, steps):
+    """``initialize`` -> ``train_batch`` on one fixed batch: 1 warm-up
+    step, then ``steps`` timed steps with the launch counts zeroed just
+    before them. Returns (engine, batch, record)."""
+    from deepspeed_tpu_torch import initialize, make_model
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
-    S, B = 2048, TRAIN_CONFIG["train_batch_size"]
-    cfg = llama_config("1b", max_seq_len=S, remat=True,
-                       remat_policy="dots_saveable", loss_chunk=S)
+    B, S = config["train_batch_size"], cfg.max_seq_len
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, *_ = initialize(model=make_model(cfg, "llama-1b"),
-                            config=dict(TRAIN_CONFIG))
+    engine, *_ = initialize(model=make_model(cfg, name), config=dict(config))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
-    log(f"training: llama-1b {n_params / 1e9:.4f}B params, bf16 + f32 "
-        f"masters, init {time.perf_counter() - t0:.1f}s")
+    log(f"training: {name} {n_params / 1e9:.4f}B params, B={B} S={S}, "
+        f"bf16 + f32 masters, init {time.perf_counter() - t0:.1f}s")
     ids = np.random.default_rng(0).integers(0, VOCAB, (B, S), dtype=np.int32)
     batch = {"input_ids": torch.from_numpy(ids).cuda()}
     t0 = time.perf_counter()
@@ -628,7 +875,7 @@ def training_phase(fwd_rec, bwd_rec):
     _build.reset_launch_counts()
     marks, issue_ms = [], []
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -646,35 +893,60 @@ def training_phase(fwd_rec, bwd_rec):
     losses = [float(x) for x in losses]
     step_ms = [a.elapsed_time(b) for a, b in marks]
     L, H = cfg.num_layers, cfg.hidden_size
-    tok_s = B * S * TRAIN_STEPS / wall
+    tok_s = B * S * steps / wall
+    # bench.py _mfu: 6N plus the dense attention term 12 L H S (no causal
+    # or sparse discount)
     mfu = tok_s * (6.0 * n_params + 12.0 * L * H * S) / PEAK_FLOPS[
         torch.bfloat16]
-    n = TRAIN_STEPS
-    per_step = {k: v / n for k, v in launches.items()}
+    rec = dict(steps=steps, warmup_step_s=warm_s,
+               step_ms_cuda_median=float(np.median(step_ms)),
+               step_ms_cuda=step_ms, step_ms_wall=wall / steps * 1e3,
+               step_issue_ms=issue_ms, tokens_per_s=tok_s, mfu=mfu,
+               n_params=n_params,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               losses=losses, launches=launches)
+    return engine, batch, rec
+
+
+def _check_run(name, rec, want, absent=()):
+    """Finite, falling losses; at least ``want`` launches of each kernel
+    and none of ``absent``."""
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{name}: non-finite loss {losses}")
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"{name}: loss did not fall {losses}")
+    got = rec["launches"]
+    short = {k: (got[k], v) for k, v in want.items() if got[k] < v}
+    if short:
+        raise RuntimeError(f"{name}: launches (got, want) {short}")
+    extra = {k: got[k] for k in absent if got[k]}
+    if extra:
+        raise RuntimeError(f"{name}: kernels off this route launched {extra}")
+
+
+def training_phase(fwd_rec, bwd_rec):
+    """llama-1b, full width and depth, through initialize -> train_batch.
+    ``fwd_rec`` / ``bwd_rec``: the kernel phase's records at this shape,
+    to split the step's time."""
+    from deepspeed_tpu_torch import llama_config
+    S = 2048
+    cfg = llama_config("1b", max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=S)
+    engine, batch, rec = _train(cfg, "llama-1b", TRAIN_CONFIG, TRAIN_STEPS)
+    n, L = TRAIN_STEPS, cfg.num_layers
+    per_step = {k: v / n for k, v in rec["launches"].items()}
     attn = {"fwd_ms": fwd_rec["ms"] * L,
             "replay_ms": fwd_rec["ms"] * (per_step["flash_fwd"] - L),
             "bwd_ms": (bwd_rec["dq"]["ms"] * per_step["flash_bwd_dq"]
                        + bwd_rec["dkv"]["ms"] * per_step["flash_bwd_dkv"])}
-    med = float(np.median(step_ms))
-    attn["other_ms"] = med - sum(attn.values())
-    rec = dict(steps=n, warmup_step_s=warm_s, step_ms_cuda_median=med,
-               step_ms_cuda=step_ms, step_ms_wall=wall / n * 1e3,
-               step_issue_ms=issue_ms,
-               tokens_per_s=tok_s, mfu=mfu, n_params=n_params,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-               losses=losses, launches=launches,
-               attention_split_per_step=attn)
+    attn["other_ms"] = rec["step_ms_cuda_median"] - sum(attn.values())
+    rec["attention_split_per_step"] = attn
     log("training " + json.dumps(rec))
-    if not all(np.isfinite(losses)):
-        raise RuntimeError(f"training: non-finite loss {losses}")
-    if not np.mean(losses[-3:]) < losses[0]:
-        raise RuntimeError(f"training: loss did not fall {losses}")
     # dots_saveable replays B1 in the backward (its outputs are not dots)
-    want = {"flash_bwd_dq": n * L, "flash_bwd_dkv": n * L,
-            "flash_fwd": 2 * n * L}
-    short = {k: (launches[k], v) for k, v in want.items() if launches[k] < v}
-    if short:
-        raise RuntimeError(f"training: launches (got, want) {short}")
+    _check_run("training", rec, {"flash_bwd_dq": n * L,
+                                 "flash_bwd_dkv": n * L,
+                                 "flash_fwd": 2 * n * L})
     # where a step's device time goes: one more step, profiled
     rec["device_split"] = device_split(lambda: engine.train_batch(batch))
     log("training device split " + json.dumps(rec["device_split"]))
@@ -683,29 +955,92 @@ def training_phase(fwd_rec, bwd_rec):
     return rec
 
 
-def training_cross_check():
-    """lm_loss and the grad of every leaf (llama-1b width, 2 layers, S=512,
-    B=2, chunked loss, fused backward) through the kernels and through
-    their plain versions on the same weights. f32 (the CUDA-core kernels;
-    loss within 1e-5 relative, grads within 1e-4 rel L2), under the
-    training phase's remat policy (dots_saveable, which replays B1 in the
-    backward) and under dots_and_attn (which keeps B1's outputs: one
-    launch per layer); then bf16 (the tensor-core kernels the training
-    phase runs; 2e-2) under dots_saveable. Two layers stay far from the
-    rounding amplification of a deep random bf16 stack (cross_check)."""
-    import dataclasses
+SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_batch_size=2)
+SPARSE_MODEL = {"mode": "bigbird", **BIGBIRD_128}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+
+
+def sparse_training_phase(recs):
+    """llama-1b at full width and depth, S=8192, the JAX bench's BigBird
+    layout, through initialize -> train_batch: B=2 (16,384 tokens a step,
+    as the dense phase's 8 x 2048), no key mask, so every layer takes the
+    sparse route (K/V repeated over the query-head group, B5-B7). Then one
+    profiled step, then the same model dense (B1-B3) at the same B and S.
+    ``recs``: the kernel phase's records at this shape."""
+    from deepspeed_tpu_torch import llama_config
+    S = 8192
+    cfg = llama_config("1b", max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=2048,
+                       sparse_attention=SPARSE_MODEL)
+    engine, batch, rec = _train(cfg, "llama-1b BigBird", SPARSE_TRAIN_CONFIG,
+                                TRAIN_STEPS)
+    n, L = TRAIN_STEPS, cfg.num_layers
+    per_step = {k: v / n for k, v in rec["launches"].items()}
+    split = {"fwd_ms": recs["fwd"]["ms"] * L,
+             "replay_ms": recs["fwd"]["ms"] * (per_step["sparse_fwd"] - L),
+             "bwd_ms": (recs["dq"]["ms"] * per_step["sparse_bwd_dq"]
+                        + recs["dkv"]["ms"] * per_step["sparse_bwd_dkv"])}
+    split["other_ms"] = rec["step_ms_cuda_median"] - sum(split.values())
+    rec["attention_split_per_step"] = split
+    log("sparse training " + json.dumps(rec))
+    # dots_saveable (and dots_and_attn alike) replays B5 in the backward
+    _check_run("sparse training", rec,
+               {"sparse_fwd": 2 * n * L, "sparse_bwd_dq": n * L,
+                "sparse_bwd_dkv": n * L}, absent=FLASH_KERNELS)
+    rec["device_split"] = device_split(lambda: engine.train_batch(batch))
+    log("sparse training device split " + json.dumps(rec["device_split"]))
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = 3
+    engine, batch, dense = _train(
+        dataclasses.replace(cfg, sparse_attention=None), "llama-1b dense",
+        SPARSE_TRAIN_CONFIG, steps)
+    log("dense training, same B and S " + json.dumps(dense))
+    _check_run("dense training", dense,
+               {"flash_bwd_dq": steps * L, "flash_bwd_dkv": steps * L,
+                "flash_fwd": 2 * steps * L}, absent=SPARSE_KERNELS)
+    del engine, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["dense_same_shape"] = dense
+    log("sparse vs dense training step, B=2 S=8192 " + json.dumps({
+        "sparse_step_ms": rec["step_ms_cuda_median"],
+        "dense_step_ms": dense["step_ms_cuda_median"],
+        "dense_over_sparse": dense["step_ms_cuda_median"]
+        / rec["step_ms_cuda_median"],
+        "sparse_tokens_per_s": rec["tokens_per_s"],
+        "dense_tokens_per_s": dense["tokens_per_s"],
+        "sparse_peak_mem_gib": rec["peak_mem_gib"],
+        "dense_peak_mem_gib": dense["peak_mem_gib"]}))
+    return rec
+
+
+def training_cross_check(S=512, sparse=None):
+    """lm_loss and the grad of every leaf (llama-1b width, 2 layers, B=2,
+    chunked loss, fused backward) through the kernels and through their
+    plain versions on the same weights. f32 (the CUDA-core kernels; loss
+    within 1e-5 relative, grads within 1e-4 rel L2), under the training
+    phase's remat policy (dots_saveable, which replays the attention
+    forward in the backward) and under dots_and_attn (which keeps B1's
+    outputs: one launch per layer, but replays B5 like dots_saveable);
+    then bf16 (the tensor-core kernels the training phases run; 2e-2)
+    under dots_saveable. ``sparse``: a block-sparse layout, so every layer
+    runs B5-B7 and no flash kernel. Two layers stay far from the rounding
+    amplification of a deep random bf16 stack (cross_check)."""
     from deepspeed_tpu_torch import llama_config
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.optimizers import cast_tree, tree_leaves
     L = 2
-    cfg = llama_config("1b", num_layers=L, max_seq_len=512,
+    cfg = llama_config("1b", num_layers=L, max_seq_len=S,
                        dtype=torch.float32, remat=True,
-                       remat_policy="dots_saveable", loss_chunk=512,
-                       fused_backward=True)
+                       remat_policy="dots_saveable", loss_chunk=S,
+                       fused_backward=True, sparse_attention=sparse)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params32 = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
-    ids = np.random.default_rng(2).integers(0, VOCAB, (2, 512))
+    ids = np.random.default_rng(2).integers(0, VOCAB, (2, S))
     batch = {"input_ids": torch.from_numpy(ids).cuda()}
 
     def value_and_grad(params, c, reference):
@@ -719,8 +1054,9 @@ def training_cross_check():
         return float(loss.detach()), grads, _build.launch_counts()
 
     recs = {}
+    kern = "sparse" if sparse else "flash"
     cases = (("f32", "dots_saveable", 2 * L, 1e-5, 1e-4),
-             ("f32", "dots_and_attn", L, 1e-5, 1e-4),
+             ("f32", "dots_and_attn", 2 * L if sparse else L, 1e-5, 1e-4),
              ("bf16", "dots_saveable", 2 * L, 2e-2, 2e-2))
     for dt in ("f32", "bf16"):
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
@@ -746,13 +1082,16 @@ def training_cross_check():
                 raise RuntimeError(f"training cross-check {dt} {policy}: "
                                    f"loss rel {loss_err:.3g}, grad rel L2 "
                                    f"{err:.3g}")
-            want = {"flash_fwd": fwd, "flash_bwd_dq": L, "flash_bwd_dkv": L}
-            if any(nk[k] != v for k, v in want.items()):
+            # exactly these launches, and no other kernel's
+            want = {f"{kern}_fwd": fwd, f"{kern}_bwd_dq": L,
+                    f"{kern}_bwd_dkv": L}
+            if {k: n for k, n in nk.items() if n} != want:
                 raise RuntimeError(f"training cross-check {dt} {policy}: "
                                    f"launches {nk}, want {want}")
             del gk
         del params, gp
-    log("training cross-check " + json.dumps(recs))
+    log(f"{'sparse ' if sparse else ''}training cross-check S={S} "
+        + json.dumps(recs))
     del params32
     torch.cuda.empty_cache()
     return recs
@@ -795,6 +1134,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s")
 
     flash, decode, bwd = kernel_phase()
+    sparse = sparse_kernel_phase()
     srv, st, launches = serving_phase()
     step_times(srv)
     cross_check(srv)
@@ -805,6 +1145,8 @@ def main() -> int:
         next(c for c in flash if c["case"].startswith("llama-1b training")),
         bwd[0])
     training_cross_check()
+    sparse_train = sparse_training_phase(sparse[0])
+    training_cross_check(S=2048, sparse=SPARSE_MODEL)
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -823,6 +1165,13 @@ def main() -> int:
                     tl["flash_bwd_dkv"], [c["dkv"] for c in bwd],
                     bwd[0]["dkv"]),
     ]}
+    sl = sparse_train["launches"]
+    for name, site, part in (("sparse_fwd", 463, "fwd"),
+                             ("sparse_bwd_dq", 491, "dq"),
+                             ("sparse_bwd_dkv", 507, "dkv")):
+        line["kernels"].append(kernel_line(
+            name, f"deepspeed_tpu/ops/sparse_attention.py:{site}", sl[name],
+            [c[part] for c in sparse], sparse[0][part]))
     line["kernels"][0]["launches_by_path"] = {
         "serving": launches["flash_fwd"], "training": tl["flash_fwd"]}
     log(json.dumps(line))

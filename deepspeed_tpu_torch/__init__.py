@@ -7,8 +7,10 @@ llama-family models: continuous batching over a paged KV pool, with the
 flash-forward (prefill) and paged-decode kernels written by hand in CUDA
 (``csrc/``). It trains them on one card through ``initialize`` ->
 ``Engine.train_batch``, with the flash backward (dQ and dK/dV kernels)
-in CUDA as well. Entry points run on the card; ``device="cpu"`` runs the
-plain PyTorch versions of the kernels instead.
+in CUDA as well, and trains a block-sparse model (``sparse_attention``
+layouts) through three more CUDA kernels (forward, dQ, dK/dV). Entry
+points run on the card; ``device="cpu"`` runs the plain PyTorch versions
+of the kernels instead.
 """
 
 from deepspeed_tpu_torch.inference import (InferenceConfig, ServingConfig,

@@ -24,7 +24,8 @@ boundary from the one token fetch.
 
 What this slice leaves out raises ``NotImplementedError`` naming its
 ROADMAP item (deadlines, watermarks, prefix cache, chunked prefill,
-speculative decoding, LoRA, drain/migration, tracing, fleet roles).
+speculative decoding, LoRA, drain/migration, tracing, fleet roles, a
+block-sparse model).
 """
 
 import dataclasses
@@ -37,6 +38,7 @@ import torch
 from deepspeed_tpu_torch.inference.engine import init_inference
 from deepspeed_tpu_torch.inference.kv_cache import BlockAllocator, pool_bytes
 from deepspeed_tpu_torch.inference.scheduler import Request, RequestScheduler
+from deepspeed_tpu_torch.models.transformer import check_servable
 
 
 @dataclasses.dataclass
@@ -101,6 +103,7 @@ class ServingEngine:
         self.model = engine.model
         self.device = engine.device
         mcfg = self.model.config
+        check_servable(mcfg)
         if c.block_size < 1 or c.decode_quantum < 1 or c.max_seqs < 1:
             raise ValueError(f"block_size={c.block_size}, decode_quantum="
                              f"{c.decode_quantum}, max_seqs={c.max_seqs}: "

@@ -16,18 +16,20 @@ name instead (for comparisons), and CPU tensors always take the plain
 versions.
 
 Training: ``lm_loss`` (full or chunked cross-entropy) is differentiable
-through the flash forward and its two backward kernels (B2, B3), with
-layer-level rematerialization on ``torch.utils.checkpoint`` under the
-JAX package's remat policies (``_remat_policy``).
+through the flash forward and its two backward kernels (B2, B3), or, for
+a ``sparse_attention`` config without a key mask, through the block-sparse
+kernels (B5-B7, ``ops/sparse_attention``), with layer-level
+rematerialization on ``torch.utils.checkpoint`` under the JAX package's
+remat policies (``_remat_policy``). Serving a block-sparse model raises
+(``check_servable``).
 
 Weights are cast to the activation dtype at every matmul, as ``_wmat`` /
 ``_wrow`` / ``lm_head_logits`` do in JAX, so f32 parameters (a trainer's
 storage) run under a bf16 compute config.
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions, windows, MoE, block-sparse
-attention, int8 KV and int8 weights, the multi-token span path, and
-dropout.
+ROADMAP item: alibi / learned positions, windows, MoE, int8 KV and int8
+weights, the multi-token span path, and dropout.
 """
 
 import dataclasses
@@ -45,6 +47,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
                                                      flash_attention)
+from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
+                                                      sparse_attention)
 
 Params = Dict[str, Any]
 
@@ -99,8 +103,6 @@ class TransformerConfig:
             "attn_windows": (bool(self.attn_windows),
                              "A11 (local-attention windows)"),
             "num_experts": (self.num_experts > 1, "A9 (MoE)"),
-            "sparse_attention": (bool(self.sparse_attention),
-                                 "A10 (block-sparse attention, B5-B7)"),
             "position_type": (self.position_type not in ("rotary", "none"),
                               "A11 (learned / alibi positions)"),
             "causal": (not self.causal, "A11 (encoder models)"),
@@ -282,13 +284,39 @@ def _w(h, w):
 
 def attention(q, k, v, mask=None, *, causal: bool = True,
               cfg: TransformerConfig, reference: bool = False):
-    """q: [B,S,Nq,D], k/v: [B,S,Nkv,D] -> [B,S,Nq,D], through the flash
-    forward and, for gradients, its backward kernels (GQA-native: K/V are
-    never repeated). mask: optional [B, S] key-padding mask."""
-    return flash_attention(q, k, v, causal=causal,
-                           sm_scale=_sm_scale(cfg, q.shape[-1]), kv_mask=mask,
+    """q: [B,S,Nq,D], k/v: [B,S,Nkv,D] -> [B,S,Nq,D]. mask: optional [B, S]
+    key-padding mask.
+
+    As in JAX: a ``sparse_attention`` config without a key mask repeats K/V
+    over the query-head group (query head h reads kv head h // rep; autograd
+    of the repeat sums dK/dV over the group) and goes through the
+    block-sparse kernels (B5-B7). Everything else, a sparse config with a
+    key mask included, goes through the GQA-native flash kernels (B1-B3),
+    which compute the JAX dense branch's function."""
+    sm = _sm_scale(cfg, q.shape[-1])
+    if cfg.sparse_attention and mask is None:
+        rep = q.shape[2] // k.shape[2]
+        if rep > 1:
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        sa = dict(cfg.sparse_attention)
+        mode = sa.pop("mode", "fixed")
+        return sparse_attention(q, k, v, get_sparsity_config(mode, **sa),
+                                causal=causal, sm_scale=sm,
+                                reference=reference)
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm, kv_mask=mask,
                            fused_backward=cfg.fused_backward,
                            reference=reference)
+
+
+def check_servable(cfg: TransformerConfig) -> None:
+    """The serving path's refusal of what it does not serve yet: a
+    block-sparse model (the JAX prefill takes the dense path under a
+    length mask; the port's prefill has no mask and would run sparse)."""
+    if cfg.sparse_attention:
+        raise NotImplementedError(
+            "serving a block-sparse model is not ported yet: ROADMAP A10b "
+            "(serving a block-sparse model)")
 
 
 def _paged_attention(q, pool_k, pool_v, tables, index,
@@ -409,7 +437,8 @@ def _remat_policy(cfg: TransformerConfig):
     "dots_saveable" keeps the matmul outputs and replays the rest,
     including the flash forward (B1), in the backward. "dots_and_attn" also
     keeps B1's O and LSE (the custom op ``dstpu_torch::flash_fwd``), so the
-    backward runs straight into B2/B3 without replaying B1."""
+    backward runs straight into B2/B3 without replaying B1. The sparse
+    forward (B5) is kept by neither: both replay it, as in JAX."""
     if not cfg.remat and cfg.remat_policy in ("none", None):
         return None
     saved = {"dots_saveable": _DOTS,
@@ -561,6 +590,7 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
 
     The pools are updated IN PLACE (JAX donated them to the jitted step);
     each layer's K/V goes into its blocks as soon as the layer has run."""
+    check_servable(cfg)
     B, P = input_ids.shape
     bs = pools["k"].shape[3]
     nblk = P // bs

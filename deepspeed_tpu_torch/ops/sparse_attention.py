@@ -1,0 +1,497 @@
+"""Block-sparse attention, forward and backward, PyTorch port of
+``deepspeed_tpu/ops/sparse_attention.py``: the five sparsity layouts, their
+adjacency tables and three hand-written CUDA kernels for sm_90a (each
+source's note says what bounds it and how it is laid out):
+
+- ``csrc/sparse_fwd.cu`` (B5): O and the f32 log-sum-exp, each query block
+  walking only the key blocks its adjacency row lists;
+- ``csrc/sparse_bwd_dq.cu`` (B6): dQ over the same rows;
+- ``csrc/sparse_bwd_dkv.cu`` (B7): dK and dV, each key block walking the
+  query blocks of its transposed row.
+
+``sparse_attention`` is a ``torch.autograd.Function``, the TPU module's
+``_sparse`` and its ``custom_vjp``: the forward launches B5 and keeps (q,
+k, v, O, LSE); the backward takes delta = rowsum(dO * O) in one torch pass
+(one XLA pass in JAX), then launches B6 and B7 (no atomics, so the
+gradients are deterministic). B5 is a plain launch, not a custom op, so no
+remat policy keeps its outputs: ``dots_saveable`` and ``dots_and_attn``
+both replay it in the backward, as the JAX policies (which name only the
+flash outputs) replay the sparse kernel.
+
+The layouts are copies of the JAX module's (same names, fields and
+defaults; BigBird makes the same ``np.random.default_rng(seed)`` calls in
+the same order, so the layouts are identical). Each layout's four tables
+(``idx``, ``cnt``, ``cidx``, ``ccnt``) are made once per (config, S,
+causal) on the host and once per device as int32 tensors, so a step does
+not copy them every layer.
+
+Layout: [B, S, N, D] in and out; K and V have as many heads as Q (the
+model repeats them over the query-head group first, as JAX does).
+
+Dispatch: a tensor on the CPU takes the plain PyTorch version, written over
+the adjacency (each query block's listed key blocks gathered, not a dense
+[S, S] mask); a CUDA tensor launches the kernel or raises. Nothing falls
+back.
+"""
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from deepspeed_tpu_torch.ops._build import (SPARSE_BWD_DKV, SPARSE_BWD_DQ,
+                                            SPARSE_FWD, stream_handle)
+from deepspeed_tpu_torch.ops.flash_attention import _default_scale, _on_cuda
+
+NEG_INF = -1e30
+# floor of the running row max, as the TPU kernel's
+M_FLOOR = -1e20
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_BLOCKS = (64, 128)
+BWD_PARTS = ("dq", "dkv")
+
+
+# --------------------------------------------------------------------------
+# sparsity configs (the JAX module's, field for field)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SparsityConfig:
+    """Base: dense layout (reference: DenseSparsityConfig)."""
+    block: int = 128
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        n = seq_len // self.block
+        return np.ones((n, n), bool)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseSparsityConfig(SparsityConfig):
+    pass
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedSparsityConfig(SparsityConfig):
+    """Local blocks + periodic global columns (the first blocks of each
+    local window)."""
+    num_local_blocks: int = 4
+    num_global_blocks: int = 1
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        n = seq_len // self.block
+        L = np.zeros((n, n), bool)
+        nl = self.num_local_blocks
+        for i in range(n):
+            w0 = (i // nl) * nl
+            L[i, w0:min(w0 + nl, n)] = True          # local window
+        for w0 in range(0, n, nl):                    # global columns
+            g = min(self.num_global_blocks, n - w0)
+            L[:, w0:w0 + g] = True
+        return L
+
+
+@dataclasses.dataclass(frozen=True)
+class BigBirdSparsityConfig(SparsityConfig):
+    """Random + sliding window + global blocks."""
+    num_random_blocks: int = 1
+    num_sliding_window_blocks: int = 3
+    num_global_blocks: int = 1
+    seed: int = 0
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        n = seq_len // self.block
+        L = np.zeros((n, n), bool)
+        w = self.num_sliding_window_blocks // 2
+        for i in range(n):
+            L[i, max(0, i - w):min(n, i + w + 1)] = True
+        g = min(self.num_global_blocks, n)
+        L[:, :g] = True
+        L[:g, :] = True
+        rng = np.random.default_rng(self.seed)
+        for i in range(n):
+            pick = rng.choice(n, size=min(self.num_random_blocks, n),
+                              replace=False)
+            L[i, pick] = True
+        return L
+
+
+@dataclasses.dataclass(frozen=True)
+class BSLongformerSparsityConfig(SparsityConfig):
+    """Sliding window + designated global block indices."""
+    num_sliding_window_blocks: int = 3
+    global_block_indices: Tuple[int, ...] = (0,)
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        n = seq_len // self.block
+        L = np.zeros((n, n), bool)
+        w = self.num_sliding_window_blocks // 2
+        for i in range(n):
+            L[i, max(0, i - w):min(n, i + w + 1)] = True
+        for g in self.global_block_indices:
+            if g < n:
+                L[:, g] = True
+                L[g, :] = True
+        return L
+
+
+@dataclasses.dataclass(frozen=True)
+class VariableSparsityConfig(SparsityConfig):
+    """Variable local window sizes + global blocks."""
+    num_global_blocks: int = 1
+    local_window_blocks: Tuple[int, ...] = (4,)
+
+    def make_layout(self, seq_len: int) -> np.ndarray:
+        n = seq_len // self.block
+        L = np.zeros((n, n), bool)
+        windows = list(self.local_window_blocks)
+        start = 0
+        wi = 0
+        while start < n:
+            w = windows[min(wi, len(windows) - 1)]
+            end = min(start + w, n)
+            L[start:end, start:end] = True
+            start, wi = end, wi + 1
+        L[:, :min(self.num_global_blocks, n)] = True
+        return L
+
+
+_MODES = {
+    "dense": DenseSparsityConfig,
+    "fixed": FixedSparsityConfig,
+    "bigbird": BigBirdSparsityConfig,
+    "bslongformer": BSLongformerSparsityConfig,
+    "variable": VariableSparsityConfig,
+}
+
+
+def get_sparsity_config(mode: str, **kw) -> SparsityConfig:
+    if mode not in _MODES:
+        raise ValueError(f"unknown sparse attention mode {mode!r}; "
+                         f"have {sorted(_MODES)}")
+    return _MODES[mode](**kw)
+
+
+def _adjacency(layout: np.ndarray, causal: bool):
+    """layout [Qb, Kb] -> (idx [Qb, max_deg] int32 padded -1, count [Qb]),
+    plus the transpose for the dK/dV pass."""
+    n = layout.shape[0]
+    if causal:
+        layout = layout & np.tril(np.ones((n, n), bool))
+    rows = [np.nonzero(layout[i])[0] for i in range(n)]
+    deg = max((len(r) for r in rows), default=0)
+    idx = np.full((n, max(deg, 1)), -1, np.int32)
+    for i, r in enumerate(rows):
+        idx[i, :len(r)] = r
+    count = np.array([len(r) for r in rows], np.int32)
+    cols = [np.nonzero(layout[:, j])[0] for j in range(n)]
+    cdeg = max((len(c) for c in cols), default=0)
+    cidx = np.full((n, max(cdeg, 1)), -1, np.int32)
+    for j, c in enumerate(cols):
+        cidx[j, :len(c)] = c
+    ccount = np.array([len(c) for c in cols], np.int32)
+    return idx, count, cidx, ccount
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_adjacency(config: SparsityConfig, seq_len: int, causal: bool):
+    """(idx, cnt, cidx, ccnt) of the layout at ``seq_len``, made once, as
+    read-only numpy int32 arrays."""
+    tables = _adjacency(config.make_layout(seq_len), causal)
+    for t in tables:
+        t.setflags(write=False)
+    return tables
+
+
+@functools.lru_cache(maxsize=64)
+def adjacency_tables(config: SparsityConfig, seq_len: int, causal: bool,
+                     device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """(idx, cnt, cidx, ccnt) as int32 tensors on ``device``, copied there
+    once per (config, S, causal, device)."""
+    return tuple(torch.from_numpy(np.array(t)).to(device)
+                 for t in _cached_adjacency(config, int(seq_len),
+                                            bool(causal)))
+
+
+def _check_seq(S, config):
+    if S % config.block:
+        raise ValueError(f"seq len {S} not divisible by block {config.block}")
+
+
+# --------------------------------------------------------------------------
+# plain versions: the kernels' arithmetic over the gathered adjacency
+# --------------------------------------------------------------------------
+
+def _blocks(x, block):
+    """[B, S, N, D] -> f32 [B, N, S / block, block, D]."""
+    B, S, N, D = x.shape
+    return x.float().reshape(B, S // block, block, N, D).permute(0, 3, 1, 2, 4)
+
+
+def _unblock(x):
+    """[B, N, Qb, block, D] -> [B, S, N, D]."""
+    B, N, Qb, block, D = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(B, Qb * block, N, D)
+
+
+def _gather(x, idx, block):
+    """[B, S, N, D] -> f32 [B, N, Qb, deg * block, D]: each query block's
+    listed key blocks, in list order (padding entries read block 0 and are
+    masked by the caller)."""
+    xb = _blocks(x, block)
+    g = xb[:, :, idx.clamp_min(0).long()]            # [B, N, Qb, deg, bk, D]
+    return g.reshape(g.shape[0], g.shape[1], idx.shape[0], -1, g.shape[-1])
+
+
+def _listed(idx, cnt, block, causal):
+    """[Qb, block, deg * block] bool: key column c of query row r is in a
+    listed block (t < cnt) and, causal, not after r."""
+    Qb, deg = idx.shape
+    dev = idx.device
+    keep = torch.arange(deg, device=dev)[None, :] < cnt[:, None].long()
+    keep = keep[:, None, :, None].expand(Qb, block, deg, block)
+    if causal:
+        r = torch.arange(block, device=dev)
+        q_pos = torch.arange(Qb, device=dev)[:, None] * block + r[None, :]
+        k_pos = idx.long()[:, :, None] * block + r
+        keep = keep & (k_pos[:, None] <= q_pos[:, :, None, None])
+    return keep.reshape(Qb, block, deg * block)
+
+
+def _scores(q, k, config, causal, sm_scale):
+    """(q blocks, gathered k, scores with unlisted pairs at NEG_INF, the
+    listed mask, idx, cnt)."""
+    idx, cnt = adjacency_tables(config, q.shape[1], bool(causal),
+                                q.device)[:2]
+    qb = _blocks(q, config.block)
+    kg = _gather(k, idx, config.block)
+    keep = _listed(idx, cnt, config.block, causal)
+    s = torch.einsum("bnqrd,bnqcd->bnqrc", qb, kg) * sm_scale
+    s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return qb, kg, s, keep, idx, cnt
+
+
+def sparse_attention_reference(q, k, v, config: SparsityConfig, *,
+                               causal: bool = True,
+                               sm_scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of B5 with the kernel's semantics: online-softmax
+    result over each row's listed blocks, the running max floored at
+    M_FLOOR, an empty list giving O = 0 and LSE NEG_INF (the loop never
+    ran). Returns (O [B, S, N, D] in q's dtype, LSE [B, N, S, 1] f32)."""
+    B, S, N, D = q.shape
+    _check_seq(S, config)
+    sm_scale = _default_scale(q, sm_scale)
+    _, _, s, keep, idx, cnt = _scores(q, k, config, causal, sm_scale)
+    m = s.amax(-1, keepdim=True).clamp_min(M_FLOOR)
+    m = torch.where((cnt > 0)[:, None, None], m, torch.full_like(m, NEG_INF))
+    p = torch.where(keep, torch.exp(s - m), torch.zeros_like(s))
+    del s
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bnqrc,bnqcd->bnqrd", p / l_safe,
+                     _gather(v, idx, config.block))
+    lse = (m + torch.log(l_safe)).reshape(B, N, S, 1)
+    return _unblock(o).to(q.dtype).contiguous(), lse.contiguous()
+
+
+def sparse_attention_bwd_reference(q, k, v, o, lse, do,
+                                   config: SparsityConfig, *,
+                                   causal: bool = True,
+                                   sm_scale: Optional[float] = None,
+                                   parts=BWD_PARTS):
+    """Plain version of B6 + B7: p = exp(s - LSE) on the listed pairs,
+    delta = rowsum(dO * O), dS = p (dP - delta) sm_scale; dQ = dS K over
+    the gathered blocks, dK = dS^T Q and dV = p^T dO scattered back to
+    their key blocks with ``index_add_``. ``parts`` picks "dq" (B6) and/or
+    "dkv" (B7); a part left out comes back as None. Returns (dQ, dK, dV)
+    in q's dtype."""
+    B, S, N, D = q.shape
+    _check_seq(S, config)
+    block = config.block
+    sm_scale = _default_scale(q, sm_scale)
+    qb, kg, s, keep, idx, _ = _scores(q, k, config, causal, sm_scale)
+    lse_b = lse.float().reshape(B, N, S // block, block, 1)
+    p = torch.where(keep, torch.exp(s - lse_b), torch.zeros_like(s))
+    del s
+    dob = _blocks(do, block)
+    delta = (dob * _blocks(o, block)).sum(-1, keepdim=True)
+    dp = torch.einsum("bnqrd,bnqcd->bnqrc", dob, _gather(v, idx, block))
+    ds = p * (dp - delta) * sm_scale
+    del dp
+    dq = dk = dv = None
+    if "dq" in parts:
+        dq = _unblock(torch.einsum("bnqrc,bnqcd->bnqrd", ds, kg)).to(q.dtype)
+    if "dkv" in parts:
+        flat = idx.clamp_min(0).long().reshape(-1)
+
+        def scatter(g):          # [B, N, Qb, deg * block, D] -> [B, S, N, D]
+            g = g.reshape(B, N, -1, block, D)
+            out = torch.zeros((B, N, S // block, block, D), dtype=g.dtype,
+                              device=g.device)
+            return _unblock(out.index_add_(2, flat, g))
+        dk = scatter(torch.einsum("bnqrc,bnqrd->bnqcd", ds, qb)).to(k.dtype)
+        dv = scatter(torch.einsum("bnqrc,bnqrd->bnqcd", p, dob)).to(v.dtype)
+    return dq, dk, dv
+
+
+# --------------------------------------------------------------------------
+# the kernels' wrappers
+# --------------------------------------------------------------------------
+
+def _check(q, k, v, config, name):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name} wants q, k, v of one shape [B, S, N, D]; "
+                         f"got {tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{name} supports head_dim {_HEAD_DIMS}, got "
+                         f"{q.shape[-1]}")
+    if config.block not in _BLOCKS:
+        raise ValueError(f"{name} supports block {_BLOCKS}, got "
+                         f"{config.block}")
+    for nm, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name}: {nm} must be contiguous on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {nm} must start on a 16-byte boundary "
+                             "(the kernels load 16 bytes at once)")
+
+
+def _check_vec(name, nm, t, shape, device):
+    if t.shape != shape or t.dtype != torch.float32 \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"{name}: {nm} must be contiguous float32 {shape} "
+                         f"on {device}")
+
+
+def sparse_attention_fwd(q, k, v, config: SparsityConfig, *,
+                         causal: bool = True, sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v: [B, S, N, D]. Returns (O [B, S, N, D] in q's dtype, LSE
+    [B, N, S, 1] f32)."""
+    sm_scale = _default_scale(q, sm_scale)
+    _check_seq(q.shape[1], config)
+    if not _on_cuda(q, "sparse_fwd"):
+        return sparse_attention_reference(q, k, v, config, causal=causal,
+                                          sm_scale=sm_scale)
+    _check(q, k, v, config, "sparse_fwd")
+    B, S, N, D = q.shape
+    idx, cnt = adjacency_tables(config, S, bool(causal), q.device)[:2]
+    o = torch.empty_like(q)
+    lse = torch.empty((B, N, S, 1), dtype=torch.float32, device=q.device)
+    SPARSE_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      idx.data_ptr(), cnt.data_ptr(), o.data_ptr(),
+                      lse.data_ptr(), B, S, N, D, config.block, idx.shape[1],
+                      _DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
+                      stream_handle(q))
+    return o, lse
+
+
+def sparse_attention_bwd(q, k, v, o, lse, do, config: SparsityConfig, *,
+                         causal: bool = True, sm_scale: Optional[float] = None,
+                         parts=BWD_PARTS):
+    """Gradients (dQ, dK, dV) of ``sparse_attention`` from the forward's O
+    and LSE and the output gradient ``do`` [B, S, N, D]. On CUDA: delta =
+    rowsum(dO * O) in one torch pass, then ``sparse_bwd_launch``: B6 (dQ)
+    and B7 (dK/dV). ``parts`` picks the kernels ("dq", "dkv"; a part left
+    out comes back as None)."""
+    sm_scale = _default_scale(q, sm_scale)
+    _check_seq(q.shape[1], config)
+    if not _on_cuda(q, "sparse_bwd"):
+        return sparse_attention_bwd_reference(
+            q, k, v, o, lse, do, config, causal=causal, sm_scale=sm_scale,
+            parts=parts)
+    if o.shape != q.shape or o.dtype != q.dtype or o.device != q.device:
+        raise ValueError(f"sparse_bwd: o must be a {q.dtype} "
+                         f"{tuple(q.shape)} on {q.device}")
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return sparse_bwd_launch(
+        q, k, v, do, lse, delta, config,
+        adjacency_tables(config, q.shape[1], bool(causal), q.device),
+        causal=causal, sm_scale=sm_scale, parts=parts)
+
+
+def sparse_bwd_launch(q, k, v, do, lse, delta, config: SparsityConfig,
+                      tables, *, causal: bool, sm_scale: float,
+                      parts=BWD_PARTS):
+    """B6 and/or B7 on CUDA tensors, given delta = rowsum(dO * O) [B, N, S]
+    f32 and the adjacency ``tables`` (idx, cnt, cidx, ccnt) int32 on the
+    card: the launches of ``sparse_attention_bwd``. A measurement calls it
+    alone to time the kernels without the delta pass, or B7 on a
+    transposed table cut to one key block."""
+    if not _on_cuda(q, "sparse_bwd"):
+        raise ValueError(f"sparse_bwd_launch runs on cuda, not {q.device}")
+    _check(q, k, v, config, "sparse_bwd")
+    B, S, N, D = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous() \
+            or do.device != q.device or do.data_ptr() % 16:
+        raise ValueError(f"sparse_bwd: do must be a contiguous {q.dtype} "
+                         f"{tuple(q.shape)} on {q.device}, 16-byte aligned")
+    _check_vec("sparse_bwd", "lse", lse, (B, N, S, 1), q.device)
+    _check_vec("sparse_bwd", "delta", delta, (B, N, S), q.device)
+    for t in tables:
+        if t.dtype != torch.int32 or t.device != q.device \
+                or not t.is_contiguous() or t.shape[0] != S // config.block:
+            raise ValueError(f"sparse_bwd: adjacency tables must be "
+                             f"contiguous int32 on {q.device} with "
+                             f"{S // config.block} rows")
+    idx, cnt, cidx, ccnt = tables
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    common = (_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
+              stream_handle(q))
+    dq = dk = dv = None
+    if "dq" in parts:
+        dq = torch.empty_like(q)
+        SPARSE_BWD_DQ.launch(*inputs, idx.data_ptr(), cnt.data_ptr(),
+                             dq.data_ptr(), B, S, N, D, config.block,
+                             idx.shape[1], *common)
+    if "dkv" in parts:
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        SPARSE_BWD_DKV.launch(*inputs, cidx.data_ptr(), ccnt.data_ptr(),
+                              dk.data_ptr(), dv.data_ptr(), B, S, N, D,
+                              config.block, cidx.shape[1], *common)
+    return dq, dk, dv
+
+
+class _SparseAttention(torch.autograd.Function):
+    """``_sparse`` and its ``custom_vjp``: forward B5, backward B6 + B7
+    (``reference``: their plain versions, by name)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, config, causal, sm_scale, reference):
+        fwd = sparse_attention_reference if reference else sparse_attention_fwd
+        o, lse = fwd(q, k, v, config, causal=causal, sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.config, ctx.causal = config, causal
+        ctx.sm_scale, ctx.reference = sm_scale, reference
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = (sparse_attention_bwd_reference if ctx.reference
+               else sparse_attention_bwd)
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.config,
+                         causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def sparse_attention(q, k, v, config: SparsityConfig, *, causal: bool = True,
+                     sm_scale: Optional[float] = None,
+                     reference: bool = False) -> torch.Tensor:
+    """Block-sparse attention. q, k, v: [B, S, N, D] -> [B, S, N, D],
+    differentiable in q, k and v. The layout's tables are made once per
+    (config, S, causal, device). reference: the plain versions of all
+    three kernels, on any device (comparisons)."""
+    return _SparseAttention.apply(q, k, v, config, bool(causal),
+                                  float(_default_scale(q, sm_scale)),
+                                  bool(reference))

@@ -288,5 +288,6 @@ def test_cpu_dispatch_counts_no_launch():
     flash_attention(qt, kt, vt).sum().backward()
     counts = _build.launch_counts()
     assert set(counts) == {"flash_fwd", "paged_decode", "flash_bwd_dq",
-                           "flash_bwd_dkv"}
+                           "flash_bwd_dkv", "sparse_fwd", "sparse_bwd_dq",
+                           "sparse_bwd_dkv"}
     assert not any(counts.values())

@@ -19,6 +19,7 @@ from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
 from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference)
+from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -219,3 +220,137 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     odd = buf[1:].view(1, 64, 4, 64)          # contiguous, 2 bytes off
     with pytest.raises(ValueError, match="16-byte"):
         flash_attention_fwd(odd, odd, odd)
+
+
+# block-sparse (B5-B7): S=512, so block 64 gives 8 query blocks and block
+# 128 gives 4; the layouts have a global column (every query block lists
+# key block 0: B7's longest walk) and, non-causal, a global row
+SPARSE_LAYOUTS = {
+    "bigbird": dict(num_random_blocks=1, num_sliding_window_blocks=3,
+                    num_global_blocks=1),
+    "fixed": dict(num_local_blocks=2, num_global_blocks=1),
+    "bslongformer": dict(num_sliding_window_blocks=1,
+                         global_block_indices=(0,)),
+}
+SPARSE_CASES = [("bigbird", 128, 64, True), ("bigbird", 64, 128, False),
+                ("fixed", 64, 64, True), ("fixed", 128, 128, False),
+                ("bslongformer", 128, 128, True),
+                ("bslongformer", 64, 64, False)]
+
+
+def _sparse_inputs(rng, B, S, N, D, dtype, device):
+    return [_randn(rng, (B, S, N, D), dtype, device) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode,block,D,causal", SPARSE_CASES)
+def test_sparse_kernels_match_plain(cuda, dtype, mode, block, D, causal):
+    """B5 (O and LSE), B6 (dQ) and B7 (dK, dV) against the plain versions
+    on the same inputs."""
+    rng = np.random.default_rng(block + D + int(causal))
+    cfg = tsa.get_sparsity_config(mode, block=block, **SPARSE_LAYOUTS[mode])
+    q, k, v, do = _sparse_inputs(rng, 2, 512, 3, D, dtype, cuda)
+    before = _build.launch_counts()
+    o, lse = tsa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    ro, rlse = tsa.sparse_attention_reference(q, k, v, cfg, causal=causal)
+    got = tsa.sparse_attention_bwd(q, k, v, ro, rlse, do, cfg, causal=causal)
+    want = tsa.sparse_attention_bwd_reference(q, k, v, ro, rlse, do, cfg,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    assert rel_l2(o, ro) <= TOL[dtype]
+    assert rel_l2(lse, rlse) <= 1e-4
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
+        assert rel_l2(a, b) <= TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sparse_dkv_global_column_alone(cuda, dtype):
+    """B7 on a table restricted to the global column (key block 0, listed
+    by every query block; the others list nothing): dK/dV of block 0 equal
+    the full launch's, and every other key block's are exactly 0."""
+    rng = np.random.default_rng(9)
+    cfg = tsa.get_sparsity_config("bigbird", block=64,
+                                  **SPARSE_LAYOUTS["bigbird"])
+    q, k, v, do = _sparse_inputs(rng, 1, 1024, 2, 64, dtype, cuda)
+    o, lse = tsa.sparse_attention_fwd(q, k, v, cfg)
+    idx, cnt, cidx, ccnt = tsa.adjacency_tables(cfg, 1024, True, q.device)
+    assert int(ccnt[0]) == 1024 // 64                 # the global column
+    only = torch.zeros_like(ccnt)
+    only[0] = ccnt[0]
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    _, dk, dv = tsa.sparse_bwd_launch(q, k, v, do, lse, delta, cfg,
+                                      (idx, cnt, cidx, only), causal=True,
+                                      sm_scale=64 ** -0.5, parts=("dkv",))
+    _, dk_all, dv_all = tsa.sparse_attention_bwd(q, k, v, o, lse, do, cfg,
+                                                 parts=("dkv",))
+    torch.cuda.synchronize()
+    assert torch.equal(dk[:, :64], dk_all[:, :64])
+    assert torch.equal(dv[:, :64], dv_all[:, :64])
+    assert torch.all(dk[:, 64:] == 0) and torch.all(dv[:, 64:] == 0)
+
+
+@pytest.mark.cuda
+def test_sparse_autograd_function_on_cuda(cuda):
+    """sparse_attention end to end on CUDA tensors (B5, then B6 + B7)
+    against the same Function on the plain versions."""
+    rng = np.random.default_rng(4)
+    cfg = tsa.get_sparsity_config("bigbird", block=64,
+                                  **SPARSE_LAYOUTS["bigbird"])
+    q, k, v, do = _sparse_inputs(rng, 2, 256, 4, 64, torch.float32, cuda)
+    grads = []
+    for reference in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = _build.launch_counts()
+        o = tsa.sparse_attention(*leaves, cfg, reference=reference)
+        o.backward(do)
+        after = _build.launch_counts()
+        for name in ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv"):
+            assert after[name] == before[name] + (not reference), name
+        grads.append([o.detach()] + [t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert rel_l2(a, b) <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_sparse_wrappers_dispatch_and_refuse(cuda):
+    """CPU tensors take the plain version (no launch); on CUDA a block or
+    head_dim the kernels do not take, f16, or a mismatched k raises."""
+    cfg16 = tsa.BigBirdSparsityConfig(block=16)
+    cpu = torch.zeros((1, 64, 2, 64))
+    before = _build.launch_counts()
+    o, lse = tsa.sparse_attention_fwd(cpu, cpu, cpu, cfg16)
+    assert _build.launch_counts() == before and o.device.type == "cpu"
+    q = torch.zeros((1, 64, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="block"):
+        tsa.sparse_attention_fwd(q, q, q, cfg16)
+    with pytest.raises(ValueError, match="block"):
+        tsa.sparse_attention_bwd(q, q, q, q, q[..., :1].contiguous(), q,
+                                 cfg16)
+    cfg = tsa.BigBirdSparsityConfig(block=64)
+    q32 = torch.zeros((1, 64, 2, 32), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        tsa.sparse_attention_fwd(q32, q32, q32, cfg)
+    q16 = q.half()
+    with pytest.raises(TypeError):
+        tsa.sparse_attention_fwd(q16, q16, q16, cfg)
+    kv = torch.zeros((1, 64, 1, 64), device=cuda)
+    with pytest.raises(ValueError, match="one shape"):
+        tsa.sparse_attention_fwd(q, kv, kv, cfg)
+    with pytest.raises(ValueError, match="divisible"):
+        tsa.sparse_attention_fwd(q[:, :48].contiguous(), q[:, :48]
+                                 .contiguous(), q[:, :48].contiguous(), cfg)
+    lse = torch.zeros((1, 2, 64, 1), device=cuda)
+    tabs = tsa.adjacency_tables(cfg, 64, True, q.device)
+    with pytest.raises(ValueError, match="delta"):
+        tsa.sparse_bwd_launch(q, q, q, q, lse, lse, cfg, tabs, causal=True,
+                              sm_scale=0.125)
+    with pytest.raises(ValueError, match="runs on cuda"):
+        tsa.sparse_bwd_launch(cpu, cpu, cpu, cpu, lse.cpu(), lse[..., 0].cpu(),
+                              cfg, tabs, causal=True, sm_scale=0.125)
