@@ -6,13 +6,19 @@
 Phases, each of which raises on failure (exit code != 0):
 
 1. build: the CUDA kernels from ``deepspeed_tpu_torch/csrc/*.cu``, one
-   ``nvcc`` per source, all started together;
+   ``nvcc`` per source, all started together, with ``-Xptxas -v``; for
+   the flash backward (B2, B3) each kernel's registers, shared memory and
+   spills, and its SASS census (``cuobjdump -sass``: HGMMA = wgmma,
+   UTMALDG = TMA loads, atomics). A bf16 backward kernel without HGMMA or
+   UTMALDG, or with spills, and any atomic, fail the run;
 2. kernels: each kernel at the serving and training paths' shapes (and a
    few more) against its plain PyTorch version on the same inputs
    (relative L2 < 2e-2 in bf16, < 1e-4 in f32), timed with CUDA events
    beside the plain version, SDPA (forward, or its backward for the
-   backward kernels) as a library yardstick, and the least time the card
-   could take (bytes over 3.35 TB/s vs flops over the dtype's peak);
+   backward kernels: B2 + B3 beside it as a pair) as a library yardstick,
+   and the least time the card could take (bytes over 3.35 TB/s vs flops
+   over the dtype's peak); B2 and B3 launched twice must agree bit for
+   bit;
 3. serving: llama-7b at full width and depth (random weights from a seed,
    bf16) through ``init_serving``: 24 requests, prompts of 64..1024 tokens,
    32 new tokens each, on 16 slots. Every request must finish with 32
@@ -250,8 +256,10 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
 
 def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     """B2 (dQ) and B3 (dK/dV), fused and unfused delta, against the plain
-    backward on the same inputs; then each kernel timed alone, beside its
-    plain part and SDPA's backward."""
+    backward on the same inputs, and a second launch against the first
+    (bit for bit); then each kernel timed alone, beside its plain part,
+    and B2 + B3 beside SDPA's backward (which computes dQ, dK and dV in
+    one call)."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd)
@@ -278,7 +286,16 @@ def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
         if masked and not torch.all(got[0][:, 0] == 0):
             raise RuntimeError(f"flash_bwd {name}: the fully masked row has "
                                "a nonzero dQ")
-    del want, got
+    # deterministic: a second launch of B2 and of B3, right after the
+    # first, gives the same dQ, dK and dV bit for bit (no atomics)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                kv_mask=mask, fused=True)
+    torch.cuda.synchronize()
+    bitwise = {p: bool(torch.equal(a, b))
+               for p, a, b in zip(("dq", "dk", "dv"), got, again)}
+    if not all(bitwise.values()):
+        raise RuntimeError(f"flash_bwd {name}: two launches differ {bitwise}")
+    del want, got, again
     torch.cuda.empty_cache()
     pairs = float(keep.sum()) * N        # (query head, key) pairs visible
     recs = {}
@@ -314,11 +331,15 @@ def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     shape = (f"B={B} S={S} Nq={N} Nkv={Nkv} D={D} "
              f"{str(dtype).split('.')[-1]} causal"
              + (" kv_mask" if masked else ""))
+    # B2 + B3, the pair that SDPA's one backward call replaces
+    pair_ms = recs["dq"]["ms"] + recs["dkv"]["ms"]
     out = {}
     for part in ("dq", "dkv"):
         out[part] = dict(case=name, shape=shape, rel_l2=errs,
                          max_abs_err=max_err[part], library_ms=library_ms,
-                         **recs[part])
+                         b2_plus_b3_ms=pair_ms,
+                         b2_plus_b3_over_library=pair_ms / library_ms,
+                         bitwise_repeat=bitwise, **recs[part])
         log(f"flash_bwd_{part} " + json.dumps(out[part]))
     return out
 
@@ -1097,6 +1118,92 @@ def training_cross_check(S=512, sparse=None):
     return recs
 
 
+# the two flash-backward libraries, whose bf16 kernels run on wgmma with
+# TMA-fed tiles: ptxas's report and the SASS opcodes that show it
+WGMMA_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+
+
+def ptxas_report(log: str):
+    """[{function, registers, spill_stores, spill_loads, smem_bytes}] from
+    ``nvcc -Xptxas -v`` output (smem: ptxas's static shared memory; the
+    wgmma kernels' ring is dynamic and sized by their launchers)."""
+    import re
+    out, fn = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = {"function": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn is not None:
+            fn["spill_stores"], fn["spill_loads"] = int(m.group(1)), int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            fn["smem_bytes"] = int(sm.group(1)) if sm else 0
+            out.append(fn)
+            fn = None
+    return out
+
+
+def sass_census(path):
+    """{function: {"HGMMA": n, "UTMALDG": n, "atomics": n}} from
+    ``cuobjdump -sass`` of a library (wgmma, TMA tile loads, and ATOM,
+    ATOMS, ATOMG, RED, REDG)."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    atomics = {"ATOM", "ATOMS", "ATOMG", "RED", "REDG"}
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        ops = []
+        for ln in body.splitlines():
+            toks = ln.split("*/", 1)[-1].split() if "*/" in ln else []
+            if toks and toks[0].startswith("@"):     # a predicate guard
+                toks = toks[1:]
+            if toks and not toks[0].startswith("/*"):
+                ops.append(toks[0].split(".")[0])
+        counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG")}
+        counts["atomics"] = sum(o in atomics for o in ops)
+        out[name.strip()] = counts
+    return out
+
+
+def build_phase():
+    """Every kernel from source, one nvcc per source, with ptxas's report;
+    then, for the two backward libraries, each kernel's registers, shared
+    memory and spills and its SASS census. Raises if a wgmma kernel (the
+    bf16 path) has no HGMMA or no UTMALDG, spills, or any backward kernel
+    uses atomics."""
+    from deepspeed_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    logs = _build.build(force=True, verbose=True)
+    seconds = time.perf_counter() - t0
+    log(f"build: {len(_build.KERNELS)} kernels from source in {seconds:.1f}s")
+    info = {}
+    for name in WGMMA_KERNELS:
+        ptx = ptxas_report(logs[name])
+        sass = sass_census(_build.KERNELS[name].library_path())
+        info[name] = {"ptxas": ptx, "sass": sass}
+        log(f"build {name} " + json.dumps(info[name]))
+        for fn in ptx:
+            if "wgmma" in fn["function"] and (fn["spill_stores"]
+                                              or fn["spill_loads"]):
+                raise RuntimeError(f"{name}: {fn['function']} spills {fn}")
+        wg = {f: c for f, c in sass.items() if "wgmma" in f}
+        if not wg or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                             for c in wg.values()):
+            raise RuntimeError(f"{name}: the bf16 kernels do not run on "
+                               f"wgmma with TMA loads: {sass}")
+        if any(c["atomics"] for c in sass.values()):
+            raise RuntimeError(f"{name}: atomics in {sass}")
+    return seconds, info
+
+
 def kernel_line(name, replaces, launches, cases, main):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -1128,10 +1235,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    _build.build(force=True)
-    log(f"build: {len(_build.KERNELS)} kernels from source in "
-        f"{time.perf_counter() - t0:.1f}s")
+    build_s, build_info = build_phase()
 
     flash, decode, bwd = kernel_phase()
     sparse = sparse_kernel_phase()
@@ -1172,6 +1276,10 @@ def main() -> int:
         line["kernels"].append(kernel_line(
             name, f"deepspeed_tpu/ops/sparse_attention.py:{site}", sl[name],
             [c[part] for c in sparse], sparse[0][part]))
+    for entry in line["kernels"]:
+        if entry["name"] in build_info:
+            entry["build"] = build_info[entry["name"]]
+    line["build_s"] = build_s
     line["kernels"][0]["launches_by_path"] = {
         "serving": launches["flash_fwd"], "training": tl["flash_fwd"]}
     log(json.dumps(line))

@@ -112,20 +112,27 @@ def _bwd_inputs(rng, B, S, N, Nkv, D, dtype, device, masked):
 
 # the grid of the CPU parity tests (test_torch_attention.py): causal and
 # not, rep 1/2/4, D 64/128, a key mask with a fully masked row, fused and
-# unfused delta; S=200 leaves a ragged edge for every tile
-BWD_CASES = [(True, 1, 64, False, False), (True, 2, 128, False, True),
-             (True, 4, 64, True, False), (True, 4, 128, True, True),
-             (False, 1, 128, True, True), (False, 2, 64, False, False),
-             (False, 4, 64, True, True), (True, 8, 128, False, False)]
+# unfused delta; S=200 leaves a ragged edge for every tile. Then S a
+# multiple of every tile of the bf16 kernels (B2: 128 / rep positions x
+# 64 keys; B3: 128 keys x 64 or 32 rows) and S=1024, where the 3-stage
+# ring of each block wraps many times, at rep 1, 4 and 8, D 64 and 128
+BWD_CASES = [(True, 1, 64, False, False, 200), (True, 2, 128, False, True, 200),
+             (True, 4, 64, True, False, 200), (True, 4, 128, True, True, 200),
+             (False, 1, 128, True, True, 200), (False, 2, 64, False, False, 200),
+             (False, 4, 64, True, True, 200), (True, 8, 128, False, False, 200),
+             (True, 1, 64, False, True, 256), (True, 8, 64, True, True, 256),
+             (True, 4, 128, False, True, 256), (True, 1, 128, False, True, 1024),
+             (True, 4, 64, False, True, 1024), (True, 8, 128, False, False, 1024),
+             (False, 4, 64, True, True, 1024), (True, 8, 64, True, False, 1024)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("causal,rep,D,masked,fused", BWD_CASES)
+@pytest.mark.parametrize("causal,rep,D,masked,fused,S", BWD_CASES)
 def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, rep, D, masked,
-                                       fused):
+                                       fused, S):
     rng = np.random.default_rng(rep * D + int(causal))
-    B, S, Nkv = 2, 200, 2
+    B, Nkv = 2, 2
     q, k, v, do, mask = _bwd_inputs(rng, B, S, Nkv * rep, Nkv, D, dtype,
                                     cuda, masked)
     o, lse = flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
@@ -143,6 +150,25 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, rep, D, masked,
         assert rel_l2(a, b) <= TOL[dtype], name
     if masked and causal:               # the fully masked row: dQ exactly 0
         assert torch.all(got[0][:, 0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked,fused", [(False, True), (True, False)])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype, masked, fused):
+    """Two launches of B2 and B3 on the same inputs give the same dQ, dK
+    and dV bit for bit: no atomics, every sum in a fixed order."""
+    rng = np.random.default_rng(11)
+    q, k, v, do, mask = _bwd_inputs(rng, 2, 1024, 16, 4, 64, dtype, cuda,
+                                    masked)
+    o, lse = flash_attention_reference(q, k, v, kv_mask=mask)
+    first = flash_attention_bwd(q, k, v, o, lse, do, kv_mask=mask,
+                                fused=fused)
+    second = flash_attention_bwd(q, k, v, o, lse, do, kv_mask=mask,
+                                 fused=fused)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
