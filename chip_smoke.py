@@ -7,18 +7,20 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. build: the CUDA kernels from ``deepspeed_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together, with ``-Xptxas -v``; for
-   the flash backward (B2, B3) each kernel's registers, shared memory and
-   spills, and its SASS census (``cuobjdump -sass``: HGMMA = wgmma,
-   UTMALDG = TMA loads, atomics). A bf16 backward kernel without HGMMA or
-   UTMALDG, or with spills, and any atomic, fail the run;
+   the flash kernels (forward B1, backward B2, B3) each kernel's
+   registers, shared memory and spills, ptxas's warnings, and its SASS
+   census (``cuobjdump -sass``: HGMMA = wgmma, UTMALDG = TMA loads,
+   atomics). A bf16 flash kernel without HGMMA or UTMALDG, or with
+   spills, and any atomic in a flash library, fail the run;
 2. kernels: each kernel at the serving and training paths' shapes (and a
    few more) against its plain PyTorch version on the same inputs
-   (relative L2 < 2e-2 in bf16, < 1e-4 in f32), timed with CUDA events
-   beside the plain version, SDPA (forward, or its backward for the
-   backward kernels: B2 + B3 beside it as a pair) as a library yardstick,
-   and the least time the card could take (bytes over 3.35 TB/s vs flops
-   over the dtype's peak); B2 and B3 launched twice must agree bit for
-   bit;
+   (relative L2 < 2e-2 in bf16, < 1e-4 in f32; B1's LSE < 1e-4 over the
+   rows that see a key, and its fully masked rows exactly O = 0 and LSE =
+   M_FLOOR), timed with CUDA events beside the plain version, SDPA
+   (forward, or its backward for the backward kernels: B2 + B3 beside it
+   as a pair) as a library yardstick, and the least time the card could
+   take (bytes over 3.35 TB/s vs flops over the dtype's peak); B1, B2
+   and B3 launched twice must agree bit for bit;
 3. serving: llama-7b at full width and depth (random weights from a seed,
    bf16) through ``init_serving``: 24 requests, prompts of 64..1024 tokens,
    32 new tokens each, on 16 slots. Every request must finish with 32
@@ -145,19 +147,37 @@ def _attn_inputs(B, S, N, Nkv, D, dtype, masked, seed):
 
 
 def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
+    """B1 against the plain version: O by relative L2, LSE by relative L2
+    over the rows that see a key (a fully masked row's M_FLOOR = -1e20
+    would swamp any error in the others), fully masked rows exactly O = 0
+    and LSE = M_FLOOR, a second launch bit for bit; then timed beside the
+    plain version, SDPA's forward and the bound."""
     from deepspeed_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_reference)
+        M_FLOOR, flash_attention_fwd, flash_attention_reference)
     q, k, v, _, mask, keep = _attn_inputs(B, S, N, Nkv, D, dtype, masked,
                                           seed)
     o, lse = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
     ro, rlse = flash_attention_reference(q, k, v, causal=True, kv_mask=mask)
+    again = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
     torch.cuda.synchronize()
     if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
         raise RuntimeError(f"flash_fwd {name}: non-finite output")
-    err, err_lse = rel_l2(o, ro), rel_l2(lse, rlse)
+    live = keep.any(-1)                              # [B, S]
+    by_row, ref_row = (x[..., 0].transpose(1, 2) for x in (lse, rlse))
+    err, err_lse = rel_l2(o, ro), rel_l2(by_row[live], ref_row[live])
     if err >= TOL[dtype] or err_lse >= 1e-4:
         raise RuntimeError(f"flash_fwd {name}: rel L2 {err:.3g} (O), "
-                           f"{err_lse:.3g} (LSE) vs the plain version")
+                           f"{err_lse:.3g} (LSE of the live rows) vs the "
+                           "plain version")
+    dead = int((~live).sum())
+    if not (torch.all(o[~live] == 0) and torch.all(by_row[~live] == M_FLOOR)):
+        raise RuntimeError(f"flash_fwd {name}: a fully masked row is not "
+                           "exactly O = 0, LSE = M_FLOOR")
+    bitwise = {"o": bool(torch.equal(o, again[0])),
+               "lse": bool(torch.equal(lse, again[1]))}
+    if not all(bitwise.values()):
+        raise RuntimeError(f"flash_fwd {name}: two launches differ {bitwise}")
+    del again
     ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
                                              kv_mask=mask))
     plain_ms = cuda_ms(lambda: flash_attention_reference(
@@ -178,7 +198,8 @@ def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     rec = dict(case=name, shape=f"B={B} S={S} Nq={N} Nkv={Nkv} D={D} "
                f"{str(dtype).split('.')[-1]} causal"
                + (" kv_mask" if masked else ""),
-               rel_l2=err, rel_l2_lse=err_lse, max_abs_err=max_abs(o, ro),
+               rel_l2=err, rel_l2_lse=err_lse, fully_masked_positions=dead,
+               max_abs_err=max_abs(o, ro), bitwise_repeat=bitwise,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                tflops=flops / ms / 1e9)
@@ -1118,11 +1139,6 @@ def training_cross_check(S=512, sparse=None):
     return recs
 
 
-# the two flash-backward libraries, whose bf16 kernels run on wgmma with
-# TMA-fed tiles: ptxas's report and the SASS opcodes that show it
-WGMMA_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
-
-
 def ptxas_report(log: str):
     """[{function, registers, spill_stores, spill_loads, smem_bytes}] from
     ``nvcc -Xptxas -v`` output (smem: ptxas's static shared memory; the
@@ -1175,20 +1191,23 @@ def sass_census(path):
 
 def build_phase():
     """Every kernel from source, one nvcc per source, with ptxas's report;
-    then, for the two backward libraries, each kernel's registers, shared
-    memory and spills and its SASS census. Raises if a wgmma kernel (the
-    bf16 path) has no HGMMA or no UTMALDG, spills, or any backward kernel
-    uses atomics."""
+    then, for the three flash libraries, each kernel's registers, shared
+    memory and spills, ptxas's warnings (a serialized wgmma shows there),
+    and its SASS census. Raises if a wgmma kernel (the bf16 path) has no
+    HGMMA or no UTMALDG, spills, or any flash kernel uses atomics."""
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(force=True, verbose=True)
     seconds = time.perf_counter() - t0
     log(f"build: {len(_build.KERNELS)} kernels from source in {seconds:.1f}s")
     info = {}
-    for name in WGMMA_KERNELS:
+    for name in FLASH_KERNELS:     # bf16 on wgmma with TMA-fed tiles
         ptx = ptxas_report(logs[name])
         sass = sass_census(_build.KERNELS[name].library_path())
-        info[name] = {"ptxas": ptx, "sass": sass}
+        warnings = [ln.strip() for ln in logs[name].splitlines()
+                    if "warning" in ln.lower() or "Performance Loss" in ln]
+        info[name] = {"ptxas": ptx, "ptxas_warnings": warnings,
+                      "sass": sass}
         log(f"build {name} " + json.dumps(info[name]))
         for fn in ptx:
             if "wgmma" in fn["function"] and (fn["spill_stores"]

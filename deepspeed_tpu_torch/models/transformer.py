@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
@@ -569,10 +570,13 @@ def init_paged_cache(cfg: TransformerConfig, num_blocks: int,
                      block_size: int, dtype=None, device=None) -> Params:
     """Block pools [L, NB, n_kv, block_size, head_dim]. Block 0 is the
     reserved TRASH block: null table entries point at it and inactive slots
-    write into it; its contents are never read (masked by the lengths)."""
+    write into it; its contents are never read (masked by the lengths).
+    ``device=None`` means the card (raises without CUDA), as every entry
+    point of the port."""
     shape = (cfg.num_layers, num_blocks, cfg.kv_heads, block_size,
              cfg.dim_per_head)
     dtype = dtype or cfg.dtype
+    device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -17,8 +17,9 @@ from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops.decode_attention import (paged_decode_attention,
                                                       paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_reference)
+    M_FLOOR, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_reference, flash_attention_fwd,
+    flash_attention_reference)
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -42,22 +43,40 @@ def _randn(rng, shape, dtype, device):
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
+def _live_rows(B, S, causal, mask, device):
+    """[B, S] bool: the query rows that see at least one key."""
+    keep = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        keep = torch.tril(keep)
+    keep = keep[None].expand(B, S, S)
+    if mask is not None:
+        keep = keep & mask[:, None, :]
+    return keep.any(-1)
+
+
+# rep, D, masked, causal, S. S=200 leaves a ragged edge for every tile;
+# rep 3 is no power of two (42 positions a bf16 block); rep 64 is the
+# largest group (2 positions a bf16 block); S=17 is below one tile
+FWD_CASES = [(1, 128, False, True, 200), (4, 64, False, True, 200),
+             (8, 128, True, True, 200), (3, 64, True, False, 200),
+             (64, 64, False, True, 200), (4, 64, True, True, 17),
+             (1, 128, False, False, 300), (2, 128, True, False, 1024)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rep,D,masked,causal", [
-    (1, 128, False, True), (4, 64, False, True), (8, 128, True, True),
-    (3, 64, True, False)])
-def test_flash_kernel_matches_plain(cuda, dtype, rep, D, masked, causal):
-    rng = np.random.default_rng(rep)
-    B, S, Nkv = 2, 200, 2               # 200: a ragged edge for every tile
+@pytest.mark.parametrize("rep,D,masked,causal,S", FWD_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, rep, D, masked, causal, S):
+    rng = np.random.default_rng(rep + S)
+    B, Nkv = 2, 2
     q = _randn(rng, (B, S, Nkv * rep, D), dtype, cuda)
     k = _randn(rng, (B, S, Nkv, D), dtype, cuda)
     v = _randn(rng, (B, S, Nkv, D), dtype, cuda)
     mask = None
-    if masked:                          # padding, and key 0 masked: row 0
-        lens = torch.tensor([150, 200], device=cuda)     # fully masked
+    if masked:                          # padding, and key 0 masked: causal
+        lens = torch.tensor([S - S // 4, S], device=cuda)  # row 0 is then
         mask = torch.arange(S, device=cuda)[None, :] < lens[:, None]
-        mask[:, 0] = False
+        mask[:, 0] = False                                  # fully masked
     before = _build.FLASH_FWD.launches
     o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_mask=mask)
     ro, rlse = flash_attention_reference(q, k, v, causal=causal,
@@ -66,7 +85,31 @@ def test_flash_kernel_matches_plain(cuda, dtype, rep, D, masked, causal):
     assert _build.FLASH_FWD.launches == before + 1
     assert o.dtype == dtype and lse.dtype == torch.float32
     assert rel_l2(o, ro) <= TOL[dtype]
-    assert rel_l2(lse, rlse) <= 1e-4
+    # LSE by relative L2 over the rows that see a key (a fully masked
+    # row's M_FLOOR = -1e20 would swamp any error in the others); fully
+    # masked rows exactly O = 0 and LSE = M_FLOOR
+    live = _live_rows(B, S, causal, mask, cuda)
+    assert bool(live.all()) == (not (masked and causal))
+    by_row = lse[..., 0].transpose(1, 2)            # [B, S, N]
+    assert rel_l2(by_row[live], rlse[..., 0].transpose(1, 2)[live]) <= 1e-4
+    assert torch.all(o[~live] == 0)
+    assert torch.all(by_row[~live] == M_FLOOR)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_fwd_kernel_is_deterministic(cuda, dtype, masked):
+    """Two launches of B1 on the same inputs give the same O and LSE bit
+    for bit: no atomics, every sum in a fixed order."""
+    rng = np.random.default_rng(12)
+    q, k, v, _, mask = _bwd_inputs(rng, 2, 1024, 16, 4, 64, dtype, cuda,
+                                   masked)
+    first = flash_attention_fwd(q, k, v, kv_mask=mask)
+    second = flash_attention_fwd(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

@@ -162,6 +162,31 @@ def test_seeded_init_matches_jax_layout():
                 0.1 * float(np.std(b[k])) + 1e-6, k
 
 
+def test_paged_cache_device_none_means_the_card():
+    """``device=None`` resolves as every entry point does: the card, or a
+    raise where there is no CUDA (never a silent pool on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: device=None gives a pool on the card")
+    cfg = pt.TransformerConfig(**CFG, dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.init_paged_cache(cfg, NB, BS)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.make_model(cfg).init_paged_cache(NB, BS)
+
+
+def test_paged_cache_on_the_cpu_when_asked():
+    cfg = pt.TransformerConfig(**CFG, dtype=torch.bfloat16)
+    for pools in (pt.init_paged_cache(cfg, NB, BS, device="cpu"),
+                  pt.make_model(cfg).init_paged_cache(NB, BS, device="cpu")):
+        for name in ("k", "v"):
+            t = pools[name]
+            assert t.device.type == "cpu" and t.dtype == torch.bfloat16
+            assert tuple(t.shape) == (CFG["num_layers"], NB,
+                                      CFG["num_kv_heads"], BS,
+                                      CFG["hidden_size"] // CFG["num_heads"])
+            assert not t.any()
+
+
 def test_deferred_model_features_raise():
     for bad in (dict(kv_cache_bits=8), dict(num_experts=4),
                 dict(position_type="alibi"), dict(attn_windows=(0, 8))):
