@@ -7,11 +7,12 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. build: the CUDA kernels from ``deepspeed_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together, with ``-Xptxas -v``; for
-   the flash kernels (forward B1, backward B2, B3) each kernel's
-   registers, shared memory and spills, ptxas's warnings, and its SASS
-   census (``cuobjdump -sass``: HGMMA = wgmma, UTMALDG = TMA loads,
-   atomics). A bf16 flash kernel without HGMMA or UTMALDG, or with
-   spills, and any atomic in a flash library, fail the run;
+   the kernels on wgmma (flash forward B1, backward B2, B3; sparse
+   backward B6, B7) each kernel's registers, shared memory and spills,
+   ptxas's warnings, and its SASS census (``cuobjdump -sass``: HGMMA =
+   wgmma, UTMALDG = TMA loads, atomics). A bf16 kernel of those without
+   HGMMA or UTMALDG, or with spills, and any atomic in their libraries,
+   fail the run;
 2. kernels: each kernel at the serving and training paths' shapes (and a
    few more) against its plain PyTorch version on the same inputs
    (relative L2 < 2e-2 in bf16, < 1e-4 in f32; B1's LSE < 1e-4 over the
@@ -50,8 +51,10 @@ Phases, each of which raises on failure (exit code != 0):
    case, each against the plain version (gathered over the adjacency),
    timed beside it, beside flex_attention with a BlockMask of the layout
    (compiled by torch.compile; the library time), beside SDPA with the
-   layout as a dense boolean mask, and beside the bound; B7's longest key
-   column timed alone; the main shape also beside dense B1 + B2 + B3;
+   layout as a dense boolean mask, and beside the bound; B6 and B7
+   launched twice must agree bit for bit; their work lists (C, the pieces
+   of the split lists) logged; B7's longest key column timed alone; the
+   main shape also beside dense B1 + B2 + B3;
 8. sparse training: llama-1b at full width and depth, S=8192, the BigBird
    layout, B=2, 1 warm-up + 8 timed steps with the counts zeroed just
    before them: losses must fall, B5 (forward and its replay), B6 and B7
@@ -485,12 +488,19 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     o, lse = sa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
     ro, rlse = sa.sparse_attention_reference(q, k, v, cfg, causal=causal)
     got = sa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
+    again = sa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
     want = sa.sparse_attention_bwd_reference(q, k, v, o, lse, do, cfg,
                                              causal=causal)
     torch.cuda.synchronize()
     for part, a in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + got):
         if not torch.isfinite(a).all():
             raise RuntimeError(f"sparse {name}: non-finite {part}")
+    # B6/B7 sum their split walks in a fixed order: bit for bit the same
+    differ = [p for p, a, b in zip(("dq", "dk", "dv"), got, again)
+              if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"sparse {name}: a second launch changed {differ}")
+    del again
     errs = {"o": rel_l2(o, ro), "lse": rel_l2(lse, rlse)}
     errs.update((p, rel_l2(a, b)) for p, a, b in zip(("dq", "dk", "dv"),
                                                      got, want))
@@ -508,10 +518,10 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     idx, cnt, cidx, ccnt = tables
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
-    def bwd(part, tabs=tables):
+    def bwd(part, tabs=tables, work=None):
         return sa.sparse_bwd_launch(q, k, v, do, lse, delta, cfg, tabs,
                                     causal=causal, sm_scale=1.0 / D ** 0.5,
-                                    parts=(part,))
+                                    parts=(part,), work=work)
     ms = {"fwd": cuda_ms(lambda: sa.sparse_attention_fwd(q, k, v, cfg,
                                                          causal=causal)),
           "dq": cuda_ms(lambda: bwd("dq")), "dkv": cuda_ms(lambda: bwd("dkv"))}
@@ -526,12 +536,14 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     top = int(ccnt.argmax())
     only, rest = torch.zeros_like(ccnt), ccnt.clone()
     only[top], rest[top] = ccnt[top], 0
+    cut = {n: (idx, cnt, cidx, c) for n, c in (("only", only), ("rest", rest))}
+    work = {n: sa.work_for(t, cfg, S, causal, q.device) for n, t in cut.items()}
     tail = {"key_block": top, "its_query_blocks": int(ccnt[top]),
             "median_query_blocks": float(ccnt.float().median()),
             "dkv_ms_that_block_alone": cuda_ms(
-                lambda: bwd("dkv", (idx, cnt, cidx, only))),
+                lambda: bwd("dkv", cut["only"], work["only"])),
             "dkv_ms_all_others": cuda_ms(
-                lambda: bwd("dkv", (idx, cnt, cidx, rest)))}
+                lambda: bwd("dkv", cut["rest"], work["rest"]))}
     lib_fwd, lib_bwd, lib_err = _flex_yardstick(cfg, S, causal, q, k, v, do,
                                                 o, got)
     del got
@@ -578,6 +590,13 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
                           bound_ms=bound_ms, bound_by=bound_by,
                           tflops=flops / ms[part] / 1e9)
     recs["dkv"]["tail"] = tail
+    # the bf16 kernels' work lists: C, and the pieces of the split lists
+    if dtype == torch.bfloat16:
+        for part, w in zip(("dq", "dkv"), sa.work_tables(cfg, S, causal,
+                                                         q.device)):
+            recs[part]["work"] = {"chunk": w.chunk, "items": len(w.items),
+                                  "split_lists": len(w.sums),
+                                  "pieces": w.slots}
     if dense:
         from deepspeed_tpu_torch.ops.flash_attention import (
             flash_attention_bwd, flash_attention_fwd)
@@ -1001,6 +1020,8 @@ SPARSE_TRAIN_CONFIG = dict(TRAIN_CONFIG, train_batch_size=2)
 SPARSE_MODEL = {"mode": "bigbird", **BIGBIRD_128}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
+# the libraries whose bf16 kernels run on wgmma with TMA-fed tiles
+WGMMA_KERNELS = FLASH_KERNELS + ("sparse_bwd_dq", "sparse_bwd_dkv")
 
 
 def sparse_training_phase(recs):
@@ -1191,17 +1212,18 @@ def sass_census(path):
 
 def build_phase():
     """Every kernel from source, one nvcc per source, with ptxas's report;
-    then, for the three flash libraries, each kernel's registers, shared
-    memory and spills, ptxas's warnings (a serialized wgmma shows there),
-    and its SASS census. Raises if a wgmma kernel (the bf16 path) has no
-    HGMMA or no UTMALDG, spills, or any flash kernel uses atomics."""
+    then, for the libraries on wgmma (the three flash kernels and the
+    sparse backward B6, B7), each kernel's registers, shared memory and
+    spills, ptxas's warnings (a serialized wgmma shows there), and its SASS
+    census. Raises if a wgmma kernel (the bf16 path) has no HGMMA or no
+    UTMALDG, spills, or any kernel of those libraries uses atomics."""
     from deepspeed_tpu_torch.ops import _build
     t0 = time.perf_counter()
     logs = _build.build(force=True, verbose=True)
     seconds = time.perf_counter() - t0
     log(f"build: {len(_build.KERNELS)} kernels from source in {seconds:.1f}s")
     info = {}
-    for name in FLASH_KERNELS:     # bf16 on wgmma with TMA-fed tiles
+    for name in WGMMA_KERNELS:     # bf16 on wgmma with TMA-fed tiles
         ptx = ptxas_report(logs[name])
         sass = sass_census(_build.KERNELS[name].library_path())
         warnings = [ln.strip() for ln in logs[name].splitlines()

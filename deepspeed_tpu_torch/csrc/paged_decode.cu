@@ -5,7 +5,8 @@
 //
 // Computes, for every serving slot s and query head h (kv head g = h / rep):
 //   out[s, h] = softmax([q.K_pool rows < len[s] ; q.k_row]) @ [V_pool rows ; v_row]
-// where the pool rows are read through block_tables[s, :ceil(len/bs)], the
+// where the pool rows are read through block_tables[s, :ceil(len/bs)] (len
+// clamped to the table's MB * bs rows), the
 // fresh (k_row, v_row) of the token being decoded is NOT in the pool and is
 // folded into the softmax last, and a len == 0 slot outputs exactly v_row.
 // Rows at or past len (stale rows, the trash block 0) are never read.
@@ -95,7 +96,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int Nq = Nkv * rep;
-  const int len = lens[s];
+  // a slot past its table's capacity (a request that reached its budget
+  // mid-quantum keeps counting) reads only its MB blocks, as the plain
+  // version's gather over [S, MB] does
+  const int len = min(lens[s], MB * bs);
 
   __shared__ float acc_sh[kWarps][MAXREP][D];
   __shared__ float m_sh[kWarps][MAXREP];

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// (forward B1, backward B2/B3): mbarriers, TMA tile loads
+// Hopper (sm_90a) building blocks shared by the attention kernels on
+// wgmma (flash forward B1, backward B2/B3; block-sparse backward B6/B7):
+// mbarriers, TMA tile loads
 // (cp.async.bulk.tensor) from a 4-D tensor map, wgmma (warpgroup matrix
 // multiply, f32 accumulators) on 128B-swizzled shared-memory tiles, and
 // the host-side tensor map.

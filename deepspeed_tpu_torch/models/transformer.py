@@ -293,7 +293,16 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     of the repeat sums dK/dV over the group) and goes through the
     block-sparse kernels (B5-B7). Everything else, a sparse config with a
     key mask included, goes through the GQA-native flash kernels (B1-B3),
-    which compute the JAX dense branch's function."""
+    which compute the JAX dense branch's function.
+
+    A query row that sees no key (a causal row whose visible keys are all
+    masked: left padding) gets O = 0 here, as JAX's Pallas flash kernel
+    gives on the TPU (and B2/B3 rely on its p = 0). JAX's XLA branch gives
+    such a row the mean of V over all S keys instead (its -1e30 fill makes
+    the softmax uniform). That concerns the dense route under a key mask
+    on JAX's CPU backend (its Pallas opt-in agrees with the port), and the
+    sparse config with a key mask, which JAX sends to XLA on every
+    backend. Every row that sees a key agrees with both."""
     sm = _sm_scale(cfg, q.shape[-1])
     if cfg.sparse_attention and mask is None:
         rep = q.shape[2] // k.shape[2]
@@ -625,8 +634,10 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
 
     The fresh rows of all layers are written after the layer stack, in
     place (JAX donated the pools): one scatter to (block_tables[s,
-    len // bs], len % bs). Inactive slots still compute but write into the
-    trash block 0; duplicate trash writes are fine (never read)."""
+    len // bs], len % bs). Inactive slots, and slots whose column len // bs
+    is past the table (a request that reached max_model_len mid-quantum),
+    still compute but write into the trash block 0; duplicate trash writes
+    are fine (never read)."""
     S = tokens.shape[0]
     if active is None:
         active = torch.ones((S,), dtype=torch.bool, device=tokens.device)
@@ -642,12 +653,14 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
         v_rows.append(v_row[:, :, 0])
     bs = pools["k"].shape[3]
     MB = block_tables.shape[1]
-    # a slot exactly at the table's capacity (budget ended mid-quantum)
-    # writes its discarded overshoot row into its own last block
-    col = torch.clamp(seq_lens.long() // bs, max=MB - 1)
-    blk = block_tables.long().gather(1, col[:, None])[:, 0]
-    blk = torch.where(active, blk, torch.zeros_like(blk))
-    off = torch.where(active, seq_lens.long() % bs, torch.zeros_like(blk))
+    # a slot at or past its table's capacity (its request reached
+    # max_model_len mid-quantum) writes its discarded row into the trash
+    # block, as an inactive slot does (JAX drops that row)
+    col = seq_lens.long() // bs
+    write = active & (col < MB)
+    blk = block_tables.long().gather(1, col.clamp(max=MB - 1)[:, None])[:, 0]
+    blk = torch.where(write, blk, torch.zeros_like(blk))
+    off = torch.where(write, seq_lens.long() % bs, torch.zeros_like(blk))
     # [L, S, nkv, hd] -> [S, L, nkv, hd]: the advanced indices lead
     pools["k"][:, blk, :, off, :] = torch.stack(k_rows, dim=1)
     pools["v"][:, blk, :, off, :] = torch.stack(v_rows, dim=1)

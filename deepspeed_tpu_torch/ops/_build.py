@@ -87,12 +87,13 @@ PAGED_DECODE = Kernel("paged_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I,
 # dtype, causal, sm_scale, stream
 FLASH_BWD_DQ = Kernel("flash_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _P])
 FLASH_BWD_DKV = Kernel("flash_bwd_dkv", [_P] * 10 + [_I] * 7 + [_F, _P])
-# block-sparse: q, k, v (dO, lse, delta), the adjacency tables, then the
-# outputs; B, S, N, D, block, table row stride, dtype, causal, sm_scale,
-# stream
+# block-sparse: q, k, v (dO, lse, delta), the adjacency tables (the
+# backward: then its work list, sums and workspace), then the outputs; B,
+# S, N, D, block, table row stride (the backward: then the item and sum
+# counts), dtype, causal, sm_scale, stream
 SPARSE_FWD = Kernel("sparse_fwd", [_P] * 7 + [_I] * 8 + [_F, _P])
-SPARSE_BWD_DQ = Kernel("sparse_bwd_dq", [_P] * 9 + [_I] * 8 + [_F, _P])
-SPARSE_BWD_DKV = Kernel("sparse_bwd_dkv", [_P] * 10 + [_I] * 8 + [_F, _P])
+SPARSE_BWD_DQ = Kernel("sparse_bwd_dq", [_P] * 12 + [_I] * 10 + [_F, _P])
+SPARSE_BWD_DKV = Kernel("sparse_bwd_dkv", [_P] * 14 + [_I] * 10 + [_F, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (
     FLASH_FWD, PAGED_DECODE, FLASH_BWD_DQ, FLASH_BWD_DKV, SPARSE_FWD,
     SPARSE_BWD_DQ, SPARSE_BWD_DKV)}

@@ -117,7 +117,10 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     [S, Nkv, 1, D]. Returns [S, 1, Nq, D].
 
     The kernel trusts the tables: every entry below ceil(len/bs) must be a
-    block of the pool and len <= MB * bs (the scheduler guarantees both)."""
+    block of the pool. A len past MB * bs is read as MB * bs, as the plain
+    version's gather of MB blocks does: the serving quantum keeps raising
+    the length of a slot whose request reached max_model_len mid-quantum
+    (the rows it then computes are discarded)."""
     if kv_row is None:
         raise ValueError("paged_decode_attention requires the fresh-row "
                          "fold (kv_row): the decode step never pre-writes "

@@ -9,6 +9,11 @@ source's note says what bounds it and how it is laid out):
 - ``csrc/sparse_bwd_dkv.cu`` (B7): dK and dV, each key block walking the
   query blocks of its transposed row.
 
+In bf16, B6 and B7 walk a work list (``work_list``) rather than one list
+per CUDA block: a list longer than C entries (BigBird's global column,
+listed by every query block) is cut into pieces that run side by side,
+each writing f32 partials that a second pass adds up in a fixed order.
+
 ``sparse_attention`` is a ``torch.autograd.Function``, the TPU module's
 ``_sparse`` and its ``custom_vjp``: the forward launches B5 and keeps (q,
 k, v, O, LSE); the backward takes delta = rowsum(dO * O) in one torch pass
@@ -203,6 +208,94 @@ def _cached_adjacency(config: SparsityConfig, seq_len: int, causal: bool):
     for t in tables:
         t.setflags(write=False)
     return tables
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkList:
+    """The work of one bf16 backward kernel (B6 over the rows of ``idx``,
+    B7 over the columns of ``cidx``). ``items`` [n, 4] int32: (output
+    block, first list entry, entry count, partial slot), longest first;
+    the slot is -1 where the list is not split (the item writes its
+    output block), else the f32 workspace slot its piece writes. ``sums``
+    [m, 3] int32: (output block, first slot, pieces) of each split block,
+    which the kernels' second pass adds up in slot order. ``slots``: the
+    workspace's slots; ``chunk``: C, the most entries a piece walks."""
+    items: object
+    sums: object
+    slots: int
+    chunk: int
+
+
+def chunk_length(counts) -> int:
+    """C for lists of these lengths: twice the mean length, rounded up to
+    a power of two, at least 4. A piece then walks about as long as a few
+    ordinary lists (8 at the causal BigBird layouts, whose mean column is
+    3.4 entries and median 2, so the global column of S / 128 entries runs
+    as S / 1024 pieces), while each piece's f32 partial (block x D x 4
+    bytes per tensor, batch and head) stays a small share of the kernel's
+    traffic."""
+    mean = float(np.mean(counts)) if len(counts) else 0.0
+    return max(4, 1 << int(np.ceil(np.log2(max(2.0 * mean, 1.0)))))
+
+
+def work_list(counts, chunk: int) -> WorkList:
+    """Items of lists of ``counts`` entries: a list of at most ``chunk``
+    entries is one item; a longer one is cut into ceil(n / chunk) pieces
+    of near-equal length, each with its own workspace slot (one block's
+    slots are consecutive). Items are ordered longest first (ties keep
+    block order), so the longest walks start first."""
+    items, sums, slots = [], [], 0
+    for o, n in enumerate(int(c) for c in counts):
+        if n <= chunk:
+            items.append((o, 0, n, -1))
+            continue
+        pieces = -(-n // chunk)
+        size, extra = divmod(n, pieces)
+        sums.append((o, slots, pieces))
+        first = 0
+        for i in range(pieces):
+            c = size + (i < extra)
+            items.append((o, first, c, slots + i))
+            first += c
+        slots += pieces
+    items.sort(key=lambda it: -it[2])
+    return WorkList(np.array(items, np.int32).reshape(-1, 4),
+                    np.array(sums, np.int32).reshape(-1, 3), slots, chunk)
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_work(config: SparsityConfig, seq_len: int, causal: bool):
+    """(B6's, B7's) work lists of the layout at ``seq_len``, made once."""
+    _, cnt, _, ccnt = _cached_adjacency(config, seq_len, causal)
+    return tuple(work_list(c, chunk_length(c)) for c in (cnt, ccnt))
+
+
+def _work_on(w: WorkList, device) -> WorkList:
+    return dataclasses.replace(
+        w, items=torch.from_numpy(np.array(w.items)).to(device),
+        sums=torch.from_numpy(np.array(w.sums)).to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def work_tables(config: SparsityConfig, seq_len: int, causal: bool,
+                device: torch.device) -> Tuple[WorkList, WorkList]:
+    """(B6's, B7's) work lists with int32 tensors on ``device``, copied
+    there once per (config, S, causal, device)."""
+    return tuple(_work_on(w, device)
+                 for w in _cached_work(config, int(seq_len), bool(causal)))
+
+
+def work_for(tables, config: SparsityConfig, S: int, causal: bool,
+             device: torch.device) -> Tuple[WorkList, WorkList]:
+    """The (B6's, B7's) work lists of ``tables``: the cached ones for the
+    layout's own tables; for other tables (a measurement's cut of them)
+    made from their counts (a host copy), with the layout's own C."""
+    if all(a is b for a, b in zip(tables, adjacency_tables(
+            config, S, bool(causal), device))):
+        return work_tables(config, S, bool(causal), device)
+    chunks = [w.chunk for w in _cached_work(config, S, bool(causal))]
+    return tuple(_work_on(work_list(t.cpu().numpy(), c), device)
+                 for t, c in zip((tables[1], tables[3]), chunks))
 
 
 @functools.lru_cache(maxsize=64)
@@ -419,12 +512,17 @@ def sparse_attention_bwd(q, k, v, o, lse, do, config: SparsityConfig, *,
 
 def sparse_bwd_launch(q, k, v, do, lse, delta, config: SparsityConfig,
                       tables, *, causal: bool, sm_scale: float,
-                      parts=BWD_PARTS):
+                      parts=BWD_PARTS, work=None):
     """B6 and/or B7 on CUDA tensors, given delta = rowsum(dO * O) [B, N, S]
     f32 and the adjacency ``tables`` (idx, cnt, cidx, ccnt) int32 on the
-    card: the launches of ``sparse_attention_bwd``. A measurement calls it
-    alone to time the kernels without the delta pass, or B7 on a
-    transposed table cut to one key block."""
+    card: the launches of ``sparse_attention_bwd``. In bf16 each kernel
+    walks its work list (``work_list``: lists longer than C cut into
+    pieces whose f32 partials a second pass in the same launch adds up).
+    A measurement calls it alone to time the kernels without the delta
+    pass, or B7 on a transposed table cut to one key block: ``work``, the
+    (B6, B7) work lists of ``tables`` (default ``work_for(tables, ...)``,
+    which copies a cut table's counts to the host: a timing passes them
+    made beforehand)."""
     if not _on_cuda(q, "sparse_bwd"):
         raise ValueError(f"sparse_bwd_launch runs on cuda, not {q.device}")
     _check(q, k, v, config, "sparse_bwd")
@@ -442,22 +540,42 @@ def sparse_bwd_launch(q, k, v, do, lse, delta, config: SparsityConfig,
                              f"contiguous int32 on {q.device} with "
                              f"{S // config.block} rows")
     idx, cnt, cidx, ccnt = tables
+    work_dq, work_dkv = work or work_for(tables, config, S, causal, q.device)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr())
     common = (_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
               stream_handle(q))
+
+    def plan(w, tensors):
+        """Work list ``w``'s f32 workspace for the pieces' partials (one
+        [slots, B * N, block, D] a tensor, one allocation per call from
+        the caching allocator; None when nothing is split, and in f32,
+        whose kernels walk whole lists), and the C arguments it gives: its
+        items and sums then the workspaces; the item and sum counts."""
+        ws = None
+        ptrs = [0] * tensors
+        if q.dtype == torch.bfloat16 and w.slots:
+            ws = torch.empty((tensors, w.slots, B * N, config.block, D),
+                             dtype=torch.float32, device=q.device)
+            ptrs = [t.data_ptr() for t in ws]
+        return ws, ((w.items.data_ptr(), w.sums.data_ptr(), *ptrs),
+                    (w.items.shape[0], w.sums.shape[0]))
+
     dq = dk = dv = None
     if "dq" in parts:
         dq = torch.empty_like(q)
-        SPARSE_BWD_DQ.launch(*inputs, idx.data_ptr(), cnt.data_ptr(),
+        ws, (ptrs, counts) = plan(work_dq, 1)
+        SPARSE_BWD_DQ.launch(*inputs, idx.data_ptr(), cnt.data_ptr(), *ptrs,
                              dq.data_ptr(), B, S, N, D, config.block,
-                             idx.shape[1], *common)
+                             idx.shape[1], *counts, *common)
     if "dkv" in parts:
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
+        ws, (ptrs, counts) = plan(work_dkv, 2)
         SPARSE_BWD_DKV.launch(*inputs, cidx.data_ptr(), ccnt.data_ptr(),
-                              dk.data_ptr(), dv.data_ptr(), B, S, N, D,
-                              config.block, cidx.shape[1], *common)
+                              *ptrs, dk.data_ptr(), dv.data_ptr(), B, S, N,
+                              D, config.block, cidx.shape[1], *counts,
+                              *common)
     return dq, dk, dv
 
 

@@ -140,6 +140,35 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype, rep, D, bs):
     assert torch.equal(got[0, 0], row[1][0, :, 0].repeat_interleave(rep, 0))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_decode_kernel_past_capacity(cuda, dtype):
+    """The last slot's length is 3 rows past its table (a request that
+    reached max_model_len mid-quantum keeps counting): B4 reads only its MB
+    blocks, as the plain version's gather does, and nothing past the
+    [S, MB] table."""
+    rng = np.random.default_rng(21)
+    S, NB, MB, Nkv, rep, D, bs = 3, 16, 4, 2, 4, 128, 64
+    q = _randn(rng, (S, 1, Nkv * rep, D), dtype, cuda)
+    kp = _randn(rng, (NB, Nkv, bs, D), dtype, cuda)
+    vp = _randn(rng, (NB, Nkv, bs, D), dtype, cuda)
+    kp[0] = vp[0] = 1e4                 # the trash block holds garbage
+    row = (_randn(rng, (S, Nkv, 1, D), dtype, cuda),
+           _randn(rng, (S, Nkv, 1, D), dtype, cuda))
+    tables = torch.from_numpy(rng.permutation(np.arange(1, NB))[:S * MB]
+                              .reshape(S, MB).astype(np.int32)).to(cuda)
+    lens = torch.tensor([MB * bs, 7, MB * bs + 3], dtype=torch.int32,
+                        device=cuda)
+    got = paged_decode_attention(q, kp, vp, tables, lens, kv_row=row)
+    ref = paged_decode_reference(q, kp, vp, tables, lens, kv_row=row)
+    at_cap = paged_decode_attention(q, kp, vp, tables,
+                                    lens.clamp(max=MB * bs), kv_row=row)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert rel_l2(got, ref) <= TOL[dtype]
+    assert torch.equal(got, at_cap)
+
+
 def _bwd_inputs(rng, B, S, N, Nkv, D, dtype, device, masked):
     q = _randn(rng, (B, S, N, D), dtype, device)
     k = _randn(rng, (B, S, Nkv, D), dtype, device)
@@ -293,7 +322,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 # block-sparse (B5-B7): S=512, so block 64 gives 8 query blocks and block
 # 128 gives 4; the layouts have a global column (every query block lists
-# key block 0: B7's longest walk) and, non-causal, a global row
+# key block 0: B7's longest walk) and, non-causal, a global row. At S=2048
+# and 4096 those lists are longer than the work list's C, so the bf16 B7
+# (and, non-causal, B6) run them as pieces summed by the second pass
 SPARSE_LAYOUTS = {
     "bigbird": dict(num_random_blocks=1, num_sliding_window_blocks=3,
                     num_global_blocks=1),
@@ -301,10 +332,15 @@ SPARSE_LAYOUTS = {
     "bslongformer": dict(num_sliding_window_blocks=1,
                          global_block_indices=(0,)),
 }
-SPARSE_CASES = [("bigbird", 128, 64, True), ("bigbird", 64, 128, False),
-                ("fixed", 64, 64, True), ("fixed", 128, 128, False),
-                ("bslongformer", 128, 128, True),
-                ("bslongformer", 64, 64, False)]
+SPARSE_CASES = [("bigbird", 128, 64, True, 512),
+                ("bigbird", 64, 128, False, 512),
+                ("fixed", 64, 64, True, 512), ("fixed", 128, 128, False, 512),
+                ("bslongformer", 128, 128, True, 512),
+                ("bslongformer", 64, 64, False, 512),
+                ("bigbird", 64, 64, True, 2048),
+                ("bigbird", 128, 128, False, 4096),
+                ("bslongformer", 128, 64, True, 4096),
+                ("bigbird", 64, 128, False, 2048)]
 
 
 def _sparse_inputs(rng, B, S, N, D, dtype, device):
@@ -313,13 +349,13 @@ def _sparse_inputs(rng, B, S, N, D, dtype, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("mode,block,D,causal", SPARSE_CASES)
-def test_sparse_kernels_match_plain(cuda, dtype, mode, block, D, causal):
+@pytest.mark.parametrize("mode,block,D,causal,S", SPARSE_CASES)
+def test_sparse_kernels_match_plain(cuda, dtype, mode, block, D, causal, S):
     """B5 (O and LSE), B6 (dQ) and B7 (dK, dV) against the plain versions
     on the same inputs."""
     rng = np.random.default_rng(block + D + int(causal))
     cfg = tsa.get_sparsity_config(mode, block=block, **SPARSE_LAYOUTS[mode])
-    q, k, v, do = _sparse_inputs(rng, 2, 512, 3, D, dtype, cuda)
+    q, k, v, do = _sparse_inputs(rng, 2, S, 3, D, dtype, cuda)
     before = _build.launch_counts()
     o, lse = tsa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
     ro, rlse = tsa.sparse_attention_reference(q, k, v, cfg, causal=causal)
@@ -340,17 +376,24 @@ def test_sparse_kernels_match_plain(cuda, dtype, mode, block, D, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_sparse_dkv_global_column_alone(cuda, dtype):
+@pytest.mark.parametrize("S", [1024, 32768])
+def test_sparse_dkv_global_column_alone(cuda, dtype, S):
     """B7 on a table restricted to the global column (key block 0, listed
     by every query block; the others list nothing): dK/dV of block 0 equal
-    the full launch's, and every other key block's are exactly 0."""
+    the full launch's bit for bit (in bf16 both cut the column into the
+    same pieces: 2 at S=1024, 64 at S=32768), and every other key block's
+    are exactly 0. At S=32768 the full launch is also held against the
+    plain version."""
     rng = np.random.default_rng(9)
     cfg = tsa.get_sparsity_config("bigbird", block=64,
                                   **SPARSE_LAYOUTS["bigbird"])
-    q, k, v, do = _sparse_inputs(rng, 1, 1024, 2, 64, dtype, cuda)
+    q, k, v, do = _sparse_inputs(rng, 1, S, 2, 64, dtype, cuda)
     o, lse = tsa.sparse_attention_fwd(q, k, v, cfg)
-    idx, cnt, cidx, ccnt = tsa.adjacency_tables(cfg, 1024, True, q.device)
-    assert int(ccnt[0]) == 1024 // 64                 # the global column
+    idx, cnt, cidx, ccnt = tsa.adjacency_tables(cfg, S, True, q.device)
+    assert int(ccnt[0]) == S // 64                    # the global column
+    if dtype == torch.bfloat16:
+        cols = tsa.work_tables(cfg, S, True, q.device)[1]
+        assert cols.chunk == 8 and cols.slots == S // 64 // 8
     only = torch.zeros_like(ccnt)
     only[0] = ccnt[0]
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -363,6 +406,33 @@ def test_sparse_dkv_global_column_alone(cuda, dtype):
     assert torch.equal(dk[:, :64], dk_all[:, :64])
     assert torch.equal(dv[:, :64], dv_all[:, :64])
     assert torch.all(dk[:, 64:] == 0) and torch.all(dv[:, 64:] == 0)
+    if S == 32768:
+        _, dk_ref, dv_ref = tsa.sparse_attention_bwd_reference(
+            q, k, v, o, lse, do, cfg, parts=("dkv",))
+        assert rel_l2(dk_all, dk_ref) <= TOL[dtype]
+        assert rel_l2(dv_all, dv_ref) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_sparse_bwd_kernels_are_deterministic(cuda, causal):
+    """Two launches of the bf16 B6 and B7 on the same inputs give the same
+    dQ, dK and dV bit for bit, where the walks are split (BigBird block
+    128 at S=4096: the global column, and non-causal the global row, run
+    as pieces summed in a fixed order) and where they are not."""
+    rng = np.random.default_rng(13)
+    cfg = tsa.get_sparsity_config("bigbird", block=128,
+                                  **SPARSE_LAYOUTS["bigbird"])
+    q, k, v, do = _sparse_inputs(rng, 2, 4096, 4, 64, torch.bfloat16, cuda)
+    o, lse = tsa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    rows, cols = tsa.work_tables(cfg, 4096, causal, q.device)
+    assert cols.slots > 0 and (rows.slots > 0) == (not causal)
+    first = tsa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
+    second = tsa.sparse_attention_bwd(q, k, v, o, lse, do, cfg,
+                                      causal=causal)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

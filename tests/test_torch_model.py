@@ -49,21 +49,21 @@ def _jax_params(fused: bool, dtype: str):
     return cfg, p
 
 
-def _run_jax(cfg, params, ids, tokens):
+def _run_jax(cfg, params, ids, tokens, prompts=PROMPTS, tables=TABLES):
     pools = jt.init_paged_cache(cfg, NB, BS)
     prefill = jax.jit(functools.partial(jt.prefill_paged, cfg=cfg),
                       static_argnames=())
     lasts = []
-    for s, n in enumerate(PROMPTS):
+    for s, n in enumerate(prompts):
         P = -(-n // BS) * BS
         last, pools = prefill(params, jnp.asarray(ids[s][None, :P]),
                               pools=pools,
-                              block_ids=jnp.asarray(TABLES[s, :P // BS]),
+                              block_ids=jnp.asarray(tables[s, :P // BS]),
                               length=n)
         lasts.append(last)
     step = jax.jit(lambda p, t, pl, lens: jt.decode_step_paged(
-        p, t, cfg, pl, jnp.asarray(TABLES), lens))
-    lens = jnp.asarray(PROMPTS, jnp.int32)
+        p, t, cfg, pl, jnp.asarray(tables), lens))
+    lens = jnp.asarray(prompts, jnp.int32)
     logits = []
     for i in range(STEPS):
         lg, pools = step(params, jnp.asarray(tokens[i]), pools, lens)
@@ -72,16 +72,16 @@ def _run_jax(cfg, params, ids, tokens):
     return lasts, logits, pools
 
 
-def _run_port(cfg, params, ids, tokens):
+def _run_port(cfg, params, ids, tokens, prompts=PROMPTS, tables=TABLES):
     pools = pt.init_paged_cache(cfg, NB, BS, device="cpu")
     lasts = []
-    for s, n in enumerate(PROMPTS):
+    for s, n in enumerate(prompts):
         P = -(-n // BS) * BS
         lasts.append(pt.prefill_paged(
             params, torch.from_numpy(ids[s][None, :P]).long(), cfg, pools,
-            torch.from_numpy(TABLES[s, :P // BS]), length=n))
-    tables = torch.from_numpy(TABLES)
-    lens = torch.tensor(PROMPTS, dtype=torch.int32)
+            torch.from_numpy(tables[s, :P // BS]), length=n))
+    tables = torch.from_numpy(tables)
+    lens = torch.tensor(prompts, dtype=torch.int32)
     logits = []
     for i in range(STEPS):
         logits.append(pt.decode_step_paged(
@@ -116,6 +116,40 @@ def test_paged_prefill_and_decode_match_jax(fused, dtype):
         assert p_pools[name].dtype == tdtype
         assert rel_l2(_f32(p_pools[name])[:, 1:],
                       _f32(j_pools[name])[:, 1:]) <= tol
+
+
+def test_decode_past_capacity_matches_jax():
+    """Slot 0 fills its whole table (4 blocks = 64 rows) and decodes on past
+    it, as a request that reaches max_model_len mid-quantum does: its rows
+    at and past the capacity are dropped by JAX and go to the trash block
+    in the port (no live block is overwritten). Pools (block 0 aside) and
+    every step's logits match JAX's."""
+    jcfg, jparams = _jax_params(False, "float32")
+    cfg = pt.TransformerConfig(**CFG, dtype=torch.float32)
+    params = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), cfg, device="cpu",
+        dtype=torch.float32)
+    prompts = (60, 9)                  # slot 0: rows 60..67 over 8 steps
+    tables = np.asarray([[3, 5, 6, 7], [2, 8, 0, 0]], np.int32)
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, CFG["vocab_size"], size=(2, 64)).astype(np.int32)
+    tokens = rng.integers(0, CFG["vocab_size"],
+                          size=(STEPS, 2)).astype(np.int32)
+    j_last, j_logits, j_pools = _run_jax(jcfg, jparams, ids, tokens,
+                                         prompts, tables)
+    p_last, p_logits, p_pools = _run_port(cfg, params, ids, tokens,
+                                          prompts, tables)
+    tol = TOL["float32"]
+    for s in range(2):
+        assert rel_l2(_f32(p_last[s]), _f32(j_last[s])) <= tol
+    for i in range(STEPS):
+        assert rel_l2(_f32(p_logits[i]), _f32(j_logits[i])) <= tol, i
+    for name in ("k", "v"):
+        assert rel_l2(_f32(p_pools[name])[:, 1:],
+                      _f32(j_pools[name])[:, 1:]) <= tol
+        # the first rows of slot 0's last block hold prompt rows 48..51
+        assert rel_l2(_f32(p_pools[name])[:, 7, :, :4],
+                      _f32(j_pools[name])[:, 7, :, :4]) <= tol
 
 
 @pytest.mark.parametrize("fused", [False, True])

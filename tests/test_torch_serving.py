@@ -1,7 +1,8 @@
 """The port's ServingEngine against the JAX ServingEngine: same weights,
 same load (more requests than slots, a pool below full residency),
-token-identical greedy streams at f32. Two loads: a mixed one, and one of
-uniform long generations whose growth forces preemptions (re-prefill)."""
+token-identical greedy streams at f32. Three loads: a mixed one, one of
+uniform long generations whose growth forces preemptions (re-prefill), and
+one whose first request ends at max_model_len mid-quantum."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +26,10 @@ SERVING = dict(max_seqs=2, block_size=16, max_model_len=128,
 LOADS = {
     "mixed": (10, ((30, 40), (25, 30), (5, 12), (40, 20), (17, 8)), 0),
     "preempting": (9, ((26, 40),) * 4, 2),
+    # request 0 reaches max_model_len (128 rows: its whole table) at the
+    # second step of a decode quantum; the two steps left write rows 128
+    # and 129 past its table (dropped by JAX, trash block in the port)
+    "capped": (13, ((30, 98), (20, 40)), 0),
 }
 
 

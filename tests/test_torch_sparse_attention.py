@@ -120,6 +120,74 @@ def test_device_tables_are_made_once():
         tsa.get_sparsity_config("nope")
 
 
+WORK_LAYOUTS = [   # the five layout families
+    ("dense", {}),
+    ("fixed", dict(num_local_blocks=4, num_global_blocks=1)),
+    ("bigbird", dict(num_random_blocks=1, num_sliding_window_blocks=3,
+                     num_global_blocks=1)),
+    ("bslongformer", dict(num_sliding_window_blocks=3,
+                          global_block_indices=(0, 5))),
+    ("variable", dict(num_global_blocks=1, local_window_blocks=(1, 2, 4))),
+]
+
+
+@pytest.mark.parametrize("mode,kw", WORK_LAYOUTS,
+                         ids=[m for m, _ in WORK_LAYOUTS])
+@pytest.mark.parametrize("causal", [True, False])
+def test_work_list_covers_each_pair_once(mode, kw, causal):
+    """B6's and B7's work lists (rows of idx, columns of cidx), at the
+    layout's own C and at C = 2: every (output block, listed block) pair
+    is walked by exactly one item, no piece is longer than C, the slots of
+    the pieces are distinct (0 .. slots - 1, consecutive per block) and
+    ``sums`` names them, and the items run longest first."""
+    cfg = tsa.get_sparsity_config(mode, block=16, **kw)
+    S = 512
+    idx, cnt, cidx, ccnt = tsa._cached_adjacency(cfg, S, causal)
+    cached = tsa._cached_work(cfg, S, causal)
+    for table, counts, own in ((idx, cnt, cached[0]), (cidx, ccnt, cached[1])):
+        assert own.chunk == tsa.chunk_length(counts)
+        for w in (own, tsa.work_list(counts, 2)):
+            items = np.asarray(w.items)
+            assert items.dtype == np.int32 and items.shape[1] == 4
+            walked = [(o, int(table[o, first + j]))
+                      for o, first, n, _ in items for j in range(n)]
+            listed = [(o, int(table[o, j]))
+                      for o in range(len(counts)) for j in range(counts[o])]
+            assert sorted(walked) == sorted(listed)
+            assert len(set(walked)) == len(walked)
+            assert items[:, 2].max() <= w.chunk
+            assert list(items[:, 2]) == sorted(items[:, 2], reverse=True)
+            assert sorted(set(items[:, 0])) == list(range(len(counts)))
+            slots = items[items[:, 3] >= 0, 3]
+            assert sorted(slots) == list(range(w.slots))
+            for o, s0, pieces in np.asarray(w.sums):
+                mine = items[items[:, 0] == o]
+                assert sorted(mine[:, 3]) == list(range(s0, s0 + pieces))
+                assert counts[o] > w.chunk and pieces > 1
+            split = {int(o) for o in np.asarray(w.sums)[:, 0]}
+            assert split == {o for o in range(len(counts))
+                             if counts[o] > w.chunk}
+    dev = tsa.work_tables(cfg, S, causal, torch.device("cpu"))
+    for d, h in zip(dev, cached):
+        assert d.items.dtype == torch.int32 and d.slots == h.slots
+        np.testing.assert_array_equal(d.items.numpy(), h.items)
+        np.testing.assert_array_equal(d.sums.numpy(), h.sums)
+
+
+def test_work_list_splits_the_global_column():
+    """At the BigBird training layout (block 128, S=8192, causal) C is 8:
+    the global column (64 query blocks) runs as 8 pieces of 8, and no row
+    is split."""
+    cfg = tsa.get_sparsity_config("bigbird", block=128, num_random_blocks=1,
+                                  num_sliding_window_blocks=3,
+                                  num_global_blocks=1)
+    rows, cols = tsa._cached_work(cfg, 8192, True)
+    assert (rows.chunk, rows.slots, len(rows.sums)) == (8, 0, 0)
+    assert cols.chunk == 8 and cols.slots == 8
+    np.testing.assert_array_equal(cols.sums, [[0, 0, 8]])
+    assert list(cols.items[:8, 2]) == [8] * 8
+
+
 # ---------------------------------------------------------------------------
 # (b) the plain forward, O and LSE
 # ---------------------------------------------------------------------------
@@ -314,6 +382,30 @@ def test_sparse_model_loss_and_grads_match_jax(masked, monkeypatch):
     assert set(grads) == set(jl)
     for name, g in grads.items():
         assert rel_l2(_np(g), jl[name]) <= 1e-5, name
+
+
+def test_sparse_model_left_padded_rows_that_see_a_key_match_jax():
+    """A sparse config with a left-padding key mask takes the dense route
+    on both sides: the port's flash kernels, JAX's XLA branch. A query row
+    that sees no key (batch row 1's first 4) gets O = 0 in the port and the
+    mean of V in JAX's XLA branch (``models/transformer.attention``'s
+    docstring), so only the rows that see a key are compared: their logits
+    agree, since no later row reads a masked key's output."""
+    jcfg, tcfg = _model_cfgs()
+    p = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(0), jcfg))
+    ids = _batch(False)["input_ids"]
+    mask = np.ones((B, S), np.int32)
+    mask[1, :4] = 0
+    want = np.asarray(jt.forward(jax.tree.map(jnp.asarray, p),
+                                 jnp.asarray(ids), jcfg,
+                                 attention_mask=jnp.asarray(mask)))
+    tp = params_from_numpy(p, tcfg, device="cpu", dtype=torch.float32)
+    got = tt.forward(tp, torch.from_numpy(ids), tcfg,
+                     attention_mask=torch.from_numpy(mask)).numpy()
+    sees = np.ones((B, S), bool)
+    sees[1, :4] = False
+    assert np.isfinite(got).all()
+    assert rel_l2(got[sees], want[sees]) <= TOL["float32"]
 
 
 # ---------------------------------------------------------------------------

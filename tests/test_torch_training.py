@@ -155,6 +155,36 @@ def test_lm_loss_and_grads_match_jax(policy, loss_chunk, masked):
         assert rel_l2(_np(g), _np(base[name])) <= 1e-6, name
 
 
+def test_left_padded_loss_and_grads_match_jax_pallas():
+    """Left padding: batch row 1's first 4 keys are masked, so its first 4
+    query rows see no key. The port's flash route gives them O = 0, as
+    JAX's Pallas kernel does (run here in interpret mode through
+    ``attention_impl="pallas"``); JAX's XLA branch gives the mean of V
+    instead (``models/transformer.attention``'s docstring)."""
+    jcfg, tcfg = _cfgs()
+    jcfg = dataclasses.replace(jcfg, attention_impl="pallas")
+    p = _jax_params(jcfg)
+    mask = np.ones((B, S), np.int32)
+    mask[1, :4] = 0
+    batch = {"input_ids": _ids(2), "attention_mask": mask}
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda q: jt.lm_loss(
+        q, jax.tree.map(jnp.asarray, batch), jcfg)))(
+            jax.tree.map(jnp.asarray, p))
+    tp = params_from_numpy(p, tcfg, device="cpu", dtype=torch.float32)
+    leaves = _leaves(tp)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    loss = tt.lm_loss(tp, {k: torch.from_numpy(v) for k, v in batch.items()},
+                      tcfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    want = float(jloss)
+    assert abs(float(loss.detach()) - want) <= 1e-5 * abs(want)
+    jl = _leaves(jax.tree.map(np.asarray, jgrads))
+    assert set(leaves) == set(jl)
+    for name, g in zip(leaves, grads):
+        assert rel_l2(_np(g), jl[name]) <= 1e-5, name
+
+
 class _CountMM(TorchDispatchMode):
     def __init__(self):
         super().__init__()
