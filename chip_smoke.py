@@ -8,20 +8,24 @@ Phases, each of which raises on failure (exit code != 0):
 1. build: the CUDA kernels from ``deepspeed_tpu_torch/csrc/*.cu``, one
    ``nvcc`` per source, all started together, with ``-Xptxas -v``; for
    the kernels on wgmma (flash forward B1, backward B2, B3; sparse
-   backward B6, B7) each kernel's registers, shared memory and spills,
-   ptxas's warnings, and its SASS census (``cuobjdump -sass``: HGMMA =
-   wgmma, UTMALDG = TMA loads, atomics). A bf16 kernel of those without
-   HGMMA or UTMALDG, or with spills, and any atomic in their libraries,
-   fail the run;
+   forward B5, backward B6, B7) each kernel's registers, shared memory
+   and spills, ptxas's warnings, and its SASS census (``cuobjdump
+   -sass``: HGMMA = wgmma, UTMALDG = TMA loads, atomics). A bf16 kernel
+   of those without HGMMA or UTMALDG, or with spills, and any atomic in
+   their libraries, fail the run. The paged decode (B4) has a census of
+   its own: its split kernels must stage by bulk copies (UBLKCP, or
+   UTMALDG), and nothing in its library may spill or use atomics;
 2. kernels: each kernel at the serving and training paths' shapes (and a
    few more) against its plain PyTorch version on the same inputs
    (relative L2 < 2e-2 in bf16, < 1e-4 in f32; B1's LSE < 1e-4 over the
    rows that see a key, and its fully masked rows exactly O = 0 and LSE =
-   M_FLOOR), timed with CUDA events beside the plain version, SDPA
-   (forward, or its backward for the backward kernels: B2 + B3 beside it
-   as a pair) as a library yardstick, and the least time the card could
-   take (bytes over 3.35 TB/s vs flops over the dtype's peak); B1, B2
-   and B3 launched twice must agree bit for bit;
+   M_FLOOR; B4's empty slot exactly v_row, with a case of lengths on its
+   pieces' edges and past the table), timed with CUDA events beside the
+   plain version, SDPA (forward, or its backward for the backward
+   kernels: B2 + B3 beside it as a pair) as a library yardstick, and the
+   least time the card could take (bytes over 3.35 TB/s vs flops over
+   the dtype's peak); B1, B2, B3 and B4 launched twice must agree bit for
+   bit;
 3. serving: llama-7b at full width and depth (random weights from a seed,
    bf16) through ``init_serving``: 24 requests, prompts of 64..1024 tokens,
    32 new tokens each, on 16 slots. Every request must finish with 32
@@ -50,11 +54,13 @@ Phases, each of which raises on failure (exit code != 0):
    bench's three layouts (``bench.py:893-901``), a non-causal and an f32
    case, each against the plain version (gathered over the adjacency),
    timed beside it, beside flex_attention with a BlockMask of the layout
-   (compiled by torch.compile; the library time), beside SDPA with the
-   layout as a dense boolean mask, and beside the bound; B6 and B7
-   launched twice must agree bit for bit; their work lists (C, the pieces
-   of the split lists) logged; B7's longest key column timed alone; the
-   main shape also beside dense B1 + B2 + B3;
+   (compiled by torch.compile; the library time: B5 beside flex's
+   forward in every case), beside SDPA with the layout as a dense boolean
+   mask, and beside the bound; B5, B6 and B7 launched twice must agree
+   bit for bit; their work lists (C, the pieces of the split lists)
+   logged; B7's longest key column timed alone; the main shape also
+   beside dense B1 + B2 + B3; and B5 on a layout with a split global row
+   and a query block that lists nothing (exactly O = 0, LSE = -1e30);
 8. sparse training: llama-1b at full width and depth, S=8192, the BigBird
    layout, B=2, 1 warm-up + 8 timed steps with the counts zeroed just
    before them: losses must fall, B5 (forward and its replay), B6 and B7
@@ -101,8 +107,12 @@ def max_abs(got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call of ``fn``, in ms."""
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, batch: int = 1) -> float:
+    """Median CUDA-event time of one call of ``fn``, in ms. Each of the
+    ``iters`` samples starts on an idle card, so it includes the host's
+    work before the first launch (the wrapper's checks and allocations);
+    ``batch`` > 1 times that many calls back to back in each sample and
+    divides, so the host runs ahead and the time is the card's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,10 +121,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return float(np.median(times))
 
 
@@ -212,7 +223,7 @@ def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
 
 def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     from deepspeed_tpu_torch.ops.decode_attention import (
-        paged_decode_attention, paged_decode_reference)
+        decode_pieces, paged_decode_attention, paged_decode_reference)
     NB = S * MB + 1
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((S, 1, Nq, D), generator=g, device="cuda", dtype=dtype)
@@ -226,12 +237,13 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     # garbage where nothing may be read: the trash block, stale rows
     kp[0] = vp[0] = 1e4
     for s, n in enumerate(lens_np):
-        if n % bs:
+        if n < MB * bs and n % bs:
             blk = int(tab_np[s, n // bs])
             kp[blk, :, n % bs:] = vp[blk, :, n % bs:] = 1e4
     tables = torch.from_numpy(tab_np).cuda()
     ln = torch.from_numpy(lens_np).cuda()
     out = paged_decode_attention(q, kp, vp, tables, ln, kv_row=row)
+    again = paged_decode_attention(q, kp, vp, tables, ln, kv_row=row)
     ref = paged_decode_reference(q, kp, vp, tables, ln, kv_row=row)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
@@ -240,6 +252,10 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     if err >= TOL[dtype]:
         raise RuntimeError(f"paged_decode {name}: rel L2 {err:.3g} vs the "
                            "plain version")
+    # the pieces are merged in a fixed order: bit for bit the same
+    if not torch.equal(out, again):
+        raise RuntimeError(f"paged_decode {name}: two launches differ")
+    del again
     for s in np.flatnonzero(lens_np == 0):
         if not torch.equal(out[s, 0],
                            row[1][s, :, 0].repeat_interleave(Nq // Nkv, 0)):
@@ -247,6 +263,8 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
                                "exactly v_row")
     ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, tables, ln,
                                                 kv_row=row))
+    ms_batched = cuda_ms(lambda: paged_decode_attention(
+        q, kp, vp, tables, ln, kv_row=row), batch=20)
     plain_ms = cuda_ms(lambda: paged_decode_reference(
         q, kp, vp, tables, ln, kv_row=row), iters=5, warmup=1)
     # yardstick: SDPA over the already-gathered view (gather not timed)
@@ -262,18 +280,24 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kg, vg, attn_mask=am, enable_gqa=True))
     del kg, vg
-    valid = float(lens_np.sum())
-    blocks = float(sum(-(-int(n) // bs) for n in lens_np))
+    # what the kernel reads: the rows below min(len, MB bs)
+    walked = np.minimum(lens_np, MB * bs)
+    valid = float(walked.sum())
+    blocks = float(sum(-(-int(n) // bs) for n in walked))
     esz = q.element_size()
     moved = (2 * valid * Nkv * D * esz + nbytes(q, out, *row)
              + 4 * blocks + 4 * S)
     flops = 4.0 * D * Nq * (valid + S)
     bound_ms, bound_by = bound(moved, flops, dtype)
+    R, P = decode_pieces(MB, bs)
     rec = dict(case=name, shape=f"slots={S} Nq={Nq} Nkv={Nkv} D={D} bs={bs} "
                f"MB={MB} {str(dtype).split('.')[-1]} lens={lens}",
-               rel_l2=err, max_abs_err=max_abs(out, ref), ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-               bound_by=bound_by, gb_per_s=moved / ms / 1e6)
+               rel_l2=err, max_abs_err=max_abs(out, ref), bitwise_repeat=True,
+               pieces={"rows": R, "per_slot": P,
+                       "walked": int(sum(-(-int(n) // R) for n in walked))},
+               ms=ms, ms_batched=ms_batched, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms, gb_per_s=moved / ms / 1e6)
     log("paged_decode " + json.dumps(rec))
     return rec
 
@@ -392,6 +416,10 @@ def kernel_phase():
                     lens, bf),
         decode_case("llama-7b f32 16 slots", 16, 32, 32, 128, 64, 32, lens,
                     f32),
+        # B4's piece edges (R = 256 at bs 64) and a slot 3 rows past its
+        # table (read as MB bs = 2048)
+        decode_case("llama-70b GQA 64/8 piece edges", 8, 64, 8, 128, 64, 32,
+                    [0, 1, 255, 256, 257, 1024, 2048, 2051], bf),
     ]
     bwd = [
         bwd_case("llama-1b training B=8 S=2048", 8, 2048, 32, 8, 64, bf),
@@ -486,6 +514,7 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     q, k, v, do = (torch.randn((B, S, N, D), generator=g, device="cuda",
                                dtype=dtype) for _ in range(4))
     o, lse = sa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    o2, lse2 = sa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
     ro, rlse = sa.sparse_attention_reference(q, k, v, cfg, causal=causal)
     got = sa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
     again = sa.sparse_attention_bwd(q, k, v, o, lse, do, cfg, causal=causal)
@@ -495,12 +524,14 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     for part, a in zip(("o", "lse", "dq", "dk", "dv"), (o, lse) + got):
         if not torch.isfinite(a).all():
             raise RuntimeError(f"sparse {name}: non-finite {part}")
-    # B6/B7 sum their split walks in a fixed order: bit for bit the same
-    differ = [p for p, a, b in zip(("dq", "dk", "dv"), got, again)
+    # B5 merges and B6/B7 sum their split walks in a fixed order: bit for
+    # bit the same
+    differ = [p for p, a, b in zip(("o", "lse", "dq", "dk", "dv"),
+                                   (o, lse) + got, (o2, lse2) + again)
               if not torch.equal(a, b)]
     if differ:
         raise RuntimeError(f"sparse {name}: a second launch changed {differ}")
-    del again
+    del again, o2, lse2
     errs = {"o": rel_l2(o, ro), "lse": rel_l2(lse, rlse)}
     errs.update((p, rel_l2(a, b)) for p, a, b in zip(("dq", "dk", "dv"),
                                                      got, want))
@@ -522,6 +553,8 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
         return sa.sparse_bwd_launch(q, k, v, do, lse, delta, cfg, tabs,
                                     causal=causal, sm_scale=1.0 / D ** 0.5,
                                     parts=(part,), work=work)
+    fwd_batched = cuda_ms(lambda: sa.sparse_attention_fwd(
+        q, k, v, cfg, causal=causal), batch=20)
     ms = {"fwd": cuda_ms(lambda: sa.sparse_attention_fwd(q, k, v, cfg,
                                                          causal=causal)),
           "dq": cuda_ms(lambda: bwd("dq")), "dkv": cuda_ms(lambda: bwd("dkv"))}
@@ -590,10 +623,13 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
                           bound_ms=bound_ms, bound_by=bound_by,
                           tflops=flops / ms[part] / 1e9)
     recs["dkv"]["tail"] = tail
-    # the bf16 kernels' work lists: C, and the pieces of the split lists
+    recs["fwd"]["over_library"] = ms["fwd"] / lib_fwd
+    recs["fwd"]["ms_batched"] = fwd_batched
+    # the bf16 kernels' work lists (B5 walks B6's): C, and the pieces of
+    # the split lists
     if dtype == torch.bfloat16:
-        for part, w in zip(("dq", "dkv"), sa.work_tables(cfg, S, causal,
-                                                         q.device)):
+        rows, cols = sa.work_tables(cfg, S, causal, q.device)
+        for part, w in (("fwd", rows), ("dq", rows), ("dkv", cols)):
             recs[part]["work"] = {"chunk": w.chunk, "items": len(w.items),
                                   "split_lists": len(w.sums),
                                   "pieces": w.slots}
@@ -620,6 +656,48 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
     return recs
 
 
+def sparse_empty_case(dtype, B=1, S=4096, N=4, D=64, block=128, seed=0):
+    """B5 on a layout with a global row (every key block: split into
+    pieces in bf16) and a query block that lists nothing: that block's
+    rows exactly O = 0 and LSE = -1e30, the rest against the plain version,
+    a second launch bit for bit."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    @dataclasses.dataclass(frozen=True)
+    class GlobalRowAndHole(sa.SparsityConfig):
+        def make_layout(self, seq_len):
+            n = seq_len // self.block
+            lay = np.eye(n, dtype=bool)
+            lay[0] = True
+            lay[2] = False
+            return lay
+    cfg = GlobalRowAndHole(block=block)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((B, S, N, D), generator=g, device="cuda",
+                           dtype=dtype) for _ in range(3))
+    o, lse = sa.sparse_attention_fwd(q, k, v, cfg, causal=False)
+    again = sa.sparse_attention_fwd(q, k, v, cfg, causal=False)
+    ro, rlse = sa.sparse_attention_reference(q, k, v, cfg, causal=False)
+    torch.cuda.synchronize()
+    hole = slice(2 * block, 3 * block)
+    live = torch.ones(S, dtype=torch.bool, device="cuda")
+    live[hole] = False
+    rec = {"case": f"global row + empty list, {str(dtype).split('.')[-1]}",
+           "shape": f"B={B} S={S} N={N} D={D} block {block} non-causal",
+           "rel_l2": rel_l2(o, ro),
+           "rel_l2_lse_live": rel_l2(lse[:, :, live], rlse[:, :, live]),
+           "empty_exact": bool(torch.all(o[:, hole] == 0)
+                               and torch.all(lse[:, :, hole] == sa.NEG_INF)),
+           "bitwise_repeat": bool(torch.equal(o, again[0])
+                                  and torch.equal(lse, again[1])),
+           "pieces": sa.work_tables(cfg, S, False, q.device)[0].slots}
+    log("sparse_fwd empty list " + json.dumps(rec))
+    if not (rec["rel_l2"] < TOL[dtype] and rec["rel_l2_lse_live"] < 1e-4
+            and rec["empty_exact"] and rec["bitwise_repeat"]):
+        raise RuntimeError(f"sparse_fwd empty list: {rec}")
+    return rec
+
+
 def sparse_kernel_phase():
     import torch._dynamo
     import torch._inductor.config
@@ -633,6 +711,8 @@ def sparse_kernel_phase():
     torch._inductor.config.compile_threads = 1
     torch._dynamo.config.recompile_limit = 64
     bf, f32 = torch.bfloat16, torch.float32
+    for dtype in (bf, f32):
+        sparse_empty_case(dtype)
     return [
         sparse_case("llama-1b training BigBird B=2 S=8192", "bigbird",
                     BIGBIRD_128, 2, 8192, 32, 64, bf, dense=True),
@@ -826,13 +906,17 @@ def step_times(srv):
     decode_issue_ms = host_issue_ms(decode)
     qd = torch.randn((S, 1, H, D), device="cuda", dtype=cfg.dtype)
     row = torch.randn((S, H, 1, D), device="cuda", dtype=cfg.dtype)
-    attn_ms = cuda_ms(lambda: paged_decode_attention(
-        qd, pools["k"][0], pools["v"][0], tab, lens, kv_row=(row, row)))
+    def attn():
+        return paged_decode_attention(qd, pools["k"][0], pools["v"][0], tab,
+                                      lens, kv_row=(row, row))
+    attn_ms = cuda_ms(attn)
+    attn_batched_ms = cuda_ms(attn, batch=20)
     times = {"prefill_1024_ms": prefill_ms,
              "prefill_flash_ms_x_layers": flash_ms * L,
              "decode_step_16x1000_ms": decode_ms,
              "decode_step_host_issue_ms": decode_issue_ms,
-             "decode_attention_ms_x_layers": attn_ms * L}
+             "decode_attention_ms_x_layers": attn_ms * L,
+             "decode_attention_batched_ms_x_layers": attn_batched_ms * L}
     log("step times " + json.dumps(times))
     return times
 
@@ -1021,7 +1105,10 @@ SPARSE_MODEL = {"mode": "bigbird", **BIGBIRD_128}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPARSE_KERNELS = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkv")
 # the libraries whose bf16 kernels run on wgmma with TMA-fed tiles
-WGMMA_KERNELS = FLASH_KERNELS + ("sparse_bwd_dq", "sparse_bwd_dkv")
+WGMMA_KERNELS = FLASH_KERNELS + SPARSE_KERNELS
+# the libraries whose kernels stage their tiles by bulk copies
+# (cp.async.bulk: UBLKCP in SASS) into an mbarrier ring
+BULK_KERNELS = ("paged_decode",)
 
 
 def sparse_training_phase(recs):
@@ -1186,9 +1273,11 @@ def ptxas_report(log: str):
 
 
 def sass_census(path):
-    """{function: {"HGMMA": n, "UTMALDG": n, "atomics": n}} from
-    ``cuobjdump -sass`` of a library (wgmma, TMA tile loads, and ATOM,
-    ATOMS, ATOMG, RED, REDG)."""
+    """{function: {"HGMMA": n, "UTMALDG": n, "UBLKCP": n, "atomics": n,
+    "bulk_ops": [...]}} from ``cuobjdump -sass`` of a library (wgmma, TMA
+    tile loads, plain bulk copies, and ATOM, ATOMS, ATOMG, RED, REDG;
+    bulk_ops: every distinct UBLK* / UTMA* opcode, to show what the bulk
+    copies compile to)."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
@@ -1204,8 +1293,10 @@ def sass_census(path):
                 toks = toks[1:]
             if toks and not toks[0].startswith("/*"):
                 ops.append(toks[0].split(".")[0])
-        counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG")}
+        counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
         counts["atomics"] = sum(o in atomics for o in ops)
+        counts["bulk_ops"] = sorted({o for o in ops
+                                     if o.startswith(("UBLK", "UTMA"))})
         out[name.strip()] = counts
     return out
 
@@ -1240,6 +1331,21 @@ def build_phase():
                              for c in wg.values()):
             raise RuntimeError(f"{name}: the bf16 kernels do not run on "
                                f"wgmma with TMA loads: {sass}")
+        if any(c["atomics"] for c in sass.values()):
+            raise RuntimeError(f"{name}: atomics in {sass}")
+    for name in BULK_KERNELS:      # the pool tiles by bulk copies
+        ptx = ptxas_report(logs[name])
+        sass = sass_census(_build.KERNELS[name].library_path())
+        info[name] = {"ptxas": ptx, "sass": sass}
+        log(f"build {name} " + json.dumps(info[name]))
+        spills = [fn for fn in ptx if fn["spill_stores"] or fn["spill_loads"]]
+        if spills:
+            raise RuntimeError(f"{name}: spills {spills}")
+        split = {f: c for f, c in sass.items() if "split" in f}
+        if not split or not all(c["UBLKCP"] + c["UTMALDG"] > 0
+                                for c in split.values()):
+            raise RuntimeError(f"{name}: the kernels do not stage their "
+                               f"tiles by bulk copies: {sass}")
         if any(c["atomics"] for c in sass.values()):
             raise RuntimeError(f"{name}: atomics in {sass}")
     return seconds, info

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels on
-// wgmma (flash forward B1, backward B2/B3; block-sparse backward B6/B7):
-// mbarriers, TMA tile loads
-// (cp.async.bulk.tensor) from a 4-D tensor map, wgmma (warpgroup matrix
-// multiply, f32 accumulators) on 128B-swizzled shared-memory tiles, and
-// the host-side tensor map.
+// wgmma (flash forward B1, backward B2/B3; block-sparse forward B5 and
+// backward B6/B7) and the paged decode (B4): mbarriers, TMA tile loads
+// (cp.async.bulk.tensor) from a 4-D tensor map, plain bulk copies of
+// contiguous bytes (cp.async.bulk, B4's pool tiles), wgmma (warpgroup
+// matrix multiply, f32 accumulators) on 128B-swizzled shared-memory tiles,
+// and the host-side tensor map.
 //
 // Tiles. Every operand tile in shared memory is a stack of "panels" of
 // [rows][64] bf16: one 128-byte row per row of the tile, 128B-swizzled
@@ -131,6 +132,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes at global `src` into shared memory (a bulk copy,
+// no tensor map), completion counted in bytes on `bar`; both addresses and
+// `bytes` must be multiples of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -81,17 +81,18 @@ class Kernel:
 
 FLASH_FWD = Kernel("flash_fwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _F, _P])
-PAGED_DECODE = Kernel("paged_decode", [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                       _I, _I, _I, _I, _I, _I, _F, _P])
+# q, k_pool, v_pool, tables, lens, k_row, v_row, workspace, out; S, Nq,
+# Nkv, D, bs, MB, piece rows, dtype, sm_scale, stream
+PAGED_DECODE = Kernel("paged_decode", [_P] * 9 + [_I] * 8 + [_F, _P])
 # q, k, v, o, dO, lse, delta, kv_mask, then the outputs; B, S, N, Nkv, D,
 # dtype, causal, sm_scale, stream
 FLASH_BWD_DQ = Kernel("flash_bwd_dq", [_P] * 9 + [_I] * 7 + [_F, _P])
 FLASH_BWD_DKV = Kernel("flash_bwd_dkv", [_P] * 10 + [_I] * 7 + [_F, _P])
-# block-sparse: q, k, v (dO, lse, delta), the adjacency tables (the
-# backward: then its work list, sums and workspace), then the outputs; B,
-# S, N, D, block, table row stride (the backward: then the item and sum
-# counts), dtype, causal, sm_scale, stream
-SPARSE_FWD = Kernel("sparse_fwd", [_P] * 7 + [_I] * 8 + [_F, _P])
+# block-sparse: q, k, v (dO, lse, delta), the adjacency tables, the work
+# list's items and sums, its workspaces, then the outputs; B, S, N, D,
+# block, table row stride, the item and sum counts, dtype, causal,
+# sm_scale, stream
+SPARSE_FWD = Kernel("sparse_fwd", [_P] * 11 + [_I] * 10 + [_F, _P])
 SPARSE_BWD_DQ = Kernel("sparse_bwd_dq", [_P] * 12 + [_I] * 10 + [_F, _P])
 SPARSE_BWD_DKV = Kernel("sparse_bwd_dkv", [_P] * 14 + [_I] * 10 + [_F, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in (

@@ -3,7 +3,11 @@ through per-slot block tables, PyTorch port of
 ``deepspeed_tpu/ops/decode_attention.py``.
 
 The kernel is ``csrc/paged_decode.cu`` (hand-written CUDA for sm_90a); its
-note says what bounds it and how it is laid out.
+note says what bounds it and how it is laid out. It walks each slot's rows
+in pieces of R rows (``decode_pieces``: the grid's geometry, fixed by the
+table) that write f32 partials, then merges them in piece order
+(``decode_merge_reference`` is that second pass in plain PyTorch, and
+``paged_decode_split_reference`` the whole split walk).
 
 Layout: q [S, 1, Nq, D] (one in-flight token per slot); pools
 [NB, Nkv, bs, D]; block_tables [S, MB] int32 (entry 0 = the reserved trash
@@ -17,16 +21,29 @@ tensor launches the kernel or raises. Nothing falls back.
 """
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from deepspeed_tpu_torch.ops._build import PAGED_DECODE, stream_handle
 
 NEG_INF = -1e30
+# floor of the running max, as the TPU kernel's
+M_FLOOR = -1e20
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
+# rows a piece of the kernel's split walk aims at (csrc/paged_decode.cu)
+PIECE_ROWS = 256
+
+
+def decode_pieces(max_blocks: int, block_size: int,
+                  rows: int = PIECE_ROWS) -> Tuple[int, int]:
+    """(R, P): the kernel cuts each slot's MB * bs table rows into P =
+    ceil(MB * bs / R) pieces of R rows, R = ``rows`` rounded down to whole
+    blocks (at least one). Piece p walks rows [p R, min(p R + R, len))."""
+    R = block_size * max(1, rows // block_size)
+    return R, -(-max_blocks * block_size // R)
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
@@ -62,6 +79,89 @@ def paged_decode_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
                        view(v_pool))
     out = out + probs[..., T:].to(q.dtype) * v_row.to(q.dtype)
     return out.reshape(S, 1, Nq, D)
+
+
+def decode_pieces_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
+                            sm_scale: float, rows: int = PIECE_ROWS):
+    """Plain version of the kernel's first pass: each piece's f32 partials
+    ``ws`` [S, Nkv, P, rep, D + 2] (acc over D relative to the piece's max
+    m, then m and l), as ``paged_decode_split`` writes them. A piece at or
+    past its slot's length (clamped to MB * bs) writes nothing: its entries
+    stay NaN, and the merge must not read them."""
+    S, _, Nq, D = q.shape
+    NB, Nkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    rep = Nq // Nkv
+    R, P = decode_pieces(MB, bs, rows)
+    qg = q.float().reshape(S, Nkv, rep, D) * sm_scale
+    ws = torch.full((S, Nkv, P, rep, D + 2), float("nan"),
+                    dtype=torch.float32, device=q.device)
+    for s in range(S):
+        n = min(int(seq_lens[s]), MB * bs)
+        for p in range(-(-n // R)):
+            rows_ = torch.arange(p * R, min(p * R + R, n), device=q.device)
+            blocks = block_tables[s].long()[rows_ // bs]
+            k = k_pool[blocks, :, rows_ % bs].float()    # [n, Nkv, D]
+            v = v_pool[blocks, :, rows_ % bs].float()
+            sc = torch.einsum("grd,ngd->grn", qg[s], k)
+            m = sc.amax(-1)
+            e = torch.exp(sc - m[..., None])
+            ws[s, :, p, :, :D] = torch.einsum("grn,ngd->grd", e, v)
+            ws[s, :, p, :, D] = m
+            ws[s, :, p, :, D + 1] = e.sum(-1)
+    return ws
+
+
+def decode_merge_reference(ws, q, seq_lens, max_rows: int, rows: int, *,
+                           kv_row, sm_scale: float):
+    """Plain version of the kernel's second pass (``paged_decode_merge``):
+    the pieces of each (slot, kv head) below ceil(len / R) merged in piece
+    order by the log-sum-exp rule, then the fresh row folded last with the
+    running max floored at M_FLOOR. ``max_rows`` = MB * bs (the length's
+    clamp), ``rows`` = R. Returns [S, 1, Nq, D] in q's dtype; a slot with
+    no rows gives exactly v_row."""
+    S, _, Nq, D = q.shape
+    Nkv, rep = ws.shape[1], ws.shape[3]
+    k_row, v_row = kv_row
+    qg = q.float().reshape(S, Nkv, rep, D) * sm_scale
+    s1 = torch.einsum("grd,gd->gr", qg.reshape(S * Nkv, rep, D),
+                      k_row.float().reshape(S * Nkv, D)).reshape(S, Nkv, rep)
+    out = torch.empty((S, Nkv, rep, D), dtype=torch.float32, device=q.device)
+    for s in range(S):
+        pieces = -(-min(int(seq_lens[s]), max_rows) // rows)
+        M = torch.full((Nkv, rep), NEG_INF, device=q.device)
+        for p in range(pieces):
+            M = torch.maximum(M, ws[s, :, p, :, D])
+        L = torch.zeros((Nkv, rep), device=q.device)
+        A = torch.zeros((Nkv, rep, D), device=q.device)
+        for p in range(pieces):
+            f = torch.exp(ws[s, :, p, :, D] - M)
+            L = L + ws[s, :, p, :, D + 1] * f
+            A = A + ws[s, :, p, :, :D] * f[..., None]
+        m_new = torch.maximum(M, s1[s]).clamp_min(M_FLOOR)
+        p1 = torch.exp(s1[s] - m_new)
+        alpha = torch.exp(M - m_new)
+        l_new = L * alpha + p1
+        o = A * alpha[..., None] + p1[..., None] * v_row[s, :, 0].float()[:, None]
+        out[s] = o / torch.where(l_new == 0, torch.ones_like(l_new),
+                                 l_new)[..., None]
+    return out.reshape(S, 1, Nq, D).to(q.dtype)
+
+
+def paged_decode_split_reference(q, k_pool, v_pool, block_tables, seq_lens, *,
+                                 kv_row, sm_scale: Optional[float] = None,
+                                 rows: int = PIECE_ROWS):
+    """The kernel's split walk in plain PyTorch: ``decode_pieces_reference``
+    then ``decode_merge_reference``, with the kernel's piece geometry
+    (``decode_pieces``; ``rows`` picks R). Returns [S, 1, Nq, D]."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    MB, bs = block_tables.shape[1], k_pool.shape[2]
+    R, _ = decode_pieces(MB, bs, rows)
+    ws = decode_pieces_reference(q, k_pool, v_pool, block_tables, seq_lens,
+                                 sm_scale=sm_scale, rows=rows)
+    return decode_merge_reference(ws, q, seq_lens, MB * bs, R, kv_row=kv_row,
+                                  sm_scale=sm_scale)
 
 
 def _check(q, k_pool, v_pool, block_tables, seq_lens, k_row, v_row):
@@ -137,10 +237,16 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, seq_lens, *,
     _check(q, k_pool, v_pool, block_tables, seq_lens, k_row, v_row)
     S, _, Nq, D = q.shape
     _, Nkv, bs, _ = k_pool.shape
+    MB = block_tables.shape[1]
+    R, P = decode_pieces(MB, bs)
+    # the pieces' f32 partials, from the caching allocator (no host sync:
+    # the grid and this size are fixed by the table, not by the lengths)
+    ws = torch.empty((S, Nkv, P, Nq // Nkv, D + 2), dtype=torch.float32,
+                     device=q.device)
     out = torch.empty_like(q)
     PAGED_DECODE.launch(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         block_tables.data_ptr(), seq_lens.data_ptr(),
-                        k_row.data_ptr(), v_row.data_ptr(), out.data_ptr(),
-                        S, Nq, Nkv, D, bs, block_tables.shape[1],
+                        k_row.data_ptr(), v_row.data_ptr(), ws.data_ptr(),
+                        out.data_ptr(), S, Nq, Nkv, D, bs, MB, R,
                         _DTYPES[q.dtype], float(sm_scale), stream_handle(q))
     return out

@@ -9,10 +9,14 @@ source's note says what bounds it and how it is laid out):
 - ``csrc/sparse_bwd_dkv.cu`` (B7): dK and dV, each key block walking the
   query blocks of its transposed row.
 
-In bf16, B6 and B7 walk a work list (``work_list``) rather than one list
-per CUDA block: a list longer than C entries (BigBird's global column,
-listed by every query block) is cut into pieces that run side by side,
-each writing f32 partials that a second pass adds up in a fixed order.
+In bf16, the kernels walk a work list (``work_list``) rather than one
+list per CUDA block: a list longer than C entries (BigBird's global
+column, listed by every query block, and non-causal its global row) is cut
+into pieces that run side by side, each writing f32 partials that a second
+pass combines in a fixed order: B6 and B7 add them, B5 (which walks B6's
+row list) merges its pieces' softmax states by the log-sum-exp rule.
+``sparse_pieces_reference`` and ``sparse_merge_reference`` are B5's split
+walk and its merge in plain PyTorch.
 
 ``sparse_attention`` is a ``torch.autograd.Function``, the TPU module's
 ``_sparse`` and its ``custom_vjp``: the forward launches B5 and keeps (q,
@@ -390,6 +394,98 @@ def sparse_attention_reference(q, k, v, config: SparsityConfig, *,
     return _unblock(o).to(q.dtype).contiguous(), lse.contiguous()
 
 
+def sparse_pieces_reference(q, k, v, config: SparsityConfig, *,
+                            causal: bool = True,
+                            sm_scale: Optional[float] = None):
+    """Plain version of the bf16 B5's walk over its row work list (B6's,
+    ``work_tables(...)[0]``): each item's online-softmax state over its
+    entries of the row's list. An unsplit item writes its query block's O
+    and LSE (an empty list: O = 0, LSE NEG_INF); a piece writes its f32
+    partials to its slot. Returns (O, LSE) f32 [B, N, Qb, block, D] and
+    [B, N, Qb, block], then the partials (acc [slots, B, N, block, D]
+    relative to the piece's max m, m and l [slots, B, N, block]; NaN where
+    no piece wrote) and the work list, for ``sparse_merge_reference``."""
+    B, S, N, D = q.shape
+    _check_seq(S, config)
+    block = config.block
+    sm_scale = _default_scale(q, sm_scale)
+    idx = _cached_adjacency(config, S, bool(causal))[0]
+    work = _cached_work(config, S, bool(causal))[0]
+    qb, kb, vb = (_blocks(t, block) for t in (q, k, v))
+    Qb = S // block
+    o = torch.zeros((B, N, Qb, block, D), device=q.device)
+    lse = torch.full((B, N, Qb, block), NEG_INF, device=q.device)
+    nan = float("nan")
+    acc = torch.full((work.slots, B, N, block, D), nan, device=q.device)
+    m = torch.full((work.slots, B, N, block), nan, device=q.device)
+    l = torch.full_like(m, nan)
+    r = torch.arange(block, device=q.device)
+    for qi, first, n, slot in work.items.tolist():
+        if n == 0:
+            continue                     # an empty list: O = 0, LSE NEG_INF
+        ents = torch.from_numpy(np.array(idx[qi, first:first + n])).long()
+        kg = kb[:, :, ents].reshape(B, N, n * block, D)
+        vg = vb[:, :, ents].reshape(B, N, n * block, D)
+        sc = torch.einsum("bnrd,bncd->bnrc", qb[:, :, qi], kg) * sm_scale
+        keep = torch.ones((block, n * block), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            k_pos = (ents.to(q.device)[:, None] * block + r).reshape(-1)
+            keep = k_pos[None, :] <= (qi * block + r)[:, None]
+        sc = torch.where(keep, sc, torch.full_like(sc, NEG_INF))
+        mi = sc.amax(-1).clamp_min(M_FLOOR)
+        p = torch.where(keep, torch.exp(sc - mi[..., None]),
+                        torch.zeros_like(sc))
+        li = p.sum(-1)
+        ai = torch.einsum("bnrc,bncd->bnrd", p, vg)
+        if slot < 0:
+            l_safe = torch.where(li == 0, torch.ones_like(li), li)
+            o[:, :, qi] = ai / l_safe[..., None]
+            lse[:, :, qi] = mi + torch.log(l_safe)
+        else:
+            acc[slot], m[slot], l[slot] = ai, mi, li
+    return o, lse, (acc, m, l), work
+
+
+def sparse_merge_reference(o, lse, partials, work: WorkList):
+    """Plain version of B5's second pass (``split_sum.cuh``,
+    ``lse_merge``): for each split query block of ``work.sums``, its
+    pieces' partials merged in slot order by the log-sum-exp rule (M = max
+    m, f = exp(m - M), O = sum f acc / sum f l, LSE = M + log(sum f l)),
+    written into ``o`` and ``lse`` (as ``sparse_pieces_reference`` returns
+    them), which come back."""
+    acc, m, l = partials
+    for qi, s0, pieces in np.array(work.sums).tolist():
+        M = m[s0]
+        for p in range(1, pieces):
+            M = torch.maximum(M, m[s0 + p])
+        L = torch.zeros_like(M)
+        A = torch.zeros_like(acc[s0])
+        for p in range(pieces):
+            f = torch.exp(m[s0 + p] - M)
+            L = L + l[s0 + p] * f
+            A = A + acc[s0 + p] * f[..., None]
+        L_safe = torch.where(L == 0, torch.ones_like(L), L)
+        o[:, :, qi] = A / L_safe[..., None]
+        lse[:, :, qi] = M + torch.log(L_safe)
+    return o, lse
+
+
+def sparse_attention_split_reference(q, k, v, config: SparsityConfig, *,
+                                     causal: bool = True,
+                                     sm_scale: Optional[float] = None
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 B5's split walk in plain PyTorch: ``sparse_pieces_reference``
+    then ``sparse_merge_reference``. Returns (O [B, S, N, D] in q's dtype,
+    LSE [B, N, S, 1] f32), as ``sparse_attention_reference``."""
+    B, S, N, D = q.shape
+    o, lse, partials, work = sparse_pieces_reference(
+        q, k, v, config, causal=causal, sm_scale=sm_scale)
+    o, lse = sparse_merge_reference(o, lse, partials, work)
+    return (_unblock(o).to(q.dtype).contiguous(),
+            lse.reshape(B, N, S, 1).contiguous())
+
+
 def sparse_attention_bwd_reference(q, k, v, o, lse, do,
                                    config: SparsityConfig, *,
                                    causal: bool = True,
@@ -463,6 +559,23 @@ def _check_vec(name, nm, t, shape, device):
                          f"on {device}")
 
 
+def _plan(w: WorkList, q, block: int, widths):
+    """Work list ``w``'s f32 workspaces for the pieces' partials: one
+    [slots, B * N, block, width] tensor per width, from the caching
+    allocator; none when nothing is split, and in f32, whose kernels walk
+    whole lists. Returns them (to keep them alive through the launch) and
+    the C arguments they give: the items, the sums and the workspaces'
+    pointers (0 for none); the item and sum counts."""
+    B, _, N, _ = q.shape
+    ws = []
+    if q.dtype == torch.bfloat16 and w.slots:
+        ws = [torch.empty((w.slots, B * N, block, n), dtype=torch.float32,
+                          device=q.device) for n in widths]
+    ptrs = [t.data_ptr() for t in ws] or [0] * len(widths)
+    return ws, (w.items.data_ptr(), w.sums.data_ptr(), *ptrs), \
+        (w.items.shape[0], w.sums.shape[0])
+
+
 def sparse_attention_fwd(q, k, v, config: SparsityConfig, *,
                          causal: bool = True, sm_scale: Optional[float] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -478,11 +591,15 @@ def sparse_attention_fwd(q, k, v, config: SparsityConfig, *,
     idx, cnt = adjacency_tables(config, S, bool(causal), q.device)[:2]
     o = torch.empty_like(q)
     lse = torch.empty((B, N, S, 1), dtype=torch.float32, device=q.device)
+    # the bf16 kernel walks B6's row work list; a split row's pieces write
+    # acc and (m, l) partials that its second pass merges
+    work = work_tables(config, S, bool(causal), q.device)[0]
+    ws, ptrs, counts = _plan(work, q, config.block, (D, 2))
     SPARSE_FWD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      idx.data_ptr(), cnt.data_ptr(), o.data_ptr(),
+                      idx.data_ptr(), cnt.data_ptr(), *ptrs, o.data_ptr(),
                       lse.data_ptr(), B, S, N, D, config.block, idx.shape[1],
-                      _DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
-                      stream_handle(q))
+                      *counts, _DTYPES[q.dtype], int(bool(causal)),
+                      float(sm_scale), stream_handle(q))
     return o, lse
 
 
@@ -546,32 +663,17 @@ def sparse_bwd_launch(q, k, v, do, lse, delta, config: SparsityConfig,
     common = (_DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
               stream_handle(q))
 
-    def plan(w, tensors):
-        """Work list ``w``'s f32 workspace for the pieces' partials (one
-        [slots, B * N, block, D] a tensor, one allocation per call from
-        the caching allocator; None when nothing is split, and in f32,
-        whose kernels walk whole lists), and the C arguments it gives: its
-        items and sums then the workspaces; the item and sum counts."""
-        ws = None
-        ptrs = [0] * tensors
-        if q.dtype == torch.bfloat16 and w.slots:
-            ws = torch.empty((tensors, w.slots, B * N, config.block, D),
-                             dtype=torch.float32, device=q.device)
-            ptrs = [t.data_ptr() for t in ws]
-        return ws, ((w.items.data_ptr(), w.sums.data_ptr(), *ptrs),
-                    (w.items.shape[0], w.sums.shape[0]))
-
     dq = dk = dv = None
     if "dq" in parts:
         dq = torch.empty_like(q)
-        ws, (ptrs, counts) = plan(work_dq, 1)
+        ws, ptrs, counts = _plan(work_dq, q, config.block, (D,))
         SPARSE_BWD_DQ.launch(*inputs, idx.data_ptr(), cnt.data_ptr(), *ptrs,
                              dq.data_ptr(), B, S, N, D, config.block,
                              idx.shape[1], *counts, *common)
     if "dkv" in parts:
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
-        ws, (ptrs, counts) = plan(work_dkv, 2)
+        ws, ptrs, counts = _plan(work_dkv, q, config.block, (D, D))
         SPARSE_BWD_DKV.launch(*inputs, cidx.data_ptr(), ccnt.data_ptr(),
                               *ptrs, dk.data_ptr(), dv.data_ptr(), B, S, N,
                               D, config.block, cidx.shape[1], *counts,

@@ -169,6 +169,51 @@ def test_paged_decode_kernel_past_capacity(cuda, dtype):
     assert torch.equal(got, at_cap)
 
 
+# B4's split walk: pieces of R = 256 rows at bs 64 (``decode_pieces``);
+# (Nkv, rep, D): llama-70b's GQA 64/8, llama-7b's 32 heads at rep 1, and
+# llama-1b's D=64 at rep 4
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Nkv,rep,D", [(8, 8, 128), (32, 1, 128),
+                                       (8, 4, 64)])
+def test_paged_decode_kernel_piece_edges(cuda, dtype, Nkv, rep, D):
+    """Lengths on the pieces' edges (R - 1, R, R + 1, 2R), a full table, 3
+    rows past it, one row and none: against the plain version; the empty
+    slot exactly v_row; a second launch the same bit for bit (the pieces
+    are merged in a fixed order, no atomics)."""
+    from deepspeed_tpu_torch.ops.decode_attention import decode_pieces
+    rng = np.random.default_rng(Nkv + rep)
+    MB, bs = 8, 64
+    R, P = decode_pieces(MB, bs)
+    assert (R, P) == (256, 2)
+    lens = [0, 1, R - 1, R, R + 1, 2 * R, MB * bs, MB * bs + 3]
+    S = len(lens)
+    NB = S * MB + 1
+    q = _randn(rng, (S, 1, Nkv * rep, D), dtype, cuda)
+    kp = _randn(rng, (NB, Nkv, bs, D), dtype, cuda)
+    vp = _randn(rng, (NB, Nkv, bs, D), dtype, cuda)
+    kp[0] = vp[0] = 1e4                 # the trash block holds garbage
+    row = (_randn(rng, (S, Nkv, 1, D), dtype, cuda),
+           _randn(rng, (S, Nkv, 1, D), dtype, cuda))
+    tab = rng.permutation(np.arange(1, NB)).reshape(S, MB).astype(np.int32)
+    for s, n in enumerate(lens):        # stale rows past each length
+        if n < MB * bs and n % bs:
+            kp[int(tab[s, n // bs]), :, n % bs:] = 1e4
+            vp[int(tab[s, n // bs]), :, n % bs:] = 1e4
+    tables = torch.from_numpy(tab).to(cuda)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = _build.PAGED_DECODE.launches
+    got = paged_decode_attention(q, kp, vp, tables, ln, kv_row=row)
+    again = paged_decode_attention(q, kp, vp, tables, ln, kv_row=row)
+    ref = paged_decode_reference(q, kp, vp, tables, ln, kv_row=row)
+    torch.cuda.synchronize()
+    assert _build.PAGED_DECODE.launches == before + 2
+    assert torch.isfinite(got).all()
+    assert rel_l2(got, ref) <= TOL[dtype]
+    assert torch.equal(got, again)
+    assert torch.equal(got[0, 0], row[1][0, :, 0].repeat_interleave(rep, 0))
+
+
 def _bwd_inputs(rng, B, S, N, Nkv, D, dtype, device, masked):
     q = _randn(rng, (B, S, N, D), dtype, device)
     k = _randn(rng, (B, S, Nkv, D), dtype, device)
@@ -433,6 +478,62 @@ def test_sparse_bwd_kernels_are_deterministic(cuda, causal):
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), first, second):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sparse_fwd_kernel_split_rows_deterministic(cuda, causal, D):
+    """The bf16 B5 walks B6's row work list: at BigBird block 128, S=4096,
+    non-causal, the global row (32 key blocks) runs as pieces merged by
+    the second pass; causal, nothing is split. O and LSE against the plain
+    version, and a second launch the same bit for bit."""
+    rng = np.random.default_rng(17 + D)
+    cfg = tsa.get_sparsity_config("bigbird", block=128,
+                                  **SPARSE_LAYOUTS["bigbird"])
+    q, k, v, _ = _sparse_inputs(rng, 2, 4096, 2, D, torch.bfloat16, cuda)
+    rows = tsa.work_tables(cfg, 4096, causal, q.device)[0]
+    assert (rows.slots > 0) == (not causal)
+    first = tsa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    second = tsa.sparse_attention_fwd(q, k, v, cfg, causal=causal)
+    ro, rlse = tsa.sparse_attention_reference(q, k, v, cfg, causal=causal)
+    torch.cuda.synchronize()
+    assert rel_l2(first[0], ro) <= TOL[torch.bfloat16]
+    assert rel_l2(first[1], rlse) <= 1e-4
+    for name, a, b in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sparse_fwd_kernel_empty_list(cuda, dtype):
+    """A layout with a global row (split into pieces in bf16) and a query
+    block that lists nothing: that block's rows come out O = 0 and LSE =
+    -1e30 exactly; the rest as the plain version's."""
+    import dataclasses
+
+    @dataclasses.dataclass(frozen=True)
+    class GlobalAndHole(tsa.SparsityConfig):
+        def make_layout(self, seq_len):
+            n = seq_len // self.block
+            lay = np.eye(n, dtype=bool)
+            lay[0] = True
+            lay[2] = False
+            return lay
+
+    rng = np.random.default_rng(23)
+    cfg = GlobalAndHole(block=64)
+    q, k, v, _ = _sparse_inputs(rng, 2, 1024, 2, 64, dtype, cuda)
+    assert tsa.work_tables(cfg, 1024, False, q.device)[0].slots > 0
+    o, lse = tsa.sparse_attention_fwd(q, k, v, cfg, causal=False)
+    ro, rlse = tsa.sparse_attention_reference(q, k, v, cfg, causal=False)
+    torch.cuda.synchronize()
+    assert torch.all(o[:, 128:192] == 0)
+    assert torch.all(lse[:, :, 128:192] == tsa.NEG_INF)
+    assert rel_l2(o, ro) <= TOL[dtype]
+    live = torch.ones(1024, dtype=torch.bool, device=cuda)
+    live[128:192] = False
+    assert rel_l2(lse[:, :, live], rlse[:, :, live]) <= 1e-4
 
 
 @pytest.mark.cuda
