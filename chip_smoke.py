@@ -46,9 +46,11 @@ Phases, each of which raises on failure (exit code != 0):
    torch.profiler and prints where its device time goes;
 6. training cross-check: llama-1b width, 2 layers, S=512: the loss and
    the grad of every leaf through the kernels against the plain versions,
-   in f32 under dots_saveable (B1 replayed: 2 launches per layer) and
-   dots_and_attn (B1's outputs kept: 1 launch per layer), and in bf16
-   (the tensor-core kernels) under dots_saveable;
+   in f32 under dots_saveable, dots_with_no_batch_dims and offload_dots
+   (B1 replayed: 2 launches per layer) and dots_and_attn (B1's outputs
+   kept: 1 launch per layer), and in bf16 (the tensor-core kernels) under
+   dots_saveable; the device memory of the first three side by side
+   (what the forward leaves on the card, and the peak);
 7. sparse kernels (B5-B7, in phase 2's place in the run): the training
    path's shape (BigBird, B=2 S=8192 N=32 D=64, block 128, bf16), the JAX
    bench's three layouts (``bench.py:893-901``), a non-causal and an f32
@@ -70,7 +72,21 @@ Phases, each of which raises on failure (exit code != 0):
 9. sparse training cross-check: llama-1b width, 2 layers, S=2048, the
    BigBird layout, loss and every grad through B5-B7 against the plain
    versions, in f32 (dots_saveable and dots_and_attn: both replay B5)
-   and bf16.
+   and bf16;
+10. resumable training (after phase 6): llama-1b at full width, 4
+   layers, B=8 S=2048, bf16 with f32 masters, dots_with_no_batch_dims,
+   data from ``random_token_batches`` through an attached
+   ``DataLoader``: ``train_batches`` 3 steps (in_flight 2, prefetch), an
+   async ``save_checkpoint``, a step while it is written,
+   ``wait_checkpoint``, 2 more steps; then a fresh engine,
+   ``load_checkpoint(tag=None)`` and the same 3 steps. The resumed losses
+   and the whole final state must equal the uninterrupted run's bit for
+   bit (the counters, lr and loader position too); ``zero_to_fp32`` of the
+   tag must equal the masters at save time and the 16-bit export must
+   round-trip, bit for bit; launch counts zeroed before each leg: B1
+   twice per layer per step (the policy replays it), B2 and B3 once.
+   Reports the checkpoint's bytes and the save (async and not), wait and
+   load seconds beside the card's name and power limit.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -1193,14 +1209,25 @@ def training_cross_check(S=512, sparse=None):
     ids = np.random.default_rng(2).integers(0, VOCAB, (2, S))
     batch = {"input_ids": torch.from_numpy(ids).cuda()}
 
+    peaks = {}
+
     def value_and_grad(params, c, reference):
         leaves = tree_leaves(params)
         for t in leaves:
             t.requires_grad_(True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         loss = tf.lm_loss(params, batch, c, reference=reference)
+        torch.cuda.synchronize()
+        # what the forward left on the card for the backward
+        kept = torch.cuda.memory_allocated() - base
         grads = torch.autograd.grad(loss, leaves)
         torch.cuda.synchronize()
+        peaks[c.remat_policy] = {
+            "saved_by_forward_mib": kept / 2**20,
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20}
         return float(loss.detach()), grads, _build.launch_counts()
 
     recs = {}
@@ -1208,6 +1235,11 @@ def training_cross_check(S=512, sparse=None):
     cases = (("f32", "dots_saveable", 2 * L, 1e-5, 1e-4),
              ("f32", "dots_and_attn", 2 * L if sparse else L, 1e-5, 1e-4),
              ("bf16", "dots_saveable", 2 * L, 2e-2, 2e-2))
+    if not sparse:
+        # both replay B1 (its outputs are not dots); offload_dots keeps the
+        # matmul outputs in pinned host memory between forward and backward
+        cases += (("f32", "dots_with_no_batch_dims", 2 * L, 1e-5, 1e-4),
+                  ("f32", "offload_dots", 2 * L, 1e-5, 1e-4))
     for dt in ("f32", "bf16"):
         dtype = torch.float32 if dt == "f32" else torch.bfloat16
         params = params32
@@ -1227,7 +1259,8 @@ def training_cross_check(S=512, sparse=None):
             err = max(rel_l2(a, b) for a, b in zip(gk, gp))
             recs[f"{dt} {policy}"] = dict(
                 loss_kernels=lk, loss_plain=lp, loss_rel_err=loss_err,
-                grad_rel_l2_max=err, launches=nk)
+                grad_rel_l2_max=err, launches=nk,
+                device_mem_above_params=peaks[policy])
             if not loss_err <= tol_loss or not err <= tol_grad:
                 raise RuntimeError(f"training cross-check {dt} {policy}: "
                                    f"loss rel {loss_err:.3g}, grad rel L2 "
@@ -1242,9 +1275,212 @@ def training_cross_check(S=512, sparse=None):
         del params, gp
     log(f"{'sparse ' if sparse else ''}training cross-check S={S} "
         + json.dumps(recs))
+    if not sparse:
+        # the peak comes at the end of the backward, where the grads of
+        # every leaf exist: what a policy saves shows after the forward
+        log("remat device memory, f32, MiB above the params "
+            + json.dumps({p: recs[f"f32 {p}"]["device_mem_above_params"]
+                          for p in ("dots_saveable", "dots_with_no_batch_dims",
+                                    "offload_dots")}))
     del params32
     torch.cuda.empty_cache()
     return recs
+
+
+# --------------------------------------------------------------------------
+# resumable training
+# --------------------------------------------------------------------------
+
+RESUME_LAYERS = 4
+
+
+def _tree_bytes(engine) -> int:
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten
+    return sum(t.numel() * t.element_size()
+               for t in flatten(engine.state).values()
+               if isinstance(t, torch.Tensor))
+
+
+def _dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _state_copy(engine):
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten
+    return {k: (v.detach().clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in flatten(engine.state).items()}
+
+
+def _bit_diff(a, b):
+    """Names of the leaves of two state copies that differ in any bit."""
+    out = []
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.bfloat16:
+                v, w = v.view(torch.int16), w.view(torch.int16)
+            if not torch.equal(v, w):
+                out.append(k)
+        elif v != w:
+            out.append(k)
+    return out
+
+
+def resume_phase(smi: str, S: int = 2048, B: int = 8):
+    """llama-1b at full width, 4 layers, B=8 S=2048 (bf16, f32 masters,
+    AdamW, dots_with_no_batch_dims, chunked loss, fused backward), data
+    from random_token_batches through an attached DataLoader. Leg 1:
+    train_batches for 3 steps (in_flight 2, prefetch), an async
+    save_checkpoint, one step while the write is in flight,
+    wait_checkpoint, 2 more steps (the uninterrupted record). Leg 2: a
+    fresh engine, load_checkpoint(tag=None) (latest, deep validation), the
+    same 3 steps from the restored loader position. The resumed losses and
+    the whole final state must equal leg 1's bit for bit; the counters, lr
+    and loader position too; zero_to_fp32 of the tag must equal the
+    masters at save time and save_16bit_model -> load_16bit_model must
+    round-trip, both bit for bit; launch counts, zeroed before each leg,
+    B1 twice per layer per step (the policy replays it) and B2, B3 once.
+    Space: a temporary directory on local disk, removed afterwards; too
+    little free space fails the run."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch import initialize, llama_config, make_model
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.runtime.checkpointing import flatten
+    from deepspeed_tpu_torch.runtime.dataloader import (DataLoader,
+                                                        RepeatingLoader,
+                                                        random_token_batches)
+    from deepspeed_tpu_torch.runtime.engine import load_16bit_model
+    from deepspeed_tpu_torch.utils.zero_to_fp32 import \
+        get_fp32_state_dict_from_zero_checkpoint
+    L = RESUME_LAYERS
+    cfg = llama_config("1b", num_layers=L, max_seq_len=S, remat=True,
+                       remat_policy="dots_with_no_batch_dims", loss_chunk=S)
+    config = dict(TRAIN_CONFIG, pipeline={"in_flight": 2, "prefetch": True},
+                  checkpoint={"async_save": True})
+    ids = next(random_token_batches(64, S, VOCAB, 1, seed=0))["input_ids"]
+    rows = [{"input_ids": r} for r in ids]
+
+    def engine_and_loader():
+        engine, *_ = initialize(model=make_model(cfg, f"llama-1b x{L}"),
+                                config=dict(config))
+        loader = RepeatingLoader(DataLoader(rows, batch_size=B, shuffle=True,
+                                            seed=0))
+        engine.attach_dataloader(loader)
+        return engine, loader
+
+    def step(engine, loader):
+        return engine.train_batches(loader, 1)["loss"]
+
+    def counts(launches, steps):
+        want = {"flash_fwd": 2 * steps * L, "flash_bwd_dq": steps * L,
+                "flash_bwd_dkv": steps * L}
+        got = {k: n for k, n in launches.items() if n}
+        if got != want:
+            raise RuntimeError(f"resume: launches {launches}, want {want}")
+        return got
+
+    tmp = tempfile.mkdtemp(prefix="dstpu_resume_")
+    ckdir, syncdir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "sync")
+    rec = {"card": smi, "layers": L, "B": B, "S": S}
+    try:
+        e1, ld1 = engine_and_loader()
+        state_bytes = _tree_bytes(e1)
+        free = shutil.disk_usage(tmp).free
+        need = 2 * state_bytes + (1 << 30)
+        rec.update(state_bytes=state_bytes, disk_free_bytes=free)
+        if free < need:
+            raise RuntimeError(f"resume: {free} bytes free under {tmp}, the "
+                               f"phase needs {need} (two saves)")
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        first = e1.train_batches(ld1, 3)["loss"]
+        masters = {k: v.detach().clone() for k, v in
+                   flatten(e1.state["opt"]["master"]).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = e1.save_checkpoint(ckdir)
+        rec["save_async_return_s"] = time.perf_counter() - t0
+        losses = [step(e1, ld1)]                  # the write is in flight
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e1.wait_checkpoint()
+        rec["wait_checkpoint_s"] = time.perf_counter() - t0
+        losses += [step(e1, ld1) for _ in range(2)]
+        torch.cuda.synchronize()
+        rec["launches_uninterrupted"] = counts(_build.launch_counts(), 6)
+        want = _state_copy(e1)
+        want_lr, want_pos = e1.get_lr(), ld1.state_dict()
+        rec["checkpoint_bytes"] = _dir_bytes(path)
+        # a synchronous save of the same engine, timed, then removed
+        e1.config.checkpoint.async_save = False
+        t0 = time.perf_counter()
+        e1.save_checkpoint(syncdir)
+        rec["save_sync_s"] = time.perf_counter() - t0
+        shutil.rmtree(syncdir)
+        t0 = time.perf_counter()
+        f16 = e1.save_16bit_model(tmp)
+        rec["save_16bit_s"] = time.perf_counter() - t0
+        back = load_16bit_model(f16)
+        diff = _bit_diff({k: v.cpu() for k, v in want.items()
+                          if k.startswith("params/")},
+                         {f"params/{k}": v for k, v in back.items()})
+        if diff or len(back) != sum(k.startswith("params/") for k in want):
+            raise RuntimeError(f"resume: 16-bit export round trip differs "
+                               f"in {diff}")
+        del e1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        fp32 = get_fp32_state_dict_from_zero_checkpoint(ckdir)
+        rec["zero_to_fp32_s"] = time.perf_counter() - t0
+        diff = [k for k, v in masters.items()
+                if not torch.equal(torch.from_numpy(fp32[k]), v.cpu())]
+        if diff or len(fp32) != len(masters):
+            raise RuntimeError(f"resume: zero_to_fp32 differs from the "
+                               f"masters at save time in {diff}")
+        del fp32, masters
+
+        e2, ld2 = engine_and_loader()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, client = e2.load_checkpoint(ckdir)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t0
+        rec["restored"] = {k: client[k] for k in ("global_steps",
+                                                  "micro_steps",
+                                                  "data_position")}
+        _build.reset_launch_counts()
+        resumed = [step(e2, ld2) for _ in range(3)]
+        torch.cuda.synchronize()
+        rec["launches_resumed"] = counts(_build.launch_counts(), 3)
+        rec["losses_uninterrupted"] = [float(first)] + [float(x)
+                                                        for x in losses]
+        rec["losses_resumed"] = [float(x) for x in resumed]
+        diff = _bit_diff(want, _state_copy(e2))
+        rec["state_leaves_differing"] = diff
+        log("resume " + json.dumps(rec))
+        if [float(x) for x in resumed] != [float(x) for x in losses]:
+            raise RuntimeError("resume: losses after the resume differ from "
+                               f"the uninterrupted run's: {resumed} vs "
+                               f"{losses}")
+        if diff:
+            raise RuntimeError(f"resume: final state differs in {diff}")
+        if (e2.global_steps, e2.get_lr(), ld2.state_dict()) != \
+                (6, want_lr, want_pos):
+            raise RuntimeError(
+                f"resume: counters {e2.global_steps} lr {e2.get_lr()} "
+                f"position {ld2.state_dict()}, want 6 {want_lr} {want_pos}")
+        if not all(np.isfinite(rec["losses_uninterrupted"])):
+            raise RuntimeError(f"resume: non-finite loss {rec}")
+        del e2, want
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
 
 
 def ptxas_report(log: str):
@@ -1372,7 +1608,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    card = smi.stdout.strip()
+    log(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     cap = torch.cuda.get_device_capability(0)
@@ -1396,6 +1633,7 @@ def main() -> int:
         next(c for c in flash if c["case"].startswith("llama-1b training")),
         bwd[0])
     training_cross_check()
+    resume = resume_phase(card)
     sparse_train = sparse_training_phase(sparse[0])
     training_cross_check(S=2048, sparse=SPARSE_MODEL)
 
@@ -1427,8 +1665,15 @@ def main() -> int:
         if entry["name"] in build_info:
             entry["build"] = build_info[entry["name"]]
     line["build_s"] = build_s
-    line["kernels"][0]["launches_by_path"] = {
-        "serving": launches["flash_fwd"], "training": tl["flash_fwd"]}
+    for entry in line["kernels"][:4]:
+        name = entry["name"]
+        if name == "paged_decode":
+            continue
+        entry["launches_by_path"] = {
+            "training": tl[name],
+            "resume": (resume["launches_uninterrupted"][name]
+                       + resume["launches_resumed"][name])}
+    line["kernels"][0]["launches_by_path"]["serving"] = launches["flash_fwd"]
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

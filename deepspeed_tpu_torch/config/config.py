@@ -5,7 +5,8 @@ The JSON surface is the JAX package's, so one config dict drives both.
 What this slice runs: the batch triad (``resolve_batch_size``, the same
 solve), ``optimizer``, ``scheduler``, ``bf16``, ``zero_optimization.stage``
 (one device: every stage is the same program), ``gradient_clipping``,
-``transformer.fused_backward``, ``seed`` and ``steps_per_print``. Unknown
+``transformer.fused_backward``, ``pipeline`` (``in_flight``,
+``prefetch``), ``checkpoint``, ``seed`` and ``steps_per_print``. Unknown
 keys warn, as in JAX. The JAX sections this slice lacks are known: each
 raises ``NotImplementedError`` naming its ROADMAP item when the config
 turns it on, and is ignored while it is off.
@@ -87,6 +88,58 @@ class TransformerTuningConfig(ConfigModel):
                       "A9 (tensor-parallel overlap)")
 
 
+@dataclasses.dataclass
+class PipelineConfig(ConfigModel):
+    """``pipeline``: the async step loop of ``Engine.train_batches``.
+    ``in_flight`` bounds how many steps the host issues ahead of the card;
+    ``prefetch`` copies batch N+1 to the device (from pinned memory, on a
+    side stream) while step N runs. Pipeline stages and the fused K-step
+    dispatch (``fuse_steps`` > 1) raise."""
+    stages: int = 1
+    in_flight: int = 2
+    prefetch: bool = True
+    fuse_steps: int = 1
+
+    def validate(self):
+        if self.in_flight < 1:
+            raise ConfigError("pipeline.in_flight must be >= 1")
+        if self.fuse_steps < 1:
+            raise ConfigError("pipeline.fuse_steps must be >= 1")
+        if self.stages > 1 or self.fuse_steps > 1:
+            _deferred("pipeline", "A4 / A9 (pipeline stages, fused "
+                      "multi-step dispatch)")
+
+
+@dataclasses.dataclass
+class CheckpointConfig(ConfigModel):
+    """``checkpoint``, as in JAX: ``async_save`` (the write runs on a
+    thread after a host copy), the integrity chain (``integrity``:
+    manifest + commit marker; ``integrity_checksums``: re-hash on
+    validate), ``keep_last_k`` retention (0 = keep all; the tag `latest`
+    names is never pruned) and ``tag_validation`` (kept for the JSON
+    surface; there is one rank, so there is no cross-rank tag to check).
+    ``load_universal`` and ``use_node_local_storage`` need more than one
+    rank and raise."""
+    tag_validation: str = "Warn"      # Ignore | Warn | Fail
+    load_universal: bool = False
+    use_node_local_storage: bool = False
+    async_save: bool = False
+    integrity: bool = True
+    integrity_checksums: bool = True
+    keep_last_k: int = 0
+
+    def validate(self):
+        if self.keep_last_k < 0:
+            raise ConfigError("checkpoint.keep_last_k must be >= 0")
+        if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
+            raise ConfigError("checkpoint.tag_validation must be Ignore, "
+                              f"Warn or Fail, got {self.tag_validation!r}")
+        for name in ("load_universal", "use_node_local_storage"):
+            if getattr(self, name):
+                _deferred(f"checkpoint.{name}",
+                          "A4 (more than one rank)")
+
+
 def _deferred(what: str, item: str):
     raise NotImplementedError(f"config {what} is not ported yet: ROADMAP "
                               f"{item}")
@@ -102,9 +155,6 @@ def _any_size(*keys):
 
 # JAX sections this slice does not run: (on(section dict), ROADMAP item)
 _DEFERRED = {
-    "pipeline": (lambda s: (s.get("stages") or 1) > 1
-                 or (s.get("fuse_steps") or 1) > 1,
-                 "A4 / A9 (pipeline stages, fused multi-step dispatch)"),
     "tensor_parallel": (lambda s: _any_size("tp_size", "size", "tp")(s)
                         or bool(s.get("seq_parallel")),
                         "A9 (tensor parallelism)"),
@@ -156,6 +206,8 @@ class Config(ConfigModel):
     zero_optimization: ZeroConfig = config_field(ZeroConfig)
     transformer: TransformerTuningConfig = config_field(
         TransformerTuningConfig)
+    pipeline: PipelineConfig = config_field(PipelineConfig)
+    checkpoint: CheckpointConfig = config_field(CheckpointConfig)
 
     @classmethod
     def load(cls, source) -> "Config":

@@ -49,6 +49,15 @@ class ConfigModel:
     def validate(self) -> None:
         """Override for cross-field checks."""
 
+    def to_dict(self) -> Dict[str, Any]:
+        """The section as plain dicts (a checkpoint's meta.json)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            value = getattr(self, f.name)
+            out[f.name] = (value.to_dict() if isinstance(value, ConfigModel)
+                           else value)
+        return out
+
 
 def _coerce(hint, value, path: str):
     """Best-effort coercion of a raw JSON value to the annotated type."""

@@ -1,4 +1,5 @@
-"""Move a JAX parameter tree into the port.
+"""Move a JAX parameter tree, or the JAX engine's whole training state,
+into the port.
 
 The port keeps the JAX layout (same names, ``[in, out]`` matrices, the
 stacked leading ``L`` dim), so conversion is leaf for leaf with no
@@ -54,3 +55,31 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
            if k != "layers"}
     out["layers"] = {k: _leaf(v, device, dtype) for k, v in layers.items()}
     return out
+
+
+def _host_int(v) -> int:
+    return int(np.asarray(v).reshape(-1)[0])
+
+
+def state_from_numpy(state_tree: Dict[str, Any], cfg: TransformerConfig, *,
+                     device, compute_dtype: torch.dtype) -> Dict[str, Any]:
+    """The JAX engine's whole training state as numpy (``params``, ``opt``
+    with JAX's names: ``step``, ``exp_avg``, ``exp_avg_sq``, ``master``
+    (None without masters), ``max_exp_avg_sq`` under amsgrad; the applied
+    update count ``step``) -> the port's ``Engine.state``: params in
+    ``compute_dtype`` (bf16 arrives as ml_dtypes and is widened and
+    narrowed exactly), the optimizer's trees in f32, both step counts as
+    host ints."""
+    params = params_from_numpy(state_tree["params"], cfg, device=device,
+                               dtype=compute_dtype)
+    opt = {}
+    for name, v in state_tree["opt"].items():
+        if name == "step":
+            opt[name] = _host_int(v)
+        elif v is None:
+            opt[name] = None
+        else:
+            opt[name] = params_from_numpy(v, cfg, device=device,
+                                          dtype=torch.float32)
+    step = state_tree.get("step", opt.get("step", 0))
+    return {"params": params, "opt": opt, "step": _host_int(step)}

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -55,8 +56,7 @@ Params = Dict[str, Any]
 
 
 REMAT_POLICIES = ("none", "full", "save_nothing", "dots_saveable",
-                  "dots_and_attn")
-_JAX_ONLY_POLICIES = ("dots_with_no_batch_dims", "offload_dots")
+                  "dots_and_attn", "dots_with_no_batch_dims", "offload_dots")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +108,6 @@ class TransformerConfig:
                               "A11 (learned / alibi positions)"),
             "causal": (not self.causal, "A11 (encoder models)"),
             "dropout_rate": (self.dropout_rate > 0, "A12 (dropout)"),
-            "remat_policy": (self.remat_policy in _JAX_ONLY_POLICIES,
-                             "A5 (remat sweep policies)"),
         }
         for name, (bad, item) in deferred.items():
             if bad:
@@ -436,22 +434,81 @@ def forward(params: Params, input_ids, cfg: TransformerConfig, *,
 # activation by a 2-D weight reaches the dispatcher as aten.mm)
 _DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
                    torch.ops.aten.addmm.default})
+# the matmuls without a batch dim: what ``dots_with_no_batch_dims_saveable``
+# keeps (aten.bmm carries one)
+_NO_BATCH_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
 
 
-def _remat_policy(cfg: TransformerConfig):
+class _OffloadSave(TorchDispatchMode):
+    """The checkpointed forward of ``offload_dots``: each output of a
+    ``saved`` op is copied into host memory (pinned, by a non-blocking
+    copy in stream order, on CUDA) and kept in ``store``, per op, in call
+    order."""
+
+    def __init__(self, saved, store):
+        super().__init__()
+        self.saved, self.store = saved, store
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in self.saved:
+            host = torch.empty(out.shape, dtype=out.dtype,
+                               pin_memory=out.is_cuda)
+            host.copy_(out, non_blocking=out.is_cuda)
+            self.store.setdefault(func, []).append(host)
+        return out
+
+
+class _OffloadRestore(TorchDispatchMode):
+    """The backward's replay under ``offload_dots``: a ``saved`` op is not
+    recomputed; its output comes back from host memory, bit for bit the
+    value the forward computed. Everything else is recomputed."""
+
+    def __init__(self, saved, store, device):
+        super().__init__()
+        self.saved, self.store, self.device = saved, store, device
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.saved and self.store.get(func):
+            host = self.store[func].pop(0)
+            return host.to(self.device, non_blocking=host.is_pinned())
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_contexts(saved, device):
+    """``context_fn`` of ``offload_dots``: JAX's
+    ``offload_dot_with_no_batch_dims("device", "pinned_host")``. The
+    selective-checkpoint contexts keep MUST_SAVE outputs in their own
+    cache on the device, out of reach of ``saved_tensors_hooks``; these
+    two modes keep them on the host instead, between the forward and the
+    replay."""
+    store = {}
+    return _OffloadSave(saved, store), _OffloadRestore(saved, store, device)
+
+
+def _remat_policy(cfg: TransformerConfig, device=None):
     """How each layer is rematerialized, as JAX's ``_remat_policy`` picks
     it: None = no checkpoint; otherwise the ``context_fn`` for
     ``torch.utils.checkpoint`` ("full", "save_nothing" and ``remat`` with
     policy "none" save nothing inside the layer: a bare checkpoint).
 
     "dots_saveable" keeps the matmul outputs and replays the rest,
-    including the flash forward (B1), in the backward. "dots_and_attn" also
-    keeps B1's O and LSE (the custom op ``dstpu_torch::flash_fwd``), so the
-    backward runs straight into B2/B3 without replaying B1. The sparse
-    forward (B5) is kept by neither: both replay it, as in JAX."""
+    including the flash forward (B1), in the backward;
+    "dots_with_no_batch_dims" keeps those without a batch dim (aten.mm /
+    addmm, not bmm: every weight matmul of the layer) and so replays B1
+    too; "offload_dots" keeps that same set in host memory between the
+    forward and the backward (``device``: where the replay puts it back).
+    "dots_and_attn" also keeps B1's O and LSE (the custom op
+    ``dstpu_torch::flash_fwd``), so the backward runs straight into B2/B3
+    without replaying B1. The sparse forward (B5) is kept by none: all
+    replay it, as in JAX."""
     if not cfg.remat and cfg.remat_policy in ("none", None):
         return None
+    if cfg.remat_policy == "offload_dots":
+        return functools.partial(_offload_contexts, _NO_BATCH_DOTS, device)
     saved = {"dots_saveable": _DOTS,
+             "dots_with_no_batch_dims": _NO_BATCH_DOTS,
              "dots_and_attn": _DOTS | {FLASH_FWD_OP}}.get(cfg.remat_policy)
     if saved is None:
         return noop_context_fn
@@ -470,10 +527,15 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     writes them straight into the pool); ``keep_kv`` returns them. With
     gradients on, each layer runs under the config's remat policy."""
     B, S = input_ids.shape
-    x = params["tok_embed"][input_ids.long()].to(cfg.dtype)
+    # F.embedding, not an index: its backward sums a token's rows in a
+    # fixed order on the CPU and the card, where the index's backward
+    # (an accumulating index_put) adds f32 rows atomically in parallel on
+    # the CPU, so two runs of one step could differ in the last bit
+    x = F.embedding(input_ids.long(), params["tok_embed"]).to(cfg.dtype)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    context_fn = _remat_policy(cfg) if torch.is_grad_enabled() else None
+    context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
+                  else None)
 
     def layer(x_in, lp):
         return transformer_layer(x_in, lp, cfg, positions=positions,

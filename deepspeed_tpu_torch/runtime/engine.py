@@ -1,6 +1,7 @@
 """The training engine on one device, a port of the main path of
 ``deepspeed_tpu/runtime/engine.py``: ``initialize`` -> ``Engine`` ->
-``train_batch``.
+``train_batch`` / ``train_batches`` / ``forward``-``backward``-``step``,
+with checkpoints a run can resume from.
 
 What it runs, in the JAX engine's order:
 
@@ -14,7 +15,17 @@ What it runs, in the JAX engine's order:
   the global norm, clipping, the optimizer update and the write-back of
   the updated masters into the params;
 - ``train_batch``, ``eval_batch``, ``get_lr``, ``global_steps``,
-  ``params``.
+  ``params``;
+- ``train_batches``: the async loop (``pipeline.in_flight`` steps issued
+  ahead at most, ``pipeline.prefetch`` copies batch N+1 from pinned host
+  memory on a side stream while step N runs), and the 3-call
+  ``forward`` / ``backward`` / ``step`` API (grads buffered until the
+  accumulation boundary, the update ``train_batch`` applies);
+- ``attach_dataloader`` (or ``initialize(training_data=...)``), whose
+  position every checkpoint carries;
+- ``save_checkpoint`` / ``wait_checkpoint`` / ``load_checkpoint``
+  (``runtime/checkpointing.py``: one ``.npy`` per leaf, the integrity
+  chain, walk-back), ``save_16bit_model`` and ``load_16bit_model``.
 
 JAX compiles the step into one program and never fetches a metric per
 step; here the step is eager PyTorch and ``train_batch`` returns its
@@ -23,13 +34,16 @@ metrics as 0-dim device tensors, again without a host fetch.
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 slice leaves out raises ``NotImplementedError`` naming its ROADMAP item:
-``train_batches``, the 3-call forward/backward/step API and the data
-loader (A4), checkpointing (A5), more than one rank (A4), and the config
+more than one rank, meshes and model-parallel groups (A4), and the config
 sections ``config/config.py`` lists.
 """
 
+import collections
 import dataclasses
+import itertools
+import json
 import logging
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -37,14 +51,17 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.config import Config
-from deepspeed_tpu_torch.models.convert import params_from_numpy
+from deepspeed_tpu_torch.models.convert import (params_from_numpy,
+                                                state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     make_model)
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
                                                 global_grad_norm, tree_leaves,
                                                 tree_map)
 from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
+from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
 from deepspeed_tpu_torch.runtime import zero as zero_mod
+from deepspeed_tpu_torch.runtime.dataloader import DataLoader, PrefetchLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import get_scheduler
 
 logger = logging.getLogger("deepspeed_tpu_torch")
@@ -55,28 +72,49 @@ def _not_ported(what: str, item: str):
 
 
 def initialize(args=None, model=None, config=None, config_params=None,
-               optimizer=None, lr_scheduler=None, params=None, device=None,
-               **kwargs):
+               optimizer=None, lr_scheduler=None, params=None, state=None,
+               device=None, training_data=None, **kwargs):
     """Build an Engine. ``model``: a ModelSpec (``models.make_model``);
     ``config``: a dict, a JSON path or a Config; ``params``: a JAX-layout
-    tree (numpy arrays) instead of the seeded init. Returns (engine,
-    optimizer, dataloader, lr_scheduler), the dataloader always None."""
+    tree (numpy arrays) instead of the seeded init; ``state``: the JAX
+    engine's whole training state as numpy (``models.state_from_numpy``)
+    to continue from; ``training_data``: an indexable dataset of rows,
+    batched by a ``DataLoader`` of ``train_batch_size`` rows that is
+    attached (checkpoints carry its position). Returns (engine, optimizer,
+    dataloader, lr_scheduler); dataloader is None without
+    training_data."""
     cfg = Config.load(config if config is not None else config_params)
     if args is not None and getattr(args, "deepspeed_config", None):
         cfg = Config.load(args.deepspeed_config)
-    for key in ("training_data", "mesh", "mpu"):
+    for key in ("mesh", "mpu"):
         if kwargs.get(key) is not None:
             _not_ported(f"initialize({key}=...)",
-                        "A4 (data loader, meshes, model-parallel groups)")
+                        "A4 (meshes, model-parallel groups)")
     engine = Engine(model=model, config=cfg, optimizer=optimizer,
-                    lr_scheduler=lr_scheduler, params=params, device=device)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                    lr_scheduler=lr_scheduler, params=params, state=state,
+                    device=device)
+    dataloader = None
+    if training_data is not None:
+        # train_batch consumes GLOBAL batches (train_batch_size rows)
+        dataloader = DataLoader(training_data,
+                                batch_size=engine.config.train_batch_size)
+        engine.attach_dataloader(dataloader)
+    return engine, engine.optimizer, dataloader, engine.lr_scheduler
+
+
+class _Staged(dict):
+    """A batch already on the card, copied on the prefetch stream:
+    ``event`` marks the end of its copies."""
+
+    def __init__(self, tensors, event):
+        super().__init__(tensors)
+        self.event = event
 
 
 class Engine:
     def __init__(self, model, config: Config,
                  optimizer: Optional[Optimizer] = None, lr_scheduler=None,
-                 params=None, device=None):
+                 params=None, state=None, device=None):
         self.device = resolve_device(device)
         self.config = config
         zero_mod.check_single_device(config.zero_optimization.stage)
@@ -122,9 +160,21 @@ class Engine:
         if config.optimizer and "lr" in config.optimizer.params:
             self._base_lr = config.optimizer.params["lr"]
 
-        self.state = self._init_state(params)
-        self.global_steps = 0
-        self.micro_steps = 0
+        if state is None:
+            self.state = self._init_state(params)
+        else:
+            self.state = self._adopt_state(state)
+        # the applied update count: one device, no skipped steps
+        self.global_steps = self.state["step"]
+        self.micro_steps = (self.global_steps
+                            * config.gradient_accumulation_steps)
+        self._dataloader = None
+        self._ckpt_engine = None
+        self._copy_stream = None
+        # 3-call API: grads and losses buffered until the boundary
+        self._pending = None
+        self._grad_buffer = None
+        self._losses = []
 
     # ------------------------------------------------------------------
     def _init_state(self, params):
@@ -145,10 +195,53 @@ class Engine:
             p.requires_grad_(True)
         return {"params": params, "opt": opt_state, "step": 0}
 
+    def _adopt_state(self, state):
+        """A JAX training state (numpy) as this engine's, checked against
+        the structure this engine's optimizer builds."""
+        adopted = state_from_numpy(state, self.model.config,
+                                   device=self.device,
+                                   compute_dtype=self.compute_dtype)
+        meta = tree_map(lambda p: torch.empty_like(p, device="meta"),
+                        adopted["params"])
+        want = {"params": meta, "opt": self.optimizer.init(meta), "step": 0}
+        _check_structure(ckpt_mod.flatten(adopted), ckpt_mod.flatten(want),
+                         "state")
+        for p in tree_leaves(adopted["params"]):
+            p.requires_grad_(True)
+        return adopted
+
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        if isinstance(batch, _Staged):
+            # staged on the prefetch stream: order this stream after its
+            # copies, and tell the allocator the tensors are used here
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(batch.event)
+            for t in batch.values():
+                t.record_stream(stream)
+            return dict(batch)
         return {k: (v if isinstance(v, torch.Tensor)
                     else torch.as_tensor(np.asarray(v))).to(self.device)
                 for k, v in batch.items()}
+
+    def _stage_batch(self, batch):
+        """The prefetch placement: on CUDA, each host leaf is pinned and
+        copied on a side stream (the copy of batch N+1 overlaps step N);
+        on the CPU, the plain placement."""
+        if self.device.type != "cuda":
+            return self._device_batch(batch)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        host = {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v)))
+                for k, v in batch.items()}
+        host = {k: (v if v.is_cuda else v.pin_memory())
+                for k, v in host.items()}
+        with torch.cuda.stream(self._copy_stream):
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(self._copy_stream)
+        return _Staged(dev, done)
 
     def _micro_grads(self, mb):
         """(loss, f32 grads as a list over the param leaves) of one
@@ -158,25 +251,38 @@ class Engine:
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         return loss.detach(), [g.float() for g in grads]
 
+    def _accumulate(self, acc, grads):
+        """Add one micro-batch's grads into ``acc`` (None: the first), the
+        1/gas mean folded into the accumulate, as JAX's
+        ``_accum_micro_grads``; with gas = 1 the grads themselves."""
+        gas = self.config.gradient_accumulation_steps
+        if gas == 1:
+            return grads
+        if acc is None:
+            acc = [torch.zeros_like(g) for g in grads]
+        inv_gas = float(np.float32(1.0 / gas))
+        for a, g in zip(acc, grads):
+            a.add_(g * inv_gas)
+        return acc
+
+    @staticmethod
+    def _mean_loss(losses):
+        return losses[0] if len(losses) == 1 else torch.stack(losses).mean()
+
     def _accum_micro_grads(self, batch):
-        """Grads averaged over ``gas`` micro-batches (1/gas folded into the
-        accumulate) and the mean loss."""
+        """Grads averaged over ``gas`` micro-batches and the mean loss."""
         gas = self.config.gradient_accumulation_steps
         if gas == 1:
             loss, grads = self._micro_grads(batch)
             return grads, loss
         mbs = {k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])
                for k, v in batch.items()}
-        inv_gas = float(np.float32(1.0 / gas))
         acc, losses = None, []
         for i in range(gas):
             loss, grads = self._micro_grads({k: v[i] for k, v in mbs.items()})
-            if acc is None:
-                acc = [torch.zeros_like(g) for g in grads]
-            for a, g in zip(acc, grads):
-                a.add_(g * inv_gas)
+            acc = self._accumulate(acc, grads)
             losses.append(loss)
-        return acc, torch.stack(losses).mean()
+        return acc, self._mean_loss(losses)
 
     @torch.no_grad()
     def _apply_grads(self, grads, mean_loss):
@@ -233,24 +339,227 @@ class Engine:
     def params(self):
         return self.state["params"]
 
-    # --- outside this slice -------------------------------------------
+    # --- the async loop and the 3-call API ----------------------------
     def train_batches(self, data_iter, num_steps: int):
-        _not_ported("Engine.train_batches", "A4 (async multi-step loop)")
+        """Consume ``num_steps`` global batches from ``data_iter``, one
+        ``train_batch`` each, with at most ``pipeline.in_flight`` steps
+        issued ahead of the card: before issuing further, the host waits
+        on the event of step i - in_flight. With ``pipeline.prefetch`` the
+        copy of batch N+1 overlaps step N (``PrefetchLoader``). Nothing is
+        fetched to the host; returns the last step's metrics."""
+        pcfg = self.config.pipeline
+        in_flight = max(1, int(pcfg.in_flight))
+        it = itertools.islice(iter(data_iter), num_steps)
+        if pcfg.prefetch:
+            it = iter(PrefetchLoader(it, put_fn=self._stage_batch))
+        window = collections.deque()
+        metrics, done = None, 0
+        for batch in it:
+            metrics = self.train_batch(batch)
+            done += 1
+            if self.device.type == "cuda":
+                issued = torch.cuda.Event()
+                issued.record()
+                window.append(issued)
+                if len(window) > in_flight:
+                    window.popleft().synchronize()
+        if done < num_steps:
+            logger.warning(f"train_batches: iterator exhausted after {done} "
+                           f"of {num_steps} steps")
+        return metrics
 
     def forward(self, batch):
-        _not_ported("the 3-call forward/backward/step API",
-                    "A4 (use train_batch)")
+        """Loss and grads of one micro-batch (train_micro_batch_size_per_gpu
+        rows); the grads wait for ``backward``. Returns the loss."""
+        loss, grads = self._micro_grads(self._device_batch(batch))
+        self._pending = (loss, grads)
+        return loss
 
     def backward(self, loss=None):
-        _not_ported("the 3-call forward/backward/step API",
-                    "A4 (use train_batch)")
+        """Accumulate the pending grads (``forward`` already
+        differentiated; this keeps the reference's call order)."""
+        if self._pending is None:
+            raise RuntimeError("backward() called without forward()")
+        loss, grads = self._pending
+        self._pending = None
+        self._grad_buffer = self._accumulate(self._grad_buffer, grads)
+        self._losses.append(loss)
+        self.micro_steps += 1
+        return loss
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return len(self._losses) >= self.config.gradient_accumulation_steps
 
     def step(self):
-        _not_ported("the 3-call forward/backward/step API",
-                    "A4 (use train_batch)")
+        """At the accumulation boundary, the update ``train_batch``
+        applies (returns its metrics); otherwise None."""
+        if not self.is_gradient_accumulation_boundary():
+            return None
+        metrics = self._apply_grads(self._grad_buffer,
+                                    self._mean_loss(self._losses))
+        self._grad_buffer, self._losses = None, []
+        self.global_steps += 1
+        return metrics
 
-    def save_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing", "A5")
+    # --- checkpointing -------------------------------------------------
+    def attach_dataloader(self, loader) -> None:
+        """Register the training loader so checkpoints carry its position
+        (epoch, batch in epoch, seed) and a resume neither replays nor
+        skips data. Anything with state_dict / load_state_dict works
+        (DataLoader and RepeatingLoader both do)."""
+        self._dataloader = loader
 
-    def load_checkpoint(self, *args, **kwargs):
-        _not_ported("checkpointing", "A5")
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True) -> str:
+        """Save every leaf of ``state`` under ``save_dir/tag`` (default tag
+        ``global_step{n}``). ``client_state`` gains the step counters and
+        the attached loader's position. With ``checkpoint.async_save`` this
+        returns once the state is copied to host memory; the write runs on
+        a thread and is published at ``wait_checkpoint`` (or the next
+        save). Returns the tag's directory."""
+        tag = tag if tag is not None else f"global_step{self.global_steps}"
+        client_state = dict(client_state or {})
+        client_state.update({"global_steps": self.global_steps,
+                             "skipped_steps": 0,
+                             "micro_steps": self.micro_steps})
+        if self._dataloader is not None and \
+                hasattr(self._dataloader, "state_dict"):
+            client_state.setdefault("data_position",
+                                    self._dataloader.state_dict())
+        ck = self.config.checkpoint
+        engine = None
+        if ck.async_save:
+            if self._ckpt_engine is None:
+                self._ckpt_engine = ckpt_mod.CheckpointEngine(async_save=True)
+            engine = self._ckpt_engine
+        return ckpt_mod.save_checkpoint(
+            save_dir, tag, self.state, client_state=client_state,
+            config_dict=self.config.to_dict(), engine=engine,
+            save_latest=save_latest, write_integrity=ck.integrity,
+            checksums=ck.integrity_checksums, keep_last_k=ck.keep_last_k)
+
+    def wait_checkpoint(self) -> None:
+        """Block until an in-flight async save is durable and published
+        (its `latest` written). No-op without one."""
+        if self._ckpt_engine is not None:
+            self._ckpt_engine.wait()
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True):
+        """Restore every leaf of ``state`` in place, the step counters and
+        the attached loader's position. An explicit tag is honoured
+        verbatim; tag=None validates `latest` and walks back to the newest
+        valid tag. ``load_optimizer_states=False`` keeps this engine's
+        optimizer state (masters included), as JAX does. The schedule is
+        a function of ``global_steps``, so it always continues where the
+        save stopped. Returns (load_dir, client_state)."""
+        self.wait_checkpoint()
+        return ckpt_mod.load_with_walk_back(
+            load_dir, tag,
+            lambda t: self._load_resolved(load_dir, t, load_optimizer_states))
+
+    def _load_resolved(self, load_dir: str, tag: str,
+                       load_optimizer_states: bool):
+        """Load one resolved tag. Everything is checked before the first
+        leaf is written, so a tag that fails leaves the engine as it was
+        (and the walk-back can try the next)."""
+        ckpt_path = os.path.join(load_dir, tag)
+        arrays, dtypes = ckpt_mod.read_payload(
+            os.path.join(ckpt_path, "state"))
+        client_state = ckpt_mod.read_meta(ckpt_path).get("client_state", {})
+        saved = {k: (arrays[k], dtypes[k]) for k in arrays}
+        have = ckpt_mod.flatten(self.state)
+        if not load_optimizer_states:
+            saved = {k: v for k, v in saved.items() if not k.startswith("opt/")}
+            have = {k: v for k, v in have.items() if not k.startswith("opt/")}
+        _check_structure(saved, have, f"checkpoint {ckpt_path}")
+        with torch.no_grad():
+            for name, leaf in have.items():
+                src = ckpt_mod.from_numpy_bits(arrays[name], dtypes[name])
+                if isinstance(leaf, torch.Tensor):
+                    leaf.copy_(src)
+                else:
+                    _set_leaf(self.state, name, int(src))
+        self.global_steps = int(client_state.get("global_steps", 0))
+        self.micro_steps = int(client_state.get("micro_steps", 0))
+        self._pending, self._grad_buffer, self._losses = None, None, []
+        if self._dataloader is not None and "data_position" in client_state \
+                and hasattr(self._dataloader, "load_state_dict"):
+            self._dataloader.load_state_dict(client_state["data_position"])
+        logger.info(f"loaded checkpoint {ckpt_path}")
+        return load_dir, client_state
+
+    def save_16bit_model(self, save_dir: str,
+                         name: str = "model_fp16.ckpt") -> str:
+        """The params in the compute dtype as one ``.npz`` of JAX's
+        flattened names; bf16 leaves stored as their uint16 bits, with a
+        ``.dtypes.json`` manifest beside (JAX's ``save_16bit_model``
+        format: each package reads the other's). Returns the path."""
+        os.makedirs(save_dir, exist_ok=True)
+        path = os.path.join(save_dir, name)
+        if not path.endswith(".npz"):
+            path += ".npz"
+        arrays, dtypes = {}, {}
+        for key, t in ckpt_mod.flatten(self.state["params"]).items():
+            t = t.detach().cpu()
+            dtypes[key] = ckpt_mod.dtype_name(t.dtype)
+            arrays[key] = ckpt_mod.to_numpy_bits(t)
+        np.savez(path, **arrays)
+        with open(path + ".dtypes.json", "w") as f:
+            json.dump(dtypes, f)
+        return path
+
+
+def load_16bit_model(path: str) -> Dict[str, torch.Tensor]:
+    """A ``save_16bit_model`` export (of either package) as {name: CPU
+    tensor}; bf16 leaves come back as bf16, bit for bit."""
+    if not path.endswith(".npz"):
+        path += ".npz"
+    dtypes = {}
+    if os.path.exists(path + ".dtypes.json"):
+        with open(path + ".dtypes.json") as f:
+            dtypes = json.load(f)
+    with np.load(path, allow_pickle=False) as z:
+        return {k: ckpt_mod.from_numpy_bits(z[k], dtypes.get(k, ""))
+                for k in z.files}
+
+
+def _check_structure(got: Dict[str, Any], want: Dict[str, Any],
+                     what: str) -> None:
+    """Raise ValueError unless ``got`` has exactly ``want``'s leaves with
+    the same shapes and dtypes. Leaves are tensors, host ints or
+    (array, dtype name) pairs."""
+
+    def sig(v):
+        if isinstance(v, tuple):
+            arr, dt = v
+            return tuple(arr.shape), dt
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape), ckpt_mod.dtype_name(v.dtype)
+        return (), "int"
+
+    missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{what} lacks leaves {missing[:8]} and has "
+                         f"leaves this engine lacks {extra[:8]}")
+    bad = []
+    for name, leaf in want.items():
+        (gs, gd), (ws, wd) = sig(got[name]), sig(leaf)
+        if wd == "int":
+            ok = gs in ((), (1,)) and "int" in gd
+        else:
+            ok = (gs, gd) == (ws, wd)
+        if not ok:
+            bad.append(f"{name}: {gs} {gd}, want {ws} {wd}")
+    if bad:
+        raise ValueError(f"{what} does not match this engine's state: "
+                         + "; ".join(bad[:8]))
+
+
+def _set_leaf(tree, name: str, value) -> None:
+    *parents, last = name.split("/")
+    for p in parents:
+        tree = tree[p]
+    tree[last] = value

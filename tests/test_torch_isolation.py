@@ -19,7 +19,9 @@ from deepspeed_tpu_torch.ops import _build
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deepspeed_tpu_torch"
 PORT_FILES = sorted(PORT.rglob("*.py"))
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+# the card's machine has no jax, orbax, tensorstore or ml_dtypes
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu", "orbax", "tensorstore",
+             "ml_dtypes")
 
 
 def _imports(path: Path):
@@ -40,7 +42,13 @@ def _forbidden(module: str) -> bool:
 
 def test_forbidden_prefix_rule():
     assert _forbidden("jax.numpy") and _forbidden("deepspeed_tpu.models")
+    assert _forbidden("orbax.checkpoint") and _forbidden("ml_dtypes")
     assert not _forbidden("deepspeed_tpu_torch.models")
+    # the slice's new modules are among the files scanned
+    names = {str(p.relative_to(PORT)) for p in PORT_FILES}
+    assert {"robustness/integrity.py", "robustness/retry.py",
+            "runtime/checkpointing.py", "runtime/dataloader.py",
+            "utils/zero_to_fp32.py", "utils/ckpt_tools.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

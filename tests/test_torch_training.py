@@ -199,7 +199,8 @@ class _CountMM(TorchDispatchMode):
 @pytest.mark.parametrize("policy,replays_flash,replays_dots", [
     ("none", False, False), ("full", True, True),
     ("save_nothing", True, True), ("dots_saveable", True, False),
-    ("dots_and_attn", False, False)])
+    ("dots_and_attn", False, False), ("dots_with_no_batch_dims", True, False),
+    ("offload_dots", True, False)])
 def test_remat_policy_replays(policy, replays_flash, replays_dots,
                               monkeypatch):
     """Which work each policy redoes in the backward: the flash forward
@@ -234,10 +235,50 @@ def test_remat_policy_replays(policy, replays_flash, replays_dots,
 
 
 def test_dropout_and_jax_only_policies_raise():
+    """Dropout still raises (A12). The two policies that were JAX-only
+    are ported: ``offload_dots`` keeps the no-batch-dim matmul outputs in
+    host memory between the forward and the replay (one host copy each,
+    none left once the backward has run) and gives the grads of
+    ``dots_with_no_batch_dims`` bit for bit."""
     with pytest.raises(NotImplementedError, match="A12"):
         tt.llama_config("tiny", dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tt.llama_config("tiny", remat_policy="offload_dots")
+    with pytest.raises(ValueError, match="remat_policy"):
+        tt.llama_config("tiny", remat_policy="no_such_policy")
+    jcfg, tcfg = _cfgs()
+    p = _jax_params(jcfg)
+    grads = {}
+    for policy in ("dots_with_no_batch_dims", "offload_dots"):
+        cfg = dataclasses.replace(tcfg, remat=True, remat_policy=policy)
+        _, grads[policy] = _port_value_and_grad(p, cfg, False)
+    for name, g in grads["offload_dots"].items():
+        assert torch.equal(g, grads["dots_with_no_batch_dims"][name]), name
+    saves, restores = [], []
+    cfg = dataclasses.replace(tcfg, remat=True, remat_policy="offload_dots")
+    save_cls, restore_cls = tt._OffloadSave, tt._OffloadRestore
+    fwd, back = save_cls.__torch_dispatch__, restore_cls.__torch_dispatch__
+
+    def counting_save(self, func, *a, **k):
+        out = fwd(self, func, *a, **k)
+        if func in self.saved:
+            saves.append(self.store[func][-1])
+        return out
+
+    def counting_restore(self, func, *a, **k):
+        if func in self.saved and self.store.get(func):
+            restores.append(func)
+        return back(self, func, *a, **k)
+    try:
+        save_cls.__torch_dispatch__ = counting_save
+        restore_cls.__torch_dispatch__ = counting_restore
+        _port_value_and_grad(p, cfg, False)
+    finally:
+        save_cls.__torch_dispatch__ = fwd
+        restore_cls.__torch_dispatch__ = back
+    # per layer: q, k, v, o, in, gate and out are saved; the replay stops
+    # once the backward has what it needs, before w_out's matmul
+    L = cfg.num_layers
+    assert len(saves) == 7 * L and len(restores) == 6 * L
+    assert all(t.device.type == "cpu" for t in saves)
 
 
 def test_flops_per_token_matches_jax():
@@ -510,15 +551,19 @@ def test_engine_surface_outside_the_slice():
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
                                              device="cpu")
     assert eng.get_lr() == 0.0 and eng.state["opt"]["master"] is None
-    for call, item in ((lambda: eng.train_batches(iter([]), 1), "A4"),
-                       (lambda: eng.forward({}), "A4"),
-                       (lambda: eng.save_checkpoint("x"), "A5"),
-                       (lambda: eng.load_checkpoint("x"), "A5")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # A4's single-card parts are ported (tests/test_torch_dataloader.py);
+    # meshes, model-parallel groups and the fused K-step dispatch are not
+    assert eng.train_batches(iter([]), 1) is None
+    for key in ("mesh", "mpu"):
+        with pytest.raises(NotImplementedError, match="A4"):
+            deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
+                                           device="cpu", **{key: object()})
     with pytest.raises(NotImplementedError, match="A4"):
-        deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
-                                       device="cpu", training_data=[1])
+        deepspeed_tpu_torch.initialize(
+            model=model, config=dict(conf, pipeline={"fuse_steps": 2}),
+            device="cpu")
+    with pytest.raises(NotImplementedError, match="A4"):
+        Config.load({"checkpoint": {"load_universal": True}})
     with pytest.raises(ValueError, match="global batch"):
         eng.train_batch({"input_ids": _ids(0, 3, 8)})
     m = eng.train_batch({"input_ids": _ids(0, 2, 8)})
