@@ -86,7 +86,38 @@ Phases, each of which raises on failure (exit code != 0):
    round-trip, bit for bit; launch counts zeroed before each leg: B1
    twice per layer per step (the policy replays it), B2 and B3 once.
    Reports the checkpoint's bytes and the save (async and not), wait and
-   load seconds beside the card's name and power limit.
+   load seconds beside the card's name and power limit;
+11. serving breadth (after phase 4, on the serving phase's engine once
+   its pool is freed): (a) ``InferenceEngine.generate`` of 4 prompts x 512
+   tokens, 64 new tokens each, on the contiguous cache: every token in
+   vocab, and with the launch counts zeroed just before it B1 = 32 (one
+   prefill) and B4 = 0; ms per step and per token, and the share of its
+   tokens equal to the paged engine's greedy stream (reported, not
+   checked: bf16 through other attention code may diverge), with the
+   top-two logit gap of the bf16 ``forward`` at each stream pair's first
+   divergence, in units of the logits' bf16 noise (phase 4's drift x
+   their RMS). (b) 16
+   requests of an 800-token shared prefix plus a tail of 64..512 tokens,
+   32 new tokens each (request 0 first, requests 1-14 after its first
+   round, request 15, a retry of request 0's prompt, once it finished),
+   through an engine with the prefix cache and a 1024-token prefill
+   budget (16 slots, block 64, quantum 8): 32 in-vocab tokens each,
+   prefix_hits >= 15, cow_forks >= 1, prefill_chunks >= 1, B1 = 32 x the
+   whole-prompt prefills and B4 = 32 x the decode steps (counts zeroed
+   just before), the pool holding only the cache's blocks afterwards and
+   none once it is cleared; every request's first-token logits (fork and
+   span on the warm engine, B1 on the cold one) within 3 x phase 4's
+   largest bf16 drift of the cold ones, relative L2, and the divergence
+   gaps as in (a); TTFT, ITL, tok/s and the hit rate beside the same load
+   with the cache and the budget off. (c) f32 at llama-7b
+   width, 2 layers: rows [512, 1024) through the span path behind a
+   512-row prefill against one 1024-row pass, and the contiguous cache's
+   prefill and 16 teacher-forced decode steps against the paged ones,
+   within 2e-2 relative L2; the token agreement of ``generate`` and the
+   paged engine (reported). (d) on that engine: a deadline that expires
+   mid-decode cancels the request and frees its blocks, ``max_queue=2``
+   sheds the third waiting request, the JSONL sink holds both records,
+   and ``dispatch_timeout_s=60`` leaves the greedy stream unchanged.
 
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Imports
@@ -938,6 +969,381 @@ def step_times(srv):
 
 
 # --------------------------------------------------------------------------
+# serving breadth (phase 11)
+# --------------------------------------------------------------------------
+
+# the serving phase's engine settings, as phase 11's engines take them
+BREADTH_SERVING = dict(max_seqs=16, block_size=64, max_model_len=2048,
+                       decode_quantum=8)
+# f32 model-level limit of the serving paths (PERF.md section 2)
+SERVING_F32_TOL = 2e-2
+
+
+def _agreement(a, b) -> float:
+    """Share of equal tokens between two lists of generated streams."""
+    a = np.concatenate([np.asarray(x).ravel() for x in a])
+    b = np.concatenate([np.asarray(x).ravel() for x in b])
+    return float((a == b).mean())
+
+
+def _first_divergence(a, b):
+    """Per stream pair, the index of the first differing token (the
+    stream's length when none differs): after it, the two condition on
+    different text."""
+    out = []
+    for x, y in zip(a, b):
+        diff = np.flatnonzero(np.asarray(x) != np.asarray(y))
+        out.append(int(diff[0]) if diff.size else len(x))
+    return out
+
+
+def _divergence_gaps(eng, prompts, a, b, drift):
+    """At each stream pair's first divergence d, the bf16 model's logits
+    for the text both streams share (prompt + a[:d]) through ``forward``:
+    the gap between its top two, that gap over the logits' bf16 noise
+    (``drift`` x their RMS: the per-logit scale of a relative-L2 drift),
+    and whether the two streams' tokens at d are those top two. A gap of
+    a few noise units is a near tie that bf16 rounding can flip."""
+    out = []
+    for p, x, y in zip(prompts, a, b):
+        x, y = np.asarray(x), np.asarray(y)
+        diff = np.flatnonzero(x != y)
+        if not diff.size:
+            continue
+        d = int(diff[0])
+        ids = np.concatenate([np.asarray(p).ravel(), x[:d]])[None]
+        z = eng.forward(ids)[0, -1].float()
+        top = torch.topk(z, 2)
+        gap = float(top.values[0] - top.values[1])
+        noise = drift * float(z.pow(2).mean().sqrt())
+        out.append({"at": d, "gap": gap, "gap_over_noise": gap / noise,
+                    "tokens_are_top2": sorted((int(x[d]), int(y[d])))
+                    == sorted(top.indices.tolist())})
+    return out
+
+
+def _capture_first_logits(srv):
+    """Keep each request's first-token logits (an f32 copy on the card,
+    by request id): both prefill paths, the whole prompt's and the last
+    span chunk's, pass them to ``_sample`` and hand the token to
+    ``_set_first`` next."""
+    firsts, last = {}, {}
+    sample, set_first = srv._sample, srv._set_first
+
+    def sample_kept(logits):
+        last["z"] = logits
+        return sample(logits)
+
+    def set_first_kept(req, first):
+        firsts[req.rid] = last["z"][0].float().clone()
+        return set_first(req, first)
+
+    srv._sample, srv._set_first = sample_kept, set_first_kept
+    return firsts
+
+
+def _check_generated(what, gens, n):
+    for i, g in enumerate(gens):
+        g = np.asarray(g)
+        if g.size != n or g.min() < 0 or g.max() >= VOCAB:
+            raise RuntimeError(f"{what}: request {i} returned {g.size} "
+                               f"tokens in [{g.min()}, {g.max()}]")
+
+
+def _serve_arrivals(srv, prompts, n):
+    """The breadth load's arrival schedule: request 0 alone (its prefill
+    publishes the shared prefix's blocks), requests 1 .. N-2 after its
+    first round, and request N-1 (a retry of request 0's prompt) once
+    request 0 has finished. Returns the generated tokens and the request
+    ids in submission order, and the host seconds of the run."""
+    done = {}
+
+    def pump():
+        for req in srv.step():
+            done[req.rid] = req.output[len(req.prompt):]
+
+    t0 = time.perf_counter()
+    rids = [srv.add_request(prompts[0], n)]
+    pump()
+    rids += [srv.add_request(p, n) for p in prompts[1:-1]]
+    while rids[0] not in done:
+        pump()
+    rids.append(srv.add_request(prompts[-1], n))
+    while not srv.scheduler.done:
+        pump()
+    torch.cuda.synchronize()
+    return [done[r] for r in rids], rids, time.perf_counter() - t0
+
+
+def breadth_generate(eng, prompts, n):
+    """(a) one-shot generate of the batch on the contiguous cache: B1 once
+    per layer (one prefill of the whole batch) and no paged decode."""
+    from deepspeed_tpu_torch.ops import _build
+    L = eng.model.config.num_layers
+    eng.generate(prompts[:1, :64], max_new_tokens=8)           # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new_tokens=n)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    gens = list(out[:, prompts.shape[1]:].cpu().numpy())
+    _check_generated("generate", gens, n)
+    if launches["flash_fwd"] != L or launches["paged_decode"] != 0:
+        raise RuntimeError(f"generate: launches {launches}, want flash_fwd "
+                           f"{L} (one prefill x {L} layers), paged_decode 0")
+    B = prompts.shape[0]
+    return gens, {"B": B, "prompt": prompts.shape[1], "new_tokens": n,
+                  "wall_s": wall, "ms_per_step": wall * 1e3 / n,
+                  "ms_per_token": wall * 1e3 / (B * n),
+                  "launches": launches}
+
+
+def breadth_cross_check(rng):
+    """(c) f32 at llama-7b width, 2 layers, teacher-forced: rows [512,
+    1024) through the span path behind a 512-row prefill against one
+    1024-row pass (logits of every row against ``forward``, the last
+    against ``prefill_paged``, the pool rows against its writes); the
+    contiguous cache's prefill and 16 decode steps against the paged
+    prefill and decode steps on the same tokens; the token agreement of
+    ``generate`` and the paged engine's greedy streams. Returns the
+    2-layer engine, reused by (d)."""
+    from deepspeed_tpu_torch import init_inference, llama_config, make_model
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models import transformer as tf
+    cfg = llama_config("7b", num_layers=2, dtype=torch.float32)
+    eng = init_inference(make_model(cfg, "llama-7b-2l"),
+                         config={"kv_cache_bits": 0}, dtype=torch.float32,
+                         seed=1)
+    params, bs, MB = eng.params, 64, 2048 // 64
+    ids = torch.from_numpy(rng.integers(0, VOCAB, (1, 1024))).cuda()
+    tables = torch.zeros((1, MB), dtype=torch.int32, device="cuda")
+    tables[0, :16] = torch.arange(1, 17, dtype=torch.int32)
+    blocks = tables[0, :16].long()
+    rec = {}
+    with torch.no_grad():
+        full = tf.forward(params, ids, cfg)[0]                   # [1024, V]
+        whole = tf.init_paged_cache(cfg, 17, bs, device="cuda")
+        last = tf.prefill_paged(params, ids, cfg, whole, blocks)
+        split = tf.init_paged_cache(cfg, 17, bs, device="cuda")
+        tf.prefill_paged(params, ids[:, :512], cfg, split, blocks[:8])
+        span = tf.decode_span_paged(
+            params, ids[:, 512:], cfg, split, tables,
+            torch.tensor([512], dtype=torch.int32, device="cuda"))[0]
+        rec["span_logits_vs_forward"] = rel_l2(span, full[512:])
+        rec["span_last_vs_prefill"] = rel_l2(span[-1], last[0])
+        rec["span_pool_k"] = rel_l2(split["k"][:, 9:17], whole["k"][:, 9:17])
+        rec["span_pool_v"] = rel_l2(split["v"][:, 9:17], whole["v"][:, 9:17])
+        del full, whole, split
+        # contiguous against paged, teacher-forced
+        feed = torch.from_numpy(rng.integers(0, VOCAB, (16, 1))).cuda()
+        cache = tf.init_cache(cfg, 1, 576, device="cuda")
+        c_last, cache = tf.prefill(params, ids[:, :512], cfg, cache)
+        pools = tf.init_paged_cache(cfg, 17, bs, device="cuda")
+        p_last = tf.prefill_paged(params, ids[:, :512], cfg, pools,
+                                  blocks[:8])
+        errs = [rel_l2(c_last, p_last)]
+        lens = torch.tensor([512], dtype=torch.int32, device="cuda")
+        for tok in feed:
+            lc, cache = tf.decode_step(params, tok, cfg, cache)
+            lp = tf.decode_step_paged(params, tok, cfg, pools, tables, lens)
+            errs.append(rel_l2(lc, lp))
+            lens = lens + 1
+        rec["contiguous_vs_paged_prefill"] = errs[0]
+        rec["contiguous_vs_paged_decode_max"] = max(errs[1:])
+        del cache, pools
+    bad = {k: v for k, v in rec.items() if not v < SERVING_F32_TOL}
+    gen = eng.generate(ids[:, :512], max_new_tokens=16)[0, 512:].cpu()
+    srv = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    out = srv.run([(ids[0, :512].cpu().numpy(), 16)])
+    paged = next(iter(out.values()))[512:]
+    rec["generate_vs_paged_token_agreement"] = _agreement([gen], [paged])
+    del srv
+    log("breadth cross-check f32 (llama-7b width, 2 layers), rel L2 "
+        + json.dumps(rec))
+    if bad:
+        raise RuntimeError(f"breadth cross-check: over {SERVING_F32_TOL}: "
+                           f"{bad}")
+    return eng, rec
+
+
+def breadth_reliability(eng, rng):
+    """(d) on the 2-layer engine: a total deadline that expires
+    mid-decode cancels the request and returns its blocks; max_queue=2
+    sheds the third waiting request; the JSONL sink holds both records;
+    dispatch_timeout_s=60 leaves the greedy stream as it is without it."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.inference.scheduler import AdmissionRejected
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    tmp = tempfile.mkdtemp(prefix="dstpu_breadth_")
+    sink = os.path.join(tmp, "events.jsonl")
+    prompts = [rng.integers(0, VOCAB, n).astype(np.int32)
+               for n in (300, 700, 129)]
+    rec = {}
+    try:
+        srv = ServingEngine(eng, ServingConfig(
+            **BREADTH_SERVING, max_queue=2, telemetry_jsonl=sink))
+        rid = srv.add_request(prompts[0], 200)
+        srv.step()
+        held = srv.allocator.used_blocks
+        # the deadline is set after the first round: warm-up time must not
+        # race the clock
+        srv.scheduler.running[0].deadline_ms = 1e-3
+        srv.step()
+        cancelled = [r.rid for r in srv.cancelled]
+        if cancelled != [rid] or srv.allocator.used_blocks != 0 or held < 1:
+            raise RuntimeError(f"deadline: cancelled {cancelled}, blocks "
+                               f"{held} -> {srv.allocator.used_blocks}")
+        srv.add_request(prompts[1], 8)
+        srv.add_request(prompts[2], 8)
+        try:
+            srv.add_request(prompts[0], 8)
+            raise RuntimeError("max_queue=2 admitted a third waiting request")
+        except AdmissionRejected as e:
+            rec["shed_reason"] = e.reason
+        srv.run([])                      # drains the two queued requests
+        st = srv.stats()
+        with open(sink) as f:
+            types = [json.loads(line)["type"] for line in f]
+        rec.update(deadline_misses=st["deadline_misses"], shed=st["shed"],
+                   completed=st["completed"], sink_types=sorted(set(types)))
+        if {"deadline_miss", "request_shed"} - set(types) \
+                or rec["shed_reason"] != "queue_full" or st["completed"] != 2:
+            raise RuntimeError(f"reliability: {rec}")
+        del srv
+        load = [(p, 24) for p in prompts]
+        outs = []
+        for timeout in (None, 60.0):
+            srv = ServingEngine(eng, ServingConfig(
+                **BREADTH_SERVING, dispatch_timeout_s=timeout))
+            got = srv.run(load)
+            outs.append([got[k] for k in sorted(got)])
+            srv.close()
+            del srv
+        rec["watchdog_stream_equal"] = all(
+            np.array_equal(a, b) for a, b in zip(*outs))
+        if not rec["watchdog_stream_equal"]:
+            raise RuntimeError("dispatch_timeout_s=60 changed the stream")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("breadth reliability " + json.dumps(rec))
+    return rec
+
+
+def serving_breadth_phase(srv, smi: str, drift: float):
+    """Phase 11, on the serving phase's engine (llama-7b, bf16) once its
+    first ServingEngine's pools are freed: (a) generate; (b) the prefix
+    cache and chunked prefill against the same load with both off; then
+    (c) and (d) on a 2-layer f32 engine. ``drift`` is phase 4's largest
+    relative L2 of the bf16 kernel path's logits from the f32 plain
+    path's. Returns the record, with the launch counts of (a) and (b)
+    warm (zeroed just before each)."""
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.ops import _build
+    eng = srv.engine
+    srv.pools = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = eng.model.config.num_layers
+    rng = np.random.default_rng(11)
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+
+    # (a) generate, and the paged engine's greedy stream for its prompts
+    prompts_a = torch.from_numpy(rng.integers(0, VOCAB, (4, 512))).cuda()
+    gens, rec["generate"] = breadth_generate(eng, prompts_a, 64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cold = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    outs = cold.run([(p.cpu().numpy(), 64) for p in prompts_a])
+    paged = [outs[k][512:] for k in sorted(outs)]
+    rec["generate"]["paged_token_agreement"] = _agreement(gens, paged)
+    rec["generate"]["paged_first_divergence"] = _first_divergence(gens,
+                                                                  paged)
+    rec["generate"]["divergence_gaps"] = _divergence_gaps(
+        eng, prompts_a.cpu().numpy(), gens, paged, drift)
+    log("breadth generate " + json.dumps(rec["generate"]))
+
+    # (b) 16 requests: an 800-token shared prefix (12.5 blocks) and a
+    # tail of 64..512 tokens; request 15 retries request 0's prompt,
+    # whose 100-token tail leaves a partial boundary block to fork
+    shared = rng.integers(0, VOCAB, 800)
+    tails = [100] + [int(t) for t in rng.integers(64, 513, 14)]
+    prompts_b = [np.concatenate([shared, rng.integers(0, VOCAB, t)])
+                 .astype(np.int32) for t in tails]
+    prompts_b.append(prompts_b[0].copy())
+    cold.reset_stats()
+    cold_first = _capture_first_logits(cold)
+    cold_gens, cold_rids, cold_s = _serve_arrivals(cold, prompts_b, 32)
+    _check_generated("breadth cold", cold_gens, 32)
+    rec["cold"] = dict(cold.stats(), host_s=cold_s)
+    del cold, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    warm = ServingEngine(eng, ServingConfig(
+        **BREADTH_SERVING, enable_prefix_cache=True,
+        prefill_token_budget=1024))
+    warm_first = _capture_first_logits(warm)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    warm_gens, warm_rids, warm_s = _serve_arrivals(warm, prompts_b, 32)
+    launches = _build.launch_counts()
+    _check_generated("breadth warm", warm_gens, 32)
+    st = dict(warm.stats(), host_s=warm_s)
+    held, used = st["prefix_held_blocks"], warm.allocator.used_blocks
+    warm._prefix_cache.clear()
+    st["used_blocks_after_clear"] = warm.allocator.used_blocks
+    st["token_agreement_with_cold"] = _agreement(warm_gens, cold_gens)
+    st["first_divergence_from_cold"] = _first_divergence(warm_gens,
+                                                         cold_gens)
+    st["divergence_gaps"] = _divergence_gaps(eng, prompts_b, warm_gens,
+                                             cold_gens, drift)
+    # first-token logits, warm (request 15: the fork) against cold
+    first_err = [rel_l2(warm_first[w], cold_first[c])
+                 for w, c in zip(warm_rids, cold_rids)]
+    first_tol = 3 * drift
+    st["first_logits_vs_cold"] = {"rel_l2": first_err, "limit": first_tol,
+                                  "bf16_drift": drift}
+    rec["warm"], rec["launches"] = st, launches
+    log("breadth prefix cache + chunked prefill " + json.dumps(
+        {"warm": st, "cold": rec["cold"], "launches": launches}))
+    want = {"prefix_hits >= 15": st["prefix_hits"] >= 15,
+            "cow_forks >= 1": st["cow_forks"] >= 1,
+            "prefill_chunks >= 1": st["prefill_chunks"] >= 1,
+            "flash_fwd == L x prefills":
+                launches["flash_fwd"] == L * st["prefills"] >= L,
+            "paged_decode == L x decode_steps":
+                launches["paged_decode"] == L * st["decode_steps"] > 0,
+            "first-token logits within 3 x bf16 drift of cold":
+                max(first_err) < first_tol,
+            "used_blocks == prefix_held_blocks": used == held,
+            "used_blocks == 0 after clear":
+                st["used_blocks_after_clear"] == 0}
+    failed = [k for k, v in want.items() if not v]
+    if failed:
+        raise RuntimeError(f"breadth: failed {failed}")
+    del warm
+    eng.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) and (d): 2 layers at llama-7b width, f32
+    eng2, rec["cross_check"] = breadth_cross_check(rng)
+    rec["reliability"] = breadth_reliability(eng2, rng)
+    del eng2
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving breadth: {rec['phase_s']:.1f}s")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # training phases
 # --------------------------------------------------------------------------
 
@@ -1625,7 +2031,9 @@ def main() -> int:
     sparse = sparse_kernel_phase()
     srv, st, launches = serving_phase()
     step_times(srv)
-    cross_check(srv)
+    _, drift = cross_check(srv)
+    breadth = serving_breadth_phase(
+        srv, card, max(drift["bf16_kernels_vs_f32_plain"].values()))
     del srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -1674,6 +2082,14 @@ def main() -> int:
             "resume": (resume["launches_uninterrupted"][name]
                        + resume["launches_resumed"][name])}
     line["kernels"][0]["launches_by_path"]["serving"] = launches["flash_fwd"]
+    # phase 11's runs: generate's prefill (a) and the warm load (b)
+    for entry in line["kernels"][:2]:
+        name = entry["name"]
+        n = breadth["generate"]["launches"][name] + breadth["launches"][name]
+        entry["launches"] += n
+        entry.setdefault("launches_by_path", {})["serving_breadth"] = n
+    line["kernels"][1]["launches_by_path"]["serving"] = \
+        launches["paged_decode"]
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

@@ -1,7 +1,9 @@
 """Inference engine, PyTorch port of ``deepspeed_tpu/inference/engine.py``
-(the part the serving path uses): one device, the params cast to the
-engine's dtype, and the decode GEMMs fused (wqkv, w_in_gate) as the JAX
-engine fuses float weights at tp=1.
+(the part the serving path and one-shot generation use): one device, the
+params cast to the engine's dtype, and the decode GEMMs fused (wqkv,
+w_in_gate) as the JAX engine fuses float weights at tp=1.
+``generate`` decodes one batch in lockstep on the contiguous KV cache
+(``inference/generation.py``); ``forward`` returns full-sequence logits.
 
 ``init_inference`` runs on the card: ``device=None`` means "cuda" and
 raises when CUDA is missing. Pass ``device="cpu"`` for the plain PyTorch
@@ -12,6 +14,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+
+from deepspeed_tpu_torch.inference import generation
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models.convert import params_from_numpy
@@ -92,3 +96,23 @@ class InferenceEngine:
                                        device=self.device, dtype=self.dtype)
         # the model runs either layout; an already-fused tree stays fused
         self.params = fuse_layer_stack(params)
+
+    def forward(self, input_ids, **kwargs):
+        """Full-sequence f32 logits [B, S, V] (the prefill path: the flash
+        kernel on the card). Extra kwargs pass through to the model's
+        ``apply`` (e.g. ``attention_mask``)."""
+        ids = torch.as_tensor(input_ids).long().to(self.device)
+        with torch.no_grad():
+            return self.model.apply(self.params, ids, **kwargs)
+
+    __call__ = forward
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0,
+                 rng: Optional[torch.Generator] = None):
+        """Greedy (``temperature=0``) or sampled decode of one batch in
+        lockstep on the contiguous KV cache: returns [B, P +
+        max_new_tokens] ids. ``rng``: the generator sampling draws from."""
+        return generation.generate(self, input_ids,
+                                   max_new_tokens=max_new_tokens,
+                                   temperature=temperature, rng=rng)

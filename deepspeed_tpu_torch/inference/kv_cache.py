@@ -1,7 +1,7 @@
 """Paged KV-cache management: a host-side free list over the device block
 pool. Copied from ``deepspeed_tpu/inference/kv_cache.py`` (pure Python,
-no framework imports); the LoRA ``AdapterSlotPool`` arrives with the
-serving-breadth slice.
+no framework imports); the LoRA ``AdapterSlotPool`` arrives with multi-LoRA
+serving (ROADMAP A6g).
 
 The device half lives in ``models/transformer``: fixed-size blocks in
 preallocated pools ``[L, NB, n_kv, block_size, head_dim]``, per-sequence

@@ -1,7 +1,7 @@
 """Continuous-batching request scheduler (host side, pure Python), copied
 from ``deepspeed_tpu/inference/scheduler.py``. The port's serving engine
-runs it with ``prefix_cache=None``: the prefix-cache hooks stay idle until
-the serving-breadth slice ports the cache.
+passes it the prefix cache (``inference/prefix_cache.PrefixCache``) when
+``enable_prefix_cache`` is on, and its token budget to ``schedule``.
 
 Reference capability bar: the SURVEY §6 InferenceEngine serves ONE batch
 per generate() call — every request in a batch shares a shape bucket and

@@ -1,19 +1,41 @@
 """Serving engine: continuous batching over a paged KV cache, PyTorch port
-of the core of ``deepspeed_tpu/inference/serving.py``.
+of ``deepspeed_tpu/inference/serving.py``.
 
   1. **Paged KV cache** — fixed-size blocks in preallocated pools, per-
      sequence block tables (``models/transformer.decode_step_paged``).
      Admitting and evicting sequences changes table contents only.
   2. **Continuous batching** — the ``RequestScheduler`` admits, evicts and
-     preempts at round boundaries. A round dispatches the prefills of the
-     admitted requests and ``decode_quantum`` decode steps of every running
-     slot with no host sync between them; the only sync is ONE fetch of the
-     round's sampled tokens (plus the admitted requests' first tokens).
+     preempts at round boundaries. A round dispatches the copy-on-write
+     forks of the admitted requests, then their prefills (or prefill
+     chunks), then ``decode_quantum`` decode steps of every decoding slot,
+     with no host sync between them; the only sync is ONE fetch of the
+     round's sampled tokens (plus the first tokens of the requests whose
+     prefill completed).
+  3. **Reliability tier** — per-request TTFT / total deadlines enforced
+     at round boundaries (a missed request is cancelled and its blocks
+     return mid-decode), admission watermarks (``max_queue``,
+     ``pool_watermark``) that shed with a typed ``AdmissionRejected``, a
+     dispatch watchdog, and the robustness events drained into a JSONL
+     sink at the end of every round.
+  4. **Latency tier** — token-budget chunked prefill
+     (``prefill_token_budget``: long prompts slice across rounds on the
+     span path, ``decode_span_paged``) and the copy-on-write prefix cache
+     (``enable_prefix_cache``: full prompt blocks shared by reference, a
+     matched partial boundary block forked by a block copy before the
+     request's first write).
 
 Attention runs through the two hand-written CUDA kernels: the flash
-forward in every prefill, the paged decode kernel in every decode step.
-There is no backend pick and no recovery loop: on the card a kernel error
-reaches the caller.
+forward in every whole-prompt prefill, the paged decode kernel in every
+decode step. Prefill chunks and prefix-cache tails run the span path in
+plain torch ops, as JAX runs them on XLA.
+
+There is no backend pick and no recovery: on the card a kernel error
+reaches the caller. The watchdog raises ``DecodeDispatchHang`` when a
+round overruns ``dispatch_timeout_s``. The pools are updated in place, so
+a round thread the watchdog gave up on may still write them; the engine
+then marks itself failed and every later ``step()`` / ``run()`` raises,
+naming the first error (any error escaping a round does the same: the
+pools may hold part of its writes).
 
 Token/row bookkeeping (as in the JAX engine): ``req.cached_rows`` = KV rows
 in the pool for the request. A (re-)prefill sets it to ``len(context)`` and
@@ -22,13 +44,17 @@ decode step writes the pending token's row and samples a new pending
 token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
-What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item (deadlines, watermarks, prefix cache, chunked prefill,
-speculative decoding, LoRA, drain/migration, tracing, fleet roles, a
-block-sparse model).
+What this port leaves out raises ``NotImplementedError`` naming its
+ROADMAP item: speculative decoding (A6f), the int8 KV cache (A6a), int8
+weights (A6b), LoRA adapters (A6g), drain / resume / migration and the KV
+handoff (A6i), tensor / expert parallel serving (A6h), round recovery and
+its fault seams, request tracing and fleet roles (A7), and serving a
+block-sparse model (A10b).
 """
 
+import contextlib
 import dataclasses
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -37,8 +63,18 @@ import torch
 
 from deepspeed_tpu_torch.inference.engine import init_inference
 from deepspeed_tpu_torch.inference.kv_cache import BlockAllocator, pool_bytes
-from deepspeed_tpu_torch.inference.scheduler import Request, RequestScheduler
+from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
+from deepspeed_tpu_torch.inference.scheduler import (AdmissionRejected,
+                                                     Request,
+                                                     RequestScheduler)
 from deepspeed_tpu_torch.models.transformer import check_servable
+from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
+from deepspeed_tpu_torch.robustness import events as rb_events
+
+
+class DecodeDispatchHang(RuntimeError):
+    """The watchdog timed out a decode round: the dispatch (or its token
+    fetch) never came back within ``dispatch_timeout_s``."""
 
 
 @dataclasses.dataclass
@@ -54,37 +90,86 @@ class ServingConfig:
     decode_quantum: int = 8            # decode steps per scheduling round
     temperature: float = 0.0           # 0 = greedy
     eos_token_id: Optional[int] = None
+    # the decode backend: the port has one, the paged decode kernel (B4).
+    # "auto" and "pallas" (JAX's name for its kernel) select it; "xla",
+    # JAX's gather path, is refused: it would serve the card through a
+    # plain path
+    decode_backend: str = "auto"
     prompt_bucket: int = 64            # prompt pad granularity
+    # --- reliability tier (all off by default) -------------------------
+    # default per-request deadlines (ms from submit; add_request overrides
+    # per request); a missed request is cancelled at a round boundary
+    ttft_deadline_ms: Optional[float] = None
+    deadline_ms: Optional[float] = None
+    # admission watermarks: queue-length cap and held-pool-fraction cap
+    # ((0, 1]) past which add_request sheds with AdmissionRejected
+    max_queue: Optional[int] = None
+    pool_watermark: Optional[float] = None
+    # a round (decode quantum + token fetch) longer than this raises
+    # DecodeDispatchHang to the caller; None = no watchdog
+    dispatch_timeout_s: Optional[float] = None
+    # round recovery (preempt all, rebuild the pool, retry) is not ported:
+    # only 0 is accepted
+    round_retries: int = 0
+    telemetry_jsonl: Optional[str] = None   # robustness events sink
+    # --- latency tier (all off by default) -----------------------------
+    enable_prefix_cache: bool = False
+    prefix_cache_blocks: Optional[int] = None   # cache-held block cap
+    # per-round token budget shared by prefill chunks and the decode
+    # quantum's reservation; None = whole-prompt prefill at admission
+    prefill_token_budget: Optional[int] = None
+
+    def __post_init__(self):
+        if self.round_retries != 0:
+            raise NotImplementedError(
+                f"round_retries={self.round_retries}: round recovery is not "
+                "ported yet: ROADMAP A7 (fleet host layer: the fault seams "
+                "that drive recovery)")
+        if self.decode_backend == "xla":
+            raise ValueError(
+                "decode_backend='xla': the port serves decode through the "
+                "paged decode kernel only (no gather path on the card)")
+        if self.decode_backend not in ("auto", "pallas"):
+            raise ValueError(f"decode_backend={self.decode_backend!r}: "
+                             "auto | pallas")
 
 
-# JAX ServingConfig fields outside this slice: (their default, ROADMAP item)
+_SPEC = "not ported yet: ROADMAP A6f (speculative decoding)"
+_LORA = "not ported yet: ROADMAP A6g (multi-LoRA serving)"
+_TRACE = "not ported yet: ROADMAP A7 (fleet host layer: request tracing)"
+
+# JAX ServingConfig fields outside this port: (their default, why a value
+# away from it is refused)
 _DEFERRED = {
-    "ttft_deadline_ms": (None, "A6c (serving reliability tier)"),
-    "deadline_ms": (None, "A6c (serving reliability tier)"),
-    "max_queue": (None, "A6c (serving reliability tier)"),
-    "pool_watermark": (None, "A6c (serving reliability tier)"),
-    "dispatch_timeout_s": (None, "A6c (serving reliability tier)"),
-    "telemetry_jsonl": (None, "A6c (serving reliability tier)"),
-    "enable_prefix_cache": (False, "A6d (prefix cache)"),
-    "prefix_cache_blocks": (None, "A6d (prefix cache)"),
-    "prefill_token_budget": (None, "A6e (chunked prefill)"),
-    "spec_tokens": (0, "A6f (speculative decoding)"),
-    "spec_proposer": (None, "A6f (speculative decoding)"),
-    "adapter_slots": (0, "A6g (multi-LoRA serving)"),
-    "lora_rank": (0, "A6g (multi-LoRA serving)"),
-    "request_trace": (False, "A7 (fleet host layer: request tracing)"),
-    "role": ("both", "A7 (fleet host layer: disaggregated roles)"),
+    "spec_tokens": (0, _SPEC),
+    "spec_ngram": (3, _SPEC),
+    "spec_proposer": (None, _SPEC),
+    "adapter_slots": (0, _LORA),
+    "lora_rank": (0, _LORA),
+    "lora_targets": (("q", "k", "v", "o"), _LORA),
+    "request_trace": (False, _TRACE),
+    "trace_replica": ("r0", _TRACE),
+    "trace_events": (65536, _TRACE),
+    "role": ("both", "not ported yet: ROADMAP A7 (fleet host layer: "
+                     "disaggregated roles)"),
+    # JAX times its two decode backends against each other at init
+    "backend_bench_iters": (10, "the port has one decode backend, the "
+                                "paged decode kernel: nothing to time"),
 }
 
 
 def serving_config(fields: Optional[Dict[str, Any]] = None) -> ServingConfig:
     """ServingConfig from JAX-style field names; a field of the JAX config
-    that this slice does not serve raises when set away from its default."""
+    that this port does not serve raises when set away from its default."""
     fields = dict(fields or {})
-    for name, (default, item) in _DEFERRED.items():
-        if name in fields and fields.pop(name) != default:
-            raise NotImplementedError(f"serving {name} is not ported yet: "
-                                      f"ROADMAP {item}")
+    for name, (default, why) in _DEFERRED.items():
+        if name not in fields:
+            continue
+        value = fields.pop(name)
+        if isinstance(default, tuple) and isinstance(value, list):
+            value = tuple(value)
+        if value != default:
+            raise NotImplementedError(f"serving {name}={value!r}: {why}")
     return ServingConfig(**fields)
 
 
@@ -108,6 +193,13 @@ class ServingEngine:
             raise ValueError(f"block_size={c.block_size}, decode_quantum="
                              f"{c.decode_quantum}, max_seqs={c.max_seqs}: "
                              "all must be >= 1")
+        if c.pool_watermark is not None and not 0 < c.pool_watermark <= 1:
+            raise ValueError(f"pool_watermark={c.pool_watermark}: a held-"
+                             "pool fraction in (0, 1]")
+        if c.prefill_token_budget is not None and c.prefill_token_budget < 1:
+            raise ValueError(
+                f"prefill_token_budget={c.prefill_token_budget}: a "
+                "positive per-round token budget (None disables chunking)")
         model_cap = mcfg.max_seq_len
         want = int(c.max_model_len or model_cap or 2048)
         want = -(-want // c.block_size) * c.block_size
@@ -133,10 +225,15 @@ class ServingEngine:
         self._bucket = -(-max(c.prompt_bucket, c.block_size)
                          // c.block_size) * c.block_size
         self.allocator = BlockAllocator(num_blocks)
+        self._prefix_cache = (PrefixCache(self.allocator, c.block_size,
+                                          max_blocks=c.prefix_cache_blocks)
+                              if c.enable_prefix_cache else None)
         self.scheduler = RequestScheduler(
             self.allocator, c.max_seqs, c.block_size, c.decode_quantum,
             prompt_blocks=lambda n: self._pad_prompt(n) // c.block_size,
-            max_blocks_per_seq=self.MB)
+            max_blocks_per_seq=self.MB, max_queue=c.max_queue,
+            pool_watermark=c.pool_watermark,
+            prefix_cache=self._prefix_cache)
         self.pools = self.model.init_paged_cache(
             num_blocks, c.block_size, dtype=engine.dtype, device=self.device)
         self.pool_bytes = pool_bytes(mcfg, num_blocks, c.block_size,
@@ -144,10 +241,15 @@ class ServingEngine:
         self._tokens = torch.zeros((c.max_seqs,), dtype=torch.long,
                                    device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._finished: List[Request] = []
-        self._stats_t0: Optional[float] = None
-        self._itl_ms: List[float] = []
-        self._dispatches = {"prefills": 0, "decode_steps": 0}
+        self._requests: Dict[int, Request] = {}
+        self._jsonl = (JSONLMonitor(c.telemetry_jsonl)
+                       if c.telemetry_jsonl else None)
+        # the watchdog arms once the decode quantum has run once (its
+        # first round is warm-up time, not a hang)
+        self._quantum_warm = False
+        self._round_thread: Optional[threading.Thread] = None
+        self._failed: Optional[BaseException] = None
+        self.reset_stats()
 
     # ---- device programs ---------------------------------------------
 
@@ -155,6 +257,10 @@ class ServingEngine:
         return max(self._bucket,
                    min(-(-n // self._bucket) * self._bucket,
                        self.max_model_len))
+
+    def _pad_chunk(self, n: int) -> int:
+        bs = self.config.block_size
+        return -(-n // bs) * bs
 
     def _sample(self, logits):
         """[S, V] f32 logits -> [S] token ids. Greedy ties take the first
@@ -166,10 +272,10 @@ class ServingEngine:
         return torch.argmax(logits, dim=-1)
 
     def _dispatch_prefill(self, req: Request) -> None:
-        """Dispatch (no sync) the request's (re-)prefill: writes its
-        context rows into its blocks and leaves the next sampled token
-        pending in the device token vector and on the request, fetched at
-        the round boundary."""
+        """Dispatch (no sync) the request's whole-context (re-)prefill
+        through the flash kernel: writes its context rows into its blocks
+        and leaves the next sampled token pending in the device token
+        vector and on the request, fetched at the round boundary."""
         ctx = req.context
         P = self._pad_prompt(ctx.size)
         buf = np.zeros((1, P), np.int64)
@@ -179,12 +285,63 @@ class ServingEngine:
         last = self.model.prefill_paged(
             self.engine.params, torch.from_numpy(buf).to(self.device),
             self.pools, block_ids.to(self.device), length=ctx.size)
-        first = self._sample(last)
-        self._tokens[req.slot] = first[0]
-        req.cached_rows = ctx.size
-        req.prefill_done = True
-        req._first_dev = first
         self._dispatches["prefills"] += 1
+        req.cached_rows = ctx.size
+        self._publish_prefill(req, ctx)
+        self._set_first(req, self._sample(last))
+
+    def _dispatch_chunk(self, req: Request, start: int, n: int) -> None:
+        """Dispatch (no sync) one prefill chunk on the span path: rows
+        ``[start, start + n)`` of the request's context computed against
+        the rows already in its blocks (an earlier chunk or a prefix-cache
+        hit), pad rows to the trash block. The final chunk samples the
+        request's first token (the whole-prompt prefill's protocol)."""
+        ctx = req.context
+        C = self._pad_chunk(n)
+        buf = np.zeros((1, C), np.int64)
+        buf[0, :n] = ctx[start:start + n]
+        tab = np.zeros((1, self.MB), np.int32)
+        tab[0, :len(req.block_ids)] = req.block_ids
+        dev = self.device
+        logits = self.model.decode_span_paged(
+            self.engine.params, torch.from_numpy(buf).to(dev), self.pools,
+            torch.from_numpy(tab).to(dev),
+            torch.tensor([start], dtype=torch.int32, device=dev),
+            n_rows=torch.tensor([n], dtype=torch.int32, device=dev))
+        req.cached_rows = start + n
+        self._lat["prefill_chunks"] += 1
+        self._lat["prefill_chunk_tokens"] += n
+        self._publish_prefill(req, ctx)        # full blocks so far
+        if start + n == ctx.size:
+            self._set_first(req, self._sample(logits[0, n - 1][None]))
+
+    def _set_first(self, req: Request, first) -> None:
+        self._tokens[req.slot] = first[0]
+        req.prefill_done = True
+        req._first_dev = first                 # fetched at round boundary
+
+    def _publish_prefill(self, req: Request, ctx) -> None:
+        """Index a prefill's FULL blocks in the prefix cache as soon as
+        they are dispatched: appends only write past them, so tenants with
+        the same prefix share them while this request still runs (every
+        later dispatch reads the pools in stream order). The partial
+        boundary block waits for ``finish`` (its owner still appends)."""
+        if self._prefix_cache is not None:
+            self._prefix_cache.insert_full(ctx, req.block_ids,
+                                           req.cached_rows)
+
+    def _dispatch_fork(self, req: Request) -> None:
+        """Copy-on-write fork (dispatch, no sync): the shared boundary
+        block a prefix-cache match reached into is copied, every layer's K
+        and V, to the fresh block the scheduler put at the same table
+        index, then the match's pin on the shared block is dropped. Runs
+        before any of the request's own writes."""
+        src, dst = req.cow_src, req.cow_dst
+        for pool in self.pools.values():
+            pool[:, dst] = pool[:, src]
+        self.allocator.free([src], owner=req.rid)
+        req.cow_src = req.cow_dst = None
+        self._lat["cow_forks"] += 1
 
     def _tables_device(self):
         S = self.config.max_seqs
@@ -194,14 +351,18 @@ class ServingEngine:
         for req in self.scheduler.running:
             ids[req.slot, :len(req.block_ids)] = req.block_ids
             lens[req.slot] = req.cached_rows
+            # a request still prefilling (chunks landing) holds its slot
+            # but does not decode yet
             act[req.slot] = req.prefill_done
         return tuple(torch.from_numpy(a).to(self.device)
                      for a in (ids, lens, act))
 
-    def _quantum(self, tables, seq_lens, active) -> List[torch.Tensor]:
+    def _quantum(self, tokens, tables, seq_lens, active
+                 ) -> List[torch.Tensor]:
         """``decode_quantum`` decode steps of every slot, dispatched back
-        to back; returns each step's sampled tokens (still on device)."""
-        tokens, lens = self._tokens, seq_lens
+        to back from ``tokens``; returns each step's sampled tokens (still
+        on device). Touches no engine state but the pools."""
+        lens = seq_lens
         step = active.to(torch.int32)
         outs = []
         for _ in range(self.config.decode_quantum):
@@ -211,14 +372,18 @@ class ServingEngine:
             tokens = torch.where(active, self._sample(logits), tokens)
             lens = lens + step
             outs.append(tokens)
-        self._tokens = tokens
-        self._dispatches["decode_steps"] += len(outs)
         return outs
 
     # ---- request API -------------------------------------------------
 
     def add_request(self, prompt_ids, max_new_tokens: int = 64,
-                    request_id: Optional[int] = None) -> int:
+                    request_id: Optional[int] = None,
+                    ttft_deadline_ms: Optional[float] = None,
+                    deadline_ms: Optional[float] = None) -> int:
+        """Submit one request. The deadlines override the config's for
+        this request. Raises ``AdmissionRejected`` when a watermark sheds
+        it: counted in ``stats()["shed"]`` and evented, never silently
+        queued."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if max_new_tokens < 1:
             # the prefill inherently samples one token
@@ -229,35 +394,127 @@ class ServingEngine:
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_model_len "
                 f"{self.max_model_len}")
-        req = self.scheduler.submit(prompt, max_new_tokens, rid=request_id)
+        c = self.config
+        try:
+            req = self.scheduler.submit(
+                prompt, max_new_tokens, rid=request_id,
+                ttft_deadline_ms=(ttft_deadline_ms
+                                  if ttft_deadline_ms is not None
+                                  else c.ttft_deadline_ms),
+                deadline_ms=(deadline_ms if deadline_ms is not None
+                             else c.deadline_ms))
+        except AdmissionRejected as e:
+            self._counters["shed"] += 1
+            rb_events.emit("request_shed", reason=e.reason, **e.detail)
+            raise
+        self._requests[req.rid] = req
         if self._stats_t0 is None:
             self._stats_t0 = req.submit_t
         return req.rid
 
     def step(self) -> List[Request]:
-        """One scheduling round: evict/admit/preempt at the boundary, the
-        admitted requests' prefills, one decode quantum, one token fetch.
-        Returns the requests finished this round."""
-        decisions = self.scheduler.schedule()
+        """One scheduling round: enforce deadlines; evict / admit /
+        preempt at the boundary; the admitted requests' forks, then the
+        prefills and prefill chunks, then one decode quantum and one token
+        fetch; drain the events into the JSONL sink. Returns the requests
+        finished this round. An error inside the round reaches the caller
+        as raised, and the engine refuses every later round."""
+        if self._failed is not None:
+            raise RuntimeError(
+                "serving engine failed in an earlier round ("
+                f"{type(self._failed).__name__}: {self._failed}); its "
+                "pools may hold that round's partial writes: build a new "
+                "engine") from self._failed
+        try:
+            self._enforce_deadlines()
+            return self._round()
+        except BaseException as e:
+            self._failed = e
+            raise
+        finally:
+            self._drain_events()
+
+    def _round(self) -> List[Request]:
+        decisions = self.scheduler.schedule(
+            token_budget=self.config.prefill_token_budget)
+        for req in decisions["admitted"]:
+            if req.cow_src is not None:
+                # the fork runs before any of the request's own writes
+                # can reach the shared boundary block
+                self._dispatch_fork(req)
         for req, start, n in decisions["prefill"]:
-            # no prefix cache and no token budget: every admission
-            # prefills its whole context at once
-            self._dispatch_prefill(req)
+            if start == 0 and n == len(req.context):
+                self._dispatch_prefill(req)     # whole prompt: B1
+            else:
+                self._dispatch_chunk(req, start, n)
         running = self.scheduler.running
         if not running:
             return []
         pending = [(req, req._first_dev) for req in running
                    if getattr(req, "_first_dev", None) is not None]
-        outs = self._quantum(*self._tables_device())
-        # the ONE sync of the round: every decode step's tokens and every
-        # pending prefill token in a single device-to-host copy
-        S = self.config.max_seqs
-        flat = torch.cat([t.reshape(-1) for t in outs]
+        decode = any(r.prefill_done for r in running)
+        tables = self._tables_device() if decode else None
+        tokens = self._tokens
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def quantum_and_fetch():
+            # the round thread issues on the caller's stream (a thread's
+            # current stream is its own), after the prefills in order
+            with self._on_stream(stream):
+                outs = self._quantum(tokens, *tables) if decode else []
+                # the ONE sync of the round: every decode step's tokens and
+                # every pending first token in one device-to-host copy
+                parts = ([t.reshape(-1) for t in outs]
                          + [f.reshape(-1) for _, f in pending])
-        host = flat.cpu().numpy()
-        toks = host[:len(outs) * S].reshape(len(outs), S)
-        firsts = host[len(outs) * S:]
-        return self._commit_round(toks, pending, firsts)
+                host = (torch.cat(parts).cpu().numpy() if parts
+                        else np.zeros((0,), np.int64))
+            return (outs[-1] if outs else tokens), host, len(outs)
+
+        tokens, host, n_steps = self._with_watchdog(
+            quantum_and_fetch, armed=self._quantum_warm)
+        self._tokens = tokens
+        if decode:
+            self._quantum_warm = True
+            self._dispatches["decode_steps"] += n_steps
+        S = self.config.max_seqs
+        toks = host[:n_steps * S].reshape(n_steps, S)
+        return self._commit_round(toks, pending, host[n_steps * S:])
+
+    @contextlib.contextmanager
+    def _on_stream(self, stream):
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.device), torch.cuda.stream(stream):
+            yield
+
+    def _with_watchdog(self, fn, armed: bool = True):
+        """Run ``fn`` on a thread and raise ``DecodeDispatchHang`` when it
+        outlives ``dispatch_timeout_s`` (no timeout, or not armed: call it
+        here). The thread is left running: it may still write the pools,
+        which is why the caller marks the engine failed."""
+        timeout = self.config.dispatch_timeout_s
+        if not timeout or not armed:
+            return fn()
+        box: Dict[str, Any] = {}
+
+        def run():
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 — relayed below
+                box["error"] = e
+
+        t = threading.Thread(target=run, daemon=True, name="serving-round")
+        self._round_thread = t
+        t.start()
+        t.join(timeout)
+        if t.is_alive():
+            raise DecodeDispatchHang(
+                f"decode round exceeded dispatch_timeout_s={timeout}")
+        if "error" in box:
+            raise box["error"]
+        return box["result"]
 
     def _note_tokens(self, req: Request, m: int, now: float) -> None:
         """Inter-token latency: a burst of ``m`` tokens arriving ``gap``
@@ -285,6 +542,10 @@ class ServingEngine:
                 got += 1
                 if req.first_token_t is None:
                     req.first_token_t = now
+            if not req.prefill_done:
+                # chunked prompt still landing: the quantum skipped it
+                self._note_tokens(req, got, now)
+                continue
             for i in range(toks.shape[0]):
                 if self._done(req):
                     break
@@ -312,7 +573,8 @@ class ServingEngine:
             max_rounds: int = 100000) -> Dict[int, np.ndarray]:
         """Submit-and-drain: requests is a list of prompt-id arrays or
         (prompt, max_new) tuples. Returns {rid: output ids} (prompt +
-        generated) for this call's requests."""
+        generated) for this call's requests that finished (a request
+        cancelled by its deadline is on ``cancelled``)."""
         rids = []
         for r in requests:
             if isinstance(r, tuple):
@@ -334,29 +596,101 @@ class ServingEngine:
         mine = set(rids)
         return {r.rid: r.output for r in self._finished if r.rid in mine}
 
+    # ---- reliability -------------------------------------------------
+
+    def _enforce_deadlines(self) -> None:
+        """Round-boundary deadline sweep: TTFT deadlines apply until the
+        first token reached the host, total deadlines until completion.
+        A missed request is CANCELLED — a running one returns its slot and
+        blocks to the pool mid-decode — and its partial output stays
+        readable on ``cancelled``."""
+        now = time.perf_counter()
+        for req in (list(self.scheduler.waiting)
+                    + list(self.scheduler.running)):
+            elapsed_ms = (now - req.submit_t) * 1e3
+            if req.deadline_ms is not None and elapsed_ms > req.deadline_ms:
+                kind, budget = "total", req.deadline_ms
+            elif (req.ttft_deadline_ms is not None
+                  and req.first_token_t is None
+                  and elapsed_ms > req.ttft_deadline_ms):
+                kind, budget = "ttft", req.ttft_deadline_ms
+            else:
+                continue
+            self.scheduler.cancel(req, reason=f"{kind}_deadline")
+            self._cancelled.append(req)
+            self._counters["deadline_misses"] += 1
+            rb_events.emit("deadline_miss", rid=req.rid, kind=kind,
+                           budget_ms=budget,
+                           elapsed_ms=round(elapsed_ms, 1),
+                           generated=len(req.generated))
+
+    def _drain_events(self) -> None:
+        """Round-boundary drain of pending robustness events into the
+        configured JSONL sink. Without a sink the queue is left pending
+        (another engine's sink may own the drain)."""
+        if self._jsonl is None or not self._jsonl.enabled:
+            return
+        recs = rb_events.drain()
+        if recs:
+            self._jsonl.write_records(recs)
+
+    @property
+    def cancelled(self) -> List[Request]:
+        """Requests cancelled by deadline enforcement (partial outputs
+        kept)."""
+        return list(self._cancelled)
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Join the latest watchdog round thread, bounded by ``timeout``
+        (default ``dispatch_timeout_s``, else 5 s). Returns False when that
+        thread outlived the budget."""
+        if timeout is None:
+            timeout = self.config.dispatch_timeout_s or 5.0
+        t = self._round_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+            if t.is_alive():
+                return False
+        self._round_thread = None
+        return True
+
     # ---- stats -------------------------------------------------------
 
     def reset_stats(self) -> None:
-        """Start a fresh measurement window (pool and scheduler state
-        untouched)."""
-        self._finished = []
-        self._stats_t0 = None
-        self._itl_ms = []
+        """Start a fresh measurement window: finished and cancelled
+        records, the counters and the throughput clock (pool, scheduler
+        and cache contents untouched)."""
+        self._finished: List[Request] = []
+        self._cancelled: List[Request] = []
+        self._stats_t0: Optional[float] = None
+        self._itl_ms: List[float] = []
         self._dispatches = {"prefills": 0, "decode_steps": 0}
+        self._counters = {"shed": 0, "deadline_misses": 0}
+        self._lat = {"prefill_chunks": 0, "prefill_chunk_tokens": 0,
+                     "cow_forks": 0}
+        if self._prefix_cache is not None:
+            self._prefix_cache.reset_stats()
 
     def stats(self) -> Dict[str, float]:
         """TTFT p50/p99 (ms, measured at the round boundary where the first
         token reached the host), inter-token latency p50/p99, aggregate
-        generated-token throughput, and the dispatch counts (prefills and
-        decode steps) the kernels' launch counts are checked against."""
+        generated-token throughput, the dispatch counts the kernels'
+        launch counts are checked against (whole-prompt prefills, decode
+        steps), the reliability counters (shed, deadline_misses,
+        cancelled, queue_depth), the chunking and fork counters
+        (prefill_chunks, prefill_chunk_tokens, cow_forks) and, with the
+        prefix cache on, its ``prefix_*`` counters, ``prefix_hit_rate``
+        and ``prefix_held_blocks``."""
         done = [r for r in self._finished if r.first_token_t is not None]
         out: Dict[str, float] = {
             "completed": float(len(self._finished)),
             "preemptions": float(sum(r.preemptions for r in self._finished)),
             "pool_bytes": float(self.pool_bytes),
             "queue_depth": float(self.scheduler.num_waiting),
+            "cancelled": float(len(self._cancelled)),
         }
-        out.update({k: float(v) for k, v in self._dispatches.items()})
+        for group in (self._dispatches, self._counters, self._lat):
+            out.update({k: float(v) for k, v in group.items()})
         if done:
             ttft = np.asarray([(r.first_token_t - r.submit_t) * 1e3
                                for r in done])
@@ -366,6 +700,14 @@ class ServingEngine:
             itl = np.asarray(self._itl_ms)
             out["p50_itl_ms"] = float(np.percentile(itl, 50))
             out["p99_itl_ms"] = float(np.percentile(itl, 99))
+        if self._prefix_cache is not None:
+            cs = self._prefix_cache.stats
+            out.update({f"prefix_{k}": float(v) for k, v in cs.items()})
+            if cs["lookups"]:
+                out["prefix_hit_rate"] = float(round(
+                    cs["hits"] / cs["lookups"], 4))
+            out["prefix_held_blocks"] = float(
+                self._prefix_cache.held_blocks)
         if self._finished and self._stats_t0 is not None:
             total = sum(len(r.generated) for r in self._finished)
             span = max(r.finish_t for r in self._finished) - self._stats_t0

@@ -1,6 +1,7 @@
 """Decoder-only llama-family transformer, PyTorch port of the dense
 pre-norm path of ``deepspeed_tpu/models/transformer.py``, with the paged
-serving protocol (block pools + block tables).
+serving protocol (block pools + block tables) and the contiguous cache of
+one-shot generation.
 
 Parameters keep the JAX layout at every boundary: a dict with the same
 names, ``[in, out]`` matrices and the stacked leading ``L`` dim of
@@ -9,11 +10,22 @@ over). Both the unfused (wq/wk/wv, w_in/w_gate) and the inference-fused
 (wqkv, w_in_gate) layer layouts run.
 
 Attention goes through the two hand-written kernels: the flash forward
-(``ops/flash_attention``) for prefill and the paged decode kernel
-(``ops/decode_attention``) for each decode step. On CUDA tensors they
-launch their kernels; ``reference=True`` calls their plain versions by
-name instead (for comparisons), and CPU tensors always take the plain
-versions.
+(``ops/flash_attention``) for every full-sequence pass (the paged
+prefill, the contiguous ``prefill``) and the paged decode kernel
+(``ops/decode_attention``) for each single-token paged decode step. On
+CUDA tensors they launch their kernels; ``reference=True`` calls their
+plain versions by name instead (for comparisons), and CPU tensors always
+take the plain versions. Two attention paths are plain torch ops because
+JAX runs them on XLA, not on a Pallas kernel: the multi-token span against
+the pool (``decode_span_paged``: chunked prefill and prefix-cache tails)
+and the contiguous decode (``_decode_attention``).
+
+The contiguous cache is updated in place: each decode step writes one row
+per layer, O(row). JAX's two-level suffix decode exists because its scan
+carry copied the whole ring buffer every token; eager PyTorch has no such
+copy, so ``inference/generation`` decodes single-level. The suffix
+functions are kept (and held against JAX) as part of the ``ModelSpec``
+API.
 
 Training: ``lm_loss`` (full or chunked cross-entropy) is differentiable
 through the flash forward and its two backward kernels (B2, B3), or, for
@@ -29,7 +41,7 @@ storage) run under a bf16 compute config.
 
 What this slice leaves out raises ``NotImplementedError`` naming its
 ROADMAP item: alibi / learned positions, windows, MoE, int8 KV and int8
-weights, the multi-token span path, and dropout.
+weights, and dropout.
 """
 
 import dataclasses
@@ -53,6 +65,7 @@ from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
 
 Params = Dict[str, Any]
+_NEG = -1e30                    # JAX's mask fill: exp(-1e30 - max) is 0
 
 
 REMAT_POLICIES = ("none", "full", "save_nothing", "dots_saveable",
@@ -327,32 +340,123 @@ def check_servable(cfg: TransformerConfig) -> None:
             "(serving a block-sparse model)")
 
 
+def _decode_attention(q, ck, cv, index: int, cfg: TransformerConfig,
+                      kv_row, kv_suffix=None):
+    """Single-token GQA attention against a contiguous KV buffer, JAX's
+    ``_decode_attention`` (float branch) in plain torch ops: JAX runs it on
+    XLA, not on a Pallas kernel (its contiguous kernel was deleted), so
+    there is no kernel to port.
+
+    q: [B, 1, Nq, D]; ck/cv: [B, Nkv, T, D]; index: the current position
+    (every row of the batch at the same one). kv_row: the CURRENT token's
+    (k, v) [B, Nkv, 1, D], kept out of the buffer: its score joins the
+    softmax separately and the caller writes the row afterwards (buffer
+    rows at >= the prefix length are stale). kv_suffix: (sk, sv, count),
+    the two-level decode's segment rows [B, Nkv, Ssuf, D], of which the
+    first ``count`` are valid; the buffer then holds ``index - count``
+    rows."""
+    B, _, Nq, D = q.shape
+    Nkv, T = ck.shape[1], ck.shape[2]
+    rep = Nq // Nkv
+    sm = _sm_scale(cfg, D)
+    qg = q.reshape(B, Nkv, rep, D)
+    k_row, v_row = kv_row
+    prefix_len = index if kv_suffix is None else index - kv_suffix[2]
+    scores = torch.einsum("bgrd,bgtd->bgrt", qg, ck).float() * sm
+    keep = torch.arange(T, device=q.device) < prefix_len
+    parts, values = [scores.masked_fill(~keep, _NEG)], [cv]
+    if kv_suffix is not None:
+        sk, sv, count = kv_suffix
+        s_suf = torch.einsum("bgrd,bgtd->bgrt", qg,
+                             sk.to(qg.dtype)).float() * sm
+        skeep = torch.arange(sk.shape[2], device=q.device) < count
+        parts.append(s_suf.masked_fill(~skeep, _NEG))
+        values.append(sv.to(q.dtype))
+    s_self = torch.einsum("bgrd,bgtd->bgrt", qg,
+                          k_row.to(qg.dtype)).float() * sm
+    probs = torch.softmax(torch.cat(parts + [s_self], dim=-1), dim=-1)
+    out, at = 0, 0
+    for val in values:
+        n = val.shape[2]
+        out = out + torch.einsum("bgrt,bgtd->bgrd",
+                                 probs[..., at:at + n].to(q.dtype), val)
+        at += n
+    out = out + probs[..., at:].to(q.dtype) * v_row.to(q.dtype)
+    return out.reshape(B, 1, Nq, D)
+
+
 def _paged_attention(q, pool_k, pool_v, tables, index,
                      cfg: TransformerConfig, kv_row, reference: bool = False):
-    """Single-token attention against one layer's block pool slices
-    ([NB, Nkv, bs, D]) through the block tables [S, MB]; index: per-slot
-    sequence lengths [S]. Goes through the paged decode kernel."""
+    """Attention against one layer's block pool slices ([NB, Nkv, bs, D])
+    through the block tables [S, MB]; index: per-slot sequence lengths
+    [S]. One token per slot goes through the paged decode kernel (B4); a
+    span of T > 1 tokens per slot (chunked prefill, a prefix-cache hit's
+    tail) takes ``_paged_span_attention``, plain torch ops as in JAX, where
+    the Pallas kernel is single-token only. The speculative verify step
+    that also runs on spans is refused by the serving config (ROADMAP
+    A6f)."""
     if q.shape[1] > 1:
-        raise NotImplementedError(
-            "multi-token spans against the pool (chunked prefill, "
-            "speculative verify) are not ported yet: ROADMAP A6e / A6f")
+        return _paged_span_attention(q, pool_k, pool_v, tables, index, cfg,
+                                     kv_row)
     fn = paged_decode_reference if reference else paged_decode_attention
     return fn(q, pool_k, pool_v, tables, index, kv_row=kv_row,
               sm_scale=_sm_scale(cfg, q.shape[-1]))
 
 
+def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
+                          cfg: TransformerConfig, kv_row):
+    """T-token attention for a span appended at each slot's cursor, JAX's
+    ``_paged_span_attention`` (float pools). q: [S, T, Nq, D]; kv_row: the
+    span's fresh (k, v) [S, Nkv, T, D]; prior_lens: [S] rows already in
+    the pool. Position ``prior + t`` attends the pool prefix [0, prior),
+    the span rows u <= t and itself: scores over the gathered pool view
+    under the per-slot prefix mask, scores over the span under the causal
+    ``u <= t`` mask, one softmax over both. Masked entries are -1e30, so
+    they weigh exactly 0 and each position sees the single-token chain's
+    logits (to reduction-order rounding: the softmax is wider)."""
+    S, T, Nq, D = q.shape
+    _, Nkv, bs, _ = pool_k.shape
+    MB = tables.shape[1]
+    rep, Tp = Nq // Nkv, MB * bs
+    chunk_k, chunk_v = kv_row
+    sm = _sm_scale(cfg, D)
+    idx = tables.long()
+
+    def view(pool):                  # [S, MB, Nkv, bs, D] -> [S, Nkv, Tp, D]
+        return pool[idx].permute(0, 2, 1, 3, 4).reshape(S, Nkv, Tp, D)
+
+    qg = q.transpose(1, 2).reshape(S, Nkv, rep, T, D)
+    sp = torch.einsum("bgrtd,bgsd->bgrts", qg, view(pool_k)).float() * sm
+    keep = (torch.arange(Tp, device=q.device)[None, :]
+            < prior_lens.long()[:, None])                       # [S, Tp]
+    sp = sp.masked_fill(~keep[:, None, None, None, :], _NEG)
+    sq = torch.einsum("bgrtd,bgud->bgrtu", qg,
+                      chunk_k.to(qg.dtype)).float() * sm
+    t = torch.arange(T, device=q.device)
+    sq = sq.masked_fill(~(t[None, :] <= t[:, None]), _NEG)      # [t, u]
+    probs = torch.softmax(torch.cat([sp, sq], dim=-1), dim=-1)
+    out = torch.einsum("bgrts,bgsd->bgrtd", probs[..., :Tp].to(q.dtype),
+                       view(pool_v))
+    out = out + torch.einsum("bgrtu,bgud->bgrtd",
+                             probs[..., Tp:].to(q.dtype),
+                             chunk_v.to(q.dtype))
+    # [S, Nkv, rep, T, D] -> [S, T, Nq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(S, T, Nq, D)
+
+
 def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
-                      mask=None, cache=None, block_tables=None,
-                      reference: bool = False):
+                      mask=None, attend: Optional[Callable] = None,
+                      row_dtype=None, reference: bool = False):
     """One pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)).
 
-    Without ``cache``: full-sequence (prefill) attention; returns
-    (x, (k, v)) with the post-rotary k, v [B, S, nkv, hd] that seed the
-    pool. With ``cache=(pool_k, pool_v, seq_lens)`` and ``block_tables``:
-    one decode token per slot (x [S, 1, H]) attending the paged pool; the
-    pool is NOT written here — the fresh row joins the softmax separately
-    and is returned as (k_row, v_row) [S, nkv, 1, hd] for the caller to
-    write after all layers (writing it first would count it twice)."""
+    Without ``attend``: full-sequence (prefill) attention; returns
+    (x, (k, v)) with the post-rotary k, v [B, S, nkv, hd] that seed a
+    cache. With ``attend``: the S new tokens of each row attend a cache
+    through ``attend(q, (k_row, v_row))`` (q [B, S, Nq, D]); the cache is
+    NOT written here. The fresh rows join the softmax separately and are
+    returned as (k_row, v_row) [B, nkv, S, hd] in ``row_dtype`` for the
+    caller to write after all layers (writing them first would count them
+    twice)."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
@@ -367,13 +471,10 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     if cfg.position_type == "rotary":
         q = rotary_embed(q, positions, cfg.rope_theta)
         k = rotary_embed(k, positions, cfg.rope_theta)
-    if cache is not None:
-        pool_k, pool_v, seq_lens = cache
-        k_row = k.transpose(1, 2).to(pool_k.dtype).contiguous()
-        v_row = v.transpose(1, 2).to(pool_v.dtype).contiguous()
-        attn = _paged_attention(q.contiguous(), pool_k, pool_v, block_tables,
-                                seq_lens, cfg, (k_row, v_row),
-                                reference=reference)
+    if attend is not None:
+        k_row = k.transpose(1, 2).to(row_dtype).contiguous()
+        v_row = v.transpose(1, 2).to(row_dtype).contiguous()
+        attn = attend(q.contiguous(), (k_row, v_row))
         new_kv = (k_row, v_row)
     else:
         attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -684,6 +785,38 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
     return lm_head_logits(x[:, length - 1], params)
 
 
+def _embed_rows(params, tokens, cfg):
+    return params["tok_embed"][tokens.long()].to(cfg.dtype)
+
+
+def _final_logits(x, params, cfg):
+    x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
+              cfg)
+    return lm_head_logits(x, params)
+
+
+def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
+                reference):
+    """The layer stack over T new tokens per slot (tokens [S, T] at
+    positions seq_lens .. seq_lens + T - 1) attending the pool; returns
+    the final hidden states [S, T, H] and every layer's fresh rows
+    stacked [L, S, nkv, T, hd], not yet written."""
+    x = _embed_rows(params, tokens, cfg)                        # [S, T, H]
+    T = tokens.shape[1]
+    positions = (seq_lens.long()[:, None]
+                 + torch.arange(T, device=tokens.device)[None, :])
+    k_rows, v_rows = [], []
+    for i, lp in enumerate(_layers(params)):
+        x, (k_row, v_row) = transformer_layer(
+            x, lp, cfg, positions=positions, row_dtype=pools["k"].dtype,
+            attend=lambda q, kv, i=i: _paged_attention(
+                q, pools["k"][i], pools["v"][i], block_tables, seq_lens,
+                cfg, kv, reference=reference))
+        k_rows.append(k_row)
+        v_rows.append(v_row)
+    return x, torch.stack(k_rows), torch.stack(v_rows)
+
+
 def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
                       pools: Params, block_tables, seq_lens, active=None,
                       reference: bool = False):
@@ -703,16 +836,8 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
     S = tokens.shape[0]
     if active is None:
         active = torch.ones((S,), dtype=torch.bool, device=tokens.device)
-    x = params["tok_embed"][tokens.long()][:, None].to(cfg.dtype)  # [S,1,H]
-    positions = seq_lens[:, None]
-    k_rows, v_rows = [], []
-    for i, lp in enumerate(_layers(params)):
-        x, (k_row, v_row) = transformer_layer(
-            x, lp, cfg, positions=positions,
-            cache=(pools["k"][i], pools["v"][i], seq_lens),
-            block_tables=block_tables, reference=reference)
-        k_rows.append(k_row[:, :, 0])
-        v_rows.append(v_row[:, :, 0])
+    x, k_rows, v_rows = _paged_rows(params, tokens[:, None], cfg, pools,
+                                    block_tables, seq_lens, reference)
     bs = pools["k"].shape[3]
     MB = block_tables.shape[1]
     # a slot at or past its table's capacity (its request reached
@@ -724,11 +849,189 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
     blk = torch.where(write, blk, torch.zeros_like(blk))
     off = torch.where(write, seq_lens.long() % bs, torch.zeros_like(blk))
     # [L, S, nkv, hd] -> [S, L, nkv, hd]: the advanced indices lead
-    pools["k"][:, blk, :, off, :] = torch.stack(k_rows, dim=1)
-    pools["v"][:, blk, :, off, :] = torch.stack(v_rows, dim=1)
-    x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
-              cfg)
-    return lm_head_logits(x, params)[:, 0, :]
+    pools["k"][:, blk, :, off, :] = k_rows[:, :, :, 0].transpose(0, 1)
+    pools["v"][:, blk, :, off, :] = v_rows[:, :, :, 0].transpose(0, 1)
+    return _final_logits(x, params, cfg)[:, 0, :]
+
+
+def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
+                      pools: Params, block_tables, seq_lens, active=None,
+                      n_rows=None, reference: bool = False):
+    """T consecutive tokens per slot in one pass, JAX's
+    ``decode_span_paged``: a prefill chunk appended behind rows already in
+    the pool (an earlier chunk, or a prefix-cache hit).
+
+    tokens: [S, T] at positions ``seq_lens .. seq_lens + T - 1``; returns
+    f32 logits [S, T, V] and writes each token's K/V row at its position,
+    in place, after the layer stack. ``n_rows``: [S] rows actually written
+    per slot (default T): a bucketed chunk's pad tokens past ``n_rows``
+    compute garbage that lands in the trash block 0, as do inactive slots
+    and positions past the table's capacity. The caller forks shared
+    (refcounted) blocks before any span writes them (the serving engine's
+    copy-on-write fork). Attention is plain torch ops
+    (``_paged_span_attention``), as JAX runs it on XLA."""
+    S, T = tokens.shape
+    dev = tokens.device
+    if active is None:
+        active = torch.ones((S,), dtype=torch.bool, device=dev)
+    if n_rows is None:
+        n_rows = torch.full((S,), T, dtype=torch.long, device=dev)
+    x, k_rows, v_rows = _paged_rows(params, tokens, cfg, pools,
+                                    block_tables, seq_lens, reference)
+    bs = pools["k"].shape[3]
+    MB = block_tables.shape[1]
+    t = torch.arange(T, device=dev)
+    positions = seq_lens.long()[:, None] + t[None, :]           # [S, T]
+    write = (active[:, None] & (t[None, :] < n_rows.long()[:, None])
+             & (positions < MB * bs))
+    blk = block_tables.long().gather(1, (positions // bs).clamp(0, MB - 1))
+    blk = torch.where(write, blk, torch.zeros_like(blk)).reshape(-1)
+    off = torch.where(write, positions % bs,
+                      torch.zeros_like(positions)).reshape(-1)
+
+    def flat(a):                     # [L, S, nkv, T, hd] -> [S*T, L, nkv, hd]
+        a = a.permute(1, 3, 0, 2, 4)
+        return a.reshape((S * T,) + a.shape[2:])
+
+    pools["k"][:, blk, :, off, :] = flat(k_rows)
+    pools["v"][:, blk, :, off, :] = flat(v_rows)
+    return _final_logits(x, params, cfg)
+
+
+# --------------------------------------------------------------------------
+# Contiguous KV cache (one-shot generate): buffers [L, B, nkv, T, hd]
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
+               dtype=None, device=None) -> Params:
+    """Preallocated KV buffers [L, B, n_kv, max_len, head_dim] and the
+    cursor ``index`` (a host int: every row of the batch sits at the same
+    position). Float buffers only: the int8 cache is ROADMAP A6a (the
+    config refuses ``kv_cache_bits=8``). ``device=None`` means the card."""
+    shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len,
+             cfg.dim_per_head)
+    dtype = dtype or cfg.dtype
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+def prefill(params: Params, input_ids, cfg: TransformerConfig, cache: Params,
+            attention_mask=None, length: Optional[int] = None,
+            reference: bool = False):
+    """Process the prompt, seed the cache, return (logits at the last real
+    position [B, V], cache). One forward pass through the flash kernel
+    (B1): each layer's K/V goes into the buffer, in place, as soon as the
+    layer has run. ``length``: the true prompt length when input_ids is
+    right-padded to a bucket; the cursor is set there, so decode
+    overwrites the pad rows before they can be attended."""
+    S = input_ids.shape[1]
+    true_len = S if length is None else int(length)
+
+    def write(i, k, v):           # [B, S, nkv, hd] -> [B, nkv, S, hd]
+        cache["k"][i, :, :, :S] = k.transpose(1, 2).to(cache["k"].dtype)
+        cache["v"][i, :, :, :S] = v.transpose(1, 2).to(cache["v"].dtype)
+
+    x, _ = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
+                   reference=reference, on_layer_kv=write)
+    cache["index"] = true_len
+    return lm_head_logits(x[:, true_len - 1], params), cache
+
+
+def _contiguous_step(params, token, cfg, cache, read_len, index, row_dtype,
+                     suffix=None):
+    """The layer stack for one token per row at ``index`` against the
+    buffer's first ``read_len`` rows (and the suffix, if any); returns the
+    logits [B, V] and the fresh rows [L, B, nkv, hd]."""
+    if token.dim() == 1:
+        token = token[:, None]
+    B = token.shape[0]
+    x = _embed_rows(params, token, cfg)                         # [B, 1, H]
+    positions = torch.full((B, 1), index, dtype=torch.long,
+                           device=token.device)
+    T = cache["k"].shape[3]
+    W = read_len if read_len and read_len < T else T
+    k_rows, v_rows = [], []
+    for i, lp in enumerate(_layers(params)):
+        ck, cv = cache["k"][i, :, :, :W], cache["v"][i, :, :, :W]
+        sfx = (None if suffix is None
+               else (suffix["k"][i], suffix["v"][i], suffix["count"]))
+        x, (k_row, v_row) = transformer_layer(
+            x, lp, cfg, positions=positions, row_dtype=row_dtype,
+            attend=lambda q, kv, ck=ck, cv=cv, sfx=sfx: _decode_attention(
+                q, ck, cv, index, cfg, kv_row=kv, kv_suffix=sfx))
+        k_rows.append(k_row[:, :, 0])
+        v_rows.append(v_row[:, :, 0])
+    return (_final_logits(x, params, cfg)[:, 0, :], torch.stack(k_rows),
+            torch.stack(v_rows))
+
+
+def decode_step(params: Params, token, cfg: TransformerConfig,
+                cache: Params, read_len: Optional[int] = None):
+    """One incremental decode step. token: [B] or [B, 1] -> (logits [B, V],
+    cache). Attention reads the buffer's first ``read_len`` rows (the
+    caller guarantees index < read_len), then all layers' fresh rows are
+    written at ``index`` in place, O(row) per token, and the cursor moves
+    on. As JAX's ``dynamic_update_slice``, a cursor at or past the buffer
+    writes into its last row (such steps' tokens are discarded)."""
+    index = int(cache["index"])
+    logits, k_rows, v_rows = _contiguous_step(
+        params, token, cfg, cache, read_len, index, cache["k"].dtype)
+    at = min(index, cache["k"].shape[3] - 1)
+    cache["k"][:, :, :, at] = k_rows
+    cache["v"][:, :, :, at] = v_rows
+    cache["index"] = index + 1
+    return logits, cache
+
+
+def init_suffix(cfg: TransformerConfig, batch_size: int, seg_len: int,
+                cache: Optional[Params] = None, device=None) -> Params:
+    """The two-level decode's segment buffers [L, B, nkv, seg, hd] (in the
+    cache's dtype and on its device) and the written-row ``count``."""
+    shape = (cfg.num_layers, batch_size, cfg.kv_heads, seg_len,
+             cfg.dim_per_head)
+    if cache is not None:
+        dtype, device = cache["k"].dtype, cache["k"].device
+    else:
+        dtype, device = cfg.dtype, resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "count": 0}
+
+
+def decode_step_suffix(params: Params, token, cfg: TransformerConfig,
+                       cache: Params, suffix: Params,
+                       read_len: Optional[int] = None):
+    """One decode step against a frozen prefix cache plus the segment
+    suffix: the buffer is only read, the fresh rows go into the suffix at
+    ``count``. Returns (logits [B, V], suffix). ``merge_suffix`` folds a
+    finished segment into the buffer."""
+    count = int(suffix["count"])
+    index = int(cache["index"]) + count
+    logits, k_rows, v_rows = _contiguous_step(
+        params, token, cfg, cache, read_len, index, suffix["k"].dtype,
+        suffix=suffix)
+    at = min(count, suffix["k"].shape[3] - 1)
+    suffix["k"][:, :, :, at] = k_rows
+    suffix["v"][:, :, :, at] = v_rows
+    suffix["count"] = count + 1
+    return logits, suffix
+
+
+def merge_suffix(cfg: TransformerConfig, cache: Params,
+                 suffix: Params) -> Params:
+    """Fold a segment's suffix rows into the buffer at the cursor (one
+    O(seg) write a segment) and advance the cursor by ``count``. As JAX's
+    ``dynamic_update_slice``, a segment that would run past the buffer is
+    written at its end."""
+    index = int(cache["index"])
+    seg = suffix["k"].shape[3]
+    at = max(0, min(index, cache["k"].shape[3] - seg))
+    cache["k"][:, :, :, at:at + seg] = suffix["k"].to(cache["k"].dtype)
+    cache["v"][:, :, :, at:at + seg] = suffix["v"].to(cache["v"].dtype)
+    cache["index"] = index + int(suffix["count"])
+    return cache
 
 
 # --------------------------------------------------------------------------
@@ -737,7 +1040,11 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
 
 @dataclasses.dataclass
 class ModelSpec:
-    """The config plus the training and serving functions, bound to it."""
+    """The config plus the training and serving functions, bound to it:
+    the paged protocol (pools, prefill, decode step, span), the contiguous
+    cache of one-shot ``generate`` (init_cache, prefill, decode_step) and
+    its two-level suffix (init_suffix, decode_step_suffix, merge_suffix),
+    as JAX's ``ModelSpec`` carries them."""
     config: TransformerConfig
     name: str
     init: Callable[..., Params]
@@ -746,6 +1053,13 @@ class ModelSpec:
     init_paged_cache: Callable[..., Params]
     prefill_paged: Callable[..., torch.Tensor]
     decode_step_paged: Callable[..., torch.Tensor]
+    decode_span_paged: Callable[..., torch.Tensor]
+    init_cache: Callable[..., Params]
+    prefill: Callable[..., Tuple[torch.Tensor, Params]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Params]]
+    init_suffix: Callable[..., Params]
+    decode_step_suffix: Callable[..., Tuple[torch.Tensor, Params]]
+    merge_suffix: Callable[..., Params]
 
     def flops_per_token(self) -> float:
         """Approximate train FLOPs/token (6N rule + attention), as JAX."""
@@ -780,4 +1094,19 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
             seq_lens, **kw:
             decode_step_paged(params, tokens, cfg, pools, block_tables,
                               seq_lens, **kw),
+        decode_span_paged=lambda params, tokens, pools, block_tables,
+            seq_lens, **kw:
+            decode_span_paged(params, tokens, cfg, pools, block_tables,
+                              seq_lens, **kw),
+        init_cache=lambda batch_size, max_len, dtype=None, device=None:
+            init_cache(cfg, batch_size, max_len, dtype=dtype, device=device),
+        prefill=lambda params, input_ids, cache, **kw:
+            prefill(params, input_ids, cfg, cache, **kw),
+        decode_step=lambda params, token, cache, **kw:
+            decode_step(params, token, cfg, cache, **kw),
+        init_suffix=lambda batch_size, seg_len, cache=None, device=None:
+            init_suffix(cfg, batch_size, seg_len, cache=cache, device=device),
+        decode_step_suffix=lambda params, token, cache, suffix, **kw:
+            decode_step_suffix(params, token, cfg, cache, suffix, **kw),
+        merge_suffix=lambda cache, suffix: merge_suffix(cfg, cache, suffix),
     )

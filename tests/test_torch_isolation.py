@@ -48,7 +48,9 @@ def test_forbidden_prefix_rule():
     names = {str(p.relative_to(PORT)) for p in PORT_FILES}
     assert {"robustness/integrity.py", "robustness/retry.py",
             "runtime/checkpointing.py", "runtime/dataloader.py",
-            "utils/zero_to_fp32.py", "utils/ckpt_tools.py"} <= names
+            "utils/zero_to_fp32.py", "utils/ckpt_tools.py",
+            "monitor/monitor.py", "inference/generation.py",
+            "inference/prefix_cache.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

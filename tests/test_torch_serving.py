@@ -94,10 +94,13 @@ def test_eos_truncates_and_frees_blocks(jax_run):
 
 def test_deferred_serving_features_raise():
     model = make_model(TransformerConfig(**CFG, dtype=torch.float32))
-    for field, value in (("spec_tokens", 2), ("enable_prefix_cache", True),
-                         ("prefill_token_budget", 64), ("adapter_slots", 2),
-                         ("ttft_deadline_ms", 5.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    for field, value, item in (("spec_tokens", 2, "A6f"),
+                               ("adapter_slots", 2, "A6g"),
+                               ("lora_rank", 8, "A6g"),
+                               ("request_trace", True, "A7"),
+                               ("role", "prefill", "A7"),
+                               ("round_retries", 2, "A7")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             deepspeed_tpu_torch.init_serving(
                 model, serving={**SERVING, field: value},
                 dtype=torch.float32, device="cpu")
