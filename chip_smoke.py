@@ -118,7 +118,35 @@ Phases, each of which raises on failure (exit code != 0):
    mid-decode cancels the request and frees its blocks, ``max_queue=2``
    sheds the third waiting request, the JSONL sink holds both records,
    and ``dispatch_timeout_s=60`` leaves the greedy stream unchanged.
+12. quantized and speculative decode (after phase 11): llama-7b at full
+   width and depth, bf16, on the serving geometry (16 slots, block 64,
+   max_model_len 2048), a fresh engine for each pool or weight type,
+   freed before the next, with the launch counts zeroed just before each
+   load. (a) speculation (``spec_tokens=3``, ``spec_ngram=3``, float
+   pool): 16 prompts that copy a motif 4-8 times, 32 new tokens, against
+   the same load without it and under an oracle draft hook that proposes
+   the streams the n-gram run emitted: B1 = 32 x whole prefills in each,
+   B4 = 0 and no decode step under speculation (B4 = 32 x decode steps
+   without it); the accept rate, tokens per verify step, the verify
+   step's ms and host issue time, TTFT, ITL, tok/s, and the streams'
+   agreement with the divergence gaps of phase 11. (b) the int8 KV pool that
+   ``init_serving``'s default must pick at this cap, on the serving
+   phase's load: B1 = 32 x prefills, B4 = 0; ``pool_bytes`` beside the
+   float pool's, the decode step's ms and issue time. (c)
+   ``weight_bits=8`` on a float pool, on that load: B4 = 32 x decode
+   steps; the layer stack's bytes beside bf16's, the decode step, the
+   agreement with the serving phase's streams; ``quantize_bits=8`` once
+   (4 requests). (d) f32 at llama-7b width, 2 layers: speculation
+   token-identical to the same engine without it, an oracle draft hook
+   accepting >= 0.6; the int8 pool against the int8 contiguous
+   ``generate``, and int8 + speculation against the int8 pool, by JAX's
+   int8 bar (the first 4 generated tokens equal, agreement > 0.9); the
+   int8 pool's teacher-forced decode logits within 0.1 relative L2 of
+   the float pool's.
 
+The script puts its own directory first on ``sys.path``, so it runs from
+any working directory and under ``python -P``; in a directory without
+the rest of the repo it fails (exit code 1) without printing a result.
 Prints the card's name and power limit first, one ``{"kernels": [...]}``
 line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
@@ -134,6 +162,11 @@ import time
 
 import numpy as np
 import torch
+
+# the port sits beside this script: importable from any working directory
+# and under safe-path mode (python -P), which leaves the script's directory
+# off sys.path
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -840,7 +873,8 @@ def serving_phase():
         raise RuntimeError(f"serving: paged_decode launched "
                            f"{launches['paged_decode']} times for "
                            f"{st['decode_steps']} decode steps x {L} layers")
-    return srv, st, launches
+    gens = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+    return srv, st, launches, (prompts, gens)
 
 
 def _prefill_and_decode(params, cfg, ids, n, tokens, reference):
@@ -1341,6 +1375,351 @@ def serving_breadth_phase(srv, smi: str, drift: float):
     rec["phase_s"] = time.perf_counter() - t_phase
     log(f"serving breadth: {rec['phase_s']:.1f}s")
     return rec
+
+
+# --------------------------------------------------------------------------
+# quantized and speculative decode (phase 12)
+# --------------------------------------------------------------------------
+
+SPEC_K = 3
+# f32 engines of (d): llama-7b width, 2 layers, 4 slots
+QS_F32_SERVING = dict(max_seqs=4, block_size=64, max_model_len=1024,
+                      decode_quantum=8)
+# relative L2 of the int8 pool's decode logits from the float pool's at
+# f32: per-row int8 rounds each K/V element by at most half a step of
+# max|row| / 127, which JAX's note puts at ~1e-2 of the softmax's output;
+# ten times that is a broken path, not rounding
+INT8_LOGITS_LIMIT = 1e-1
+
+
+def _motif_prompts(rng, n, motif=48, copies=(4, 8), gap=8, tail=16):
+    """Prompts that copy spans, the n-gram proposer's home traffic (agent
+    and code prompts re-quote tool names, identifiers and whole
+    snippets): a motif repeated 4..8 times, random tokens between the
+    copies and after the last."""
+    out = []
+    for _ in range(n):
+        m = rng.integers(0, VOCAB, motif)
+        parts = []
+        for _ in range(int(rng.integers(copies[0], copies[1] + 1))):
+            parts += [m, rng.integers(0, VOCAB, gap)]
+        parts.append(rng.integers(0, VOCAB, tail))
+        out.append(np.concatenate(parts).astype(np.int32))
+    return out
+
+
+def _serve_counted(srv, prompts, n, what):
+    """One warm-up request, then ``prompts`` with the stats and the launch
+    counts zeroed just before: the generated streams (checked: n in-vocab
+    tokens each), the stats with the wall time, and the launches."""
+    from deepspeed_tpu_torch.ops import _build
+    srv.run([(prompts[0][:64], 4)])
+    srv.reset_stats()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.run([(p, n) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    gens = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+    _check_generated(what, gens, n)
+    st = dict(srv.stats(), wall_s=wall)
+    if srv.allocator.used_blocks != 0:
+        raise RuntimeError(f"{what}: {srv.allocator.used_blocks} blocks held")
+    return gens, st, launches
+
+
+def _step_scratch(srv, rows=1000):
+    """Tables and lengths of a full batch (every slot at ``rows`` rows)
+    over the engine's pools, whose blocks are all free after a run."""
+    S, MB = srv.config.max_seqs, srv.MB
+    tab = torch.arange(1, S * MB + 1, dtype=torch.int32,
+                       device="cuda").reshape(S, MB)
+    lens = torch.full((S,), rows, dtype=torch.int32, device="cuda")
+    return S, tab, lens
+
+
+def _decode_step_times(srv):
+    """CUDA-event ms and host issue ms of one decode step of every slot at
+    1000 rows (the kernel on a float pool, the gathered int8 read on an
+    int8 pool)."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    S, tab, lens = _step_scratch(srv)
+    toks = torch.zeros((S,), dtype=torch.long, device="cuda")
+
+    def step():
+        return tf.decode_step_paged(srv.engine.params, toks,
+                                    srv.model.config, srv.pools, tab, lens)
+    return {"ms": cuda_ms(step, iters=5), "issue_ms": host_issue_ms(step, 5)}
+
+
+def _verify_step_times(srv):
+    """The same for one verify step (the pending token plus K proposals
+    of every slot, one span pass, the accept rule)."""
+    S, tab, lens = _step_scratch(srv)
+    tok_mat = torch.zeros((S, SPEC_K + 1), dtype=torch.long, device="cuda")
+    act = torch.ones((S,), dtype=torch.bool, device="cuda")
+
+    def step():
+        return srv._spec_step(tok_mat, tab, lens, act)
+    return {"ms": cuda_ms(step, iters=5), "issue_ms": host_issue_ms(step, 5)}
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _int8_bar(what, prompts, got, want):
+    """JAX's int8 parity bar (``tests/unit/test_serving.py:299-327``): per
+    request, the first 4 generated tokens equal (the prompt is shared) and
+    more than 0.9 of all tokens agree."""
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if not (g[:4] == w[:4]).all() or not (g == w).mean() > 0.9:
+            raise RuntimeError(f"{what}: request {i} {g.tolist()} against "
+                               f"{w.tolist()}")
+    return _agreement(got, want)
+
+
+def _oracle(prompts, streams):
+    """A draft hook that proposes the given continuation of each prompt
+    (keyed by its first 16 tokens)."""
+    table = {tuple(p[:16].tolist()): np.concatenate([p, s]).astype(np.int32)
+             for p, s in zip(prompts, streams)}
+
+    def draft(ctx, k):
+        full = table[tuple(np.asarray(ctx)[:16].tolist())]
+        return full[ctx.size:ctx.size + k]
+    return draft
+
+
+def quantized_spec_checks(rng):
+    """(d) f32 at llama-7b width, 2 layers (TF32 off): speculation against
+    the same engine without it (token-identical) and with an oracle draft
+    hook (accept rate >= 0.6); the int8 pool against the int8 contiguous
+    ``generate``, and int8 + speculation against the int8 pool, by JAX's
+    int8 bar; the int8 pool's teacher-forced decode logits against the
+    float pool's (relative L2, under INT8_LOGITS_LIMIT)."""
+    from deepspeed_tpu_torch import init_inference, llama_config, make_model
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    cfg = llama_config("7b", num_layers=2, dtype=torch.float32)
+    rec = {}
+    prompts = _motif_prompts(rng, 4, motif=32, copies=(6, 6), gap=0, tail=64)
+    load = [(p, 32) for p in prompts]
+
+    def run(eng, **extra):
+        srv = ServingEngine(eng, ServingConfig(**QS_F32_SERVING, **extra))
+        outs = srv.run(list(load))
+        gens = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+        return gens, srv.stats()
+
+    e32 = init_inference(make_model(cfg, "llama-7b-2l"),
+                         config={"kv_cache_bits": 0}, dtype=torch.float32,
+                         seed=5)
+    off, _ = run(e32)
+    on, st = run(e32, spec_tokens=SPEC_K)
+    rec["spec_equal_spec_off"] = all(np.array_equal(a, b)
+                                     for a, b in zip(on, off))
+    rec["spec_accept_rate"] = st.get("spec_accept_rate", 0.0)
+    _, st = run(e32, spec_tokens=SPEC_K, spec_proposer=_oracle(prompts, off))
+    rec["oracle_accept_rate"] = st["spec_accept_rate"]
+    e8 = init_inference(make_model(cfg, "llama-7b-2l"),
+                        config={"kv_cache_bits": 8}, dtype=torch.float32,
+                        seed=5)
+    if e8.model.config.kv_cache_bits != 8:
+        raise RuntimeError("(d): kv_cache_bits=8 not served")
+    p8, _ = run(e8)
+    g8 = e8.generate(np.stack(prompts), max_new_tokens=32)
+    g8 = list(g8[:, len(prompts[0]):].cpu().numpy())
+    rec["int8_paged_vs_generate"] = _int8_bar("int8 paged vs generate",
+                                              prompts, p8, g8)
+    s8, st8 = run(e8, spec_tokens=SPEC_K)
+    rec["int8_spec_vs_int8"] = _int8_bar("int8 + spec vs int8", prompts,
+                                         s8, p8)
+    rec["int8_spec_accept_rate"] = st8.get("spec_accept_rate", 0.0)
+    ids = torch.zeros((1, 256), dtype=torch.long, device="cuda")
+    ids[0] = torch.from_numpy(prompts[0][:256]).cuda()
+    feed = [torch.from_numpy(rng.integers(0, VOCAB, 1)).cuda()
+            for _ in range(8)]
+    with torch.no_grad():
+        lf = _prefill_and_decode(e32.params, e32.model.config, ids, 250,
+                                 feed, False)
+        l8 = _prefill_and_decode(e8.params, e8.model.config, ids, 250,
+                                 feed, False)
+    rec["int8_vs_float_logits"] = [rel_l2(a, b) for a, b in zip(l8, lf)]
+    log("quantized + spec f32 checks (llama-7b width, 2 layers) "
+        + json.dumps(rec))
+    want = {"spec streams == spec-off streams": rec["spec_equal_spec_off"],
+            "oracle accept rate >= 0.6": rec["oracle_accept_rate"] >= 0.6,
+            f"int8 vs float logits < {INT8_LOGITS_LIMIT}":
+                max(rec["int8_vs_float_logits"]) < INT8_LOGITS_LIMIT}
+    failed = [k for k, v in want.items() if not v]
+    if failed:
+        raise RuntimeError(f"(d): failed {failed}")
+    return rec
+
+
+def quantized_spec_phase(smi: str, drift: float, base):
+    """Phase 12: llama-7b at full width and depth, bf16, the serving
+    geometry (16 slots, block 64, max_model_len 2048), a fresh engine for
+    each pool or weight type, freed before the next. (a) speculation
+    (K = 3, n-gram 3) on a float pool, 16 motif-copying prompts x 32
+    tokens, against the same load without it and under an oracle draft
+    hook that proposes the streams the n-gram run emitted; (b) the int8
+    KV pool that ``init_serving``'s default picks at this cap, on the
+    serving phase's load; (c) weight_bits=8 on a float pool, on that
+    load, against the serving phase's streams (``base``: its prompts and
+    greedy streams), and quantize_bits=8 once; (d) the f32 checks. Launch
+    counts zeroed just before each load: B1 = 32 x whole prefills
+    everywhere, B4 = 0 under speculation and on the int8 pool, 32 x
+    decode steps with int8 weights. Returns the record, with the summed
+    launches."""
+    from deepspeed_tpu_torch import init_serving, llama_config, make_model
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.kv_cache import pool_bytes
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    cfg = llama_config("7b")
+    L = cfg.num_layers
+    rng = np.random.default_rng(12)
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    total = {"flash_fwd": 0, "paged_decode": 0}
+    checks = {}
+
+    def count(name, st, launches, decode_kernel):
+        for k in total:
+            total[k] += launches[k]
+        checks[f"{name}: flash_fwd == L x prefills"] = \
+            launches["flash_fwd"] == L * st["prefills"] > 0
+        if decode_kernel:
+            checks[f"{name}: paged_decode == L x decode_steps"] = \
+                launches["paged_decode"] == L * st["decode_steps"] > 0
+        else:
+            checks[f"{name}: paged_decode == 0"] = \
+                launches["paged_decode"] == 0
+
+    # (a) speculation on a float pool, against the same load without it
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0}, dtype=torch.bfloat16,
+                         seed=0)
+    prompts = _motif_prompts(rng, 16)
+    off = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    off_gens, off_st, launches = _serve_counted(off, prompts, 32, "spec off")
+    count("spec off", off_st, launches, True)
+    off_st["decode_step"] = _decode_step_times(off)
+    del off
+    _free()
+    spec = ServingEngine(eng, ServingConfig(
+        **BREADTH_SERVING, spec_tokens=SPEC_K, spec_ngram=3))
+    gens, st, launches = _serve_counted(spec, prompts, 32, "spec")
+    count("spec", st, launches, False)
+    checks["spec: no decode step, verify steps > 0"] = \
+        st["decode_steps"] == 0 and st["verify_steps"] > 0
+    st["verify_step"] = _verify_step_times(spec)
+    st["tokens_per_verify"] = ((st["spec_accepted"] + st["spec_steps"])
+                               / max(st["spec_steps"], 1))
+    st["token_agreement_with_spec_off"] = _agreement(gens, off_gens)
+    st["first_divergence_from_spec_off"] = _first_divergence(gens, off_gens)
+    st["divergence_gaps"] = _divergence_gaps(eng, prompts, gens, off_gens,
+                                             drift)
+    rec["spec"], rec["spec_off"] = st, off_st
+    rec["prompt_lengths"] = [len(p) for p in prompts]
+    del spec
+    _free()
+    # the same load under a draft that proposes what the speculative
+    # engine itself emitted above: what verify steps give where proposals
+    # are right (a stream may still part from it at a bf16 near tie, as
+    # the spec-off streams do at once, after which its proposals miss)
+    spec = ServingEngine(eng, ServingConfig(
+        **BREADTH_SERVING, spec_tokens=SPEC_K,
+        spec_proposer=_oracle(prompts, gens)))
+    o_gens, o_st, launches = _serve_counted(spec, prompts, 32, "spec oracle")
+    count("spec oracle", o_st, launches, False)
+    o_st["tokens_per_verify"] = ((o_st["spec_accepted"] + o_st["spec_steps"])
+                                 / max(o_st["spec_steps"], 1))
+    o_st["token_agreement_with_spec"] = _agreement(o_gens, gens)
+    rec["spec_oracle"] = o_st
+    log("phase 12 (a) speculation " + json.dumps(
+        {"spec": st, "spec_off": off_st, "spec_oracle": o_st}))
+    del spec, eng
+    _free()
+
+    # (b) the int8 KV pool init_serving picks by default at this cap
+    base_prompts, base_gens = base
+    srv = init_serving(make_model(cfg, "llama-7b"), serving=BREADTH_SERVING,
+                       dtype=torch.bfloat16, seed=0)
+    checks["int8: kv_cache_bits resolves to 8"] = (
+        srv.model.config.kv_cache_bits == 8
+        and srv.pools["k"].dtype == torch.int8
+        and srv.engine.config.max_tokens == 2048)
+    gens, st, launches = _serve_counted(srv, base_prompts, 32, "int8 kv")
+    count("int8 kv", st, launches, False)
+    st["float_pool_bytes"] = pool_bytes(
+        dataclasses.replace(cfg, kv_cache_bits=0), srv.num_blocks, 64,
+        dtype=torch.bfloat16)
+    st["decode_backend"] = srv.backend_bench
+    st["decode_step"] = _decode_step_times(srv)
+    st["token_agreement_with_serving_phase"] = _agreement(gens, base_gens)
+    rec["int8_kv"] = st
+    log("phase 12 (b) int8 KV " + json.dumps(st))
+    del srv
+    _free()
+
+    # (c) int8 weights on a float pool; quantize_bits once
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0, "weight_bits": 8},
+                         dtype=torch.bfloat16, seed=0)
+    layers = eng.params["layers"]
+    int8_bytes = sum(t.numel() * t.element_size() for v in layers.values()
+                     for t in (v.values() if isinstance(v, dict) else [v]))
+    bf16_bytes = sum((v["q"] if isinstance(v, dict) else v).numel() * 2
+                     for v in layers.values())
+    srv = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    gens, st, launches = _serve_counted(srv, base_prompts, 32,
+                                        "weight_bits")
+    count("weight_bits", st, launches, True)
+    st.update(layer_bytes=int8_bytes, layer_bytes_bf16=bf16_bytes,
+              decode_step=_decode_step_times(srv),
+              token_agreement_with_serving_phase=_agreement(gens, base_gens),
+              first_divergence_from_serving_phase=_first_divergence(
+                  gens, base_gens))
+    st["divergence_gaps"] = _divergence_gaps(eng, base_prompts[:8],
+                                             gens[:8], base_gens[:8], drift)
+    rec["weight_bits"] = st
+    log("phase 12 (c) weight_bits " + json.dumps(st))
+    del srv, eng, layers
+    _free()
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0, "quantize_bits": 8},
+                         dtype=torch.bfloat16, seed=0)
+    srv = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    q_gens, st, launches = _serve_counted(srv, base_prompts[:4], 16,
+                                          "quantize_bits")
+    count("quantize_bits", st, launches, True)
+    st["decode_step"] = _decode_step_times(srv)
+    st["token_agreement_with_weight_bits"] = _agreement(
+        q_gens, [g[:16] for g in gens[:4]])
+    rec["quantize_bits"] = st
+    log("phase 12 (c) quantize_bits " + json.dumps(st))
+    del srv, eng
+    _free()
+
+    # (d) f32 checks at 2 layers
+    rec["f32"] = quantized_spec_checks(rng)
+    _free()
+    rec["launches"] = total
+    rec["phase_s"] = time.perf_counter() - t_phase
+    failed = [k for k, v in checks.items() if not v]
+    log(f"phase 12: {rec['phase_s']:.1f}s, launches {json.dumps(total)}, "
+        f"checks {json.dumps(checks)}")
+    if failed:
+        raise RuntimeError(f"phase 12: failed {failed}")
+    return rec
+
 
 
 # --------------------------------------------------------------------------
@@ -2029,14 +2408,15 @@ def main() -> int:
 
     flash, decode, bwd = kernel_phase()
     sparse = sparse_kernel_phase()
-    srv, st, launches = serving_phase()
+    srv, st, launches, served = serving_phase()
     step_times(srv)
     _, drift = cross_check(srv)
-    breadth = serving_breadth_phase(
-        srv, card, max(drift["bf16_kernels_vs_f32_plain"].values()))
+    bf16_drift = max(drift["bf16_kernels_vs_f32_plain"].values())
+    breadth = serving_breadth_phase(srv, card, bf16_drift)
     del srv
     gc.collect()
     torch.cuda.empty_cache()
+    quant = quantized_spec_phase(card, bf16_drift, served)
     train = training_phase(
         next(c for c in flash if c["case"].startswith("llama-1b training")),
         bwd[0])
@@ -2090,6 +2470,11 @@ def main() -> int:
         entry.setdefault("launches_by_path", {})["serving_breadth"] = n
     line["kernels"][1]["launches_by_path"]["serving"] = \
         launches["paged_decode"]
+    # phase 12's loads: speculation on and off, the int8 pool, int8 weights
+    for entry in line["kernels"][:2]:
+        n = quant["launches"][entry["name"]]
+        entry["launches"] += n
+        entry["launches_by_path"]["quantized_spec"] = n
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

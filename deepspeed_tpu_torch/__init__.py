@@ -6,7 +6,10 @@ package imports nothing from it and never imports jax. It serves
 llama-family models: continuous batching over a paged KV pool, with the
 flash-forward (prefill) and paged-decode kernels written by hand in CUDA
 (``csrc/``), chunked prefill, a copy-on-write prefix cache, deadlines and
-admission watermarks, and one-shot ``generate`` on a contiguous cache. It trains them on one card through ``initialize`` ->
+admission watermarks, one-shot ``generate`` on a contiguous cache,
+greedy speculative decoding, an int8 KV cache (JAX's default from a
+1024-token context) and int8 weights. It trains them on one card
+through ``initialize`` ->
 ``Engine.train_batch``, with the flash backward (dQ and dK/dV kernels)
 in CUDA as well, and trains a block-sparse model (``sparse_attention``
 layouts) through three more CUDA kernels (forward, dQ, dK/dV). Entry

@@ -16,6 +16,13 @@ step's softmax. It keeps JAX's segmented read windows: each segment's
 steps read a prefix of the buffer that just covers the rows written so
 far, rounded up to ``SEGMENT``.
 
+An int8 cache (``kv_cache_bits=8``) quantizes each step's rows as they
+are written, as the paged int8 pool does. JAX does the same below a
+1024-row buffer; from 1024 rows its two-level loop keeps the current
+segment's rows unquantized in the suffix until the segment ends, so there
+the two read those rows differently (the int8 parity bar, first tokens
+equal and near-total agreement, covers both).
+
 JAX's full-recompute fallback (``_generate_recompute``) serves a model
 without the cache protocol; every model of the port (``make_model``)
 carries it, so the fallback is not ported.

@@ -150,10 +150,14 @@ def blocks_for(n_tokens: int, block_size: int) -> int:
 
 
 def pool_bytes(cfg, num_blocks: int, block_size: int, dtype=None) -> int:
-    """Resident bytes of the float block pools for a transformer config:
-    ``L * NB * n_kv * block_size * head_dim`` elements, twice (k and v), at
-    the itemsize of the POOL dtype (a torch dtype; default cfg.dtype)."""
+    """Resident bytes of the block pools for a transformer config: ``rows =
+    L * NB * n_kv * block_size``. int8 (``cfg.kv_cache_bits == 8``): one
+    byte an element of the payload plus one f32 scale a row, twice (k and
+    v); float: ``rows * head_dim`` elements twice at the itemsize of the
+    POOL dtype (a torch dtype; default cfg.dtype)."""
     L, nkv, hd = cfg.num_layers, cfg.kv_heads, cfg.dim_per_head
     rows = L * num_blocks * nkv * block_size
+    if cfg.kv_cache_bits == 8:
+        return rows * hd * 2 + rows * 4 * 2
     itemsize = (dtype if dtype is not None else cfg.dtype).itemsize
     return rows * hd * itemsize * 2

@@ -19,15 +19,24 @@ of ``deepspeed_tpu/inference/serving.py``.
      sink at the end of every round.
   4. **Latency tier** — token-budget chunked prefill
      (``prefill_token_budget``: long prompts slice across rounds on the
-     span path, ``decode_span_paged``) and the copy-on-write prefix cache
+     span path, ``decode_span_paged``), the copy-on-write prefix cache
      (``enable_prefix_cache``: full prompt blocks shared by reference, a
      matched partial boundary block forked by a block copy before the
-     request's first write).
+     request's first write) and greedy speculative decoding
+     (``spec_tokens``: a round whose requests decode runs ONE verify step
+     of the pending token plus K proposals instead of the decode quantum,
+     ``inference/spec_decode``).
+  5. **Quantized decode** — an int8 KV pool (``kv_cache_bits``, by
+     default on from a 1024-token serving cap, as JAX's) and int8 weights
+     (``weight_bits`` / ``quantize_bits``), through the InferenceEngine.
 
 Attention runs through the two hand-written CUDA kernels: the flash
 forward in every whole-prompt prefill, the paged decode kernel in every
-decode step. Prefill chunks and prefix-cache tails run the span path in
-plain torch ops, as JAX runs them on XLA.
+decode step on a float pool. Prefill chunks, prefix-cache tails, verify
+steps and every decode step on an int8 pool run plain torch ops, as JAX
+runs them on XLA (its kernel reads float pools and single tokens only);
+``decode_backend`` / ``backend_bench`` record which route the decode
+step takes and why.
 
 There is no backend pick and no recovery: on the card a kernel error
 reaches the caller. The watchdog raises ``DecodeDispatchHang`` when a
@@ -45,8 +54,7 @@ token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
 What this port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: speculative decoding (A6f), the int8 KV cache (A6a), int8
-weights (A6b), LoRA adapters (A6g), drain / resume / migration and the KV
+ROADMAP item: LoRA adapters (A6g), drain / resume / migration and the KV
 handoff (A6i), tensor / expert parallel serving (A6h), round recovery and
 its fault seams, request tracing and fleet roles (A7), and serving a
 block-sparse model (A10b).
@@ -67,6 +75,8 @@ from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.inference.scheduler import (AdmissionRejected,
                                                      Request,
                                                      RequestScheduler)
+from deepspeed_tpu_torch.inference.spec_decode import (greedy_accept_len,
+                                                       make_proposer)
 from deepspeed_tpu_torch.models.transformer import check_servable
 from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
 from deepspeed_tpu_torch.robustness import events as rb_events
@@ -118,6 +128,12 @@ class ServingConfig:
     # per-round token budget shared by prefill chunks and the decode
     # quantum's reservation; None = whole-prompt prefill at admission
     prefill_token_budget: Optional[int] = None
+    # speculative decoding (greedy only): K proposals verified per round
+    # in one span pass; 0 = off. The proposer is the self-drafting n-gram
+    # lookup unless spec_proposer, a callable (context, k) -> ids, is set
+    spec_tokens: int = 0
+    spec_ngram: int = 3
+    spec_proposer: Optional[Any] = None
 
     def __post_init__(self):
         if self.round_retries != 0:
@@ -134,16 +150,12 @@ class ServingConfig:
                              "auto | pallas")
 
 
-_SPEC = "not ported yet: ROADMAP A6f (speculative decoding)"
 _LORA = "not ported yet: ROADMAP A6g (multi-LoRA serving)"
 _TRACE = "not ported yet: ROADMAP A7 (fleet host layer: request tracing)"
 
 # JAX ServingConfig fields outside this port: (their default, why a value
 # away from it is refused)
 _DEFERRED = {
-    "spec_tokens": (0, _SPEC),
-    "spec_ngram": (3, _SPEC),
-    "spec_proposer": (None, _SPEC),
     "adapter_slots": (0, _LORA),
     "lora_rank": (0, _LORA),
     "lora_targets": (("q", "k", "v", "o"), _LORA),
@@ -200,6 +212,14 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_token_budget={c.prefill_token_budget}: a "
                 "positive per-round token budget (None disables chunking)")
+        if c.spec_tokens < 0:
+            raise ValueError(f"spec_tokens={c.spec_tokens}: >= 0 "
+                             "(0 disables speculation)")
+        if c.spec_tokens > 0 and c.temperature:
+            raise ValueError(
+                f"spec_tokens={c.spec_tokens} with temperature="
+                f"{c.temperature}: speculation is greedy-only (the accept "
+                "rule's output-parity argument needs argmax sampling)")
         model_cap = mcfg.max_seq_len
         want = int(c.max_model_len or model_cap or 2048)
         want = -(-want // c.block_size) * c.block_size
@@ -228,12 +248,18 @@ class ServingEngine:
         self._prefix_cache = (PrefixCache(self.allocator, c.block_size,
                                           max_blocks=c.prefix_cache_blocks)
                               if c.enable_prefix_cache else None)
+        # the scheduler's per-round row guarantee covers a verify step's
+        # K + 1 writes as well as the decode quantum's
         self.scheduler = RequestScheduler(
-            self.allocator, c.max_seqs, c.block_size, c.decode_quantum,
+            self.allocator, c.max_seqs, c.block_size,
+            max(c.decode_quantum, c.spec_tokens + 1),
             prompt_blocks=lambda n: self._pad_prompt(n) // c.block_size,
             max_blocks_per_seq=self.MB, max_queue=c.max_queue,
             pool_watermark=c.pool_watermark,
             prefix_cache=self._prefix_cache)
+        self._proposer = (make_proposer(c.spec_proposer, c.spec_ngram)
+                          if c.spec_tokens > 0 else None)
+        # int8 pools carry k_scale / v_scale beside k / v
         self.pools = self.model.init_paged_cache(
             num_blocks, c.block_size, dtype=engine.dtype, device=self.device)
         self.pool_bytes = pool_bytes(mcfg, num_blocks, c.block_size,
@@ -249,7 +275,28 @@ class ServingEngine:
         self._quantum_warm = False
         self._round_thread: Optional[threading.Thread] = None
         self._failed: Optional[BaseException] = None
+        self.decode_backend, self.backend_bench = self._select_backend()
         self.reset_stats()
+
+    def _select_backend(self):
+        """The decode route and why, as JAX's ``_select_backend`` records
+        it (and its ``decode_backend_selected`` event): an int8 pool reads
+        the gathered view in plain torch ops ("xla", JAX's name for that
+        route), whatever ``decode_backend`` asks; a float pool runs the
+        paged decode kernel, the port's one kernel backend ("pallas")."""
+        forced = self.config.decode_backend
+        if self.model.config.kv_cache_bits == 8:
+            unavailable = "int8 KV pool (fused-dequant XLA read)"
+            bench = {"backend": "xla",
+                     "reason": (f"pallas unavailable ({unavailable})"
+                                if forced == "pallas" else unavailable)}
+        else:
+            bench = {"backend": "pallas",
+                     "reason": ("forced by config" if forced == "pallas"
+                                else "the paged decode kernel: the port's "
+                                     "one decode backend")}
+        rb_events.emit("decode_backend_selected", **bench)
+        return bench["backend"], bench
 
     # ---- device programs ---------------------------------------------
 
@@ -374,6 +421,42 @@ class ServingEngine:
             outs.append(tokens)
         return outs
 
+    def _spec_step(self, tok_mat, tables, seq_lens, active):
+        """The speculation verify step (dispatch, no sync): ONE
+        ``decode_span_paged`` pass over the pending token plus the K
+        proposals of every slot, the greedy accept rule on the device, and
+        each slot's next pending token and cursor (accepted + 1 rows).
+        Rows written for rejected proposals stay behind the cursor until
+        overwritten. Returns (argmax [S, K+1], accepted [S], pending [S],
+        new lengths [S])."""
+        logits = self.model.decode_span_paged(
+            self.engine.params, tok_mat, self.pools, tables, seq_lens,
+            active=active)
+        nxt = torch.argmax(logits, dim=-1)
+        acc = greedy_accept_len(nxt, tok_mat[:, 1:])
+        pend = nxt.gather(1, acc[:, None])[:, 0]
+        pend = torch.where(active, pend, tok_mat[:, 0])
+        lens = seq_lens + torch.where(active, acc + 1,
+                                      torch.zeros_like(acc)).to(
+                                          seq_lens.dtype)
+        return nxt, acc, pend, lens
+
+    def _proposals_device(self) -> torch.Tensor:
+        """Host-side drafting: one proposal row per decoding slot (the
+        n-gram lookup or the draft hook), padded to K with zeros (pads
+        verify as ordinary wrong guesses). Returns [S, K] on the device;
+        the pending-token column joins it there, so the round keeps its
+        one host sync."""
+        c = self.config
+        props = np.zeros((c.max_seqs, c.spec_tokens), np.int64)
+        for req in self.scheduler.running:
+            if not req.prefill_done:
+                continue
+            got = np.asarray(self._proposer(req.context, c.spec_tokens),
+                             np.int64).reshape(-1)[:c.spec_tokens]
+            props[req.slot, :got.size] = got
+        return torch.from_numpy(props).to(self.device)
+
     # ---- request API -------------------------------------------------
 
     def add_request(self, prompt_ids, max_new_tokens: int = 64,
@@ -453,8 +536,12 @@ class ServingEngine:
         pending = [(req, req._first_dev) for req in running
                    if getattr(req, "_first_dev", None) is not None]
         decode = any(r.prefill_done for r in running)
+        # speculation: ONE verify step replaces the decode quantum
+        spec = decode and self.config.spec_tokens > 0
         tables = self._tables_device() if decode else None
         tokens = self._tokens
+        tok_mat = (torch.cat([tokens[:, None], self._proposals_device()],
+                             dim=1) if spec else None)
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
 
@@ -462,14 +549,21 @@ class ServingEngine:
             # the round thread issues on the caller's stream (a thread's
             # current stream is its own), after the prefills in order
             with self._on_stream(stream):
-                outs = self._quantum(tokens, *tables) if decode else []
-                # the ONE sync of the round: every decode step's tokens and
-                # every pending first token in one device-to-host copy
-                parts = ([t.reshape(-1) for t in outs]
+                verdict = []
+                if spec:
+                    nxt, acc, t, _ = self._spec_step(tok_mat, *tables)
+                    outs, verdict = [], [nxt.reshape(-1), acc]
+                else:
+                    outs = self._quantum(tokens, *tables) if decode else []
+                    t = outs[-1] if outs else tokens
+                # the ONE sync of the round: every decode step's tokens (or
+                # the verify step's argmaxes and accept lengths) and every
+                # pending first token in one device-to-host copy
+                parts = ([o.reshape(-1) for o in outs] + verdict
                          + [f.reshape(-1) for _, f in pending])
                 host = (torch.cat(parts).cpu().numpy() if parts
                         else np.zeros((0,), np.int64))
-            return (outs[-1] if outs else tokens), host, len(outs)
+            return t, host, len(outs)
 
         tokens, host, n_steps = self._with_watchdog(
             quantum_and_fetch, armed=self._quantum_warm)
@@ -478,8 +572,16 @@ class ServingEngine:
             self._quantum_warm = True
             self._dispatches["decode_steps"] += n_steps
         S = self.config.max_seqs
+        if spec:
+            self._dispatches["verify_steps"] += 1
+            K1 = self.config.spec_tokens + 1
+            nxt = host[:S * K1].reshape(S, K1)
+            acc = host[S * K1:S * K1 + S]
+            return self._commit_round(pending, host[S * K1 + S:],
+                                      self._verified(nxt, acc))
         toks = host[:n_steps * S].reshape(n_steps, S)
-        return self._commit_round(toks, pending, host[n_steps * S:])
+        return self._commit_round(pending, host[n_steps * S:],
+                                  lambda req: (toks[:, req.slot], n_steps))
 
     @contextlib.contextmanager
     def _on_stream(self, stream):
@@ -527,7 +629,11 @@ class ServingEngine:
             self._itl_ms.extend([per_tok] * m)
         req.last_token_t = now
 
-    def _commit_round(self, toks, pending, firsts) -> List[Request]:
+    def _commit_round(self, pending, firsts, emitted) -> List[Request]:
+        """Commit a round's fetched tokens: each request's pending first
+        token, then, for each decoding request, ``emitted(req)`` = (its
+        new tokens in order, the rows its cache grew by), cut at its
+        budget or eos."""
         first_tok = {req.rid: int(f) for (req, _), f in zip(pending, firsts)}
         now = time.perf_counter()
         finished: List[Request] = []
@@ -546,18 +652,35 @@ class ServingEngine:
                 # chunked prompt still landing: the quantum skipped it
                 self._note_tokens(req, got, now)
                 continue
-            for i in range(toks.shape[0]):
+            new, rows = emitted(req)
+            for tok in new:
                 if self._done(req):
                     break
-                self._append(req, int(toks[i, req.slot]), eos)
+                self._append(req, int(tok), eos)
                 got += 1
-            req.cached_rows += toks.shape[0]
+            req.cached_rows += rows
             self._note_tokens(req, got, now)
             if self._done(req):
                 self.scheduler.finish(req)
                 self._finished.append(req)
                 finished.append(req)
         return finished
+
+    def _verified(self, nxt, acc):
+        """``emitted`` of a verify round: a slot's accepted proposals plus
+        the model's own token at the first mismatch (1..K+1 tokens, all
+        the model's argmaxes: the unspeculated stream). Its cursor moved
+        by accepted + 1 on the device; rejected rows sit beyond it, stale
+        until overwritten."""
+        K = self.config.spec_tokens
+
+        def emitted(req):
+            a = int(acc[req.slot])
+            self._lat["spec_steps"] += 1
+            self._lat["spec_proposed"] += K
+            self._lat["spec_accepted"] += a
+            return nxt[req.slot, :a + 1], a + 1
+        return emitted
 
     @staticmethod
     def _append(req: Request, token: int, eos) -> None:
@@ -664,9 +787,11 @@ class ServingEngine:
         self._cancelled: List[Request] = []
         self._stats_t0: Optional[float] = None
         self._itl_ms: List[float] = []
-        self._dispatches = {"prefills": 0, "decode_steps": 0}
+        self._dispatches = {"prefills": 0, "decode_steps": 0,
+                            "verify_steps": 0}
         self._counters = {"shed": 0, "deadline_misses": 0}
-        self._lat = {"prefill_chunks": 0, "prefill_chunk_tokens": 0,
+        self._lat = {"spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0,
+                     "prefill_chunks": 0, "prefill_chunk_tokens": 0,
                      "cow_forks": 0}
         if self._prefix_cache is not None:
             self._prefix_cache.reset_stats()
@@ -676,21 +801,30 @@ class ServingEngine:
         token reached the host), inter-token latency p50/p99, aggregate
         generated-token throughput, the dispatch counts the kernels'
         launch counts are checked against (whole-prompt prefills, decode
-        steps), the reliability counters (shed, deadline_misses,
-        cancelled, queue_depth), the chunking and fork counters
-        (prefill_chunks, prefill_chunk_tokens, cow_forks) and, with the
-        prefix cache on, its ``prefix_*`` counters, ``prefix_hit_rate``
-        and ``prefix_held_blocks``."""
+        steps, verify steps), the pool's resident bytes with the KV and
+        weight quantization it serves (``kv_cache_bits``,
+        ``weight_bits``), the reliability counters (shed,
+        deadline_misses, cancelled, queue_depth), the speculation counters
+        (``spec_steps`` per decoding request and round, ``spec_proposed``,
+        ``spec_accepted``, ``spec_accept_rate``), the chunking and fork
+        counters (prefill_chunks, prefill_chunk_tokens, cow_forks) and,
+        with the prefix cache on, its ``prefix_*`` counters,
+        ``prefix_hit_rate`` and ``prefix_held_blocks``."""
         done = [r for r in self._finished if r.first_token_t is not None]
         out: Dict[str, float] = {
             "completed": float(len(self._finished)),
             "preemptions": float(sum(r.preemptions for r in self._finished)),
             "pool_bytes": float(self.pool_bytes),
+            "kv_cache_bits": float(self.model.config.kv_cache_bits),
+            "weight_bits": float(self.engine.config.weight_bits or 0),
             "queue_depth": float(self.scheduler.num_waiting),
             "cancelled": float(len(self._cancelled)),
         }
         for group in (self._dispatches, self._counters, self._lat):
             out.update({k: float(v) for k, v in group.items()})
+        if self._lat["spec_proposed"]:
+            out["spec_accept_rate"] = float(round(
+                self._lat["spec_accepted"] / self._lat["spec_proposed"], 4))
         if done:
             ttft = np.asarray([(r.first_token_t - r.submit_t) * 1e3
                                for r in done])
@@ -720,9 +854,22 @@ def init_serving(model, config=None, serving: Optional[dict] = None,
                  params=None, device=None, dtype=None, seed: int = 0,
                  **kwargs) -> ServingEngine:
     """One-call constructor: ``init_inference`` + ``ServingEngine``.
-    ``serving`` takes ServingConfig field names. Runs on the card:
-    ``device=None`` means "cuda" and raises when CUDA is missing."""
+    ``serving`` takes ServingConfig field names. The engine's context
+    budget ``max_tokens``, which sets the int8 KV default, defaults to
+    the serving cap (``max_model_len``, else the model's ``max_seq_len``,
+    else 2048, clamped to ``max_seq_len``), as JAX's; an explicit setting
+    (a config dict entry, a keyword, an InferenceConfig) wins. Runs on
+    the card: ``device=None`` means "cuda" and raises when CUDA is
+    missing."""
     sc = serving_config(serving)
+    model_cap = getattr(getattr(model, "config", None), "max_seq_len", None)
+    max_len = sc.max_model_len or model_cap or 2048
+    if model_cap:
+        max_len = min(max_len, model_cap)
+    if (config is None or isinstance(config, dict)) \
+            and "max_tokens" not in kwargs:
+        config = dict(config or {})
+        config.setdefault("max_tokens", max_len)
     eng = init_inference(model, config=config, dtype=dtype, params=params,
                          device=device, seed=seed, **kwargs)
     return ServingEngine(eng, sc, seed=seed)

@@ -5,7 +5,9 @@ The port keeps the JAX layout (same names, ``[in, out]`` matrices, the
 stacked leading ``L`` dim), so conversion is leaf for leaf with no
 transposes. Both layouts that ``init_inference`` can produce are accepted:
 unfused (wq/wk/wv, w_in/w_gate) and fused by ``fuse_layer_stack``
-(wqkv = concat(wq, wk, wv), w_in_gate = concat(w_in, w_gate)).
+(wqkv = concat(wq, wk, wv), w_in_gate = concat(w_in, w_gate)), and so are
+the int8 stacks of ``quantize_layer_stack``: a {"q", "scale"} leaf keeps
+its int8 payload and its f32 scales.
 """
 
 from typing import Any, Dict
@@ -35,6 +37,22 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
+def _layer_leaf(a, device, dtype):
+    """A layer-stack leaf: an array, or an int8 {"q", "scale"} leaf (the
+    scales stay f32, as ``quantize_layer_stack`` makes them)."""
+    if isinstance(a, dict):
+        if set(a) != {"q", "scale"}:
+            raise ValueError(f"a quantized leaf has keys {sorted(a)}: "
+                             "expected q and scale")
+        return {"q": _leaf(a["q"], device, dtype),
+                "scale": _leaf(a["scale"], device, torch.float32)}
+    return _leaf(a, device, dtype)
+
+
+def _lead(a) -> int:
+    return np.shape(a["q"] if isinstance(a, dict) else a)[0]
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
                       device, dtype: torch.dtype) -> Dict[str, Any]:
     """JAX params (numpy arrays, or anything ``np.asarray`` takes) -> the
@@ -44,16 +62,17 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
         raise NotImplementedError(
             f"parameters {sorted(unknown)} belong to a model family this "
             "slice does not serve (MoE, learned positions, projection "
-            "biases, quantized stacks): see ROADMAP A9 / A11 / A6b")
+            "biases): see ROADMAP A9 / A11")
     layers = tree["layers"]
     L = cfg.num_layers
     for name, a in layers.items():
-        if np.shape(a)[0] != L:
-            raise ValueError(f"layers/{name} has leading dim "
-                             f"{np.shape(a)[0]}, config has {L} layers")
+        if _lead(a) != L:
+            raise ValueError(f"layers/{name} has leading dim {_lead(a)}, "
+                             f"config has {L} layers")
     out = {k: _leaf(v, device, dtype) for k, v in tree.items()
            if k != "layers"}
-    out["layers"] = {k: _leaf(v, device, dtype) for k, v in layers.items()}
+    out["layers"] = {k: _layer_leaf(v, device, dtype)
+                     for k, v in layers.items()}
     return out
 
 

@@ -17,8 +17,21 @@ CUDA tensors they launch their kernels; ``reference=True`` calls their
 plain versions by name instead (for comparisons), and CPU tensors always
 take the plain versions. Two attention paths are plain torch ops because
 JAX runs them on XLA, not on a Pallas kernel: the multi-token span against
-the pool (``decode_span_paged``: chunked prefill and prefix-cache tails)
-and the contiguous decode (``_decode_attention``).
+the pool (``decode_span_paged``: chunked prefill, prefix-cache tails and
+the speculative verify step) and the contiguous decode
+(``_decode_attention``).
+
+int8 KV (``kv_cache_bits=8``): the caches and pools hold int8 rows with
+per-row f32 scales (``ops/quantizer.quantize_rows``); the fresh rows are
+computed in the compute dtype and quantized as they are written. The
+attention read is JAX's int8 math in plain torch ops: q quantized per
+row, integer scores with the q and k scales multiplied in, the
+probabilities times the V scales re-quantized to [0, 127] for an integer
+PV product (``_decode_attention``, ``_decode_pv``,
+``_paged_span_attention``). A paged int8 decode step reads a gathered
+view of the pool, as JAX's does: the paged decode kernel (B4) reads float
+pools only. The prefill still runs the flash kernel (B1) on the fresh
+float K/V and quantizes the rows it writes.
 
 The contiguous cache is updated in place: each decode step writes one row
 per layer, O(row). JAX's two-level suffix decode exists because its scan
@@ -37,11 +50,15 @@ remat policies (``_remat_policy``). Serving a block-sparse model raises
 
 Weights are cast to the activation dtype at every matmul, as ``_wmat`` /
 ``_wrow`` / ``lm_head_logits`` do in JAX, so f32 parameters (a trainer's
-storage) run under a bf16 compute config.
+storage) run under a bf16 compute config. int8 weights
+(``quantize_layer_stack``: per-(layer, out-channel) scales; norms and
+embeddings stay float) are either dequantized one layer at a time
+(``_maybe_dequant``) or, with ``weight_only_bits=8``, multiplied as int8
+cast to the compute dtype with the scale on the result rows
+(``ops/quantizer.weight_matmul``).
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions, windows, MoE, int8 KV and int8
-weights, and dropout.
+ROADMAP item: alibi / learned positions, windows, MoE and dropout.
 """
 
 import dataclasses
@@ -61,6 +78,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
                                                      flash_attention)
+from deepspeed_tpu_torch.ops.quantizer import (int8_matmul, quantize_rows,
+                                               weight_matmul)
 from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
 
@@ -100,20 +119,29 @@ class TransformerConfig:
     remat_policy: str = "none"
     loss_chunk: int = 0
     fused_backward: bool = False
-    # outside this slice (must stay at their defaults)
-    dropout_rate: float = 0.0
+    # quantized serving: int8 KV cache and pools (0 = float, 8 = int8:
+    # payloads with per-row f32 scales, int8 attention math); int8 layer
+    # weights ({"q", "scale"} leaves from ``quantize_layer_stack``),
+    # dequantized one layer at a time before its matmuls, or with
+    # ``weight_only_bits=8`` kept int8 through the matmul (the scale in
+    # the epilogue)
     kv_cache_bits: int = 0
     quantized_weights: bool = False
+    weight_only_bits: int = 0
+    # outside this slice (must stay at their defaults)
+    dropout_rate: float = 0.0
     attn_windows: Optional[Tuple[int, ...]] = None
     num_experts: int = 1
     sparse_attention: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
+        if self.kv_cache_bits not in (0, 8):
+            raise ValueError(f"kv_cache_bits={self.kv_cache_bits}: 0 (float "
+                             "cache) or 8 (int8)")
+        if self.weight_only_bits not in (0, 8):
+            raise ValueError(f"weight_only_bits={self.weight_only_bits}: 0 "
+                             "or 8 (int8)")
         deferred = {
-            "kv_cache_bits": (self.kv_cache_bits != 0,
-                              "A6a (int8 KV cache)"),
-            "quantized_weights": (self.quantized_weights,
-                                  "A6b (int8 weights)"),
             "attn_windows": (bool(self.attn_windows),
                              "A11 (local-attention windows)"),
             "num_experts": (self.num_experts > 1, "A9 (MoE)"),
@@ -233,6 +261,45 @@ def fuse_layer_stack(params: Params) -> Params:
     return {**params, "layers": L}
 
 
+def unfuse_layer_stack(params: Params, cfg: TransformerConfig) -> Params:
+    """Inverse of ``fuse_layer_stack`` (JAX ``unfuse_layer_stack``): the
+    quantized engines run the per-projection layout."""
+    L = dict(params["layers"])
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
+    if "wqkv" in L:
+        w = L.pop("wqkv")
+        L["wq"] = w[..., :nh * hd]
+        L["wk"] = w[..., nh * hd:(nh + nkv) * hd]
+        L["wv"] = w[..., (nh + nkv) * hd:]
+    if "w_in_gate" in L:
+        w = L.pop("w_in_gate")
+        half = w.shape[-1] // 2
+        L["w_in"], L["w_gate"] = w[..., :half], w[..., half:]
+    return {**params, "layers": L}
+
+
+def quantize_layer_stack(params: Params, bits: int = 8) -> Params:
+    """The stacked layer weights ([L, In, Out]) to int8 plus
+    per-(layer, out-channel) f32 scales [L, 1, Out], as JAX's
+    ``quantize_layer_stack``: leaves become {"q", "scale"}; norm scales
+    ([L, H]) and everything outside the layer stack stay float."""
+    if bits != 8:
+        raise ValueError("weight-only inference quantization supports int8")
+
+    def one(w):
+        if isinstance(w, dict) or w.dim() < 3 or w.dtype == torch.int8:
+            return w
+        w32 = w.float()
+        amax = w32.abs().amax(dim=tuple(range(1, w.dim() - 1)),
+                              keepdim=True)
+        scale = torch.clamp_min(amax / 127.0, 1e-12)
+        q = torch.clamp(torch.round(w32 / scale), -127, 127)
+        return {"q": q.to(torch.int8).contiguous(), "scale": scale}
+
+    return {**params, "layers": {k: one(v)
+                                 for k, v in params["layers"].items()}}
+
+
 # --------------------------------------------------------------------------
 # building blocks
 # --------------------------------------------------------------------------
@@ -290,8 +357,23 @@ def _sm_scale(cfg: TransformerConfig, D: int) -> float:
 
 def _w(h, w):
     """h @ w in h's dtype (JAX ``_wmat``/``_wrow``: the weight is cast at
-    the matmul, so f32 storage runs under bf16 compute)."""
+    the matmul, so f32 storage runs under bf16 compute). A {"q", "scale"}
+    leaf (``weight_only_bits=8``) is multiplied as int8 with its scale in
+    the epilogue."""
+    if isinstance(w, dict):
+        return weight_matmul(h, w["q"], w["scale"])
     return h @ w.to(h.dtype)
+
+
+def _maybe_dequant(p, cfg: TransformerConfig):
+    """One layer's {"q", "scale"} leaves -> the compute dtype, JAX's
+    ``_maybe_dequant``: only that layer's dequantized weights are ever
+    live. With ``weight_only_bits=8`` the leaves stay int8 (``_w``
+    multiplies them)."""
+    if not cfg.quantized_weights or cfg.weight_only_bits == 8:
+        return p
+    return {k: (v["q"].to(cfg.dtype) * v["scale"].to(cfg.dtype)
+                if isinstance(v, dict) else v) for k, v in p.items()}
 
 
 def attention(q, k, v, mask=None, *, causal: bool = True,
@@ -340,21 +422,56 @@ def check_servable(cfg: TransformerConfig) -> None:
             "(serving a block-sparse model)")
 
 
-def _decode_attention(q, ck, cv, index: int, cfg: TransformerConfig,
-                      kv_row, kv_suffix=None):
-    """Single-token GQA attention against a contiguous KV buffer, JAX's
-    ``_decode_attention`` (float branch) in plain torch ops: JAX runs it on
-    XLA, not on a Pallas kernel (its contiguous kernel was deleted), so
-    there is no kernel to port.
+def _quant_q(q32):
+    """JAX's per-row int8 of the query rows (f32 [..., D]) for the int8
+    score product: (int8 values, f32 scale [...])."""
+    qs = torch.clamp_min(q32.abs().amax(dim=-1) / 127.0, 1e-8)
+    qi = torch.clamp(torch.round(q32 / qs[..., None]), -127, 127)
+    return qi.to(torch.int8), qs
 
-    q: [B, 1, Nq, D]; ck/cv: [B, Nkv, T, D]; index: the current position
-    (every row of the batch at the same one). kv_row: the CURRENT token's
-    (k, v) [B, Nkv, 1, D], kept out of the buffer: its score joins the
-    softmax separately and the caller writes the row afterwards (buffer
-    rows at >= the prefix length are stale). kv_suffix: (sk, sv, count),
-    the two-level decode's segment rows [B, Nkv, Ssuf, D], of which the
-    first ``count`` are valid; the buffer then holds ``index - count``
-    rows."""
+
+def _int8_scores(qg, keys, k_scale):
+    """Integer scores of the int8 path: q [..., R, D] quantized per row,
+    contracted with the int8 keys [..., Tk, D] in int32 (exact, see
+    ``ops/quantizer.int8_matmul``), then the q and k scales multiplied
+    in, as JAX: f32 [..., R, Tk]. k_scale: [..., Tk] broadcast over R."""
+    qi, qs = _quant_q(qg.float())
+    sc = int8_matmul(qi, keys.transpose(-1, -2)).float()
+    return sc * qs[..., None] * k_scale.unsqueeze(-2)
+
+
+def _decode_pv(probs, cv, kv_scale, dtype):
+    """probs [..., Tk] @ V [..., Tk, D] (JAX ``_decode_pv``). int8 cache:
+    the per-position V scale folds into the probabilities, which are
+    re-quantized per row to [0, 127] for an exact integer product; the row
+    scale multiplies the result."""
+    if kv_scale is None:
+        return torch.matmul(probs.to(dtype), cv)
+    pv = probs * kv_scale[1].unsqueeze(-2)
+    ps = torch.clamp_min(pv.amax(dim=-1) / 127.0, 1e-20)
+    pvi = torch.clamp(torch.round(pv / ps[..., None]), 0, 127)
+    out = int8_matmul(pvi, cv).float()
+    return (out * ps[..., None]).to(dtype)
+
+
+def _decode_attention(q, ck, cv, index, cfg: TransformerConfig,
+                      kv_row, kv_scale=None, kv_suffix=None):
+    """Single-token GQA attention against a contiguous KV buffer, JAX's
+    ``_decode_attention`` in plain torch ops: JAX runs it on XLA, not on a
+    Pallas kernel (its contiguous kernel was deleted), so there is no
+    kernel to port.
+
+    q: [B, 1, Nq, D]; ck/cv: [B, Nkv, T, D]; index: the current position,
+    a host int (one-shot decode: every row at the same one) or a [B]
+    tensor (the paged int8 path's per-slot lengths). kv_row: the CURRENT
+    token's (k, v) [B, Nkv, 1, D], kept out of the buffer: its score joins
+    the softmax separately and the caller writes the row afterwards
+    (buffer rows at >= the prefix length are stale). kv_scale: the int8
+    buffer's (k_scale, v_scale) [B, Nkv, T] (int8 math, see
+    ``_int8_scores`` / ``_decode_pv``). kv_suffix: (sk, sv, count), the
+    two-level decode's segment rows [B, Nkv, Ssuf, D] in the compute
+    dtype, of which the first ``count`` are valid; the buffer then holds
+    ``index - count`` rows."""
     B, _, Nq, D = q.shape
     Nkv, T = ck.shape[1], ck.shape[2]
     rep = Nq // Nkv
@@ -362,58 +479,88 @@ def _decode_attention(q, ck, cv, index: int, cfg: TransformerConfig,
     qg = q.reshape(B, Nkv, rep, D)
     k_row, v_row = kv_row
     prefix_len = index if kv_suffix is None else index - kv_suffix[2]
-    scores = torch.einsum("bgrd,bgtd->bgrt", qg, ck).float() * sm
-    keep = torch.arange(T, device=q.device) < prefix_len
-    parts, values = [scores.masked_fill(~keep, _NEG)], [cv]
+    if kv_scale is not None:
+        scores = _int8_scores(qg, ck, kv_scale[0])
+    else:
+        scores = torch.einsum("bgrd,bgtd->bgrt", qg, ck).float()
+    scores = scores * sm
+    if isinstance(prefix_len, torch.Tensor):
+        keep = (torch.arange(T, device=q.device)[None, :]
+                < prefix_len.long()[:, None])[:, None, None, :]
+    else:
+        keep = torch.arange(T, device=q.device) < prefix_len
+    parts = [scores.masked_fill(~keep, _NEG)]
     if kv_suffix is not None:
         sk, sv, count = kv_suffix
         s_suf = torch.einsum("bgrd,bgtd->bgrt", qg,
                              sk.to(qg.dtype)).float() * sm
         skeep = torch.arange(sk.shape[2], device=q.device) < count
         parts.append(s_suf.masked_fill(~skeep, _NEG))
-        values.append(sv.to(q.dtype))
     s_self = torch.einsum("bgrd,bgtd->bgrt", qg,
                           k_row.to(qg.dtype)).float() * sm
     probs = torch.softmax(torch.cat(parts + [s_self], dim=-1), dim=-1)
-    out, at = 0, 0
-    for val in values:
-        n = val.shape[2]
+    out = _decode_pv(probs[..., :T], cv, kv_scale, q.dtype)
+    at = T
+    if kv_suffix is not None:
+        n = kv_suffix[0].shape[2]
         out = out + torch.einsum("bgrt,bgtd->bgrd",
-                                 probs[..., at:at + n].to(q.dtype), val)
+                                 probs[..., at:at + n].to(q.dtype),
+                                 kv_suffix[1].to(q.dtype))
         at += n
     out = out + probs[..., at:].to(q.dtype) * v_row.to(q.dtype)
     return out.reshape(B, 1, Nq, D)
 
 
+def _pool_view(pool, idx):
+    """One layer's pool [NB, Nkv, bs, ...] gathered through the tables
+    idx [S, MB] into the contiguous per-slot view [S, Nkv, MB*bs, ...]."""
+    g = pool[idx]                                # [S, MB, Nkv, bs, ...]
+    S, MB, Nkv, bs = g.shape[:4]
+    return g.transpose(1, 2).reshape((S, Nkv, MB * bs) + g.shape[4:])
+
+
 def _paged_attention(q, pool_k, pool_v, tables, index,
-                     cfg: TransformerConfig, kv_row, reference: bool = False):
+                     cfg: TransformerConfig, kv_row, kv_scale=None,
+                     reference: bool = False):
     """Attention against one layer's block pool slices ([NB, Nkv, bs, D])
     through the block tables [S, MB]; index: per-slot sequence lengths
-    [S]. One token per slot goes through the paged decode kernel (B4); a
-    span of T > 1 tokens per slot (chunked prefill, a prefix-cache hit's
-    tail) takes ``_paged_span_attention``, plain torch ops as in JAX, where
-    the Pallas kernel is single-token only. The speculative verify step
-    that also runs on spans is refused by the serving config (ROADMAP
-    A6f)."""
+    [S]. A span of T > 1 tokens per slot (chunked prefill, a prefix-cache
+    hit's tail, the speculative verify step) takes
+    ``_paged_span_attention``, plain torch ops as in JAX, where the Pallas
+    kernel is single-token only. One token per slot on a float pool goes
+    through the paged decode kernel (B4). On an int8 pool (kv_scale: the
+    layer's (k_scale, v_scale) [NB, Nkv, bs]) it reads the gathered view
+    with the int8 math of ``_decode_attention``, as JAX's int8 pool does
+    (its kernel reads float pools only)."""
     if q.shape[1] > 1:
         return _paged_span_attention(q, pool_k, pool_v, tables, index, cfg,
-                                     kv_row)
+                                     kv_row, kv_scale=kv_scale)
+    if kv_scale is not None:
+        idx = tables.long()
+        sc = tuple(_pool_view(s, idx) for s in kv_scale)
+        return _decode_attention(q, _pool_view(pool_k, idx),
+                                 _pool_view(pool_v, idx), index, cfg,
+                                 kv_row=kv_row, kv_scale=sc)
     fn = paged_decode_reference if reference else paged_decode_attention
     return fn(q, pool_k, pool_v, tables, index, kv_row=kv_row,
               sm_scale=_sm_scale(cfg, q.shape[-1]))
 
 
 def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
-                          cfg: TransformerConfig, kv_row):
+                          cfg: TransformerConfig, kv_row, kv_scale=None):
     """T-token attention for a span appended at each slot's cursor, JAX's
-    ``_paged_span_attention`` (float pools). q: [S, T, Nq, D]; kv_row: the
-    span's fresh (k, v) [S, Nkv, T, D]; prior_lens: [S] rows already in
-    the pool. Position ``prior + t`` attends the pool prefix [0, prior),
-    the span rows u <= t and itself: scores over the gathered pool view
-    under the per-slot prefix mask, scores over the span under the causal
-    ``u <= t`` mask, one softmax over both. Masked entries are -1e30, so
-    they weigh exactly 0 and each position sees the single-token chain's
-    logits (to reduction-order rounding: the softmax is wider)."""
+    ``_paged_span_attention``. q: [S, T, Nq, D]; kv_row: the span's fresh
+    (k, v) [S, Nkv, T, D]; prior_lens: [S] rows already in the pool.
+    Position ``prior + t`` attends the pool prefix [0, prior), the span
+    rows u <= t and itself: scores over the gathered pool view under the
+    per-slot prefix mask, scores over the span under the causal ``u <= t``
+    mask, one softmax over both. Masked entries are -1e30, so they weigh
+    exactly 0 and each position sees the single-token chain's logits (to
+    reduction-order rounding: the softmax is wider). int8 pools (kv_scale:
+    (k_scale, v_scale) [NB, Nkv, bs]): the pool read runs the int8 math
+    of ``_decode_attention`` batched over T; the span's own fresh rows are
+    read as floats, where single steps would re-read them quantized (JAX's
+    relaxation too)."""
     S, T, Nq, D = q.shape
     _, Nkv, bs, _ = pool_k.shape
     MB = tables.shape[1]
@@ -421,12 +568,15 @@ def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
     chunk_k, chunk_v = kv_row
     sm = _sm_scale(cfg, D)
     idx = tables.long()
-
-    def view(pool):                  # [S, MB, Nkv, bs, D] -> [S, Nkv, Tp, D]
-        return pool[idx].permute(0, 2, 1, 3, 4).reshape(S, Nkv, Tp, D)
-
     qg = q.transpose(1, 2).reshape(S, Nkv, rep, T, D)
-    sp = torch.einsum("bgrtd,bgsd->bgrts", qg, view(pool_k)).float() * sm
+    vk = _pool_view(pool_k, idx)
+    if kv_scale is not None:
+        ksg, vsg = (_pool_view(s, idx) for s in kv_scale)   # [S, Nkv, Tp]
+        sp = _int8_scores(qg.reshape(S, Nkv, rep * T, D), vk, ksg)
+        sp = sp.reshape(S, Nkv, rep, T, Tp)
+    else:
+        sp = torch.einsum("bgrtd,bgsd->bgrts", qg, vk).float()
+    sp = sp * sm
     keep = (torch.arange(Tp, device=q.device)[None, :]
             < prior_lens.long()[:, None])                       # [S, Tp]
     sp = sp.masked_fill(~keep[:, None, None, None, :], _NEG)
@@ -435,8 +585,14 @@ def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
     t = torch.arange(T, device=q.device)
     sq = sq.masked_fill(~(t[None, :] <= t[:, None]), _NEG)      # [t, u]
     probs = torch.softmax(torch.cat([sp, sq], dim=-1), dim=-1)
-    out = torch.einsum("bgrts,bgsd->bgrtd", probs[..., :Tp].to(q.dtype),
-                       view(pool_v))
+    vv = _pool_view(pool_v, idx)
+    if kv_scale is not None:
+        pp = probs[..., :Tp].reshape(S, Nkv, rep * T, Tp)
+        out = _decode_pv(pp, vv, (None, vsg), q.dtype)
+        out = out.reshape(S, Nkv, rep, T, D)
+    else:
+        out = torch.einsum("bgrts,bgsd->bgrtd", probs[..., :Tp].to(q.dtype),
+                           vv)
     out = out + torch.einsum("bgrtu,bgud->bgrtd",
                              probs[..., Tp:].to(q.dtype),
                              chunk_v.to(q.dtype))
@@ -459,6 +615,7 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     twice)."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
+    p = _maybe_dequant(p, cfg)
     h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
     if "wqkv" in p:
         q, k, v = _w(h, p["wqkv"]).split([nh * hd, nkv * hd, nkv * hd],
@@ -495,8 +652,14 @@ def _layers(params: Params) -> List[Params]:
     """Per-layer views of the stacked [L, ...] leaves, taken once per pass:
     the backward of ``unbind`` is one stack per leaf, where indexing v[i]
     in the layer loop would build a zero-filled full stack per layer."""
+    def unbind(a):
+        if isinstance(a, dict):              # an int8 {"q", "scale"} leaf
+            parts = {k: torch.unbind(v, 0) for k, v in a.items()}
+            return [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+        return torch.unbind(a, 0)
+
     names = list(params["layers"])
-    cols = [torch.unbind(params["layers"][n], 0) for n in names]
+    cols = [unbind(params["layers"][n]) for n in names]
     return [dict(zip(names, vals)) for vals in zip(*cols)]
 
 
@@ -743,14 +906,35 @@ def init_paged_cache(cfg: TransformerConfig, num_blocks: int,
     """Block pools [L, NB, n_kv, block_size, head_dim]. Block 0 is the
     reserved TRASH block: null table entries point at it and inactive slots
     write into it; its contents are never read (masked by the lengths).
-    ``device=None`` means the card (raises without CUDA), as every entry
-    point of the port."""
+    ``kv_cache_bits=8``: int8 pools plus f32 ``k_scale`` / ``v_scale``
+    [L, NB, n_kv, block_size] (one scale a row). ``device=None`` means the
+    card (raises without CUDA), as every entry point of the port."""
     shape = (cfg.num_layers, num_blocks, cfg.kv_heads, block_size,
              cfg.dim_per_head)
-    dtype = dtype or cfg.dtype
     device = resolve_device(device)
+    if cfg.kv_cache_bits == 8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device)}
+    dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_rows(store, name, index, rows):
+    """``store[name][index] = rows``, quantized per row into the int8
+    payload and its ``<name>_scale`` when the store holds scales, else
+    cast to the store's dtype. ``index``: a tuple of indices into the
+    payload that leaves its last (head) dim whole."""
+    if name + "_scale" in store:
+        q, sc = quantize_rows(rows)
+        store[name][index] = q
+        store[name + "_scale"][index] = sc
+    else:
+        store[name][index] = rows.to(store[name].dtype)
 
 
 def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
@@ -765,7 +949,8 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
     appends. Returns the f32 logits at position length-1, [1, V].
 
     The pools are updated IN PLACE (JAX donated them to the jitted step);
-    each layer's K/V goes into its blocks as soon as the layer has run."""
+    each layer's K/V goes into its blocks as soon as the layer has run
+    (quantized per row, with its scales, into an int8 pool)."""
     check_servable(cfg)
     B, P = input_ids.shape
     bs = pools["k"].shape[3]
@@ -777,8 +962,8 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
         return a[0].reshape(nblk, bs, a.shape[2], a.shape[3]).transpose(1, 2)
 
     def write(i, k, v):
-        pools["k"][i, block_ids] = to_blocks(k).to(pools["k"].dtype)
-        pools["v"][i, block_ids] = to_blocks(v).to(pools["v"].dtype)
+        _write_rows(pools, "k", (i, block_ids), to_blocks(k))
+        _write_rows(pools, "v", (i, block_ids), to_blocks(v))
 
     x, _ = _hidden(params, input_ids, cfg, reference=reference,
                    on_layer_kv=write)
@@ -800,18 +985,22 @@ def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
     """The layer stack over T new tokens per slot (tokens [S, T] at
     positions seq_lens .. seq_lens + T - 1) attending the pool; returns
     the final hidden states [S, T, H] and every layer's fresh rows
-    stacked [L, S, nkv, T, hd], not yet written."""
+    stacked [L, S, nkv, T, hd], not yet written (in the compute dtype for
+    an int8 pool: they are quantized as they are written)."""
     x = _embed_rows(params, tokens, cfg)                        # [S, T, H]
     T = tokens.shape[1]
     positions = (seq_lens.long()[:, None]
                  + torch.arange(T, device=tokens.device)[None, :])
+    int8 = cfg.kv_cache_bits == 8
+    row_dtype = cfg.dtype if int8 else pools["k"].dtype
     k_rows, v_rows = [], []
     for i, lp in enumerate(_layers(params)):
+        sc = (pools["k_scale"][i], pools["v_scale"][i]) if int8 else None
         x, (k_row, v_row) = transformer_layer(
-            x, lp, cfg, positions=positions, row_dtype=pools["k"].dtype,
-            attend=lambda q, kv, i=i: _paged_attention(
+            x, lp, cfg, positions=positions, row_dtype=row_dtype,
+            attend=lambda q, kv, i=i, sc=sc: _paged_attention(
                 q, pools["k"][i], pools["v"][i], block_tables, seq_lens,
-                cfg, kv, reference=reference))
+                cfg, kv, kv_scale=sc, reference=reference))
         k_rows.append(k_row)
         v_rows.append(v_row)
     return x, torch.stack(k_rows), torch.stack(v_rows)
@@ -829,10 +1018,11 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
 
     The fresh rows of all layers are written after the layer stack, in
     place (JAX donated the pools): one scatter to (block_tables[s,
-    len // bs], len % bs). Inactive slots, and slots whose column len // bs
-    is past the table (a request that reached max_model_len mid-quantum),
-    still compute but write into the trash block 0; duplicate trash writes
-    are fine (never read)."""
+    len // bs], len % bs), quantized with their scales into an int8 pool.
+    Inactive slots, and slots whose column len // bs is past the table (a
+    request that reached max_model_len mid-quantum), still compute but
+    write into the trash block 0; duplicate trash writes are fine (never
+    read)."""
     S = tokens.shape[0]
     if active is None:
         active = torch.ones((S,), dtype=torch.bool, device=tokens.device)
@@ -849,8 +1039,9 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
     blk = torch.where(write, blk, torch.zeros_like(blk))
     off = torch.where(write, seq_lens.long() % bs, torch.zeros_like(blk))
     # [L, S, nkv, hd] -> [S, L, nkv, hd]: the advanced indices lead
-    pools["k"][:, blk, :, off, :] = k_rows[:, :, :, 0].transpose(0, 1)
-    pools["v"][:, blk, :, off, :] = v_rows[:, :, :, 0].transpose(0, 1)
+    at = (slice(None), blk, slice(None), off)
+    _write_rows(pools, "k", at, k_rows[:, :, :, 0].transpose(0, 1))
+    _write_rows(pools, "v", at, v_rows[:, :, :, 0].transpose(0, 1))
     return _final_logits(x, params, cfg)[:, 0, :]
 
 
@@ -859,17 +1050,21 @@ def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
                       n_rows=None, reference: bool = False):
     """T consecutive tokens per slot in one pass, JAX's
     ``decode_span_paged``: a prefill chunk appended behind rows already in
-    the pool (an earlier chunk, or a prefix-cache hit).
+    the pool (an earlier chunk, or a prefix-cache hit), or the speculative
+    verify step (the pending token plus K proposals).
 
     tokens: [S, T] at positions ``seq_lens .. seq_lens + T - 1``; returns
     f32 logits [S, T, V] and writes each token's K/V row at its position,
-    in place, after the layer stack. ``n_rows``: [S] rows actually written
-    per slot (default T): a bucketed chunk's pad tokens past ``n_rows``
-    compute garbage that lands in the trash block 0, as do inactive slots
-    and positions past the table's capacity. The caller forks shared
-    (refcounted) blocks before any span writes them (the serving engine's
-    copy-on-write fork). Attention is plain torch ops
-    (``_paged_span_attention``), as JAX runs it on XLA."""
+    in place, after the layer stack (quantized with their scales into an
+    int8 pool). ``n_rows``: [S] rows actually written per slot (default
+    T): a bucketed chunk's pad tokens past ``n_rows`` compute garbage that
+    lands in the trash block 0, as do inactive slots and positions past
+    the table's capacity (a verify step near the context cap). Rows of
+    rejected proposals stay in place behind the caller's cursor until
+    overwritten. The caller forks shared (refcounted) blocks before any
+    span writes them (the serving engine's copy-on-write fork). Attention
+    is plain torch ops (``_paged_span_attention``), as JAX runs it on
+    XLA."""
     S, T = tokens.shape
     dev = tokens.device
     if active is None:
@@ -893,8 +1088,9 @@ def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
         a = a.permute(1, 3, 0, 2, 4)
         return a.reshape((S * T,) + a.shape[2:])
 
-    pools["k"][:, blk, :, off, :] = flat(k_rows)
-    pools["v"][:, blk, :, off, :] = flat(v_rows)
+    at = (slice(None), blk, slice(None), off)
+    _write_rows(pools, "k", at, flat(k_rows))
+    _write_rows(pools, "v", at, flat(v_rows))
     return _final_logits(x, params, cfg)
 
 
@@ -906,12 +1102,20 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
                dtype=None, device=None) -> Params:
     """Preallocated KV buffers [L, B, n_kv, max_len, head_dim] and the
     cursor ``index`` (a host int: every row of the batch sits at the same
-    position). Float buffers only: the int8 cache is ROADMAP A6a (the
-    config refuses ``kv_cache_bits=8``). ``device=None`` means the card."""
+    position). ``kv_cache_bits=8``: int8 buffers plus f32 ``k_scale`` /
+    ``v_scale`` [L, B, n_kv, max_len]. ``device=None`` means the card."""
     shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len,
              cfg.dim_per_head)
-    dtype = dtype or cfg.dtype
     device = resolve_device(device)
+    if cfg.kv_cache_bits == 8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                       device=device),
+                "index": 0}
+    dtype = dtype or cfg.dtype
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "index": 0}
@@ -922,16 +1126,18 @@ def prefill(params: Params, input_ids, cfg: TransformerConfig, cache: Params,
             reference: bool = False):
     """Process the prompt, seed the cache, return (logits at the last real
     position [B, V], cache). One forward pass through the flash kernel
-    (B1): each layer's K/V goes into the buffer, in place, as soon as the
-    layer has run. ``length``: the true prompt length when input_ids is
-    right-padded to a bucket; the cursor is set there, so decode
-    overwrites the pad rows before they can be attended."""
+    (B1): each layer's K/V goes into the buffer, in place (quantized per
+    row into an int8 cache), as soon as the layer has run. ``length``: the
+    true prompt length when input_ids is right-padded to a bucket; the
+    cursor is set there, so decode overwrites the pad rows before they can
+    be attended."""
     S = input_ids.shape[1]
     true_len = S if length is None else int(length)
 
     def write(i, k, v):           # [B, S, nkv, hd] -> [B, nkv, S, hd]
-        cache["k"][i, :, :, :S] = k.transpose(1, 2).to(cache["k"].dtype)
-        cache["v"][i, :, :, :S] = v.transpose(1, 2).to(cache["v"].dtype)
+        at = (i, slice(None), slice(None), slice(0, S))
+        _write_rows(cache, "k", at, k.transpose(1, 2))
+        _write_rows(cache, "v", at, v.transpose(1, 2))
 
     x, _ = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
                    reference=reference, on_layer_kv=write)
@@ -955,12 +1161,15 @@ def _contiguous_step(params, token, cfg, cache, read_len, index, row_dtype,
     k_rows, v_rows = [], []
     for i, lp in enumerate(_layers(params)):
         ck, cv = cache["k"][i, :, :, :W], cache["v"][i, :, :, :W]
+        sc = ((cache["k_scale"][i, :, :, :W], cache["v_scale"][i, :, :, :W])
+              if "k_scale" in cache else None)
         sfx = (None if suffix is None
                else (suffix["k"][i], suffix["v"][i], suffix["count"]))
         x, (k_row, v_row) = transformer_layer(
             x, lp, cfg, positions=positions, row_dtype=row_dtype,
-            attend=lambda q, kv, ck=ck, cv=cv, sfx=sfx: _decode_attention(
-                q, ck, cv, index, cfg, kv_row=kv, kv_suffix=sfx))
+            attend=lambda q, kv, ck=ck, cv=cv, sc=sc, sfx=sfx:
+                _decode_attention(q, ck, cv, index, cfg, kv_row=kv,
+                                  kv_scale=sc, kv_suffix=sfx))
         k_rows.append(k_row[:, :, 0])
         v_rows.append(v_row[:, :, 0])
     return (_final_logits(x, params, cfg)[:, 0, :], torch.stack(k_rows),
@@ -972,29 +1181,38 @@ def decode_step(params: Params, token, cfg: TransformerConfig,
     """One incremental decode step. token: [B] or [B, 1] -> (logits [B, V],
     cache). Attention reads the buffer's first ``read_len`` rows (the
     caller guarantees index < read_len), then all layers' fresh rows are
-    written at ``index`` in place, O(row) per token, and the cursor moves
-    on. As JAX's ``dynamic_update_slice``, a cursor at or past the buffer
-    writes into its last row (such steps' tokens are discarded)."""
+    written at ``index`` in place (quantized into an int8 cache), O(row)
+    per token, and the cursor moves on. As JAX's ``dynamic_update_slice``,
+    a cursor at or past the buffer writes into its last row (such steps'
+    tokens are discarded)."""
     index = int(cache["index"])
+    row_dtype = (cfg.dtype if cfg.kv_cache_bits == 8
+                 else cache["k"].dtype)
     logits, k_rows, v_rows = _contiguous_step(
-        params, token, cfg, cache, read_len, index, cache["k"].dtype)
-    at = min(index, cache["k"].shape[3] - 1)
-    cache["k"][:, :, :, at] = k_rows
-    cache["v"][:, :, :, at] = v_rows
+        params, token, cfg, cache, read_len, index, row_dtype)
+    at = (slice(None), slice(None), slice(None),
+          min(index, cache["k"].shape[3] - 1))
+    _write_rows(cache, "k", at, k_rows)
+    _write_rows(cache, "v", at, v_rows)
     cache["index"] = index + 1
     return logits, cache
 
 
 def init_suffix(cfg: TransformerConfig, batch_size: int, seg_len: int,
                 cache: Optional[Params] = None, device=None) -> Params:
-    """The two-level decode's segment buffers [L, B, nkv, seg, hd] (in the
-    cache's dtype and on its device) and the written-row ``count``."""
+    """The two-level decode's segment buffers [L, B, nkv, seg, hd] and the
+    written-row ``count``, on the cache's device: in a float cache's dtype
+    (the merge is a plain write), in the compute dtype for an int8 cache
+    (the merge quantizes)."""
     shape = (cfg.num_layers, batch_size, cfg.kv_heads, seg_len,
              cfg.dim_per_head)
+    dtype = cfg.dtype
     if cache is not None:
-        dtype, device = cache["k"].dtype, cache["k"].device
+        device = cache["k"].device
+        if cache["k"].dtype != torch.int8:
+            dtype = cache["k"].dtype
     else:
-        dtype, device = cfg.dtype, resolve_device(device)
+        device = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "count": 0}
@@ -1022,14 +1240,15 @@ def decode_step_suffix(params: Params, token, cfg: TransformerConfig,
 def merge_suffix(cfg: TransformerConfig, cache: Params,
                  suffix: Params) -> Params:
     """Fold a segment's suffix rows into the buffer at the cursor (one
-    O(seg) write a segment) and advance the cursor by ``count``. As JAX's
-    ``dynamic_update_slice``, a segment that would run past the buffer is
-    written at its end."""
+    O(seg) write a segment; an int8 cache quantizes them here) and advance
+    the cursor by ``count``. As JAX's ``dynamic_update_slice``, a segment
+    that would run past the buffer is written at its end."""
     index = int(cache["index"])
     seg = suffix["k"].shape[3]
     at = max(0, min(index, cache["k"].shape[3] - seg))
-    cache["k"][:, :, :, at:at + seg] = suffix["k"].to(cache["k"].dtype)
-    cache["v"][:, :, :, at:at + seg] = suffix["v"].to(cache["v"].dtype)
+    where = (slice(None), slice(None), slice(None), slice(at, at + seg))
+    _write_rows(cache, "k", where, suffix["k"])
+    _write_rows(cache, "v", where, suffix["v"])
     cache["index"] = index + int(suffix["count"])
     return cache
 

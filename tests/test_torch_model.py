@@ -222,7 +222,7 @@ def test_paged_cache_on_the_cpu_when_asked():
 
 
 def test_deferred_model_features_raise():
-    for bad in (dict(kv_cache_bits=8), dict(num_experts=4),
+    for bad in (dict(num_experts=4),
                 dict(position_type="alibi"), dict(attn_windows=(0, 8))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             pt.TransformerConfig(**{**CFG, **bad})

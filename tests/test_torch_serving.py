@@ -94,8 +94,7 @@ def test_eos_truncates_and_frees_blocks(jax_run):
 
 def test_deferred_serving_features_raise():
     model = make_model(TransformerConfig(**CFG, dtype=torch.float32))
-    for field, value, item in (("spec_tokens", 2, "A6f"),
-                               ("adapter_slots", 2, "A6g"),
+    for field, value, item in (("adapter_slots", 2, "A6g"),
                                ("lora_rank", 8, "A6g"),
                                ("request_trace", True, "A7"),
                                ("role", "prefill", "A7"),
@@ -104,9 +103,6 @@ def test_deferred_serving_features_raise():
             deepspeed_tpu_torch.init_serving(
                 model, serving={**SERVING, field: value},
                 dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6a"):
-        deepspeed_tpu_torch.init_serving(model, config={"kv_cache_bits": 8},
-                                         serving=SERVING, device="cpu")
 
 
 def test_temperature_sampling_is_seeded():
