@@ -143,6 +143,27 @@ Phases, each of which raises on failure (exit code != 0):
    int8 bar (the first 4 generated tokens equal, agreement > 0.9); the
    int8 pool's teacher-forced decode logits within 0.1 relative L2 of
    the float pool's.
+13. multi-LoRA, drain / resume and the KV handoff (after phase 12):
+   llama-7b on the serving geometry, float pool. (a) bf16 at full depth,
+   ``adapter_slots=8``, ``lora_rank=16``: 12 random adapters registered
+   (7 usable slots), the serving phase's 24 prompts x 32 new tokens with
+   adapter ids i % 13 (two base requests): 32 in-vocab tokens each,
+   ``adapter_page_ins`` >= 12, ``adapter_evictions`` >= 1, and with the
+   launch counts zeroed just before the load B1 = 0 (a LoRA engine
+   prefills on the span path) and B4 = 32 x decode steps; the adapter
+   pool's bytes, the LoRA decode step's ms and host issue ms beside the
+   plain step's (and phase 4's), TTFT, ITL, tok/s. (b) f32, 2 layers:
+   a mixed batch {base, 1, 2, 3} equal, token for token, to each tenant
+   served alone on ``apply_lora_dense`` weights; a drain after one round
+   resumed on a fresh engine, a KV handoff (``export_kv`` ->
+   ``release_requests`` -> ``accept_migration(kv=)``), and after a
+   payload with one flipped byte is refused (``ResumeIncompatible``)
+   the re-prefill fallback, each equal to the pooled run. (c) bf16 at
+   full depth: 4 requests of 1000-row prompts, 32 new tokens, handed off
+   after the source's first round: payload bytes, export, crc, accept
+   and scatter ms, the agreement with the colocated streams (reported);
+   no fallback, and on the decode engine (counts zeroed just before) B1
+   = 0 and B4 = 32 x decode steps.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -1723,6 +1744,349 @@ def quantized_spec_phase(smi: str, drift: float, base):
 
 
 # --------------------------------------------------------------------------
+# multi-LoRA, drain / resume and the KV handoff (phase 13)
+# --------------------------------------------------------------------------
+
+# the README's documented multi-LoRA settings on the serving geometry: 8
+# slots (7 usable beside the null slot 0), rank 16
+LORA_SERVING = dict(BREADTH_SERVING, adapter_slots=8, lora_rank=16)
+N_ADAPTERS = 12
+# f32 engines of (b): llama-7b width, 2 layers, 4 slots, 3 adapters
+LORA_F32_SERVING = dict(max_seqs=4, block_size=64, max_model_len=1024,
+                        decode_quantum=8)
+LORA_F32 = dict(adapter_slots=4, lora_rank=16)
+HANDOFF_ROWS = 1000
+
+
+def _lora_step_times(srv):
+    """CUDA-event ms and host issue ms of one decode step of every slot at
+    1000 rows with the adapter delta, the slots' adapter indices cycling
+    over the slot pool (slot 0, the null adapter, included)."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    S, tab, lens = _step_scratch(srv)
+    toks = torch.zeros((S,), dtype=torch.long, device="cuda")
+    aidx = torch.arange(S, device="cuda") % srv.adapter_slots.num_slots
+    lora = (srv.adapter_pool, aidx)
+
+    def step():
+        return tf.decode_step_paged(srv.engine.params, toks,
+                                    srv.model.config, srv.pools, tab, lens,
+                                    lora=lora)
+    return {"ms": cuda_ms(step, iters=5), "issue_ms": host_issue_ms(step, 5)}
+
+
+def _until_first_tokens(srv, rids):
+    """Step until every request of ``rids`` runs with its first token (the
+    handoff-ready state of a colocated engine)."""
+    for _ in range(100):
+        live = {r.rid: r for r in srv.scheduler.running}
+        if all(r in live and live[r].prefill_done and live[r].generated
+               for r in rids):
+            return
+        srv.step()
+    raise RuntimeError("handoff: prefill never completed on the source")
+
+
+def _to_done(srv, budget=1000):
+    """Step to the end; the finished outputs by request id."""
+    outs = {}
+    for _ in range(budget):
+        if srv.scheduler.done:
+            return outs
+        for req in srv.step():
+            outs[req.rid] = req.output
+    raise RuntimeError("serving did not converge")
+
+
+def lora_serving_load(cfg, base, plain_step):
+    """(a) 12 random adapters in 7 usable slots, the serving phase's 24
+    requests x 32 tokens with adapter ids i % 13 (two base requests), on
+    llama-7b bf16 at full depth; the launch counts zeroed just before."""
+    from deepspeed_tpu_torch import make_model
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.lora import make_random_adapter
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.ops import _build
+    prompts, base_gens = base
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0}, dtype=torch.bfloat16,
+                         seed=0)
+    srv = ServingEngine(eng, ServingConfig(**LORA_SERVING))
+    t0 = time.perf_counter()
+    for a in range(1, N_ADAPTERS + 1):
+        srv.register_adapter(a, make_random_adapter(
+            eng.model.config, LORA_SERVING["lora_rank"], seed=a))
+    register_s = time.perf_counter() - t0
+    srv.run([(prompts[0][:64], 4)])          # warm-up, base adapter
+    srv.reset_stats()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.run([(p, 32, i % (N_ADAPTERS + 1))
+                    for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    gens = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+    _check_generated("lora", gens, 32)
+    st = dict(srv.stats(), wall_s=wall, register_s=register_s)
+    if srv.allocator.used_blocks != 0:
+        raise RuntimeError(f"lora: {srv.allocator.used_blocks} blocks held")
+    st["adapter_pool_bytes"] = sum(t.numel() * t.element_size()
+                                   for ab in srv.adapter_pool.values()
+                                   for t in ab.values())
+    st["decode_step_lora"] = _lora_step_times(srv)
+    st["decode_step_plain"] = _decode_step_times(srv)
+    st["decode_step_phase4_ms"] = plain_step
+    base_ids = [i for i in range(len(prompts)) if i % (N_ADAPTERS + 1) == 0]
+    st["base_requests_agreement_with_serving_phase"] = _agreement(
+        [gens[i] for i in base_ids], [base_gens[i] for i in base_ids])
+    return st, launches
+
+
+def lora_migration_checks(rng):
+    """(b) f32, llama-7b width, 2 layers (TF32 off): a mixed batch {base,
+    1, 2, 3} pooled against each tenant alone on merged dense weights; a
+    drain after one round resumed on a fresh engine; a KV handoff (export,
+    release, accept with kv=) onto another engine; a payload with one
+    flipped byte refused, then the re-prefill fallback. Every stream must
+    equal the pooled run's, token for token."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch import llama_config, make_model
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.lora import (apply_lora_dense,
+                                                    make_random_adapter)
+    from deepspeed_tpu_torch.inference.serving import (ResumeIncompatible,
+                                                       ServingConfig,
+                                                       ServingEngine)
+    from deepspeed_tpu_torch.models.transformer import unfuse_layer_stack
+    cfg = llama_config("7b", num_layers=2, dtype=torch.float32)
+    model = make_model(cfg, "llama-7b-2l")
+    eng = init_inference(model, config={"kv_cache_bits": 0},
+                         dtype=torch.float32, seed=5)
+    adapters = {a: make_random_adapter(eng.model.config, 16, seed=100 + a)
+                for a in (1, 2, 3)}
+    load = [(rng.integers(0, VOCAB, n).astype(np.int32), 24, a)
+            for n, a in ((300, 0), (120, 1), (200, 2), (64, 3))]
+
+    def lora_srv():
+        srv = ServingEngine(eng, ServingConfig(**LORA_F32_SERVING,
+                                               **LORA_F32))
+        for a, tabs in adapters.items():
+            srv.register_adapter(a, tabs)
+        return srv
+
+    def streams(outs):
+        return [outs[k] for k in sorted(outs)]
+
+    def same(outs):
+        got = streams(outs)
+        return len(got) == len(want) and all(
+            np.array_equal(g, w) for g, w in zip(got, want))
+
+    rec = {}
+    want = streams(lora_srv().run(list(load)))
+    plain = streams(ServingEngine(eng, ServingConfig(**LORA_F32_SERVING))
+                    .run([(p, n) for p, n, _ in load]))
+    rec["adapters_change_tokens"] = sum(
+        not np.array_equal(w, o) for w, o in zip(want[1:], plain[1:]))
+    host = {k: ({n: t.cpu().numpy() for n, t in v.items()}
+                if k == "layers" else v.cpu().numpy())
+            for k, v in unfuse_layer_stack(eng.params, cfg).items()}
+    merged = []
+    for (p, n, a), w in zip(load, want):
+        e = (eng if a == 0 else init_inference(
+            model, config={"kv_cache_bits": 0},
+            params=apply_lora_dense(host, cfg, adapters[a]),
+            dtype=torch.float32))
+        solo = ServingEngine(e, ServingConfig(**LORA_F32_SERVING))
+        got = list(solo.run([(p, n)]).values())[0]
+        merged.append(bool(np.array_equal(got, w)))
+        del solo, e
+        _free()
+    rec["pooled_equal_merged"] = merged
+    del host
+    tmp = tempfile.mkdtemp(prefix="dstpu_drain_")
+    try:
+        srv = lora_srv()
+        for p, n, a in load:
+            srv.add_request(p, n, adapter_id=a)
+        srv.step()
+        srv.drain(tmp)
+        fresh = lora_srv()
+        fresh.resume(tmp)
+        outs = _to_done(fresh)
+        for req in srv._finished:
+            outs.setdefault(req.rid, req.output)
+        rec["drain_resume_equal"] = same(outs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    src = lora_srv()
+    rids = [src.add_request(p, n, adapter_id=a) for p, n, a in load]
+    _until_first_tokens(src, rids)
+    payloads = src.export_kv(rids)
+    recs = src.release_requests(rids)
+    dst = lora_srv()
+    dst.accept_migration(recs, kv=payloads)
+    rec["handoff_equal"] = same(_to_done(dst))
+    rec["handoff_fallbacks"] = dst.stats()["handoff_fallbacks"]
+    src = lora_srv()
+    rids = [src.add_request(p, n, adapter_id=a) for p, n, a in load]
+    _until_first_tokens(src, rids)
+    payloads = src.export_kv(rids)
+    payloads[rids[0]]["data"]["k"].reshape(-1).view(np.uint8)[0] ^= 1
+    recs = src.release_requests(rids)
+    dst = lora_srv()
+    try:
+        dst.accept_migration(recs, kv=payloads)
+        rec["torn_refused"] = False
+    except ResumeIncompatible:
+        rec["torn_refused"] = True
+    dst.accept_migration(recs)                     # the re-prefill path
+    rec["torn_fallback_equal"] = same(_to_done(dst))
+    del src, dst, eng
+    _free()
+    log("phase 13 (b) f32 checks (llama-7b width, 2 layers) "
+        + json.dumps(rec))
+    checks = {"pooled == merged dense, every tenant":
+                  all(rec["pooled_equal_merged"]),
+              "adapters change tokens": rec["adapters_change_tokens"] > 0,
+              "drain + resume == uninterrupted": rec["drain_resume_equal"],
+              "handoff == colocated": rec["handoff_equal"]
+                  and rec["handoff_fallbacks"] == 0,
+              "torn payload refused": rec["torn_refused"],
+              "fallback == colocated": rec["torn_fallback_equal"]}
+    return rec, checks
+
+
+def handoff_cost(cfg, rng):
+    """(c) llama-7b bf16 at full depth, the serving geometry: 4 requests
+    of 1000-row prompts, 32 new tokens, colocated against a handoff after
+    the source's first round (prefill + one quantum). Times export_kv
+    (gather, device-to-host copy, crc), the crc alone, accept_migration
+    (its checks and crc) and the scatter at admission; the decode engine's
+    launch counts zeroed just before it runs."""
+    from deepspeed_tpu_torch import make_model
+    from deepspeed_tpu_torch.inference.engine import init_inference
+    from deepspeed_tpu_torch.inference.kv_cache import kv_payload_nbytes
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig,
+                                                       ServingEngine,
+                                                       kv_payload_crc)
+    from deepspeed_tpu_torch.ops import _build
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0}, dtype=torch.bfloat16,
+                         seed=0)
+    prompts = [rng.integers(0, VOCAB, HANDOFF_ROWS).astype(np.int32)
+               for _ in range(4)]
+    colo = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    colo.run([(prompts[0][:64], 4)])          # warm-up
+    outs = colo.run([(p, 32) for p in prompts])
+    want = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+    del colo
+    _free()
+    src = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    rids = [src.add_request(p, 32) for p in prompts]
+    _until_first_tokens(src, rids)
+    torch.cuda.synchronize()
+    st = {}
+    t0 = time.perf_counter()
+    payloads = src.export_kv(rids)
+    st["export_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for pl in payloads.values():
+        kv_payload_crc(pl["data"])
+    st["crc_ms"] = (time.perf_counter() - t0) * 1e3
+    st["payload_bytes"] = [kv_payload_nbytes(payloads[r]["data"])
+                           for r in rids]
+    st["payload_rows"] = [payloads[r]["rows"] for r in rids]
+    recs = src.release_requests(rids)
+    del src
+    _free()
+    dst = ServingEngine(eng, ServingConfig(**BREADTH_SERVING))
+    scatter = []
+    inner = dst._dispatch_kv_import
+
+    def timed_import(req):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(req)
+        torch.cuda.synchronize()
+        scatter.append((time.perf_counter() - t) * 1e3)
+    dst._dispatch_kv_import = timed_import
+    t0 = time.perf_counter()
+    dst.accept_migration(recs, kv=payloads)
+    st["accept_ms"] = (time.perf_counter() - t0) * 1e3
+    del payloads
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = _to_done(dst)
+    torch.cuda.synchronize()
+    st["decode_wall_s"] = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    st["scatter_ms"] = scatter
+    gens = [outs[r][len(p):] for r, p in zip(rids, prompts)]
+    _check_generated("handoff", gens, 32)
+    st.update({k: v for k, v in dst.stats().items()
+               if k.startswith("handoff") or k in (
+                   "prefills", "decode_steps", "prefill_chunks",
+                   "p50_itl_ms", "tok_per_sec")})
+    st["token_agreement_with_colocated"] = _agreement(gens, want)
+    st["first_divergence_from_colocated"] = _first_divergence(gens, want)
+    st["launches"] = launches
+    del dst, eng
+    _free()
+    return st, launches
+
+
+def lora_handoff_phase(smi: str, base, plain_step):
+    """Phase 13: (a) multi-LoRA at llama-7b bf16 full depth (B1 = 0: a
+    LoRA engine prefills on the span path; B4 = 32 x decode steps), (b)
+    the f32 parities of LoRA, drain / resume and the handoff at 2 layers,
+    (c) the handoff's cost at full depth bf16 (no fallback; B4 = 32 x the
+    decode engine's decode steps). Returns the record, with the summed
+    launches of (a) and (c)'s decode engine."""
+    from deepspeed_tpu_torch import llama_config
+    cfg = llama_config("7b")
+    L = cfg.num_layers
+    rng = np.random.default_rng(13)
+    t_phase = time.perf_counter()
+    rec = {"card": smi}
+    checks = {}
+    st, la = lora_serving_load(cfg, base, plain_step)
+    checks["lora: flash_fwd == 0"] = la.get("flash_fwd", 0) == 0
+    checks["lora: paged_decode == L x decode_steps"] = \
+        la["paged_decode"] == L * st["decode_steps"] > 0
+    checks["lora: adapter_page_ins >= 12"] = st["adapter_page_ins"] >= 12
+    checks["lora: adapter_evictions >= 1"] = st["adapter_evictions"] >= 1
+    rec["lora"] = st
+    log("phase 13 (a) multi-LoRA " + json.dumps(st))
+    _free()
+    rec["f32"], f32_checks = lora_migration_checks(rng)
+    checks.update({f"f32: {k}": bool(v) for k, v in f32_checks.items()})
+    st, lc = handoff_cost(cfg, rng)
+    checks["handoff: handoff_fallbacks == 0"] = st["handoff_fallbacks"] == 0
+    checks["handoff: handoffs == 4"] = st["handoffs"] == 4
+    checks["handoff: paged_decode == L x decode_steps"] = \
+        lc["paged_decode"] == L * st["decode_steps"] > 0
+    checks["handoff: flash_fwd == 0 (tail spans only)"] = \
+        lc.get("flash_fwd", 0) == 0
+    rec["handoff"] = st
+    log("phase 13 (c) handoff " + json.dumps(st))
+    rec["launches"] = {k: la.get(k, 0) + lc.get(k, 0)
+                       for k in ("flash_fwd", "paged_decode")}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    failed = [k for k, v in checks.items() if not v]
+    log(f"phase 13: {rec['phase_s']:.1f}s, launches "
+        f"{json.dumps(rec['launches'])}, checks {json.dumps(checks)}")
+    if failed:
+        raise RuntimeError(f"phase 13: failed {failed}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # training phases
 # --------------------------------------------------------------------------
 
@@ -2409,7 +2773,7 @@ def main() -> int:
     flash, decode, bwd = kernel_phase()
     sparse = sparse_kernel_phase()
     srv, st, launches, served = serving_phase()
-    step_times(srv)
+    times = step_times(srv)
     _, drift = cross_check(srv)
     bf16_drift = max(drift["bf16_kernels_vs_f32_plain"].values())
     breadth = serving_breadth_phase(srv, card, bf16_drift)
@@ -2417,6 +2781,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     quant = quantized_spec_phase(card, bf16_drift, served)
+    lora = lora_handoff_phase(card, served, times["decode_step_16x1000_ms"])
     train = training_phase(
         next(c for c in flash if c["case"].startswith("llama-1b training")),
         bwd[0])
@@ -2475,6 +2840,11 @@ def main() -> int:
         n = quant["launches"][entry["name"]]
         entry["launches"] += n
         entry["launches_by_path"]["quantized_spec"] = n
+    # phase 13's loads: the multi-LoRA load and the handoff's decode engine
+    for entry in line["kernels"][:2]:
+        n = lora["launches"][entry["name"]]
+        entry["launches"] += n
+        entry["launches_by_path"]["lora_handoff"] = n
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

@@ -1,7 +1,7 @@
 """Paged KV-cache management: a host-side free list over the device block
-pool. Copied from ``deepspeed_tpu/inference/kv_cache.py`` (pure Python,
-no framework imports); the LoRA ``AdapterSlotPool`` arrives with multi-LoRA
-serving (ROADMAP A6g).
+pool, and the LoRA adapter slot pool's accounting. Copied from
+``deepspeed_tpu/inference/kv_cache.py`` (pure Python, no framework
+imports).
 
 The device half lives in ``models/transformer``: fixed-size blocks in
 preallocated pools ``[L, NB, n_kv, block_size, head_dim]``, per-sequence
@@ -16,7 +16,7 @@ no scatter masking and freed blocks never need zeroing (stale contents are
 masked by the per-slot length — pinned by the garbage tests).
 """
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 class BlockPoolExhausted(Exception):
@@ -144,6 +144,108 @@ class BlockAllocator:
                 self._free.append(b)
 
 
+class AdapterSlotPool:
+    """Host-side slot accounting for the device LoRA adapter pool — the
+    ``BlockAllocator`` idea generalized to READ-ONLY shared pages
+    (multi-tenancy). Each resident adapter occupies one slot of
+    the device tables ``[L, NS, ...]``; slot 0 is RESERVED for the
+    all-zero null adapter (base-model requests index it — the exact
+    mirror of the trash block: no masking in the compiled program).
+
+    The lifecycle differs from KV blocks in one load-bearing way: an
+    adapter's page is still VALID after its last reader finishes (the
+    device rows don't rot), so releasing to refcount 0 keeps the slot
+    RESIDENT as an LRU eviction candidate instead of freeing it — the
+    next request for that adapter is a hit (no page-in). Only slot
+    pressure evicts: ``acquire`` for a non-resident adapter takes a
+    never-used slot first, then the least-recently-released refcount-0
+    resident; if every slot is pinned by in-flight requests it raises
+    ``BlockPoolExhausted`` and the scheduler queues the request like any
+    pool exhaustion.
+
+    Pure host bookkeeping (no torch): ``acquire`` returns ``(slot,
+    page_in)`` and the ENGINE owns the device copy when ``page_in`` is
+    True. Counters feed ``stats()``: hits (resident acquire), page_ins
+    (host->device table uploads), evictions (resident adapter displaced).
+    """
+
+    def __init__(self, num_slots: int):
+        if num_slots < 2:
+            raise ValueError(f"num_slots={num_slots}: need >= 2 (slot 0 "
+                             "is the reserved null adapter)")
+        self.num_slots = num_slots
+        self._free: List[int] = list(range(num_slots - 1, 0, -1))
+        self._slot: Dict[int, int] = {}     # adapter_id -> slot
+        self._ref: Dict[int, int] = {}      # adapter_id -> in-flight readers
+        self._lru: List[int] = []           # refcount-0 residents, oldest first
+        self.hits = 0
+        self.evictions = 0
+        self.page_ins = 0
+
+    @property
+    def resident(self) -> int:
+        return len(self._slot)
+
+    def slot_of(self, adapter_id: int) -> Optional[int]:
+        return self._slot.get(adapter_id)
+
+    def acquire(self, adapter_id: int):
+        """Pin ``adapter_id`` to a slot for one in-flight request.
+
+        Returns ``(slot, page_in)``; ``page_in`` True means the caller
+        must upload the adapter's tables into that slot before the next
+        dispatch. adapter_id 0 is the null adapter: always slot 0, never
+        paged, never counted."""
+        if adapter_id == 0:
+            return 0, False
+        if adapter_id in self._slot:
+            if self._ref[adapter_id] == 0 and adapter_id in self._lru:
+                self._lru.remove(adapter_id)
+            self._ref[adapter_id] += 1
+            self.hits += 1
+            return self._slot[adapter_id], False
+        if self._free:
+            slot = self._free.pop()
+        elif self._lru:
+            victim = self._lru.pop(0)
+            slot = self._slot.pop(victim)
+            del self._ref[victim]
+            self.evictions += 1
+        else:
+            raise BlockPoolExhausted(
+                f"adapter slots exhausted: {self.num_slots - 1} usable, "
+                "all pinned by in-flight requests")
+        self._slot[adapter_id] = slot
+        self._ref[adapter_id] = 1
+        self.page_ins += 1
+        return slot, True
+
+    def release(self, adapter_id: int, owner: Optional[int] = None) -> None:
+        """Drop one reader. At refcount 0 the slot stays resident (warm)
+        and joins the LRU eviction queue — it is NOT freed."""
+        if adapter_id == 0:
+            return
+        if adapter_id not in self._slot or self._ref[adapter_id] <= 0:
+            raise ValueError(
+                f"release of adapter {adapter_id} with no in-flight "
+                f"reader" + (f" (request {owner})" if owner is not None
+                             else ""))
+        self._ref[adapter_id] -= 1
+        if self._ref[adapter_id] == 0:
+            self._lru.append(adapter_id)
+
+    def refcount(self, adapter_id: int) -> int:
+        return self._ref.get(adapter_id, 0)
+
+    def reset(self) -> None:
+        """Forget all residency (the device pool was re-initialized).
+        Counters survive; ``stats`` owns their lifecycle."""
+        self._free = list(range(self.num_slots - 1, 0, -1))
+        self._slot.clear()
+        self._ref.clear()
+        self._lru.clear()
+
+
 def blocks_for(n_tokens: int, block_size: int) -> int:
     """Blocks covering n_tokens rows (0 tokens -> 0 blocks)."""
     return -(-n_tokens // block_size)
@@ -161,3 +263,13 @@ def pool_bytes(cfg, num_blocks: int, block_size: int, dtype=None) -> int:
         return rows * hd * 2 + rows * 4 * 2
     itemsize = (dtype if dtype is not None else cfg.dtype).itemsize
     return rows * hd * itemsize * 2
+
+
+def kv_payload_nbytes(data: Dict[str, "object"]) -> int:
+    """Host bytes of an exported KV payload's per-leaf buffers (the
+    ``data`` dict of a ``ServingEngine.export_kv`` payload: k/v blocks
+    plus int8 scales when present). Shared by the serving engine's
+    staging accounting — in-flight handoff buffers count against
+    ``stats()["pool_bytes"]`` until consumed — and by the tests that pin
+    that accounting."""
+    return sum(int(getattr(a, "nbytes", 0)) for a in data.values())

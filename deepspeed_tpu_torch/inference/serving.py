@@ -29,14 +29,38 @@ of ``deepspeed_tpu/inference/serving.py``.
   5. **Quantized decode** — an int8 KV pool (``kv_cache_bits``, by
      default on from a 1024-token serving cap, as JAX's) and int8 weights
      (``weight_bits`` / ``quantize_bits``), through the InferenceEngine.
+  6. **Multi-LoRA** (``adapter_slots`` / ``lora_rank`` / ``lora_targets``)
+     — registered adapters' A/B tables live in host RAM
+     (``inference/lora.AdapterStore``) and page into a fixed device slot
+     pool (``kv_cache.AdapterSlotPool``: refcount, LRU, slot 0 the
+     all-zero null adapter) by an in-place copy; every decode step, verify
+     step and prefill chunk adds each slot's gathered low-rank delta
+     (``models/transformer._lora_delta``), so requests of different
+     adapters share one pass. A LoRA-armed engine sends every prefill
+     through the span path (it carries the delta), as JAX does.
+  7. **Drain, resume, migration and the KV handoff** — ``drain`` stops
+     admission and writes every unfinished request through the integrity
+     chain (``robustness/integrity``: state, manifest, COMMITTED last);
+     ``resume`` / ``accept_migration`` re-enqueue drained records on this
+     or another engine (re-prefill: byte-identical greedy
+     continuations); ``export_kv`` / ``release_requests`` /
+     ``accept_migration(kv=)`` move a request's KV rows as bytes, checked
+     by geometry and crc32, so the receiver computes only the tail span.
+     ``attach_preemption`` drains on a latched SIGTERM. Drain-state tags
+     and KV payloads follow JAX's schemas (``inference/schemas``): either
+     package reads the other's.
 
 Attention runs through the two hand-written CUDA kernels: the flash
-forward in every whole-prompt prefill, the paged decode kernel in every
-decode step on a float pool. Prefill chunks, prefix-cache tails, verify
-steps and every decode step on an int8 pool run plain torch ops, as JAX
-runs them on XLA (its kernel reads float pools and single tokens only);
-``decode_backend`` / ``backend_bench`` record which route the decode
-step takes and why.
+forward in every whole-prompt prefill (a re-prefill after preemption,
+resume or migration too), the paged decode kernel in every decode step
+on a float pool. Prefill chunks, prefix-cache and KV-import tails, every
+prefill of a LoRA-armed engine, verify steps and every decode step on an
+int8 pool run plain torch ops, as JAX runs them on XLA (its kernel reads
+float pools and single tokens only); ``decode_backend`` /
+``backend_bench`` record which route the decode step takes and why. The
+LoRA delta and the KV gather / scatter of the handoff are plain torch
+ops (``index_select``, ``bmm``, ``index_copy_``), as JAX's are XLA ops
+outside any Pallas kernel.
 
 There is no backend pick and no recovery: on the card a kernel error
 reaches the caller. The watchdog raises ``DecodeDispatchHang`` when a
@@ -54,24 +78,39 @@ token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
 What this port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: LoRA adapters (A6g), drain / resume / migration and the KV
-handoff (A6i), tensor / expert parallel serving (A6h), round recovery and
+ROADMAP item: tensor / expert parallel serving (A6h), round recovery and
 its fault seams, request tracing and fleet roles (A7), and serving a
-block-sparse model (A10b).
+block-sparse model (A10b). The port samples from a ``torch.Generator``
+where JAX folds a counter into a key: a drain records the port's count
+of sampling calls as the schema's ``rng_counter``, and a migration keeps
+the larger of the two counts, as JAX's does; only greedy streams carry
+over token for token.
 """
 
 import contextlib
 import dataclasses
+import json
+import os
 import threading
 import time
+import zlib
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference.engine import init_inference
-from deepspeed_tpu_torch.inference.kv_cache import BlockAllocator, pool_bytes
+from deepspeed_tpu_torch.inference.kv_cache import (AdapterSlotPool,
+                                                    BlockAllocator,
+                                                    BlockPoolExhausted,
+                                                    blocks_for,
+                                                    kv_payload_nbytes,
+                                                    pool_bytes)
+from deepspeed_tpu_torch.inference.lora import (AdapterStore,
+                                                init_adapter_pool)
 from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
+from deepspeed_tpu_torch.inference.schemas import (DRAIN_STATE_VERSION,
+                                                   KV_PAYLOAD_SCHEMA)
 from deepspeed_tpu_torch.inference.scheduler import (AdmissionRejected,
                                                      Request,
                                                      RequestScheduler)
@@ -80,11 +119,85 @@ from deepspeed_tpu_torch.inference.spec_decode import (greedy_accept_len,
 from deepspeed_tpu_torch.models.transformer import check_servable
 from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
 from deepspeed_tpu_torch.robustness import events as rb_events
+from deepspeed_tpu_torch.robustness import integrity
+from deepspeed_tpu_torch.robustness.preemption import Preempted
 
 
 class DecodeDispatchHang(RuntimeError):
     """The watchdog timed out a decode round: the dispatch (or its token
     fetch) never came back within ``dispatch_timeout_s``."""
+
+
+class ResumeIncompatible(ValueError):
+    """A drained request (or a whole foreign drain, or a KV payload)
+    cannot be restored on THIS engine: its context cap, adapter
+    registration, geometry or payload does not fit. Typed so a migration
+    can try the next engine (or the re-prefill path) instead of
+    corrupting — past the table width the growth clamp would silently
+    overwrite the last block."""
+
+
+def load_drain_state(save_dir: str, tag: Optional[str] = None
+                     ) -> Dict[str, Any]:
+    """Read a serving drain snapshot through the integrity chain.
+    ``tag=None`` resolves the newest tag under ``save_dir`` that passes
+    integrity validation — a torn drain is skipped, not loaded; an
+    explicit tag is validated and refused loudly when torn. Returns the
+    state dict with ``"tag"`` added."""
+    if tag is None:
+        tag = integrity.newest_valid_tag(save_dir)
+        if tag is None:
+            raise FileNotFoundError(
+                f"no integrity-valid serving drain tag under {save_dir}")
+    tag_dir = os.path.join(save_dir, tag)
+    ok, reason = integrity.validate_tag(tag_dir)
+    if not ok:
+        raise ValueError(
+            f"serving drain tag '{tag}' failed integrity: {reason}")
+    with open(os.path.join(tag_dir, "state.json")) as f:
+        state = json.load(f)
+    state["tag"] = tag
+    return state
+
+
+def kv_payload_crc(data: Dict[str, Any]) -> int:
+    """crc32 of an exported KV payload's buffers, their raw bytes in
+    key-sorted order (JAX's ``kv_payload_crc``: an f32 payload of either
+    package checks in the other). A torn payload must be DETECTED at
+    import and fall back to re-prefill — decoding garbage KV would emit
+    wrong tokens silently."""
+    crc = 0
+    for name in sorted(data):
+        # the buffer itself, not a bytes copy of it
+        raw = np.ascontiguousarray(data[name]).view(np.uint8)
+        crc = zlib.crc32(raw, crc)
+    return crc
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """JAX's name for a pool dtype ("float32", "bfloat16", "int8")."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _host_leaf(t: torch.Tensor) -> np.ndarray:
+    """A pool slice as a host numpy array; bf16 (which numpy lacks)
+    travels as its raw 2-byte view."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def _device_leaf(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A payload leaf back as a tensor of ``like``'s dtype and device:
+    same-width raw views are reinterpreted (bf16 shipped as int16, or an
+    ml_dtypes bfloat16 array from JAX), never converted."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.kind not in "biuf":
+        arr = arr.view(f"i{arr.dtype.itemsize}")
+    t = torch.from_numpy(arr)
+    if t.dtype != like.dtype:
+        t = t.view(like.dtype)
+    return t.to(like.device)
 
 
 @dataclasses.dataclass
@@ -134,8 +247,16 @@ class ServingConfig:
     spec_tokens: int = 0
     spec_ngram: int = 3
     spec_proposer: Optional[Any] = None
+    # --- multi-LoRA serving (0 = off) ----------------------------------
+    # device adapter slot pool size INCLUDING the reserved all-zero null
+    # slot 0 (base-model requests index it); registered adapters page in
+    # on demand, LRU-evicted under slot pressure
+    adapter_slots: int = 0
+    lora_rank: int = 0                 # shared by all adapters (one shape)
+    lora_targets: tuple = ("q", "k", "v", "o")
 
     def __post_init__(self):
+        self.lora_targets = tuple(self.lora_targets)
         if self.round_retries != 0:
             raise NotImplementedError(
                 f"round_retries={self.round_retries}: round recovery is not "
@@ -150,15 +271,11 @@ class ServingConfig:
                              "auto | pallas")
 
 
-_LORA = "not ported yet: ROADMAP A6g (multi-LoRA serving)"
 _TRACE = "not ported yet: ROADMAP A7 (fleet host layer: request tracing)"
 
 # JAX ServingConfig fields outside this port: (their default, why a value
 # away from it is refused)
 _DEFERRED = {
-    "adapter_slots": (0, _LORA),
-    "lora_rank": (0, _LORA),
-    "lora_targets": (("q", "k", "v", "o"), _LORA),
     "request_trace": (False, _TRACE),
     "trace_replica": ("r0", _TRACE),
     "trace_events": (65536, _TRACE),
@@ -178,8 +295,6 @@ def serving_config(fields: Optional[Dict[str, Any]] = None) -> ServingConfig:
         if name not in fields:
             continue
         value = fields.pop(name)
-        if isinstance(default, tuple) and isinstance(value, list):
-            value = tuple(value)
         if value != default:
             raise NotImplementedError(f"serving {name}={value!r}: {why}")
     return ServingConfig(**fields)
@@ -191,7 +306,13 @@ class ServingEngine:
     >>> srv = init_serving(model, serving=dict(max_seqs=16))
     >>> outs = srv.run([(prompt_ids, 64), ...])   # {rid: output ids}
     >>> srv.stats()                               # TTFT p50/p99, tok/s
+
+    The port serves on one card: its tensor and expert parallel degrees
+    are 1 (``tp``, ``ep``), recorded in drains and checked on resume.
     """
+
+    tp = 1
+    ep = 1
 
     def __init__(self, engine, config: Optional[ServingConfig] = None,
                  seed: int = 0):
@@ -220,6 +341,16 @@ class ServingEngine:
                 f"spec_tokens={c.spec_tokens} with temperature="
                 f"{c.temperature}: speculation is greedy-only (the accept "
                 "rule's output-parity argument needs argmax sampling)")
+        self._lora = c.adapter_slots > 0
+        if self._lora:
+            if c.adapter_slots < 2:
+                raise ValueError(
+                    f"adapter_slots={c.adapter_slots}: need >= 2 (slot 0 "
+                    "is the reserved all-zero null adapter)")
+            if c.lora_rank < 1:
+                raise ValueError(
+                    f"lora_rank={c.lora_rank}: adapter serving needs a "
+                    "positive shared rank (one device pool shape)")
         model_cap = mcfg.max_seq_len
         want = int(c.max_model_len or model_cap or 2048)
         want = -(-want // c.block_size) * c.block_size
@@ -264,10 +395,34 @@ class ServingEngine:
             num_blocks, c.block_size, dtype=engine.dtype, device=self.device)
         self.pool_bytes = pool_bytes(mcfg, num_blocks, c.block_size,
                                      dtype=engine.dtype)
+        # the adapter slot pool: host refcount / LRU accounting, host
+        # tables of every registered adapter, and the device pool that
+        # page-ins write in place (allocated once: fixed addresses)
+        self.adapter_store = self.adapter_slots = self.adapter_pool = None
+        if self._lora:
+            self.adapter_store = AdapterStore(mcfg, c.lora_rank,
+                                              c.lora_targets)
+            self.adapter_slots = AdapterSlotPool(c.adapter_slots)
+            self.adapter_pool = init_adapter_pool(
+                mcfg, c.adapter_slots, c.lora_rank, c.lora_targets,
+                dtype=engine.dtype, device=self.device)
+            self.pool_bytes += sum(t.numel() * t.element_size()
+                                   for ab in self.adapter_pool.values()
+                                   for t in ab.values())
         self._tokens = torch.zeros((c.max_seqs,), dtype=torch.long,
                                    device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        # sampling calls so far: a drain's rng_counter (JAX folds its
+        # counter into the key; the port draws from _gen)
+        self._rng_counter = 0
         self._requests: Dict[int, Request] = {}
+        # host bytes of KV payloads in flight: exported and not yet
+        # released, or imported and not yet scattered (priced in
+        # stats()["pool_bytes"])
+        self._kv_staging: Dict[int, int] = {}
+        self._draining = False
+        self._preemption = None            # attach_preemption()
+        self._drain_dir: Optional[str] = None
         self._jsonl = (JSONLMonitor(c.telemetry_jsonl)
                        if c.telemetry_jsonl else None)
         # the watchdog arms once the decode quantum has run once (its
@@ -312,6 +467,7 @@ class ServingEngine:
     def _sample(self, logits):
         """[S, V] f32 logits -> [S] token ids. Greedy ties take the first
         index, as jnp.argmax does."""
+        self._rng_counter += 1
         t = self.config.temperature
         if t and t > 0:
             probs = torch.softmax(logits / t, dim=-1)
@@ -350,11 +506,14 @@ class ServingEngine:
         tab = np.zeros((1, self.MB), np.int32)
         tab[0, :len(req.block_ids)] = req.block_ids
         dev = self.device
+        aidx = torch.tensor([req.adapter_slot or 0], dtype=torch.long,
+                            device=dev)
         logits = self.model.decode_span_paged(
             self.engine.params, torch.from_numpy(buf).to(dev), self.pools,
             torch.from_numpy(tab).to(dev),
             torch.tensor([start], dtype=torch.int32, device=dev),
-            n_rows=torch.tensor([n], dtype=torch.int32, device=dev))
+            n_rows=torch.tensor([n], dtype=torch.int32, device=dev),
+            lora=self._lora_args(aidx))
         req.cached_rows = start + n
         self._lat["prefill_chunks"] += 1
         self._lat["prefill_chunk_tokens"] += n
@@ -372,8 +531,10 @@ class ServingEngine:
         they are dispatched: appends only write past them, so tenants with
         the same prefix share them while this request still runs (every
         later dispatch reads the pools in stream order). The partial
-        boundary block waits for ``finish`` (its owner still appends)."""
-        if self._prefix_cache is not None:
+        boundary block waits for ``finish`` (its owner still appends).
+        Adapter KV is adapter-specific: never published under the
+        content-only hash."""
+        if self._prefix_cache is not None and not req.adapter_id:
             self._prefix_cache.insert_full(ctx, req.block_ids,
                                            req.cached_rows)
 
@@ -391,37 +552,48 @@ class ServingEngine:
         self._lat["cow_forks"] += 1
 
     def _tables_device(self):
+        """Block tables, lengths, the decoding mask and each slot's
+        adapter slot (0, the null adapter, for free slots and base-model
+        requests), on the device."""
         S = self.config.max_seqs
         ids = np.zeros((S, self.MB), np.int32)
         lens = np.zeros((S,), np.int32)
         act = np.zeros((S,), bool)
+        aidx = np.zeros((S,), np.int64)
         for req in self.scheduler.running:
             ids[req.slot, :len(req.block_ids)] = req.block_ids
             lens[req.slot] = req.cached_rows
             # a request still prefilling (chunks landing) holds its slot
             # but does not decode yet
             act[req.slot] = req.prefill_done
+            aidx[req.slot] = req.adapter_slot or 0
         return tuple(torch.from_numpy(a).to(self.device)
-                     for a in (ids, lens, act))
+                     for a in (ids, lens, act, aidx))
 
-    def _quantum(self, tokens, tables, seq_lens, active
+    def _lora_args(self, aidx):
+        """The model's ``lora`` argument: the slot pool and the per-row
+        adapter slots (None without LoRA)."""
+        return (self.adapter_pool, aidx) if self._lora else None
+
+    def _quantum(self, tokens, tables, seq_lens, active, aidx=None
                  ) -> List[torch.Tensor]:
         """``decode_quantum`` decode steps of every slot, dispatched back
         to back from ``tokens``; returns each step's sampled tokens (still
         on device). Touches no engine state but the pools."""
         lens = seq_lens
         step = active.to(torch.int32)
+        lora = self._lora_args(aidx)
         outs = []
         for _ in range(self.config.decode_quantum):
             logits = self.model.decode_step_paged(
                 self.engine.params, tokens, self.pools, tables, lens,
-                active=active)
+                active=active, lora=lora)
             tokens = torch.where(active, self._sample(logits), tokens)
             lens = lens + step
             outs.append(tokens)
         return outs
 
-    def _spec_step(self, tok_mat, tables, seq_lens, active):
+    def _spec_step(self, tok_mat, tables, seq_lens, active, aidx=None):
         """The speculation verify step (dispatch, no sync): ONE
         ``decode_span_paged`` pass over the pending token plus the K
         proposals of every slot, the greedy accept rule on the device, and
@@ -431,7 +603,7 @@ class ServingEngine:
         new lengths [S])."""
         logits = self.model.decode_span_paged(
             self.engine.params, tok_mat, self.pools, tables, seq_lens,
-            active=active)
+            active=active, lora=self._lora_args(aidx))
         nxt = torch.argmax(logits, dim=-1)
         acc = greedy_accept_len(nxt, tok_mat[:, 1:])
         pend = nxt.gather(1, acc[:, None])[:, 0]
@@ -459,15 +631,72 @@ class ServingEngine:
 
     # ---- request API -------------------------------------------------
 
+    def register_adapter(self, adapter_id: int, tables,
+                         alpha: Optional[float] = None) -> None:
+        """Register a LoRA adapter's host A/B stacks (``{proj: (A [L, In,
+        r], B [L, r, Out])}``) under ``adapter_id``; requests can route to
+        it at once. ``alpha``: PEFT scaling, folded into B at registration
+        (None = tables already scaled). Host RAM only — the device slot
+        pool pages it in on first demand."""
+        if not self._lora:
+            raise ValueError("adapter_slots=0: LoRA serving is off — set "
+                             "ServingConfig.adapter_slots/lora_rank")
+        self.adapter_store.register(adapter_id, tables, alpha=alpha)
+
+    def _acquire_adapter(self, req: Request) -> bool:
+        """Pin the request's adapter to a device slot, paging it in on a
+        miss: its tables are copied in place into the slot
+        (``index_copy_``; the pool is never reallocated). False = every
+        slot is pinned by other in-flight adapters: the caller bounces the
+        request back to the queue instead of failing the round."""
+        if not self._lora or req.adapter_id == 0:
+            req.adapter_slot = 0 if self._lora else None
+            return True
+        try:
+            slot, page_in = self.adapter_slots.acquire(req.adapter_id)
+        except BlockPoolExhausted:
+            return False
+        req.adapter_slot = slot
+        if page_in:
+            at = torch.tensor([slot], dtype=torch.long, device=self.device)
+            tabs = self.adapter_store.table_for_slot(req.adapter_id)
+            for proj, ab in tabs.items():
+                for name, host in ab.items():
+                    dst = self.adapter_pool[proj][name]
+                    src = torch.from_numpy(host).to(self.device, dst.dtype)
+                    dst.index_copy_(1, at, src[:, None])
+        return True
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's pin when it leaves the running set (finish /
+        cancel / preempt / release). The slot stays resident at refcount
+        0 — the next request for the same adapter is a hit. A second
+        release of the same request is a no-op (the slot is cleared)."""
+        if self._lora and req.adapter_id and req.adapter_slot is not None:
+            self.adapter_slots.release(req.adapter_id, owner=req.rid)
+        req.adapter_slot = None
+
     def add_request(self, prompt_ids, max_new_tokens: int = 64,
                     request_id: Optional[int] = None,
                     ttft_deadline_ms: Optional[float] = None,
-                    deadline_ms: Optional[float] = None) -> int:
+                    deadline_ms: Optional[float] = None,
+                    adapter_id: int = 0) -> int:
         """Submit one request. The deadlines override the config's for
-        this request. Raises ``AdmissionRejected`` when a watermark sheds
-        it: counted in ``stats()["shed"]`` and evented, never silently
-        queued."""
+        this request. ``adapter_id`` routes it through a registered LoRA
+        adapter (0 = base model); an unknown id refuses here, not at
+        dispatch. Raises ``AdmissionRejected`` when a watermark sheds it
+        or the engine is draining: counted in ``stats()["shed"]`` and
+        evented, never silently queued."""
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
+        if adapter_id:
+            if not self._lora:
+                raise ValueError(
+                    f"adapter_id={adapter_id} with adapter_slots=0: "
+                    "LoRA serving is off")
+            if adapter_id not in self.adapter_store:
+                raise ValueError(
+                    f"adapter_id={adapter_id} is not registered "
+                    "(register_adapter first)")
         if max_new_tokens < 1:
             # the prefill inherently samples one token
             raise ValueError(f"max_new_tokens={max_new_tokens}: must be "
@@ -477,6 +706,10 @@ class ServingEngine:
                 f"prompt ({prompt.size}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds max_model_len "
                 f"{self.max_model_len}")
+        if self._draining:
+            self._counters["shed"] += 1
+            rb_events.emit("request_shed", reason="draining")
+            raise AdmissionRejected("draining")
         c = self.config
         try:
             req = self.scheduler.submit(
@@ -485,7 +718,8 @@ class ServingEngine:
                                   if ttft_deadline_ms is not None
                                   else c.ttft_deadline_ms),
                 deadline_ms=(deadline_ms if deadline_ms is not None
-                             else c.deadline_ms))
+                             else c.deadline_ms),
+                adapter_id=adapter_id)
         except AdmissionRejected as e:
             self._counters["shed"] += 1
             rb_events.emit("request_shed", reason=e.reason, **e.detail)
@@ -501,7 +735,13 @@ class ServingEngine:
         prefills and prefill chunks, then one decode quantum and one token
         fetch; drain the events into the JSONL sink. Returns the requests
         finished this round. An error inside the round reaches the caller
-        as raised, and the engine refuses every later round."""
+        as raised, and the engine refuses every later round. A latched
+        SIGTERM (``attach_preemption``) drains the engine first and raises
+        ``Preempted``."""
+        if self._preemption is not None and self._preemption.requested:
+            path = self.drain(self._drain_dir)
+            raise Preempted("serving engine drained on SIGTERM",
+                            ckpt_path=path)
         if self._failed is not None:
             raise RuntimeError(
                 "serving engine failed in an earlier round ("
@@ -520,15 +760,42 @@ class ServingEngine:
     def _round(self) -> List[Request]:
         decisions = self.scheduler.schedule(
             token_budget=self.config.prefill_token_budget)
+        if self._lora:
+            # adapter pins track the running set: the scheduler's victims
+            # drop theirs first (their slots become LRU candidates), then
+            # each admission pins; an admission that finds every slot
+            # pinned bounces back to the queue head
+            for req in decisions["preempted"]:
+                self._release_adapter(req)
+            for req in decisions["admitted"]:
+                if not self._acquire_adapter(req):
+                    self.scheduler.preempt(req)
+                    self._drop_kv_payload(req)
+                    rb_events.emit("adapter_slots_exhausted", rid=req.rid,
+                                   adapter=req.adapter_id)
+        for req in decisions["preempted"]:
+            # an eviction drops an unscattered import payload: the
+            # re-admission recomputes (the scheduler zeroed kv_rows)
+            self._drop_kv_payload(req)
         for req in decisions["admitted"]:
+            if req.state != "running":
+                continue                    # bounced by the adapter pin
             if req.cow_src is not None:
                 # the fork runs before any of the request's own writes
                 # can reach the shared boundary block
                 self._dispatch_fork(req)
+            if getattr(req, "_kv_payload", None) is not None:
+                # imported KV bytes land in the admission's fresh blocks
+                # before the tail span below reads them
+                self._dispatch_kv_import(req)
         for req, start, n in decisions["prefill"]:
-            if start == 0 and n == len(req.context):
+            if req.state != "running":
+                continue
+            if start == 0 and n == len(req.context) and not self._lora:
                 self._dispatch_prefill(req)     # whole prompt: B1
             else:
+                # chunks, cache and import tails, and every prefill of a
+                # LoRA-armed engine (the span path carries the delta)
                 self._dispatch_chunk(req, start, n)
         running = self.scheduler.running
         if not running:
@@ -662,6 +929,7 @@ class ServingEngine:
             self._note_tokens(req, got, now)
             if self._done(req):
                 self.scheduler.finish(req)
+                self._release_adapter(req)
                 self._finished.append(req)
                 finished.append(req)
         return finished
@@ -695,20 +963,19 @@ class ServingEngine:
     def run(self, requests, max_new_tokens: int = 64,
             max_rounds: int = 100000) -> Dict[int, np.ndarray]:
         """Submit-and-drain: requests is a list of prompt-id arrays or
-        (prompt, max_new) tuples. Returns {rid: output ids} (prompt +
+        (prompt, max_new[, adapter_id]) tuples. Returns {rid: output ids} (prompt +
         generated) for this call's requests that finished (a request
         cancelled by its deadline is on ``cancelled``)."""
         rids = []
         for r in requests:
+            aid = 0
             if isinstance(r, tuple):
-                if len(r) > 2 and r[2]:
-                    raise NotImplementedError(
-                        "per-request LoRA adapters are not ported yet: "
-                        "ROADMAP A6g")
                 prompt, n = r[0], r[1]
+                if len(r) > 2:             # (prompt, max_new, adapter_id)
+                    aid = int(r[2])
             else:
                 prompt, n = r, max_new_tokens
-            rids.append(self.add_request(prompt, n))
+            rids.append(self.add_request(prompt, n, adapter_id=aid))
         rounds = 0
         while not self.scheduler.done:
             self.step()
@@ -740,6 +1007,8 @@ class ServingEngine:
             else:
                 continue
             self.scheduler.cancel(req, reason=f"{kind}_deadline")
+            self._release_adapter(req)   # no-op for never-pinned waiters
+            self._drop_kv_payload(req, count=False)   # died, not fell back
             self._cancelled.append(req)
             self._counters["deadline_misses"] += 1
             rb_events.emit("deadline_miss", rid=req.rid, kind=kind,
@@ -764,9 +1033,11 @@ class ServingEngine:
         return list(self._cancelled)
 
     def close(self, timeout: Optional[float] = None) -> bool:
-        """Join the latest watchdog round thread, bounded by ``timeout``
+        """Stop admission (``add_request`` then sheds as ``draining``) and
+        join the latest watchdog round thread, bounded by ``timeout``
         (default ``dispatch_timeout_s``, else 5 s). Returns False when that
         thread outlived the budget."""
+        self._draining = True
         if timeout is None:
             timeout = self.config.dispatch_timeout_s or 5.0
         t = self._round_thread
@@ -776,6 +1047,391 @@ class ServingEngine:
                 return False
         self._round_thread = None
         return True
+
+    # ---- drain, resume, migration and the KV handoff -----------------
+
+    def attach_preemption(self, handler, save_dir: Optional[str]) -> None:
+        """SIGTERM contract (``robustness.preemption.PreemptionHandler``):
+        the handler latches the signal; the next ``step()`` drains the
+        engine into ``save_dir`` and raises ``Preempted``. A restarted
+        engine picks the work back up with ``resume(save_dir)``."""
+        self._preemption = handler
+        self._drain_dir = save_dir
+
+    def _check_geometry(self, eng: Optional[Dict[str, Any]],
+                        source: Optional[str] = None) -> None:
+        """Refuse restoring work drained at another tensor / expert
+        parallel degree: a different degree regroups the out-projection
+        sums, so the continuation would not be the drained engine's own.
+        The port serves at tp = ep = 1; records without the fields (older
+        drains) pass."""
+        if eng is None:
+            return
+        want_tp, want_ep = eng.get("tp"), eng.get("ep")
+        src = f" (drained by {source})" if source else ""
+        if want_tp is not None and int(want_tp) != self.tp or \
+                want_ep is not None and int(want_ep) != self.ep:
+            raise ResumeIncompatible(
+                f"drained state{src} came from a tp={want_tp} ep={want_ep} "
+                f"engine; this engine is tp={self.tp} ep={self.ep} — "
+                "byte-identical continuation is only guaranteed on a "
+                "matching geometry")
+
+    def _kv_geometry(self) -> Dict[str, Any]:
+        """The pool geometry a KV payload must match to be scattered in,
+        with JAX's names and dtype names."""
+        k = self.pools["k"]
+        return {"num_layers": int(k.shape[0]),
+                "kv_heads": int(k.shape[2]),
+                "head_dim": int(k.shape[4]),
+                "block_size": int(self.config.block_size),
+                "kv_bits": int(self.model.config.kv_cache_bits or 0),
+                "dtype": _dtype_name(k.dtype)}
+
+    def export_kv(self, request_ids: List[int]
+                  ) -> Dict[int, Dict[str, Any]]:
+        """Serialize running requests' pool blocks into dense host
+        payloads — the KV-byte half of a handoff: one gather and one
+        device-to-host copy a leaf, not a recompute. Each payload carries
+        its geometry (typed refusal at import) and a crc32 over its
+        buffers (a torn payload falls back to re-prefill, never decodes
+        garbage); int8 pools ship ``k``, ``v``, ``k_scale`` and
+        ``v_scale``, bf16 leaves as their raw 2-byte view. Requests
+        without pool rows (waiting, unknown) are skipped: the caller's
+        fallback is the re-prefill migration. The bytes count as staging
+        (``stats()``) until ``release_requests`` hands the request
+        away."""
+        bs = self.config.block_size
+        out: Dict[int, Dict[str, Any]] = {}
+        for rid in request_ids:
+            req = self._requests.get(rid)
+            if req is None or req.state != "running" \
+                    or req.cached_rows <= 0 or not req.block_ids:
+                continue
+            rows = int(req.cached_rows)
+            n = blocks_for(rows, bs)
+            ids = torch.as_tensor(req.block_ids[:n], dtype=torch.long,
+                                  device=self.device)
+            data = {name: _host_leaf(pool.index_select(1, ids))
+                    for name, pool in self.pools.items()}
+            payload = {"schema": KV_PAYLOAD_SCHEMA, "rows": rows,
+                       "blocks": n, "geometry": self._kv_geometry(),
+                       "data": data, "crc": kv_payload_crc(data)}
+            nbytes = kv_payload_nbytes(data)
+            self._kv_staging[rid] = nbytes
+            self._counters["handoffs"] += 1
+            self._counters["handoff_bytes"] += nbytes
+            out[rid] = payload
+        return out
+
+    def _validate_kv_payload(self, req: Request, payload: Dict[str, Any],
+                             source: Optional[str] = None) -> None:
+        """Typed refusal (``ResumeIncompatible``, counted as a fallback)
+        of any payload this engine cannot scatter bit-faithfully:
+        geometry, bits or dtype mismatch, another pool tree, leaves of
+        the wrong shape or width, rows outside the pending-token protocol,
+        or a checksum failure (torn payload)."""
+        src = f" (exported by {source})" if source else ""
+
+        def refuse(why: str) -> None:
+            self._counters["handoff_fallbacks"] += 1
+            raise ResumeIncompatible(
+                f"kv payload for request {req.rid}{src}: {why} — "
+                "falling back to the re-prefill migration path keeps the "
+                "continuation correct (just slower)")
+
+        geom, local = payload.get("geometry") or {}, self._kv_geometry()
+        for key, want in local.items():
+            got = geom.get(key)
+            if got is not None and got != want:
+                refuse(f"pool geometry mismatch on {key!r} "
+                       f"(payload {got!r}, this engine {want!r})")
+        data = payload.get("data") or {}
+        if set(data) != set(self.pools):
+            refuse(f"payload tree {sorted(data)} != pool tree "
+                   f"{sorted(self.pools)} (kv-bits mismatch ships/omits "
+                   "the scale leaves)")
+        rows, n = int(payload.get("rows", 0)), int(payload.get("blocks", 0))
+        ctx = len(req.context)
+        if not 0 < rows < ctx:
+            # pending-token protocol: the row at cached_rows is computed
+            # by the receiver's tail span, so a full-context payload is
+            # as malformed as an empty one
+            refuse(f"rows={rows} outside (0, {ctx}) for a context of "
+                   f"{ctx} tokens")
+        if n != blocks_for(rows, self.config.block_size) or n > self.MB:
+            refuse(f"blocks={n} does not cover rows={rows} at block_size="
+                   f"{self.config.block_size} (table width {self.MB})")
+        for name, pool in self.pools.items():
+            leaf = data[name]
+            want = (pool.shape[0], n) + tuple(pool.shape[2:])
+            shape = tuple(getattr(leaf, "shape", ()))
+            width = getattr(getattr(leaf, "dtype", None), "itemsize", None)
+            if shape != want or width != pool.element_size():
+                refuse(f"{name} payload shape {shape} x {width} B != "
+                       f"{want} x {pool.element_size()} B")
+        if kv_payload_crc(data) != payload.get("crc"):
+            refuse("checksum failure (torn/corrupt payload)")
+
+    def import_kv(self, request_id: int, payload: Dict[str, Any]) -> None:
+        """Attach an exported KV payload to a WAITING request on this
+        engine (``accept_migration``'s ``kv=`` path does this per
+        record). Validation is typed, and a refused request is left
+        untouched for the re-prefill fallback. The scatter happens at
+        admission, into the blocks the allocator hands out, before the
+        request's tail span runs."""
+        req = self._requests.get(request_id)
+        if req is None or req.state != "waiting":
+            raise ResumeIncompatible(
+                f"import_kv: request {request_id} is not waiting on this "
+                "engine (accept_migration enqueues it; its kv= argument "
+                "does both in one call)")
+        self._validate_kv_payload(req, payload)
+        self._attach_kv_payload(req, payload)
+
+    def _attach_kv_payload(self, req: Request,
+                           payload: Dict[str, Any]) -> None:
+        req._kv_payload = payload
+        req.kv_rows = int(payload["rows"])
+        self._kv_staging[req.rid] = kv_payload_nbytes(payload["data"])
+
+    def _dispatch_kv_import(self, req: Request) -> None:
+        """Scatter an imported payload into the request's freshly admitted
+        blocks (``index_copy_`` a leaf, in stream order before the tail
+        span that reads them). The tail span then computes only rows
+        [kv_rows, ctx)."""
+        payload, req._kv_payload = req._kv_payload, None
+        n = int(payload["blocks"])
+        ids = torch.as_tensor(req.block_ids[:n], dtype=torch.long,
+                              device=self.device)
+        for name, arr in payload["data"].items():
+            pool = self.pools[name]
+            pool.index_copy_(1, ids, _device_leaf(arr, pool))
+        nbytes = self._kv_staging.pop(req.rid, 0)
+        self._counters["handoffs"] += 1
+        self._counters["handoff_bytes"] += nbytes
+
+    def _drop_kv_payload(self, req: Request, count: bool = True) -> None:
+        """Forget an unscattered import payload (preemption, adapter
+        bounce, cancel, release): the request falls back to re-prefill —
+        stale bytes must never land in blocks of a LATER admission.
+        ``count=False`` for exits that are not fallbacks."""
+        if getattr(req, "_kv_payload", None) is None:
+            return
+        req._kv_payload = None
+        req.kv_rows = 0
+        self._kv_staging.pop(req.rid, None)
+        if count:
+            self._counters["handoff_fallbacks"] += 1
+
+    @staticmethod
+    def _record(req: Request) -> Dict[str, Any]:
+        """A request as a drain-state (v3) record."""
+        return {"rid": req.rid,
+                "prompt": np.asarray(req.prompt).tolist(),
+                "generated": [int(t) for t in req.generated],
+                "max_new_tokens": req.max_new_tokens,
+                "preemptions": req.preemptions,
+                "cached_rows": req.cached_rows,
+                "block_ids": [int(b) for b in req.block_ids],
+                "slot": req.slot,
+                "state": req.state,
+                "ttft_deadline_ms": req.ttft_deadline_ms,
+                "deadline_ms": req.deadline_ms,
+                "adapter_id": req.adapter_id,
+                "trace": None}
+
+    def release_requests(self, request_ids: List[int]
+                         ) -> List[Dict[str, Any]]:
+        """Extract live requests for a handoff: returns drain-schema
+        records (plus ``submit_t`` / ``first_token_t`` / ``last_token_t``
+        so TTFT, ITL and deadlines stay honest across an in-process hop)
+        and removes the requests from this engine — slot and blocks back
+        to the pool, the prefix cache offered the KV first, adapter pins
+        dropped, nothing counted as cancelled. Call ``export_kv`` BEFORE
+        this (the gather reads the rows this frees)."""
+        recs: List[Dict[str, Any]] = []
+        for rid in request_ids:
+            req = self._requests.get(rid)
+            if req is None or req.state not in ("running", "waiting"):
+                continue
+            recs.append(dict(self._record(req), submit_t=req.submit_t,
+                             first_token_t=req.first_token_t,
+                             last_token_t=req.last_token_t))
+            self._drop_kv_payload(req, count=False)  # moving, not falling
+            self._kv_staging.pop(req.rid, None)      # export consumed
+            if req.state == "running":
+                sched = self.scheduler
+                sched.running.remove(req)
+                sched._free_slots.append(req.slot)
+                sched._release_cow(req)
+                sched._publish(req)
+                if req.block_ids:
+                    self.allocator.free(req.block_ids, owner=req.rid)
+                req.block_ids = []
+                req.slot = None
+            else:
+                self.scheduler.waiting.remove(req)
+            self._release_adapter(req)
+            req._first_dev = None
+            req.state = "migrated"
+            del self._requests[req.rid]
+        return recs
+
+    def drain(self, save_dir: Optional[str] = None,
+              tag: str = "serving_drain",
+              source: Optional[str] = None) -> Optional[str]:
+        """Stop admission and checkpoint every unfinished request —
+        host cursors (prompt, generated, budget) with the block table /
+        slot / cached_rows snapshot for post-mortems — through the
+        integrity chain: ``state.json``, then the manifest, then the
+        COMMITTED marker LAST, so a torn drain reads as torn. Returns the
+        tag dir (None without ``save_dir``: admission stops, nothing
+        persists). The engine's geometry is recorded (``max_model_len``,
+        block size, table width, tp / ep), so a foreign engine refuses a
+        drain it cannot hold (``ResumeIncompatible``). ``source`` names
+        the draining replica."""
+        self._draining = True
+        live = (sorted(self.scheduler.running,
+                       key=lambda r: r.admission_seq or 0)
+                + list(self.scheduler.waiting))
+        if save_dir is None:
+            rb_events.emit("serving_drained", requests=len(live), tag=None)
+            self._drain_events()
+            return None
+        tag_dir = os.path.join(save_dir, tag)
+        os.makedirs(tag_dir, exist_ok=True)
+        integrity.invalidate(tag_dir)      # rewriting in place: torn-able
+        state = {
+            "version": DRAIN_STATE_VERSION,
+            "rng_counter": self._rng_counter,
+            "source": source,
+            "engine": {
+                "max_model_len": self.max_model_len,
+                "block_size": self.config.block_size,
+                "table_width": self.MB,
+                "max_seqs": self.config.max_seqs,
+                "tp": self.tp,
+                "ep": self.ep,
+            },
+            "requests": [self._record(req) for req in live],
+        }
+        integrity.atomic_write(os.path.join(tag_dir, "state.json"),
+                               json.dumps(state, indent=1),
+                               what="serving drain state write")
+        integrity.write_manifest(tag_dir)
+        integrity.write_commit_marker(tag_dir)
+        rb_events.emit("serving_drained", requests=len(live), tag=tag,
+                       path=tag_dir)
+        self._drain_events()
+        return tag_dir
+
+    def accept_migration(self, recs: List[Dict[str, Any]],
+                         rng_counter: Optional[int] = None,
+                         source: Optional[str] = None,
+                         geometry: Optional[Dict[str, Any]] = None,
+                         kv: Optional[Dict[int, Dict[str, Any]]] = None
+                         ) -> List[int]:
+        """Restore drained request records (the ``state.json`` schema) onto
+        THIS engine, all or nothing: every record is checked before
+        anything is enqueued — the drained geometry (tp / ep), the
+        adapter's registration, the context cap (a request whose context
+        + budget exceeds this engine's table raises
+        ``ResumeIncompatible``), then each ``kv`` payload (``{rid:
+        payload}`` from the source's ``export_kv``: geometry, bits,
+        protocol and checksum). Admission watermarks are bypassed
+        (``scheduler.restore``): this work was already admitted once.
+        Accepted payloads make the hop one scatter plus a tail span
+        instead of a prompt-length recompute, token-identically; after a
+        refusal the caller retries without ``kv`` (re-prefill)."""
+        self._check_geometry(geometry, source)
+        kv = kv or {}
+        src = f" (drained by {source})" if source else ""
+        reqs: List[Any] = []   # (Request, rec, payload or None)
+        for rec in recs:
+            aid = int(rec.get("adapter_id", 0))
+            if aid and (not self._lora or aid not in self.adapter_store):
+                raise ResumeIncompatible(
+                    f"migrated request {rec.get('rid')}{src} routes to "
+                    f"LoRA adapter {aid}, which this engine "
+                    + ("has LoRA serving disabled for"
+                       if not self._lora else "has no registration for")
+                    + " — register the adapter here first, or place the "
+                    "request on a replica that serves it")
+            req = Request(rid=int(rec["rid"]),
+                          prompt=np.asarray(rec["prompt"], np.int32),
+                          max_new_tokens=int(rec["max_new_tokens"]),
+                          generated=[int(x) for x in rec.get("generated",
+                                                             [])],
+                          preemptions=int(rec.get("preemptions", 0)),
+                          ttft_deadline_ms=rec.get("ttft_deadline_ms"),
+                          deadline_ms=rec.get("deadline_ms"),
+                          adapter_id=aid)
+            if req.prompt.size + req.max_new_tokens > self.max_model_len:
+                raise ResumeIncompatible(
+                    f"migrated request {req.rid}{src}: prompt "
+                    f"({req.prompt.size}) + max_new_tokens "
+                    f"({req.max_new_tokens}) exceeds this engine's "
+                    f"max_model_len {self.max_model_len} "
+                    f"(block-table width {self.MB} x "
+                    f"{self.config.block_size}-token blocks) — place it "
+                    "on an engine at least as large as the drained one")
+            payload = kv.get(req.rid)
+            if payload is not None:
+                self._validate_kv_payload(req, payload, source)
+            reqs.append((req, rec, payload))
+        if rng_counter is not None:
+            self._rng_counter = max(self._rng_counter, int(rng_counter))
+        rids: List[int] = []
+        for req, rec, payload in reqs:
+            self.scheduler.restore(req)
+            self._requests[req.rid] = req
+            if payload is not None:
+                self._attach_kv_payload(req, payload)
+            # live-handoff stamps (release_requests records only)
+            for key in ("submit_t", "first_token_t", "last_token_t"):
+                if rec.get(key) is not None:
+                    setattr(req, key, float(rec[key]))
+            rids.append(req.rid)
+        if self._stats_t0 is None and rids:
+            self._stats_t0 = time.perf_counter()
+        return rids
+
+    def resume(self, save_dir: str, tag: Optional[str] = None) -> List[int]:
+        """Re-enqueue the requests a drained engine checkpointed: each
+        resumes by re-prefilling prompt + generated, so its greedy
+        continuation is byte-identical to the uninterrupted run.
+        ``tag=None`` resolves the newest tag that passes integrity
+        validation — a torn drain is skipped. A foreign drain is held to
+        the drained engine's capacity in TOKENS (a smaller
+        ``max_model_len`` refuses with ``ResumeIncompatible`` even if
+        every request would fit; bigger blocks with a narrower table do
+        not); ``accept_migration`` applies the per-request check."""
+        state = load_drain_state(save_dir, tag)
+        tag = state["tag"]
+        eng = state.get("engine")
+        if eng is not None:        # version-1 drains predate the geometry
+            drained_cap = int(eng.get("max_model_len")
+                              or (int(eng.get("table_width", 0))
+                                  * int(eng.get("block_size", 0))))
+            if drained_cap > self.max_model_len:
+                src = state.get("source")
+                raise ResumeIncompatible(
+                    "drain tag "
+                    f"'{tag}'{f' (replica {src})' if src else ''} came "
+                    f"from an engine with max_model_len {drained_cap} "
+                    f"(table width {eng.get('table_width')} x "
+                    f"{eng.get('block_size')}-token blocks); this engine "
+                    f"caps at max_model_len {self.max_model_len} (width "
+                    f"{self.MB}) — resume into an engine at least as "
+                    "large, or migrate per-request via accept_migration")
+        rids = self.accept_migration(state["requests"],
+                                     rng_counter=state.get("rng_counter"),
+                                     source=state.get("source"),
+                                     geometry=eng)
+        rb_events.emit("serving_resumed", requests=len(rids), tag=tag)
+        self._drain_events()
+        return rids
 
     # ---- stats -------------------------------------------------------
 
@@ -789,12 +1445,16 @@ class ServingEngine:
         self._itl_ms: List[float] = []
         self._dispatches = {"prefills": 0, "decode_steps": 0,
                             "verify_steps": 0}
-        self._counters = {"shed": 0, "deadline_misses": 0}
+        self._counters = {"shed": 0, "deadline_misses": 0, "handoffs": 0,
+                          "handoff_bytes": 0, "handoff_fallbacks": 0}
         self._lat = {"spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0,
                      "prefill_chunks": 0, "prefill_chunk_tokens": 0,
                      "cow_forks": 0}
         if self._prefix_cache is not None:
             self._prefix_cache.reset_stats()
+        if self._lora:
+            p = self.adapter_slots
+            p.hits = p.evictions = p.page_ins = 0
 
     def stats(self) -> Dict[str, float]:
         """TTFT p50/p99 (ms, measured at the round boundary where the first
@@ -807,14 +1467,25 @@ class ServingEngine:
         deadline_misses, cancelled, queue_depth), the speculation counters
         (``spec_steps`` per decoding request and round, ``spec_proposed``,
         ``spec_accepted``, ``spec_accept_rate``), the chunking and fork
-        counters (prefill_chunks, prefill_chunk_tokens, cow_forks) and,
-        with the prefix cache on, its ``prefix_*`` counters,
-        ``prefix_hit_rate`` and ``prefix_held_blocks``."""
+        counters (prefill_chunks, prefill_chunk_tokens, cow_forks), the
+        adapter slot pool's traffic (``adapter_hits``,
+        ``adapter_page_ins``, ``adapter_evictions``), the handoff counters
+        (``handoffs``, ``handoff_bytes``, ``handoff_fallbacks``) and
+        ``kv_staging_bytes`` (payload bytes in flight, priced into
+        ``pool_bytes`` with the KV and adapter pools) and, with the
+        prefix cache on, its ``prefix_*`` counters, ``prefix_hit_rate``
+        and ``prefix_held_blocks``."""
         done = [r for r in self._finished if r.first_token_t is not None]
+        staging = sum(self._kv_staging.values())
+        slots = self.adapter_slots
         out: Dict[str, float] = {
             "completed": float(len(self._finished)),
             "preemptions": float(sum(r.preemptions for r in self._finished)),
-            "pool_bytes": float(self.pool_bytes),
+            "pool_bytes": float(self.pool_bytes + staging),
+            "kv_staging_bytes": float(staging),
+            "adapter_hits": float(slots.hits if slots else 0),
+            "adapter_page_ins": float(slots.page_ins if slots else 0),
+            "adapter_evictions": float(slots.evictions if slots else 0),
             "kv_cache_bits": float(self.model.config.kv_cache_bits),
             "weight_bits": float(self.engine.config.weight_bits or 0),
             "queue_depth": float(self.scheduler.num_waiting),

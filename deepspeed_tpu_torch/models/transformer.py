@@ -376,6 +376,23 @@ def _maybe_dequant(p, cfg: TransformerConfig):
                 if isinstance(v, dict) else v) for k, v in p.items()}
 
 
+def _lora_delta(h, ab, idx):
+    """Gathered multi-adapter LoRA delta: (h @ A[idx]) @ B[idx], JAX's
+    ``_lora_delta``.
+
+    ``ab``: one layer's slot tables (A [NS, In, r], B [NS, r, Out]);
+    ``idx``: [B] adapter slot per batch row. The gather and the batched
+    products serve a batch whose rows use DIFFERENT adapters in one
+    pass (slot 0 is the all-zero null adapter: base-model rows add an
+    exact zero). Rank is tiny, so the product goes through the rank
+    bottleneck first."""
+    a, b = ab
+    idx = idx.long()
+    ga = a.index_select(0, idx).to(h.dtype)            # [B, In, r]
+    gb = b.index_select(0, idx).to(h.dtype)            # [B, r, Out]
+    return torch.bmm(torch.bmm(h, ga), gb)
+
+
 def attention(q, k, v, mask=None, *, causal: bool = True,
               cfg: TransformerConfig, reference: bool = False):
     """q: [B,S,Nq,D], k/v: [B,S,Nkv,D] -> [B,S,Nq,D]. mask: optional [B, S]
@@ -602,7 +619,7 @@ def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
 
 def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                       mask=None, attend: Optional[Callable] = None,
-                      row_dtype=None, reference: bool = False):
+                      row_dtype=None, reference: bool = False, lora=None):
     """One pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)).
 
     Without ``attend``: full-sequence (prefill) attention; returns
@@ -612,7 +629,12 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     NOT written here. The fresh rows join the softmax separately and are
     returned as (k_row, v_row) [B, nkv, S, hd] in ``row_dtype`` for the
     caller to write after all layers (writing them first would count them
-    twice)."""
+    twice).
+
+    ``lora=({proj: (A, B)}, idx)``: one layer's adapter slot tables and
+    the per-row adapter slot; each projection in the dict gains the
+    gathered low-rank delta (``_lora_delta``) where JAX adds it: q, k, v
+    after their projections, o on the flattened attention output."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     p = _maybe_dequant(p, cfg)
@@ -622,6 +644,13 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                                          dim=-1)
     else:
         q, k, v = _w(h, p["wq"]), _w(h, p["wk"]), _w(h, p["wv"])
+    tabs, aidx = lora if lora is not None else ({}, None)
+    if "q" in tabs:
+        q = q + _lora_delta(h, tabs["q"], aidx)
+    if "k" in tabs:
+        k = k + _lora_delta(h, tabs["k"], aidx)
+    if "v" in tabs:
+        v = v + _lora_delta(h, tabs["v"], aidx)
     q = q.reshape(B, S, nh, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
@@ -638,7 +667,11 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                          mask, causal=cfg.causal, cfg=cfg,
                          reference=reference)
         new_kv = (k, v)
-    x = x + _w(attn.reshape(B, S, nh * hd), p["wo"])
+    attn_flat = attn.reshape(B, S, nh * hd)
+    attn_out = _w(attn_flat, p["wo"])
+    if "o" in tabs:
+        attn_out = attn_out + _lora_delta(attn_flat, tabs["o"], aidx)
+    x = x + attn_out
     h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
     if "w_in_gate" in p:
         up, gate = _w(h, p["w_in_gate"]).chunk(2, dim=-1)
@@ -981,12 +1014,15 @@ def _final_logits(x, params, cfg):
 
 
 def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
-                reference):
+                reference, lora=None):
     """The layer stack over T new tokens per slot (tokens [S, T] at
     positions seq_lens .. seq_lens + T - 1) attending the pool; returns
     the final hidden states [S, T, H] and every layer's fresh rows
     stacked [L, S, nkv, T, hd], not yet written (in the compute dtype for
-    an int8 pool: they are quantized as they are written)."""
+    an int8 pool: they are quantized as they are written). ``lora``:
+    ``(adapter_pool, aidx)``, the pool ``{proj: {"a": [L, NS, In, r],
+    "b": [L, NS, r, Out]}}`` and each slot's adapter slot [S]; each
+    layer takes its row of the pool."""
     x = _embed_rows(params, tokens, cfg)                        # [S, T, H]
     T = tokens.shape[1]
     positions = (seq_lens.long()[:, None]
@@ -996,11 +1032,16 @@ def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
     k_rows, v_rows = [], []
     for i, lp in enumerate(_layers(params)):
         sc = (pools["k_scale"][i], pools["v_scale"][i]) if int8 else None
+        lora_i = None
+        if lora is not None:
+            apool, aidx = lora
+            lora_i = ({k: (v["a"][i], v["b"][i]) for k, v in apool.items()},
+                      aidx)
         x, (k_row, v_row) = transformer_layer(
             x, lp, cfg, positions=positions, row_dtype=row_dtype,
             attend=lambda q, kv, i=i, sc=sc: _paged_attention(
                 q, pools["k"][i], pools["v"][i], block_tables, seq_lens,
-                cfg, kv, kv_scale=sc, reference=reference))
+                cfg, kv, kv_scale=sc, reference=reference), lora=lora_i)
         k_rows.append(k_row)
         v_rows.append(v_row)
     return x, torch.stack(k_rows), torch.stack(v_rows)
@@ -1008,7 +1049,7 @@ def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
 
 def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
                       pools: Params, block_tables, seq_lens, active=None,
-                      reference: bool = False):
+                      reference: bool = False, lora=None):
     """One decode step for every slot of a paged serving batch.
 
     tokens: [S] (one in-flight token per slot); block_tables: [S, MB]
@@ -1022,12 +1063,14 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
     Inactive slots, and slots whose column len // bs is past the table (a
     request that reached max_model_len mid-quantum), still compute but
     write into the trash block 0; duplicate trash writes are fine (never
-    read)."""
+    read). ``lora``: ``(adapter_pool, aidx)``, each slot's adapter delta
+    (``_paged_rows``)."""
     S = tokens.shape[0]
     if active is None:
         active = torch.ones((S,), dtype=torch.bool, device=tokens.device)
     x, k_rows, v_rows = _paged_rows(params, tokens[:, None], cfg, pools,
-                                    block_tables, seq_lens, reference)
+                                    block_tables, seq_lens, reference,
+                                    lora=lora)
     bs = pools["k"].shape[3]
     MB = block_tables.shape[1]
     # a slot at or past its table's capacity (its request reached
@@ -1047,7 +1090,7 @@ def decode_step_paged(params: Params, tokens, cfg: TransformerConfig,
 
 def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
                       pools: Params, block_tables, seq_lens, active=None,
-                      n_rows=None, reference: bool = False):
+                      n_rows=None, reference: bool = False, lora=None):
     """T consecutive tokens per slot in one pass, JAX's
     ``decode_span_paged``: a prefill chunk appended behind rows already in
     the pool (an earlier chunk, or a prefix-cache hit), or the speculative
@@ -1064,7 +1107,7 @@ def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
     overwritten. The caller forks shared (refcounted) blocks before any
     span writes them (the serving engine's copy-on-write fork). Attention
     is plain torch ops (``_paged_span_attention``), as JAX runs it on
-    XLA."""
+    XLA. ``lora`` as in ``decode_step_paged``."""
     S, T = tokens.shape
     dev = tokens.device
     if active is None:
@@ -1072,7 +1115,8 @@ def decode_span_paged(params: Params, tokens, cfg: TransformerConfig,
     if n_rows is None:
         n_rows = torch.full((S,), T, dtype=torch.long, device=dev)
     x, k_rows, v_rows = _paged_rows(params, tokens, cfg, pools,
-                                    block_tables, seq_lens, reference)
+                                    block_tables, seq_lens, reference,
+                                    lora=lora)
     bs = pools["k"].shape[3]
     MB = block_tables.shape[1]
     t = torch.arange(T, device=dev)

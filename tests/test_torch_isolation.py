@@ -51,7 +51,8 @@ def test_forbidden_prefix_rule():
             "utils/zero_to_fp32.py", "utils/ckpt_tools.py",
             "monitor/monitor.py", "inference/generation.py",
             "inference/prefix_cache.py", "inference/spec_decode.py",
-            "ops/quantizer.py"} <= names
+            "ops/quantizer.py", "inference/lora.py", "inference/schemas.py",
+            "robustness/preemption.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],

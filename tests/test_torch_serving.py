@@ -94,8 +94,7 @@ def test_eos_truncates_and_frees_blocks(jax_run):
 
 def test_deferred_serving_features_raise():
     model = make_model(TransformerConfig(**CFG, dtype=torch.float32))
-    for field, value, item in (("adapter_slots", 2, "A6g"),
-                               ("lora_rank", 8, "A6g"),
+    for field, value, item in (("trace_events", 8, "A7"),
                                ("request_trace", True, "A7"),
                                ("role", "prefill", "A7"),
                                ("round_retries", 2, "A7")):

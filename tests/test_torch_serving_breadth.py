@@ -488,8 +488,7 @@ def test_round_error_reaches_the_caller_unchanged(ref):
 # ---------------------------------------------------------------------------
 
 # a value away from each deferred field's default
-_AWAY = {"adapter_slots": 2, "lora_rank": 8, "lora_targets": ("q",),
-         "request_trace": True, "trace_replica": "r1", "trace_events": 8,
+_AWAY = {"request_trace": True, "trace_replica": "r1", "trace_events": 8,
          "role": "decode", "backend_bench_iters": 3}
 
 
@@ -501,10 +500,11 @@ def test_every_jax_serving_field_is_served_or_refused(ref):
     assert not served & deferred
     assert set(jax_fields) == served | deferred
     assert set(_AWAY) == deferred
-    # speculative decoding is served, with JAX's defaults
+    # speculative decoding and multi-LoRA are served, with JAX's defaults
     port_defaults = {f.name: f.default
                      for f in dataclasses.fields(port_serving.ServingConfig)}
-    for name in ("spec_tokens", "spec_ngram", "spec_proposer"):
+    for name in ("spec_tokens", "spec_ngram", "spec_proposer",
+                 "adapter_slots", "lora_rank", "lora_targets"):
         assert name in served and port_defaults[name] == jax_fields[name]
     for name in deferred:
         # the JAX default is accepted, anything else names its item
