@@ -164,6 +164,23 @@ Phases, each of which raises on failure (exit code != 0):
    and scatter ms, the agreement with the colocated streams (reported);
    no fallback, and on the decode engine (counts zeroed just before) B1
    = 0 and B4 = 32 x decode steps.
+14. sharded serving (after phase 13). (a) MoE on one card: Mixtral 8x7b
+   at full width (H 4096, F 14336, 32 / 8 heads, 8 experts, top-2) cut
+   to 8 of 32 layers, bf16, float pool, the serving phase's load: 32
+   in-vocab tokens each, B1 = 8 x prefills and B4 = 8 x decode steps
+   (counts zeroed just before), TTFT, ITL, tok/s and the decode step's
+   CUDA-event and host issue ms beside phase 4's llama-7b step; then f32
+   at Mixtral width, 2 layers: the kernels' teacher-forced logits within
+   2e-2 relative L2 of the plain versions'. (b) llama-7b at tensor=2 and
+   (c) the 8-layer Mixtral at expert=2, each as two processes sharing the
+   card over a gloo group (``parallel/launch.run_group``; the kernels
+   built before spawning): the serving load at bf16, every rank's B1 = L
+   x prefills and B4 = L x decode steps (reported to rank 0), (b)'s
+   ``pool_bytes x 2 == pool_bytes_logical`` and layer bytes halved but
+   for the replicated norms, (c)'s expert stacks halved, the agreement
+   with the one-card streams (reported), and f32 at 2 layers token for
+   token equal to the unsharded engine. Times of (b) and (c) are of two
+   processes sharing one card: not a tensor-parallel speed.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -2087,6 +2104,313 @@ def lora_handoff_phase(smi: str, base, plain_step):
 
 
 # --------------------------------------------------------------------------
+# sharded serving (phase 14)
+# --------------------------------------------------------------------------
+
+# Mixtral 8x7b at full width, cut to 8 of its 32 layers (23.2 GB of bf16
+# layers + 0.52 GB of embeddings: the whole model is ~93 GB)
+MOE_LAYERS = 8
+SHARED_CARD = ("two processes sharing one card over gloo (collectives "
+               "staged through the host): not a tensor-parallel speed")
+
+
+def _mixtral(layers, dtype):
+    from deepspeed_tpu_torch.models import make_model
+    from deepspeed_tpu_torch.models.transformer import mixtral_config
+    return make_model(mixtral_config("8x7b", num_layers=layers, dtype=dtype),
+                      f"mixtral-8x7b-{layers}L")
+
+
+def moe_single_card(served, plain_step):
+    """Phase 14 (a): Mixtral at full width, 8 layers, bf16, float pool, on
+    the serving geometry: the serving phase's load with the launch counts
+    zeroed just before (B1 = 8 x prefills, B4 = 8 x decode steps), then
+    one decode step's CUDA-event and host issue ms beside phase 4's
+    llama-7b step. Returns (record, generated streams, launches)."""
+    from deepspeed_tpu_torch import init_serving
+    from deepspeed_tpu_torch.parallel import sharded_bytes
+    t0 = time.perf_counter()
+    srv = init_serving(_mixtral(MOE_LAYERS, torch.bfloat16),
+                       config={"kv_cache_bits": 0}, serving=BREADTH_SERVING,
+                       dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gens, st, la = _serve_counted(srv, served[0], 32, "phase 14 (a)")
+    step = _decode_step_times(srv)
+    rec = {"model": "mixtral-8x7b, 8 of 32 layers, bf16",
+           "param_bytes": sharded_bytes(srv.engine.params),
+           "pool_bytes": st["pool_bytes"], "init_s": init_s,
+           "decode_step_16x1000_ms": step["ms"],
+           "decode_step_host_issue_ms": step["issue_ms"],
+           "llama7b_decode_step_16x1000_ms": plain_step,
+           "launches": la,
+           **{k: st.get(k) for k in ("p50_ttft_ms", "p99_ttft_ms",
+                                     "p50_itl_ms", "p99_itl_ms",
+                                     "tok_per_sec", "prefills",
+                                     "decode_steps", "wall_s")}}
+    del srv
+    _free()
+    return rec, gens, la
+
+
+def moe_f32_check():
+    """Phase 14 (a), f32 at Mixtral width, 2 layers: one 1000-token
+    prefill and 4 teacher-forced decode steps through the kernels against
+    the plain versions (relative L2 of the logits)."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    cfg = _mixtral(2, torch.float32).config
+    params = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(5),
+                            "cuda", dtype=torch.float32)
+    rng = np.random.default_rng(21)
+    n, P = 1000, 1024
+    ids = torch.zeros((1, P), dtype=torch.long, device="cuda")
+    ids[0, :n] = torch.from_numpy(rng.integers(0, VOCAB, size=n)).cuda()
+    tokens = [torch.from_numpy(rng.integers(0, VOCAB, size=1)).cuda()
+              for _ in range(4)]
+    kern = _prefill_and_decode(params, cfg, ids, n, tokens, False)
+    plain = _prefill_and_decode(params, cfg, ids, n, tokens, True)
+    names = ["prefill"] + [f"decode{i}" for i in range(4)]
+    del params
+    _free()
+    return {k: rel_l2(a, b) for k, a, b in zip(names, kern, plain)}
+
+
+def _gather_rows(values):
+    """Each rank's row of numbers, summed into place on every rank (an
+    all_reduce of a zero-filled [world, n] f64 table: byte counts and
+    launch counts stay exact): rank 0 reads all."""
+    import torch.distributed as dist
+    t = torch.zeros((dist.get_world_size(), len(values)), dtype=torch.float64)
+    t[dist.get_rank()] = torch.tensor(values, dtype=torch.float64)
+    dist.all_reduce(t)
+    return t.tolist()
+
+
+def _shard_kernels_vs_plain(srv):
+    """This rank's teacher-forced logits (one 1000-token prefill, 4 decode
+    steps) through the kernels at its shard's head counts, against the
+    plain versions on the same shard: relative L2 of each. Collective:
+    every rank of the mesh calls it."""
+    from deepspeed_tpu_torch.parallel import parallel_context
+    rng = np.random.default_rng(23)
+    n, P = 1000, 1024
+    ids = torch.zeros((1, P), dtype=torch.long, device="cuda")
+    ids[0, :n] = torch.from_numpy(rng.integers(0, VOCAB, size=n)).cuda()
+    tokens = [torch.from_numpy(rng.integers(0, VOCAB, size=1)).cuda()
+              for _ in range(4)]
+    params, cfg = srv.engine.params, srv.model.config
+    with torch.no_grad(), parallel_context(srv.mesh):
+        kern = _prefill_and_decode(params, cfg, ids, n, tokens, False)
+        plain = _prefill_and_decode(params, cfg, ids, n, tokens, True)
+    return [rel_l2(a, b) for a, b in zip(kern, plain)]
+
+
+def _sharded_rank(rank, world, kind, layers, prompts, f32_prompts):
+    """One rank of phase 14 (b) (kind "tp": llama-7b at tensor=2) or (c)
+    ("ep": Mixtral 8 layers at expert=2), both ranks on cuda:0 over gloo.
+    bf16 at the serving geometry: a warm-up request on a first serving
+    engine, then the load on a fresh one over the same weights, each
+    rank's launch counts zeroed just before it (rank 0 drives the load,
+    the other rank serves its device calls); each rank's counts and
+    resident bytes go to rank 0. Then f32 at the same width, 2 layers:
+    each rank's kernels against the plain versions at its shard shapes,
+    the sharded greedy streams and rank 0's unsharded ones."""
+    from deepspeed_tpu_torch import init_serving, llama_config, make_model
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.parallel import MeshPlan, sharded_bytes
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = MeshPlan(tensor=2) if kind == "tp" else MeshPlan(expert=2)
+
+    def model(layers, dtype):
+        if kind == "tp":
+            return make_model(llama_config("7b", num_layers=layers,
+                                           dtype=dtype), "llama-7b")
+        return _mixtral(layers, dtype)
+
+    def engine(layers, dtype, mesh):
+        return init_serving(model(layers, dtype),
+                            config={"kv_cache_bits": 0},
+                            serving=BREADTH_SERVING, dtype=dtype, seed=0,
+                            mesh=mesh)
+
+    t0 = time.perf_counter()
+    warm = engine(layers, torch.bfloat16, plan)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if rank == 0:
+        warm.run([(prompts[0][:64], 4)])
+        warm.close()
+    else:
+        warm.run_worker()
+    eng, sc = warm.engine, warm.config
+    del warm
+    _free()
+    srv = ServingEngine(eng, sc, seed=0)
+    lay = eng.params["layers"]
+    mine = [sharded_bytes(lay)] + [
+        sharded_bytes({k: v for k, v in lay.items() if k.startswith(p)})
+        for p in ("ln", "moe_")] + [srv.pool_bytes, srv.pool_bytes_logical]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    rec = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        outs = srv.run([(p, 32) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = srv.stats()
+        gens = [outs[k][len(p):] for k, p in zip(sorted(outs), prompts)]
+        _check_generated(f"phase 14 ({kind})", gens, 32)
+        rec = {"gens": gens, "init_s": init_s, "wall_s": wall,
+               "mesh_desc": srv.mesh_desc,
+               "held_blocks_after": srv.allocator.used_blocks,
+               **{k: st.get(k) for k in (
+                   "p50_ttft_ms", "p99_ttft_ms", "p50_itl_ms", "p99_itl_ms",
+                   "tok_per_sec", "prefills", "decode_steps", "tp", "ep")}}
+        srv.close()
+    else:
+        srv.run_worker()
+    counts = _build.launch_counts()
+    rows = _gather_rows([counts["flash_fwd"], counts["paged_decode"]] + mine
+                        + [torch.cuda.max_memory_allocated()])
+    del srv, eng, lay
+    _free()
+    srv = engine(2, torch.float32, plan)
+    errs = _gather_rows(_shard_kernels_vs_plain(srv))
+    if rank:
+        srv.run_worker()
+        return None
+    outs = srv.run([(p, 16) for p in f32_prompts])
+    srv.close()
+    del srv
+    _free()
+    sharded = [outs[k] for k in sorted(outs)]
+    one = engine(2, torch.float32, None)
+    outs = one.run([(p, 16) for p in f32_prompts])
+    rec["f32_identical"] = all(
+        np.array_equal(a, b) for a, b in zip(sharded,
+                                             [outs[k] for k in sorted(outs)]))
+    names = ("flash_fwd", "paged_decode", "layer_bytes", "norm_bytes",
+             "expert_bytes", "pool_bytes", "pool_bytes_logical",
+             "peak_bytes")
+    rec["ranks"] = [
+        dict({k: int(v) for k, v in zip(names, r)},
+             f32_kernels_vs_plain_rel_l2=dict(zip(
+                 ["prefill"] + [f"decode{i}" for i in range(4)], e)))
+        for r, e in zip(rows, errs)]
+    return rec
+
+
+def _layer_bytes_unsharded(cfg, itemsize=2):
+    """An unsharded engine's resident bytes of ``cfg``'s layer stack
+    (unfused), and of its expert stacks alone."""
+    from deepspeed_tpu_torch.models.transformer import logical_axes
+    H, L, F, E = cfg.hidden_size, cfg.num_layers, cfg.ffn_dim, \
+        cfg.num_experts
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
+    per = {"ln1_scale": H, "ln2_scale": H, "wq": H * nh * hd,
+           "wk": H * nkv * hd, "wv": H * nkv * hd, "wo": nh * hd * H,
+           "w_in": H * F, "w_out": F * H, "w_gate": H * F, "wg": H * E,
+           "moe_w_in": E * H * F, "moe_w_out": E * F * H,
+           "moe_w_gate": E * H * F}
+    names = list(logical_axes(cfg)["layers"])
+    total = sum(per[n] for n in names) * L * itemsize
+    experts = sum(per[n] for n in names if n.startswith("moe_")) * L
+    return total, experts * itemsize
+
+
+def sharded_serving_phase(smi: str, served, plain_step):
+    """Phase 14: (a) MoE on one card (Mixtral 8 layers bf16, the serving
+    load, B1 / B4 counts, the decode step beside phase 4's, and the f32
+    kernels-vs-plain logits at 2 layers); (b) llama-7b at tp=2 and (c)
+    Mixtral at ep=2, each two processes sharing the card over gloo: every
+    rank's B1 = L x prefills and B4 = L x decode steps of the load, the
+    memory laws, the bf16 agreement with the one-card streams (reported),
+    and f32 at 2 layers: each rank's kernels within 2e-2 of the plain
+    versions at its shard shapes, and the streams token-identical to the
+    unsharded engine. Times of (b) and (c)
+    are of two processes sharing one card. Returns the record with the
+    launches summed over every rank."""
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    checks = {}
+    rec = {"card": smi}
+    prompts, base_gens = served
+    a, moe_gens, la = moe_single_card(served, plain_step)
+    L = MOE_LAYERS
+    checks["(a) flash_fwd == 8 x prefills"] = \
+        la["flash_fwd"] == L * a["prefills"] > 0
+    checks["(a) paged_decode == 8 x decode_steps"] = \
+        la["paged_decode"] == L * a["decode_steps"] > 0
+    log(f"phase 14 (a) MoE one card [{smi}] " + json.dumps(a))
+    a["f32_kernels_vs_plain_rel_l2"] = errs = moe_f32_check()
+    checks["(a) f32 kernels vs plain < 2e-2"] = max(errs.values()) < 2e-2
+    log(f"phase 14 (a) f32 Mixtral width, 2 layers [{smi}] "
+        + json.dumps(errs))
+    rec["moe"] = a
+    launches = {"flash_fwd": la["flash_fwd"],
+                "paged_decode": la["paged_decode"]}
+    rec["launches_by_part"] = {"moe_one_card": dict(launches)}
+    f32_prompts = prompts[:4]
+    for kind, what, ref, cfg in (
+            ("tp", "(b) llama-7b tensor=2", base_gens, llama_config("7b")),
+            ("ep", "(c) Mixtral 8 layers expert=2", moe_gens,
+             _mixtral(MOE_LAYERS, torch.bfloat16).config)):
+        _free()
+        t0 = time.perf_counter()
+        r = run_group(_sharded_rank, 2, kind, cfg.num_layers, prompts,
+                      f32_prompts, timeout_s=900)
+        r["group_s"] = time.perf_counter() - t0
+        Lk = cfg.num_layers
+        for i, rank in enumerate(r["ranks"]):
+            checks[f"{what}: rank {i} flash_fwd == L x prefills"] = \
+                rank["flash_fwd"] == Lk * r["prefills"] > 0
+            checks[f"{what}: rank {i} paged_decode == L x decode_steps"] = \
+                rank["paged_decode"] == Lk * r["decode_steps"] > 0
+            checks[f"{what}: rank {i} f32 shard kernels vs plain < 2e-2"] = \
+                max(rank["f32_kernels_vs_plain_rel_l2"].values()) < 2e-2
+            # the pools shard over tensor only
+            n = 2 if kind == "tp" else 1
+            checks[f"{what}: rank {i} pool_bytes x {n} == logical"] = \
+                rank["pool_bytes"] * n == rank["pool_bytes_logical"]
+            launches["flash_fwd"] += rank["flash_fwd"]
+            launches["paged_decode"] += rank["paged_decode"]
+        rec["launches_by_part"][kind] = [
+            {k: x[k] for k in ("flash_fwd", "paged_decode")}
+            for x in r["ranks"]]
+        full, experts = _layer_bytes_unsharded(cfg)
+        same = all(x["layer_bytes"] == r["ranks"][0]["layer_bytes"]
+                   for x in r["ranks"])
+        if kind == "tp":
+            norms = r["ranks"][0]["norm_bytes"]
+            sharded = sum(x["layer_bytes"] - norms for x in r["ranks"])
+            checks[f"{what}: layer bytes halved (norms replicated)"] = \
+                same and sharded + norms == full
+        else:
+            checks[f"{what}: expert stacks halved"] = same and sum(
+                x["expert_bytes"] for x in r["ranks"]) == experts
+        r["layer_bytes_unsharded"] = full
+        checks[f"{what}: f32 2 layers token-identical to unsharded"] = \
+            r["f32_identical"]
+        checks[f"{what}: pool empty after run"] = r["held_blocks_after"] == 0
+        r["agreement_with_one_card"] = _agreement(r.pop("gens"), ref)
+        r["timing"] = SHARED_CARD
+        rec[kind] = r
+        log(f"phase 14 {what} [{smi}; {SHARED_CARD}] " + json.dumps(r))
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    failed = [k for k, v in checks.items() if not v]
+    log(f"phase 14: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    if failed:
+        raise RuntimeError(f"phase 14: failed {failed}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # training phases
 # --------------------------------------------------------------------------
 
@@ -2782,6 +3106,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     quant = quantized_spec_phase(card, bf16_drift, served)
     lora = lora_handoff_phase(card, served, times["decode_step_16x1000_ms"])
+    _free()
+    sharded = sharded_serving_phase(card, served,
+                                    times["decode_step_16x1000_ms"])
     train = training_phase(
         next(c for c in flash if c["case"].startswith("llama-1b training")),
         bwd[0])
@@ -2845,6 +3172,12 @@ def main() -> int:
         n = lora["launches"][entry["name"]]
         entry["launches"] += n
         entry["launches_by_path"]["lora_handoff"] = n
+    # phase 14's loads: the MoE engine on one card, and every rank of the
+    # tp=2 and ep=2 engines
+    for entry in line["kernels"][:2]:
+        n = sharded["launches"][entry["name"]]
+        entry["launches"] += n
+        entry["launches_by_path"]["sharded"] = n
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

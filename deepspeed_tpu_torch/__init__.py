@@ -8,7 +8,10 @@ flash-forward (prefill) and paged-decode kernels written by hand in CUDA
 (``csrc/``), chunked prefill, a copy-on-write prefix cache, deadlines and
 admission watermarks, one-shot ``generate`` on a contiguous cache,
 greedy speculative decoding, an int8 KV cache (JAX's default from a
-1024-token context) and int8 weights. It trains them on one card
+1024-token context), int8 weights, multi-LoRA and the KV handoff, and
+it serves MoE models (``mixtral_config``) and shards serving over the
+ranks of a ``torch.distributed`` group (tensor and expert parallel,
+``parallel.MeshPlan``). It trains dense models on one card
 through ``initialize`` ->
 ``Engine.train_batch``, with the flash backward (dQ and dK/dV kernels)
 in CUDA as well, and trains a block-sparse model (``sparse_attention``

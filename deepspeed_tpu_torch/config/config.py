@@ -164,7 +164,7 @@ _DEFERRED = {
     "comm": (lambda s: any(bool(v) for v in s.values()),
              "A4 (comm scheduling)"),
     "comms_logger": (_enabled, "A9 (comm logging)"),
-    "moe": (_enabled, "A9 (MoE)"),
+    "moe": (_enabled, "A9 (MoE training)"),
     "telemetry": (_enabled, "A11 (telemetry)"),
     "flops_profiler": (_enabled, "A11 (profiling)"),
     "tensorboard": (_enabled, "A11 (monitor)"),

@@ -13,6 +13,21 @@ through the matmul (the scale in the epilogue). Both quantize after the
 cast to the engine's dtype, and both turn the GEMM fusion off, as JAX's
 default does.
 
+Tensor and expert parallelism (``tensor_parallel`` / ``expert_parallel``,
+or ``mesh=``: a ``parallel.MeshPlan`` or a built ``parallel.Mesh``): the
+engine runs on every rank of a ``torch.distributed`` group of
+``tensor x expert`` processes, each holding the slice of every leaf that
+JAX's rules give its device (``models/convert.param_specs``; the seeded
+init keeps each leaf's slice as soon as it is drawn), and the model's
+collectives run over the mesh. The validations are JAX's: an explicit
+mesh is authoritative (a contradicting degree raises, naming the axis),
+``expert_parallel > 1`` needs a MoE model whose ``num_experts`` it
+divides, a dense model on an expert mesh serves at ep = 1 (every rank a
+full replica), the tensor degree must divide ``kv_heads``, and the GEMM
+fusion is off at tp > 1 (the concat would interleave head shards).
+``forward`` and ``generate`` are collective then: every rank calls them
+with the same inputs (the serving engine drives its ranks itself).
+
 ``init_inference`` runs on the card: ``device=None`` means "cuda" and
 raises when CUDA is missing. Pass ``device="cpu"`` for the plain PyTorch
 versions of the kernels (the tests do).
@@ -28,9 +43,14 @@ from deepspeed_tpu_torch.inference import generation
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.models.transformer import (fuse_layer_stack,
+                                                    logical_axes,
                                                     make_model,
-                                                    quantize_layer_stack,
+                                                    quantize_leaf,
+                                                    quantized_logical_axes,
                                                     unfuse_layer_stack)
+from deepspeed_tpu_torch.parallel.context import parallel_context
+from deepspeed_tpu_torch.parallel.mesh import Mesh, MeshPlan, build_mesh
+from deepspeed_tpu_torch.parallel.partitioning import own_shard, spec_tree
 
 
 @dataclasses.dataclass
@@ -42,6 +62,8 @@ class InferenceConfig:
     # None -> context-aware: 8 (int8 cache, which bypasses the paged decode
     # kernel) when max_tokens >= 1024, else 0 (float); 0 or 8 explicitly
     kv_cache_bits: Optional[int] = None
+    # parallel degrees: the tensor axis shards heads, FFN columns and the
+    # vocab; the expert axis shards a MoE model's experts
     tensor_parallel: int = 1
     expert_parallel: int = 1
     # int8 layer weights: dequantized one layer at a time (quantize_bits)
@@ -50,17 +72,9 @@ class InferenceConfig:
     weight_bits: Optional[int] = None
 
     def __post_init__(self):
-        deferred = {
-            "tensor_parallel": (self.tensor_parallel != 1,
-                                "A6h (tensor / expert parallel serving)"),
-            "expert_parallel": (self.expert_parallel != 1,
-                                "A6h (tensor / expert parallel serving)"),
-        }
-        for name, (bad, item) in deferred.items():
-            if bad:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet: "
-                    f"ROADMAP {item}")
+        for name in ("tensor_parallel", "expert_parallel"):
+            if int(getattr(self, name) or 1) < 1:
+                raise ValueError(f"{name}={getattr(self, name)}: >= 1")
         if self.kv_cache_bits not in (None, 0, 8):
             raise ValueError(f"kv_cache_bits={self.kv_cache_bits} "
                              "unsupported (0 = float cache, 8 = int8)")
@@ -85,12 +99,13 @@ class InferenceConfig:
 
 
 def init_inference(model, config=None, dtype=None, params=None, device=None,
-                   seed: int = 0, **kwargs):
+                   seed: int = 0, mesh=None, **kwargs):
     """``model``: a ModelSpec (``models.make_model``). ``config``: an
     InferenceConfig or a dict of its field names (kwargs add to it).
     ``params``: a JAX-layout tree (numpy arrays or tensors, int8
     {"q", "scale"} stacks included) instead of the seeded on-device
-    init."""
+    init. ``mesh``: a ``MeshPlan`` (laid over the default process group)
+    or a built ``Mesh``; None builds the config's degrees."""
     if not isinstance(config, InferenceConfig):
         raw = dict(config or {})
         raw.update(kwargs)
@@ -100,16 +115,61 @@ def init_inference(model, config=None, dtype=None, params=None, device=None,
     elif dtype is not None:
         config = dataclasses.replace(config, dtype=dtype)
     return InferenceEngine(model, config, params=params, device=device,
-                           seed=seed)
+                           seed=seed, mesh=mesh)
 
 
 def _quantized_tree(params) -> bool:
     return any(isinstance(v, dict) for v in params["layers"].values())
 
 
+def _resolve_mesh(model, config: InferenceConfig, mesh):
+    """JAX's mesh validations (``inference/engine.py``), then the mesh:
+    (mesh, tp, ep). The degrees are checked before any process group is
+    touched."""
+    tp = max(1, int(config.tensor_parallel or 1))
+    ep = max(1, int(config.expert_parallel or 1))
+    if mesh is None:
+        plan = MeshPlan(expert=ep, tensor=tp)
+    else:
+        plan = mesh.plan if isinstance(mesh, Mesh) else mesh
+        # an explicit mesh is authoritative: a config degree that
+        # contradicts it is a caller bug, not a silent replication
+        if config.tensor_parallel > 1 and plan.tensor != tp:
+            raise ValueError(f"tensor_parallel={tp} but the mesh's tensor "
+                             f"axis has size {plan.tensor}")
+        if ep > 1 and plan.expert != ep:
+            raise ValueError(f"expert_parallel={ep} but the mesh's expert "
+                             f"axis has size {plan.expert}")
+        tp, ep = plan.tensor, plan.expert
+    mcfg = model.config
+    if ep > 1:
+        if mcfg.num_experts <= 1:
+            if config.expert_parallel > 1:
+                raise ValueError(
+                    f"expert_parallel={ep} needs a MoE model (num_experts "
+                    "> 1): the expert axis shards the stacked expert dim "
+                    "of the MoE FFN weights")
+            # an expert axis of a shared mesh: a dense model has nothing
+            # to shard over it, every rank holds it whole
+            ep = 1
+        elif mcfg.num_experts % ep:
+            raise ValueError(
+                f"expert_parallel={ep} does not divide num_experts="
+                f"{mcfg.num_experts}: each rank must hold whole experts")
+    if tp > 1 and mcfg.kv_heads % tp:
+        raise ValueError(
+            f"tensor parallel degree {tp} does not divide kv_heads="
+            f"{mcfg.kv_heads}: the KV pools shard on the kv-head dim, so "
+            "each rank must hold whole heads")
+    if not isinstance(mesh, Mesh):
+        mesh = build_mesh(plan)
+    return mesh, tp, ep
+
+
 class InferenceEngine:
     def __init__(self, model, config: InferenceConfig, params=None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
+        self.mesh, self.tp, self.ep = _resolve_mesh(model, config, mesh)
         self.device = resolve_device(device)
         self.config = config
         self.dtype = config.dtype or torch.bfloat16
@@ -126,31 +186,55 @@ class InferenceEngine:
         if mcfg != model.config:
             model = make_model(mcfg, name=model.name)
         self.model = model
+        self.params = self._build_params(params, seed, quantized)
+
+    def _build_params(self, params, seed: int, quantized: bool):
+        """This rank's params, one path for every mesh (on one rank every
+        slice is the whole leaf): cast to the engine's dtype, quantized
+        per layer when asked (a row-parallel leaf's scales are maxima
+        over all its rows, an expert stack's over all its experts, as
+        JAX's), then sliced by the rules. The seeded init keeps each
+        leaf's slice as soon as it is drawn; a given tree is sliced
+        before its copy (``params_from_numpy``). The GEMM fusion runs at
+        tp = 1 on float stacks only, as JAX's."""
+        mcfg = self.model.config
         if params is None:
+            specs = spec_tree(quantized_logical_axes(mcfg) if quantized
+                              else logical_axes(mcfg))
+
+            def keep(path, t):
+                spec = specs
+                for part in path.split("/"):
+                    spec = spec[part]
+                if quantized and path.startswith("layers/"):
+                    t = quantize_leaf(t)
+                if isinstance(t, dict):
+                    return {k: own_shard(v, spec[k], self.mesh, path)
+                            for k, v in t.items()}
+                return own_shard(t, spec, self.mesh, path)
+
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = model.init(gen, self.device, dtype=self.dtype)
+            params = self.model.init(gen, self.device, dtype=self.dtype,
+                                     keep=keep)
         else:
-            params = params_from_numpy(params, mcfg, device=self.device,
-                                       dtype=self.dtype)
-        if quantized:
-            # as JAX: cast, unfused layout, then int8 (stacks that arrive
-            # int8 stay as they are)
-            params = quantize_layer_stack(unfuse_layer_stack(params, mcfg))
-        elif _quantized_tree(params):
-            raise ValueError("params hold int8 layer stacks: serve them with "
-                             "quantize_bits=8 or weight_bits=8")
-        else:
-            # the model runs either layout; an already-fused tree stays
-            # fused
-            params = fuse_layer_stack(params)
-        self.params = params
+            if _quantized_tree(params) and not quantized:
+                raise ValueError("params hold int8 layer stacks: serve them "
+                                 "with quantize_bits=8 or weight_bits=8")
+            params = params_from_numpy(unfuse_layer_stack(params, mcfg),
+                                       mcfg, device=self.device,
+                                       dtype=self.dtype, mesh=self.mesh,
+                                       quantize=quantized)
+        if quantized or self.tp > 1:
+            return params
+        return fuse_layer_stack(params)
 
     def forward(self, input_ids, **kwargs):
         """Full-sequence f32 logits [B, S, V] (the prefill path: the flash
         kernel on the card). Extra kwargs pass through to the model's
-        ``apply`` (e.g. ``attention_mask``)."""
+        ``apply`` (e.g. ``attention_mask``). Collective on a mesh of more
+        than one rank."""
         ids = torch.as_tensor(input_ids).long().to(self.device)
-        with torch.no_grad():
+        with torch.no_grad(), parallel_context(self.mesh):
             return self.model.apply(self.params, ids, **kwargs)
 
     __call__ = forward
@@ -160,7 +244,11 @@ class InferenceEngine:
                  rng: Optional[torch.Generator] = None):
         """Greedy (``temperature=0``) or sampled decode of one batch in
         lockstep on the contiguous KV cache: returns [B, P +
-        max_new_tokens] ids. ``rng``: the generator sampling draws from."""
-        return generation.generate(self, input_ids,
-                                   max_new_tokens=max_new_tokens,
-                                   temperature=temperature, rng=rng)
+        max_new_tokens] ids. ``rng``: the generator sampling draws from.
+        Collective on a mesh of more than one rank (every rank samples
+        the same greedy tokens; sampled decode draws on each rank's
+        ``rng``)."""
+        with parallel_context(self.mesh):
+            return generation.generate(self, input_ids,
+                                       max_new_tokens=max_new_tokens,
+                                       temperature=temperature, rng=rng)

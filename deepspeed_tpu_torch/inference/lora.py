@@ -22,9 +22,11 @@ once and written in place by page-ins, so its addresses never change.
 B tables are PRE-SCALED by alpha/rank at registration, so the delta needs
 no per-adapter scalar — the scaling is data, not program.
 
-Not ported here: JAX's ``adapter_pool_logical_axes`` (how the pool shards
-under tensor parallelism), which arrives with tensor-parallel serving
-(ROADMAP A6h).
+Under tensor parallelism the pool shards as JAX's
+``adapter_pool_logical_axes`` says: q / k / v's B columns with their
+projection's columns, o's A rows with the attention heads; everything
+else replicates. A rank's pool holds its slice, and a page-in writes the
+slice of the host tables (``shard_tables``).
 """
 
 import dataclasses
@@ -34,6 +36,8 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.parallel.partitioning import (local_shape,
+                                                       shard_leaf, spec_tree)
 
 # projection name -> (In, Out) dims as functions of the model config
 _PROJS = ("q", "k", "v", "o")
@@ -132,25 +136,68 @@ class AdapterStore:
         return {p: {"a": a, "b": b} for p, (a, b) in ad.tables.items()}
 
 
+def adapter_pool_logical_axes(targets=("q", "k", "v", "o")):
+    """Logical axes of the slot pool, JAX's: A factors and the slot and
+    rank dims replicate; the B OUT columns of q / k / v shard with their
+    projection's columns ("qkv"), so the delta is computed shard-local;
+    o is the row-parallel projection: its A IN rows shard with the
+    attention heads ("heads") and its partial sums join ``wo``'s
+    reduction."""
+    axes = {}
+    for proj in targets:
+        if proj == "o":
+            axes[proj] = {"a": ("layers", None, "heads", None),
+                          "b": ("layers", None, None, None)}
+        else:
+            axes[proj] = {"a": ("layers", None, None, None),
+                          "b": ("layers", None, None, "qkv")}
+    return axes
+
+
 def init_adapter_pool(cfg, num_slots: int, rank: int,
                       targets=("q", "k", "v", "o"), dtype=torch.float32,
-                      device=None):
+                      device=None, mesh=None):
     """Zero-filled slot pool ``{proj: {"a": [L, NS, In, r], "b": [L, NS,
     r, Out]}}`` on ``device`` (None means the card, as every entry point
-    of the port). All-zero slots ARE the null adapter — a fresh pool
+    of the port); under a tensor axis of ``mesh`` each leaf is this
+    rank's slice. All-zero slots ARE the null adapter — a fresh pool
     serves base-model traffic with no page-ins."""
     device = resolve_device(device)
     L = cfg.num_layers
+    specs = spec_tree(adapter_pool_logical_axes(targets))
     pool = {}
     for proj in targets:
         din, dout = _proj_dims(cfg, proj)
+        full = {"a": (L, num_slots, din, rank), "b": (L, num_slots, rank,
+                                                      dout)}
         pool[proj] = {
-            "a": torch.zeros((L, num_slots, din, rank), dtype=dtype,
-                             device=device),
-            "b": torch.zeros((L, num_slots, rank, dout), dtype=dtype,
-                             device=device),
-        }
+            name: torch.zeros(shape if mesh is None else local_shape(
+                shape, specs[proj][name], mesh, f"{proj}.{name}"),
+                dtype=dtype, device=device)
+            for name, shape in full.items()}
     return pool
+
+
+def adapter_pool_bytes(cfg, num_slots: int, rank: int, targets,
+                       dtype) -> int:
+    """Bytes of the whole (unsharded) slot pool."""
+    L = cfg.num_layers
+    return sum(L * num_slots * rank * (din + dout) * dtype.itemsize
+               for din, dout in (_proj_dims(cfg, p) for p in targets))
+
+
+def shard_tables(tables, targets, mesh):
+    """One adapter's ``{proj: {"a": [L, In, r], "b": [L, r, Out]}}``
+    tables cut to this rank's slice of the pool (the pool's spec without
+    its slot dim)."""
+    specs = spec_tree(adapter_pool_logical_axes(targets))
+
+    def drop_slot(spec):
+        return spec[:1] + spec[2:]
+    return {proj: {name: shard_leaf(t, drop_slot(specs[proj][name]), mesh,
+                                    f"{proj}.{name}")
+                   for name, t in ab.items()}
+            for proj, ab in tables.items()}
 
 
 def make_random_adapter(cfg, rank: int, seed: int,

@@ -49,6 +49,21 @@ of ``deepspeed_tpu/inference/serving.py``.
      ``attach_preemption`` drains on a latched SIGTERM. Drain-state tags
      and KV payloads follow JAX's schemas (``inference/schemas``): either
      package reads the other's.
+  8. **Sharded serving** — tensor and expert parallelism over a
+     ``torch.distributed`` group (``InferenceConfig.tensor_parallel`` /
+     ``expert_parallel``, or ``mesh=``): each rank holds its shard of the
+     weights and pools (``kv_heads / tp`` heads a rank; ``pool_bytes`` is
+     per rank, ``pool_bytes_logical`` the whole pool) and the model
+     reduces over the mesh. Rank 0 is the one controller, as JAX keeps
+     one host state over its mesh: it runs the scheduler, allocator,
+     prefix cache, deadlines, watchdog, drains and adapters, and every
+     device call goes through one seam (``inference/seam``) that
+     broadcasts it to the other ranks, which replay it on their shards in
+     ``run_worker`` until rank 0's ``close()`` sends the stop. Only rank 0
+     samples; its tokens travel in the next call. Drains record tp / ep
+     and a resume at another degree is refused; a KV payload carries all
+     kv heads (gathered to rank 0 on export, each rank's slice scattered
+     on import), so payloads move between degrees.
 
 Attention runs through the two hand-written CUDA kernels: the flash
 forward in every whole-prompt prefill (a re-prefill after preemption,
@@ -78,9 +93,8 @@ token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
 What this port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: tensor / expert parallel serving (A6h), round recovery and
-its fault seams, request tracing and fleet roles (A7), and serving a
-block-sparse model (A10b). The port samples from a ``torch.Generator``
+ROADMAP item: round recovery and its fault seams, request tracing and
+fleet roles (A7), and serving a block-sparse model (A10b). The port samples from a ``torch.Generator``
 where JAX folds a counter into a key: a drain records the port's count
 of sampling calls as the schema's ``rng_counter``, and a migration keeps
 the larger of the two counts, as JAX's does; only greedy streams carry
@@ -107,17 +121,25 @@ from deepspeed_tpu_torch.inference.kv_cache import (AdapterSlotPool,
                                                     kv_payload_nbytes,
                                                     pool_bytes)
 from deepspeed_tpu_torch.inference.lora import (AdapterStore,
-                                                init_adapter_pool)
+                                                adapter_pool_bytes,
+                                                init_adapter_pool,
+                                                shard_tables)
 from deepspeed_tpu_torch.inference.prefix_cache import PrefixCache
 from deepspeed_tpu_torch.inference.schemas import (DRAIN_STATE_VERSION,
                                                    KV_PAYLOAD_SCHEMA)
 from deepspeed_tpu_torch.inference.scheduler import (AdmissionRejected,
                                                      Request,
                                                      RequestScheduler)
+from deepspeed_tpu_torch.inference.seam import DeviceSeam
 from deepspeed_tpu_torch.inference.spec_decode import (greedy_accept_len,
                                                        make_proposer)
-from deepspeed_tpu_torch.models.transformer import check_servable
+from deepspeed_tpu_torch.models.transformer import (check_servable,
+                                                    paged_cache_logical_axes)
 from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
+from deepspeed_tpu_torch.parallel.context import all_reduce, parallel_context
+from deepspeed_tpu_torch.parallel.partitioning import (shard_leaf,
+                                                       sharded_bytes,
+                                                       spec_tree)
 from deepspeed_tpu_torch.robustness import events as rb_events
 from deepspeed_tpu_torch.robustness import integrity
 from deepspeed_tpu_torch.robustness.preemption import Preempted
@@ -300,6 +322,18 @@ def serving_config(fields: Optional[Dict[str, Any]] = None) -> ServingConfig:
     return ServingConfig(**fields)
 
 
+def _slots_or_null(aidx, like):
+    """Each slot's adapter slot, or the null adapter's 0 for every slot
+    (the seam of a sharded engine carries a tensor, never None)."""
+    return (torch.zeros(like.shape, dtype=torch.long, device=like.device)
+            if aidx is None else aidx)
+
+
+# the seam's op codes: every device call of a round, and the stop
+_STOP, _PREFILL, _SPAN, _DECODE, _FORK, _ADAPTER, _KV_IMPORT, _KV_EXPORT = \
+    range(8)
+
+
 class ServingEngine:
     """Continuous-batching server over an InferenceEngine's params.
 
@@ -307,12 +341,12 @@ class ServingEngine:
     >>> outs = srv.run([(prompt_ids, 64), ...])   # {rid: output ids}
     >>> srv.stats()                               # TTFT p50/p99, tok/s
 
-    The port serves on one card: its tensor and expert parallel degrees
-    are 1 (``tp``, ``ep``), recorded in drains and checked on resume.
+    On a mesh of more than one rank every rank builds the engine with the
+    same arguments; rank 0 drives it (``run``, ``step``, ...) and the
+    others call ``run_worker()``, which returns at rank 0's ``close()``.
+    ``tp`` / ``ep`` are the engine's resolved degrees, recorded in drains
+    and checked on resume.
     """
-
-    tp = 1
-    ep = 1
 
     def __init__(self, engine, config: Optional[ServingConfig] = None,
                  seed: int = 0):
@@ -322,6 +356,16 @@ class ServingEngine:
         self.device = engine.device
         mcfg = self.model.config
         check_servable(mcfg)
+        # the engine's resolved degrees (a dense model on an expert mesh
+        # serves at ep = 1), as JAX's serving engine reads them
+        self.mesh = engine.mesh
+        self.tp, self.ep = int(engine.tp), int(engine.ep)
+        self.rank = self.mesh.rank
+        self._seam = (DeviceSeam(self.mesh, self.device)
+                      if self.mesh.world_size > 1 else None)
+        self._stopped = False
+        self._stop_pending = False
+        self._stop_lock = threading.Lock()
         if c.block_size < 1 or c.decode_quantum < 1 or c.max_seqs < 1:
             raise ValueError(f"block_size={c.block_size}, decode_quantum="
                              f"{c.decode_quantum}, max_seqs={c.max_seqs}: "
@@ -390,11 +434,18 @@ class ServingEngine:
             prefix_cache=self._prefix_cache)
         self._proposer = (make_proposer(c.spec_proposer, c.spec_ngram)
                           if c.spec_tokens > 0 else None)
-        # int8 pools carry k_scale / v_scale beside k / v
-        self.pools = self.model.init_paged_cache(
-            num_blocks, c.block_size, dtype=engine.dtype, device=self.device)
-        self.pool_bytes = pool_bytes(mcfg, num_blocks, c.block_size,
-                                     dtype=engine.dtype)
+        # int8 pools carry k_scale / v_scale beside k / v; a rank's pools
+        # hold its kv_heads / tp heads
+        with parallel_context(self.mesh):
+            self.pools = self.model.init_paged_cache(
+                num_blocks, c.block_size, dtype=engine.dtype,
+                device=self.device)
+        self._pool_specs = spec_tree(paged_cache_logical_axes(mcfg))
+        # per rank (what this rank holds) and the whole pool: the memory
+        # law is pool_bytes * tp == pool_bytes_logical
+        self.pool_bytes = sharded_bytes(self.pools)
+        self.pool_bytes_logical = pool_bytes(mcfg, num_blocks, c.block_size,
+                                             dtype=engine.dtype)
         # the adapter slot pool: host refcount / LRU accounting, host
         # tables of every registered adapter, and the device pool that
         # page-ins write in place (allocated once: fixed addresses)
@@ -405,10 +456,11 @@ class ServingEngine:
             self.adapter_slots = AdapterSlotPool(c.adapter_slots)
             self.adapter_pool = init_adapter_pool(
                 mcfg, c.adapter_slots, c.lora_rank, c.lora_targets,
-                dtype=engine.dtype, device=self.device)
-            self.pool_bytes += sum(t.numel() * t.element_size()
-                                   for ab in self.adapter_pool.values()
-                                   for t in ab.values())
+                dtype=engine.dtype, device=self.device, mesh=self.mesh)
+            self.pool_bytes += sharded_bytes(self.adapter_pool)
+            self.pool_bytes_logical += adapter_pool_bytes(
+                mcfg, c.adapter_slots, c.lora_rank, c.lora_targets,
+                engine.dtype)
         self._tokens = torch.zeros((c.max_seqs,), dtype=torch.long,
                                    device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -453,6 +505,114 @@ class ServingEngine:
         rb_events.emit("decode_backend_selected", **bench)
         return bench["backend"], bench
 
+    # ---- the seam: every device call, on every rank -------------------
+
+    def _call(self, op: int, ints=(), tensors=()):
+        """Make one device call: on a mesh, rank 0 first broadcasts it
+        (``inference/seam``) so every rank makes it on its shards."""
+        if self._seam is None:
+            return self._OPS[op](self, list(ints), list(tensors))
+        if self.rank != 0:
+            raise RuntimeError("only rank 0 drives a sharded serving "
+                               "engine; the other ranks run_worker()")
+        if self._stop_pending:
+            # close() gave up on this round: stop the other ranks here,
+            # between two calls, instead of making this one
+            self._send_stop()
+            raise RuntimeError("the serving engine is closed")
+        self._seam.send(op, ints, tensors)
+        with parallel_context(self.mesh):
+            return self._OPS[op](self, list(ints), list(tensors))
+
+    def _send_stop(self) -> None:
+        """Send the other ranks the stop, once: their ``run_worker``
+        returns."""
+        with self._stop_lock:
+            if self._seam is not None and self.rank == 0 \
+                    and not self._stopped:
+                self._stopped = True
+                self._seam.send(_STOP)
+
+    def run_worker(self) -> None:
+        """A rank > 0's part of a sharded engine: replay rank 0's device
+        calls on this rank's shards until rank 0's ``close()``."""
+        if self._seam is None or self.rank == 0:
+            raise RuntimeError("run_worker() is for the ranks > 0 of a "
+                               "sharded serving engine")
+        while True:
+            op, ints, tensors = self._seam.recv()
+            if op == _STOP:
+                self._stopped = True
+                return
+            with parallel_context(self.mesh):
+                self._OPS[op](self, ints, tensors)
+
+    def _op_prefill(self, ints, t):
+        ids, block_ids = t
+        return self.model.prefill_paged(self.engine.params, ids, self.pools,
+                                        block_ids, length=ints[0])
+
+    def _op_span(self, ints, t):
+        tokens, tables, lens, active, n_rows, aidx = t
+        return self.model.decode_span_paged(
+            self.engine.params, tokens, self.pools, tables, lens,
+            active=active, n_rows=n_rows, lora=self._lora_args(aidx))
+
+    def _op_decode(self, ints, t):
+        tokens, tables, lens, active, aidx = t
+        return self.model.decode_step_paged(
+            self.engine.params, tokens, self.pools, tables, lens,
+            active=active, lora=self._lora_args(aidx))
+
+    def _op_fork(self, ints, t):
+        src, dst = ints
+        for pool in self.pools.values():
+            pool[:, dst] = pool[:, src]
+
+    def _op_adapter(self, ints, t):
+        """Page one adapter's tables (whole, f32, in target order) into
+        slot ``ints[0]``: this rank's slice, in place."""
+        at = torch.tensor([ints[0]], dtype=torch.long, device=self.device)
+        targets = self.config.lora_targets
+        tabs = {proj: {"a": t[2 * i], "b": t[2 * i + 1]}
+                for i, proj in enumerate(targets)}
+        for proj, ab in shard_tables(tabs, targets, self.mesh).items():
+            for name, src in ab.items():
+                dst = self.adapter_pool[proj][name]
+                dst.index_copy_(1, at, src.to(dst.dtype)[:, None])
+
+    def _op_kv_import(self, ints, t):
+        """Scatter a payload's leaves (all kv heads, in pool order) into
+        blocks ``t[0]``: this rank's heads."""
+        ids = t[0]
+        for (name, pool), leaf in zip(self.pools.items(), t[1:]):
+            part = shard_leaf(leaf, self._pool_specs[name], self.mesh, name)
+            pool.index_copy_(1, ids, part)
+
+    def _op_kv_export(self, ints, t):
+        """Blocks ``t[0]`` of every pool with all kv heads: this rank's
+        heads in a zero-filled buffer at its offset, summed over the
+        tensor axis as raw bytes (one non-zero term a byte: exact)."""
+        ids = t[0]
+        out = {}
+        for name, pool in self.pools.items():
+            part = pool.index_select(1, ids)
+            if self.tp > 1:
+                n = part.shape[2]
+                shape = list(part.shape)
+                shape[2] *= self.tp
+                full = part.new_zeros(shape)
+                i = self.mesh.index("tensor")
+                full[:, :, i * n:(i + 1) * n] = part
+                all_reduce(full.view(torch.uint8), "tensor")
+                part = full
+            out[name] = part
+        return out
+
+    _OPS = {_PREFILL: _op_prefill, _SPAN: _op_span, _DECODE: _op_decode,
+            _FORK: _op_fork, _ADAPTER: _op_adapter,
+            _KV_IMPORT: _op_kv_import, _KV_EXPORT: _op_kv_export}
+
     # ---- device programs ---------------------------------------------
 
     def _pad_prompt(self, n: int) -> int:
@@ -485,9 +645,9 @@ class ServingEngine:
         buf[0, :ctx.size] = ctx
         nblk = P // self.config.block_size
         block_ids = torch.as_tensor(req.block_ids[:nblk], dtype=torch.long)
-        last = self.model.prefill_paged(
-            self.engine.params, torch.from_numpy(buf).to(self.device),
-            self.pools, block_ids.to(self.device), length=ctx.size)
+        last = self._call(_PREFILL, (ctx.size,),
+                          (torch.from_numpy(buf).to(self.device),
+                           block_ids.to(self.device)))
         self._dispatches["prefills"] += 1
         req.cached_rows = ctx.size
         self._publish_prefill(req, ctx)
@@ -508,12 +668,11 @@ class ServingEngine:
         dev = self.device
         aidx = torch.tensor([req.adapter_slot or 0], dtype=torch.long,
                             device=dev)
-        logits = self.model.decode_span_paged(
-            self.engine.params, torch.from_numpy(buf).to(dev), self.pools,
-            torch.from_numpy(tab).to(dev),
+        logits = self._call(_SPAN, (), (
+            torch.from_numpy(buf).to(dev), torch.from_numpy(tab).to(dev),
             torch.tensor([start], dtype=torch.int32, device=dev),
-            n_rows=torch.tensor([n], dtype=torch.int32, device=dev),
-            lora=self._lora_args(aidx))
+            torch.ones((1,), dtype=torch.bool, device=dev),
+            torch.tensor([n], dtype=torch.int32, device=dev), aidx))
         req.cached_rows = start + n
         self._lat["prefill_chunks"] += 1
         self._lat["prefill_chunk_tokens"] += n
@@ -545,8 +704,7 @@ class ServingEngine:
         index, then the match's pin on the shared block is dropped. Runs
         before any of the request's own writes."""
         src, dst = req.cow_src, req.cow_dst
-        for pool in self.pools.values():
-            pool[:, dst] = pool[:, src]
+        self._call(_FORK, (src, dst))
         self.allocator.free([src], owner=req.rid)
         req.cow_src = req.cow_dst = None
         self._lat["cow_forks"] += 1
@@ -582,12 +740,12 @@ class ServingEngine:
         on device). Touches no engine state but the pools."""
         lens = seq_lens
         step = active.to(torch.int32)
-        lora = self._lora_args(aidx)
+        if self._seam is not None:
+            aidx = _slots_or_null(aidx, seq_lens)
         outs = []
         for _ in range(self.config.decode_quantum):
-            logits = self.model.decode_step_paged(
-                self.engine.params, tokens, self.pools, tables, lens,
-                active=active, lora=lora)
+            logits = self._call(_DECODE, (),
+                                (tokens, tables, lens, active, aidx))
             tokens = torch.where(active, self._sample(logits), tokens)
             lens = lens + step
             outs.append(tokens)
@@ -601,9 +759,11 @@ class ServingEngine:
         Rows written for rejected proposals stay behind the cursor until
         overwritten. Returns (argmax [S, K+1], accepted [S], pending [S],
         new lengths [S])."""
-        logits = self.model.decode_span_paged(
-            self.engine.params, tok_mat, self.pools, tables, seq_lens,
-            active=active, lora=self._lora_args(aidx))
+        n_rows = torch.full_like(seq_lens, tok_mat.shape[1])
+        if self._seam is not None:
+            aidx = _slots_or_null(aidx, seq_lens)
+        logits = self._call(_SPAN, (), (tok_mat, tables, seq_lens, active,
+                                        n_rows, aidx))
         nxt = torch.argmax(logits, dim=-1)
         acc = greedy_accept_len(nxt, tok_mat[:, 1:])
         pend = nxt.gather(1, acc[:, None])[:, 0]
@@ -658,13 +818,10 @@ class ServingEngine:
             return False
         req.adapter_slot = slot
         if page_in:
-            at = torch.tensor([slot], dtype=torch.long, device=self.device)
             tabs = self.adapter_store.table_for_slot(req.adapter_id)
-            for proj, ab in tabs.items():
-                for name, host in ab.items():
-                    dst = self.adapter_pool[proj][name]
-                    src = torch.from_numpy(host).to(self.device, dst.dtype)
-                    dst.index_copy_(1, at, src[:, None])
+            self._call(_ADAPTER, (slot,), [
+                torch.from_numpy(tabs[proj][name]).to(self.device)
+                for proj in self.config.lora_targets for name in ("a", "b")])
         return True
 
     def _release_adapter(self, req: Request) -> None:
@@ -873,6 +1030,9 @@ class ServingEngine:
                 box["result"] = fn()
             except BaseException as e:  # noqa: BLE001 — relayed below
                 box["error"] = e
+            finally:
+                if self._stop_pending:      # close() gave up on this round
+                    self._send_stop()
 
         t = threading.Thread(target=run, daemon=True, name="serving-round")
         self._round_thread = t
@@ -1036,8 +1196,15 @@ class ServingEngine:
         """Stop admission (``add_request`` then sheds as ``draining``) and
         join the latest watchdog round thread, bounded by ``timeout``
         (default ``dispatch_timeout_s``, else 5 s). Returns False when that
-        thread outlived the budget."""
+        thread outlived the budget. On a mesh, rank 0 then sends the
+        other ranks the stop (once): their ``run_worker`` returns. A round
+        thread that outlived the budget sends it as soon as its current
+        device call returns, and makes no further call."""
         self._draining = True
+        # a round thread that outlives the budget sends the stop itself
+        # when its current device call returns (the seam carries one
+        # call at a time: a stop sent from here could cut into it)
+        self._stop_pending = True
         if timeout is None:
             timeout = self.config.dispatch_timeout_s or 5.0
         t = self._round_thread
@@ -1046,6 +1213,7 @@ class ServingEngine:
             if t.is_alive():
                 return False
         self._round_thread = None
+        self._send_stop()
         return True
 
     # ---- drain, resume, migration and the KV handoff -----------------
@@ -1058,13 +1226,17 @@ class ServingEngine:
         self._preemption = handler
         self._drain_dir = save_dir
 
+    @property
+    def mesh_desc(self) -> str:
+        """JAX's mesh label: "tensor=2", "expert=4", "single"."""
+        return self.mesh.describe()
+
     def _check_geometry(self, eng: Optional[Dict[str, Any]],
                         source: Optional[str] = None) -> None:
         """Refuse restoring work drained at another tensor / expert
         parallel degree: a different degree regroups the out-projection
         sums, so the continuation would not be the drained engine's own.
-        The port serves at tp = ep = 1; records without the fields (older
-        drains) pass."""
+        Records without the fields (drains that predate them) pass."""
         if eng is None:
             return
         want_tp, want_ep = eng.get("tp"), eng.get("ep")
@@ -1082,7 +1254,7 @@ class ServingEngine:
         with JAX's names and dtype names."""
         k = self.pools["k"]
         return {"num_layers": int(k.shape[0]),
-                "kv_heads": int(k.shape[2]),
+                "kv_heads": int(k.shape[2]) * self.tp,
                 "head_dim": int(k.shape[4]),
                 "block_size": int(self.config.block_size),
                 "kv_bits": int(self.model.config.kv_cache_bits or 0),
@@ -1100,7 +1272,9 @@ class ServingEngine:
         without pool rows (waiting, unknown) are skipped: the caller's
         fallback is the re-prefill migration. The bytes count as staging
         (``stats()``) until ``release_requests`` hands the request
-        away."""
+        away. At tp > 1 a payload carries all kv heads, as JAX's: each
+        rank's heads are summed into place on every rank (a collective
+        call), and rank 0 copies the whole to the host."""
         bs = self.config.block_size
         out: Dict[int, Dict[str, Any]] = {}
         for rid in request_ids:
@@ -1112,8 +1286,8 @@ class ServingEngine:
             n = blocks_for(rows, bs)
             ids = torch.as_tensor(req.block_ids[:n], dtype=torch.long,
                                   device=self.device)
-            data = {name: _host_leaf(pool.index_select(1, ids))
-                    for name, pool in self.pools.items()}
+            data = {name: _host_leaf(leaf) for name, leaf in
+                    self._call(_KV_EXPORT, (), (ids,)).items()}
             payload = {"schema": KV_PAYLOAD_SCHEMA, "rows": rows,
                        "blocks": n, "geometry": self._kv_geometry(),
                        "data": data, "crc": kv_payload_crc(data)}
@@ -1164,7 +1338,9 @@ class ServingEngine:
                    f"{self.config.block_size} (table width {self.MB})")
         for name, pool in self.pools.items():
             leaf = data[name]
-            want = (pool.shape[0], n) + tuple(pool.shape[2:])
+            # the payload's kv heads are all of them: tp times this rank's
+            want = (pool.shape[0], n, pool.shape[2] * self.tp) \
+                + tuple(pool.shape[3:])
             shape = tuple(getattr(leaf, "shape", ()))
             width = getattr(getattr(leaf, "dtype", None), "itemsize", None)
             if shape != want or width != pool.element_size():
@@ -1204,9 +1380,9 @@ class ServingEngine:
         n = int(payload["blocks"])
         ids = torch.as_tensor(req.block_ids[:n], dtype=torch.long,
                               device=self.device)
-        for name, arr in payload["data"].items():
-            pool = self.pools[name]
-            pool.index_copy_(1, ids, _device_leaf(arr, pool))
+        self._call(_KV_IMPORT, (), [ids] + [
+            _device_leaf(payload["data"][name], pool)
+            for name, pool in self.pools.items()])
         nbytes = self._kv_staging.pop(req.rid, 0)
         self._counters["handoffs"] += 1
         self._counters["handoff_bytes"] += nbytes
@@ -1482,6 +1658,9 @@ class ServingEngine:
             "completed": float(len(self._finished)),
             "preemptions": float(sum(r.preemptions for r in self._finished)),
             "pool_bytes": float(self.pool_bytes + staging),
+            "pool_bytes_logical": float(self.pool_bytes_logical),
+            "tp": float(self.tp),
+            "ep": float(self.ep),
             "kv_staging_bytes": float(staging),
             "adapter_hits": float(slots.hits if slots else 0),
             "adapter_page_ins": float(slots.page_ins if slots else 0),
@@ -1523,7 +1702,7 @@ class ServingEngine:
 
 def init_serving(model, config=None, serving: Optional[dict] = None,
                  params=None, device=None, dtype=None, seed: int = 0,
-                 **kwargs) -> ServingEngine:
+                 mesh=None, **kwargs) -> ServingEngine:
     """One-call constructor: ``init_inference`` + ``ServingEngine``.
     ``serving`` takes ServingConfig field names. The engine's context
     budget ``max_tokens``, which sets the int8 KV default, defaults to
@@ -1531,7 +1710,9 @@ def init_serving(model, config=None, serving: Optional[dict] = None,
     else 2048, clamped to ``max_seq_len``), as JAX's; an explicit setting
     (a config dict entry, a keyword, an InferenceConfig) wins. Runs on
     the card: ``device=None`` means "cuda" and raises when CUDA is
-    missing."""
+    missing. ``mesh``: as ``init_inference``'s; on a mesh of more than one
+    rank every rank calls this, rank 0 drives the engine and the others
+    ``run_worker()``."""
     sc = serving_config(serving)
     model_cap = getattr(getattr(model, "config", None), "max_seq_len", None)
     max_len = sc.max_model_len or model_cap or 2048
@@ -1542,5 +1723,5 @@ def init_serving(model, config=None, serving: Optional[dict] = None,
         config = dict(config or {})
         config.setdefault("max_tokens", max_len)
     eng = init_inference(model, config=config, dtype=dtype, params=params,
-                         device=device, seed=seed, **kwargs)
+                         device=device, seed=seed, mesh=mesh, **kwargs)
     return ServingEngine(eng, sc, seed=seed)

@@ -7,7 +7,13 @@ transposes. Both layouts that ``init_inference`` can produce are accepted:
 unfused (wq/wk/wv, w_in/w_gate) and fused by ``fuse_layer_stack``
 (wqkv = concat(wq, wk, wv), w_in_gate = concat(w_in, w_gate)), and so are
 the int8 stacks of ``quantize_layer_stack``: a {"q", "scale"} leaf keeps
-its int8 payload and its f32 scales.
+its int8 payload and its f32 scales. MoE trees carry the gate ``wg``, the
+expert stacks ``moe_w_in`` / ``moe_w_out`` / ``moe_w_gate`` and PR-MoE's
+``moe_coef``.
+
+With a ``mesh`` (tensor / expert parallel serving) each leaf is cut to
+this rank's slice by JAX's sharding rules before it is copied, so a rank
+moves only its shard to the device.
 """
 
 from typing import Any, Dict
@@ -15,15 +21,23 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.models.transformer import TransformerConfig
+from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                    logical_axes,
+                                                    quantize_leaf,
+                                                    quantized_logical_axes)
+from deepspeed_tpu_torch.parallel.partitioning import own_shard, spec_tree
 
 _TOP = {"tok_embed", "layers", "final_norm_scale", "final_norm_bias",
         "lm_head"}
 _LAYER = {"ln1_scale", "ln2_scale", "ln1_bias", "ln2_bias", "wq", "wk", "wv",
-          "wqkv", "wo", "w_in", "w_gate", "w_in_gate", "w_out"}
+          "wqkv", "wo", "w_in", "w_gate", "w_in_gate", "w_out", "wg",
+          "moe_w_in", "moe_w_out", "moe_w_gate", "moe_coef"}
 
 
-def _leaf(a, device, dtype) -> torch.Tensor:
+def _leaf(a, device, dtype, spec=None, mesh=None, what="leaf"
+          ) -> torch.Tensor:
+    if spec is not None:
+        a = own_shard(a, spec, mesh, what)
     if isinstance(a, torch.Tensor):
         t = a
     else:
@@ -37,41 +51,91 @@ def _leaf(a, device, dtype) -> torch.Tensor:
     return t.to(device).contiguous()
 
 
-def _layer_leaf(a, device, dtype):
+def _layer_leaf(a, device, dtype, spec=None, mesh=None, what="leaf",
+                quantize=False):
     """A layer-stack leaf: an array, or an int8 {"q", "scale"} leaf (the
-    scales stay f32, as ``quantize_layer_stack`` makes them)."""
+    scales stay f32, as ``quantize_layer_stack`` makes them). ``quantize``:
+    a float leaf that ``quantize_leaf`` turns int8 is quantized on the
+    device one layer at a time and then sliced (a row-parallel leaf's
+    scales are maxima over all its rows, an expert stack's over all its
+    experts, so the slice is cut after the scales are taken)."""
+    if quantize and not isinstance(a, dict) and np.ndim(a) >= 3:
+        layers = [quantize_leaf(_leaf(a[i:i + 1], device, dtype))
+                  for i in range(_lead(a))]
+        if isinstance(layers[0], dict):
+            spec = spec or {"q": None, "scale": None}
+            return {k: torch.cat([w[k] if mesh is None else
+                                  own_shard(w[k], spec[k], mesh, what)
+                                  for w in layers])
+                    for k in ("q", "scale")}
     if isinstance(a, dict):
         if set(a) != {"q", "scale"}:
             raise ValueError(f"a quantized leaf has keys {sorted(a)}: "
                              "expected q and scale")
-        return {"q": _leaf(a["q"], device, dtype),
-                "scale": _leaf(a["scale"], device, torch.float32)}
-    return _leaf(a, device, dtype)
+        spec = spec or {"q": None, "scale": None}
+        return {"q": _leaf(a["q"], device, dtype, spec["q"], mesh, what),
+                "scale": _leaf(a["scale"], device, torch.float32,
+                               spec["scale"], mesh, what + "/scale")}
+    return _leaf(a, device, dtype, spec, mesh, what)
 
 
 def _lead(a) -> int:
     return np.shape(a["q"] if isinstance(a, dict) else a)[0]
 
 
+def param_specs(tree: Dict[str, Any], cfg: TransformerConfig,
+                quantized: bool = False):
+    """The mesh spec of every leaf of an unfused (possibly int8) param
+    tree under JAX's serving rules (``parallel/partitioning.RULES``)."""
+    layers = tree["layers"]
+    fused = {"wqkv", "w_in_gate"} & set(layers)
+    if fused:
+        raise ValueError(f"fused leaves {sorted(fused)} cannot be sharded "
+                         "(the concat dim would interleave head shards): "
+                         "unfuse_layer_stack first")
+    quantized = quantized or any(isinstance(v, dict)
+                                 for v in layers.values())
+    axes = quantized_logical_axes(cfg) if quantized else logical_axes(cfg)
+    specs = spec_tree(axes)
+    missing = ({k for k in tree if k != "layers"} - set(specs)) | (
+        set(layers) - set(specs["layers"]))
+    if missing:
+        raise ValueError(f"leaves {sorted(missing)} have no sharding rule "
+                         "for this config")
+    return specs
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
-                      device, dtype: torch.dtype) -> Dict[str, Any]:
+                      device, dtype: torch.dtype, mesh=None,
+                      quantize: bool = False) -> Dict[str, Any]:
     """JAX params (numpy arrays, or anything ``np.asarray`` takes) -> the
-    port's params on ``device``, float leaves cast to ``dtype``."""
+    port's params on ``device``, float leaves cast to ``dtype``. With a
+    ``mesh`` of more than one rank, each leaf is this rank's slice
+    (``param_specs``), cut before the copy. ``quantize``: the float
+    layer stacks arrive int8 (``quantize_leaf``, after the cast, one
+    layer at a time on the device)."""
     unknown = (set(tree) - _TOP) | (set(tree.get("layers", {})) - _LAYER)
     if unknown:
         raise NotImplementedError(
             f"parameters {sorted(unknown)} belong to a model family this "
-            "slice does not serve (MoE, learned positions, projection "
-            "biases): see ROADMAP A9 / A11")
+            "slice does not serve (learned positions, projection biases): "
+            "see ROADMAP A11")
     layers = tree["layers"]
     L = cfg.num_layers
     for name, a in layers.items():
         if _lead(a) != L:
             raise ValueError(f"layers/{name} has leading dim {_lead(a)}, "
                              f"config has {L} layers")
-    out = {k: _leaf(v, device, dtype) for k, v in tree.items()
-           if k != "layers"}
-    out["layers"] = {k: _layer_leaf(v, device, dtype)
+    if mesh is None or mesh.world_size == 1:
+        specs = {"layers": {}}
+        mesh = None
+    else:
+        specs = param_specs(tree, cfg, quantized=quantize)
+    out = {k: _leaf(v, device, dtype, specs.get(k), mesh, k)
+           for k, v in tree.items() if k != "layers"}
+    out["layers"] = {k: _layer_leaf(v, device, dtype,
+                                    specs["layers"].get(k), mesh,
+                                    "layers/" + k, quantize)
                      for k, v in layers.items()}
     return out
 

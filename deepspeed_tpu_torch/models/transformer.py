@@ -57,8 +57,27 @@ embeddings stay float) are either dequantized one layer at a time
 cast to the compute dtype with the scale on the result rows
 (``ops/quantizer.weight_matmul``).
 
+MoE (``num_experts > 1``, ``mixtral_config``): the layer's FFN is the
+expert FFN of ``moe/sharded_moe.moe_ffn`` (top-k gating with capacity,
+and with ``use_residual`` JAX's PR-MoE mix with a dense MLP); the serving
+forward only: training a MoE model raises (ROADMAP A9).
+
+Sharding (tensor / expert parallel serving): each rank holds the slice of
+every leaf that JAX's rules give its device (``logical_axes``,
+``parallel/partitioning``), and the model calls ``torch.distributed``
+where GSPMD would insert a collective, reading the ambient mesh
+(``parallel/context``): an ``all_reduce`` over ``tensor`` after the
+row-parallel ``wo`` (with the LoRA ``o`` delta's partial sums in the same
+reduction) and ``w_out``, the vocab-parallel embedding (a masked local
+lookup, then an ``all_reduce``), vocab-sharded logits assembled by an
+``all_reduce`` of a zero-filled full-vocab buffer, and the MoE combine
+(over ``tensor`` and ``expert``). A rank's head counts are its shard's
+(the projections' widths); its pools hold ``kv_heads / tp`` heads.
+Without a mesh (or at tp = ep = 1) no collective runs.
+
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions, windows, MoE and dropout.
+ROADMAP item: alibi / learned positions, windows, MoE training and
+dropout.
 """
 
 import dataclasses
@@ -74,6 +93,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.moe.sharded_moe import moe_ffn
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
@@ -82,6 +102,8 @@ from deepspeed_tpu_torch.ops.quantizer import (int8_matmul, quantize_rows,
                                                weight_matmul)
 from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
+from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
+                                                  axis_size)
 
 Params = Dict[str, Any]
 _NEG = -1e30                    # JAX's mask fill: exp(-1e30 - max) is 0
@@ -128,10 +150,23 @@ class TransformerConfig:
     kv_cache_bits: int = 0
     quantized_weights: bool = False
     weight_only_bits: int = 0
+    # MoE (JAX's names and defaults): top-k gating over num_experts with
+    # per-expert capacity ceil(T / E * factor) >= min_capacity
+    # (eval_capacity_factor when serving), PR-MoE's dense residual mix
+    # (use_residual); the aux loss weight and the gate noise belong to
+    # training (ROADMAP A9)
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    noisy_gate_policy: Optional[str] = None     # None | Jitter | RSample
+    drop_tokens: bool = True
+    use_residual: bool = False
+    moe_aux_loss_weight: float = 0.01
     # outside this slice (must stay at their defaults)
     dropout_rate: float = 0.0
     attn_windows: Optional[Tuple[int, ...]] = None
-    num_experts: int = 1
     sparse_attention: Optional[Dict[str, Any]] = None
 
     def __post_init__(self):
@@ -144,7 +179,6 @@ class TransformerConfig:
         deferred = {
             "attn_windows": (bool(self.attn_windows),
                              "A11 (local-attention windows)"),
-            "num_experts": (self.num_experts > 1, "A9 (MoE)"),
             "position_type": (self.position_type not in ("rotary", "none"),
                               "A11 (learned / alibi positions)"),
             "causal": (not self.causal, "A11 (encoder models)"),
@@ -155,6 +189,12 @@ class TransformerConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"ROADMAP {item}")
+        if self.num_experts > 1 and not 1 <= self.top_k <= self.num_experts:
+            raise ValueError(f"top_k={self.top_k}: between 1 and "
+                             f"num_experts={self.num_experts}")
+        if self.noisy_gate_policy not in (None, "Jitter", "RSample"):
+            raise ValueError(f"noisy_gate_policy={self.noisy_gate_policy!r}"
+                             ": None, Jitter or RSample")
         if self.remat_policy not in REMAT_POLICIES + (None,):
             raise ValueError(f"remat_policy {self.remat_policy!r}: one of "
                              f"{REMAT_POLICIES}")
@@ -202,57 +242,184 @@ def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
+def mixtral_config(size: str = "8x7b", **overrides) -> TransformerConfig:
+    """Mixtral-style MoE (top-2 of 8 experts), JAX's ``mixtral_config``."""
+    dims = {
+        "tiny": dict(hidden_size=256, num_layers=4, num_heads=4, num_kv_heads=2,
+                     intermediate_size=512, vocab_size=32000, max_seq_len=2048,
+                     num_experts=4),
+        "8x7b": dict(hidden_size=4096, num_layers=32, num_heads=32,
+                     num_kv_heads=8, intermediate_size=14336, vocab_size=32000,
+                     max_seq_len=4096, num_experts=8),
+    }[size]
+    base = dict(position_type="rotary", activation="silu_glu",
+                norm_type="rmsnorm", tie_embeddings=False, top_k=2)
+    base.update(dims)
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def check_trainable(cfg: TransformerConfig) -> None:
+    """The training path's refusal of a MoE model: the aux loss in the
+    objective, the gate noise and the expert backward are not ported."""
+    if cfg.num_experts > 1:
+        raise NotImplementedError(
+            f"training a MoE model (num_experts={cfg.num_experts}) is not "
+            "ported yet: ROADMAP A9 (MoE training: the aux loss, gate "
+            "noise, the expert backward, token splitting under TP); the "
+            "MoE serving forward is ported")
+
+
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                device, dtype: Optional[torch.dtype] = None) -> Params:
+                device, dtype: Optional[torch.dtype] = None,
+                keep: Optional[Callable] = None) -> Params:
     """Seeded on-device init with the JAX init's distribution: normal with
     std 0.02, ``0.02 / sqrt(2L)`` for the residual out-projections (wo,
-    w_out), ones for norm scales. The numbers differ from JAX's (another
-    generator); parity tests move a JAX tree over with
-    ``convert.params_from_numpy`` instead."""
+    w_out, moe_w_out), ones for norm scales, zeros for PR-MoE's
+    ``moe_coef``. The numbers differ from JAX's (another generator);
+    parity tests move a JAX tree over with ``convert.params_from_numpy``
+    instead. ``keep(path, tensor)``: applied to each leaf as soon as it
+    is drawn (path "tok_embed", "layers/wq", ...), e.g. to keep a rank's
+    shard only, so the whole tree is never resident at once."""
     H, L = cfg.hidden_size, cfg.num_layers
     nh, nkv, hd, Fd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head, cfg.ffn_dim
+    E = cfg.num_experts
     dt = dtype or cfg.param_dtype
     std = 0.02
     out_scale = std / math.sqrt(2 * L)
+    keep = keep or (lambda path, t: t)
 
     def normal(shape, scale=std):
         t = torch.empty(shape, dtype=dt, device=device)
         return t.normal_(0.0, scale, generator=generator)
 
-    layers = {
-        "ln1_scale": torch.ones((L, H), dtype=dt, device=device),
-        "ln2_scale": torch.ones((L, H), dtype=dt, device=device),
-        "wq": normal((L, H, nh * hd)),
-        "wk": normal((L, H, nkv * hd)),
-        "wv": normal((L, H, nkv * hd)),
-        "wo": normal((L, nh * hd, H), out_scale),
-        "w_in": normal((L, H, Fd)),
-        "w_out": normal((L, Fd, H), out_scale),
-    }
-    if "glu" in cfg.activation:
-        layers["w_gate"] = normal((L, H, Fd))
+    def const(shape, fill):
+        return torch.full(shape, fill, dtype=dt, device=device)
+
+    # drawn in a fixed order: a dense model's is that of earlier slices
+    moe = E > 1
+    dense_mlp = not moe or cfg.use_residual
+    draws = [("ln1_scale", lambda: const((L, H), 1.0)),
+             ("ln2_scale", lambda: const((L, H), 1.0)),
+             ("wq", lambda: normal((L, H, nh * hd))),
+             ("wk", lambda: normal((L, H, nkv * hd))),
+             ("wv", lambda: normal((L, H, nkv * hd))),
+             ("wo", lambda: normal((L, nh * hd, H), out_scale))]
+    if dense_mlp:
+        draws += [("w_in", lambda: normal((L, H, Fd))),
+                  ("w_out", lambda: normal((L, Fd, H), out_scale))]
+    if moe:
+        draws += [("wg", lambda: normal((L, H, E))),
+                  ("moe_w_in", lambda: normal((L, E, H, Fd))),
+                  ("moe_w_out", lambda: normal((L, E, Fd, H), out_scale))]
+        if "glu" in cfg.activation:
+            draws.append(("moe_w_gate", lambda: normal((L, E, H, Fd))))
+        if cfg.use_residual:
+            draws.append(("moe_coef", lambda: const((L, H, 2), 0.0)))
+    if "glu" in cfg.activation and dense_mlp:
+        draws.append(("w_gate", lambda: normal((L, H, Fd))))
     if cfg.norm_type == "layernorm":
-        layers["ln1_bias"] = torch.zeros((L, H), dtype=dt, device=device)
-        layers["ln2_bias"] = torch.zeros((L, H), dtype=dt, device=device)
-    params: Params = {"tok_embed": normal((cfg.vocab_size, H)),
-                      "layers": layers,
-                      "final_norm_scale": torch.ones((H,), dtype=dt,
-                                                     device=device)}
+        draws += [("ln1_bias", lambda: const((L, H), 0.0)),
+                  ("ln2_bias", lambda: const((L, H), 0.0))]
+    layers = {name: keep("layers/" + name, fn()) for name, fn in draws}
+    params: Params = {
+        "tok_embed": keep("tok_embed", normal((cfg.vocab_size, H))),
+        "layers": layers,
+        "final_norm_scale": keep("final_norm_scale", const((H,), 1.0))}
     if cfg.norm_type == "layernorm":
-        params["final_norm_bias"] = torch.zeros((H,), dtype=dt, device=device)
+        params["final_norm_bias"] = keep("final_norm_bias", const((H,), 0.0))
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((H, cfg.vocab_size))
+        params["lm_head"] = keep("lm_head", normal((H, cfg.vocab_size)))
     return params
+
+
+def logical_axes(cfg: TransformerConfig) -> Params:
+    """The logical axes of every leaf of the unfused tree ``init_params``
+    makes, JAX's ``logical_axes`` for the leaves the port has
+    (``parallel/partitioning.RULES`` maps them to mesh axes)."""
+    layers = {
+        "ln1_scale": ("layers", "unmodeled"),
+        "ln2_scale": ("layers", "unmodeled"),
+        "wq": ("layers", "embed", "qkv"),
+        "wk": ("layers", "embed", "qkv"),
+        "wv": ("layers", "embed", "qkv"),
+        "wo": ("layers", "heads", "embed"),
+        "w_in": ("layers", "embed", "mlp"),
+        "w_out": ("layers", "mlp", "embed"),
+    }
+    if cfg.num_experts > 1:
+        layers["wg"] = ("layers", "embed", None)
+        layers["moe_w_in"] = ("layers", "expert", "embed", "mlp")
+        layers["moe_w_out"] = ("layers", "expert", "mlp", "embed")
+        if "glu" in cfg.activation:
+            layers["moe_w_gate"] = ("layers", "expert", "embed", "mlp")
+        if not cfg.use_residual:
+            del layers["w_in"], layers["w_out"]
+        else:
+            layers["moe_coef"] = ("layers", "embed", None)
+    if "glu" in cfg.activation and "w_in" in layers:
+        layers["w_gate"] = ("layers", "embed", "mlp")
+    if cfg.norm_type == "layernorm":
+        layers["ln1_bias"] = ("layers", "unmodeled")
+        layers["ln2_bias"] = ("layers", "unmodeled")
+    axes: Params = {"tok_embed": ("vocab", "embed"), "layers": layers,
+                    "final_norm_scale": ("unmodeled",)}
+    if cfg.norm_type == "layernorm":
+        axes["final_norm_bias"] = ("unmodeled",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def quantized_logical_axes(cfg: TransformerConfig,
+                           base_axes: Optional[Params] = None) -> Params:
+    """``logical_axes`` for the ``quantize_layer_stack`` structure, as
+    JAX's: a >= 3-dim layer leaf becomes {"q": its axes, "scale": (layers,
+    None, ..., its out axis)}, so the scales shard with their out
+    columns."""
+    axes = dict(base_axes if base_axes is not None else logical_axes(cfg))
+
+    def one(a):
+        if a is None or len(a) < 3:
+            return a
+        return {"q": a, "scale": (a[0],) + (None,) * (len(a) - 2) + (a[-1],)}
+    axes["layers"] = {k: one(v) for k, v in axes["layers"].items()}
+    return axes
+
+
+def paged_cache_logical_axes(cfg: Optional[TransformerConfig] = None
+                             ) -> Params:
+    """The block pools shard over kv heads like the weights (JAX's
+    ``paged_cache_logical_axes``); the block dim stays whole (any block
+    serves any sequence)."""
+    out = {"k": ("layers", None, "heads", None, None),
+           "v": ("layers", None, "heads", None, None)}
+    if cfg is not None and cfg.kv_cache_bits == 8:
+        out["k_scale"] = ("layers", None, "heads", None)
+        out["v_scale"] = ("layers", None, "heads", None)
+    return out
+
+
+def _local_kv_heads(cfg: TransformerConfig) -> int:
+    """This rank's kv heads: ``kv_heads / tp`` under the ambient mesh."""
+    tp = axis_size("tensor")
+    if cfg.kv_heads % tp:
+        raise ValueError(f"kv_heads={cfg.kv_heads} does not split over "
+                         f"tensor parallel degree {tp}")
+    return cfg.kv_heads // tp
 
 
 def fuse_layer_stack(params: Params) -> Params:
     """Inference weight fusion, as the JAX ``fuse_layer_stack``: wq/wk/wv
     -> wqkv and w_in/w_gate -> w_in_gate (one GEMM instead of three / two
-    per layer)."""
+    per layer). A MoE stack stays unfused, as in JAX (PR-MoE reads
+    w_in / w_gate in its residual branch)."""
+    if "wg" in params["layers"]:
+        return params
     L = dict(params["layers"])
     if "wq" in L:
         L["wqkv"] = torch.cat([L.pop("wq"), L.pop("wk"), L.pop("wv")], dim=-1)
@@ -278,25 +445,28 @@ def unfuse_layer_stack(params: Params, cfg: TransformerConfig) -> Params:
     return {**params, "layers": L}
 
 
+def quantize_leaf(w):
+    """One layer-stack leaf to int8 plus per-(layer, out-channel) f32
+    scales, JAX's rule: a >= 3-dim leaf ([L, In, Out], the gate [L, H, E],
+    MoE stacks [L, E, In, Out] with one scale per (layer, out column)
+    shared across experts) becomes {"q", "scale"}; norms ([L, H]), int8
+    and already quantized leaves stay as they are."""
+    if isinstance(w, dict) or w.dim() < 3 or w.dtype == torch.int8:
+        return w
+    w32 = w.float()
+    amax = w32.abs().amax(dim=tuple(range(1, w.dim() - 1)), keepdim=True)
+    scale = torch.clamp_min(amax / 127.0, 1e-12)
+    q = torch.clamp(torch.round(w32 / scale), -127, 127)
+    return {"q": q.to(torch.int8).contiguous(), "scale": scale}
+
+
 def quantize_layer_stack(params: Params, bits: int = 8) -> Params:
-    """The stacked layer weights ([L, In, Out]) to int8 plus
-    per-(layer, out-channel) f32 scales [L, 1, Out], as JAX's
-    ``quantize_layer_stack``: leaves become {"q", "scale"}; norm scales
-    ([L, H]) and everything outside the layer stack stay float."""
+    """The stacked layer weights to int8 (``quantize_leaf``), as JAX's
+    ``quantize_layer_stack``: everything outside the layer stack stays
+    float."""
     if bits != 8:
         raise ValueError("weight-only inference quantization supports int8")
-
-    def one(w):
-        if isinstance(w, dict) or w.dim() < 3 or w.dtype == torch.int8:
-            return w
-        w32 = w.float()
-        amax = w32.abs().amax(dim=tuple(range(1, w.dim() - 1)),
-                              keepdim=True)
-        scale = torch.clamp_min(amax / 127.0, 1e-12)
-        q = torch.clamp(torch.round(w32 / scale), -127, 127)
-        return {"q": q.to(torch.int8).contiguous(), "scale": scale}
-
-    return {**params, "layers": {k: one(v)
+    return {**params, "layers": {k: quantize_leaf(v)
                                  for k, v in params["layers"].items()}}
 
 
@@ -365,15 +535,48 @@ def _w(h, w):
     return h @ w.to(h.dtype)
 
 
+def _w_row(h, w, delta=None):
+    """The row-parallel twin of ``_w`` (``wo``, ``w_out``: their IN dim
+    is sharded over ``tensor``): this rank's partial product, summed over
+    the tensor axis by one ``all_reduce``. An int8 leaf's per-out-channel
+    scale multiplies after the sum (it factors out of the contraction, as
+    JAX's ``_wrow`` applies it). ``delta``: the LoRA ``o`` delta's partial
+    sums (its A is sharded on heads too), reduced in the same
+    ``all_reduce`` and added after the projection, as JAX adds it."""
+    scale = None
+    if isinstance(w, dict):
+        w, scale = w["q"], w["scale"]
+    y = h @ w.to(h.dtype)
+    if delta is not None and axis_size("tensor") > 1:
+        n = y.shape[-1]
+        both = all_reduce(torch.cat([y, delta], dim=-1), "tensor")
+        y, delta = both[..., :n], both[..., n:]
+    else:
+        all_reduce(y, "tensor")
+    if scale is not None:
+        y = y * scale.reshape(scale.shape[-1:]).to(h.dtype)
+    return y if delta is None else y + delta
+
+
 def _maybe_dequant(p, cfg: TransformerConfig):
     """One layer's {"q", "scale"} leaves -> the compute dtype, JAX's
     ``_maybe_dequant``: only that layer's dequantized weights are ever
-    live. With ``weight_only_bits=8`` the leaves stay int8 (``_w``
-    multiplies them)."""
-    if not cfg.quantized_weights or cfg.weight_only_bits == 8:
+    live. With ``weight_only_bits=8`` the dense projections stay int8
+    (``_w`` multiplies them) and only the MoE leaves dequantize: the
+    expert stacks, as in JAX (their dispatch has no per-column epilogue),
+    and the gate ``wg``, which JAX leaves int8 where its ``moe_ffn``
+    cannot read it (a defect of the reference: its weight_bits engine
+    fails on a MoE model)."""
+    if not cfg.quantized_weights:
         return p
-    return {k: (v["q"].to(cfg.dtype) * v["scale"].to(cfg.dtype)
-                if isinstance(v, dict) else v) for k, v in p.items()}
+    epilogue = cfg.weight_only_bits == 8
+
+    def one(k, v):
+        if not isinstance(v, dict) or (
+                epilogue and not k.startswith("moe_") and k != "wg"):
+            return v
+        return v["q"].to(cfg.dtype) * v["scale"].to(cfg.dtype)
+    return {k: one(k, v) for k, v in p.items()}
 
 
 def _lora_delta(h, ab, idx):
@@ -651,6 +854,8 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
         k = k + _lora_delta(h, tabs["k"], aidx)
     if "v" in tabs:
         v = v + _lora_delta(h, tabs["v"], aidx)
+    # this rank's heads (all of them without a tensor axis)
+    nh, nkv = q.shape[-1] // hd, k.shape[-1] // hd
     q = q.reshape(B, S, nh, hd)
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
@@ -668,17 +873,40 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                          reference=reference)
         new_kv = (k, v)
     attn_flat = attn.reshape(B, S, nh * hd)
-    attn_out = _w(attn_flat, p["wo"])
-    if "o" in tabs:
-        attn_out = attn_out + _lora_delta(attn_flat, tabs["o"], aidx)
+    attn_out = _w_row(attn_flat, p["wo"],
+                      delta=(_lora_delta(attn_flat, tabs["o"], aidx)
+                             if "o" in tabs else None))
     x = x + attn_out
     h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
+    if "wg" in p:
+        return x + _moe_mlp(h, p, cfg), new_kv
+    return x + _mlp(h, p, cfg), new_kv
+
+
+def _mlp(h, p, cfg: TransformerConfig):
+    """The dense MLP: column-parallel up (and gate), row-parallel down."""
     if "w_in_gate" in p:
         up, gate = _w(h, p["w_in_gate"]).chunk(2, dim=-1)
     else:
         up = _w(h, p["w_in"])
         gate = _w(h, p["w_gate"]) if "w_gate" in p else None
-    return x + _w(_activation(up, gate, cfg), p["w_out"]), new_kv
+    return _w_row(_activation(up, gate, cfg), p["w_out"])
+
+
+def _moe_mlp(h, p, cfg: TransformerConfig):
+    """JAX's MoE branch of ``transformer_layer`` (serving: no gate noise,
+    ``eval_capacity_factor``): the expert FFN, and under ``use_residual``
+    (PR-MoE) its mix with the dense MLP by the softmax of ``h @
+    moe_coef``."""
+    moe = {"wg": p["wg"], "w_in": p["moe_w_in"], "w_out": p["moe_w_out"]}
+    if "moe_w_gate" in p:
+        moe["w_gate"] = p["moe_w_gate"]
+    out, _ = moe_ffn(moe, h, cfg, train=False)
+    if "w_in" not in p:
+        return out
+    coef = torch.softmax((h @ p["moe_coef"].to(h.dtype)).float(), dim=-1)
+    return (_mlp(h, p, cfg) * coef[..., 0:1].to(h.dtype)
+            + out * coef[..., 1:2].to(h.dtype))
 
 
 def _layers(params: Params) -> List[Params]:
@@ -704,8 +932,40 @@ def _head(params):
 
 
 def lm_head_logits(x, params):
-    """Final projection to f32 vocab logits, the head cast to x's dtype."""
-    return _w(x, _head(params)).float()
+    """Final projection to f32 vocab logits, the head cast to x's dtype.
+    Under a tensor axis the head holds this rank's vocab columns: the
+    local logits go into a zero-filled full-vocab buffer at the rank's
+    offset, and an ``all_reduce`` assembles the whole row on every rank
+    (one non-zero term an entry: exact)."""
+    local = _w(x, _head(params)).float()
+    tp = axis_size("tensor")
+    if tp == 1:
+        return local
+    Vl = local.shape[-1]
+    full = local.new_zeros(local.shape[:-1] + (Vl * tp,))
+    i = axis_index("tensor")
+    full[..., i * Vl:(i + 1) * Vl] = local
+    return all_reduce(full, "tensor")
+
+
+def _embed(params, ids, cfg: TransformerConfig):
+    """Token embeddings in the compute dtype. F.embedding, not an index:
+    its backward sums a token's rows in a fixed order on the CPU and the
+    card, where the index's backward (an accumulating index_put) adds f32
+    rows atomically in parallel on the CPU, so two runs of one step could
+    differ in the last bit. Vocab-parallel under a tensor axis: each rank
+    looks up the ids in its rows (zeros elsewhere) and an ``all_reduce``
+    sums the one non-zero row of each token (exact)."""
+    table = params["tok_embed"]
+    tp = axis_size("tensor")
+    if tp == 1:
+        return F.embedding(ids.long(), table).to(cfg.dtype)
+    Vl = table.shape[0]
+    local = ids.long() - axis_index("tensor") * Vl
+    mine = (local >= 0) & (local < Vl)
+    x = F.embedding(torch.where(mine, local, torch.zeros_like(local)), table)
+    x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    return all_reduce(x, "tensor").to(cfg.dtype)
 
 
 def forward(params: Params, input_ids, cfg: TransformerConfig, *,
@@ -824,11 +1084,7 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     writes them straight into the pool); ``keep_kv`` returns them. With
     gradients on, each layer runs under the config's remat policy."""
     B, S = input_ids.shape
-    # F.embedding, not an index: its backward sums a token's rows in a
-    # fixed order on the CPU and the card, where the index's backward
-    # (an accumulating index_put) adds f32 rows atomically in parallel on
-    # the CPU, so two runs of one step could differ in the last bit
-    x = F.embedding(input_ids.long(), params["tok_embed"]).to(cfg.dtype)
+    x = _embed(params, input_ids, cfg)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
@@ -911,7 +1167,9 @@ def lm_loss(params: Params, batch, cfg: TransformerConfig,
             reference: bool = False):
     """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
     input_ids [B, S]; optional labels (default: the ids shifted left, -100
-    at the end) and attention_mask [B, S] (a key mask in attention)."""
+    at the end) and attention_mask [B, S] (a key mask in attention). A
+    MoE model raises (``check_trainable``)."""
+    check_trainable(cfg)
     ids = batch["input_ids"]
     labels = batch.get("labels")
     if labels is None:
@@ -940,9 +1198,10 @@ def init_paged_cache(cfg: TransformerConfig, num_blocks: int,
     reserved TRASH block: null table entries point at it and inactive slots
     write into it; its contents are never read (masked by the lengths).
     ``kv_cache_bits=8``: int8 pools plus f32 ``k_scale`` / ``v_scale``
-    [L, NB, n_kv, block_size] (one scale a row). ``device=None`` means the
-    card (raises without CUDA), as every entry point of the port."""
-    shape = (cfg.num_layers, num_blocks, cfg.kv_heads, block_size,
+    [L, NB, n_kv, block_size] (one scale a row). Under a tensor axis n_kv
+    is this rank's ``kv_heads / tp``. ``device=None`` means the card
+    (raises without CUDA), as every entry point of the port."""
+    shape = (cfg.num_layers, num_blocks, _local_kv_heads(cfg), block_size,
              cfg.dim_per_head)
     device = resolve_device(device)
     if cfg.kv_cache_bits == 8:
@@ -1004,7 +1263,7 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
 
 
 def _embed_rows(params, tokens, cfg):
-    return params["tok_embed"][tokens.long()].to(cfg.dtype)
+    return _embed(params, tokens, cfg)
 
 
 def _final_logits(x, params, cfg):
@@ -1148,7 +1407,7 @@ def init_cache(cfg: TransformerConfig, batch_size: int, max_len: int,
     cursor ``index`` (a host int: every row of the batch sits at the same
     position). ``kv_cache_bits=8``: int8 buffers plus f32 ``k_scale`` /
     ``v_scale`` [L, B, n_kv, max_len]. ``device=None`` means the card."""
-    shape = (cfg.num_layers, batch_size, cfg.kv_heads, max_len,
+    shape = (cfg.num_layers, batch_size, _local_kv_heads(cfg), max_len,
              cfg.dim_per_head)
     device = resolve_device(device)
     if cfg.kv_cache_bits == 8:
@@ -1248,7 +1507,7 @@ def init_suffix(cfg: TransformerConfig, batch_size: int, seg_len: int,
     written-row ``count``, on the cache's device: in a float cache's dtype
     (the merge is a plain write), in the compute dtype for an int8 cache
     (the merge quantizes)."""
-    shape = (cfg.num_layers, batch_size, cfg.kv_heads, seg_len,
+    shape = (cfg.num_layers, batch_size, _local_kv_heads(cfg), seg_len,
              cfg.dim_per_head)
     dtype = cfg.dtype
     if cache is not None:
@@ -1343,8 +1602,8 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
     return ModelSpec(
         config=cfg,
         name=name,
-        init=lambda generator, device, dtype=None:
-            init_params(cfg, generator, device, dtype=dtype),
+        init=lambda generator, device, dtype=None, keep=None:
+            init_params(cfg, generator, device, dtype=dtype, keep=keep),
         loss_fn=lambda params, batch: lm_loss(params, batch, cfg),
         apply=lambda params, input_ids, **kw:
             forward(params, input_ids, cfg, **kw),

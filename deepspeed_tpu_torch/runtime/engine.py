@@ -54,6 +54,7 @@ from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                    check_trainable,
                                                     make_model)
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
                                                 global_grad_norm, tree_leaves,
@@ -129,6 +130,8 @@ class Engine:
                 logger.warning("`transformer` config section ignored: model "
                                "is not a transformer ModelSpec")
         self.model = model
+        if isinstance(getattr(model, "config", None), TransformerConfig):
+            check_trainable(model.config)
 
         self.compute_dtype = config.compute_dtype
         use_master = self.compute_dtype != torch.float32

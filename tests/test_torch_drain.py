@@ -448,12 +448,14 @@ def test_drain_state_is_jax_schema(params, tmp_path):
 
 
 def test_deferred_features_still_raise(params):
-    """Tensor / expert parallel serving stays A6h; request tracing, round
+    """Tensor / expert parallel serving is served since A6h, on the ranks
+    of a process group (none here: refused before anything is built; a
+    dense model refuses an expert degree); request tracing, round
     recovery and fleet roles stay A7."""
     pm = pt.make_model(pt.TransformerConfig(**CFG, dtype=torch.float32))
-    for config, item in (({"tensor_parallel": 2}, "A6h"),
-                         ({"expert_parallel": 2}, "A6h")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    for config, why in (({"tensor_parallel": 2}, "process group"),
+                        ({"expert_parallel": 2}, "MoE")):
+        with pytest.raises(ValueError, match=why):
             deepspeed_tpu_torch.init_serving(
                 pm, config=config, serving=SERVING, dtype=torch.float32,
                 device="cpu")

@@ -222,12 +222,16 @@ def test_paged_cache_on_the_cpu_when_asked():
 
 
 def test_deferred_model_features_raise():
-    for bad in (dict(num_experts=4),
-                dict(position_type="alibi"), dict(attn_windows=(0, 8))):
+    for bad in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             pt.TransformerConfig(**{**CFG, **bad})
+    # a MoE model serves; training one raises, naming A9
+    moe = pt.TransformerConfig(**{**CFG, "num_experts": 4})
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        pt.lm_loss({}, {"input_ids": torch.zeros((1, 4), dtype=torch.long)},
+                   moe)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert.params_from_numpy({"tok_embed": np.zeros((4, 4)),
-                                   "layers": {"wg": np.zeros((2, 4, 4))}},
+                                   "layers": {"bq": np.zeros((2, 4))}},
                                   pt.TransformerConfig(**CFG), device="cpu",
                                   dtype=torch.float32)
