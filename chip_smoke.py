@@ -181,6 +181,34 @@ Phases, each of which raises on failure (exit code != 0):
    with the one-card streams (reported), and f32 at 2 layers token for
    token equal to the unsharded engine. Times of (b) and (c) are of two
    processes sharing one card: not a tensor-parallel speed.
+15. after the sparse training cross-check. (a) a block-sparse model
+   served: llama-1b at full width and depth under the BigBird layout
+   (block 128), bf16, float pool, prompt bucket 128: 16 requests of
+   2048-8064 tokens, 32 new tokens each, on 16 slots. B5 = 16 x prefills,
+   B1 = 0 and B4 = 16 x decode steps exactly (counts zeroed just before),
+   the layout's tables built once a bucket; TTFT, ITL and tok/s beside
+   the same load on the same weights dense (B1); then f32 at 2 layers: a
+   prefill and 4 decode steps through the kernels within 2e-2 relative
+   L2 of the plain versions. (b) fp16 training: llama-1b at full width
+   and depth in f16 with the dynamic loss scaler (B=8, S=2048,
+   dots_saveable, AdamW): 1 + 8 steps, the scaler after each step, B1 =
+   2 x 8 x 16 and B2 = B3 = 8 x 16 launches exactly, step ms, tok/s and
+   MFU beside phase 5's bf16 step; the f16 cross-check (2 layers, loss
+   and every grad within 2e-2 of the plain versions); one forced
+   overflow (params, masters and optimizer state bit for bit unchanged,
+   the scale halved). (c) f16 serving: llama-7b width, 4 layers, the
+   serving phase's load on f16 pools (B1 = 4 x prefills, B4 = 4 x decode
+   steps exactly), its agreement with the same weights in bf16. (d) SGD
+   (momentum), Adagrad, Lion and LAMB over llama-1b's leaves at 2 layers:
+   3 updates on the card within 1e-5 of the same updates on CPU copies,
+   update ms beside their bound. (e) dropout 0.1 at llama-1b width, 2
+   layers, B=8, S=2048: the keep fraction within 5 sigma of 0.9, grads
+   under dots_saveable equal to those without remat for one seed, a step
+   beside the same step at rate 0. The kernel phase holds B1-B4's f16
+   instantiations at these paths' shapes (within 2e-2, bitwise repeats,
+   timed beside SDPA in f16), and the build phase requires them (f16
+   wgmma instantiations of B1-B3 packing f16 pairs, B4's f16 split
+   kernels, no saturating conversion anywhere).
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -207,8 +235,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
+TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
 VOCAB = 32000
 
 
@@ -534,6 +563,12 @@ def kernel_phase():
                     lens, bf),
         decode_case("llama-7b f32 16 slots", 16, 32, 32, 128, 64, 32, lens,
                     f32),
+        # the sparse serving load's decode (phase 15 a): llama-1b's 32/8
+        # heads over a 8192-row table (MB = 128), slots up to 8096 rows
+        decode_case("llama-1b GQA 32/8 MB=128 (sparse serving)", 16, 32, 8,
+                    64, 64, 128, [0, 1, 127, 128, 129, 1000, 2047, 2048,
+                                  2049, 3000, 4096, 5000, 6143, 7000, 8000,
+                                  8096], bf),
         # B4's piece edges (R = 256 at bs 64) and a slot 3 rows past its
         # table (read as MB bs = 2048)
         decode_case("llama-70b GQA 64/8 piece edges", 8, 64, 8, 128, 64, 32,
@@ -558,6 +593,17 @@ def kernel_phase():
 # the JAX bench's BigBird layout (bench.py:1181-1183)
 BIGBIRD_128 = dict(block=128, num_random_blocks=1,
                    num_sliding_window_blocks=3, num_global_blocks=1)
+
+
+def sparse_prompt_lengths(rng):
+    """Phase 15 (a)'s 16 prompt lengths, 2048-8064 tokens."""
+    return rng.integers(2048, 8065, size=16)
+
+
+SPARSE_PROMPT_SEED = 15
+# the longest prompt bucket of phase 15 (a)'s load
+SERVED_SPARSE_S = max(-(-int(n) // 128) * 128 for n in sparse_prompt_lengths(
+    np.random.default_rng(SPARSE_PROMPT_SEED)))
 
 
 def _layout_mask(cfg, S, causal):
@@ -846,6 +892,10 @@ def sparse_kernel_phase():
                     1, 8192, 4, 64, bf, causal=False),
         sparse_case("BigBird f32 block 64 S=4096", "bigbird",
                     dict(BIGBIRD_128, block=64), 1, 4096, 4, 64, f32),
+        # the sparse serving prefill (phase 15 a) at its longest bucket:
+        # B = 1, llama-1b's 32 heads after the K/V repeat, 63 blocks
+        sparse_case(f"llama-1b served BigBird B=1 S={SERVED_SPARSE_S}",
+                    "bigbird", BIGBIRD_128, 1, SERVED_SPARSE_S, 32, 64, bf),
     ]
 
 
@@ -1446,12 +1496,15 @@ def _motif_prompts(rng, n, motif=48, copies=(4, 8), gap=8, tail=16):
     return out
 
 
-def _serve_counted(srv, prompts, n, what):
+def _serve_counted(srv, prompts, n, what, before=None):
     """One warm-up request, then ``prompts`` with the stats and the launch
     counts zeroed just before: the generated streams (checked: n in-vocab
-    tokens each), the stats with the wall time, and the launches."""
+    tokens each), the stats with the wall time, and the launches.
+    ``before``: called after the warm-up, before the counted run."""
     from deepspeed_tpu_torch.ops import _build
     srv.run([(prompts[0][:64], 4)])
+    if before is not None:
+        before()
     srv.reset_stats()
     torch.cuda.synchronize()
     _build.reset_launch_counts()
@@ -2485,10 +2538,12 @@ TRAIN_CONFIG = {
     "transformer": {"fused_backward": True}, "seed": 0}
 
 
-def _train(cfg, name, config, steps):
+def _train(cfg, name, config, steps, after_step=None):
     """``initialize`` -> ``train_batch`` on one fixed batch: 1 warm-up
     step, then ``steps`` timed steps with the launch counts zeroed just
-    before them. Returns (engine, batch, record)."""
+    before them; ``after_step(engine)`` runs after each step (inside the
+    timed loop: it must not wait on the card). Returns (engine, batch,
+    record)."""
     from deepspeed_tpu_torch import initialize, make_model
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
@@ -2499,11 +2554,14 @@ def _train(cfg, name, config, steps):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
     log(f"training: {name} {n_params / 1e9:.4f}B params, B={B} S={S}, "
-        f"bf16 + f32 masters, init {time.perf_counter() - t0:.1f}s")
+        f"{str(engine.compute_dtype).split('.')[-1]} + f32 masters, init "
+        f"{time.perf_counter() - t0:.1f}s")
     ids = np.random.default_rng(0).integers(0, VOCAB, (B, S), dtype=np.int32)
     batch = {"input_ids": torch.from_numpy(ids).cuda()}
     t0 = time.perf_counter()
     losses = [engine.train_batch(batch)["loss"]]          # warm-up
+    if after_step is not None:
+        after_step(engine)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     _build.reset_launch_counts()
@@ -2521,6 +2579,8 @@ def _train(cfg, name, config, steps):
         issue_ms.append((time.perf_counter() - t1) * 1e3)
         b.record()
         marks.append((a, b))
+        if after_step is not None:
+            after_step(engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _build.launch_counts()
@@ -2956,6 +3016,482 @@ def resume_phase(smi: str, S: int = 2048, B: int = 8):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 15: a block-sparse model served, fp16 training, f16 serving, the
+# single-rank optimizers and dropout
+# --------------------------------------------------------------------------
+
+F16 = torch.float16
+SPARSE_SERVING = dict(max_seqs=16, block_size=64, max_model_len=8192,
+                      decode_quantum=8, prompt_bucket=128)
+FP16_TRAIN_CONFIG = dict(TRAIN_CONFIG, bf16={"enabled": False},
+                         fp16={"enabled": True, "initial_scale_power": 16,
+                               "loss_scale_window": 1000, "hysteresis": 2})
+
+
+def kernel_phase_f16():
+    """B1-B4's f16 instantiations at the f16 serving and training paths'
+    shapes, held against their plain versions as the bf16 cases are
+    (within 2e-2, a second launch bit for bit), timed beside the plain
+    version, SDPA in f16 and the bound."""
+    flash = [flash_case("llama-7b f16 S=1024 (serving prefill bucket)",
+                        1, 1024, 32, 32, 128, F16),
+             flash_case("llama-1b f16 training B=8 S=2048", 8, 2048, 32, 8,
+                        64, F16)]
+    lens = [0, 1, 63, 64, 65, 100, 333, 500, 777, 1000, 1024, 1234, 1500,
+            2000, 2047, 2048]
+    decode = [decode_case("llama-7b f16 16 slots", 16, 32, 32, 128, 64, 32,
+                          lens, F16)]
+    bwd = [bwd_case("llama-1b f16 training B=8 S=2048", 8, 2048, 32, 8, 64,
+                    F16)]
+    torch.cuda.empty_cache()
+    return flash, decode, bwd
+
+
+def _clear_sparse_tables():
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    for cache in (sa._cached_adjacency, sa._cached_work,
+                  sa.adjacency_tables, sa.work_tables):
+        cache.cache_clear()
+
+
+def _sparse_table_builds():
+    """How often each cache of the layout's tables was filled since the
+    last clear: the host tables, their device copies, the work lists."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    return {"host": sa._cached_adjacency.cache_info().misses,
+            "device": sa.adjacency_tables.cache_info().misses,
+            "work": sa.work_tables.cache_info().misses}
+
+
+def _exact_launches(what, got, want):
+    """Exactly ``want`` launches of the kernels it names, none of any
+    other."""
+    have = {k: n for k, n in got.items() if n}
+    need = {k: n for k, n in want.items() if n}
+    if have != need:
+        raise RuntimeError(f"{what}: launches {got}, want exactly {want}")
+
+
+def _latency(st):
+    return {k: st[k] for k in ("p50_ttft_ms", "p99_ttft_ms", "p50_itl_ms",
+                               "p99_itl_ms", "tok_per_sec", "prefills",
+                               "decode_steps", "preemptions", "wall_s")
+            if k in st}
+
+
+def sparse_serving(smi: str):
+    """(a) llama-1b (16 layers) under the BigBird layout, bf16, float pool,
+    prompt bucket = the layout's block: 16 requests of 2048-8064 tokens,
+    32 new tokens each. Every prefill runs B5 (16 layers each), no B1, the
+    decode B4; each bucket's tables are built once. The same load on the
+    same weights without the layout (dense: B1). Then f32 at 2 layers:
+    a prefill and 4 decode steps through the kernels against the plain
+    versions."""
+    from deepspeed_tpu_torch import init_serving, llama_config, make_model
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import _build
+    rng = np.random.default_rng(SPARSE_PROMPT_SEED)
+    prompts = [rng.integers(0, VOCAB, size=int(n)).astype(np.int32)
+               for n in sparse_prompt_lengths(rng)]
+    buckets = {-(-len(p) // 128) * 128 for p in prompts}
+    cfg = llama_config("1b", max_seq_len=8192, sparse_attention=SPARSE_MODEL)
+    L = cfg.num_layers
+    rec = {}
+    for kind, c in (("sparse", cfg),
+                    ("dense", dataclasses.replace(cfg,
+                                                  sparse_attention=None))):
+        srv = init_serving(make_model(c, f"llama-1b {kind}"),
+                           config={"kv_cache_bits": 0},
+                           serving=SPARSE_SERVING, dtype=torch.bfloat16,
+                           seed=0)
+        gens, st, launches = _serve_counted(
+            srv, prompts, 32, f"phase 15 (a) {kind}",
+            before=_clear_sparse_tables)
+        attn = "sparse_fwd" if kind == "sparse" else "flash_fwd"
+        _exact_launches(f"phase 15 (a) {kind}", launches,
+                        {attn: L * st["prefills"],
+                         "paged_decode": L * st["decode_steps"]})
+        rec[kind] = dict(_latency(st), launches=launches, gens=gens)
+        if kind == "sparse":
+            builds = _sparse_table_builds()
+            rec[kind]["table_builds"] = builds
+            rec[kind]["buckets"] = len(buckets)
+            if st["preemptions"] or st["prefills"] != len(prompts) or \
+                    builds != {"host": len(buckets), "device": len(buckets),
+                               "work": len(buckets)}:
+                raise RuntimeError(f"phase 15 (a): {len(buckets)} buckets "
+                                   f"but table builds {builds} "
+                                   f"({st['prefills']} prefills, "
+                                   f"{st['preemptions']} preemptions)")
+        del srv
+        _free()
+    rec["agreement_sparse_vs_dense"] = _agreement(rec["sparse"].pop("gens"),
+                                                  rec["dense"].pop("gens"))
+    # f32 at 2 layers: the kernels (B5 in the prefill, B4 in the decode)
+    # against the plain versions on the same weights
+    c32 = dataclasses.replace(cfg, num_layers=2, dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(c32, gen, "cuda", dtype=torch.float32)
+    n, P = 1000, 1024
+    ids = torch.zeros((1, P), dtype=torch.long, device="cuda")
+    ids[0, :n] = torch.from_numpy(rng.integers(0, VOCAB, size=n)).cuda()
+    tokens = [torch.from_numpy(rng.integers(0, VOCAB, size=1)).cuda()
+              for _ in range(4)]
+    _build.reset_launch_counts()
+    kern = _prefill_and_decode(params, c32, ids, n, tokens, False)
+    kl = _build.launch_counts()
+    plain = _prefill_and_decode(params, c32, ids, n, tokens, True)
+    names = ["prefill"] + [f"decode{i}" for i in range(4)]
+    errs = {k: rel_l2(a, b) for k, a, b in zip(names, kern, plain)}
+    rec["f32_2_layers"] = {"rel_l2": errs, "launches": kl}
+    _exact_launches("phase 15 (a) f32", kl, {"sparse_fwd": 2,
+                                             "paged_decode": 2 * 4})
+    if not max(errs.values()) < SERVING_F32_TOL:
+        raise RuntimeError(f"phase 15 (a) f32: kernels vs plain {errs}")
+    del params, kern, plain
+    _free()
+    log(f"phase 15 (a) sparse serving [{smi}] " + json.dumps(rec))
+    return rec
+
+
+def _scaler_snapshot(engine):
+    return {"scale": engine.state["loss_scale"]["scale"].clone(),
+            "good_steps": engine.state["loss_scale"]["good_steps"].clone(),
+            "hysteresis": engine.state["loss_scale"]["hysteresis"].clone(),
+            "skipped": engine.state["skipped"].clone()}
+
+
+def fp16_cross_check(S=512, scale=2.0 ** 16):
+    """lm_loss and the grad of every leaf at f16 (llama-1b width, 2
+    layers, B=2, dots_saveable, fused backward) through B1-B3 in f16
+    against their plain versions on the same weights, within 2e-2. The
+    backward runs on the loss times the fp16 engine's initial scale, as
+    fp16 training does: unscaled, the grads of a random model sit in
+    f16's subnormal range, where both paths round to a few bits."""
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.optimizers import cast_tree, tree_leaves
+    L = 2
+    cfg = llama_config("1b", num_layers=L, max_seq_len=S, dtype=F16,
+                       remat=True, remat_policy="dots_saveable",
+                       loss_chunk=S, fused_backward=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = cast_tree(tf.init_params(cfg, gen, "cuda",
+                                          dtype=torch.float32), F16)
+    ids = np.random.default_rng(2).integers(0, VOCAB, (2, S))
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    out = {}
+    for reference in (False, True):
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        _build.reset_launch_counts()
+        loss = tf.lm_loss(params, batch, cfg, reference=reference)
+        grads = torch.autograd.grad(loss * scale, leaves)
+        torch.cuda.synchronize()
+        out[reference] = (float(loss.detach()),
+                          [g.float() / scale for g in grads],
+                          _build.launch_counts())
+    (lk, gk, nk), (lp, gp, npl) = out[False], out[True]
+    _exact_launches("phase 15 (b) f16 cross-check", nk,
+                    {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                     "flash_bwd_dkv": L})
+    _exact_launches("phase 15 (b) f16 cross-check plain", npl, {})
+    rec = dict(loss_scale=scale, loss_kernels=lk, loss_plain=lp,
+               loss_rel_err=abs(lk - lp) / abs(lp),
+               grad_rel_l2_max=max(rel_l2(a, b) for a, b in zip(gk, gp)),
+               grads_finite=all(bool(torch.isfinite(g).all()) for g in gk),
+               launches=nk)
+    if not (rec["loss_rel_err"] <= 2e-2 and rec["grad_rel_l2_max"] <= 2e-2
+            and rec["grads_finite"]):
+        raise RuntimeError(f"phase 15 (b) f16 cross-check: {rec}")
+    del params, out, gk, gp
+    _free()
+    return rec
+
+
+def forced_overflow():
+    """An fp16 engine (llama-1b width, 2 layers, hysteresis 1): a good
+    step, then the scale set to 2^40, so the next step's grads overflow
+    f16: params, f32 masters and optimizer state bit for bit unchanged,
+    the scale halved, the skip counted, the update count held."""
+    from deepspeed_tpu_torch import initialize, llama_config, make_model
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    cfg = llama_config("1b", num_layers=2, max_seq_len=512, dtype=F16)
+    config = dict(FP16_TRAIN_CONFIG, train_batch_size=2,
+                  fp16={"enabled": True, "initial_scale_power": 8,
+                        "hysteresis": 1})
+    engine, *_ = initialize(model=make_model(cfg, "llama-1b 2 layers"),
+                            config=config)
+    ids = np.random.default_rng(3).integers(0, VOCAB, (2, 512))
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    first = engine.train_batch(batch)
+    if bool(first["overflow"]):
+        raise RuntimeError("phase 15 (b) overflow: the first step at 2^8 "
+                           "overflowed")
+    engine.state["loss_scale"]["scale"].fill_(2.0 ** 40)
+    tree = {"params": engine.state["params"], "opt": engine.state["opt"]}
+    before = [t.detach().clone() for t in tree_leaves(tree)
+              if isinstance(t, torch.Tensor)]
+    m = engine.train_batch(batch)
+    after = [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    unchanged = all(torch.equal(a, b) for a, b in zip(after, before))
+    rec = dict(overflow=bool(m["overflow"]), leaves=len(before),
+               bitwise_unchanged=unchanged,
+               scale_before=float(m["loss_scale"]),
+               scale_after=engine.get_loss_scale(),
+               skipped_steps=engine.skipped_steps,
+               applied_updates=engine.state["step"],
+               global_steps=engine.global_steps)
+    if not (rec["overflow"] and unchanged and rec["scale_after"] == 2.0 ** 39
+            and rec["skipped_steps"] == 1 and rec["applied_updates"] == 1):
+        raise RuntimeError(f"phase 15 (b) overflow: {rec}")
+    del engine, tree, before, after
+    _free()
+    return rec
+
+
+def fp16_training(smi: str, bf16_rec):
+    """(b) llama-1b at full width and depth in f16 with the dynamic loss
+    scaler (the training phase's settings otherwise: B=8, S=2048,
+    dots_saveable, AdamW): 1 + 8 steps, the scaler after each step, B1 =
+    2 x 8 x 16 and B2 = B3 = 8 x 16 launches exactly (f16), step ms, tok/s
+    and MFU beside the bf16 step of the training phase; then the f16
+    cross-check and the forced overflow."""
+    from deepspeed_tpu_torch import llama_config
+    S = 2048
+    cfg = llama_config("1b", max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=S, dtype=F16)
+    states = []
+    engine, batch, rec = _train(
+        cfg, "llama-1b f16", FP16_TRAIN_CONFIG, TRAIN_STEPS,
+        after_step=lambda e: states.append(_scaler_snapshot(e)))
+    n, L = TRAIN_STEPS, cfg.num_layers
+    rec["scaler_after_each_step"] = [
+        {k: (float(v) if k == "scale" else int(v)) for k, v in s.items()}
+        for s in states]
+    # a skipped step has no update: the f16 step ms would flatter f16
+    skipped = [s["skipped"] for s in rec["scaler_after_each_step"]]
+    if any(skipped):
+        raise RuntimeError(f"phase 15 (b): a step overflowed and was "
+                           f"skipped (skipped after each step: {skipped})")
+    _check_run("f16 training", rec, {})
+    _exact_launches("phase 15 (b) f16 training", rec["launches"],
+                    {"flash_fwd": 2 * n * L, "flash_bwd_dq": n * L,
+                     "flash_bwd_dkv": n * L})
+    del engine, batch
+    _free()
+    rec["vs_bf16"] = {
+        "f16_step_ms": rec["step_ms_cuda_median"],
+        "bf16_step_ms": bf16_rec["step_ms_cuda_median"],
+        "f16_tokens_per_s": rec["tokens_per_s"],
+        "bf16_tokens_per_s": bf16_rec["tokens_per_s"],
+        "f16_mfu": rec["mfu"], "bf16_mfu": bf16_rec["mfu"]}
+    rec["cross_check"] = fp16_cross_check()
+    rec["forced_overflow"] = forced_overflow()
+    log(f"phase 15 (b) fp16 training [{smi}] " + json.dumps(rec))
+    return rec
+
+
+def f16_serving(smi: str, served):
+    """(c) llama-7b width, 4 layers, the serving phase's load in f16 (B1
+    and B4 on f16, exactly 4 x prefills and 4 x decode steps), then the
+    same weights in bf16; the agreement of the two (reported)."""
+    from deepspeed_tpu_torch import init_serving, llama_config, make_model
+    from deepspeed_tpu_torch.models import transformer as tf
+    cfg = llama_config("7b", num_layers=4)
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params32 = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
+    prompts = served[0]
+    rec, gens = {}, {}
+    for dtype in (F16, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        srv = init_serving(make_model(cfg, f"llama-7b 4 layers {name}"),
+                           config={"kv_cache_bits": 0},
+                           serving=BREADTH_SERVING, params=params32,
+                           dtype=dtype)
+        if srv.pools["k"].dtype != dtype:
+            raise RuntimeError(f"phase 15 (c): a {srv.pools['k'].dtype} "
+                               f"pool under {dtype}")
+        gens[name], st, launches = _serve_counted(
+            srv, prompts, 32, f"phase 15 (c) {name}")
+        _exact_launches(f"phase 15 (c) {name}", launches,
+                        {"flash_fwd": L * st["prefills"],
+                         "paged_decode": L * st["decode_steps"]})
+        rec[name] = dict(_latency(st), launches=launches)
+        del srv
+        _free()
+    del params32
+    _free()
+    rec["agreement_f16_vs_bf16"] = _agreement(gens["float16"],
+                                              gens["bfloat16"])
+    log(f"phase 15 (c) f16 serving [{smi}] " + json.dumps(rec))
+    return rec
+
+
+OPT_CHECKS = (("sgd", {"lr": 1e-2, "momentum": 0.9}),
+              ("adagrad", {"lr": 1e-2}),
+              ("lion", {"lr": 1e-4, "weight_decay": 0.1}),
+              ("lamb", {"lr": 1e-3, "weight_decay": 0.01}))
+
+
+def _f64_norm(x):
+    return torch.linalg.vector_norm(x, dtype=torch.float64).float()
+
+
+def optimizer_checks(smi: str):
+    """(d) SGD (momentum), Adagrad, Lion and LAMB over llama-1b's leaves
+    at 2 layers, f32: 3 updates on the card against the same updates on
+    CPU copies (every param and state leaf within 1e-5 relative L2), and
+    one update's ms beside the bytes it must move (params, grads and
+    state read once, params and state written once) over the card's
+    memory rate. LAMB's norms are f32 on both sides, as JAX's, except
+    that the CPU copies sum theirs in f64: the CPU's f32 sum over the
+    65M-value embedding drifts 0.6 % (ROADMAP C3), the card's does not."""
+    from unittest import mock
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import lamb as lamb_mod
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
+    from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
+    cfg = llama_config("1b", num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p0 = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
+    grads = [tree_map(lambda t: torch.randn(
+        t.shape, generator=gen, device="cuda") * 1e-2, p0) for _ in range(3)]
+    n_params = sum(t.numel() for t in tree_leaves(p0))
+    recs = {}
+    for name, kw in OPT_CHECKS:
+        opt = get_optimizer_builder(name)(use_master_weights=False, **kw)
+        dev = tree_map(lambda t: t.clone(), p0)
+        host = tree_map(lambda t: t.cpu(), p0)
+        sd, sh = opt.init(dev), opt.init(host)
+        for g in grads:
+            opt.update(g, sd, dev)
+            with mock.patch.object(lamb_mod, "_norm", _f64_norm):
+                opt.update(tree_map(lambda t: t.cpu(), g), sh, host)
+        torch.cuda.synchronize()
+        pairs = [(a, b) for a, b in zip(
+            tree_leaves({"params": dev, "state": sd}),
+            tree_leaves({"params": host, "state": sh}))
+            if isinstance(a, torch.Tensor)]
+        err = max(rel_l2(a.cpu(), b) for a, b in pairs)
+        state_leaves = [t for t in tree_leaves(sd)
+                        if isinstance(t, torch.Tensor)]
+        ms = cuda_ms(lambda: opt.update(grads[0], sd, dev), iters=5,
+                     warmup=1)
+        moved = (2 * nbytes(*tree_leaves(dev)) + nbytes(*tree_leaves(
+            grads[0])) + 2 * nbytes(*state_leaves))
+        recs[name] = dict(kw=kw, steps=3, max_rel_l2_vs_cpu=err,
+                          leaves=len(pairs), update_ms=ms,
+                          bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        if not err <= 1e-5:
+            raise RuntimeError(f"phase 15 (d) {name}: card vs CPU rel L2 "
+                               f"{err:.3g}")
+        del dev, host, sd, sh, pairs, state_leaves
+        _free()
+    rec = {"params": n_params, "optimizers": recs}
+    del p0, grads
+    _free()
+    log(f"phase 15 (d) optimizers [{smi}] " + json.dumps(rec))
+    return rec
+
+
+def dropout_checks(smi: str):
+    """(e) dropout_rate 0.1 at llama-1b width, 2 layers, B=8, S=2048,
+    bf16: the keep fraction of one mask of the layer's output shape
+    within 5 sigma of 0.9 and the kept values 1 / 0.9; the loss and the
+    grads under dots_saveable equal to those without remat for one seed;
+    a training step beside the same step at rate 0."""
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops.optimizers import cast_tree, tree_leaves
+    B, S, rate = 8, 2048, 0.1
+    cfg = llama_config("1b", num_layers=2, max_seq_len=S, dropout_rate=rate,
+                       remat=True, remat_policy="dots_saveable",
+                       loss_chunk=S, fused_backward=True)
+    x = torch.ones((B, S, cfg.hidden_size), dtype=torch.bfloat16,
+                   device="cuda")
+    y = tf._dropout(x, cfg, 1234, 0)
+    kept = y != 0
+    frac = float(kept.float().mean())
+    sigma = float(np.sqrt(rate * (1 - rate) / x.numel()))
+    scaled = bool(torch.all(y[kept] == torch.ones((), dtype=torch.bfloat16,
+                                                  device="cuda")
+                            / (1 - rate)))
+    rec = {"keep_fraction": frac, "sigma": sigma,
+           "within_5_sigma": abs(frac - (1 - rate)) <= 5 * sigma,
+           "kept_values_are_1_over_keep": scaled}
+    del x, y, kept
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        params = cast_tree(tf.init_params(cfg, gen, "cuda",
+                                          dtype=torch.float32),
+                           torch.bfloat16)
+    ids = np.random.default_rng(4).integers(0, VOCAB, (B, S))
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    res = {}
+    for policy in ("dots_saveable", "none"):
+        c = dataclasses.replace(cfg, remat=policy != "none",
+                                remat_policy=policy)
+        leaves = tree_leaves(params)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = tf.lm_loss(params, batch, c, dropout_seed=77)
+        res[policy] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    (la, ga), (lb, gb) = res["dots_saveable"], res["none"]
+    rec["remat_vs_none"] = {
+        "loss_equal": bool(torch.equal(la, lb)),
+        "grads_bitwise": all(torch.equal(a, b) for a, b in zip(ga, gb)),
+        "grad_rel_l2_max": max(rel_l2(a, b) for a, b in zip(ga, gb))}
+    del res, ga, gb, params
+    _free()
+    steps = {}
+    for r in (rate, 0.0):
+        engine, batch, tr = _train(dataclasses.replace(cfg, dropout_rate=r),
+                                   f"llama-1b 2 layers dropout {r}",
+                                   TRAIN_CONFIG, 3)
+        steps[f"rate_{r}"] = {k: tr[k] for k in (
+            "step_ms_cuda_median", "tokens_per_s", "losses")}
+        del engine, batch
+        _free()
+    rec["train_step"] = steps
+    log(f"phase 15 (e) dropout [{smi}] " + json.dumps(rec))
+    if not (rec["within_5_sigma"] and scaled
+            and rec["remat_vs_none"]["grad_rel_l2_max"] <= 1e-5):
+        raise RuntimeError(f"phase 15 (e): {rec}")
+    return rec
+
+
+def phase15(smi: str, served, bf16_train):
+    """Phase 15: (a) a block-sparse model served, (b) fp16 training, (c)
+    f16 serving, (d) the single-rank optimizers, (e) dropout. Returns the
+    f16 launches of B1-B4 and B5's serving launches for the kernel
+    line."""
+    t0 = time.perf_counter()
+    _free()
+    a = sparse_serving(smi)
+    b = fp16_training(smi, bf16_train)
+    c = f16_serving(smi, served)
+    optimizer_checks(smi)
+    dropout_checks(smi)
+    f16 = {k: b["launches"][k] + c["float16"]["launches"][k]
+           for k in FLASH_KERNELS + ("paged_decode",)}
+    log(f"phase 15: {time.perf_counter() - t0:.1f}s, f16 launches "
+        f"{json.dumps(f16)}, sparse serving launches "
+        f"{a['sparse']['launches']['sparse_fwd']}")
+    return {"f16": f16, "f16_by_path": {"training": b["launches"],
+                                        "serving": c["float16"]["launches"]},
+            "sparse_serving": a["sparse"]["launches"]["sparse_fwd"],
+            "bf16_by_path": {"sparse_serving": a["sparse"]["launches"],
+                             "sparse_serving_dense": a["dense"]["launches"],
+                             "f16_serving_bf16": c["bfloat16"]["launches"]}}
+
+
 def ptxas_report(log: str):
     """[{function, registers, spill_stores, spill_loads, smem_bytes}] from
     ``nvcc -Xptxas -v`` output (smem: ptxas's static shared memory; the
@@ -2983,10 +3519,12 @@ def ptxas_report(log: str):
 
 def sass_census(path):
     """{function: {"HGMMA": n, "UTMALDG": n, "UBLKCP": n, "atomics": n,
-    "bulk_ops": [...]}} from ``cuobjdump -sass`` of a library (wgmma, TMA
-    tile loads, plain bulk copies, and ATOM, ATOMS, ATOMG, RED, REDG;
-    bulk_ops: every distinct UBLK* / UTMA* opcode, to show what the bulk
-    copies compile to)."""
+    "bulk_ops": [...], "f16_packs": n, "saturating_cvt": n}} from
+    ``cuobjdump -sass`` of a library (wgmma, TMA tile loads, plain bulk
+    copies, and ATOM, ATOMS, ATOMG, RED, REDG; bulk_ops: every distinct
+    UBLK* / UTMA* opcode, to show what the bulk copies compile to;
+    f16_packs: F2FP conversions to f16 pairs; saturating_cvt: any F2F /
+    F2FP with SAT in its opcode, which would hide an f16 overflow)."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
@@ -2995,17 +3533,22 @@ def sass_census(path):
     out = {}
     for chunk in text.split("Function : ")[1:]:
         name, body = chunk.split("\n", 1)
-        ops = []
+        ops, full = [], []
         for ln in body.splitlines():
             toks = ln.split("*/", 1)[-1].split() if "*/" in ln else []
             if toks and toks[0].startswith("@"):     # a predicate guard
                 toks = toks[1:]
             if toks and not toks[0].startswith("/*"):
                 ops.append(toks[0].split(".")[0])
+                full.append(toks[0])
         counts = {op: ops.count(op) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
         counts["atomics"] = sum(o in atomics for o in ops)
         counts["bulk_ops"] = sorted({o for o in ops
                                      if o.startswith(("UBLK", "UTMA"))})
+        counts["f16_packs"] = sum(o.startswith("F2FP") and ".F16." in o
+                                  for o in full)
+        counts["saturating_cvt"] = sum(o.startswith("F2F") and "SAT" in o
+                                       for o in full)
         out[name.strip()] = counts
     return out
 
@@ -3040,6 +3583,16 @@ def build_phase():
                              for c in wg.values()):
             raise RuntimeError(f"{name}: the bf16 kernels do not run on "
                                f"wgmma with TMA loads: {sass}")
+        # B1-B3's f16 instantiations: on wgmma too (above), packing f16
+        # pairs by round-to-nearest conversions that never saturate
+        f16 = {f: c for f, c in wg.items() if "__half" in f}
+        if name in FLASH_KERNELS and (
+                len(f16) < 2 or not all(c["f16_packs"] > 0
+                                        for c in f16.values())):
+            raise RuntimeError(f"{name}: no f16 wgmma instantiations "
+                               f"packing f16 pairs: {sass}")
+        if any(c["saturating_cvt"] for c in sass.values()):
+            raise RuntimeError(f"{name}: saturating conversions in {sass}")
         if any(c["atomics"] for c in sass.values()):
             raise RuntimeError(f"{name}: atomics in {sass}")
     for name in BULK_KERNELS:      # the pool tiles by bulk copies
@@ -3055,15 +3608,20 @@ def build_phase():
                                 for c in split.values()):
             raise RuntimeError(f"{name}: the kernels do not stage their "
                                f"tiles by bulk copies: {sass}")
+        if not any("__half" in f for f in split) or \
+                any(c["saturating_cvt"] for c in sass.values()):
+            raise RuntimeError(f"{name}: no f16 instantiation, or a "
+                               f"saturating conversion: {sass}")
         if any(c["atomics"] for c in sass.values()):
             raise RuntimeError(f"{name}: atomics in {sass}")
     return seconds, info
 
 
-def kernel_line(name, replaces, launches, cases, main):
+def kernel_line(name, replaces, launches, cases, main, variant=None):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
-    return {"name": name, "route": "cuda",
+    return {"name": f"{name} ({variant})" if variant else name,
+            "route": "cuda",
             "source": f"deepspeed_tpu_torch/csrc/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
@@ -3095,6 +3653,7 @@ def main() -> int:
     build_s, build_info = build_phase()
 
     flash, decode, bwd = kernel_phase()
+    flash16, decode16, bwd16 = kernel_phase_f16()
     sparse = sparse_kernel_phase()
     srv, st, launches, served = serving_phase()
     times = step_times(srv)
@@ -3116,6 +3675,7 @@ def main() -> int:
     resume = resume_phase(card)
     sparse_train = sparse_training_phase(sparse[0])
     training_cross_check(S=2048, sparse=SPARSE_MODEL)
+    p15 = phase15(card, served, train)
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -3178,6 +3738,35 @@ def main() -> int:
         n = sharded["launches"][entry["name"]]
         entry["launches"] += n
         entry["launches_by_path"]["sharded"] = n
+    # phase 15: B5 on the sparse model's serving prefills; B1-B4's f16
+    # instantiations on the fp16 training and f16 serving paths
+    sparse_entry = line["kernels"][4]
+    sparse_entry["launches"] += p15["sparse_serving"]
+    sparse_entry["launches_by_path"] = {"training": sl["sparse_fwd"],
+                                        "sparse_serving": p15["sparse_serving"]}
+    # B4 in the sparse model's decode; B1 and B4 in (a)'s dense twin and
+    # in (c)'s bf16 twin of the f16 load
+    for entry in line["kernels"][:2]:
+        for path, counts in p15["bf16_by_path"].items():
+            n = counts.get(entry["name"], 0)
+            if n:
+                entry["launches"] += n
+                entry["launches_by_path"][path] = n
+    for name, site, cases, main_case in (
+            ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
+             flash16, flash16[1]),
+            ("paged_decode", "deepspeed_tpu/ops/decode_attention.py:172",
+             decode16, decode16[0]),
+            ("flash_bwd_dq", "deepspeed_tpu/ops/flash_attention.py:426",
+             [c["dq"] for c in bwd16], bwd16[0]["dq"]),
+            ("flash_bwd_dkv", "deepspeed_tpu/ops/flash_attention.py:452",
+             [c["dkv"] for c in bwd16], bwd16[0]["dkv"])):
+        entry = kernel_line(name, site, p15["f16"][name], cases, main_case,
+                            variant="f16")
+        entry["launches_by_path"] = {
+            "fp16_training": p15["f16_by_path"]["training"][name],
+            "f16_serving": p15["f16_by_path"]["serving"][name]}
+        line["kernels"].append(entry)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

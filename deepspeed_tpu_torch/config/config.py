@@ -3,7 +3,8 @@ slice runs: a port of ``deepspeed_tpu/config/config.py``.
 
 The JSON surface is the JAX package's, so one config dict drives both.
 What this slice runs: the batch triad (``resolve_batch_size``, the same
-solve), ``optimizer``, ``scheduler``, ``bf16``, ``zero_optimization.stage``
+solve), ``optimizer``, ``scheduler``, ``bf16``, ``fp16`` (the loss
+scaler), ``zero_optimization.stage``
 (one device: every stage is the same program), ``gradient_clipping``,
 ``transformer.fused_backward``, ``pipeline`` (``in_flight``,
 ``prefetch``), ``checkpoint``, ``seed`` and ``steps_per_print``. Unknown
@@ -14,6 +15,7 @@ turns it on, and is ignored while it is off.
 
 import dataclasses
 import json
+import logging
 import os
 from typing import Any, Dict, Optional
 
@@ -22,6 +24,8 @@ import torch
 from deepspeed_tpu_torch.config.config_utils import (ConfigError, ConfigModel,
                                                      config_field)
 from deepspeed_tpu_torch.ops.registry import SUPPORTED_OPTIMIZERS
+
+logger = logging.getLogger("deepspeed_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -45,8 +49,23 @@ class SchedulerConfig(ConfigModel):
 
 @dataclasses.dataclass
 class FP16Config(ConfigModel):
-    """Enabling fp16 raises (ROADMAP A3); its loss-scaler keys warn."""
+    """fp16 with a loss scaler, JAX's keys (``runtime/fp16.py``):
+    ``loss_scale`` 0 means dynamic (from 2^``initial_scale_power``, x2
+    after ``loss_scale_window`` good steps, /2 once ``hysteresis``
+    overflows are used up, never below ``min_loss_scale``), else a static
+    scale. ``auto_cast`` is kept for the JSON surface."""
     enabled: bool = False
+    loss_scale: float = 0.0            # 0 = dynamic
+    initial_scale_power: int = 16
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
+    consecutive_hysteresis: bool = False
+    min_loss_scale: float = 1.0
+    auto_cast: bool = True
+
+    @property
+    def dynamic(self) -> bool:
+        return self.loss_scale == 0.0
 
 
 @dataclasses.dataclass
@@ -231,9 +250,11 @@ class Config(ConfigModel):
         return super().from_dict(data, path)
 
     def validate(self):
-        if self.fp16.enabled:
-            _deferred("fp16", "A3 (fp16 with a dynamic loss scaler; the "
-                      "attention kernels take no float16)")
+        if self.fp16.enabled and self.bf16.enabled:
+            # JAX's rule: the reference errors on both; fp16 wins here
+            logger.warning("config: fp16 and bf16 both enabled — using fp16 "
+                           "(disable one explicitly to silence)")
+            self.bf16 = BF16Config(enabled=False)
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve the batch triad train = micro x gas x dp, as JAX does."""
@@ -274,4 +295,6 @@ class Config(ConfigModel):
 
     @property
     def compute_dtype(self) -> torch.dtype:
+        if self.fp16.enabled:
+            return torch.float16
         return torch.bfloat16 if self.bf16.enabled else torch.float32

@@ -66,8 +66,15 @@
 // third: the per-step fixed cost of 64-row steps. The f32 path (only the
 // f32 cross-checks use it) runs as FMAs on the CUDA cores (32 keys a
 // block, 64-row steps).
+//
+// Float16 (the fp16 training and serving paths) takes the same kernel,
+// instantiated on __half: f16 inputs, tensor maps and hi + lo pairs, f32
+// accumulators and LSE, f16 outputs, at bf16's tensor-core rate. Every
+// conversion rounds to nearest and none saturates, so a value past f16's
+// range comes out inf (under a loss scale the engine must see it).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -282,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma on TMA-fed tiles (see the note at the top)
+// bf16 and f16 (T): wgmma on TMA-fed tiles (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;
@@ -315,13 +322,13 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 // grid (ceil(S / 128), Nkv * B), kWgThreads threads: warpgroup 0 produces
 // (its warp 0 works, all four give their registers to the consumers),
 // warpgroups 1 and 2 consume, each with 64 of the block's keys
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
     const __grid_constant__ CUtensorMap tm_o, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int S, int N, int Nkv, int rep, int causal, float sm_scale) {
+    const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask, T* __restrict__ dk,
+    T* __restrict__ dv, int S, int N, int Nkv, int rep, int causal, float sm_scale) {
   using C = Dkv<D>;
   constexpr int BQ = C::BQ;
   extern __shared__ unsigned char smem_raw[];
@@ -451,8 +458,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
       const int offq = (kk >> 2) * C::kPanelQ + (kk & 3) * 32;
       const uint64_t da = sm90::desc_sw128(Kw + off, 16, 1024);
       const uint64_t db = sm90::desc_sw128(Qs + offq, 16, 1024);
-      if constexpr (BQ == 64) sm90::wgmma_ss_n64(st, da, db, kk > 0);
-      else sm90::wgmma_ss_n32(st, da, db, kk > 0);
+      if constexpr (BQ == 64) sm90::wgmma_ss_n64<T>(st, da, db, kk > 0);
+      else sm90::wgmma_ss_n32<T>(st, da, db, kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -460,8 +467,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
       const int offq = (kk >> 2) * C::kPanelQ + (kk & 3) * 32;
       const uint64_t da = sm90::desc_sw128(Vw + off, 16, 1024);
       const uint64_t db = sm90::desc_sw128(dOs + offq, 16, 1024);
-      if constexpr (BQ == 64) sm90::wgmma_ss_n64(pt, da, db, kk > 0);
-      else sm90::wgmma_ss_n32(pt, da, db, kk > 0);
+      if constexpr (BQ == 64) sm90::wgmma_ss_n64<T>(pt, da, db, kk > 0);
+      else sm90::wgmma_ss_n32<T>(pt, da, db, kk > 0);
     }
     sm90::wgmma_commit();
     sm90::pingpong_pass(cw);
@@ -478,12 +485,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
         const int off = (c >> 3) * C::kPanelQ + row * 128 + (((c & 7) ^ (row & 7)) << 4);
         const uint4 oo = *reinterpret_cast<const uint4*>(Os + off);
         const uint4 gg = *reinterpret_cast<const uint4*>(dOs + off);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oo);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gg);
+        const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&oo);
+        const uint32_t* g2 = reinterpret_cast<const uint32_t*>(&gg);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 a = __bfloat1622float2(o2[j]);
-          const float2 d2 = __bfloat1622float2(g2[j]);
+          const float2 a = unpack<T>(o2[j]);
+          const float2 d2 = unpack<T>(g2[j]);
           sum += a.x * d2.x + a.y * d2.y;
         }
       }
@@ -536,8 +543,8 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     uint32_t ph[BQ / 16][4], pl[BQ / 16][4], sh[BQ / 16][4], sl[BQ / 16][4];
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j) {
-      split_a(reinterpret_cast<const float(*)[4]>(st), j, ph[j], pl[j]);
-      split_a(reinterpret_cast<const float(*)[4]>(pt), j, sh[j], sl[j]);
+      split_a<T>(reinterpret_cast<const float(*)[4]>(st), j, ph[j], pl[j]);
+      split_a<T>(reinterpret_cast<const float(*)[4]>(pt), j, sh[j], sl[j]);
     }
     sm90::pingpong_take(cw);
     sm90::wgmma_fence();
@@ -545,22 +552,22 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
     for (int j = 0; j < BQ / 16; ++j) {
       const uint64_t db = sm90::desc_sw128(dOs + j * 2048, C::kPanelQ, 1024);
       if constexpr (D == 64) {
-        sm90::wgmma_rs_n64_t(dv_acc, ph[j], db);
-        sm90::wgmma_rs_n64_t(dv_acc, pl[j], db);
+        sm90::wgmma_rs_n64_t<T>(dv_acc, ph[j], db);
+        sm90::wgmma_rs_n64_t<T>(dv_acc, pl[j], db);
       } else {
-        sm90::wgmma_rs_n128_t(dv_acc, ph[j], db);
-        sm90::wgmma_rs_n128_t(dv_acc, pl[j], db);
+        sm90::wgmma_rs_n128_t<T>(dv_acc, ph[j], db);
+        sm90::wgmma_rs_n128_t<T>(dv_acc, pl[j], db);
       }
     }
 #pragma unroll
     for (int j = 0; j < BQ / 16; ++j) {
       const uint64_t db = sm90::desc_sw128(Qs + j * 2048, C::kPanelQ, 1024);
       if constexpr (D == 64) {
-        sm90::wgmma_rs_n64_t(dk_acc, sh[j], db);
-        sm90::wgmma_rs_n64_t(dk_acc, sl[j], db);
+        sm90::wgmma_rs_n64_t<T>(dk_acc, sh[j], db);
+        sm90::wgmma_rs_n64_t<T>(dk_acc, sl[j], db);
       } else {
-        sm90::wgmma_rs_n128_t(dk_acc, sh[j], db);
-        sm90::wgmma_rs_n128_t(dk_acc, sl[j], db);
+        sm90::wgmma_rs_n128_t<T>(dk_acc, sh[j], db);
+        sm90::wgmma_rs_n128_t<T>(dk_acc, sl[j], db);
       }
     }
     sm90::wgmma_commit();
@@ -587,44 +594,47 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma(
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int c = n * 8 + 2 * tig;
-      *reinterpret_cast<uint32_t*>(dk + off + c) = pack(dk_acc[4 * n + 2 * i], dk_acc[4 * n + 2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + c) = pack(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dk + off + c) = pack<T>(dk_acc[4 * n + 2 * i], dk_acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + c) = pack<T>(dv_acc[4 * n + 2 * i], dv_acc[4 * n + 2 * i + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, const float* delta, const uint8_t* kv_mask, void* dk, void* dv,
                  int B, int S, int N, int Nkv, int causal, float sm_scale, cudaStream_t stream) {
   constexpr int BQ = Dkv<D>::BQ;
   CUtensorMap tq, tdo, to, tk, tv;
-  int err = sm90_host::make_map(&tq, q, B, S, N, D, 1, BQ);
-  if (!err) err = sm90_host::make_map(&tdo, dout, B, S, N, D, 1, BQ);
-  if (!err) err = sm90_host::make_map(&to, o, B, S, N, D, 1, BQ);
-  if (!err) err = sm90_host::make_map(&tk, k, B, S, Nkv, D, 1, kKeys);
-  if (!err) err = sm90_host::make_map(&tv, v, B, S, Nkv, D, 1, kKeys);
+  int err = sm90_host::make_map<T>(&tq, q, B, S, N, D, 1, BQ);
+  if (!err) err = sm90_host::make_map<T>(&tdo, dout, B, S, N, D, 1, BQ);
+  if (!err) err = sm90_host::make_map<T>(&to, o, B, S, N, D, 1, BQ);
+  if (!err) err = sm90_host::make_map<T>(&tk, k, B, S, Nkv, D, 1, kKeys);
+  if (!err) err = sm90_host::make_map<T>(&tv, v, B, S, Nkv, D, 1, kKeys);
   if (err) return err;
   const int smem = Dkv<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((S + kKeys - 1) / kKeys, Nkv * B);
-  flash_bwd_dkv_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tdo, to, tk, tv, lse, delta, kv_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S,
+  flash_bwd_dkv_wgmma<T, D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tdo, to, tk, tv, lse, delta, kv_mask, static_cast<T*>(dk), static_cast<T*>(dv), S,
       N, Nkv, N / Nkv, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel
+// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel; 2: its f16 twin
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, const float* delta, const uint8_t* kv_mask,
            void* dk, void* dv, int B, int S, int N, int Nkv, int causal, float sm_scale,
            cudaStream_t stream) {
   if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, o, dout, lse, delta, kv_mask, dk, dv, B, S, N, Nkv, causal,
-                           sm_scale, stream);
+    return launch_wgmma<bf16, D>(q, k, v, o, dout, lse, delta, kv_mask, dk, dv, B, S, N, Nkv,
+                                 causal, sm_scale, stream);
+  if (dtype == 2)
+    return launch_wgmma<__half, D>(q, k, v, o, dout, lse, delta, kv_mask, dk, dv, B, S, N, Nkv,
+                                   causal, sm_scale, stream);
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -640,7 +650,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* o
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse: [B, N, S] f32 from the forward.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. lse: [B, N, S] f32 from the forward.
 // delta: null (fused: computed here from o) or [B, N, S] f32. kv_mask: null
 // or [B, S] uint8 (nonzero = key visible). Returns a cudaError_t value
 // (0 = launched).
@@ -649,7 +659,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              const void* kv_mask, void* dk, void* dv, int B, int S, int N,
                              int Nkv, int D, int dtype, int causal, float sm_scale,
                              void* stream) {
-  if (B < 1 || S < 1 || Nkv < 1 || N % Nkv != 0 || (dtype != 0 && dtype != 1)) {
+  if (B < 1 || S < 1 || Nkv < 1 || N % Nkv != 0 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* lse_f = static_cast<const float*>(lse);

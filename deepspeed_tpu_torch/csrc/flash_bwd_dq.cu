@@ -61,8 +61,15 @@
 // other's products run (without the turns both waited on the tensor cores
 // together, then computed together). The f32 path (only the f32
 // cross-checks use it) runs as FMAs on the CUDA cores.
+//
+// Float16 (the fp16 training and serving paths) takes the same kernel,
+// instantiated on __half: f16 inputs, tensor maps and hi + lo pairs, f32
+// accumulators and LSE, f16 outputs, at bf16's tensor-core rate. Every
+// conversion rounds to nearest and none saturates, so a value past f16's
+// range comes out inf (under a loss scale the engine must see it).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -258,7 +265,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma on TMA-fed tiles (see the note at the top)
+// bf16 and f16 (T): wgmma on TMA-fed tiles (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;
@@ -288,12 +295,12 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // grid (Nkv * B, ceil(S / BQ)), kWgThreads threads, BQ = 128 / rep
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
     const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
-    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask, bf16* __restrict__ dq,
+    const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const uint8_t* __restrict__ kv_mask, T* __restrict__ dq,
     int S, int N, int Nkv, int rep, int BQ, int causal, float sm_scale) {
   using C = Dq<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -395,12 +402,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
       for (int c = 0; c < D / 2; c += 8) {
         const uint4 oo = *reinterpret_cast<const uint4*>(o + off + c);
         const uint4 gg = *reinterpret_cast<const uint4*>(dout + off + c);
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&oo);
-        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gg);
+        const uint32_t* o2 = reinterpret_cast<const uint32_t*>(&oo);
+        const uint32_t* g2 = reinterpret_cast<const uint32_t*>(&gg);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float2 a = __bfloat1622float2(o2[j]);
-          const float2 d2 = __bfloat1622float2(g2[j]);
+          const float2 a = unpack<T>(o2[j]);
+          const float2 d2 = unpack<T>(g2[j]);
           sum += a.x * d2.x + a.y * d2.y;
         }
       }
@@ -447,14 +454,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     for (int kk = 0; kk < D / 16; ++kk) {
       const int offq = (kk >> 2) * C::kPanelQ + (kk & 3) * 32;
       const int offk = (kk >> 2) * C::kPanelK + (kk & 3) * 32;
-      sm90::wgmma_ss_n64(sacc, sm90::desc_sw128(Qw + offq, 16, 1024),
+      sm90::wgmma_ss_n64<T>(sacc, sm90::desc_sw128(Qw + offq, 16, 1024),
                          sm90::desc_sw128(Ks + offk, 16, 1024), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const int offq = (kk >> 2) * C::kPanelQ + (kk & 3) * 32;
       const int offk = (kk >> 2) * C::kPanelK + (kk & 3) * 32;
-      sm90::wgmma_ss_n64(pacc, sm90::desc_sw128(dOw + offq, 16, 1024),
+      sm90::wgmma_ss_n64<T>(pacc, sm90::desc_sw128(dOw + offq, 16, 1024),
                          sm90::desc_sw128(Vs + offk, 16, 1024), kk > 0);
     }
     sm90::wgmma_commit();
@@ -498,18 +505,18 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
     uint32_t hi[kKeys / 16][4], lo[kKeys / 16][4];
 #pragma unroll
     for (int j = 0; j < kKeys / 16; ++j)
-      split_a(reinterpret_cast<const float(*)[4]>(sacc), j, hi[j], lo[j]);
+      split_a<T>(reinterpret_cast<const float(*)[4]>(sacc), j, hi[j], lo[j]);
     sm90::pingpong_take(wg);
     sm90::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kKeys / 16; ++j) {
       const uint64_t db = sm90::desc_sw128(Ks + j * 2048, C::kPanelK, 1024);
       if constexpr (D == 64) {
-        sm90::wgmma_rs_n64_t(acc, hi[j], db);
-        sm90::wgmma_rs_n64_t(acc, lo[j], db);
+        sm90::wgmma_rs_n64_t<T>(acc, hi[j], db);
+        sm90::wgmma_rs_n64_t<T>(acc, lo[j], db);
       } else {
-        sm90::wgmma_rs_n128_t(acc, hi[j], db);
-        sm90::wgmma_rs_n128_t(acc, lo[j], db);
+        sm90::wgmma_rs_n128_t<T>(acc, hi[j], db);
+        sm90::wgmma_rs_n128_t<T>(acc, lo[j], db);
       }
     }
     sm90::wgmma_commit();
@@ -528,45 +535,48 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma(
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!rvalid[i]) continue;
-    bf16* row = dq + (((size_t)b * S + qpos[i]) * N + head[i]) * D;
+    T* row = dq + (((size_t)b * S + qpos[i]) * N + head[i]) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tig) = pack(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tig) = pack<T>(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, const float* delta, const uint8_t* kv_mask, void* dq, int B,
                  int S, int N, int Nkv, int causal, float sm_scale, cudaStream_t stream) {
   const int rep = N / Nkv;
   const int BQ = kBlockRows / rep;
   CUtensorMap tq, tdo, tk, tv;
-  int err = sm90_host::make_map(&tq, q, B, S, N, D, rep, BQ);
-  if (!err) err = sm90_host::make_map(&tdo, dout, B, S, N, D, rep, BQ);
-  if (!err) err = sm90_host::make_map(&tk, k, B, S, Nkv, D, 1, kKeys);
-  if (!err) err = sm90_host::make_map(&tv, v, B, S, Nkv, D, 1, kKeys);
+  int err = sm90_host::make_map<T>(&tq, q, B, S, N, D, rep, BQ);
+  if (!err) err = sm90_host::make_map<T>(&tdo, dout, B, S, N, D, rep, BQ);
+  if (!err) err = sm90_host::make_map<T>(&tk, k, B, S, Nkv, D, 1, kKeys);
+  if (!err) err = sm90_host::make_map<T>(&tv, v, B, S, Nkv, D, 1, kKeys);
   if (err) return err;
   const int smem = Dq<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_wgmma<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(Nkv * B, (S + BQ - 1) / BQ);
-  flash_bwd_dq_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tdo, tk, tv, static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, delta,
-      kv_mask, static_cast<bf16*>(dq), S, N, Nkv, rep, BQ, causal, sm_scale);
+  flash_bwd_dq_wgmma<T, D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tdo, tk, tv, static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+      kv_mask, static_cast<T*>(dq), S, N, Nkv, rep, BQ, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel
+// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel; 2: its f16 twin
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, const float* delta, const uint8_t* kv_mask,
            void* dq, int B, int S, int N, int Nkv, int causal, float sm_scale,
            cudaStream_t stream) {
   if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, o, dout, lse, delta, kv_mask, dq, B, S, N, Nkv, causal,
-                           sm_scale, stream);
+    return launch_wgmma<bf16, D>(q, k, v, o, dout, lse, delta, kv_mask, dq, B, S, N, Nkv, causal,
+                                 sm_scale, stream);
+  if (dtype == 2)
+    return launch_wgmma<__half, D>(q, k, v, o, dout, lse, delta, kv_mask, dq, B, S, N, Nkv,
+                                   causal, sm_scale, stream);
   const int rep = N / Nkv;
   const int BQ = kRows / rep;
   dim3 grid((S + BQ - 1) / BQ, Nkv, B);
@@ -584,7 +594,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, const void* o
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. lse: [B, N, S] f32 from the forward.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. lse: [B, N, S] f32 from the forward.
 // delta: null (fused: computed here from o) or [B, N, S] f32. kv_mask: null
 // or [B, S] uint8 (nonzero = key visible). Returns a cudaError_t value
 // (0 = launched).
@@ -593,7 +603,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                             const void* kv_mask, void* dq, int B, int S, int N, int Nkv, int D,
                             int dtype, int causal, float sm_scale, void* stream) {
   if (B < 1 || S < 1 || Nkv < 1 || N % Nkv != 0 || N / Nkv > kRows ||
-      (dtype != 0 && dtype != 1)) {
+      dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const float* lse_f = static_cast<const float*>(lse);

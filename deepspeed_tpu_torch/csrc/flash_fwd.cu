@@ -74,8 +74,15 @@
 // of the tile before (64) and the O accumulators (D / 2), no spills. The
 // f32 path (only the f32 cross-checks use it) runs as FMAs on the CUDA
 // cores, 64 query rows x 32 keys a step.
+//
+// Float16 (the fp16 training and serving paths) takes the same kernel,
+// instantiated on __half: f16 inputs, tensor maps and hi + lo pairs, f32
+// accumulators and LSE, f16 outputs, at bf16's tensor-core rate. Every
+// conversion rounds to nearest and none saturates, so a value past f16's
+// range comes out inf (under a loss scale the engine must see it).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -252,7 +259,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma on TMA-fed tiles (see the note at the top)
+// bf16 and f16 (T): wgmma on TMA-fed tiles (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;
@@ -282,11 +289,11 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 }
 
 // grid (Nkv * B, ceil(S / BQ)), kWgThreads threads, BQ = 128 / rep
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const uint8_t* __restrict__ kv_mask,
-    bf16* __restrict__ o, float* __restrict__ lse, int S, int N, int Nkv, int rep, int BQ,
+    T* __restrict__ o, float* __restrict__ lse, int S, int N, int Nkv, int rep, int BQ,
     int causal, float sm_scale) {
   using C = Fwd<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -402,7 +409,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     for (int kk = 0; kk < D / 16; ++kk) {
       const int offq = (kk >> 2) * C::kPanelQ + (kk & 3) * 32;
       const int offk = (kk >> 2) * C::kPanelK + (kk & 3) * 32;
-      sm90::wgmma_ss_n128(sacc, sm90::desc_sw128(Qw + offq, 16, 1024),
+      sm90::wgmma_ss_n128<T>(sacc, sm90::desc_sw128(Qw + offq, 16, 1024),
                           sm90::desc_sw128(Ks + offk, 16, 1024), kk > 0);
     }
     sm90::wgmma_commit();
@@ -486,11 +493,11 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     for (int j = 0; j < kKeys / 16; ++j) {
       const uint64_t db = sm90::desc_sw128(Vs + j * 2048, C::kPanelK, 1024);
       if constexpr (D == 64) {
-        sm90::wgmma_rs_n64_t(acc, hi[j], db);
-        sm90::wgmma_rs_n64_t(acc, lo[j], db);
+        sm90::wgmma_rs_n64_t<T>(acc, hi[j], db);
+        sm90::wgmma_rs_n64_t<T>(acc, lo[j], db);
       } else {
-        sm90::wgmma_rs_n128_t(acc, hi[j], db);
-        sm90::wgmma_rs_n128_t(acc, lo[j], db);
+        sm90::wgmma_rs_n128_t<T>(acc, hi[j], db);
+        sm90::wgmma_rs_n128_t<T>(acc, lo[j], db);
       }
     }
     sm90::wgmma_commit();
@@ -498,7 +505,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
   auto split_p = [&]() {
 #pragma unroll
     for (int j = 0; j < kKeys / 16; ++j)
-      split_a(reinterpret_cast<const float(*)[4]>(sacc), j, hi[j], lo[j]);
+      split_a<T>(reinterpret_cast<const float(*)[4]>(sacc), j, hi[j], lo[j]);
   };
 
   sm90::mbar_wait(q_bar, 0);
@@ -555,17 +562,17 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma(
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     if (!rvalid[i]) continue;
     const float inv = li == 0.f ? 1.f : 1.f / li;
-    bf16* row = o + (((size_t)b * S + qpos[i]) * N + head[i]) * D;
+    T* row = o + (((size_t)b * S + qpos[i]) * N + head[i]) * D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tig) =
-          pack(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+          pack<T>(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
     if (tig == 0)
       lse[((size_t)b * N + head[i]) * S + qpos[i]] = li == 0.f ? kMFloor : m[i] * kLn2 + logf(li);
   }
 }
 
-template <int D>
+template <typename T, int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const uint8_t* kv_mask, void* o,
                  float* lse, int B, int S, int N, int Nkv, int causal, float sm_scale,
                  cudaStream_t stream) {
@@ -573,27 +580,30 @@ int launch_wgmma(const void* q, const void* k, const void* v, const uint8_t* kv_
   const int BQ = kBlockRows / rep;
   if ((S + BQ - 1) / BQ > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = sm90_host::make_map(&tq, q, B, S, N, D, rep, BQ);
-  if (!err) err = sm90_host::make_map(&tk, k, B, S, Nkv, D, 1, kKeys);
-  if (!err) err = sm90_host::make_map(&tv, v, B, S, Nkv, D, 1, kKeys);
+  int err = sm90_host::make_map<T>(&tq, q, B, S, N, D, rep, BQ);
+  if (!err) err = sm90_host::make_map<T>(&tk, k, B, S, Nkv, D, 1, kKeys);
+  if (!err) err = sm90_host::make_map<T>(&tv, v, B, S, Nkv, D, 1, kKeys);
   if (err) return err;
   const int smem = Fwd<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_wgmma<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(Nkv * B, (S + BQ - 1) / BQ);
-  flash_fwd_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
-      tq, tk, tv, kv_mask, static_cast<bf16*>(o), lse, S, N, Nkv, rep, BQ, causal, sm_scale);
+  flash_fwd_wgmma<T, D><<<grid, kWgThreads, smem, stream>>>(
+      tq, tk, tv, kv_mask, static_cast<T*>(o), lse, S, N, Nkv, rep, BQ, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel
+// dtype 0: the f32 CUDA-core kernel; 1: the bf16 wgmma kernel; 2: its f16 twin
 template <int D>
 int launch(int dtype, const void* q, const void* k, const void* v, const uint8_t* kv_mask, void* o,
            float* lse, int B, int S, int N, int Nkv, int causal, float sm_scale,
            cudaStream_t stream) {
   if (dtype == 1)
-    return launch_wgmma<D>(q, k, v, kv_mask, o, lse, B, S, N, Nkv, causal, sm_scale, stream);
+    return launch_wgmma<bf16, D>(q, k, v, kv_mask, o, lse, B, S, N, Nkv, causal, sm_scale, stream);
+  if (dtype == 2)
+    return launch_wgmma<__half, D>(q, k, v, kv_mask, o, lse, B, S, N, Nkv, causal, sm_scale,
+                                   stream);
   const int rep = N / Nkv;
   const int BQ = kRows / rep;
   dim3 grid((S + BQ - 1) / BQ, Nkv, B);
@@ -610,13 +620,13 @@ int launch(int dtype, const void* q, const void* k, const void* v, const uint8_t
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. kv_mask: null or [B, S] uint8 (nonzero
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. kv_mask: null or [B, S] uint8 (nonzero
 // = key visible). Returns a cudaError_t value (0 = launched).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
                          void* o, void* lse, int B, int S, int N, int Nkv, int D, int dtype,
                          int causal, float sm_scale, void* stream) {
   if (B < 1 || S < 1 || Nkv < 1 || N % Nkv != 0 || N / Nkv > kRows ||
-      (dtype != 0 && dtype != 1)) {
+      dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint8_t* mask = static_cast<const uint8_t*>(kv_mask);

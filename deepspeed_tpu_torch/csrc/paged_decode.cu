@@ -58,8 +58,12 @@
 //   kv head) in piece order by the log-sum-exp rule, folds the fresh row
 //   last with the running max floored at M_FLOOR, and writes the output.
 //   No atomics: a second launch gives the same bits.
+//
+// Float16 (f16 serving) is one more instantiation of the same template:
+// f16 loads, f32 math and partials, the output rounded to nearest.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -127,15 +131,28 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&o)[2]) 
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   o[0] = a.x; o[1] = a.y;
 }
+__device__ __forceinline__ void load_vec(const __half* p, float (&o)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+__device__ __forceinline__ void load_vec(const __half* p, float (&o)[2]) {
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(p));
+  o[0] = a.x; o[1] = a.y;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+// round to nearest, no saturation: past f16's range the output is inf
+template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
 
 // The tiles of a piece, rows [row, end) of a slot, in walk order: at most
 // kTileRows rows each, never across a pool block. The producer and the
@@ -443,7 +460,7 @@ int launch_rep(const void* q, const void* k_pool, const void* v_pool, const int*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Every pointer must be 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Every pointer must be 16-byte aligned.
 // R: rows a piece walks, a multiple of bs; ws: the f32 workspace of the
 // pieces' partials, [S, Nkv, ceil(MB bs / R), rep, D + 2]. Two launches on
 // `stream` (the pieces, then their merge). Returns a cudaError_t value
@@ -474,5 +491,11 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
   if (dtype == 1 && D == 128)
     return launch_rep<__nv_bfloat16, 128>(q, k_pool, v_pool, tab, ln, k_row, v_row, w, out, S,
                                           Nkv, rep, bs, MB, R, sm_scale, st);
+  if (dtype == 2 && D == 64)
+    return launch_rep<__half, 64>(q, k_pool, v_pool, tab, ln, k_row, v_row, w, out, S, Nkv, rep,
+                                  bs, MB, R, sm_scale, st);
+  if (dtype == 2 && D == 128)
+    return launch_rep<__half, 128>(q, k_pool, v_pool, tab, ln, k_row, v_row, w, out, S, Nkv,
+                                   rep, bs, MB, R, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

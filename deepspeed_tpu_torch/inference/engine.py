@@ -161,6 +161,12 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
             f"tensor parallel degree {tp} does not divide kv_heads="
             f"{mcfg.kv_heads}: the KV pools shard on the kv-head dim, so "
             "each rank must hold whole heads")
+    if mcfg.sparse_attention and (tp > 1 or ep > 1):
+        raise NotImplementedError(
+            f"a block-sparse model at tensor_parallel={tp}, expert_parallel="
+            f"{ep} is not ported yet: ROADMAP A10b (a block-sparse model on "
+            "a mesh: a layout that differs per head would be sliced by each "
+            "rank's heads)")
     if not isinstance(mesh, Mesh):
         mesh = build_mesh(plan)
     return mesh, tp, ep

@@ -94,7 +94,11 @@ boundary from the one token fetch.
 
 What this port leaves out raises ``NotImplementedError`` naming its
 ROADMAP item: round recovery and its fault seams, request tracing and
-fleet roles (A7), and serving a block-sparse model (A10b). The port samples from a ``torch.Generator``
+fleet roles (A7), and a block-sparse model on a mesh (A10b). A
+block-sparse model serves as JAX's does: its whole-prompt prefills run the
+block-sparse kernel (B5) over the bucket, a multiple of the layout's
+block; its decode steps and spans (chunked and warm prefills) attend
+densely. The port samples from a ``torch.Generator``
 where JAX folds a counter into a key: a drain records the port's count
 of sampling calls as the schema's ``rng_counter``, and a migration keeps
 the larger of the two counts, as JAX's does; only greedy streams carry
@@ -133,8 +137,7 @@ from deepspeed_tpu_torch.inference.scheduler import (AdmissionRejected,
 from deepspeed_tpu_torch.inference.seam import DeviceSeam
 from deepspeed_tpu_torch.inference.spec_decode import (greedy_accept_len,
                                                        make_proposer)
-from deepspeed_tpu_torch.models.transformer import (check_servable,
-                                                    paged_cache_logical_axes)
+from deepspeed_tpu_torch.models.transformer import paged_cache_logical_axes
 from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
 from deepspeed_tpu_torch.parallel.context import all_reduce, parallel_context
 from deepspeed_tpu_torch.parallel.partitioning import (shard_leaf,
@@ -355,7 +358,6 @@ class ServingEngine:
         self.model = engine.model
         self.device = engine.device
         mcfg = self.model.config
-        check_servable(mcfg)
         # the engine's resolved degrees (a dense model on an expert mesh
         # serves at ep = 1), as JAX's serving engine reads them
         self.mesh = engine.mesh

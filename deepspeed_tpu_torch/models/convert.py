@@ -152,7 +152,8 @@ def state_from_numpy(state_tree: Dict[str, Any], cfg: TransformerConfig, *,
     update count ``step``) -> the port's ``Engine.state``: params in
     ``compute_dtype`` (bf16 arrives as ml_dtypes and is widened and
     narrowed exactly), the optimizer's trees in f32, both step counts as
-    host ints."""
+    host ints; an fp16 state's ``loss_scale`` (scale, good_steps,
+    hysteresis) and ``skipped`` as 0-dim tensors of JAX's dtypes."""
     params = params_from_numpy(state_tree["params"], cfg, device=device,
                                dtype=compute_dtype)
     opt = {}
@@ -165,4 +166,11 @@ def state_from_numpy(state_tree: Dict[str, Any], cfg: TransformerConfig, *,
             opt[name] = params_from_numpy(v, cfg, device=device,
                                           dtype=torch.float32)
     step = state_tree.get("step", opt.get("step", 0))
-    return {"params": params, "opt": opt, "step": _host_int(step)}
+    out = {"params": params, "opt": opt, "step": _host_int(step)}
+    if "loss_scale" in state_tree:          # an fp16 state: 0-dim leaves
+        out["loss_scale"] = {
+            k: torch.as_tensor(np.asarray(v), device=device).reshape(())
+            for k, v in state_tree["loss_scale"].items()}
+        out["skipped"] = torch.as_tensor(
+            np.asarray(state_tree["skipped"]), device=device).reshape(())
+    return out

@@ -45,8 +45,14 @@ through the flash forward and its two backward kernels (B2, B3), or, for
 a ``sparse_attention`` config without a key mask, through the block-sparse
 kernels (B5-B7, ``ops/sparse_attention``), with layer-level
 rematerialization on ``torch.utils.checkpoint`` under the JAX package's
-remat policies (``_remat_policy``). Serving a block-sparse model raises
-(``check_servable``).
+remat policies (``_remat_policy``). Serving a block-sparse model follows
+JAX's routing: its prefill (no key mask) runs B5 over the prompt bucket,
+its decode and spans attend densely (``prefill_paged``). A sparse model
+under float16 raises, as JAX's does on its TPU: B5-B7 take bf16 and f32.
+
+Dropout (``dropout_rate > 0``): JAX's ``_dropout`` on the attention and
+FFN outputs before each residual add, on the training path only
+(``dropout_seed`` given, see ``_dropout``).
 
 Weights are cast to the activation dtype at every matmul, as ``_wmat`` /
 ``_wrow`` / ``lm_head_logits`` do in JAX, so f32 parameters (a trainer's
@@ -76,8 +82,9 @@ lookup, then an ``all_reduce``), vocab-sharded logits assembled by an
 Without a mesh (or at tp = ep = 1) no collective runs.
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions, windows, MoE training and
-dropout.
+ROADMAP item: alibi / learned positions, windows and MoE training. The
+port's config has no parallel-block form (GPT-J / NeoX), so its dropout
+sites are the sequential block's two.
 """
 
 import dataclasses
@@ -164,8 +171,9 @@ class TransformerConfig:
     drop_tokens: bool = True
     use_residual: bool = False
     moe_aux_loss_weight: float = 0.01
-    # outside this slice (must stay at their defaults)
+    # dropout on the attention and FFN outputs (the training path only)
     dropout_rate: float = 0.0
+    # outside this slice (must stay at their defaults)
     attn_windows: Optional[Tuple[int, ...]] = None
     sparse_attention: Optional[Dict[str, Any]] = None
 
@@ -182,13 +190,14 @@ class TransformerConfig:
             "position_type": (self.position_type not in ("rotary", "none"),
                               "A11 (learned / alibi positions)"),
             "causal": (not self.causal, "A11 (encoder models)"),
-            "dropout_rate": (self.dropout_rate > 0, "A12 (dropout)"),
         }
         for name, (bad, item) in deferred.items():
             if bad:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet: "
                     f"ROADMAP {item}")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate={self.dropout_rate}: in [0, 1)")
         if self.num_experts > 1 and not 1 <= self.top_k <= self.num_experts:
             raise ValueError(f"top_k={self.top_k}: between 1 and "
                              f"num_experts={self.num_experts}")
@@ -618,6 +627,10 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     backend. Every row that sees a key agrees with both."""
     sm = _sm_scale(cfg, q.shape[-1])
     if cfg.sparse_attention and mask is None:
+        if q.dtype == torch.float16:
+            raise ValueError("sparse_attention kernels take no float16 (B5-B7 "
+                             "run bf16 and f32, as JAX's on its TPU) — use "
+                             "bf16")
         rep = q.shape[2] // k.shape[2]
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
@@ -630,16 +643,6 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     return flash_attention(q, k, v, causal=causal, sm_scale=sm, kv_mask=mask,
                            fused_backward=cfg.fused_backward,
                            reference=reference)
-
-
-def check_servable(cfg: TransformerConfig) -> None:
-    """The serving path's refusal of what it does not serve yet: a
-    block-sparse model (the JAX prefill takes the dense path under a
-    length mask; the port's prefill has no mask and would run sparse)."""
-    if cfg.sparse_attention:
-        raise NotImplementedError(
-            "serving a block-sparse model is not ported yet: ROADMAP A10b "
-            "(serving a block-sparse model)")
 
 
 def _quant_q(q32):
@@ -820,9 +823,41 @@ def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
     return out.permute(0, 3, 1, 2, 4).reshape(S, T, Nq, D)
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def mask_seed(*parts: int) -> int:
+    """A 63-bit seed mixed from integers (splitmix64 steps): the dropout
+    masks' seeds, fixed by (run seed, step, micro-batch, layer, salt)."""
+    h = 0x9E3779B97F4A7C15
+    for part in parts:
+        h = ((h ^ (int(part) & _MASK64)) * 0xBF58476D1CE4E5B9) & _MASK64
+        h ^= h >> 31
+        h = (h * 0x94D049BB133111EB) & _MASK64
+    return h >> 1
+
+
+def _dropout(x, cfg: TransformerConfig, seed: Optional[int], salt: int):
+    """JAX's ``_dropout``: keep each element with probability 1 - rate,
+    scaled by 1 / keep, else 0 (in x's dtype). ``seed`` None (eval,
+    serving) or rate 0 leaves x as it is. The mask comes from a
+    ``torch.Generator`` seeded with ``mask_seed(seed, salt)``, so a
+    rematerialized layer redraws exactly the mask its forward drew
+    (``torch.utils.checkpoint`` restores the global RNG state, not an
+    explicit generator's). Another stream than JAX's: the two compare in
+    distribution, not bit for bit."""
+    if seed is None or cfg.dropout_rate == 0.0:
+        return x
+    keep = 1.0 - cfg.dropout_rate
+    gen = torch.Generator(device=x.device).manual_seed(mask_seed(seed, salt))
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
+
+
 def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                       mask=None, attend: Optional[Callable] = None,
-                      row_dtype=None, reference: bool = False, lora=None):
+                      row_dtype=None, reference: bool = False, lora=None,
+                      dropout_seed: Optional[int] = None):
     """One pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)).
 
     Without ``attend``: full-sequence (prefill) attention; returns
@@ -837,7 +872,11 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     ``lora=({proj: (A, B)}, idx)``: one layer's adapter slot tables and
     the per-row adapter slot; each projection in the dict gains the
     gathered low-rank delta (``_lora_delta``) where JAX adds it: q, k, v
-    after their projections, o on the flattened attention output."""
+    after their projections, o on the flattened attention output.
+
+    ``dropout_seed``: the layer's mask seed on the training path; dropout
+    (salt 0 on the attention output, 1 on the FFN output) before each
+    residual add, where JAX's is. None: no dropout."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     p = _maybe_dequant(p, cfg)
@@ -876,11 +915,10 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     attn_out = _w_row(attn_flat, p["wo"],
                       delta=(_lora_delta(attn_flat, tabs["o"], aidx)
                              if "o" in tabs else None))
-    x = x + attn_out
+    x = x + _dropout(attn_out, cfg, dropout_seed, 0)
     h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
-    if "wg" in p:
-        return x + _moe_mlp(h, p, cfg), new_kv
-    return x + _mlp(h, p, cfg), new_kv
+    out = _moe_mlp(h, p, cfg) if "wg" in p else _mlp(h, p, cfg)
+    return x + _dropout(out, cfg, dropout_seed, 1), new_kv
 
 
 def _mlp(h, p, cfg: TransformerConfig):
@@ -970,14 +1008,16 @@ def _embed(params, ids, cfg: TransformerConfig):
 
 def forward(params: Params, input_ids, cfg: TransformerConfig, *,
             attention_mask=None, positions=None, return_kv: bool = False,
-            return_hidden: bool = False, reference: bool = False):
+            return_hidden: bool = False, reference: bool = False,
+            dropout_seed: Optional[int] = None):
     """input_ids [B, S] -> f32 logits [B, S, V]; with ``return_kv`` also
     the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd];
     with ``return_hidden`` the final-normed hidden states [B, S, H]
-    instead of logits (the chunked loss projects them chunk by chunk)."""
+    instead of logits (the chunked loss projects them chunk by chunk).
+    ``dropout_seed``: the training path's mask seed (None: no dropout)."""
     x, kvs = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
                      positions=positions, reference=reference,
-                     keep_kv=return_kv)
+                     keep_kv=return_kv, dropout_seed=dropout_seed)
     if return_hidden:
         return x
     logits = lm_head_logits(x, params)
@@ -1078,11 +1118,13 @@ def _remat_policy(cfg: TransformerConfig, device=None):
 
 def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
             reference=False, on_layer_kv: Optional[Callable] = None,
-            keep_kv: bool = False):
+            keep_kv: bool = False, dropout_seed: Optional[int] = None):
     """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
     v)`` consumes each layer's K/V as soon as it exists (the paged prefill
     writes them straight into the pool); ``keep_kv`` returns them. With
-    gradients on, each layer runs under the config's remat policy."""
+    gradients on, each layer runs under the config's remat policy.
+    ``dropout_seed``: layer i's masks come from ``mask_seed(dropout_seed,
+    i)`` (None: no dropout)."""
     B, S = input_ids.shape
     x = _embed(params, input_ids, cfg)
     if positions is None:
@@ -1090,17 +1132,19 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
                   else None)
 
-    def layer(x_in, lp):
+    def layer(x_in, lp, i):
+        seed = None if dropout_seed is None else mask_seed(dropout_seed, i)
         return transformer_layer(x_in, lp, cfg, positions=positions,
-                                 mask=attention_mask, reference=reference)
+                                 mask=attention_mask, reference=reference,
+                                 dropout_seed=seed)
 
     kvs = []
     for i, lp in enumerate(_layers(params)):
         if context_fn is not None and on_layer_kv is None and not keep_kv:
-            x = checkpoint(lambda a, b: layer(a, b)[0], x, lp,
+            x = checkpoint(lambda a, b, i=i: layer(a, b, i)[0], x, lp,
                            use_reentrant=False, context_fn=context_fn)
             continue
-        x, (k, v) = layer(x, lp)
+        x, (k, v) = layer(x, lp, i)
         if on_layer_kv is not None:
             on_layer_kv(i, k, v)
         elif keep_kv:
@@ -1164,11 +1208,13 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
 
 
 def lm_loss(params: Params, batch, cfg: TransformerConfig,
-            reference: bool = False):
+            reference: bool = False, dropout_seed: Optional[int] = None):
     """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
     input_ids [B, S]; optional labels (default: the ids shifted left, -100
     at the end) and attention_mask [B, S] (a key mask in attention). A
-    MoE model raises (``check_trainable``)."""
+    MoE model raises (``check_trainable``). ``dropout_seed``: the training
+    step's mask seed (JAX's ``dropout_rng`` with ``deterministic=False``);
+    None, as in eval, drops nothing."""
     check_trainable(cfg)
     ids = batch["input_ids"]
     labels = batch.get("labels")
@@ -1178,13 +1224,13 @@ def lm_loss(params: Params, batch, cfg: TransformerConfig,
     mask = batch.get("attention_mask")
     if cfg.loss_chunk and cfg.loss_chunk > 0:
         x = forward(params, ids, cfg, attention_mask=mask, return_hidden=True,
-                    reference=reference)
+                    reference=reference, dropout_seed=dropout_seed)
         tied = params.get("lm_head") is None
         head = params["tok_embed"] if tied else params["lm_head"]
         return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
                                      tied_embed=tied)
     logits = forward(params, ids, cfg, attention_mask=mask,
-                     reference=reference)
+                     reference=reference, dropout_seed=dropout_seed)
     return cross_entropy_loss(logits, labels)
 
 
@@ -1242,8 +1288,15 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
 
     The pools are updated IN PLACE (JAX donated them to the jitted step);
     each layer's K/V goes into its blocks as soon as the layer has run
-    (quantized per row, with its scales, into an int8 pool)."""
-    check_servable(cfg)
+    (quantized per row, with its scales, into an int8 pool).
+
+    A block-sparse model prefills as JAX's does: no key mask, so the whole
+    bucket goes through K/V repeat + the block-sparse kernel (B5); causal,
+    so the pad rows at the end never reach a real row. The bucket must be
+    a multiple of the layout's block (``sparse_attention`` raises the
+    ``ValueError`` JAX raises). Its decode (``decode_step_paged``, B4) and
+    its spans (``decode_span_paged``: chunked and warm prefills) attend
+    densely, as JAX's paged decode and XLA span do."""
     B, P = input_ids.shape
     bs = pools["k"].shape[3]
     nblk = P // bs
@@ -1604,7 +1657,8 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
         name=name,
         init=lambda generator, device, dtype=None, keep=None:
             init_params(cfg, generator, device, dtype=dtype, keep=keep),
-        loss_fn=lambda params, batch: lm_loss(params, batch, cfg),
+        loss_fn=lambda params, batch, dropout_seed=None: lm_loss(
+            params, batch, cfg, dropout_seed=dropout_seed),
         apply=lambda params, input_ids, **kw:
             forward(params, input_ids, cfg, **kw),
         init_paged_cache=lambda num_blocks, block_size, dtype=None,

@@ -30,7 +30,7 @@ from deepspeed_tpu_torch.ops._build import PAGED_DECODE, stream_handle
 NEG_INF = -1e30
 # floor of the running max, as the TPU kernel's
 M_FLOOR = -1e20
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
 # rows a piece of the kernel's split walk aims at (csrc/paged_decode.cu)
@@ -172,7 +172,8 @@ def _check(q, k_pool, v_pool, block_tables, seq_lens, k_row, v_row):
             raise TypeError(f"paged_decode: {name} is {t.dtype}, q is "
                             f"{q.dtype}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"paged_decode takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"paged_decode takes float32, bfloat16 or float16, "
+                        f"got {q.dtype}")
     for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
         if t.dtype != torch.int32:
             raise TypeError(f"paged_decode: {name} must be int32, got {t.dtype}")

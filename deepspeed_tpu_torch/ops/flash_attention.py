@@ -39,7 +39,7 @@ NEG_INF = -1e30
 # floor of the running row max: a fully masked row outputs 0 (and LSE
 # M_FLOOR) instead of attending uniformly to its masked keys
 M_FLOOR = -1e20
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 64
 BWD_PARTS = ("dq", "dkv")
@@ -131,7 +131,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, *, causal: bool = True,
 
 def _check(q, k, v, kv_mask, name="flash_fwd"):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"{name} takes float32 or bfloat16 q/k/v of one "
+        raise TypeError(f"{name} takes float32, bfloat16 or float16 q/k/v of one "
                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name} wants q [B,S,N,D], k/v [B,S,Nkv,D]; got "

@@ -1,7 +1,10 @@
 """Optimizer core, a port of ``deepspeed_tpu/ops/optimizers.py``: an
 optimizer is a pair of functions over a parameter tree (nested dicts of
 tensors), ``init(params) -> state`` and ``update(grads, state, params) ->
-(params, state)``.
+(params, state)``; with it ``sgd``, ``adagrad`` and ``lion`` (Adam is
+``ops/adam.py``, LAMB ``ops/lamb.py``). JAX's ``from_optax`` has no
+counterpart: a client passes its own ``Optimizer`` pair to
+``initialize(optimizer=...)``.
 
 The JAX functions are pure. Here ``update`` writes in place: the state's
 tensors, the f32 master weights, and the params (cast back from the
@@ -79,6 +82,107 @@ def _writeback(new_master, params, master):
         if m is not p:
             p.detach().copy_(m)
     return params, master
+
+
+def _zeros32(p, fill: float = 0.0):
+    return torch.full(p.shape, fill, dtype=torch.float32, device=p.device)
+
+
+def _grads32(grads):
+    """The gradient leaves as f32 (the update never writes them)."""
+    return tree_leaves(cast_tree(grads, torch.float32))
+
+
+def sgd(lr: ScalarOrSchedule = 1e-2, momentum: float = 0.0,
+        weight_decay: float = 0.0, nesterov: bool = False,
+        use_master_weights: bool = True) -> Optimizer:
+    """SGD with optional (Nesterov) momentum and L2 weight decay folded
+    into the gradient, as JAX's ``sgd``: state ``step``, ``momentum``
+    (f32, only with momentum) and ``master``."""
+    def init(params):
+        state = {"step": 0}
+        if momentum:
+            state["momentum"] = tree_map(_zeros32, params)
+        state["master"] = _master_init(params, use_master_weights)
+        return state
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        master = _resolve_master(params, state.get("master"))
+        bufs = (tree_leaves(state["momentum"]) if momentum
+                else [None] * len(tree_leaves(master)))
+        for m, g, b in zip(tree_leaves(master), _grads32(grads),
+                           bufs):
+            if weight_decay:
+                g = g + weight_decay * m
+            if momentum:
+                b.mul_(momentum).add_(g)
+                u = g + momentum * b if nesterov else b
+            else:
+                u = g
+            m.sub_(lr_t * u)
+        _writeback(master, params, state.get("master"))
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def adagrad(lr: ScalarOrSchedule = 1e-2, eps: float = 1e-10,
+            weight_decay: float = 0.0, initial_accumulator: float = 0.0,
+            use_master_weights: bool = True) -> Optimizer:
+    """Adagrad, as JAX's ``adagrad``: state ``step``, ``accum`` (the f32
+    sum of squared gradients) and ``master``."""
+    def init(params):
+        return {"step": 0,
+                "accum": tree_map(lambda p: _zeros32(p, initial_accumulator),
+                                  params),
+                "master": _master_init(params, use_master_weights)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        master = _resolve_master(params, state.get("master"))
+        for m, g, a in zip(tree_leaves(master), _grads32(grads),
+                           tree_leaves(state["accum"])):
+            if weight_decay:
+                g = g + weight_decay * m
+            a.add_(g * g)
+            m.sub_(lr_t * g / (a.sqrt() + eps))
+        _writeback(master, params, state.get("master"))
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def lion(lr: ScalarOrSchedule = 1e-4, beta1: float = 0.9, beta2: float = 0.99,
+         weight_decay: float = 0.0,
+         use_master_weights: bool = True) -> Optimizer:
+    """Lion (sign of the interpolated momentum, decoupled decay), as JAX's
+    ``lion``: state ``step``, ``mu`` (f32) and ``master``."""
+    def init(params):
+        return {"step": 0, "mu": tree_map(_zeros32, params),
+                "master": _master_init(params, use_master_weights)}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr_at(lr, step)
+        master = _resolve_master(params, state.get("master"))
+        for m, g, mu in zip(tree_leaves(master), _grads32(grads),
+                            tree_leaves(state["mu"])):
+            u = torch.sign(beta1 * mu + (1 - beta1) * g)
+            mu.copy_(beta2 * mu + (1 - beta2) * g)
+            m.sub_(lr_t * (u + weight_decay * m))
+        _writeback(master, params, state.get("master"))
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update)
 
 
 def chain_clip_by_global_norm(optimizer: Optimizer,

@@ -204,10 +204,13 @@ def _adjacency(layout: np.ndarray, causal: bool):
     return idx, count, cidx, ccount
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _cached_adjacency(config: SparsityConfig, seq_len: int, causal: bool):
     """(idx, cnt, cidx, ccnt) of the layout at ``seq_len``, made once, as
-    read-only numpy int32 arrays."""
+    read-only numpy int32 arrays. This cache and the three below are
+    unbounded: one small entry per (layout, S, causal[, device]), so a
+    server with any number of prompt buckets builds each bucket's tables
+    once."""
     tables = _adjacency(config.make_layout(seq_len), causal)
     for t in tables:
         t.setflags(write=False)
@@ -267,7 +270,7 @@ def work_list(counts, chunk: int) -> WorkList:
                     np.array(sums, np.int32).reshape(-1, 3), slots, chunk)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def _cached_work(config: SparsityConfig, seq_len: int, causal: bool):
     """(B6's, B7's) work lists of the layout at ``seq_len``, made once."""
     _, cnt, _, ccnt = _cached_adjacency(config, seq_len, causal)
@@ -280,7 +283,7 @@ def _work_on(w: WorkList, device) -> WorkList:
         sums=torch.from_numpy(np.array(w.sums)).to(device))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def work_tables(config: SparsityConfig, seq_len: int, causal: bool,
                 device: torch.device) -> Tuple[WorkList, WorkList]:
     """(B6's, B7's) work lists with int32 tensors on ``device``, copied
@@ -302,7 +305,7 @@ def work_for(tables, config: SparsityConfig, S: int, causal: bool,
                  for t, c in zip((tables[1], tables[3]), chunks))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=None)
 def adjacency_tables(config: SparsityConfig, seq_len: int, causal: bool,
                      device: torch.device) -> Tuple[torch.Tensor, ...]:
     """(idx, cnt, cidx, ccnt) as int32 tensors on ``device``, copied there

@@ -81,10 +81,11 @@ def to_numpy_bits(t: torch.Tensor) -> np.ndarray:
 def from_numpy_bits(arr: np.ndarray, dtype: str) -> torch.Tensor:
     """Inverse of ``to_numpy_bits``: a uint16 array named "bfloat16"
     comes back as bf16, bit for bit."""
+    # ascontiguousarray makes a 0-dim array 1-dim: keep the shape
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)) \
-            .view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _pointer_file(path: str) -> str:

@@ -13,7 +13,14 @@ What it runs, in the JAX engine's order:
   the 1/gas mean folded into the accumulate;
 - ``micro_grads`` / ``apply_grads`` / ``batch_grads``: grads cast to f32,
   the global norm, clipping, the optimizer update and the write-back of
-  the updated masters into the params;
+  the updated masters into the params; under fp16 (``runtime/fp16.py``)
+  the loss is scaled before the backward, the grads unscaled to f32 and
+  checked for inf / NaN, a step that overflowed is skipped (params,
+  masters and optimizer state untouched, the applied-update count
+  ``state["step"]`` held, ``skipped_steps`` counted) and the scaler
+  updates on the device. The skip needs the overflow flag on the host
+  before the in-place update: one sync a step that JAX, whose update is
+  a pure ``where(overflow, old, new)``, avoids (fp16 only);
 - ``train_batch``, ``eval_batch``, ``get_lr``, ``global_steps``,
   ``params``;
 - ``train_batches``: the async loop (``pipeline.in_flight`` steps issued
@@ -29,7 +36,13 @@ What it runs, in the JAX engine's order:
 
 JAX compiles the step into one program and never fetches a metric per
 step; here the step is eager PyTorch and ``train_batch`` returns its
-metrics as 0-dim device tensors, again without a host fetch.
+metrics as 0-dim device tensors, again without a host fetch (under fp16
+but for the overflow flag, above).
+
+Dropout (a model with ``dropout_rate > 0``): the loss function gets a
+mask seed fixed by (``config.seed``, the step, the micro-batch), from
+which each layer's masks are drawn (``models/transformer._dropout``);
+``eval_batch`` drops nothing.
 
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
@@ -55,12 +68,13 @@ from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     check_trainable,
-                                                    make_model)
+                                                    make_model, mask_seed)
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
                                                 global_grad_norm, tree_leaves,
                                                 tree_map)
 from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+from deepspeed_tpu_torch.runtime import fp16 as fp16_mod
 from deepspeed_tpu_torch.runtime import zero as zero_mod
 from deepspeed_tpu_torch.runtime.dataloader import DataLoader, PrefetchLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import get_scheduler
@@ -134,6 +148,7 @@ class Engine:
             check_trainable(model.config)
 
         self.compute_dtype = config.compute_dtype
+        self._fp16 = config.fp16.enabled
         use_master = self.compute_dtype != torch.float32
 
         self.lr_scheduler = lr_scheduler
@@ -167,8 +182,9 @@ class Engine:
             self.state = self._init_state(params)
         else:
             self.state = self._adopt_state(state)
-        # the applied update count: one device, no skipped steps
-        self.global_steps = self.state["step"]
+        # train_batch calls, as JAX counts them (skipped steps included;
+        # state["step"] is the applied-update count)
+        self.global_steps = self.state["step"] + self.skipped_steps
         self.micro_steps = (self.global_steps
                             * config.gradient_accumulation_steps)
         self._dataloader = None
@@ -196,7 +212,23 @@ class Engine:
         del params32
         for p in tree_leaves(params):
             p.requires_grad_(True)
-        return {"params": params, "opt": opt_state, "step": 0}
+        return {"params": params, "opt": opt_state, "step": 0,
+                **self._fp16_state()}
+
+    def _fp16_state(self):
+        """JAX's fp16 leaves of the training state: the scaler
+        (``loss_scale``: scale, good_steps, hysteresis) and the count of
+        skipped steps, all 0-dim on the device. Empty without fp16."""
+        if not self._fp16:
+            return {}
+        f = self.config.fp16
+        ls = (fp16_mod.init_loss_scale(f.initial_scale_power, f.hysteresis,
+                                       device=self.device) if f.dynamic
+              else fp16_mod.static_loss_scale(f.loss_scale,
+                                              device=self.device))
+        return {"loss_scale": ls._asdict(),
+                "skipped": torch.zeros((), dtype=torch.int32,
+                                       device=self.device)}
 
     def _adopt_state(self, state):
         """A JAX training state (numpy) as this engine's, checked against
@@ -206,7 +238,8 @@ class Engine:
                                    compute_dtype=self.compute_dtype)
         meta = tree_map(lambda p: torch.empty_like(p, device="meta"),
                         adopted["params"])
-        want = {"params": meta, "opt": self.optimizer.init(meta), "step": 0}
+        want = {"params": meta, "opt": self.optimizer.init(meta), "step": 0,
+                **self._fp16_state()}
         _check_structure(ckpt_mod.flatten(adopted), ckpt_mod.flatten(want),
                          "state")
         for p in tree_leaves(adopted["params"]):
@@ -246,12 +279,29 @@ class Engine:
             done.record(self._copy_stream)
         return _Staged(dev, done)
 
-    def _micro_grads(self, mb):
+    def _dropout_kw(self, micro: int) -> Dict[str, int]:
+        """The loss function's dropout seed for micro-batch ``micro`` of
+        this step, for a model with ``dropout_rate > 0`` (else nothing):
+        fixed by (config seed, step, micro-batch), so a replayed layer, a
+        repeated run and a resumed one draw the same masks."""
+        if not getattr(getattr(self.model, "config", None), "dropout_rate",
+                       0.0):
+            return {}
+        return {"dropout_seed": mask_seed(self.config.seed,
+                                          self.global_steps, micro)}
+
+    def _micro_grads(self, mb, micro: int = 0):
         """(loss, f32 grads as a list over the param leaves) of one
-        micro-batch."""
+        micro-batch; under fp16 the grads are those of the scaled loss
+        (the loss itself comes back unscaled)."""
         leaves = tree_leaves(self.state["params"])
-        loss = self.model.loss_fn(self.state["params"], mb)
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        loss = self.model.loss_fn(self.state["params"], mb,
+                                  **self._dropout_kw(micro))
+        target = loss
+        if self._fp16:
+            target = fp16_mod.scale_loss(
+                loss, fp16_mod.LossScaleState(**self.state["loss_scale"]))
+        grads = torch.autograd.grad(target, leaves, materialize_grads=True)
         return loss.detach(), [g.float() for g in grads]
 
     def _accumulate(self, acc, grads):
@@ -282,34 +332,57 @@ class Engine:
                for k, v in batch.items()}
         acc, losses = None, []
         for i in range(gas):
-            loss, grads = self._micro_grads({k: v[i] for k, v in mbs.items()})
+            loss, grads = self._micro_grads({k: v[i] for k, v in mbs.items()},
+                                            micro=i)
             acc = self._accumulate(acc, grads)
             losses.append(loss)
         return acc, self._mean_loss(losses)
 
     @torch.no_grad()
     def _apply_grads(self, grads, mean_loss):
-        """Global norm, clipping, the optimizer update (in place, masters
-        written back into the params)."""
+        """JAX's ``apply_grads``: under fp16 unscale and the overflow
+        check, then the global norm, clipping, the optimizer update (in
+        place, masters written back into the params) unless the step
+        overflowed, and the scaler's update."""
+        ls = None
+        overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self._fp16:
+            ls = fp16_mod.LossScaleState(**self.state["loss_scale"])
+            grads = fp16_mod.unscale_grads(grads, ls)
+            overflow = fp16_mod.has_overflow(grads)
         gnorm = global_grad_norm(grads)
         clip = self.config.gradient_clipping
         if clip and clip > 0:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
             for g in grads:
                 g.mul_(scale)
-        params = self.state["params"]
-        it = iter(grads)
-        grad_tree = tree_map(lambda _: next(it), params)
-        self.optimizer.update(grad_tree, self.state["opt"], params)
-        self.state["step"] += 1
-        return {"loss": mean_loss, "grad_norm": gnorm,
-                "overflow": torch.zeros((), dtype=torch.bool,
-                                        device=self.device)}
+        # fp16: the one host sync a step (the update below writes in place)
+        if not (self._fp16 and bool(overflow)):
+            params = self.state["params"]
+            it = iter(grads)
+            grad_tree = tree_map(lambda _: next(it), params)
+            self.optimizer.update(grad_tree, self.state["opt"], params)
+            self.state["step"] += 1
+        metrics = {"loss": mean_loss, "grad_norm": gnorm,
+                   "overflow": overflow}
+        if self._fp16:
+            f = self.config.fp16
+            new = fp16_mod.update_loss_scale(
+                ls, overflow, dynamic=f.dynamic,
+                scale_window=f.loss_scale_window,
+                min_scale=f.min_loss_scale, max_hysteresis=f.hysteresis,
+                consecutive_hysteresis=f.consecutive_hysteresis)
+            self.state["loss_scale"] = new._asdict()
+            self.state["skipped"] += overflow.to(torch.int32)
+            metrics["loss_scale"] = ls.scale
+        return metrics
 
     def train_batch(self, batch) -> Dict[str, Any]:
         """One global batch (train_batch_size rows) -> one optimizer step.
-        Returns {"loss", "grad_norm", "overflow"} as 0-dim device tensors
-        (nothing is fetched to the host)."""
+        Returns {"loss", "grad_norm", "overflow"} (and "loss_scale" under
+        fp16) as 0-dim device tensors. Nothing is fetched to the host,
+        except under fp16 the overflow flag: one read a step, before the
+        in-place update."""
         batch = self._device_batch(batch)
         rows = batch["input_ids"].shape[0]
         if rows != self.config.train_batch_size:
@@ -324,7 +397,8 @@ class Engine:
 
     @torch.no_grad()
     def eval_batch(self, batch):
-        """The loss of a batch of any size, without gradients."""
+        """The loss of a batch of any size, without gradients (and without
+        dropout)."""
         return self.model.loss_fn(self.state["params"],
                                   self._device_batch(batch))
 
@@ -333,7 +407,8 @@ class Engine:
         """The learning rate of the next update (the schedule at the
         applied-update count + 1, as JAX)."""
         if self._schedule is not None:
-            return float(self._schedule(self.global_steps + 1))
+            return float(self._schedule(self.global_steps
+                                        - self.skipped_steps + 1))
         if isinstance(self._base_lr, (int, float)):
             return float(self._base_lr)
         return 0.0
@@ -342,6 +417,19 @@ class Engine:
     def params(self):
         return self.state["params"]
 
+    @property
+    def skipped_steps(self) -> int:
+        """Steps skipped on an fp16 overflow (a read of the device
+        counter; 0 without fp16)."""
+        if "skipped" not in self.state:
+            return 0
+        return int(self.state["skipped"])
+
+    def get_loss_scale(self) -> float:
+        if self._fp16:
+            return float(self.state["loss_scale"]["scale"])
+        return 1.0
+
     # --- the async loop and the 3-call API ----------------------------
     def train_batches(self, data_iter, num_steps: int):
         """Consume ``num_steps`` global batches from ``data_iter``, one
@@ -349,7 +437,9 @@ class Engine:
         issued ahead of the card: before issuing further, the host waits
         on the event of step i - in_flight. With ``pipeline.prefetch`` the
         copy of batch N+1 overlaps step N (``PrefetchLoader``). Nothing is
-        fetched to the host; returns the last step's metrics."""
+        fetched to the host but fp16's overflow flag, read once a step
+        (which leaves no step in flight under fp16); returns the last
+        step's metrics."""
         pcfg = self.config.pipeline
         in_flight = max(1, int(pcfg.in_flight))
         it = itertools.islice(iter(data_iter), num_steps)
@@ -374,7 +464,8 @@ class Engine:
     def forward(self, batch):
         """Loss and grads of one micro-batch (train_micro_batch_size_per_gpu
         rows); the grads wait for ``backward``. Returns the loss."""
-        loss, grads = self._micro_grads(self._device_batch(batch))
+        loss, grads = self._micro_grads(self._device_batch(batch),
+                                        micro=len(self._losses))
         self._pending = (loss, grads)
         return loss
 
@@ -424,7 +515,7 @@ class Engine:
         tag = tag if tag is not None else f"global_step{self.global_steps}"
         client_state = dict(client_state or {})
         client_state.update({"global_steps": self.global_steps,
-                             "skipped_steps": 0,
+                             "skipped_steps": self.skipped_steps,
                              "micro_steps": self.micro_steps})
         if self._dataloader is not None and \
                 hasattr(self._dataloader, "state_dict"):

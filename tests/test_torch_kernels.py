@@ -344,11 +344,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         flash_attention_fwd(q, q, q)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_bwd(q, q, q, q, q.new_zeros((1, 4, 64, 1)), q)
-    q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float16)
+    # float16 is a kernel dtype since B1-B4's f16 instantiations: float64
+    # and mixed dtypes are what the kernels still refuse
+    q = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         flash_attention_fwd(q, q, q)
     with pytest.raises(TypeError):
         flash_attention_bwd(q, q, q, q, q.new_zeros((1, 4, 64, 1)).float(), q)
+    h = torch.zeros((1, 64, 4, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(h, h.bfloat16(), h.bfloat16())
     q = torch.zeros((1, 64, 4, 64), device=cuda)
     lse = q.new_zeros((1, 4, 64, 1))
     with pytest.raises(ValueError, match="lse"):

@@ -449,18 +449,26 @@ def test_indivisible_seq_raises():
 
 
 def test_serving_a_sparse_model_raises():
+    """Serving a sparse model is ported (tests/test_torch_sparse_serving.py
+    holds it against JAX's engine); what still raises: a sparse model on
+    a mesh (ROADMAP A10b) and a prefill bucket the layout's block does not
+    divide (JAX's ``ValueError``)."""
     _, tcfg = _model_cfgs()
     model = tt.make_model(tcfg)
     with pytest.raises(NotImplementedError, match="A10b"):
-        deepspeed_tpu_torch.init_serving(model, serving=dict(max_seqs=1),
-                                         device="cpu", dtype=torch.float32)
+        deepspeed_tpu_torch.init_serving(
+            model, config={"tensor_parallel": 2}, serving=dict(max_seqs=1),
+            device="cpu", dtype=torch.float32)
     eng = deepspeed_tpu_torch.init_inference(model, device="cpu",
                                              dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        ServingEngine(eng)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tt.prefill_paged(eng.params, torch.zeros((1, 16), dtype=torch.long),
-                         eng.model.config, {"k": torch.zeros(1)}, [1])
+    assert ServingEngine(eng).engine is eng
+    block = tcfg.sparse_attention["block"]
+    pools = tt.init_paged_cache(eng.model.config, 4, block // 2,
+                                device="cpu")
+    with pytest.raises(ValueError, match="divisible"):
+        tt.prefill_paged(eng.params,
+                         torch.zeros((1, block // 2), dtype=torch.long),
+                         eng.model.config, pools, [1])
 
 
 def test_wrappers_refuse_other_devices():

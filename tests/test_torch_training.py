@@ -235,13 +235,16 @@ def test_remat_policy_replays(policy, replays_flash, replays_dots,
 
 
 def test_dropout_and_jax_only_policies_raise():
-    """Dropout still raises (A12). The two policies that were JAX-only
+    """Dropout is ported (tests/test_torch_dropout.py); a rate outside
+    [0, 1) raises. The two policies that were JAX-only
     are ported: ``offload_dots`` keeps the no-batch-dim matmul outputs in
     host memory between the forward and the replay (one host copy each,
     none left once the backward has run) and gives the grads of
     ``dots_with_no_batch_dims`` bit for bit."""
-    with pytest.raises(NotImplementedError, match="A12"):
-        tt.llama_config("tiny", dropout_rate=0.1)
+    assert tt.llama_config("tiny", dropout_rate=0.1).dropout_rate == 0.1
+    for bad in (1.0, -0.1):
+        with pytest.raises(ValueError, match="dropout_rate"):
+            tt.llama_config("tiny", dropout_rate=bad)
     with pytest.raises(ValueError, match="remat_policy"):
         tt.llama_config("tiny", remat_policy="no_such_policy")
     jcfg, tcfg = _cfgs()
@@ -399,8 +402,13 @@ def test_lr_schedule_matches_jax(name, params):
 
 
 def test_registry_names_its_roadmap_item():
-    for name in ("lamb", "lion", "sgd", "onebitadam", "cpuadam"):
-        with pytest.raises(NotImplementedError, match="A3"):
+    """The single-rank optimizers build (tests/test_torch_optimizers.py
+    holds them against JAX); the 1-bit family raises naming A4, the
+    host-offloaded variants A8."""
+    for name in ("lamb", "fusedlamb", "lion", "sgd", "adagrad"):
+        assert callable(get_optimizer_builder(name)().update)
+    for name, item in (("onebitadam", "A4"), ("cpuadam", "A8")):
+        with pytest.raises(NotImplementedError, match=item):
             get_optimizer_builder(name)
     with pytest.raises(ValueError):
         get_optimizer_builder("nope")
@@ -439,7 +447,8 @@ def test_batch_triad_solves_as_jax():
 
 
 @pytest.mark.parametrize("section,item", [
-    ({"fp16": {"enabled": True}}, "A3"),
+    ({"zero_optimization": {"stage": 3,
+                            "offload_param": {"device": "nvme"}}}, "A8"),
     ({"zero_optimization": {"stage": 3,
                             "offload_optimizer": {"device": "cpu"}}}, "A8"),
     ({"pipeline": {"stages": 2}}, "A4"),
@@ -466,7 +475,9 @@ def test_config_keys_of_the_slice(caplog):
             "pipeline": {"stages": 1}, "telemetry": {"enabled": False},
             "fp16": {"enabled": False, "loss_scale": 0},
             "no_such_key": 1})
-    assert "no_such_key" in caplog.text and "fp16.loss_scale" in caplog.text
+    # the fp16 section's keys are the slice's since fp16 is ported
+    assert "no_such_key" in caplog.text and "fp16" not in caplog.text
+    assert cfg.fp16.loss_scale == 0 and cfg.fp16.dynamic
     assert cfg.compute_dtype == torch.float32
     assert cfg.optimizer.name == "AdamW" and cfg.transformer.fused_backward
     assert Config.load({}).compute_dtype == torch.bfloat16   # JAX default
