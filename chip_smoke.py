@@ -208,7 +208,30 @@ Phases, each of which raises on failure (exit code != 0):
    instantiations at these paths' shapes (within 2e-2, bitwise repeats,
    timed beside SDPA in f16), and the build phase requires them (f16
    wgmma instantiations of B1-B3 packing f16 pairs, B4's f16 split
-   kernels, no saturating conversion anywhere).
+   kernels, no saturating conversion anywhere). (d) also times LAMB's
+   update and the global grad norm before and after the C3 repair
+   (``c3_cost``), and its CPU copies run the repaired CPU sums as they
+   are;
+16. multi-rank training (after phase 15), two processes sharing the card
+   over gloo (``parallel/launch.run_group``). First B1-B3 in bf16 against
+   their plain versions at a rank's shapes (B = 4, S = 2048, as phase 0's
+   cases). Then on the ranks: (a) every comm-facade collective on CUDA
+   tensors against its expected value; (b) llama-1b at full width and
+   depth, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a
+   rank), ZeRO stages 0-3, 3 steps each, the launch counts zeroed just
+   before: losses within 2e-2 of stage 0's, the f32 masters' change over
+   the steps within 1e-6 of stage 0's (stage 3's against stage 0 with the
+   reduced grads of the leaves it shards rounded to bf16, as autograd
+   gives a bf16 shard its grad), B1 = 2 x 3 x L and B2 = B3 = 3 x L on
+   every rank, the ZeRO memory laws on each rank's bytes of params, grads
+   and optimizer state, peak memory, step times (two processes on one
+   card: not a data-parallel speed); (c) f32 at 2 layers, S = 1024:
+   stages 0-3 through the kernels against stage 0 through their plain
+   versions on each rank's rows (losses within 1e-5, params within
+   1e-4); (d) onebitadam at 2 layers: its warm-up equal to Adam, the
+   compressed phase's wire about 1/32 of the dense all-reduce; (e) a
+   stage-3 save at world 2 loaded here at world 1, stage 0, the next loss
+   equal.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -218,10 +241,13 @@ line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -3339,8 +3365,51 @@ OPT_CHECKS = (("sgd", {"lr": 1e-2, "momentum": 0.9}),
               ("lamb", {"lr": 1e-3, "weight_decay": 0.01}))
 
 
-def _f64_norm(x):
-    return torch.linalg.vector_norm(x, dtype=torch.float64).float()
+def _trust_ratio_f32(i, p, upd, min_trust, max_trust):
+    """LAMB's trust ratio as it stood before the C3 repair: two f32
+    ``vector_norm``s (timed beside the repaired one on the card)."""
+    w, u = (torch.linalg.vector_norm(t, dtype=torch.float32)
+            for t in (p, upd))
+    return torch.where((w > 0) & (u > 0), (w / u).clamp(min_trust,
+                                                         max_trust),
+                       torch.ones_like(w))
+
+
+def _grad_norm_f32(grads):
+    """The global norm as it stood before the C3 repair (a norm of f32
+    leaf norms)."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    return torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(g, dtype=torch.float32)
+        for g in tree_leaves(grads)]))
+
+
+def _c3_cost(p0, grads):
+    """The card cost of the C3 repair, both versions in this call, in
+    turns (before, after, after, before): LAMB's update and the global
+    grad norm over llama-1b's leaves at 2 layers."""
+    from unittest import mock
+    from deepspeed_tpu_torch.ops import lamb as lamb_mod
+    from deepspeed_tpu_torch.ops.optimizers import (global_grad_norm,
+                                                    tree_map)
+    from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
+    opt = get_optimizer_builder("lamb")(use_master_weights=False,
+                                        lr=1e-3, weight_decay=0.01)
+    dev = tree_map(lambda t: t.clone(), p0)
+    st = opt.init(dev)
+    out = {"lamb_update_ms": {"before": [], "after": []},
+           "grad_norm_ms": {"before": [], "after": []}}
+    for which in ("before", "after", "after", "before"):
+        ratio = _trust_ratio_f32 if which == "before" else \
+            lamb_mod.trust_ratio
+        norm = _grad_norm_f32 if which == "before" else global_grad_norm
+        with mock.patch.object(lamb_mod, "trust_ratio", ratio):
+            out["lamb_update_ms"][which].append(cuda_ms(
+                lambda: opt.update(grads[0], st, dev), iters=5, warmup=1))
+        out["grad_norm_ms"][which].append(cuda_ms(
+            lambda: norm(grads[0]), iters=10, warmup=2))
+    del dev, st
+    return out
 
 
 def optimizer_checks(smi: str):
@@ -3349,13 +3418,13 @@ def optimizer_checks(smi: str):
     CPU copies (every param and state leaf within 1e-5 relative L2), and
     one update's ms beside the bytes it must move (params, grads and
     state read once, params and state written once) over the card's
-    memory rate. LAMB's norms are f32 on both sides, as JAX's, except
-    that the CPU copies sum theirs in f64: the CPU's f32 sum over the
-    65M-value embedding drifts 0.6 % (ROADMAP C3), the card's does not."""
-    from unittest import mock
+    memory rate. LAMB's norms are f32 on the card, as JAX's, and
+    two-level on the CPU (``ops/optimizers.sum_of_squares``: the C3
+    repair; before it the CPU's f32 sum over the 65M-value embedding
+    drifted 0.6 %); ``c3_cost`` times LAMB's update and the global norm
+    before and after the repair."""
     from deepspeed_tpu_torch import llama_config
     from deepspeed_tpu_torch.models import transformer as tf
-    from deepspeed_tpu_torch.ops import lamb as lamb_mod
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
     from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
     cfg = llama_config("1b", num_layers=2)
@@ -3372,8 +3441,7 @@ def optimizer_checks(smi: str):
         sd, sh = opt.init(dev), opt.init(host)
         for g in grads:
             opt.update(g, sd, dev)
-            with mock.patch.object(lamb_mod, "_norm", _f64_norm):
-                opt.update(tree_map(lambda t: t.cpu(), g), sh, host)
+            opt.update(tree_map(lambda t: t.cpu(), g), sh, host)
         torch.cuda.synchronize()
         pairs = [(a, b) for a, b in zip(
             tree_leaves({"params": dev, "state": sd}),
@@ -3394,7 +3462,8 @@ def optimizer_checks(smi: str):
                                f"{err:.3g}")
         del dev, host, sd, sh, pairs, state_leaves
         _free()
-    rec = {"params": n_params, "optimizers": recs}
+    rec = {"params": n_params, "optimizers": recs,
+           "c3_cost": _c3_cost(p0, grads)}
     del p0, grads
     _free()
     log(f"phase 15 (d) optimizers [{smi}] " + json.dumps(rec))
@@ -3490,6 +3559,432 @@ def phase15(smi: str, served, bf16_train):
             "bf16_by_path": {"sparse_serving": a["sparse"]["launches"],
                              "sparse_serving_dense": a["dense"]["launches"],
                              "f16_serving_bf16": c["bfloat16"]["launches"]}}
+
+
+# --------------------------------------------------------------------------
+# multi-rank training (phase 16)
+# --------------------------------------------------------------------------
+
+ZERO_LAYERS = 16          # llama-1b's full depth (the cut, if the run nears
+ZERO_STEPS = 3            # its limit, is of depth, never of width)
+ZERO_SEQ = 2048
+ZERO_SHARED = ("two processes on one card over gloo: not a data-parallel "
+               "speed")
+ZERO_F32 = dict(num_layers=2, max_seq_len=1024, dtype=torch.float32)
+
+
+def _zero_collectives(rank):
+    """(a) Every facade collective on CUDA tensors over the 2-rank gloo
+    group, each against its expected value: {name: max |error|}."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm.compressed import compressed_allreduce_1bit
+    from deepspeed_tpu_torch.parallel import (MeshPlan, build_mesh,
+                                              parallel_context)
+    x = torch.arange(24, dtype=torch.float32, device="cuda").reshape(4, 6) \
+        + 100 * rank
+    both = [torch.arange(24, dtype=torch.float32).reshape(4, 6) + 100 * r
+            for r in range(2)]
+    s = both[0] + both[1]
+    y = torch.linspace(-1, 1, 11, device="cuda") * (rank + 1)
+    mean_scale = float(torch.linspace(-1, 1, 11).abs().mean()) * 1.5
+    cases = {
+        "all_reduce": (lambda: comm.all_reduce(x.clone(), "data"), s),
+        "all_reduce_max": (lambda: comm.all_reduce(x.clone(), "data",
+                                                   op="max"), both[1]),
+        "all_gather_dim1": (lambda: comm.all_gather(x, "data", dim=1),
+                            torch.cat(both, 1)),
+        "reduce_scatter_dim0": (lambda: comm.reduce_scatter(x, "data"),
+                                s[2 * rank:2 * rank + 2]),
+        "reduce_scatter_dim1": (lambda: comm.reduce_scatter(x, "data",
+                                                            dim=1),
+                                s[:, 3 * rank:3 * rank + 3]),
+        "broadcast": (lambda: comm.broadcast(x.clone(), "data",
+                                             src_index=1), both[1]),
+        "all_gather_uint8": (lambda: comm.all_gather(torch.full(
+            (1, 5), 3 + rank, dtype=torch.uint8, device="cuda"),
+            "data").float(), torch.tensor([[3.0] * 5, [4.0] * 5])),
+        "compressed_allreduce_1bit": (
+            lambda: compressed_allreduce_1bit(y, "data"),
+            torch.where(torch.linspace(-1, 1, 11) >= 0, 1.0, -1.0)
+            * mean_scale)}
+    out = {}
+    with parallel_context(build_mesh(MeshPlan(data=2))):
+        for name, (fn, want) in cases.items():
+            got = fn()
+            if got.device != x.device:
+                raise RuntimeError(f"phase 16 (a): {name} left the card")
+            out[name] = float((got.cpu() - want).abs().max())
+    return out
+
+
+def _zero_whole_params(engine):
+    """{path: whole f32 CPU tensor} of an engine's params (collective)."""
+    from deepspeed_tpu_torch.parallel import parallel_context
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    out = {}
+    with parallel_context(engine.mesh):
+        for k, t in ckpt_mod.flatten(engine.state["params"]).items():
+            if engine._part is not None:
+                t = engine._part.whole(t.detach(),
+                                       engine._part.layouts[k].pspec)
+            out[k] = t.detach().float().cpu()
+    return out
+
+
+def _zero_bytes(engine):
+    """This rank's resident bytes of params, optimizer state (f32 masters
+    and moments) and the step's reduced grads."""
+    from deepspeed_tpu_torch.parallel import sharded_bytes
+    return {"params": sharded_bytes(engine.state["params"]),
+            "opt": sharded_bytes(engine.state["opt"]),
+            "grads": engine.last_grad_bytes}
+
+
+def _zero_masters(engine):
+    """{path: f32 CPU tensor} of this rank's slice of the f32 masters."""
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    return {k: t.detach().to("cpu", torch.float32, copy=True) for k, t in
+            ckpt_mod.flatten(engine.state["opt"]["master"]).items()}
+
+
+def _zero_model(cfg, config, reference=False):
+    """(llama-1b's ModelSpec, the engine config). ``reference``: the loss
+    through the plain versions of the kernels; the config's
+    ``transformer`` section (which makes the engine rebuild the spec) is
+    folded into the model config instead."""
+    from deepspeed_tpu_torch import make_model
+    from deepspeed_tpu_torch.models import transformer as tf
+    if not reference:
+        return make_model(cfg, "llama-1b"), config
+    fused = config.get("transformer", {}).get("fused_backward", False)
+    cfg = dataclasses.replace(cfg, fused_backward=fused)
+    spec = dataclasses.replace(
+        make_model(cfg, "llama-1b"),
+        loss_fn=lambda params, batch, **kw: tf.lm_loss(
+            params, batch, cfg, reference=True, **kw))
+    return spec, {k: v for k, v in config.items() if k != "transformer"}
+
+
+def _zero_run(cfg, config, batches, reference=False, masters=False):
+    """initialize -> one train_batch a batch, each step's wall ms (ending
+    in a synchronize); this rank's launches, bytes, peak memory and the
+    facade's bytes, all zeroed just before the first step. ``masters``:
+    also this rank's slice of the f32 masters' change over the steps
+    (``masters_delta``)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import _build
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spec, config = _zero_model(cfg, config, reference)
+    engine, *_ = initialize(model=spec, config=dict(config))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    before = _zero_masters(engine) if masters else None
+    _build.reset_launch_counts()
+    comm.reset_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    rec = {"init_s": init_s, "losses": losses, "step_ms_wall": step_ms,
+           "launches": _build.launch_counts(), "bytes": _zero_bytes(engine),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "wire": comm.counts()}
+    if masters:
+        rec["masters_delta"] = {k: t - before[k] for k, t in
+                                _zero_masters(engine).items()}
+    return engine, rec
+
+
+@contextlib.contextmanager
+def _reduced_grads_in(dtype, threshold):
+    """For the block, every reduced grad of a leaf of more than
+    ``threshold`` values rounded to ``dtype`` (and back to f32): what
+    stage 3's sharded leaves get, whose grad autograd gives in the leaf's
+    dtype, for a stage-0 run to stand beside stage 3."""
+    from deepspeed_tpu_torch.runtime import zero as zero_mod
+    orig = zero_mod.Partition.reduce_grads
+
+    def reduce_grads(self, grads, layouts):
+        return [g.to(dtype).float() if math.prod(lay.shape) > threshold
+                else g for g, lay in zip(orig(self, grads, layouts),
+                                         layouts)]
+
+    zero_mod.Partition.reduce_grads = reduce_grads
+    try:
+        yield
+    finally:
+        zero_mod.Partition.reduce_grads = orig
+
+
+def _zero_delta_vs(engine, delta, whole0):
+    """Relative L2, over this rank's slices, of a stage's masters' change
+    ``delta`` against stage 0's whole change ``whole0`` cut to the same
+    slices."""
+    num = den = 0.0
+    for k, d in delta.items():
+        w = engine._part.slice_of(whole0[k], engine._part.layouts[k].ospec)
+        num += float((d.double() - w.double()).square().sum())
+        den += float(w.double().square().sum())
+    return (num / den) ** 0.5
+
+
+def _zero_batches(B, S, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": torch.from_numpy(rng.integers(
+        0, VOCAB, (B, S), dtype=np.int32)).cuda()} for _ in range(n)]
+
+
+def _zero_rank(rank, world, layers, steps, S, ckpt_dir):
+    """One rank of phase 16, both ranks on cuda:0 over gloo: (a) the
+    collectives; (b) llama-1b (``layers`` deep) bf16 at stages 0-3; (c)
+    f32 at 2 layers, stages 0-3; (d) onebitadam at 2 layers; (e) a stage-3
+    save into ``ckpt_dir`` and the next loss. Returns every rank's
+    record (on rank 0)."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.config.config import ZeroConfig
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"collectives": _zero_collectives(rank)}
+    cfg = llama_config("1b", num_layers=layers, max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=S)
+    batches = _zero_batches(8, S, steps)
+    # the f32 masters' change over the steps, whole at stage 0: stage 0
+    # as it runs and with the reduced grads of the leaves stage 3 shards
+    # rounded to bf16 (stage 3's yardstick), then each stage against them
+    whole0 = {}
+    thr = ZeroConfig().stage3_param_persistence_threshold
+    for stage in (0, "0r", 1, 2, 3):
+        conf = dict(TRAIN_CONFIG, zero_optimization={"stage": int(
+            str(stage)[0])})
+        with (_reduced_grads_in(torch.bfloat16, thr) if stage == "0r"
+              else contextlib.nullcontext()):
+            engine, r = _zero_run(cfg, conf, batches, masters=True)
+        delta = r.pop("masters_delta")
+        if stage in (0, "0r"):
+            whole0[stage] = delta
+        for ref, d0 in whole0.items():
+            r[f"masters_change_rel_l2_vs_stage{ref}"] = _zero_delta_vs(
+                engine, delta, d0)
+        rec[f"bf16_stage{stage}"] = r
+        del engine, delta
+        _free()
+    del whole0
+    cfg32 = llama_config("1b", remat=True, remat_policy="dots_saveable",
+                         loss_chunk=ZERO_F32["max_seq_len"], **ZERO_F32)
+    b32 = _zero_batches(8, cfg32.max_seq_len, 3, seed=1)
+    conf32 = dict(TRAIN_CONFIG, bf16={"enabled": False})
+    # the plain versions of the kernels at this rank's shapes (4 rows of
+    # the same batches), stage 0: the yardstick of every stage below
+    engine, plain = _zero_run(cfg32, dict(conf32, zero_optimization={
+        "stage": 0}), b32, reference=True)
+    whole = _zero_whole_params(engine)
+    rec["f32_plain_stage0"] = plain
+    del engine
+    _free()
+    for stage in range(4):
+        engine, r = _zero_run(cfg32, dict(
+            conf32, zero_optimization={
+                "stage": stage, "stage3_param_persistence_threshold": 0}),
+            b32)
+        p = _zero_whole_params(engine)
+        r["params_rel_l2_vs_plain"] = max(rel_l2(p[k], whole[k])
+                                          for k in whole)
+        rec[f"f32_stage{stage}"] = r
+        del engine, p
+        _free()
+    del whole
+    # stage 0 on a pure data-parallel plan: the 1-bit compressed path
+    adam = dict(conf32, gradient_clipping=0.0,
+                zero_optimization={"stage": 0},
+                optimizer={"type": "adam", "params": {"lr": 1e-4}})
+    onebit = dict(adam, optimizer={
+        "type": "onebitadam", "params": {"lr": 1e-4, "freeze_step": 100}})
+    for name, conf, n in (("adam", adam, 3), ("onebit_warm", onebit, 3)):
+        engine, r = _zero_run(cfg32, conf, b32[:n])
+        rec[name] = r
+        del engine
+        _free()
+    onebit["optimizer"]["params"]["freeze_step"] = 2
+    engine, r = _zero_run(cfg32, onebit, _zero_batches(
+        8, cfg32.max_seq_len, 4, seed=2))
+    rec["onebit_compressed"] = dict(r, compressed=engine._onebit)
+    del engine
+    _free()
+    engine, r = _zero_run(cfg32, dict(conf32, zero_optimization={
+        "stage": 3}), b32[:2])
+    engine.save_checkpoint(ckpt_dir, tag="zero3")
+    rec["ckpt_next_loss"] = float(engine.train_batch(b32[2])["loss"])
+    del engine
+    _free()
+    out = [None] * world
+    dist.all_gather_object(out, rec)
+    return out if rank == 0 else None
+
+
+def _zero_laws(ranks, what):
+    """The ZeRO memory laws on each rank's bytes, against stage 0's:
+    stage 1 halves the optimizer state (every llama-1b leaf splits over
+    2), stage 2 also the grads, stage 3 also the params of every leaf
+    over the persistence threshold (the norms stay whole)."""
+    from deepspeed_tpu_torch import llama_config
+    checks = {}
+    cfg = llama_config("1b", num_layers=ZERO_LAYERS)
+    norms = (2 * cfg.num_layers + 1) * cfg.hidden_size      # values
+    for i, r in enumerate(ranks):
+        b = {s: r[f"{what}_stage{s}"]["bytes"] for s in range(4)}
+        full = b[0]
+        checks[f"rank {i}: stage 1 opt x 2 == stage 0"] = \
+            b[1]["opt"] * 2 == full["opt"] and \
+            b[1]["params"] == full["params"]
+        checks[f"rank {i}: stage 2 opt and grads x 2 == stage 0"] = \
+            b[2]["opt"] * 2 == full["opt"] and \
+            b[2]["grads"] * 2 == full["grads"]
+        whole_norms = norms * 2                     # bf16 params
+        checks[f"rank {i}: stage 3 params halved but the norms"] = \
+            (b[3]["params"] - whole_norms) * 2 + whole_norms == \
+            full["params"]
+    return checks
+
+
+def zero_training_phase(smi: str):
+    """Phase 16: multi-rank training, two processes sharing the card over
+    gloo. First, here, B1-B3 in bf16 against their plain versions at a
+    rank's shapes (B = 4, S = 2048). Then on the ranks: (a) every facade
+    collective on CUDA tensors; (b) llama-1b at full width and depth,
+    bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a rank),
+    ZeRO stages 0-3, 3 steps each: losses within 2e-2 of stage 0's, the
+    f32 masters' change over the 3 steps within 1e-6 relative L2 of stage
+    0's (stage 3's of stage 0 run with the reduced grads of the leaves
+    stage 3 shards rounded to bf16; a stage that skipped an update or
+    lost rows moves its masters by another third or more), B1 = 2 x
+    steps x L and B2 = B3 = steps x L on
+    each rank, the memory laws, peak memory and step times; (c) f32 at 2
+    layers, S = 1024: stages 0-3 through the kernels against stage 0
+    through their plain versions on the same inputs (losses within 1e-5,
+    params within 1e-4, the training cross-check's bars); (d) onebitadam
+    at 2 layers: its warm-up equal to Adam, the compressed phase's wire
+    about 1/32 of the dense one; (e) a stage-3 save at world 2, loaded
+    here at world 1, stage 0: the next loss equal. Returns the record;
+    its launches are of (b), summed over the ranks, and the kernel cases
+    at the rank's shapes."""
+    import tempfile
+    from deepspeed_tpu_torch import initialize, llama_config, make_model
+    from deepspeed_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    _free()
+    bf = torch.bfloat16
+    fwd_case = flash_case("llama-1b ZeRO rank B=4 S=2048", 4, ZERO_SEQ, 32,
+                          8, 64, bf)
+    back_case = bwd_case("llama-1b ZeRO rank B=4 S=2048", 4, ZERO_SEQ, 32,
+                         8, 64, bf)
+    _free()
+    tmp = tempfile.mkdtemp(prefix="phase16_")
+    ranks = run_group(_zero_rank, 2, ZERO_LAYERS, ZERO_STEPS, ZERO_SEQ, tmp,
+                      timeout_s=900)
+    checks, L, n = {}, ZERO_LAYERS, ZERO_STEPS
+    for i, r in enumerate(ranks):
+        for name, err in r["collectives"].items():
+            checks[f"(a) rank {i} {name} on cuda"] = err <= 1e-6
+        base = r["bf16_stage0"]["losses"]
+        for s in range(4):
+            x = r[f"bf16_stage{s}"]
+            la = x["launches"]
+            checks[f"(b) rank {i} stage {s} finite"] = \
+                all(np.isfinite(x["losses"]))
+            checks[f"(b) rank {i} stage {s} within 2e-2 of stage 0"] = max(
+                abs(a - b) / abs(b) for a, b in zip(x["losses"], base)) \
+                <= 2e-2
+            # stages 1-2 sum two ranks' f32 grads as stage 0 does; stage
+            # 3's sharded leaves get their reduced grad in bf16 (the
+            # leaf's dtype): held against stage 0 rounded alike
+            ref = "0r" if s == 3 else 0
+            checks[f"(b) rank {i} stage {s} masters' change within 1e-6 "
+                   f"of stage {ref}'s"] = \
+                x[f"masters_change_rel_l2_vs_stage{ref}"] <= 1e-6
+            checks[f"(b) rank {i} stage {s} B1 == 2 x steps x L"] = \
+                la["flash_fwd"] == 2 * n * L
+            checks[f"(b) rank {i} stage {s} B2 == B3 == steps x L"] = \
+                la["flash_bwd_dq"] == la["flash_bwd_dkv"] == n * L
+        plain = r["f32_plain_stage0"]
+        checks[f"(c) rank {i} plain run launched no kernel"] = \
+            not any(plain["launches"].values())
+        for s in range(4):
+            x = r[f"f32_stage{s}"]
+            checks[f"(c) rank {i} f32 stage {s} kernels within 1e-5 (loss) "
+                   "and 1e-4 (params) of the plain stage 0"] = \
+                max(abs(a - b) / abs(b) for a, b in
+                    zip(x["losses"], plain["losses"])) <= 1e-5 and \
+                x["params_rel_l2_vs_plain"] <= 1e-4
+            checks[f"(c) rank {i} f32 stage {s} B1 == 2 x 3 x 2"] = \
+                x["launches"]["flash_fwd"] == 12
+        checks[f"(d) rank {i} onebit warm-up == adam"] = max(
+            abs(a - b) / abs(b) for a, b in zip(
+                r["onebit_warm"]["losses"], r["adam"]["losses"])) <= 1e-5
+    checks.update({f"(b) {k}": v for k, v in _zero_laws(ranks,
+                                                         "bf16").items()})
+    comp = ranks[0]["onebit_compressed"]
+    wire = comp["wire"]
+    dense = ranks[0]["adam"]["wire"]["all_reduce"]["data"]["bytes"] / 3
+    packed = wire["all_gather"]["data"]["bytes"] / 2   # 2 compressed steps
+    checks["(d) compressed path taken"] = comp["compressed"]
+    checks["(d) compressed wire ~ 1/32 of dense"] = \
+        1 / 33 < packed / dense < 1 / 31
+    cfg32 = llama_config("1b", remat=True, remat_policy="dots_saveable",
+                         loss_chunk=ZERO_F32["max_seq_len"], **ZERO_F32)
+    one, *_ = initialize(model=make_model(cfg32, "llama-1b"), config=dict(
+        TRAIN_CONFIG, bf16={"enabled": False},
+        zero_optimization={"stage": 0}))
+    one.load_checkpoint(tmp, tag="zero3")
+    b = _zero_batches(8, cfg32.max_seq_len, 3, seed=1)[2]
+    next_loss = float(one.train_batch(b)["loss"])
+    want = ranks[0]["ckpt_next_loss"]
+    checks["(e) world 2 stage 3 -> world 1 stage 0: next loss equal"] = \
+        abs(next_loss - want) <= 2e-4 * abs(want) + 1e-5
+    del one
+    _free()
+    shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: sum(r[f"bf16_stage{s}"]["launches"][k] for r in ranks
+                       for s in range(4)) for k in FLASH_KERNELS}
+    rec = {"card": smi, "timing": ZERO_SHARED, "layers": L, "steps": n,
+           "ranks": [{k: v for k, v in r.items()} for r in ranks],
+           "flash_case": fwd_case, "bwd_case": back_case,
+           "ckpt": {"next_loss_world1": next_loss, "next_loss_world2": want},
+           "onebit_wire_ratio": packed / dense, "launches": launches}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    summary = {f"stage{s}": {
+        "losses": ranks[0][f"bf16_stage{s}"]["losses"],
+        "step_ms_wall": [r[f"bf16_stage{s}"]["step_ms_wall"] for r in ranks],
+        "peak_mem_gib": [r[f"bf16_stage{s}"]["peak_mem_gib"] for r in ranks],
+        "bytes": [r[f"bf16_stage{s}"]["bytes"] for r in ranks],
+        **{f"masters_change_rel_l2_vs_stage{ref}": [
+            r[f"bf16_stage{s}"].get(f"masters_change_rel_l2_vs_stage{ref}")
+            for r in ranks] for ref in (0, "0r")}}
+        for s in (0, "0r", 1, 2, 3)}
+    log(f"phase 16 llama-1b bf16 [{smi}; {ZERO_SHARED}] "
+        + json.dumps(summary))
+    log(f"phase 16 f32 2 layers [{smi}] " + json.dumps({
+        "plain_stage0": {k: [r["f32_plain_stage0"][k] for r in ranks]
+                         for k in ("losses", "step_ms_wall")},
+        **{f"stage{s}": {k: [r[f"f32_stage{s}"].get(k) for r in ranks]
+                         for k in ("losses", "params_rel_l2_vs_plain",
+                                   "step_ms_wall")}
+           for s in range(4)}}))
+    log(f"phase 16 onebit [{smi}] " + json.dumps({
+        "adam": ranks[0]["adam"]["losses"],
+        "onebit_warm": ranks[0]["onebit_warm"]["losses"],
+        "compressed": comp["losses"], "wire_ratio": packed / dense,
+        "wire": wire}))
+    log(f"phase 16: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 16: failed {failed}")
+    return rec
 
 
 def ptxas_report(log: str):
@@ -3676,6 +4171,10 @@ def main() -> int:
     sparse_train = sparse_training_phase(sparse[0])
     training_cross_check(S=2048, sparse=SPARSE_MODEL)
     p15 = phase15(card, served, train)
+    p16 = zero_training_phase(card)
+    # B1-B3 held at a ZeRO rank's shapes too
+    flash.append(p16["flash_case"])
+    bwd.append(p16["bwd_case"])
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -3752,6 +4251,12 @@ def main() -> int:
             if n:
                 entry["launches"] += n
                 entry["launches_by_path"][path] = n
+    # phase 16: every rank of the ZeRO stages' llama-1b runs
+    for entry in line["kernels"]:
+        n = p16["launches"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["zero_training"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

@@ -1,16 +1,18 @@
-"""The training config tree, reduced to what the single-card training
-slice runs: a port of ``deepspeed_tpu/config/config.py``.
+"""The training config tree, a port of ``deepspeed_tpu/config/config.py``
+for the sections the port runs.
 
 The JSON surface is the JAX package's, so one config dict drives both.
-What this slice runs: the batch triad (``resolve_batch_size``, the same
-solve), ``optimizer``, ``scheduler``, ``bf16``, ``fp16`` (the loss
-scaler), ``zero_optimization.stage``
-(one device: every stage is the same program), ``gradient_clipping``,
+What the port runs: the batch triad (``resolve_batch_size``, the same
+solve against the data-parallel degree), ``optimizer``, ``scheduler``,
+``bf16``, ``fp16`` (the loss scaler), ``zero_optimization`` (the stage
+and ``stage3_param_persistence_threshold``), ``gradient_clipping``,
 ``transformer.fused_backward``, ``pipeline`` (``in_flight``,
-``prefetch``), ``checkpoint``, ``seed`` and ``steps_per_print``. Unknown
-keys warn, as in JAX. The JAX sections this slice lacks are known: each
-raises ``NotImplementedError`` naming its ROADMAP item when the config
-turns it on, and is ignored while it is off.
+``prefetch``, ``fuse_steps``), ``comm`` (the gradient-reduction
+schedule), ``mesh`` (explicit axes), ``checkpoint``, ``seed`` and
+``steps_per_print``. Unknown keys warn, as in JAX. The JAX sections the
+port lacks are known: each raises ``NotImplementedError`` naming its
+ROADMAP item when the config turns it on, and is ignored while it is
+off.
 """
 
 import dataclasses
@@ -75,11 +77,14 @@ class BF16Config(ConfigModel):
 
 @dataclasses.dataclass
 class ZeroConfig(ConfigModel):
-    """``zero_optimization``: the stage (0..3), and the offload sections,
-    which raise when set (ROADMAP A8). On one device the stages differ
-    only in how state would be sharded, so they run the same program; the
-    JAX section's bucket and prefetch knobs warn as unknown keys."""
+    """``zero_optimization``: the stage (0..3, ``runtime/zero.py``), the
+    stage-3 persistence threshold (a leaf of at most that many values
+    stays whole on every rank), and the offload sections, which raise
+    when set (ROADMAP A8). JAX's bucket and prefetch knobs warn as
+    unknown keys: XLA sizes its collectives, and so does the eager port's
+    per-leaf schedule."""
     stage: int = 0
+    stage3_param_persistence_threshold: int = 100_000
     offload_param: Dict[str, Any] = config_field({})
     offload_optimizer: Dict[str, Any] = config_field({})
 
@@ -87,6 +92,10 @@ class ZeroConfig(ConfigModel):
         if self.stage not in (0, 1, 2, 3):
             raise ConfigError(f"zero_optimization.stage must be 0..3, got "
                               f"{self.stage}")
+        if self.stage3_param_persistence_threshold < 0:
+            raise ConfigError("zero_optimization."
+                              "stage3_param_persistence_threshold must be "
+                              ">= 0")
         for name in ("offload_param", "offload_optimizer"):
             if (getattr(self, name) or {}).get("device", "none") \
                     not in ("none", None):
@@ -112,8 +121,10 @@ class PipelineConfig(ConfigModel):
     """``pipeline``: the async step loop of ``Engine.train_batches``.
     ``in_flight`` bounds how many steps the host issues ahead of the card;
     ``prefetch`` copies batch N+1 to the device (from pinned memory, on a
-    side stream) while step N runs. Pipeline stages and the fused K-step
-    dispatch (``fuse_steps`` > 1) raise."""
+    side stream) while step N runs; ``fuse_steps`` is accepted and has no
+    effect (JAX fuses K steps into one program; the eager port has no
+    single-dispatch step until ROADMAP S2). Pipeline stages raise
+    (ROADMAP A9)."""
     stages: int = 1
     in_flight: int = 2
     prefetch: bool = True
@@ -124,9 +135,8 @@ class PipelineConfig(ConfigModel):
             raise ConfigError("pipeline.in_flight must be >= 1")
         if self.fuse_steps < 1:
             raise ConfigError("pipeline.fuse_steps must be >= 1")
-        if self.stages > 1 or self.fuse_steps > 1:
-            _deferred("pipeline", "A4 / A9 (pipeline stages, fused "
-                      "multi-step dispatch)")
+        if self.stages > 1:
+            _deferred("pipeline.stages", "A9 (pipeline parallelism)")
 
 
 @dataclasses.dataclass
@@ -136,9 +146,11 @@ class CheckpointConfig(ConfigModel):
     manifest + commit marker; ``integrity_checksums``: re-hash on
     validate), ``keep_last_k`` retention (0 = keep all; the tag `latest`
     names is never pruned) and ``tag_validation`` (kept for the JSON
-    surface; there is one rank, so there is no cross-rank tag to check).
-    ``load_universal`` and ``use_node_local_storage`` need more than one
-    rank and raise."""
+    surface: rank 0 writes every tag). ``load_universal`` and
+    ``use_node_local_storage`` are accepted and change nothing, as in JAX,
+    where no code reads them: every save is universal (each leaf whole,
+    ``Engine.save_checkpoint``), so any world size and ZeRO stage loads
+    it."""
     tag_validation: str = "Warn"      # Ignore | Warn | Fail
     load_universal: bool = False
     use_node_local_storage: bool = False
@@ -153,10 +165,33 @@ class CheckpointConfig(ConfigModel):
         if self.tag_validation.lower() not in ("ignore", "warn", "fail"):
             raise ConfigError("checkpoint.tag_validation must be Ignore, "
                               f"Warn or Fail, got {self.tag_validation!r}")
-        for name in ("load_universal", "use_node_local_storage"):
-            if getattr(self, name):
-                _deferred(f"checkpoint.{name}",
-                          "A4 (more than one rank)")
+
+
+@dataclasses.dataclass
+class CommConfig(ConfigModel):
+    """``comm``: the gradient-reduction schedule (``comm/schedule.py``).
+    ``deferred_grad_sync``: accumulate local grads over the micro-batches
+    and reduce once at the boundary; ``hierarchical_grad_reduce``: on a
+    data x fsdp plan, reduce-scatter over fsdp, then all-reduce the shard
+    over data; ``microbatch_unroll``: accepted (an eager loop has no scan
+    to unroll)."""
+    deferred_grad_sync: bool = False
+    hierarchical_grad_reduce: bool = False
+    microbatch_unroll: int = 0
+
+    def validate(self):
+        if self.microbatch_unroll < 0:
+            raise ConfigError("comm.microbatch_unroll must be >= 0")
+
+
+@dataclasses.dataclass
+class MeshConfig(ConfigModel):
+    """``mesh``: explicit axes (``{"data": 2, "fsdp": 2}``) instead of the
+    plan ``parallel.mesh.plan_from_config`` derives;
+    ``allow_split_physical_axes`` is kept for the JSON surface (a process
+    group has no physical torus to split)."""
+    axes: Dict[str, int] = config_field({})
+    allow_split_physical_axes: bool = False
 
 
 def _deferred(what: str, item: str):
@@ -179,9 +214,6 @@ _DEFERRED = {
                         "A9 (tensor parallelism)"),
     "sequence_parallel": (_any_size("sp_size", "size"),
                           "A9 (ring attention)"),
-    "mesh": (lambda s: bool(s.get("axes")), "A4 (device meshes)"),
-    "comm": (lambda s: any(bool(v) for v in s.values()),
-             "A4 (comm scheduling)"),
     "comms_logger": (_enabled, "A9 (comm logging)"),
     "moe": (_enabled, "A9 (MoE training)"),
     "telemetry": (_enabled, "A11 (telemetry)"),
@@ -227,6 +259,8 @@ class Config(ConfigModel):
         TransformerTuningConfig)
     pipeline: PipelineConfig = config_field(PipelineConfig)
     checkpoint: CheckpointConfig = config_field(CheckpointConfig)
+    comm: CommConfig = config_field(CommConfig)
+    mesh: MeshConfig = config_field(MeshConfig)
 
     @classmethod
     def load(cls, source) -> "Config":

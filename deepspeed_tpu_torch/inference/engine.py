@@ -141,6 +141,11 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
             raise ValueError(f"expert_parallel={ep} but the mesh's expert "
                              f"axis has size {plan.expert}")
         tp, ep = plan.tensor, plan.expert
+    if plan.data > 1 or plan.fsdp > 1:
+        raise NotImplementedError(
+            f"serving on a mesh with data={plan.data}, fsdp={plan.fsdp} is "
+            "not ported yet: ROADMAP A7 (replicated serving is the fleet: "
+            "one engine a replica behind the router)")
     mcfg = model.config
     if ep > 1:
         if mcfg.num_experts <= 1:

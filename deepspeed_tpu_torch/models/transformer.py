@@ -110,7 +110,9 @@ from deepspeed_tpu_torch.ops.quantizer import (int8_matmul, quantize_rows,
 from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
 from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
-                                                  axis_size)
+                                                  axis_size,
+                                                  batch_row,
+                                                  gather_params)
 
 Params = Dict[str, Any]
 _NEG = -1e30                    # JAX's mask fill: exp(-1e30 - max) is 0
@@ -840,17 +842,26 @@ def mask_seed(*parts: int) -> int:
 def _dropout(x, cfg: TransformerConfig, seed: Optional[int], salt: int):
     """JAX's ``_dropout``: keep each element with probability 1 - rate,
     scaled by 1 / keep, else 0 (in x's dtype). ``seed`` None (eval,
-    serving) or rate 0 leaves x as it is. The mask comes from a
-    ``torch.Generator`` seeded with ``mask_seed(seed, salt)``, so a
-    rematerialized layer redraws exactly the mask its forward drew
-    (``torch.utils.checkpoint`` restores the global RNG state, not an
-    explicit generator's). Another stream than JAX's: the two compare in
-    distribution, not bit for bit."""
+    serving) or rate 0 leaves x as it is. Row r of x (its leading dim; a
+    1-D x is one row) draws its mask from a ``torch.Generator`` seeded
+    with ``mask_seed(seed, salt, r)``, so a rematerialized layer redraws
+    exactly the mask its forward drew (``torch.utils.checkpoint``
+    restores the global RNG state, not an explicit generator's), and a
+    data-parallel rank, whose rows start at ``parallel.context.
+    batch_row()`` of the one-rank run's micro-batch, draws only its own
+    rows' masks, the one-rank run's. Another stream than JAX's: the two
+    compare in distribution, not bit for bit."""
     if seed is None or cfg.dropout_rate == 0.0:
         return x
     keep = 1.0 - cfg.dropout_rate
-    gen = torch.Generator(device=x.device).manual_seed(mask_seed(seed, salt))
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    rows = x.reshape((x.shape[0], -1) if x.dim() > 1 else (1, -1))
+    u = torch.empty(rows.shape, dtype=torch.float32, device=x.device)
+    start = batch_row()
+    for r in range(rows.shape[0]):
+        gen = torch.Generator(device=x.device).manual_seed(
+            mask_seed(seed, salt, start + r))
+        torch.rand(rows.shape[1:], generator=gen, out=u[r])
+    mask = (u < keep).reshape(x.shape)
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
@@ -1134,6 +1145,10 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
 
     def layer(x_in, lp, i):
         seed = None if dropout_seed is None else mask_seed(dropout_seed, i)
+        # ZeRO-3: the layer's whole weights, gathered inside the remat
+        # checkpoint (they replay in the backward and live only while the
+        # layer runs)
+        lp = gather_params(lp, "layers/")
         return transformer_layer(x_in, lp, cfg, positions=positions,
                                  mask=attention_mask, reference=reference,
                                  dropout_seed=seed)
@@ -1171,20 +1186,32 @@ def _nll_sum(logits, labels, ignore_index: int):
     return ((logz - _gold_logit(logits, safe)) * valid).sum(), valid.sum()
 
 
-def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+def _mean_over(tot, cnt, count):
+    """``tot`` over the label count: this batch's own ``cnt`` (at least
+    1), or the ``count`` given."""
+    if count is None:
+        return tot / torch.as_tensor(cnt, device=tot.device).clamp_min(1)
+    return tot / count
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100,
+                       count=None):
     """Mean next-token CE over the labels that are not ``ignore_index``.
-    logits [B, S, V] f32; labels [B, S] already aligned."""
+    logits [B, S, V] f32; labels [B, S] already aligned. ``count``: the
+    label count to divide by instead of this batch's own."""
     tot, cnt = _nll_sum(logits, labels, ignore_index)
-    return tot / cnt.clamp_min(1)
+    return _mean_over(tot, cnt, count)
 
 
 def chunked_cross_entropy(x, head, labels, chunk: int,
-                          ignore_index: int = -100, tied_embed: bool = False):
+                          ignore_index: int = -100, tied_embed: bool = False,
+                          count=None):
     """CE over sequence chunks: each chunk's f32 logits [B, c, V] exist
     only inside a ``torch.utils.checkpoint`` (the head matmul re-runs in
     the backward). x: [B, S, H] final hidden (normed); head: [H, V], or
     with ``tied_embed`` the [V, H] embedding table. c is the largest
-    divisor of S that is <= chunk, as in JAX."""
+    divisor of S that is <= chunk, as in JAX. ``count`` as in
+    ``cross_entropy_loss``."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -1204,23 +1231,37 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
         else:
             tot = tot + body(xc, lc, head)
         cnt = cnt + (lc != ignore_index).sum()
-    return tot / torch.as_tensor(cnt, device=x.device).clamp_min(1)
+    return _mean_over(tot, cnt, count)
+
+
+def lm_labels(batch):
+    """The labels ``lm_loss`` reads: ``batch["labels"]``, else the ids
+    shifted left with -100 at the end."""
+    labels = batch.get("labels")
+    if labels is None:
+        ids = batch["input_ids"]
+        labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)],
+                           dim=1)
+    return labels
 
 
 def lm_loss(params: Params, batch, cfg: TransformerConfig,
-            reference: bool = False, dropout_seed: Optional[int] = None):
+            reference: bool = False, dropout_seed: Optional[int] = None,
+            label_count=None):
     """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
     input_ids [B, S]; optional labels (default: the ids shifted left, -100
     at the end) and attention_mask [B, S] (a key mask in attention). A
     MoE model raises (``check_trainable``). ``dropout_seed``: the training
     step's mask seed (JAX's ``dropout_rng`` with ``deterministic=False``);
-    None, as in eval, drops nothing."""
+    None, as in eval, drops nothing. ``label_count``: the count to divide
+    the summed token losses by (default: this batch's labels; a
+    data-parallel rank gives the global batch's, ``runtime/engine``)."""
     check_trainable(cfg)
+    # ZeRO-3: the embedding, the head and the final norm, gathered once a
+    # pass (each layer gathers its own in ``_hidden``)
+    params = gather_params(params)
     ids = batch["input_ids"]
-    labels = batch.get("labels")
-    if labels is None:
-        labels = torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -100)],
-                           dim=1)
+    labels = lm_labels(batch)
     mask = batch.get("attention_mask")
     if cfg.loss_chunk and cfg.loss_chunk > 0:
         x = forward(params, ids, cfg, attention_mask=mask, return_hidden=True,
@@ -1228,10 +1269,10 @@ def lm_loss(params: Params, batch, cfg: TransformerConfig,
         tied = params.get("lm_head") is None
         head = params["tok_embed"] if tied else params["lm_head"]
         return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
-                                     tied_embed=tied)
+                                     tied_embed=tied, count=label_count)
     logits = forward(params, ids, cfg, attention_mask=mask,
                      reference=reference, dropout_seed=dropout_seed)
-    return cross_entropy_loss(logits, labels)
+    return cross_entropy_loss(logits, labels, count=label_count)
 
 
 # --------------------------------------------------------------------------
@@ -1657,8 +1698,9 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
         name=name,
         init=lambda generator, device, dtype=None, keep=None:
             init_params(cfg, generator, device, dtype=dtype, keep=keep),
-        loss_fn=lambda params, batch, dropout_seed=None: lm_loss(
-            params, batch, cfg, dropout_seed=dropout_seed),
+        loss_fn=lambda params, batch, dropout_seed=None, label_count=None:
+            lm_loss(params, batch, cfg, dropout_seed=dropout_seed,
+                    label_count=label_count),
         apply=lambda params, input_ids, **kw:
             forward(params, input_ids, cfg, **kw),
         init_paged_cache=lambda num_blocks, block_size, dtype=None,

@@ -6,7 +6,10 @@ max_trust] and 1 where either norm is 0.
 Plain torch over the leaves, in place, as ``ops/adam.py``: the JAX module
 leaves the update to XLA, so no kernel is owed. The trust ratio stays on
 the device (a ``torch.where`` of two f32 norms, as JAX's): the update
-never waits on the host. The state has JAX's names: ``step`` (a host int), ``exp_avg``,
+never waits on the host. The norms come from ``ops/optimizers.
+sum_of_squares`` (exact on the CPU too, ROADMAP C3), summed over a
+leaf's shards under ZeRO (``leaf_sum``) so the ratio is the whole
+leaf's. The state has JAX's names: ``step`` (a host int), ``exp_avg``,
 ``exp_avg_sq`` and the f32 ``master``.
 """
 
@@ -16,15 +19,20 @@ import torch
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, ScalarOrSchedule,
                                                 _grads32, _lr_at,
                                                 _master_init, _resolve_master,
-                                                _writeback, _zeros32,
-                                                tree_leaves, tree_map)
+                                                _writeback, _zeros32, leaf_sum,
+                                                sum_of_squares, tree_leaves,
+                                                tree_map)
 
 
-def _norm(x):
-    """||x|| summed in f32, as JAX's ``jnp.linalg.norm`` of an f32 leaf
-    (exact to ~1e-7 on the card; on the CPU an f32 sum over tens of
-    millions of values drifts, ROADMAP C3)."""
-    return torch.linalg.vector_norm(x, dtype=torch.float32)
+def trust_ratio(i: int, p, upd, min_trust: float, max_trust: float):
+    """JAX's clipped ||p|| / ||upd|| of leaf ``i`` (1 where either norm is
+    0), as a 0-dim device tensor; both sums of squares summed over the
+    leaf's shards in one reduction."""
+    sq = leaf_sum(i, torch.stack([sum_of_squares(p), sum_of_squares(upd)]))
+    w_norm, u_norm = sq.sqrt().unbind()
+    return torch.where((w_norm > 0) & (u_norm > 0),
+                       (w_norm / u_norm).clamp(min_trust, max_trust),
+                       torch.ones_like(w_norm))
 
 
 def lamb(lr: ScalarOrSchedule = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
@@ -46,19 +54,16 @@ def lamb(lr: ScalarOrSchedule = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
         c1 = float(np.float32(1) - np.float32(b1) ** t)
         c2 = float(np.float32(1) - np.float32(b2) ** t)
         master = _resolve_master(params, state.get("master"))
-        for p, g, m, v in zip(tree_leaves(master), _grads32(grads),
-                              tree_leaves(state["exp_avg"]),
-                              tree_leaves(state["exp_avg_sq"])):
+        for i, (p, g, m, v) in enumerate(zip(
+                tree_leaves(master), _grads32(grads),
+                tree_leaves(state["exp_avg"]),
+                tree_leaves(state["exp_avg_sq"]))):
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
             upd = (m / c1) / ((v / c2).sqrt() + eps)
             if weight_decay:
                 upd = upd + weight_decay * p
-            w_norm, u_norm = _norm(p), _norm(upd)
-            trust = torch.where((w_norm > 0) & (u_norm > 0),
-                                (w_norm / u_norm).clamp(min_trust, max_trust),
-                                torch.ones_like(w_norm))
-            p.sub_(lr_t * trust * upd)
+            p.sub_(lr_t * trust_ratio(i, p, upd, min_trust, max_trust) * upd)
         _writeback(master, params, state.get("master"))
         state["step"] = step
         return params, state

@@ -1,9 +1,9 @@
 """Optimizer registry, a port of ``deepspeed_tpu/ops/registry.py``: the
-config's optimizer name -> its builder, JAX's table for the single-rank
-optimizers. The names the JAX package knows are all accepted by the
-config; the ones the port has not ported raise when built, naming their
-ROADMAP item: the 1-bit family (A4: its phases exist to compress a
-data-parallel all-reduce) and the host-offloaded variants (A8)."""
+config's optimizer name -> its builder, JAX's table. The names the JAX
+package knows are all accepted by the config; the host-offloaded
+variants raise when built, naming their ROADMAP item (A8). The 1-bit
+family (``ops/onebit.py``) composes with ``compression_training`` and
+MoQ in JAX; those config sections raise naming A11."""
 
 SUPPORTED_OPTIMIZERS = {
     "adam", "adamw", "fusedadam", "sgd", "lamb", "fusedlamb", "adagrad",
@@ -11,12 +11,6 @@ SUPPORTED_OPTIMIZERS = {
 }
 
 _DEFERRED = {
-    "onebitadam": "A4 (the 1-bit family compresses a data-parallel "
-                  "gradient all-reduce)",
-    "onebitlamb": "A4 (the 1-bit family compresses a data-parallel "
-                  "gradient all-reduce)",
-    "zerooneadam": "A4 (the 1-bit family compresses a data-parallel "
-                   "gradient all-reduce)",
     "cpuadam": "A8 (host-offloaded optimizers)",
     "cpuadagrad": "A8 (host-offloaded optimizers)",
 }
@@ -25,11 +19,14 @@ _DEFERRED = {
 def get_optimizer_builder(name: str):
     from deepspeed_tpu_torch.ops.adam import adam, adamw
     from deepspeed_tpu_torch.ops.lamb import lamb
+    from deepspeed_tpu_torch.ops.onebit import (onebit_adam, onebit_lamb,
+                                                zero_one_adam)
     from deepspeed_tpu_torch.ops.optimizers import adagrad, lion, sgd
     name = name.lower()
     table = {"adam": adam, "fusedadam": adam, "adamw": adamw, "sgd": sgd,
              "lamb": lamb, "fusedlamb": lamb, "adagrad": adagrad,
-             "lion": lion}
+             "lion": lion, "onebitadam": onebit_adam,
+             "onebitlamb": onebit_lamb, "zerooneadam": zero_one_adam}
     if name in table:
         return table[name]
     if name in _DEFERRED:

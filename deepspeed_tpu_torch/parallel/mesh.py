@@ -1,57 +1,138 @@
-"""Mesh plan over a ``torch.distributed`` group, the serving half of
+"""Mesh plan over a ``torch.distributed`` group, a port of
 ``deepspeed_tpu/parallel/mesh.py``.
 
 JAX lays its devices on a named mesh and GSPMD inserts the collectives
 an annotation implies. The port lays the ranks of a process group on the
-same named grid and the model calls ``torch.distributed`` itself where a
-sharded dim is met (``models/transformer.py``). The axis order is JAX's
-(``AXIS_ORDER``: tensor innermost), so rank ``r`` of a plan with
-``expert = E`` and ``tensor = T`` sits at ``(r // T, r % T)``: the ranks
-of one tensor group are adjacent.
+same named grid, and the engines and the model call the collectives
+themselves, by axis name (``comm/comm.py``), where a sharded dim is met.
+The axis order is JAX's without ``pipe`` and ``seq`` (``AXIS_ORDER``:
+data outermost, tensor innermost), so a rank sits at the coordinates of
+the JAX device of the same index: rank ``r`` of a plan with ``expert =
+E`` and ``tensor = T`` is at ``(r // T, r % T)``, and the ranks of one
+tensor group are adjacent.
 
-Serving needs the ``expert`` and ``tensor`` axes only; ``data`` must be 1
-(data-parallel serving is a fleet of replicas, ROADMAP A7; data-parallel
-training over ranks is ROADMAP A4).
+Training runs the ``data`` and ``fsdp`` axes (ZeRO, ``runtime/zero.py``;
+``plan_from_config`` puts the data-parallel degree on ``data`` for ZeRO
+stage <= 2 and on ``fsdp`` for stage 3); serving runs ``expert`` and
+``tensor``. ``pipe`` and ``seq`` (pipeline and ring attention) are
+ROADMAP A9.
 """
 
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch.distributed as dist
 
-AXIS_ORDER = ("data", "expert", "tensor")
+AXIS_ORDER = ("data", "fsdp", "expert", "tensor")
+
+# the axes that together carry the global batch dim, as in JAX
+BATCH_AXES = ("data", "fsdp", "expert")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshPlan:
-    """Parallel degrees of one serving engine."""
+    """Resolved parallel degrees. ``pipe`` and ``seq`` are JAX's fields
+    for the JSON surface: above 1 they raise (ROADMAP A9)."""
     data: int = 1
+    fsdp: int = 1
     expert: int = 1
     tensor: int = 1
+    pipe: int = 1
+    seq: int = 1
 
     def __post_init__(self):
-        for axis in AXIS_ORDER:
+        for axis in AXIS_ORDER + ("pipe", "seq"):
             if int(getattr(self, axis)) < 1:
                 raise ValueError(f"MeshPlan {axis}={getattr(self, axis)}: "
                                  "degrees are >= 1")
-        if self.data != 1:
-            raise NotImplementedError(
-                f"MeshPlan data={self.data}: data-parallel ranks are not "
-                "ported yet: ROADMAP A4 (multi-rank training) / A7 "
-                "(replicated serving)")
+        for axis, what in (("pipe", "pipeline parallelism"),
+                           ("seq", "sequence parallelism (ring attention)")):
+            if getattr(self, axis) > 1:
+                raise NotImplementedError(
+                    f"MeshPlan {axis}={getattr(self, axis)}: {what} is not "
+                    "ported yet: ROADMAP A9")
 
     @property
     def world_size(self) -> int:
-        return self.data * self.expert * self.tensor
+        return self.data * self.fsdp * self.expert * self.tensor
+
+    @property
+    def dp_world_size(self) -> int:
+        """The data-parallel degree: every batch axis takes its own rows
+        (expert groups included, JAX's expert-data-parallel groups)."""
+        return self.data * self.fsdp * self.expert
 
     def axis_sizes(self) -> Dict[str, int]:
         return {axis: int(getattr(self, axis)) for axis in AXIS_ORDER}
 
     def describe(self) -> str:
-        """JAX's label: "tensor=2", "expert=4", "expert=2xtensor=2" or
-        "single"."""
+        """JAX's label: "data=2", "expert=2xtensor=2" or "single"."""
         return "x".join(f"{k}={v}" for k, v in self.axis_sizes().items()
                         if v > 1) or "single"
+
+
+def plan_from_config(config, world_size: int) -> MeshPlan:
+    """JAX's ``plan_from_config`` for the axes the port trains: explicit
+    ``mesh.axes`` wins (their product must be the world size); otherwise
+    the whole world is data-parallel, on ``data`` for ZeRO stage <= 2
+    and on ``fsdp`` for stage 3."""
+    explicit = dict(config.mesh.axes or {})
+    if explicit:
+        unknown = set(explicit) - set(AXIS_ORDER) - {"pipe", "seq"}
+        if unknown:
+            raise ValueError(f"mesh.axes names unknown axes "
+                             f"{sorted(unknown)}; the axes are "
+                             f"{AXIS_ORDER + ('pipe', 'seq')}")
+        plan = MeshPlan(**{k: int(v) for k, v in explicit.items()})
+        if plan.world_size != world_size:
+            raise ValueError(f"mesh.axes product {plan.world_size} != world "
+                             f"size {world_size}")
+        return plan
+    if config.zero_optimization.stage >= 3:
+        return MeshPlan(fsdp=world_size)
+    return MeshPlan(data=world_size)
+
+
+class Topology:
+    """Rank-grid queries over a plan, JAX's ``Topology`` (the reference's
+    ``ProcessTopology``): ``get_rank(axis=coord)``, ``get_coord``,
+    ``get_axis_comm_lists``, ``filter_match``."""
+
+    def __init__(self, plan: MeshPlan):
+        self.plan = plan
+        self.axes = list(AXIS_ORDER)
+        self.dims = [getattr(plan, ax) for ax in AXIS_ORDER]
+
+    def world_size(self) -> int:
+        return int(np.prod(self.dims))
+
+    def get_rank(self, **coords) -> int:
+        idx = [coords.get(ax, 0) for ax in self.axes]
+        return int(np.ravel_multi_index(idx, self.dims))
+
+    def get_coord(self, rank: int) -> Dict[str, int]:
+        return {ax: int(c) for ax, c in
+                zip(self.axes, np.unravel_index(rank, self.dims))}
+
+    def get_dim(self, axis: str) -> int:
+        return self.dims[self.axes.index(axis)]
+
+    def get_axis_comm_lists(self, axis: str) -> List[List[int]]:
+        """The groups of ranks that differ only along ``axis``, each in
+        coordinate order."""
+        ai = self.axes.index(axis)
+        groups: Dict[tuple, List[int]] = {}
+        for rank in range(self.world_size()):
+            coord = np.unravel_index(rank, self.dims)
+            key = tuple(int(c) for i, c in enumerate(coord) if i != ai)
+            groups.setdefault(key, []).append(rank)
+        return [sorted(v) for _, v in sorted(groups.items())]
+
+    def filter_match(self, **coords) -> List[int]:
+        return [r for r in range(self.world_size())
+                if all(self.get_coord(r)[k] == v
+                       for k, v in coords.items())]
 
 
 class Mesh:
@@ -72,8 +153,7 @@ class Mesh:
         self.ranks = list(ranks) if ranks is not None else [0]
         self.src = self.ranks[0]
         self._groups = dict(groups or {})
-        e, t = divmod(rank, plan.tensor)
-        self._coords = {"data": 0, "expert": e, "tensor": t}
+        self._coords = Topology(plan).get_coord(rank)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -104,7 +184,7 @@ class Mesh:
 
 
 def single_mesh() -> Mesh:
-    """The one-rank mesh of an engine that serves on one card."""
+    """The one-rank mesh of an engine on one card."""
     return Mesh(MeshPlan())
 
 
@@ -128,20 +208,17 @@ def build_mesh(plan: MeshPlan, group=None) -> Mesh:
     rank = dist.get_rank(group)
     ranks = (dist.get_process_group_ranks(group) if group is not None
              else list(range(world)))
-    T, E = plan.tensor, plan.expert
+    topo = Topology(plan)
     groups: Dict[str, object] = {}
-    for axis, members in (
-            ("tensor", [[ranks[e * T + t] for t in range(T)]
-                        for e in range(E)]),
-            ("expert", [[ranks[e * T + t] for e in range(E)]
-                        for t in range(T)])):
-        if len(members[0]) == 1:
+    for axis in AXIS_ORDER:
+        if plan.axis_sizes()[axis] == 1:
             continue
-        if len(members[0]) == world:
+        lists = topo.get_axis_comm_lists(axis)
+        if len(lists[0]) == world:
             groups[axis] = group if group is not None else dist.group.WORLD
             continue
-        for m in members:
-            g = dist.new_group(m)       # every rank makes every subgroup
-            if ranks[rank] in m:
+        for members in lists:
+            g = dist.new_group([ranks[m] for m in members])
+            if rank in members:       # every rank makes every subgroup
                 groups[axis] = g
     return Mesh(plan, group=group, rank=rank, ranks=ranks, groups=groups)

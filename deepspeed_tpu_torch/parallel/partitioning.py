@@ -1,58 +1,108 @@
-"""Logical-axis partitioning, the port of the stage <= 2 half of
+"""Logical-axis partitioning, a port of
 ``deepspeed_tpu/parallel/partitioning.py``.
 
 Every parameter carries a tuple of logical axis names
-(``models/transformer.logical_axes``); one rules table (``RULES``)
-maps each name to a mesh axis. JAX hands the resulting specs to GSPMD,
-which lays each leaf out over the devices; the port cuts each rank's
-slice of a leaf by the same spec (``shard_slices``), so a rank holds
-exactly the shard JAX puts on the device at its mesh coordinates. A sharded dim is split in equal
-contiguous pieces, in rank order along its mesh axis.
+(``models/transformer.logical_axes``); a rules table (``make_rules``:
+JAX's, for a ZeRO stage and with or without a tensor axis) maps each
+name to a mesh axis, or to a tuple of mesh axes that split the dim
+together. JAX hands the resulting specs to GSPMD, which lays each leaf
+out over the devices; the port cuts each rank's slice of a leaf by the
+same spec (``shard_slices``), so a rank holds exactly the shard JAX puts
+on the device at its mesh coordinates. A sharded dim is split in equal
+contiguous pieces; over a tuple of axes the piece index is row-major in
+the tuple's order (JAX's ``PartitionSpec(("fsdp", "tensor"))``).
+
+A spec here is JAX's ``PartitionSpec`` as a plain tuple: one entry a
+dim, None (replicated), an axis name or a tuple of names; trailing Nones
+dropped.
 """
 
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.parallel.mesh import Mesh
 
-MeshAxis = Union[str, None]
+MeshAxis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[MeshAxis, ...]
 
 
-# JAX's ``make_rules`` for ZeRO stage <= 2 (params replicated across
-# data), with its tensor axis: vocab, mlp, heads and qkv shard over
-# ``tensor``, expert over ``expert``, everything else replicates. On a
-# mesh whose tensor axis has size 1, ``shard_slices`` cuts nothing along
-# it, which is what JAX's table without the tensor axis says.
-RULES = {
-    "vocab": "tensor",
-    "embed": None,
-    "mlp": "tensor",
-    "heads": "tensor",
-    "qkv": "tensor",
-    "kv": None,
-    "expert": "expert",
-    "layers": None,
-    "unmodeled": None,
-}
+def make_rules(zero_stage: int, tp: bool = True,
+               fsdp_axis: str = "fsdp",
+               tensor_axis: str = "tensor") -> Dict[str, MeshAxis]:
+    """JAX's ``make_rules`` without its ``pipe`` option (ROADMAP A9).
+    Stage <= 2: params replicated across data-parallel ranks, the logical
+    axes map to ``tensor`` only. Stage 3: ``embed`` shards over ``fsdp``,
+    ``vocab`` over (fsdp, tensor), and without a tensor axis ``mlp``,
+    ``heads`` and ``qkv`` over ``fsdp`` too (the first of them in a leaf
+    takes it: a mesh axis shards one dim of a leaf)."""
+    t = tensor_axis if tp else None
+    if zero_stage >= 3:
+        return {"vocab": (fsdp_axis, t) if t else fsdp_axis,
+                "embed": fsdp_axis,
+                "mlp": t if t else fsdp_axis,
+                "heads": t if t else fsdp_axis,
+                "qkv": t if t else fsdp_axis,
+                "kv": None, "expert": "expert", "layers": None,
+                "unmodeled": None}
+    return {"vocab": t, "embed": None, "mlp": t, "heads": t, "qkv": t,
+            "kv": None, "expert": "expert", "layers": None,
+            "unmodeled": None}
 
 
-def mesh_axes(logical_axes: Optional[Sequence[Optional[str]]]) -> Spec:
-    """The mesh axis of each dim (None: replicated). A mesh axis shards
-    at most one dim of a leaf: a later dim that maps to an axis already
-    used stays replicated, as in JAX. Trailing Nones are dropped (JAX's
-    ``PartitionSpec`` form)."""
+# the serving table: JAX's ``make_rules(0)`` with its tensor axis (vocab,
+# mlp, heads and qkv over ``tensor``, expert over ``expert``). On a mesh
+# whose tensor axis has size 1, ``shard_slices`` cuts nothing along it,
+# which is what JAX's table without the tensor axis says.
+RULES = make_rules(0, tp=True)
+
+
+def entry_axes(entry: MeshAxis) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry, as a tuple."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_entries(spec: Spec, ndim: int = 0):
+    """A spec as a list of per-dim axis tuples (padded to ``ndim``)."""
+    out = [entry_axes(e) for e in spec]
+    while len(out) < ndim:
+        out.append(())
+    return out
+
+
+def from_entries(entries) -> Spec:
+    """Per-dim axis tuples back to a spec (JAX's form)."""
+    out = [tuple(e) if len(e) > 1 else (e[0] if e else None)
+           for e in entries]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def spec_axes(spec: Spec):
+    """Every mesh axis a spec names."""
+    return {a for e in spec for a in entry_axes(e)}
+
+
+def mesh_axes(logical_axes: Optional[Sequence[Optional[str]]],
+              rules: Optional[Dict[str, MeshAxis]] = None) -> Spec:
+    """The mesh axes of each dim (None: replicated) under ``rules``
+    (default: the serving table). A mesh axis shards at most one dim of
+    a leaf: a later dim whose rule names an axis already used stays
+    replicated, as in JAX."""
     if logical_axes is None:
         return ()
+    table = RULES if rules is None else rules
     out, used = [], set()
     for name in logical_axes:
-        axis = RULES.get(name) if name is not None else None
-        if axis is not None and axis in used:
+        axis = table.get(name) if name is not None else None
+        key = entry_axes(axis)
+        if key and any(a in used for a in key):
             axis = None
-        if axis is not None:
-            used.add(axis)
+        used.update(entry_axes(axis))
         out.append(axis)
     while out and out[-1] is None:
         out.pop()
@@ -64,31 +114,33 @@ def _is_axes(x) -> bool:
                          and all(a is None or isinstance(a, str) for a in x))
 
 
-def spec_tree(logical_tree):
+def spec_tree(logical_tree, rules: Optional[Dict[str, MeshAxis]] = None):
     """Map a tree (nested dicts) of logical-axis tuples to mesh specs."""
     if _is_axes(logical_tree):
-        return mesh_axes(logical_tree)
-    return {k: spec_tree(v) for k, v in logical_tree.items()}
+        return mesh_axes(logical_tree, rules)
+    return {k: spec_tree(v, rules) for k, v in logical_tree.items()}
 
 
 def shard_slices(shape: Sequence[int], spec: Spec, mesh: Mesh,
                  what: str = "leaf") -> Tuple[slice, ...]:
     """This rank's slice of a leaf of ``shape`` under ``spec``: each dim
-    sharded over a mesh axis of size n is cut in n equal pieces and the
-    rank takes the piece at its coordinate. A dim that n does not divide
-    raises, naming the leaf."""
+    sharded over mesh axes of sizes n1, n2, ... is cut in n1 * n2 * ...
+    equal pieces and the rank takes the piece at its coordinates, raveled
+    in the entry's order. A dim that does not split raises, naming the
+    leaf."""
     out = []
     for d, size in enumerate(shape):
-        axis = spec[d] if d < len(spec) else None
-        n = mesh.size(axis) if axis is not None else 1
+        axes = entry_axes(spec[d]) if d < len(spec) else ()
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
         if n == 1:
             out.append(slice(None))
             continue
         if size % n:
             raise ValueError(f"{what}: dim {d} of size {size} does not "
-                             f"split over the {axis} axis of size {n}")
+                             f"split over the {axes} axes of size {n}")
         part = size // n
-        i = mesh.index(axis)
         out.append(slice(i * part, (i + 1) * part))
     return tuple(out)
 
@@ -99,6 +151,28 @@ def local_shape(shape: Sequence[int], spec: Spec, mesh: Mesh,
     return tuple(len(range(*s.indices(n)))
                  for s, n in zip(shard_slices(shape, spec, mesh, what),
                                  shape))
+
+
+def sub_slices(local_shape: Sequence[int], outer: Spec, inner: Spec,
+               mesh: Mesh) -> Tuple[slice, ...]:
+    """Within a tensor already cut by ``outer``, the slice that the finer
+    ``inner`` keeps: each dim's ``inner`` axes extend its ``outer`` ones
+    (ZeRO's optimizer spec appends ``data`` to a dim of the param spec),
+    and the extra axes cut the local dim as ``shard_slices`` would."""
+    out = []
+    for d, size in enumerate(local_shape):
+        o = entry_axes(outer[d]) if d < len(outer) else ()
+        i_ax = entry_axes(inner[d]) if d < len(inner) else ()
+        if i_ax[:len(o)] != o:
+            raise ValueError(f"spec {inner} does not refine {outer} on dim "
+                             f"{d}")
+        n, i = 1, 0
+        for a in i_ax[len(o):]:
+            n, i = n * mesh.size(a), i * mesh.size(a) + mesh.index(a)
+        part = size // n
+        out.append(slice(None) if n == 1
+                   else slice(i * part, (i + 1) * part))
+    return tuple(out)
 
 
 def shard_leaf(a, spec: Spec, mesh: Mesh, what: str = "leaf"):

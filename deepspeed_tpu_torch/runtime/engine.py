@@ -1,7 +1,9 @@
-"""The training engine on one device, a port of the main path of
+"""The training engine, a port of the main path of
 ``deepspeed_tpu/runtime/engine.py``: ``initialize`` -> ``Engine`` ->
 ``train_batch`` / ``train_batches`` / ``forward``-``backward``-``step``,
-with checkpoints a run can resume from.
+with checkpoints a run can resume from, on one card or on every rank of
+a ``torch.distributed`` group (ZeRO stages 0-3 over the ``data`` and
+``fsdp`` axes, below).
 
 What it runs, in the JAX engine's order:
 
@@ -25,9 +27,10 @@ What it runs, in the JAX engine's order:
   ``params``;
 - ``train_batches``: the async loop (``pipeline.in_flight`` steps issued
   ahead at most, ``pipeline.prefetch`` copies batch N+1 from pinned host
-  memory on a side stream while step N runs), and the 3-call
-  ``forward`` / ``backward`` / ``step`` API (grads buffered until the
-  accumulation boundary, the update ``train_batch`` applies);
+  memory on a side stream while step N runs; ``pipeline.fuse_steps`` is
+  accepted and has no effect in the eager port), and the 3-call ``forward`` / ``backward`` / ``step``
+  API (grads buffered until the accumulation boundary, the update
+  ``train_batch`` applies);
 - ``attach_dataloader`` (or ``initialize(training_data=...)``), whose
   position every checkpoint carries;
 - ``save_checkpoint`` / ``wait_checkpoint`` / ``load_checkpoint``
@@ -44,14 +47,37 @@ mask seed fixed by (``config.seed``, the step, the micro-batch), from
 which each layer's masks are drawn (``models/transformer._dropout``);
 ``eval_batch`` drops nothing.
 
+More than one rank (the default group of more than one process, or
+``initialize(mesh=...)``): the plan comes from ``parallel.mesh.
+plan_from_config`` (stage <= 2 on ``data``, stage 3 on ``fsdp``) and
+``runtime/zero.Partition`` keeps each rank's slice of params, grads and
+optimizer state. ``train_batch`` takes the global batch on every rank;
+each rank computes the grads of its contiguous rows (JAX's batch
+sharding over ``BATCH_AXES``), reduced when the schedule says
+(``comm/schedule.py``); the global norm counts every element once, LAMB's
+trust ratios and the 1-bit scales are the whole leaf's, and the fp16
+overflow flag is a max over the ranks, so every rank skips the same step.
+Each rank divides its summed token losses by the label count of the
+whole micro-batch over the data-parallel degree, so the mean over the
+ranks is JAX's global token mean also where rows carry different counts
+of -100 labels; under ``deferred_grad_sync`` and on the 1-bit compressed
+path each rank takes the mean over its own rows, as JAX's manual-over-
+``data`` regions do. The 1-bit optimizers take the compressed path where
+JAX does (pure data parallel at stage 0): local grads, the phase's own
+wire.
+A checkpoint is universal: each leaf is gathered whole and rank 0 writes
+what a one-rank save writes, and a load keeps each rank's slice, so any
+world size and stage loads it.
+
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
-slice leaves out raises ``NotImplementedError`` naming its ROADMAP item:
-more than one rank, meshes and model-parallel groups (A4), and the config
+port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
+training over a ``tensor`` or ``expert`` axis (A9), and the config
 sections ``config/config.py`` lists.
 """
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -63,16 +89,25 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
+from deepspeed_tpu_torch.comm.schedule import GradSchedule
 from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     check_trainable,
+                                                    lm_labels, logical_axes,
                                                     make_model, mask_seed)
+from deepspeed_tpu_torch.ops.onebit import PhasedOptimizer
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
-                                                global_grad_norm, tree_leaves,
+                                                global_grad_norm,
+                                                leaf_reduction,
+                                                sum_of_squares, tree_leaves,
                                                 tree_map)
 from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
+from deepspeed_tpu_torch.parallel import context as par_ctx
+from deepspeed_tpu_torch.parallel.mesh import (BATCH_AXES, Mesh, build_mesh,
+                                               plan_from_config)
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
 from deepspeed_tpu_torch.runtime import fp16 as fp16_mod
 from deepspeed_tpu_torch.runtime import zero as zero_mod
@@ -82,32 +117,28 @@ from deepspeed_tpu_torch.runtime.lr_schedules import get_scheduler
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
-
-
 def initialize(args=None, model=None, config=None, config_params=None,
                optimizer=None, lr_scheduler=None, params=None, state=None,
-               device=None, training_data=None, **kwargs):
+               device=None, training_data=None, mesh=None, mpu=None,
+               **kwargs):
     """Build an Engine. ``model``: a ModelSpec (``models.make_model``);
     ``config``: a dict, a JSON path or a Config; ``params``: a JAX-layout
     tree (numpy arrays) instead of the seeded init; ``state``: the JAX
     engine's whole training state as numpy (``models.state_from_numpy``)
     to continue from; ``training_data``: an indexable dataset of rows,
     batched by a ``DataLoader`` of ``train_batch_size`` rows that is
-    attached (checkpoints carry its position). Returns (engine, optimizer,
+    attached (checkpoints carry its position); ``mesh``: a
+    ``parallel.Mesh`` over a process group (None: the plan of
+    ``plan_from_config`` over the default group, one rank without one);
+    ``mpu``: accepted and unused, as in JAX. Returns (engine, optimizer,
     dataloader, lr_scheduler); dataloader is None without
     training_data."""
     cfg = Config.load(config if config is not None else config_params)
     if args is not None and getattr(args, "deepspeed_config", None):
         cfg = Config.load(args.deepspeed_config)
-    for key in ("mesh", "mpu"):
-        if kwargs.get(key) is not None:
-            _not_ported(f"initialize({key}=...)",
-                        "A4 (meshes, model-parallel groups)")
     engine = Engine(model=model, config=cfg, optimizer=optimizer,
                     lr_scheduler=lr_scheduler, params=params, state=state,
-                    device=device)
+                    device=device, mesh=mesh)
     dataloader = None
     if training_data is not None:
         # train_batch consumes GLOBAL batches (train_batch_size rows)
@@ -129,11 +160,24 @@ class _Staged(dict):
 class Engine:
     def __init__(self, model, config: Config,
                  optimizer: Optional[Optimizer] = None, lr_scheduler=None,
-                 params=None, state=None, device=None):
+                 params=None, state=None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
         self.config = config
-        zero_mod.check_single_device(config.zero_optimization.stage)
-        config.resolve_batch_size(1)
+        if mesh is None:
+            mesh = build_mesh(plan_from_config(config,
+                                               comm.get_world_size()))
+        self.mesh, self.plan = mesh, mesh.plan
+        for axis in ("tensor", "expert"):
+            if self.mesh.size(axis) > 1:
+                raise NotImplementedError(
+                    f"training over a {axis} axis of size "
+                    f"{self.mesh.size(axis)} is not ported yet: ROADMAP A9 "
+                    "(tensor-parallel and MoE training)")
+        config.resolve_batch_size(self.plan.dp_world_size)
+        if self.plan.world_size > 1:
+            logger.info(zero_mod.describe(config.zero_optimization,
+                                          self.plan))
 
         # the `transformer` section rebuilds the model config, as in JAX
         if config.transformer.fused_backward:
@@ -178,6 +222,38 @@ class Engine:
         if config.optimizer and "lr" in config.optimizer.params:
             self._base_lr = config.optimizer.params["lr"]
 
+        # the 1-bit optimizers' compressed path: where JAX takes it (a pure
+        # data-parallel plan at stage 0); elsewhere their dense update
+        self._onebit = False
+        if isinstance(self.optimizer, PhasedOptimizer) \
+                and self.plan.data > 1:
+            if self.plan.world_size == self.plan.data \
+                    and config.zero_optimization.stage == 0:
+                self._onebit = True
+                logger.info("1-bit optimizer: compressed communication over "
+                            f"the data axis ({self.plan.data} ranks), "
+                            "packed sign all-gather in the compressed phase")
+            else:
+                logger.warning(
+                    "1-bit optimizer: compressed communication requires a "
+                    "pure data-parallel mesh and zero stage 0; falling back "
+                    "to dense (error-feedback sign update semantics are "
+                    "preserved, bytes are not reduced)")
+        self._sched = GradSchedule.resolve(config.comm, self.plan,
+                                           onebit=self._onebit)
+        self._part = None
+        if self.plan.world_size > 1:
+            if not isinstance(getattr(model, "config", None),
+                              TransformerConfig):
+                raise ValueError("training on more than one rank needs a "
+                                 "transformer ModelSpec (its logical axes "
+                                 "lay the leaves out over the mesh)")
+            self._part = zero_mod.Partition(
+                logical_axes(model.config), self.plan, self.mesh,
+                config.zero_optimization,
+                hierarchical=self._sched.hierarchical)
+        self.last_grad_bytes = 0
+
         if state is None:
             self.state = self._init_state(params)
         else:
@@ -194,20 +270,54 @@ class Engine:
         self._pending = None
         self._grad_buffer = None
         self._losses = []
+        # the 1-bit phase is a host decision on the applied-update count
+        self._onebit_applied = (self.state["opt"]["step"] if self._onebit
+                                else 0)
+
+    @property
+    def world_size(self) -> int:
+        return self.plan.world_size
+
+    def _layouts(self):
+        return self._part.in_order(self.state["params"])
+
+    def _step_context(self):
+        """The contexts of a step: the mesh (the comm facade's axes) and,
+        at stage 3, the model's parameter gatherer."""
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(par_ctx.parallel_context(self.mesh))
+        if self._part is not None and self._part.stage >= 3:
+            ctx.enter_context(par_ctx.param_gather(self._part.gatherer()))
+        return ctx
 
     # ------------------------------------------------------------------
     def _init_state(self, params):
         """f32 params -> optimizer state (masters copied from them) ->
-        params in the compute dtype, each an autograd leaf."""
+        params in the compute dtype, each an autograd leaf. On more than
+        one rank each leaf is cut to this rank's param slice as it is
+        drawn, and the optimizer state is built on the optimizer's slices
+        of those."""
+        part = self._part
+        keep = None if part is None else part.param_shard
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(
                 self.config.seed)
-            params32 = self.model.init(gen, self.device, dtype=torch.float32)
+            params32 = self.model.init(gen, self.device, dtype=torch.float32,
+                                       **({} if keep is None
+                                          else {"keep": keep}))
         else:
             params32 = params_from_numpy(params, self.model.config,
                                          device=self.device,
                                          dtype=torch.float32)
-        opt_state = self.optimizer.init(params32)
+            if keep is not None:
+                params32 = self._map_paths(params32, keep)
+        if part is None:
+            opt_state = self.optimizer.init(params32)
+        else:
+            views = iter([part.opt_view(lay, p) for lay, p in zip(
+                part.in_order(params32), tree_leaves(params32))])
+            opt_state = self.optimizer.init(
+                tree_map(lambda _: next(views), params32))
         params = cast_tree(params32, self.compute_dtype)
         del params32
         for p in tree_leaves(params):
@@ -230,9 +340,17 @@ class Engine:
                 "skipped": torch.zeros((), dtype=torch.int32,
                                        device=self.device)}
 
+    @staticmethod
+    def _map_paths(tree, fn, prefix: str = ""):
+        """``fn(path, leaf)`` over a nested dict's leaves."""
+        return {k: (Engine._map_paths(v, fn, f"{prefix}{k}/")
+                    if isinstance(v, dict) else fn(prefix + k, v))
+                for k, v in tree.items()}
+
     def _adopt_state(self, state):
         """A JAX training state (numpy) as this engine's, checked against
-        the structure this engine's optimizer builds."""
+        the structure this engine's optimizer builds (on more than one
+        rank, each leaf cut to this rank's slice)."""
         adopted = state_from_numpy(state, self.model.config,
                                    device=self.device,
                                    compute_dtype=self.compute_dtype)
@@ -242,6 +360,12 @@ class Engine:
                 **self._fp16_state()}
         _check_structure(ckpt_mod.flatten(adopted), ckpt_mod.flatten(want),
                          "state")
+        if self._part is not None:
+            for path, p in ckpt_mod.flatten(adopted["params"]).items():
+                self._part.layout(path, p.shape)
+            adopted = self._map_paths(adopted, lambda key, leaf: (
+                self._local_of(key, leaf).clone()
+                if isinstance(leaf, torch.Tensor) else leaf))
         for p in tree_leaves(adopted["params"]):
             p.requires_grad_(True)
         return adopted
@@ -290,18 +414,32 @@ class Engine:
         return {"dropout_seed": mask_seed(self.config.seed,
                                           self.global_steps, micro)}
 
-    def _micro_grads(self, mb, micro: int = 0):
+    def _micro_grads(self, mb, micro: int = 0, row: Optional[int] = None,
+                     label_count=None):
         """(loss, f32 grads as a list over the param leaves) of one
         micro-batch; under fp16 the grads are those of the scaled loss
-        (the loss itself comes back unscaled)."""
+        (the loss itself comes back unscaled). On more than one rank the
+        grads are this rank's, unreduced (a ZeRO-3 shard's summed over
+        ``fsdp`` by its gather's backward); ``row``: where this rank's
+        rows start in micro-batch ``micro`` of the one-rank run, for
+        dropout; ``label_count``: the loss's denominator
+        (``_label_counts``; None: this micro-batch's own count)."""
         leaves = tree_leaves(self.state["params"])
-        loss = self.model.loss_fn(self.state["params"], mb,
-                                  **self._dropout_kw(micro))
-        target = loss
-        if self._fp16:
-            target = fp16_mod.scale_loss(
-                loss, fp16_mod.LossScaleState(**self.state["loss_scale"]))
-        grads = torch.autograd.grad(target, leaves, materialize_grads=True)
+        kw = self._dropout_kw(micro)
+        with contextlib.ExitStack() as ctx:
+            if row is not None and kw:
+                # the backward's remat replay redraws the masks: both
+                # passes run in the rows' context
+                ctx.enter_context(par_ctx.batch_rows(row))
+            if label_count is not None:
+                kw["label_count"] = label_count
+            loss = self.model.loss_fn(self.state["params"], mb, **kw)
+            target = loss
+            if self._fp16:
+                target = fp16_mod.scale_loss(
+                    loss, fp16_mod.LossScaleState(**self.state["loss_scale"]))
+            grads = torch.autograd.grad(target, leaves,
+                                        materialize_grads=True)
         return loss.detach(), [g.float() for g in grads]
 
     def _accumulate(self, acc, grads):
@@ -322,8 +460,70 @@ class Engine:
     def _mean_loss(losses):
         return losses[0] if len(losses) == 1 else torch.stack(losses).mean()
 
+    def _local_rows(self, batch):
+        """This rank's contiguous rows of the global batch (the batch dim
+        sharded over ``BATCH_AXES``, as JAX shards it)."""
+        if self._part is None:
+            return batch
+        return {k: self._part.slice_of(v, (BATCH_AXES,))
+                for k, v in batch.items()}
+
+    def _dp_index(self) -> int:
+        """This rank's piece of the batch dim (``BATCH_AXES`` raveled)."""
+        i = 0
+        for a in BATCH_AXES:
+            i = i * self.mesh.size(a) + self.mesh.index(a)
+        return i
+
+    def _denominators(self, counts):
+        """A data-parallel rank's loss denominators: each count of labels
+        of a whole micro-batch (every rank's rows), at least 1, over the
+        data-parallel degree. A rank's summed token losses over this,
+        averaged over the ranks, is the micro-batch's token mean."""
+        return counts.clamp_min(1).float() / self.plan.dp_world_size
+
+    def _rank_accum_grads(self, batch):
+        """Grads of this rank's rows of the global ``batch`` over ``gas``
+        micro-batches, each reduced as it is made (the default schedule)
+        or reduced once at the boundary (deferred), and the loss averaged
+        over the ranks. The 1-bit compressed path leaves the grads
+        unreduced. Micro-batch i of this rank's rows is global micro-batch
+        (d * gas + i) // dp of the one-rank run, at row offset
+        ((d * gas + i) % dp) * micro (d: this rank's dp index): dropout
+        draws that, and on the eager schedule its loss is divided by that
+        micro-batch's label count (JAX's global token mean; without
+        explicit labels every rank's count is the same)."""
+        gas = self.config.gradient_accumulation_steps
+        dp, d = self.plan.dp_world_size, self._dp_index()
+        local = self._local_rows(batch)
+        micro_rows = local["input_ids"].shape[0] // gas
+        mbs = {k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])
+               for k, v in local.items()}
+        layouts = self._layouts()
+        eager = not (self._sched.deferred or self._onebit)
+        counts = None
+        if eager and "labels" in batch:
+            counts = self._denominators(
+                (lm_labels(batch) != -100).reshape(gas, -1).sum(1))
+        acc, losses = None, []
+        for i in range(gas):
+            n = d * gas + i
+            loss, grads = self._micro_grads(
+                {k: v[i] for k, v in mbs.items()}, micro=n // dp,
+                row=(n % dp) * micro_rows,
+                label_count=None if counts is None else counts[n // dp])
+            if eager:
+                grads = self._part.reduce_grads(grads, layouts)
+            acc = self._accumulate(acc, grads)
+            losses.append(loss)
+        if self._sched.deferred:
+            acc = self._part.reduce_grads(acc, layouts)
+        return acc, self._part.mean_over_ranks(self._mean_loss(losses))
+
     def _accum_micro_grads(self, batch):
         """Grads averaged over ``gas`` micro-batches and the mean loss."""
+        if self._part is not None:
+            return self._rank_accum_grads(batch)
         gas = self.config.gradient_accumulation_steps
         if gas == 1:
             loss, grads = self._micro_grads(batch)
@@ -338,10 +538,56 @@ class Engine:
             losses.append(loss)
         return acc, self._mean_loss(losses)
 
+    def _global_norm(self, grads):
+        """The global grad norm: on more than one rank each element
+        counted once (``Partition.grad_norm``); on the 1-bit compressed
+        path JAX's RMS over the ranks of the local norms (an upper bound
+        of the averaged gradient's norm, identical on every rank)."""
+        if self._part is None:
+            return global_grad_norm(grads)
+        if self._onebit:
+            gsq = torch.stack([sum_of_squares(g) for g in grads]).sum()
+            return comm.all_reduce(gsq.reshape(1), "data",
+                                   op="mean")[0].sqrt()
+        return self._part.grad_norm(grads, self._layouts(), sum_of_squares)
+
+    def _update(self, grads):
+        """The optimizer update, in place. On more than one rank on the
+        optimizer's slices (params seen through views, so the masters'
+        write-back lands in the params), per-leaf statistics summed over
+        the shards, then the updated params gathered; on the 1-bit
+        compressed path the phase's own update over the data axis."""
+        params = self.state["params"]
+        if self._onebit:
+            it = iter(grads)
+            self.optimizer.update_phase(
+                tree_map(lambda _: next(it), params), self.state["opt"],
+                params, phase=self.optimizer.phase_for(self._onebit_applied),
+                axis="data")
+            self._onebit_applied += 1
+            return
+        if self._part is None:
+            it = iter(grads)
+            self.optimizer.update(tree_map(lambda _: next(it), params),
+                                  self.state["opt"], params)
+            return
+        part, layouts = self._part, self._layouts()
+        leaves = tree_leaves(params)
+        g_it = iter([part.grad_view(lay, g)
+                     for lay, g in zip(layouts, grads)])
+        p_it = iter([part.opt_view(lay, p)
+                     for lay, p in zip(layouts, leaves)])
+        with leaf_reduction(part.leaf_reducer(layouts)):
+            self.optimizer.update(tree_map(lambda _: next(g_it), params),
+                                  self.state["opt"],
+                                  tree_map(lambda _: next(p_it), params))
+        part.gather_updated(leaves, layouts)
+
     @torch.no_grad()
     def _apply_grads(self, grads, mean_loss):
         """JAX's ``apply_grads``: under fp16 unscale and the overflow
-        check, then the global norm, clipping, the optimizer update (in
+        check (on more than one rank, true on every rank when true on
+        any), then the global norm, clipping, the optimizer update (in
         place, masters written back into the params) unless the step
         overflowed, and the scaler's update."""
         ls = None
@@ -350,7 +596,11 @@ class Engine:
             ls = fp16_mod.LossScaleState(**self.state["loss_scale"])
             grads = fp16_mod.unscale_grads(grads, ls)
             overflow = fp16_mod.has_overflow(grads)
-        gnorm = global_grad_norm(grads)
+            if self._part is not None:
+                overflow = self._part.any_rank(overflow)
+        self.last_grad_bytes = sum(g.numel() * g.element_size()
+                                   for g in grads)
+        gnorm = self._global_norm(grads)
         clip = self.config.gradient_clipping
         if clip and clip > 0:
             scale = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
@@ -358,10 +608,7 @@ class Engine:
                 g.mul_(scale)
         # fp16: the one host sync a step (the update below writes in place)
         if not (self._fp16 and bool(overflow)):
-            params = self.state["params"]
-            it = iter(grads)
-            grad_tree = tree_map(lambda _: next(it), params)
-            self.optimizer.update(grad_tree, self.state["opt"], params)
+            self._update(grads)
             self.state["step"] += 1
         metrics = {"loss": mean_loss, "grad_norm": gnorm,
                    "overflow": overflow}
@@ -389,8 +636,9 @@ class Engine:
             raise ValueError(f"train_batch takes a global batch of "
                              f"{self.config.train_batch_size} rows, got "
                              f"{rows}")
-        grads, mean_loss = self._accum_micro_grads(batch)
-        metrics = self._apply_grads(grads, mean_loss)
+        with self._step_context():
+            grads, mean_loss = self._accum_micro_grads(batch)
+            metrics = self._apply_grads(grads, mean_loss)
         self.global_steps += 1
         self.micro_steps += self.config.gradient_accumulation_steps
         return metrics
@@ -398,9 +646,11 @@ class Engine:
     @torch.no_grad()
     def eval_batch(self, batch):
         """The loss of a batch of any size, without gradients (and without
-        dropout)."""
-        return self.model.loss_fn(self.state["params"],
-                                  self._device_batch(batch))
+        dropout). On more than one rank every rank evaluates the whole
+        batch (collective at stage 3, whose layers gather)."""
+        with self._step_context():
+            return self.model.loss_fn(self.state["params"],
+                                      self._device_batch(batch))
 
     # ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -436,10 +686,13 @@ class Engine:
         ``train_batch`` each, with at most ``pipeline.in_flight`` steps
         issued ahead of the card: before issuing further, the host waits
         on the event of step i - in_flight. With ``pipeline.prefetch`` the
-        copy of batch N+1 overlaps step N (``PrefetchLoader``). Nothing is
-        fetched to the host but fp16's overflow flag, read once a step
-        (which leaves no step in flight under fp16); returns the last
-        step's metrics."""
+        copy of batch N+1 overlaps step N (``PrefetchLoader``).
+        ``pipeline.fuse_steps`` is accepted and has no effect: JAX
+        compiles K steps into one program, and the eager port has no
+        single-dispatch form of a step until ROADMAP S2 (CUDA graphs).
+        Nothing is fetched to the host but fp16's overflow flag, read once
+        a step (which leaves no step in flight under fp16); returns the
+        last step's metrics."""
         pcfg = self.config.pipeline
         in_flight = max(1, int(pcfg.in_flight))
         it = itertools.islice(iter(data_iter), num_steps)
@@ -463,19 +716,37 @@ class Engine:
 
     def forward(self, batch):
         """Loss and grads of one micro-batch (train_micro_batch_size_per_gpu
-        rows); the grads wait for ``backward``. Returns the loss."""
-        loss, grads = self._micro_grads(self._device_batch(batch),
-                                        micro=len(self._losses))
+        rows; on more than one rank, this rank's, and the loss divided by
+        the label count of every rank's micro-batch together: with
+        explicit labels, one all-reduce of the count); the grads wait for
+        ``backward``. Returns the loss."""
+        n = len(self._losses)
+        batch = self._device_batch(batch)
+        row = count = None
+        with self._step_context():
+            if self._part is not None:
+                row = self._dp_index() * batch["input_ids"].shape[0]
+                if "labels" in batch:
+                    local = (batch["labels"] != -100).sum().reshape(1)
+                    count = self._denominators(
+                        par_ctx.all_reduce(local, *BATCH_AXES))[0]
+            loss, grads = self._micro_grads(batch, micro=n, row=row,
+                                            label_count=count)
         self._pending = (loss, grads)
         return loss
 
     def backward(self, loss=None):
         """Accumulate the pending grads (``forward`` already
-        differentiated; this keeps the reference's call order)."""
+        differentiated; this keeps the reference's call order), reduced
+        over the ranks now unless the schedule defers them to ``step``."""
         if self._pending is None:
             raise RuntimeError("backward() called without forward()")
         loss, grads = self._pending
         self._pending = None
+        if self._part is not None and not (self._sched.deferred
+                                           or self._onebit):
+            with self._step_context():
+                grads = self._part.reduce_grads(grads, self._layouts())
         self._grad_buffer = self._accumulate(self._grad_buffer, grads)
         self._losses.append(loss)
         self.micro_steps += 1
@@ -489,8 +760,13 @@ class Engine:
         applies (returns its metrics); otherwise None."""
         if not self.is_gradient_accumulation_boundary():
             return None
-        metrics = self._apply_grads(self._grad_buffer,
-                                    self._mean_loss(self._losses))
+        grads, loss = self._grad_buffer, self._mean_loss(self._losses)
+        with self._step_context():
+            if self._part is not None:
+                if self._sched.deferred:
+                    grads = self._part.reduce_grads(grads, self._layouts())
+                loss = self._part.mean_over_ranks(loss)
+            metrics = self._apply_grads(grads, loss)
         self._grad_buffer, self._losses = None, []
         self.global_steps += 1
         return metrics
@@ -511,7 +787,11 @@ class Engine:
         the attached loader's position. With ``checkpoint.async_save`` this
         returns once the state is copied to host memory; the write runs on
         a thread and is published at ``wait_checkpoint`` (or the next
-        save). Returns the tag's directory."""
+        save). On more than one rank the save is collective: each leaf is
+        gathered whole (``_whole_state``), rank 0 writes what a one-rank
+        save writes, and the other ranks wait at a barrier (for an async
+        save, at ``wait_checkpoint``, which is collective too). Returns
+        the tag's directory."""
         tag = tag if tag is not None else f"global_step{self.global_steps}"
         client_state = dict(client_state or {})
         client_state.update({"global_steps": self.global_steps,
@@ -527,17 +807,83 @@ class Engine:
             if self._ckpt_engine is None:
                 self._ckpt_engine = ckpt_mod.CheckpointEngine(async_save=True)
             engine = self._ckpt_engine
-        return ckpt_mod.save_checkpoint(
-            save_dir, tag, self.state, client_state=client_state,
-            config_dict=self.config.to_dict(), engine=engine,
-            save_latest=save_latest, write_integrity=ck.integrity,
-            checksums=ck.integrity_checksums, keep_last_k=ck.keep_last_k)
+        state = self.state
+        if self._part is not None:
+            self.wait_checkpoint()
+            state = self._whole_state()
+        path = os.path.join(save_dir, str(tag))
+        if comm.get_rank() == 0 or self._part is None:
+            path = ckpt_mod.save_checkpoint(
+                save_dir, tag, state, client_state=client_state,
+                config_dict=self.config.to_dict(), engine=engine,
+                save_latest=save_latest, write_integrity=ck.integrity,
+                checksums=ck.integrity_checksums, keep_last_k=ck.keep_last_k)
+        if self._part is not None and not ck.async_save:
+            comm.barrier()
+        return path
 
     def wait_checkpoint(self) -> None:
         """Block until an in-flight async save is durable and published
-        (its `latest` written). No-op without one."""
+        (its `latest` written). No-op without one. On more than one rank
+        collective: every rank returns once rank 0's save is published."""
         if self._ckpt_engine is not None:
             self._ckpt_engine.wait()
+        if self._part is not None:
+            comm.barrier()
+
+    # --- universal checkpoints: whole leaves on disk, slices in memory --
+    def _leaf_spec(self, key: str, leaf: torch.Tensor):
+        """(spec, stacked) of a state leaf on this mesh: a param leaf's
+        param spec, a per-param optimizer leaf's optimizer spec (stacked
+        over ``data`` when it is rank-varying state of the 1-bit
+        compressed path, JAX's leading [dp] dim), else replicated."""
+        parts = key.split("/")
+        if parts[0] == "params":
+            return self._part.layouts["/".join(parts[1:])].pspec, False
+        lay = (self._part.layouts.get("/".join(parts[2:]))
+               if parts[0] == "opt" and len(parts) > 2 else None)
+        if lay is None or leaf.dim() != len(lay.shape):
+            return (), False
+        if self._onebit and parts[1] in self.optimizer.rank_varying:
+            return ("data",), True
+        return lay.ospec, False
+
+    def _whole_shape(self, key: str, leaf: torch.Tensor):
+        """The whole shape of the state leaf this rank holds ``leaf`` of."""
+        spec, stacked = self._leaf_spec(key, leaf)
+        if stacked:
+            return (self.plan.data,) + tuple(leaf.shape)
+        parts = key.split("/")
+        lay = self._part.layouts.get("/".join(parts[1 if parts[0] ==
+                                                    "params" else 2:]))
+        return lay.shape if spec else tuple(leaf.shape)
+
+    def _local_of(self, key: str, whole, leaf=None):
+        """This rank's slice of a whole state leaf (array or tensor);
+        ``leaf``: this rank's current one (default: ``whole`` is laid out
+        as a one-rank engine's)."""
+        spec, stacked = self._leaf_spec(
+            key, leaf if leaf is not None else whole)
+        if stacked:
+            return whole[self.mesh.index("data")]
+        return self._part.slice_of(whole, spec)
+
+    def _whole_state(self):
+        """The state with every leaf gathered whole, as a one-rank engine
+        holds it (collective; the whole leaves are kept on rank 0 only, in
+        host memory)."""
+        rank0 = comm.get_rank() == 0
+        out = {}
+        for key, leaf in ckpt_mod.flatten(self.state).items():
+            if isinstance(leaf, torch.Tensor):
+                spec, stacked = self._leaf_spec(key, leaf)
+                whole = self._part.whole(
+                    leaf.detach()[None] if stacked else leaf.detach(),
+                    ("data",) if stacked else spec)
+                leaf = whole.cpu() if rank0 else None
+            if leaf is not None:
+                _set_leaf(out, key, leaf, make=True)
+        return out
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         load_optimizer_states: bool = True,
@@ -560,22 +906,32 @@ class Engine:
         leaf is written, so a tag that fails leaves the engine as it was
         (and the walk-back can try the next)."""
         ckpt_path = os.path.join(load_dir, tag)
+        sharded = self._part is not None
         arrays, dtypes = ckpt_mod.read_payload(
-            os.path.join(ckpt_path, "state"))
+            os.path.join(ckpt_path, "state"), mmap=sharded)
         client_state = ckpt_mod.read_meta(ckpt_path).get("client_state", {})
         saved = {k: (arrays[k], dtypes[k]) for k in arrays}
         have = ckpt_mod.flatten(self.state)
         if not load_optimizer_states:
             saved = {k: v for k, v in saved.items() if not k.startswith("opt/")}
             have = {k: v for k, v in have.items() if not k.startswith("opt/")}
-        _check_structure(saved, have, f"checkpoint {ckpt_path}")
+        want = have if not sharded else {
+            k: ((_Shape(self._whole_shape(k, v)), ckpt_mod.dtype_name(v.dtype))
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in have.items()}
+        _check_structure(saved, want, f"checkpoint {ckpt_path}")
         with torch.no_grad():
             for name, leaf in have.items():
-                src = ckpt_mod.from_numpy_bits(arrays[name], dtypes[name])
+                arr = arrays[name]
+                if sharded and isinstance(leaf, torch.Tensor):
+                    arr = self._local_of(name, arr, leaf)
+                src = ckpt_mod.from_numpy_bits(arr, dtypes[name])
                 if isinstance(leaf, torch.Tensor):
                     leaf.copy_(src)
                 else:
                     _set_leaf(self.state, name, int(src))
+        if self._onebit:
+            self._onebit_applied = self.state["opt"]["step"]
         self.global_steps = int(client_state.get("global_steps", 0))
         self.micro_steps = int(client_state.get("micro_steps", 0))
         self._pending, self._grad_buffer, self._losses = None, None, []
@@ -590,19 +946,32 @@ class Engine:
         """The params in the compute dtype as one ``.npz`` of JAX's
         flattened names; bf16 leaves stored as their uint16 bits, with a
         ``.dtypes.json`` manifest beside (JAX's ``save_16bit_model``
-        format: each package reads the other's). Returns the path."""
-        os.makedirs(save_dir, exist_ok=True)
+        format: each package reads the other's). On more than one rank
+        collective: the params gathered whole, rank 0 writes. Returns the
+        path."""
         path = os.path.join(save_dir, name)
         if not path.endswith(".npz"):
             path += ".npz"
+        params = ckpt_mod.flatten(self.state["params"])
+        if self._part is not None:
+            with par_ctx.parallel_context(self.mesh):
+                params = {k: self._part.whole(
+                    t.detach(), self._part.layouts[k].pspec)
+                    for k, t in params.items()}
+            if comm.get_rank() != 0:
+                comm.barrier()
+                return path
+        os.makedirs(save_dir, exist_ok=True)
         arrays, dtypes = {}, {}
-        for key, t in ckpt_mod.flatten(self.state["params"]).items():
+        for key, t in params.items():
             t = t.detach().cpu()
             dtypes[key] = ckpt_mod.dtype_name(t.dtype)
             arrays[key] = ckpt_mod.to_numpy_bits(t)
         np.savez(path, **arrays)
         with open(path + ".dtypes.json", "w") as f:
             json.dump(dtypes, f)
+        if self._part is not None:
+            comm.barrier()
         return path
 
 
@@ -652,8 +1021,15 @@ def _check_structure(got: Dict[str, Any], want: Dict[str, Any],
                          + "; ".join(bad[:8]))
 
 
-def _set_leaf(tree, name: str, value) -> None:
+def _set_leaf(tree, name: str, value, make: bool = False) -> None:
     *parents, last = name.split("/")
     for p in parents:
-        tree = tree[p]
+        tree = tree.setdefault(p, {}) if make else tree[p]
     tree[last] = value
+
+
+class _Shape:
+    """A shape standing in for a leaf where only its shape is read."""
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)

@@ -55,7 +55,9 @@ def test_forbidden_prefix_rule():
             "robustness/preemption.py", "moe/sharded_moe.py",
             "parallel/mesh.py", "parallel/context.py",
             "parallel/partitioning.py", "parallel/launch.py",
-            "inference/seam.py", "runtime/fp16.py", "ops/lamb.py"} <= names
+            "inference/seam.py", "runtime/fp16.py", "ops/lamb.py",
+            "comm/comm.py", "comm/schedule.py", "comm/compressed.py",
+            "ops/onebit.py", "runtime/zero.py"} <= names
 
 
 # spawned ranks re-import their module: the sharded-serving rank programs
@@ -63,7 +65,9 @@ def test_forbidden_prefix_rule():
 @pytest.mark.parametrize("path", PORT_FILES + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_tp_workers.py",
     ROOT / "tests" / "test_torch_tp_serving_cuda.py",
-    ROOT / "tests" / "test_torch_fp16_cuda.py"],
+    ROOT / "tests" / "test_torch_fp16_cuda.py",
+    ROOT / "tests" / "_torch_zero_workers.py",
+    ROOT / "tests" / "test_torch_zero_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

@@ -419,7 +419,8 @@ def test_parallel_context_and_plan():
     """The ambient mesh: published and restored by parallel_context (and
     set_parallel_context, JAX's name), read by the model's collectives;
     without one every axis has size 1 and nothing is reduced. A plan's
-    label is JAX's; data-parallel ranks stay A4."""
+    label is JAX's; the data axis (training's) is a plan's too, and
+    pipe / seq raise naming A9."""
     from deepspeed_tpu_torch.parallel import context
     assert context.axis_size("tensor") == 1 and context.current_plan() is None
     x = torch.ones(3)
@@ -437,5 +438,7 @@ def test_parallel_context_and_plan():
         context.set_parallel_context(None)
     assert MeshPlan(expert=2, tensor=2).describe() == "expert=2xtensor=2"
     assert MeshPlan().describe() == "single"
-    with pytest.raises(NotImplementedError, match="A4"):
-        MeshPlan(data=2)
+    assert MeshPlan(data=2, fsdp=2).dp_world_size == 4
+    assert MeshPlan(data=2).describe() == "data=2"
+    with pytest.raises(NotImplementedError, match="A9"):
+        MeshPlan(pipe=2)

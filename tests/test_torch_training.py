@@ -402,14 +402,14 @@ def test_lr_schedule_matches_jax(name, params):
 
 
 def test_registry_names_its_roadmap_item():
-    """The single-rank optimizers build (tests/test_torch_optimizers.py
-    holds them against JAX); the 1-bit family raises naming A4, the
-    host-offloaded variants A8."""
-    for name in ("lamb", "fusedlamb", "lion", "sgd", "adagrad"):
+    """The single-rank optimizers and the 1-bit family build
+    (tests/test_torch_optimizers.py and test_torch_onebit.py hold them
+    against JAX); the host-offloaded variants raise naming A8."""
+    for name in ("lamb", "fusedlamb", "lion", "sgd", "adagrad",
+                 "onebitadam", "onebitlamb", "zerooneadam"):
         assert callable(get_optimizer_builder(name)().update)
-    for name, item in (("onebitadam", "A4"), ("cpuadam", "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            get_optimizer_builder(name)
+    with pytest.raises(NotImplementedError, match="A8"):
+        get_optimizer_builder("cpuadam")
     with pytest.raises(ValueError):
         get_optimizer_builder("nope")
 
@@ -451,9 +451,9 @@ def test_batch_triad_solves_as_jax():
                             "offload_param": {"device": "nvme"}}}, "A8"),
     ({"zero_optimization": {"stage": 3,
                             "offload_optimizer": {"device": "cpu"}}}, "A8"),
-    ({"pipeline": {"stages": 2}}, "A4"),
+    ({"pipeline": {"stages": 2}}, "A9"),
     ({"tensor_parallel": {"tp_size": 2}}, "A9"),
-    ({"comm": {"deferred_grad_sync": True}}, "A4"),
+    ({"comms_logger": {"enabled": True}}, "A9"),
     ({"telemetry": {"enabled": True}}, "A11"),
     ({"moe": {"enabled": True}}, "A9"),
     ({"transformer": {"tp_overlap_chunks": 4}}, "A9"),
@@ -562,19 +562,28 @@ def test_engine_surface_outside_the_slice():
     eng, *_ = deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
                                              device="cpu")
     assert eng.get_lr() == 0.0 and eng.state["opt"]["master"] is None
-    # A4's single-card parts are ported (tests/test_torch_dataloader.py);
-    # meshes, model-parallel groups and the fused K-step dispatch are not
     assert eng.train_batches(iter([]), 1) is None
-    for key in ("mesh", "mpu"):
-        with pytest.raises(NotImplementedError, match="A4"):
-            deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
-                                           device="cpu", **{key: object()})
-    with pytest.raises(NotImplementedError, match="A4"):
-        deepspeed_tpu_torch.initialize(
-            model=model, config=dict(conf, pipeline={"fuse_steps": 2}),
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        Config.load({"checkpoint": {"load_universal": True}})
+    # A4: a one-rank mesh, an mpu (accepted and unused, as in JAX),
+    # pipeline.fuse_steps (no effect) and the universal-checkpoint keys
+    # are taken
+    from deepspeed_tpu_torch.parallel import Mesh, MeshPlan, single_mesh
+    one = deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
+                                         device="cpu", mesh=single_mesh(),
+                                         mpu=object())[0]
+    assert one.world_size == 1
+    deepspeed_tpu_torch.initialize(
+        model=model, config=dict(conf, pipeline={"fuse_steps": 2}),
+        device="cpu")
+    assert Config.load({"checkpoint": {"load_universal": True}}
+                       ).checkpoint.load_universal
+    # training over a tensor axis is A9's, serving over a data axis A7's
+    with pytest.raises(NotImplementedError, match="A9"):
+        deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
+                                       device="cpu",
+                                       mesh=Mesh(MeshPlan(tensor=2)))
+    with pytest.raises(NotImplementedError, match="A7"):
+        deepspeed_tpu_torch.init_serving(model, mesh=MeshPlan(data=2),
+                                         device="cpu")
     with pytest.raises(ValueError, match="global batch"):
         eng.train_batch({"input_ids": _ids(0, 3, 8)})
     m = eng.train_batch({"input_ids": _ids(0, 2, 8)})
@@ -584,8 +593,8 @@ def test_engine_surface_outside_the_slice():
 
 def test_engine_client_optimizer_and_schedule(monkeypatch):
     """A client init/update optimizer and schedule are used as given (the
-    schedule is what get_lr reports, as in JAX); anything else, or more
-    than one rank, raises."""
+    schedule is what get_lr reports, as in JAX); anything else raises, and
+    so does a default group of more ranks than the config's mesh has."""
     _, tcfg = _cfgs()
     model = tt.make_model(tcfg)
     conf = {"train_batch_size": 2, "bf16": {"enabled": False}}
@@ -600,7 +609,9 @@ def test_engine_client_optimizer_and_schedule(monkeypatch):
         deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
                                        optimizer=object(), device="cpu")
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A4"):
-        deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
-                                       device="cpu")
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+    with pytest.raises(ValueError, match="world size 2"):
+        deepspeed_tpu_torch.initialize(
+            model=model, config=dict(conf, mesh={"axes": {"data": 4}}),
+            device="cpu")
