@@ -220,10 +220,10 @@ Phases, each of which raises on failure (exit code != 0):
    depth, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a
    rank), ZeRO stages 0-3, 3 steps each, the launch counts zeroed just
    before: losses within 2e-2 of stage 0's, the f32 masters' change over
-   the steps within 1e-6 of stage 0's (stage 3's against stage 0 with the
-   reduced grads of the leaves it shards rounded to bf16, as autograd
-   gives a bf16 shard its grad), B1 = 2 x 3 x L and B2 = B3 = 3 x L on
-   every rank, the ZeRO memory laws on each rank's bytes of params, grads
+   the steps within 1e-6 of stage 0's and equal to it bit for bit (a bf16
+   param's reduced grad is rounded to bf16 at every stage, as JAX's and
+   as stage 3's gather backward gives it), B1 = 2 x 3 x L and B2 = B3 =
+   3 x L on every rank, the ZeRO memory laws on each rank's bytes of params, grads
    and optimizer state, peak memory, step times (two processes on one
    card: not a data-parallel speed); (c) f32 at 2 layers, S = 1024:
    stages 0-3 through the kernels against stage 0 through their plain
@@ -231,7 +231,34 @@ Phases, each of which raises on failure (exit code != 0):
    1e-4); (d) onebitadam at 2 layers: its warm-up equal to Adam, the
    compressed phase's wire about 1/32 of the dense all-reduce; (e) a
    stage-3 save at world 2 loaded here at world 1, stage 0, the next loss
-   equal.
+   equal;
+17. the fleet (after phase 16; serving engines recover a failed round by
+   default, so first: no round of phases 3-16 may have recovered).
+   (a) llama-7b bf16, two ``both`` replicas over ONE copy of the weights
+   (two ``ServingEngine``s on one ``InferenceEngine``), 8 slots each,
+   behind ``ServingRouter`` on a simulated clock; the serving phase's 24
+   prompts x 32 new tokens, replica 0 killed at router round 3 (its
+   engine drains, the router fails its requests over): every request
+   finishes with 32 in-vocab tokens, one failover, none lost, each
+   replica's B1 = 32 x its prefills and B4 = 32 x its decode steps
+   (counted inside its own rounds), no recovery; TTFT / ITL p50 / p99,
+   tok/s, failover ms, migrated / resubmitted, and the agreement with the
+   one-replica streams and the divergence gaps in phase 4's drift units.
+   (b) a ``prefill`` and a ``decode`` replica, ``handoff_kv`` on: the
+   prefill replica's B4 = 0 and B1 = 32 x 24, the decode replica's B1 =
+   32 x its fallbacks; handoff bytes and the export / crc / import ms.
+   The fleet's launches (the kernels line's ``fleet`` and ``fleet_f32``)
+   are counted over each drive alone, and each drive's count must equal
+   the sum of its replicas' round counts. A recovery at llama-7b width (a
+   failed dispatch after 8 prefills): the card's peak over it stays far
+   below one pool (no second pool while no round thread is alive). (c) f32 at llama-7b width, 2 layers, four replicas (prefill, decode,
+   two both), every serving, router and handoff kind injected: every
+   stream token-identical to a fault-free single replica's, recoveries
+   == the injected round failures, degraded 0. (d) tracing off, then on,
+   on the same engines: the same streams, zero device syncs, a merged
+   Chrome trace written and read back, the router's Prometheus text
+   parsed back. (e) ``FleetController`` over a 2-slot replica: the burst
+   scales up, the lull scales down, none lost, the streams equal.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -241,11 +268,9 @@ line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
 """
 
-import contextlib
 import dataclasses
 import gc
 import json
-import math
 import os
 import shutil
 import subprocess
@@ -599,6 +624,12 @@ def kernel_phase():
         # table (read as MB bs = 2048)
         decode_case("llama-70b GQA 64/8 piece edges", 8, 64, 8, 128, 64, 32,
                     [0, 1, 255, 256, 257, 1024, 2048, 2051], bf),
+        # a fleet replica's decode (phase 17): 8 slots in bf16 (a, b) and
+        # 4 in f32 (c-e) of llama-7b's 32/32 heads
+        decode_case("llama-7b fleet replica 8 slots", 8, 32, 32, 128, 64, 32,
+                    [0, 1, 63, 64, 65, 500, 1024, 2048], bf),
+        decode_case("llama-7b f32 fleet replica 4 slots", 4, 32, 32, 128, 64,
+                    32, [1, 64, 333, 2047], f32),
     ]
     bwd = [
         bwd_case("llama-1b training B=8 S=2048", 8, 2048, 32, 8, 64, bf),
@@ -2347,7 +2378,8 @@ def _sharded_rank(rank, world, kind, layers, prompts, f32_prompts):
                "held_blocks_after": srv.allocator.used_blocks,
                **{k: st.get(k) for k in (
                    "p50_ttft_ms", "p99_ttft_ms", "p50_itl_ms", "p99_itl_ms",
-                   "tok_per_sec", "prefills", "decode_steps", "tp", "ep")}}
+                   "tok_per_sec", "prefills", "decode_steps", "tp", "ep",
+                   "recoveries")}}
         srv.close()
     else:
         srv.run_worker()
@@ -2475,6 +2507,8 @@ def sharded_serving_phase(smi: str, served, plain_step):
         checks[f"{what}: f32 2 layers token-identical to unsharded"] = \
             r["f32_identical"]
         checks[f"{what}: pool empty after run"] = r["held_blocks_after"] == 0
+        # rank 0 drives the engine: a recovered round would be its
+        checks[f"{what}: no recovery"] = r["recoveries"] == 0
         r["agreement_with_one_card"] = _agreement(r.pop("gens"), ref)
         r["timing"] = SHARED_CARD
         rec[kind] = r
@@ -3699,37 +3733,17 @@ def _zero_run(cfg, config, batches, reference=False, masters=False):
     return engine, rec
 
 
-@contextlib.contextmanager
-def _reduced_grads_in(dtype, threshold):
-    """For the block, every reduced grad of a leaf of more than
-    ``threshold`` values rounded to ``dtype`` (and back to f32): what
-    stage 3's sharded leaves get, whose grad autograd gives in the leaf's
-    dtype, for a stage-0 run to stand beside stage 3."""
-    from deepspeed_tpu_torch.runtime import zero as zero_mod
-    orig = zero_mod.Partition.reduce_grads
-
-    def reduce_grads(self, grads, layouts):
-        return [g.to(dtype).float() if math.prod(lay.shape) > threshold
-                else g for g, lay in zip(orig(self, grads, layouts),
-                                         layouts)]
-
-    zero_mod.Partition.reduce_grads = reduce_grads
-    try:
-        yield
-    finally:
-        zero_mod.Partition.reduce_grads = orig
-
-
 def _zero_delta_vs(engine, delta, whole0):
-    """Relative L2, over this rank's slices, of a stage's masters' change
-    ``delta`` against stage 0's whole change ``whole0`` cut to the same
-    slices."""
-    num = den = 0.0
+    """Relative L2 and the largest absolute difference, over this rank's
+    slices, of a stage's masters' change ``delta`` against stage 0's whole
+    change ``whole0`` cut to the same slices."""
+    num = den = top = 0.0
     for k, d in delta.items():
         w = engine._part.slice_of(whole0[k], engine._part.layouts[k].ospec)
         num += float((d.double() - w.double()).square().sum())
         den += float(w.double().square().sum())
-    return (num / den) ** 0.5
+        top = max(top, float((d - w).abs().max()))
+    return (num / den) ** 0.5, top
 
 
 def _zero_batches(B, S, n, seed=0):
@@ -3746,30 +3760,25 @@ def _zero_rank(rank, world, layers, steps, S, ckpt_dir):
     record (on rank 0)."""
     import torch.distributed as dist
     from deepspeed_tpu_torch import llama_config
-    from deepspeed_tpu_torch.config.config import ZeroConfig
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"collectives": _zero_collectives(rank)}
     cfg = llama_config("1b", num_layers=layers, max_seq_len=S, remat=True,
                        remat_policy="dots_saveable", loss_chunk=S)
     batches = _zero_batches(8, S, steps)
-    # the f32 masters' change over the steps, whole at stage 0: stage 0
-    # as it runs and with the reduced grads of the leaves stage 3 shards
-    # rounded to bf16 (stage 3's yardstick), then each stage against them
-    whole0 = {}
-    thr = ZeroConfig().stage3_param_persistence_threshold
-    for stage in (0, "0r", 1, 2, 3):
-        conf = dict(TRAIN_CONFIG, zero_optimization={"stage": int(
-            str(stage)[0])})
-        with (_reduced_grads_in(torch.bfloat16, thr) if stage == "0r"
-              else contextlib.nullcontext()):
-            engine, r = _zero_run(cfg, conf, batches, masters=True)
+    # the f32 masters' change over the steps, whole at stage 0, then each
+    # stage against it (no rounding by the check: the engine rounds each
+    # bf16 param's reduced grad at every stage)
+    whole0 = None
+    for stage in range(4):
+        conf = dict(TRAIN_CONFIG, zero_optimization={"stage": stage})
+        engine, r = _zero_run(cfg, conf, batches, masters=True)
         delta = r.pop("masters_delta")
-        if stage in (0, "0r"):
-            whole0[stage] = delta
-        for ref, d0 in whole0.items():
-            r[f"masters_change_rel_l2_vs_stage{ref}"] = _zero_delta_vs(
-                engine, delta, d0)
+        if stage == 0:
+            whole0 = delta
+        (r["masters_change_rel_l2_vs_stage0"],
+         r["masters_change_max_abs_vs_stage0"]) = _zero_delta_vs(
+            engine, delta, whole0)
         rec[f"bf16_stage{stage}"] = r
         del engine, delta
         _free()
@@ -3859,8 +3868,7 @@ def zero_training_phase(smi: str):
     bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a rank),
     ZeRO stages 0-3, 3 steps each: losses within 2e-2 of stage 0's, the
     f32 masters' change over the 3 steps within 1e-6 relative L2 of stage
-    0's (stage 3's of stage 0 run with the reduced grads of the leaves
-    stage 3 shards rounded to bf16; a stage that skipped an update or
+    0's and equal to it bit for bit (a stage that skipped an update or
     lost rows moves its masters by another third or more), B1 = 2 x
     steps x L and B2 = B3 = steps x L on
     each rank, the memory laws, peak memory and step times; (c) f32 at 2
@@ -3899,13 +3907,14 @@ def zero_training_phase(smi: str):
             checks[f"(b) rank {i} stage {s} within 2e-2 of stage 0"] = max(
                 abs(a - b) / abs(b) for a, b in zip(x["losses"], base)) \
                 <= 2e-2
-            # stages 1-2 sum two ranks' f32 grads as stage 0 does; stage
-            # 3's sharded leaves get their reduced grad in bf16 (the
-            # leaf's dtype): held against stage 0 rounded alike
-            ref = "0r" if s == 3 else 0
+            # every stage rounds a bf16 leaf's reduced grad to bf16, as
+            # JAX does: the masters agree with plain stage 0's
             checks[f"(b) rank {i} stage {s} masters' change within 1e-6 "
-                   f"of stage {ref}'s"] = \
-                x[f"masters_change_rel_l2_vs_stage{ref}"] <= 1e-6
+                   "of stage 0's"] = \
+                x["masters_change_rel_l2_vs_stage0"] <= 1e-6
+            checks[f"(b) rank {i} stage {s} masters' change equals stage "
+                   "0's bit for bit"] = \
+                x["masters_change_max_abs_vs_stage0"] == 0.0
             checks[f"(b) rank {i} stage {s} B1 == 2 x steps x L"] = \
                 la["flash_fwd"] == 2 * n * L
             checks[f"(b) rank {i} stage {s} B2 == B3 == steps x L"] = \
@@ -3961,10 +3970,10 @@ def zero_training_phase(smi: str):
         "step_ms_wall": [r[f"bf16_stage{s}"]["step_ms_wall"] for r in ranks],
         "peak_mem_gib": [r[f"bf16_stage{s}"]["peak_mem_gib"] for r in ranks],
         "bytes": [r[f"bf16_stage{s}"]["bytes"] for r in ranks],
-        **{f"masters_change_rel_l2_vs_stage{ref}": [
-            r[f"bf16_stage{s}"].get(f"masters_change_rel_l2_vs_stage{ref}")
-            for r in ranks] for ref in (0, "0r")}}
-        for s in (0, "0r", 1, 2, 3)}
+        **{key: [r[f"bf16_stage{s}"][key] for r in ranks]
+           for key in ("masters_change_rel_l2_vs_stage0",
+                       "masters_change_max_abs_vs_stage0")}}
+        for s in range(4)}
     log(f"phase 16 llama-1b bf16 [{smi}; {ZERO_SHARED}] "
         + json.dumps(summary))
     log(f"phase 16 f32 2 layers [{smi}] " + json.dumps({
@@ -3984,6 +3993,496 @@ def zero_training_phase(smi: str):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"phase 16: failed {failed}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# the fleet (phase 17)
+# --------------------------------------------------------------------------
+
+# each replica: 8 slots and the serving phase's block and buckets; a queue
+# watermark of 8 makes the router spill a burst over the replicas instead
+# of queueing it all on the first
+FLEET_SERVING = dict(BREADTH_SERVING, max_seqs=8, max_queue=8)
+FLEET_F32_LAYERS = 2
+FLEET_F32_LOAD = (16, 24)            # the serving phase's first 16, 24 new
+
+
+def _fleet_router(tmp, t):
+    """A router on a simulated clock (1 s a round): a dead replica is
+    detected in rounds, not seconds."""
+    from deepspeed_tpu_torch.inference import RouterConfig, ServingRouter
+    return ServingRouter(RouterConfig(
+        store_dir=os.path.join(tmp, "store"),
+        drain_dir=os.path.join(tmp, "drains"), dead_after_s=2.5,
+        breaker_faults=2, breaker_probe_after=2, clock=lambda: t[0]))
+
+
+def _count_rounds(handle, into):
+    """Add the kernels launched inside each of the replica's rounds to
+    ``into``: the router steps its replicas one after another, and a
+    handoff or a failover launches nothing until the receiver's round."""
+    from deepspeed_tpu_torch.ops import _build
+    step = handle.step
+
+    def counted():
+        before = _build.launch_counts()
+        try:
+            return step()
+        finally:
+            for k, v in _build.launch_counts().items():
+                into[k] = into.get(k, 0) + v - before.get(k, 0)
+    handle.step = counted
+
+
+def _fleet_drive(router, load, t, launches, tick=None, lull=0):
+    """Submit ``load`` (a shed is retried the next round) and step until
+    every request finished, then ``lull`` idle rounds: ({rid: generated
+    tokens}, rounds, wall s). The kernel counts are zeroed just before
+    and added to ``launches`` just after, so they hold the fleet's
+    launches and nothing of a reference run or a check."""
+    from deepspeed_tpu_torch.inference import AdmissionRejected
+    from deepspeed_tpu_torch.ops import _build
+    pending, outs, rounds = list(load), {}, 0
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    while pending or not router.done:
+        while pending:
+            try:
+                router.add_request(*pending[0])
+            except AdmissionRejected:
+                break
+            pending.pop(0)
+        for r in router.step():
+            outs[r.rid] = r.output[len(r.prompt):]
+        if tick is not None:
+            tick()
+        t[0] += 1.0
+        rounds += 1
+        if rounds > 4000:
+            raise RuntimeError("phase 17: the router did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for _ in range(lull):
+        router.step()
+        if tick is not None:
+            tick()
+        t[0] += 1.0
+    torch.cuda.synchronize()
+    for k, v in _build.launch_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    return outs, rounds, wall
+
+
+def _fleet_latency(router, gens, wall):
+    """TTFT (the router's, of every finished request), ITL (every
+    replica's samples) and generated tokens a second of the whole run."""
+    st = router.stats()
+    itl = [x for h in router.replicas.values() for x in h.engine._itl_ms]
+    return {"p50_ttft_ms": st.get("p50_ttft_ms"),
+            "p99_ttft_ms": st.get("p99_ttft_ms"),
+            "p50_itl_ms": float(np.percentile(itl, 50)) if itl else None,
+            "p99_itl_ms": float(np.percentile(itl, 99)) if itl else None,
+            "tok_per_sec": sum(len(g) for g in gens.values()) / wall,
+            "wall_s": wall}
+
+
+def _rounds_hold_all(checks, what, drive, counts):
+    """Every launch of the drive was made inside a replica's round."""
+    for k in ("flash_fwd", "paged_decode"):
+        checks[f"{what} {k}: the replicas' rounds hold all launches"] = \
+            drive.get(k, 0) == sum(c.get(k, 0) for c in counts.values())
+
+
+def _replica_checks(checks, what, name, srv, counts, L):
+    """The replica's kernels against its own dispatch counts, and no
+    recovery: a kernel failure recovered in a fault-free run must fail
+    the phase, not pass unseen."""
+    st = srv.stats()
+    checks[f"{what} {name}: flash_fwd == {L} x prefills"] = \
+        counts.get("flash_fwd", 0) == L * st["prefills"]
+    checks[f"{what} {name}: paged_decode == {L} x decode_steps"] = \
+        counts.get("paged_decode", 0) == L * st["decode_steps"]
+    return {"prefills": st["prefills"], "decode_steps": st["decode_steps"],
+            "flash_fwd": counts.get("flash_fwd", 0),
+            "paged_decode": counts.get("paged_decode", 0),
+            "recoveries": st["recoveries"], "degraded": st["degraded"]}
+
+
+def fleet_full_width(smi, eng, served, drift, checks, launches):
+    """(a) two ``both`` replicas over one copy of llama-7b's weights behind
+    the router, the serving phase's 24 prompts x 32 new tokens, r0 killed
+    at router round 3; (b) a ``prefill`` and a ``decode`` replica on the
+    same weights, ``handoff_kv`` on. The drives' launches are added to
+    ``launches``."""
+    import tempfile
+    from deepspeed_tpu_torch.inference import ServingConfig, ServingEngine
+    from deepspeed_tpu_torch.inference.serving import kv_payload_crc
+    from deepspeed_tpu_torch.robustness import faults
+    prompts, base_gens = served
+    L = eng.model.config.num_layers
+    load = [(p, 32) for p in prompts]
+    out = {}
+    # (a) failover
+    t = [0.0]
+    router = _fleet_router(tempfile.mkdtemp(prefix="phase17a_"), t)
+    counts = {"r0": {}, "r1": {}}
+    for name in counts:
+        srv = ServingEngine(eng, ServingConfig(**FLEET_SERVING))
+        _count_rounds(router.register(name, srv), counts[name])
+    faults.install(faults.FaultInjector(faults.FaultSchedule(
+        [{"kind": "replica_kill", "at": 3, "replica": 0}], seed=0)))
+    drive = {}
+    try:
+        outs, rounds, wall = _fleet_drive(router, load, t, drive)
+    finally:
+        faults.clear()
+    _rounds_hold_all(checks, "(a)", drive, counts)
+    for k, v in drive.items():
+        launches[k] = launches.get(k, 0) + v
+    gens = [outs[i] for i in range(len(prompts))]
+    _check_generated("phase 17 (a)", gens, 32)
+    st = router.stats()
+    a = {**_fleet_latency(router, outs, wall), "rounds": rounds,
+         "failover_ms": st["failover_ms"], "failovers": st["failovers"],
+         "migrated": st["migrated"], "resubmitted": st["resubmitted"],
+         "lost_requests": st["lost_requests"], "replicas": {}}
+    for name, h in router.replicas.items():
+        a["replicas"][name] = _replica_checks(checks, "(a)", name, h.engine,
+                                              counts[name], L)
+    checks["(a) one failover, every request placed, none lost"] = \
+        st["failovers"] == 1 and st["migrated"] >= 1 \
+        and st["lost_requests"] == 0 and len(outs) == len(prompts)
+    checks["(a) survivor's pool empty"] = \
+        router.replicas["r1"].engine.allocator.used_blocks == 0
+    a["agreement_with_one_replica"] = _agreement(gens, base_gens)
+    a["first_divergence"] = _first_divergence(gens, base_gens)
+    a["divergence_gaps"] = _divergence_gaps(eng, prompts, gens, base_gens,
+                                            drift)
+    out["a"] = a
+    log(f"phase 17 (a) failover [{smi}] " + json.dumps(a))
+    del router
+    _free()
+    # (b) disaggregated
+    t = [0.0]
+    router = _fleet_router(tempfile.mkdtemp(prefix="phase17b_"), t)
+    pre = ServingEngine(eng, ServingConfig(**FLEET_SERVING, role="prefill"))
+    dec = ServingEngine(eng, ServingConfig(**FLEET_SERVING, role="decode"))
+    counts = {"pre0": {}, "dec0": {}}
+    _count_rounds(router.register("pre0", pre), counts["pre0"])
+    _count_rounds(router.register("dec0", dec), counts["dec0"])
+    costs = {"export_ms": [], "crc_ms": [], "import_ms": []}
+    export, kv_import = pre.export_kv, dec._dispatch_kv_import
+
+    def timed_export(rids):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = export(rids)            # gather, copy to the host, crc32
+        costs["export_ms"].append((time.perf_counter() - t0) * 1e3)
+        for payload in got.values():
+            t1 = time.perf_counter()
+            kv_payload_crc(payload["data"])
+            costs["crc_ms"].append((time.perf_counter() - t1) * 1e3)
+        return got
+
+    def timed_import(req):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv_import(req)                # copy to the card, scatter
+        torch.cuda.synchronize()
+        costs["import_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    pre.export_kv, dec._dispatch_kv_import = timed_export, timed_import
+    drive = {}
+    outs, rounds, wall = _fleet_drive(router, load, t, drive)
+    _rounds_hold_all(checks, "(b)", drive, counts)
+    for k, v in drive.items():
+        launches[k] = launches.get(k, 0) + v
+    gens = [outs[i] for i in range(len(prompts))]
+    _check_generated("phase 17 (b)", gens, 32)
+    st = router.stats()
+    b = {**_fleet_latency(router, outs, wall), "rounds": rounds,
+         "handoffs": st["handoffs"], "handoff_bytes": st["handoff_bytes"],
+         "handoff_fallbacks": st["handoff_fallbacks"],
+         "handoff_ms": st["handoff_ms"],
+         "bytes_per_handoff": st["handoff_bytes"] / max(1, st["handoffs"]),
+         **{k: {"p50": float(np.percentile(v, 50)),
+                "max": float(np.max(v))} for k, v in costs.items() if v},
+         "replicas": {}}
+    for name, srv in (("pre0", pre), ("dec0", dec)):
+        b["replicas"][name] = _replica_checks(checks, "(b)", name, srv,
+                                              counts[name], L)
+    checks["(b) prefill replica: paged_decode == 0"] = \
+        counts["pre0"].get("paged_decode", 0) == 0
+    checks["(b) prefill replica: flash_fwd == L x 24"] = \
+        counts["pre0"].get("flash_fwd", 0) == L * len(prompts)
+    checks["(b) decode replica: flash_fwd == L x fallbacks"] = \
+        counts["dec0"].get("flash_fwd", 0) == L * st["handoff_fallbacks"]
+    checks["(b) every request handed off, none lost"] = \
+        st["handoffs"] == len(prompts) and st["lost_requests"] == 0
+    b["agreement_with_one_replica"] = _agreement(gens, base_gens)
+    out["b"] = b
+    log(f"phase 17 (b) disaggregated [{smi}] " + json.dumps(b))
+    del router, pre, dec
+    _free()
+    return out
+
+
+def _recovery_peak(eng, prompts, checks):
+    """A round failure at llama-7b width: a replica's 8 requests are
+    prefilled, their round's decode dispatch fails, the engine recovers
+    and re-prefills. The card's peak over the recovery alone, above what
+    it held before, against one pool's bytes: a second pool would show
+    as a whole pool."""
+    from deepspeed_tpu_torch.inference import ServingConfig, ServingEngine
+    from deepspeed_tpu_torch.robustness import faults
+    srv = ServingEngine(eng, ServingConfig(**FLEET_SERVING))
+    recover, seen = srv._recover, {}
+
+    def measured(reason):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ok = recover(reason)
+        torch.cuda.synchronize()
+        seen["extra_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+        return ok
+    srv._recover = measured
+    load = [(p, 16) for p in prompts[:8]]
+    faults.install(faults.FaultInjector(faults.FaultSchedule(
+        [{"kind": "decode_dispatch", "at": 0}], seed=0)))
+    try:
+        outs = srv.run(load)
+    finally:
+        faults.clear()
+    _check_generated("phase 17 recovery", [
+        outs[k][len(p):] for k, (p, _) in zip(sorted(outs), load)], 16)
+    st = srv.stats()
+    rec = {"pool_gib": srv.pool_bytes / 2**30,
+           "extra_gib": seen.get("extra_gib"),
+           "recoveries": st["recoveries"], "recovery_ms": st["recovery_ms"]}
+    checks["full-width recovery: one, and no second pool"] = \
+        st["recoveries"] == 1 and rec["extra_gib"] is not None \
+        and rec["extra_gib"] < 0.05 * rec["pool_gib"]
+    del srv, recover
+    _free()
+    return rec
+
+
+def _f32_fleet_engine():
+    from deepspeed_tpu_torch import llama_config, make_model
+    from deepspeed_tpu_torch.inference import init_inference
+    cfg = llama_config("7b", num_layers=FLEET_F32_LAYERS,
+                       dtype=torch.float32)
+    return init_inference(make_model(cfg, "llama-7b"),
+                          config={"kv_cache_bits": 0, "max_tokens": 2048},
+                          dtype=torch.float32, seed=0)
+
+
+def fleet_f32(smi, prompts, checks, launches):
+    """(c) the fault soak, (d) tracing on / off and (e) the autoscaler,
+    f32 at llama-7b width and 2 layers, every replica over one copy of
+    the weights; every stream against a fault-free single replica's.
+    The drives' launches are added to ``launches``."""
+    import tempfile
+    from deepspeed_tpu_torch.inference import (ServingConfig, ServingEngine,
+                                               FleetConfig, FleetController)
+    from deepspeed_tpu_torch.robustness import events as rb_events
+    from deepspeed_tpu_torch.robustness import faults
+    from deepspeed_tpu_torch.robustness.preemption import PreemptionHandler
+    from deepspeed_tpu_torch.telemetry import (merge_chrome_trace,
+                                               parse_exposition)
+    n, new = FLEET_F32_LOAD
+    load = [(p, new) for p in prompts[:n]]
+    eng = _f32_fleet_engine()
+    cfg = dict(BREADTH_SERVING, max_seqs=4, max_queue=4)
+    base = ServingEngine(eng, ServingConfig(**dict(cfg, max_seqs=16,
+                                                   max_queue=None)))
+    want = base.run(load)
+    want = [want[k][len(p):] for k, (p, _) in zip(sorted(want), load)]
+    del base
+    out = {}
+    # (c) every serving, router and handoff kind
+    t = [0.0]
+    tmp = tempfile.mkdtemp(prefix="phase17c_")
+    router = _fleet_router(tmp, t)
+    # a short quantum: more rounds for the schedule to land in
+    soak = dict(cfg, decode_quantum=2, dispatch_timeout_s=2.0)
+    engines = {
+        "pre0": ServingEngine(eng, ServingConfig(**soak, role="prefill")),
+        "dec0": ServingEngine(eng, ServingConfig(**soak, role="decode")),
+        "both0": ServingEngine(eng, ServingConfig(**soak)),
+        "both1": ServingEngine(eng, ServingConfig(**soak))}
+    handler = PreemptionHandler().install()
+    for name, srv in engines.items():
+        router.register(name, srv,
+                        preemption=handler if name == "both0" else None)
+    schedule = [
+        {"kind": "heartbeat_loss", "at": 2, "replica": 3, "times": 3},
+        {"kind": "router_partition", "at": 4, "replica": 1, "times": 2},
+        {"kind": "replica_kill", "at": 9, "replica": 3},
+        {"kind": "decode_dispatch", "at": 3},
+        {"kind": "decode_dispatch", "at": 11, "mode": "hang",
+         "hang_s": 3.0},
+        {"kind": "pool_exhaust", "at": 5, "times": 3, "keep": 0},
+        {"kind": "backend_fault", "at": 14},
+        {"kind": "preempt", "round": 20},
+        {"kind": "kv_handoff", "at": 0, "mode": "corrupt"},
+        {"kind": "kv_handoff", "at": 2}]
+    inj = faults.install(faults.FaultInjector(faults.FaultSchedule(
+        schedule, seed=0)))
+    try:
+        outs, rounds, wall = _fleet_drive(router, load, t, launches)
+    finally:
+        faults.clear()
+        handler.restore()
+    gens = [outs[i] for i in range(n)]
+    fired = [f["kind"] for f in inj.fired]
+    st = router.stats()
+    injected = sum(k in ("decode_dispatch", "backend_fault") for k in fired)
+    recoveries = sum(s.stats()["recoveries"] for s in engines.values())
+    c = {"rounds": rounds, "wall_s": wall, "fired": fired,
+         "recoveries": recoveries, "injected_round_failures": injected,
+         "degraded": sum(s.stats()["degraded"] for s in engines.values()),
+         **{k: st[k] for k in ("failovers", "migrated", "resubmitted",
+                               "lost_requests", "handoffs",
+                               "handoff_fallbacks", "dispatch_faults")},
+         "breaker_episodes": sorted({e["reason"] for e in
+                                     rb_events.history("replica_degraded")})}
+    checks["(c) every kind fired"] = set(fired) == {
+        "heartbeat_loss", "router_partition", "replica_kill",
+        "decode_dispatch", "pool_exhaust", "backend_fault", "preempt",
+        "kv_handoff"}
+    checks["(c) every stream token-identical to one replica"] = \
+        all(np.array_equal(a, b) for a, b in zip(gens, want)) \
+        and len(outs) == n
+    checks["(c) recoveries == injected round failures"] = \
+        recoveries == injected > 0
+    checks["(c) degraded == 0, no backend_degraded"] = \
+        c["degraded"] == 0 and not rb_events.history("backend_degraded")
+    checks["(c) none lost"] = st["lost_requests"] == 0
+    checks["(c) the two deaths failed over"] = st["failovers"] == 2
+    out["c"] = c
+    log(f"phase 17 (c) f32 fault soak [{smi}] " + json.dumps(c))
+    for srv in engines.values():
+        srv.close(timeout=10)
+    del router, engines
+    _free()
+    # (d) tracing on and off on the same engines
+    t = [0.0]
+    tmp = tempfile.mkdtemp(prefix="phase17d_")
+    router = _fleet_router(tmp, t)
+    pair = [ServingEngine(eng, ServingConfig(**cfg)) for _ in range(2)]
+    for i, srv in enumerate(pair):
+        router.register(f"r{i}", srv)
+    plain, _, plain_s = _fleet_drive(router, load, t, launches)
+    for i, srv in enumerate(pair):
+        srv.enable_request_trace(replica=f"r{i}")
+    traced, _, traced_s = _fleet_drive(router, load, t, launches)
+    path = os.path.join(tmp, "fleet_trace.json")
+    merge_chrome_trace([s.export_trace() for s in pair], path=path)
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    ids = {e["args"]["trace"] for e in trace if e["ph"] != "M"}
+    parsed = parse_exposition(router.exposition())
+    d = {"untraced_s": plain_s, "traced_s": traced_s,
+         "trace_events": len(trace), "trace_ids": len(ids),
+         "device_syncs": sum(s.tracer.device_syncs for s in pair),
+         "exposition_completed": parsed.get("dstpu_fleet_completed"),
+         "recoveries": sum(s.stats()["recoveries"] for s in pair)}
+    checks["(d) traced streams == untraced == one replica"] = all(
+        np.array_equal(plain[i], traced[i + n]) and
+        np.array_equal(plain[i], want[i]) for i in range(n))
+    checks["(d) zero device syncs, a trace id a request"] = \
+        d["device_syncs"] == 0 and d["trace_ids"] == n
+    checks["(d) exposition parses back"] = \
+        parsed.get("dstpu_fleet_live") == 2.0 \
+        and parsed["dstpu_fleet_ttft_ms"].count \
+        == router.fleet_stats()["fleet_ttft_ms"].count
+    out["d"] = d
+    log(f"phase 17 (d) tracing on / off [{smi}] " + json.dumps(d))
+    del router, pair
+    _free()
+    # (e) the autoscaler's burst and lull
+    t = [0.0]
+    router = _fleet_router(tempfile.mkdtemp(prefix="phase17e_"), t)
+    small = dict(cfg, max_seqs=2, max_queue=2)
+    spawned = []
+
+    def spawn(name, role):
+        spawned.append(ServingEngine(eng, ServingConfig(**small)))
+        return spawned[-1]
+
+    first = ServingEngine(eng, ServingConfig(**small))
+    router.register("r0", first)
+    ctl = FleetController(router, spawn, FleetConfig(
+        role="both", min_replicas=1, max_replicas=3, scale_up_load=1.0,
+        scale_up_after=2, scale_down_load=0.05, scale_down_after=2,
+        cooldown_ticks=1))
+    outs, rounds, wall = _fleet_drive(router, load, t, launches,
+                                      tick=ctl.tick, lull=12)
+    gens = [outs[i] for i in range(n)]
+    cs, st = ctl.stats(), router.stats()
+    e = {"rounds": rounds, "wall_s": wall, **cs,
+         "lost_requests": st["lost_requests"],
+         "migrated": st["migrated"],
+         "live_after_lull": router.fleet_stats()["fleet_live"],
+         "recoveries": sum(s.stats()["recoveries"]
+                           for s in [first] + spawned)}
+    checks["(e) scaled up and back down, none lost"] = \
+        cs["scale_ups"] >= 1 and cs["scale_downs"] >= 1 \
+        and st["lost_requests"] == 0 and len(outs) == n \
+        and e["live_after_lull"] == 1
+    checks["(e) streams == one replica"] = all(
+        np.array_equal(a, b) for a, b in zip(gens, want))
+    out["e"] = e
+    log(f"phase 17 (e) autoscaler [{smi}] " + json.dumps(e))
+    for what in ("d", "e"):
+        checks[f"({what}) no recovery"] = out[what]["recoveries"] == 0
+    del router, first, spawned, eng
+    _free()
+    return out
+
+
+def fleet_phase(smi: str, served, drift: float):
+    """Phase 17: the fleet's host layer (router, failover, disaggregated
+    roles, round recovery, tracing, autoscaler) over the port's engines,
+    each replica's kernels counted in its own rounds. Returns the record
+    with B1 / B4 launches by path: those of the fleet's drives only."""
+    from deepspeed_tpu_torch import llama_config, make_model
+    from deepspeed_tpu_torch.inference import init_inference
+    from deepspeed_tpu_torch.robustness import events as rb_events
+    t_phase = time.perf_counter()
+    _free()
+    checks = {}
+    rb_events.clear()
+    eng = init_inference(make_model(llama_config("7b"), "llama-7b"),
+                         config={"kv_cache_bits": 0, "max_tokens": 2048},
+                         dtype=torch.bfloat16, seed=0)
+    bf16, f32_counts = {}, {}
+    full = fleet_full_width(smi, eng, served, drift, checks, bf16)
+    full["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    full["recovery"] = _recovery_peak(eng, served[0], checks)
+    log(f"phase 17 full-width recovery [{smi}] "
+        + json.dumps(full["recovery"]))
+    for part in ("a", "b"):
+        for name, r in full[part]["replicas"].items():
+            checks[f"({part}) {name}: no recovery"] = \
+                r["recoveries"] == 0 and r["degraded"] == 0
+    del eng
+    _free()
+    f32 = fleet_f32(smi, served[0], checks, f32_counts)
+    rec = {"card": smi, **full, **f32,
+           "launches": {"fleet": {k: bf16.get(k, 0) for k in
+                                  ("flash_fwd", "paged_decode")},
+                        "fleet_f32": {k: f32_counts.get(k, 0) for k in
+                                      ("flash_fwd", "paged_decode")}},
+           "phase_s": time.perf_counter() - t_phase}
+    failed = [k for k, v in checks.items() if not v]
+    log(f"phase 17: {rec['phase_s']:.1f}s, launches "
+        f"{json.dumps(rec['launches'])}, checks {json.dumps(checks)}")
+    if failed:
+        raise RuntimeError(f"phase 17: failed {failed}")
     return rec
 
 
@@ -4123,6 +4622,20 @@ def kernel_line(name, replaces, launches, cases, main, variant=None):
             **rec, "shape": main["shape"], "cases": cases}
 
 
+def _watch_recoveries():
+    """Every serving round recovery in this process, by reason (a list
+    the caller reads): a kernel failure the engine recovered from must
+    not pass unseen."""
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    seen, recover = [], ServingEngine._recover
+
+    def counted(self, reason):
+        seen.append(reason)
+        return recover(self, reason)
+    ServingEngine._recover = counted
+    return seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -4144,6 +4657,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    recovered = _watch_recoveries()
 
     build_s, build_info = build_phase()
 
@@ -4172,6 +4686,12 @@ def main() -> int:
     training_cross_check(S=2048, sparse=SPARSE_MODEL)
     p15 = phase15(card, served, train)
     p16 = zero_training_phase(card)
+    # serving engines recover a failed round by default: no phase before
+    # the fleet's fault soak injects a fault, so none may have recovered
+    if recovered:
+        raise RuntimeError(f"a serving round was recovered before phase "
+                           f"17: {recovered}")
+    p17 = fleet_phase(card, served, bf16_drift)
     # B1-B3 held at a ZeRO rank's shapes too
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
@@ -4257,6 +4777,12 @@ def main() -> int:
         if n:
             entry["launches"] += n
             entry["launches_by_path"]["zero_training"] = n
+    # phase 17: the bf16 fleet (a, b: per replica and role in the phase's
+    # lines) and the f32 fleet (c-e)
+    for entry in line["kernels"][:2]:
+        for path, counts in p17["launches"].items():
+            entry["launches"] += counts[entry["name"]]
+            entry["launches_by_path"][path] = counts[entry["name"]]
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

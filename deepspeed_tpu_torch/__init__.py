@@ -11,7 +11,10 @@ greedy speculative decoding, an int8 KV cache (JAX's default from a
 1024-token context), int8 weights, multi-LoRA and the KV handoff, and
 it serves MoE models (``mixtral_config``) and shards serving over the
 ranks of a ``torch.distributed`` group (tensor and expert parallel,
-``parallel.MeshPlan``). It trains dense models on one card
+``parallel.MeshPlan``); a fleet of serving engines runs behind
+``inference.ServingRouter`` (failover, prefill / decode roles with the
+KV handoff, ``inference.FleetController``, round recovery, fault
+injection, request tracing). It trains dense models on one card
 through ``initialize`` ->
 ``Engine.train_batch``, with the flash backward (dQ and dK/dV kernels)
 in CUDA as well, and trains a block-sparse model (``sparse_attention``

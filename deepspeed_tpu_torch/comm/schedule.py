@@ -132,11 +132,14 @@ class GradSchedule:
 
 def reduce_grad(g: torch.Tensor, pspec: Spec, gspec: Spec,
                 hspec: Optional[Spec], plan: MeshPlan, mesh,
-                inv_dp: float) -> torch.Tensor:
-    """One leaf's local grad (laid out as its param shard ``pspec``) ->
-    its ``gspec`` slice summed over every batch axis, times ``inv_dp``.
+                inv_dp: float, dtype: torch.dtype) -> torch.Tensor:
+    """One leaf's local f32 grad (laid out as its param shard ``pspec``)
+    -> its ``gspec`` slice summed over every batch axis, times ``inv_dp``.
     Axes the param is sharded on were summed by ZeRO-3's gather backward.
-    ``hspec``: the leaf's hierarchical spec (None: the flat reduction)."""
+    ``hspec``: the leaf's hierarchical spec (None: the flat reduction).
+    ``dtype``: the param's; a narrower float rounds the summed grad to it
+    before the scale, as JAX's grad of a bf16 param is bf16 at every stage
+    and as autograd casts ZeRO-3's summed piece to the shard's dtype."""
     todo = [a for a in BATCH_AXES
             if plan.axis_sizes()[a] > 1 and a not in spec_axes(pspec)]
     if hspec is not None and FSDP_AXIS in todo and DATA_AXIS in todo \
@@ -158,11 +161,16 @@ def reduce_grad(g: torch.Tensor, pspec: Spec, gspec: Spec,
                 todo.remove(a)
     for a in todo:
         comm.all_reduce(g, a)
+    if dtype.is_floating_point and dtype.itemsize < g.element_size():
+        g = g.to(dtype).float()
     return g.mul_(inv_dp)
 
 
-def boundary_reduce(grads, layouts, plan: MeshPlan, mesh, inv_dp: float):
-    """The one reduction of the deferred schedule, at the accumulation
-    boundary: ``reduce_grad`` of every leaf's locally accumulated grad."""
+def boundary_reduce(grads, layouts, dtypes, plan: MeshPlan, mesh,
+                    inv_dp: float):
+    """``reduce_grad`` of every leaf's grad (each micro-batch's on the
+    eager schedule, the accumulated ones at the boundary on the deferred
+    one); ``dtypes``: the param leaves' dtypes, in the same order."""
     return [reduce_grad(g, lay.pspec, lay.gspec, lay.hspec, plan, mesh,
-                        inv_dp) for g, lay in zip(grads, layouts)]
+                        inv_dp, dt)
+            for g, lay, dt in zip(grads, layouts, dtypes)]

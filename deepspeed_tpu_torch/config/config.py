@@ -19,7 +19,7 @@ import dataclasses
 import json
 import logging
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -233,9 +233,34 @@ _DEFERRED = {
             v.get("enabled") or (v.get("shared_parameters") or {})
             .get("enabled")) for v in s.values()),
         "A11 (compression)"),
-    "robustness": (lambda s: _enabled(s.get("faults") or {}),
-                   "A7 (fault injection)"),
 }
+
+
+@dataclasses.dataclass
+class FaultsConfig(ConfigModel):
+    """Deterministic fault injection (``robustness/faults.py``), JAX's
+    keys: entries fire at exact step / operation indices and ``seed``
+    feeds the rate-based ones, so a schedule replays identically."""
+    enabled: bool = False
+    seed: int = 0
+    # fault dicts {"kind": ..., ...}: see robustness.FaultSchedule for the
+    # kinds and their keys
+    entries: List[Dict[str, Any]] = config_field([])
+
+    def validate(self):
+        if self.enabled:
+            from deepspeed_tpu_torch.robustness.faults import FaultSchedule
+            try:
+                FaultSchedule(self.entries, self.seed)
+            except ValueError as e:   # the config surface raises ConfigError
+                raise ConfigError(f"robustness.faults: {e}") from e
+
+
+@dataclasses.dataclass
+class RobustnessConfig(ConfigModel):
+    """Fault-tolerance knobs without a reference analogue (checkpoint
+    integrity lives under ``checkpoint``)."""
+    faults: FaultsConfig = config_field(FaultsConfig)
 
 @dataclasses.dataclass
 class Config(ConfigModel):
@@ -261,6 +286,7 @@ class Config(ConfigModel):
     checkpoint: CheckpointConfig = config_field(CheckpointConfig)
     comm: CommConfig = config_field(CommConfig)
     mesh: MeshConfig = config_field(MeshConfig)
+    robustness: RobustnessConfig = config_field(RobustnessConfig)
 
     @classmethod
     def load(cls, source) -> "Config":

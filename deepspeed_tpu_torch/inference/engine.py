@@ -144,8 +144,9 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
     if plan.data > 1 or plan.fsdp > 1:
         raise NotImplementedError(
             f"serving on a mesh with data={plan.data}, fsdp={plan.fsdp} is "
-            "not ported yet: ROADMAP A7 (replicated serving is the fleet: "
-            "one engine a replica behind the router)")
+            "not ported yet: ROADMAP A9 (parallelism breadth: JAX shards one "
+            "engine's batch over the data axis; replicas, one engine each, "
+            "serve behind inference.router)")
     mcfg = model.config
     if ep > 1:
         if mcfg.num_experts <= 1:

@@ -6,8 +6,15 @@ in the other.
 Every serialized payload that crosses a disk or process boundary carries
 a version key so readers can version-gate. The heartbeat and generation
 manifest constants (``HEARTBEAT_SCHEMA``, ``GENERATION_MANIFEST_SCHEMA``)
-belong to the fleet's rendezvous layer and arrive with it (ROADMAP A7).
+are defined by ``elasticity/rendezvous`` and re-exported here, as JAX's
+module does: the rendezvous cannot import the inference package (its
+``__init__`` pulls in the router, which imports the rendezvous).
 """
+
+from deepspeed_tpu_torch.elasticity.rendezvous import (  # noqa: F401
+    GENERATION_MANIFEST_SCHEMA,
+    HEARTBEAT_SCHEMA,
+)
 
 # ---- drain-state tags (serving.drain / resume / accept_migration) -----
 # v1: requests only (pre-integrity seed format; readers still load it).
@@ -41,4 +48,6 @@ __all__ = [
     "DRAIN_STATE_VERSIONS",
     "KV_PAYLOAD_SCHEMA",
     "EVENT_SCHEMA",
+    "GENERATION_MANIFEST_SCHEMA",
+    "HEARTBEAT_SCHEMA",
 ]

@@ -77,13 +77,38 @@ LoRA delta and the KV gather / scatter of the handoff are plain torch
 ops (``index_select``, ``bmm``, ``index_copy_``), as JAX's are XLA ops
 outside any Pallas kernel.
 
-There is no backend pick and no recovery: on the card a kernel error
-reaches the caller. The watchdog raises ``DecodeDispatchHang`` when a
-round overruns ``dispatch_timeout_s``. The pools are updated in place, so
-a round thread the watchdog gave up on may still write them; the engine
-then marks itself failed and every later ``step()`` / ``run()`` raises,
-naming the first error (any error escaping a round does the same: the
-pools may hold part of its writes).
+Round recovery (``round_retries``, 2 by default as in JAX): an error in a
+round — a failed or hung dispatch (the watchdog raises
+``DecodeDispatchHang`` when a round overruns ``dispatch_timeout_s``), a
+kernel error, an injected fault — preempts every running request back to
+the queue (host cursors are authoritative), drops the prefix cache and
+zeroes the pools in place, then retries the round; the requests re-prefill,
+so greedy streams continue token for token. The retry runs the same two
+kernels: JAX's engine answers a ``BackendFault`` by swapping its Pallas
+decode for an XLA gather mid-serve, and the port has no such second
+path, so a ``BackendFault`` recovers like any other failure and
+``degraded`` stays 0. Recovery cannot stop work already queued on the
+card: a round thread the watchdog gave up on bails out at its next device
+call (the recovery epoch), and whatever it issued before that writes the
+old pools; only while such a thread is alive are fresh pools allocated,
+and the old stay referenced until it returns (the card holds both
+meanwhile). On a sharded engine recovery is one more seam call, so every
+rank zeroes its pools; if the abandoned thread is stuck inside a seam
+call (a collective that never completes), recovery gives up after
+``dispatch_timeout_s`` and the hang reaches the caller. An error still
+raised after the retries reaches the caller as raised (JAX wraps it in a
+``RuntimeError``), and the engine refuses every later ``step()`` /
+``run()``, naming it.
+
+Fleet hooks: ``role`` (a ``prefill`` engine never runs a decode quantum:
+its requests wait, first token committed, for the router's handoff),
+``obs_meta`` (the heartbeat's rollup payload), the round-phase ring
+(``phase_decomposition``, the ``serving_phase_stall`` event) and
+per-request tracing (``request_trace`` / ``enable_request_trace``: host
+clock spans only, no device sync; a drain or a handoff record carries the
+request's trace context, drain-state v3). The fault seams of
+``robustness/faults`` sit where JAX's do: ``serving_round_seam`` at the
+top of each round attempt, ``dispatch_seam`` inside the watchdog guard.
 
 Token/row bookkeeping (as in the JAX engine): ``req.cached_rows`` = KV rows
 in the pool for the request. A (re-)prefill sets it to ``len(context)`` and
@@ -93,18 +118,17 @@ token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
 What this port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: round recovery and its fault seams, request tracing and
-fleet roles (A7), and a block-sparse model on a mesh (A10b). A
-block-sparse model serves as JAX's does: its whole-prompt prefills run the
-block-sparse kernel (B5) over the bucket, a multiple of the layout's
-block; its decode steps and spans (chunked and warm prefills) attend
-densely. The port samples from a ``torch.Generator``
-where JAX folds a counter into a key: a drain records the port's count
-of sampling calls as the schema's ``rng_counter``, and a migration keeps
-the larger of the two counts, as JAX's does; only greedy streams carry
-over token for token.
+ROADMAP item: a block-sparse model on a mesh (A10b). A block-sparse
+model serves as JAX's does: its whole-prompt prefills run the block-sparse
+kernel (B5) over the bucket, a multiple of the layout's block; its decode
+steps and spans (chunked and warm prefills) attend densely. The port
+samples from a ``torch.Generator`` where JAX folds a counter into a key:
+a drain records the port's count of sampling calls as the schema's
+``rng_counter``, and a migration keeps the larger of the two counts, as
+JAX's does; only greedy streams carry over token for token.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -144,8 +168,13 @@ from deepspeed_tpu_torch.parallel.partitioning import (shard_leaf,
                                                        sharded_bytes,
                                                        spec_tree)
 from deepspeed_tpu_torch.robustness import events as rb_events
+from deepspeed_tpu_torch.robustness import faults as rb_faults
 from deepspeed_tpu_torch.robustness import integrity
 from deepspeed_tpu_torch.robustness.preemption import Preempted
+from deepspeed_tpu_torch.telemetry.exposition import (DEFAULT_EDGES_MS,
+                                                      Histogram)
+from deepspeed_tpu_torch.telemetry.request_trace import (RequestTracer,
+                                                         merge_chrome_trace)
 
 
 class DecodeDispatchHang(RuntimeError):
@@ -254,11 +283,11 @@ class ServingConfig:
     max_queue: Optional[int] = None
     pool_watermark: Optional[float] = None
     # a round (decode quantum + token fetch) longer than this raises
-    # DecodeDispatchHang to the caller; None = no watchdog
+    # DecodeDispatchHang, which recovery handles; None = no watchdog
     dispatch_timeout_s: Optional[float] = None
-    # round recovery (preempt all, rebuild the pool, retry) is not ported:
-    # only 0 is accepted
-    round_retries: int = 0
+    # round recovery attempts (preempt all, zeroed pools, retry) before a
+    # round's error reaches the caller
+    round_retries: int = 2
     telemetry_jsonl: Optional[str] = None   # robustness events sink
     # --- latency tier (all off by default) -----------------------------
     enable_prefix_cache: bool = False
@@ -279,14 +308,23 @@ class ServingConfig:
     adapter_slots: int = 0
     lora_rank: int = 0                 # shared by all adapters (one shape)
     lora_targets: tuple = ("q", "k", "v", "o")
+    # --- fleet ---------------------------------------------------------
+    # per-request tracing: host-clock spans only (no device sync; streams
+    # are bit-identical traced or not). enable_request_trace() arms a
+    # warm engine
+    request_trace: bool = False
+    trace_replica: str = "r0"          # process row in the merged trace
+    trace_events: int = 65536          # tracer ring bound
+    # the fleet tier this engine serves: a "prefill" engine prefills and
+    # commits each request's first token but never runs a decode quantum
+    # (the router hands its requests to a "decode" / "both" replica)
+    role: str = "both"                 # prefill | decode | both
 
     def __post_init__(self):
         self.lora_targets = tuple(self.lora_targets)
-        if self.round_retries != 0:
-            raise NotImplementedError(
-                f"round_retries={self.round_retries}: round recovery is not "
-                "ported yet: ROADMAP A7 (fleet host layer: the fault seams "
-                "that drive recovery)")
+        if self.role not in ("prefill", "decode", "both"):
+            raise ValueError(f"role={self.role!r}: one of prefill | decode "
+                             "| both")
         if self.decode_backend == "xla":
             raise ValueError(
                 "decode_backend='xla': the port serves decode through the "
@@ -296,16 +334,9 @@ class ServingConfig:
                              "auto | pallas")
 
 
-_TRACE = "not ported yet: ROADMAP A7 (fleet host layer: request tracing)"
-
 # JAX ServingConfig fields outside this port: (their default, why a value
 # away from it is refused)
 _DEFERRED = {
-    "request_trace": (False, _TRACE),
-    "trace_replica": ("r0", _TRACE),
-    "trace_events": (65536, _TRACE),
-    "role": ("both", "not ported yet: ROADMAP A7 (fleet host layer: "
-                     "disaggregated roles)"),
     # JAX times its two decode backends against each other at init
     "backend_bench_iters": (10, "the port has one decode backend, the "
                                 "paged decode kernel: nothing to time"),
@@ -332,9 +363,15 @@ def _slots_or_null(aidx, like):
             if aidx is None else aidx)
 
 
-# the seam's op codes: every device call of a round, and the stop
-_STOP, _PREFILL, _SPAN, _DECODE, _FORK, _ADAPTER, _KV_IMPORT, _KV_EXPORT = \
-    range(8)
+# the seam's op codes: every device call of a round, the pools' rebuild
+# of a round recovery, and the stop
+(_STOP, _PREFILL, _SPAN, _DECODE, _FORK, _ADAPTER, _KV_IMPORT, _KV_EXPORT,
+ _RECOVER) = range(9)
+
+
+class _Abandoned(RuntimeError):
+    """A round thread's device call after a recovery began: the thread
+    the watchdog gave up on stops there instead of making it."""
 
 
 class ServingEngine:
@@ -366,8 +403,19 @@ class ServingEngine:
         self._seam = (DeviceSeam(self.mesh, self.device)
                       if self.mesh.world_size > 1 else None)
         self._stopped = False
-        self._stop_pending = False
-        self._stop_lock = threading.Lock()
+        # close() gave up on a round: its thread sends the stop
+        self._stop_pending = threading.Event()
+        # one device call at a time on the seam: a round thread and the
+        # recovery (or the stop) never interleave their broadcasts
+        self._seam_lock = threading.RLock()
+        # the round in flight: its recovery epoch and the pools it writes,
+        # on the thread that runs it. A round thread the watchdog gave up
+        # on stops at its next device call once a recovery moved the
+        # epoch; until it returns, its closure keeps the old pools alive,
+        # and whatever it queued runs on the caller's stream before any
+        # later use of their memory
+        self._local = threading.local()
+        self._epoch = 0
         if c.block_size < 1 or c.decode_quantum < 1 or c.max_seqs < 1:
             raise ValueError(f"block_size={c.block_size}, decode_quantum="
                              f"{c.decode_quantum}, max_seqs={c.max_seqs}: "
@@ -484,6 +532,15 @@ class ServingEngine:
         self._quantum_warm = False
         self._round_thread: Optional[threading.Thread] = None
         self._failed: Optional[BaseException] = None
+        # the round-phase ring: one entry per round with the host ms of
+        # each phase (schedule / housekeeping / prefill dispatch / decode
+        # dispatch / token fetch / commit), a few perf_counter reads
+        self._phases: "collections.deque[Dict[str, float]]" = \
+            collections.deque(maxlen=256)
+        self._round_tokens = 0
+        self._tracer: Optional[RequestTracer] = None
+        if c.request_trace:
+            self.enable_request_trace(replica=c.trace_replica)
         self.decode_backend, self.backend_bench = self._select_backend()
         self.reset_stats()
 
@@ -507,29 +564,164 @@ class ServingEngine:
         rb_events.emit("decode_backend_selected", **bench)
         return bench["backend"], bench
 
+    # ---- fleet observability -----------------------------------------
+
+    def enable_request_trace(self, replica: Optional[str] = None,
+                             on_span=None) -> RequestTracer:
+        """Arm per-request tracing on a (possibly warm) engine: host-clock
+        spans only, so streams stay bit-identical. Returns the tracer
+        (``on_span`` is its per-span hook)."""
+        self._tracer = RequestTracer(
+            replica=replica or self.config.trace_replica,
+            max_events=self.config.trace_events, on_span=on_span)
+        return self._tracer
+
+    def disable_request_trace(self) -> None:
+        self._tracer = None
+
+    @property
+    def tracer(self) -> Optional[RequestTracer]:
+        return self._tracer
+
+    def _rspan(self, rid: int, name: str, **args):
+        """A span of request ``rid`` (a no-op context without tracing)."""
+        if self._tracer is None:
+            return contextlib.nullcontext()
+        return self._tracer.span(rid, name, **args)
+
+    def export_trace(self, path: Optional[str] = None):
+        """This replica's trace stream (``RequestTracer.export``); with
+        ``path``, also written as Chrome-trace JSON. Several replicas
+        merge through ``telemetry.merge_chrome_trace``."""
+        if self._tracer is None:
+            return None
+        stream = self._tracer.export()
+        if path:
+            merge_chrome_trace([stream], path=path)
+        return stream
+
+    def phase_decomposition(self) -> Dict[str, float]:
+        """The round-phase ring summed over the stats window: host ms per
+        phase, rounds, tokens, and the tracer's self-reported syncs."""
+        out: Dict[str, float] = {
+            "serve_rounds": float(len(self._phases)),
+            "serve_schedule_ms": 0.0, "serve_housekeeping_ms": 0.0,
+            "serve_prefill_dispatch_ms": 0.0,
+            "serve_decode_dispatch_ms": 0.0, "serve_fetch_ms": 0.0,
+            "serve_commit_ms": 0.0, "serve_round_ms": 0.0,
+            "serve_tokens": 0.0,
+            "serve_phase_stall_events": float(self._phase_stall_events),
+            "trace_armed": float(self._tracer is not None),
+            "trace_device_syncs": float(self._tracer.device_syncs
+                                        if self._tracer else 0),
+        }
+        for entry in self._phases:
+            out["serve_schedule_ms"] += entry["schedule_ms"]
+            out["serve_housekeeping_ms"] += entry["housekeeping_ms"]
+            out["serve_prefill_dispatch_ms"] += entry["prefill_ms"]
+            out["serve_decode_dispatch_ms"] += entry["decode_ms"]
+            out["serve_fetch_ms"] += entry["fetch_ms"]
+            out["serve_commit_ms"] += entry["commit_ms"]
+            out["serve_round_ms"] += entry["round_ms"]
+            out["serve_tokens"] += entry["tokens"]
+        return {k: (round(v, 3) if k.endswith("_ms") else v)
+                for k, v in out.items()}
+
+    # a phase must be both absolutely slow and dominant, in a warm
+    # engine, before the stall event fires
+    _STALL_MIN_ROUND_MS = 50.0
+    _STALL_FRACTION = 0.6
+
+    def _note_phases(self, entry: Dict[str, float]) -> None:
+        """Append one round's phases; emit (at most once a stats window)
+        ``serving_phase_stall`` when a non-fetch phase takes most of a
+        round that ran 3x the window's median with >= 8 warm rounds
+        before it. The fetch is exempt: the round's one sync waits on the
+        device by design."""
+        self._phases.append(entry)
+        if (not self._quantum_warm or self._phase_stall_events
+                or len(self._phases) < 9
+                or entry["round_ms"] < self._STALL_MIN_ROUND_MS):
+            return
+        prior = sorted(e["round_ms"] for e in list(self._phases)[:-1])
+        if entry["round_ms"] < 3.0 * max(prior[len(prior) // 2], 1e-9):
+            return
+        for phase in ("schedule", "housekeeping", "prefill", "decode",
+                      "commit"):
+            ms = entry[f"{phase}_ms"]
+            if ms > self._STALL_FRACTION * entry["round_ms"]:
+                self._phase_stall_events += 1
+                rb_events.emit("serving_phase_stall", phase=phase,
+                               phase_ms=round(ms, 2),
+                               round_ms=round(entry["round_ms"], 2))
+                break
+
+    def obs_meta(self) -> Dict[str, Any]:
+        """The heartbeat's rollup payload: mergeable fixed-edge TTFT and
+        ITL histograms over this stats window and the occupancy gauges.
+        A dead replica's last heartbeat keeps its final numbers."""
+        ttft = Histogram(DEFAULT_EDGES_MS)
+        ttft.observe_many((r.first_token_t - r.submit_t) * 1e3
+                          for r in self._finished
+                          if r.first_token_t is not None)
+        itl = Histogram(DEFAULT_EDGES_MS)
+        itl.observe_many(self._itl_ms)
+        meta: Dict[str, Any] = {
+            "ttft_ms_hist": ttft.to_dict(),
+            "itl_ms_hist": itl.to_dict(),
+            "pool_occupancy": round(float(self.allocator.used_fraction), 4),
+            "completed": len(self._finished),
+            "cancelled": len(self._cancelled),
+            "generated_tokens": sum(len(r.generated)
+                                    for r in self._finished),
+        }
+        if self._lora:
+            usable = max(1, self.adapter_slots.num_slots - 1)
+            meta["adapter_occupancy"] = round(
+                self.adapter_slots.resident / usable, 4)
+            meta["adapter_page_ins"] = self.adapter_slots.page_ins
+        return meta
+
     # ---- the seam: every device call, on every rank -------------------
 
     def _call(self, op: int, ints=(), tensors=()):
         """Make one device call: on a mesh, rank 0 first broadcasts it
-        (``inference/seam``) so every rank makes it on its shards."""
+        (``inference/seam``) so every rank makes it on its shards. A round
+        thread whose round a recovery abandoned raises ``_Abandoned``
+        here instead of calling."""
         if self._seam is None:
+            self._check_epoch()
             return self._OPS[op](self, list(ints), list(tensors))
         if self.rank != 0:
             raise RuntimeError("only rank 0 drives a sharded serving "
                                "engine; the other ranks run_worker()")
-        if self._stop_pending:
-            # close() gave up on this round: stop the other ranks here,
-            # between two calls, instead of making this one
-            self._send_stop()
-            raise RuntimeError("the serving engine is closed")
-        self._seam.send(op, ints, tensors)
-        with parallel_context(self.mesh):
-            return self._OPS[op](self, list(ints), list(tensors))
+        with self._seam_lock:
+            if self._stop_pending.is_set():
+                # close() gave up on this round: stop the other ranks
+                # here, between two calls, instead of making this one
+                self._send_stop()
+                raise RuntimeError("the serving engine is closed")
+            self._check_epoch()
+            self._seam.send(op, ints, tensors)
+            with parallel_context(self.mesh):
+                return self._OPS[op](self, list(ints), list(tensors))
+
+    def _check_epoch(self) -> None:
+        epoch = getattr(self._local, "epoch", None)
+        if epoch is not None and epoch != self._epoch:
+            raise _Abandoned("round abandoned by a recovery")
+
+    @property
+    def _pools(self):
+        """The pools this thread's device calls read and write: the
+        round's own (bound when it started) inside a round, else the
+        engine's."""
+        return getattr(self._local, "pools", None) or self.pools
 
     def _send_stop(self) -> None:
         """Send the other ranks the stop, once: their ``run_worker``
         returns."""
-        with self._stop_lock:
+        with self._seam_lock:
             if self._seam is not None and self.rank == 0 \
                     and not self._stopped:
                 self._stopped = True
@@ -544,31 +736,32 @@ class ServingEngine:
         while True:
             op, ints, tensors = self._seam.recv()
             if op == _STOP:
-                self._stopped = True
+                with self._seam_lock:
+                    self._stopped = True
                 return
             with parallel_context(self.mesh):
                 self._OPS[op](self, ints, tensors)
 
     def _op_prefill(self, ints, t):
         ids, block_ids = t
-        return self.model.prefill_paged(self.engine.params, ids, self.pools,
+        return self.model.prefill_paged(self.engine.params, ids, self._pools,
                                         block_ids, length=ints[0])
 
     def _op_span(self, ints, t):
         tokens, tables, lens, active, n_rows, aidx = t
         return self.model.decode_span_paged(
-            self.engine.params, tokens, self.pools, tables, lens,
+            self.engine.params, tokens, self._pools, tables, lens,
             active=active, n_rows=n_rows, lora=self._lora_args(aidx))
 
     def _op_decode(self, ints, t):
         tokens, tables, lens, active, aidx = t
         return self.model.decode_step_paged(
-            self.engine.params, tokens, self.pools, tables, lens,
+            self.engine.params, tokens, self._pools, tables, lens,
             active=active, lora=self._lora_args(aidx))
 
     def _op_fork(self, ints, t):
         src, dst = ints
-        for pool in self.pools.values():
+        for pool in self._pools.values():
             pool[:, dst] = pool[:, src]
 
     def _op_adapter(self, ints, t):
@@ -587,7 +780,7 @@ class ServingEngine:
         """Scatter a payload's leaves (all kv heads, in pool order) into
         blocks ``t[0]``: this rank's heads."""
         ids = t[0]
-        for (name, pool), leaf in zip(self.pools.items(), t[1:]):
+        for (name, pool), leaf in zip(self._pools.items(), t[1:]):
             part = shard_leaf(leaf, self._pool_specs[name], self.mesh, name)
             pool.index_copy_(1, ids, part)
 
@@ -597,7 +790,7 @@ class ServingEngine:
         tensor axis as raw bytes (one non-zero term a byte: exact)."""
         ids = t[0]
         out = {}
-        for name, pool in self.pools.items():
+        for name, pool in self._pools.items():
             part = pool.index_select(1, ids)
             if self.tp > 1:
                 n = part.shape[2]
@@ -611,9 +804,27 @@ class ServingEngine:
             out[name] = part
         return out
 
+    def _op_recover(self, ints, t):
+        """This rank's pools zeroed in place, as fresh ones are: what was
+        queued before runs first on the stream, and the card never holds
+        a second pool. Only while a round thread the watchdog gave up on
+        is still alive (rank 0's; it may still be issuing into the old
+        pools) are fresh ones allocated, and the thread's closure holds
+        the old until it returns."""
+        t = self._round_thread
+        if t is None or not t.is_alive():
+            for pool in self.pools.values():
+                pool.zero_()
+            return
+        with parallel_context(self.mesh):
+            self.pools = self.model.init_paged_cache(
+                self.num_blocks, self.config.block_size,
+                dtype=self.engine.dtype, device=self.device)
+
     _OPS = {_PREFILL: _op_prefill, _SPAN: _op_span, _DECODE: _op_decode,
             _FORK: _op_fork, _ADAPTER: _op_adapter,
-            _KV_IMPORT: _op_kv_import, _KV_EXPORT: _op_kv_export}
+            _KV_IMPORT: _op_kv_import, _KV_EXPORT: _op_kv_export,
+            _RECOVER: _op_recover}
 
     # ---- device programs ---------------------------------------------
 
@@ -627,9 +838,15 @@ class ServingEngine:
         return -(-n // bs) * bs
 
     def _sample(self, logits):
-        """[S, V] f32 logits -> [S] token ids. Greedy ties take the first
-        index, as jnp.argmax does."""
+        """[S, V] f32 logits -> [S] token ids, counted in
+        ``_rng_counter``."""
         self._rng_counter += 1
+        return self._draw(logits)
+
+    def _draw(self, logits):
+        """``_sample`` without the count: a round thread touches no host
+        state (the round counts its decode quantum's draws). Greedy ties
+        take the first index, as jnp.argmax does."""
         t = self.config.temperature
         if t and t > 0:
             probs = torch.softmax(logits / t, dim=-1)
@@ -748,7 +965,7 @@ class ServingEngine:
         for _ in range(self.config.decode_quantum):
             logits = self._call(_DECODE, (),
                                 (tokens, tables, lens, active, aidx))
-            tokens = torch.where(active, self._sample(logits), tokens)
+            tokens = torch.where(active, self._draw(logits), tokens)
             lens = lens + step
             outs.append(tokens)
         return outs
@@ -820,10 +1037,13 @@ class ServingEngine:
             return False
         req.adapter_slot = slot
         if page_in:
-            tabs = self.adapter_store.table_for_slot(req.adapter_id)
-            self._call(_ADAPTER, (slot,), [
-                torch.from_numpy(tabs[proj][name]).to(self.device)
-                for proj in self.config.lora_targets for name in ("a", "b")])
+            with self._rspan(req.rid, "adapter_page_in",
+                             adapter=req.adapter_id, slot=int(slot)):
+                tabs = self.adapter_store.table_for_slot(req.adapter_id)
+                self._call(_ADAPTER, (slot,), [
+                    torch.from_numpy(tabs[proj][name]).to(self.device)
+                    for proj in self.config.lora_targets
+                    for name in ("a", "b")])
         return True
 
     def _release_adapter(self, req: Request) -> None:
@@ -884,6 +1104,14 @@ class ServingEngine:
             rb_events.emit("request_shed", reason=e.reason, **e.detail)
             raise
         self._requests[req.rid] = req
+        if self._tracer is not None:
+            self._tracer.begin(req.rid)
+            self._tracer.instant(req.rid, "admitted",
+                                 prompt_tokens=int(prompt.size),
+                                 adapter=adapter_id)
+        # the queue-wait clock: from here (or the latest preemption) to
+        # the request's next admission
+        req._trace_wait_t0 = req.submit_t
         if self._stats_t0 is None:
             self._stats_t0 = req.submit_t
         return req.rid
@@ -893,10 +1121,12 @@ class ServingEngine:
         preempt at the boundary; the admitted requests' forks, then the
         prefills and prefill chunks, then one decode quantum and one token
         fetch; drain the events into the JSONL sink. Returns the requests
-        finished this round. An error inside the round reaches the caller
-        as raised, and the engine refuses every later round. A latched
-        SIGTERM (``attach_preemption``) drains the engine first and raises
-        ``Preempted``."""
+        finished this round. A round that fails recovers (every running
+        request preempted, pools zeroed) and is retried up to
+        ``round_retries`` times; an error that outlasts the retries
+        reaches the caller as raised and the engine refuses every later
+        round. A latched SIGTERM (``attach_preemption``) drains the engine
+        first and raises ``Preempted``."""
         if self._preemption is not None and self._preemption.requested:
             path = self.drain(self._drain_dir)
             raise Preempted("serving engine drained on SIGTERM",
@@ -904,21 +1134,86 @@ class ServingEngine:
         if self._failed is not None:
             raise RuntimeError(
                 "serving engine failed in an earlier round ("
-                f"{type(self._failed).__name__}: {self._failed}); its "
-                "pools may hold that round's partial writes: build a new "
-                "engine") from self._failed
+                f"{type(self._failed).__name__}: {self._failed}) after "
+                f"{self.config.round_retries} recovery retries: build a "
+                "new engine") from self._failed
         try:
             self._enforce_deadlines()
-            return self._round()
-        except BaseException as e:
-            self._failed = e
-            raise
+            for attempt in range(max(0, self.config.round_retries) + 1):
+                try:
+                    return self._round()
+                except (Preempted, KeyboardInterrupt):
+                    raise
+                except Exception as e:  # noqa: BLE001 — any round failure
+                    # (injected or real): preempt-all and zeroed pools make
+                    # the retry re-prefill from the host cursors
+                    recovered = self._recover(
+                        "backend_fault"
+                        if isinstance(e, rb_faults.BackendFault)
+                        else type(e).__name__)
+                    if not recovered \
+                            or attempt == max(0, self.config.round_retries):
+                        self._failed = e
+                        raise
         finally:
             self._drain_events()
 
     def _round(self) -> List[Request]:
+        # the phase ring: host perf_counter reads only
+        t_round0 = time.perf_counter()
+        self._round_tokens = 0
+        ph = {"schedule_ms": 0.0, "housekeeping_ms": 0.0, "prefill_ms": 0.0,
+              "decode_ms": 0.0, "fetch_ms": 0.0, "commit_ms": 0.0}
+        info = rb_faults.serving_round_seam()
+        keep = info.get("squeeze")
+        if keep is not None:
+            # pool_exhaust storm: hide all but `keep` free blocks for this
+            # round, so the scheduler queues and preempts under a real
+            # exhaustion; the reserve lifts at the end of the round
+            self.allocator.set_reserve(
+                max(0, self.allocator.free_blocks - int(keep)))
+        try:
+            out = self._round_body(ph, t_round0)
+        finally:
+            if keep is not None:
+                self.allocator.set_reserve(0)
+        if out is None:
+            return []
+        pending, commit = out
+        t0 = time.perf_counter()
+        finished = commit()
+        ph["commit_ms"] = (time.perf_counter() - t0) * 1e3
+        ph["round_ms"] = (time.perf_counter() - t_round0) * 1e3
+        self._note_phases({**ph, "tokens": float(self._round_tokens)})
+        if self._tracer is not None:
+            for req in finished:
+                self._tracer.instant(req.rid, "finish",
+                                     tokens=len(req.generated))
+                self._tracer.end(req.rid)
+        return finished
+
+    def _round_body(self, ph, t_round0):
+        """Schedule, dispatch and fetch one round; returns (pending first
+        tokens, the commit) or None when nothing runs."""
+        t0 = time.perf_counter()
         decisions = self.scheduler.schedule(
             token_budget=self.config.prefill_token_budget)
+        ph["schedule_ms"] = (time.perf_counter() - t0) * 1e3
+        if self._tracer is not None:
+            now = time.perf_counter()
+            for req in decisions["preempted"]:
+                self._tracer.instant(req.rid, "preempted",
+                                     preemptions=req.preemptions)
+                req._trace_wait_t0 = now        # queue wait restarts
+            for req in decisions["admitted"]:
+                # begin() is idempotent; restored or migrated requests
+                # that never passed add_request get their id here
+                self._tracer.begin(req.rid)
+                w0 = getattr(req, "_trace_wait_t0", req.submit_t)
+                self._tracer.add_span(
+                    req.rid, "queue_wait", self._tracer.epoch(w0),
+                    self._tracer.epoch(now), preemptions=req.preemptions)
+        t0 = time.perf_counter()
         if self._lora:
             # adapter pins track the running set: the scheduler's victims
             # drop theirs first (their slots become LRU candidates), then
@@ -946,22 +1241,37 @@ class ServingEngine:
             if getattr(req, "_kv_payload", None) is not None:
                 # imported KV bytes land in the admission's fresh blocks
                 # before the tail span below reads them
-                self._dispatch_kv_import(req)
+                with self._rspan(req.rid, "kv_import",
+                                 rows=int(req.kv_rows)):
+                    self._dispatch_kv_import(req)
+        ph["housekeeping_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         for req, start, n in decisions["prefill"]:
             if req.state != "running":
                 continue
             if start == 0 and n == len(req.context) and not self._lora:
-                self._dispatch_prefill(req)     # whole prompt: B1
+                with self._rspan(req.rid, "prefill", tokens=int(n),
+                                 reprefill=req.preemptions > 0):
+                    self._dispatch_prefill(req)     # whole prompt: B1
             else:
                 # chunks, cache and import tails, and every prefill of a
                 # LoRA-armed engine (the span path carries the delta)
-                self._dispatch_chunk(req, start, n)
+                with self._rspan(req.rid, "prefill_chunk",
+                                 start=int(start), tokens=int(n)):
+                    self._dispatch_chunk(req, start, n)
+        ph["prefill_ms"] = (time.perf_counter() - t0) * 1e3
         running = self.scheduler.running
         if not running:
-            return []
+            ph["round_ms"] = (time.perf_counter() - t_round0) * 1e3
+            self._note_phases({**ph, "tokens": 0.0})
+            return None
+        t_dec0 = time.perf_counter()
         pending = [(req, req._first_dev) for req in running
                    if getattr(req, "_first_dev", None) is not None]
-        decode = any(r.prefill_done for r in running)
+        # a prefill-role engine never runs a decode quantum: its requests
+        # wait, first token committed, for the router's handoff
+        decode = (self.config.role != "prefill"
+                  and any(r.prefill_done for r in running))
         # speculation: ONE verify step replaces the decode quantum
         spec = decode and self.config.spec_tokens > 0
         tables = self._tables_device() if decode else None
@@ -970,29 +1280,52 @@ class ServingEngine:
                              dim=1) if spec else None)
         stream = (torch.cuda.current_stream(self.device)
                   if self.device.type == "cuda" else None)
+        # sampling calls counted here, not on the round thread
+        self._rng_counter += (self.config.decode_quantum
+                              if decode and not spec else 0)
+        epoch, pools = self._epoch, self.pools
 
         def quantum_and_fetch():
             # the round thread issues on the caller's stream (a thread's
-            # current stream is its own), after the prefills in order
-            with self._on_stream(stream):
-                verdict = []
-                if spec:
-                    nxt, acc, t, _ = self._spec_step(tok_mat, *tables)
-                    outs, verdict = [], [nxt.reshape(-1), acc]
-                else:
-                    outs = self._quantum(tokens, *tables) if decode else []
-                    t = outs[-1] if outs else tokens
-                # the ONE sync of the round: every decode step's tokens (or
-                # the verify step's argmaxes and accept lengths) and every
-                # pending first token in one device-to-host copy
-                parts = ([o.reshape(-1) for o in outs] + verdict
-                         + [f.reshape(-1) for _, f in pending])
-                host = (torch.cat(parts).cpu().numpy() if parts
-                        else np.zeros((0,), np.int64))
-            return t, host, len(outs)
+            # current stream is its own), after the prefills in order;
+            # its device calls carry this round's epoch and pools
+            self._local.epoch, self._local.pools = epoch, pools
+            try:
+                # the fault seam lives INSIDE the watchdog guard: a hang
+                # here is what the watchdog times out
+                rb_faults.dispatch_seam()
+                with self._on_stream(stream):
+                    verdict = []
+                    if spec:
+                        nxt, acc, t, _ = self._spec_step(tok_mat, *tables)
+                        outs, verdict = [], [nxt.reshape(-1), acc]
+                    else:
+                        outs = (self._quantum(tokens, *tables) if decode
+                                else [])
+                        t = outs[-1] if outs else tokens
+                    tq1 = time.perf_counter()
+                    # the ONE sync of the round: every decode step's tokens
+                    # (or the verify step's argmaxes and accept lengths)
+                    # and every pending first token in one copy
+                    parts = ([o.reshape(-1) for o in outs] + verdict
+                             + [f.reshape(-1) for _, f in pending])
+                    host = (torch.cat(parts).cpu().numpy() if parts
+                            else np.zeros((0,), np.int64))
+                return t, host, len(outs), (tq1, time.perf_counter())
+            finally:
+                self._local.epoch = self._local.pools = None
 
-        tokens, host, n_steps = self._with_watchdog(
+        tokens, host, n_steps, (tq1, tq2) = self._with_watchdog(
             quantum_and_fetch, armed=self._quantum_warm)
+        ph["decode_ms"] = (tq1 - t_dec0) * 1e3
+        ph["fetch_ms"] = (tq2 - tq1) * 1e3
+        if self._tracer is not None and decode:
+            for req in running:
+                if req.prefill_done:
+                    self._tracer.add_span(
+                        req.rid, "decode_quantum",
+                        self._tracer.epoch(t_dec0), self._tracer.epoch(tq2),
+                        steps=1 if spec else self.config.decode_quantum)
         self._tokens = tokens
         if decode:
             self._quantum_warm = True
@@ -1003,11 +1336,12 @@ class ServingEngine:
             K1 = self.config.spec_tokens + 1
             nxt = host[:S * K1].reshape(S, K1)
             acc = host[S * K1:S * K1 + S]
-            return self._commit_round(pending, host[S * K1 + S:],
-                                      self._verified(nxt, acc))
+            return pending, lambda: self._commit_round(
+                pending, host[S * K1 + S:], self._verified(nxt, acc))
         toks = host[:n_steps * S].reshape(n_steps, S)
-        return self._commit_round(pending, host[n_steps * S:],
-                                  lambda req: (toks[:, req.slot], n_steps))
+        return pending, lambda: self._commit_round(
+            pending, host[n_steps * S:],
+            lambda req: (toks[:, req.slot], n_steps))
 
     @contextlib.contextmanager
     def _on_stream(self, stream):
@@ -1020,8 +1354,10 @@ class ServingEngine:
     def _with_watchdog(self, fn, armed: bool = True):
         """Run ``fn`` on a thread and raise ``DecodeDispatchHang`` when it
         outlives ``dispatch_timeout_s`` (no timeout, or not armed: call it
-        here). The thread is left running: it may still write the pools,
-        which is why the caller marks the engine failed."""
+        here). A thread the watchdog gives up on is left running: the
+        recovery that follows moves the epoch, so it stops at its next
+        device call, and what it issued before writes only the pools its
+        round started with."""
         timeout = self.config.dispatch_timeout_s
         if not timeout or not armed:
             return fn()
@@ -1033,7 +1369,7 @@ class ServingEngine:
             except BaseException as e:  # noqa: BLE001 — relayed below
                 box["error"] = e
             finally:
-                if self._stop_pending:      # close() gave up on this round
+                if self._stop_pending.is_set():   # close() gave up on it
                     self._send_stop()
 
         t = threading.Thread(target=run, daemon=True, name="serving-round")
@@ -1047,12 +1383,62 @@ class ServingEngine:
             raise box["error"]
         return box["result"]
 
+    def _recover(self, reason: str) -> bool:
+        """Round recovery: every running request preempts back to the
+        queue (prompt + generated, the host cursors, are authoritative),
+        the prefix cache lets go of its blocks, and the pools are zeroed
+        (``_RECOVER``, on every rank of a mesh); the requests re-prefill
+        at their next admission, so greedy continuations are token for
+        token the unfailed run's. Adapter slots are forgotten (each
+        re-pins and pages in again into the same slot pool, which no
+        round writes). The epoch moves first: a round thread the watchdog
+        gave up on stops at its next device call. On a sharded engine
+        that thread may be stuck inside a seam call (a collective that
+        never completes) and hold the seam: recovery waits
+        ``dispatch_timeout_s`` for it, then gives up and returns False
+        (the caller latches the engine), so the watchdog still bounds
+        the hang."""
+        t0 = time.perf_counter()
+        self._epoch += 1
+        if not self._seam_lock.acquire(
+                timeout=self.config.dispatch_timeout_s or -1):
+            return False
+        try:
+            self.allocator.set_reserve(0)
+            n = self.scheduler.preempt_all()
+            for req in self._requests.values():
+                req._first_dev = None
+                req.adapter_slot = None
+                if req.cow_src is not None:     # admitted, fork not run
+                    self.scheduler._release_cow(req)
+                if getattr(req, "_kv_payload", None) is not None \
+                        and req.kv_rows == 0:
+                    # preempt_all zeroed kv_rows before the import scattered:
+                    # the re-admission recomputes (a still-waiting import
+                    # keeps its rows and its payload)
+                    self._drop_kv_payload(req)
+            if self._lora:
+                self.adapter_slots.reset()
+            if self._prefix_cache is not None:
+                self._prefix_cache.clear()
+            self._tokens = torch.zeros_like(self._tokens)
+            self._call(_RECOVER)
+            ms = (time.perf_counter() - t0) * 1e3
+            self._counters["recoveries"] += 1
+            self._counters["recovery_ms"] += ms
+            rb_events.emit("serving_recovered", reason=reason, preempted=n,
+                           ms=round(ms, 2))
+        finally:
+            self._seam_lock.release()
+        return True
+
     def _note_tokens(self, req: Request, m: int, now: float) -> None:
         """Inter-token latency: a burst of ``m`` tokens arriving ``gap``
         after the request's previous ones records m samples of gap/m. The
         first token starts the clock (it is TTFT's, not ITL's)."""
         if m <= 0:
             return
+        self._round_tokens += m        # the phase ring's token count
         if req.last_token_t is not None:
             per_tok = (now - req.last_token_t) * 1e3 / m
             self._itl_ms.extend([per_tok] * m)
@@ -1171,6 +1557,10 @@ class ServingEngine:
             self.scheduler.cancel(req, reason=f"{kind}_deadline")
             self._release_adapter(req)   # no-op for never-pinned waiters
             self._drop_kv_payload(req, count=False)   # died, not fell back
+            if self._tracer is not None:
+                self._tracer.instant(req.rid, "cancelled",
+                                     reason=f"{kind}_deadline")
+                self._tracer.end(req.rid)
             self._cancelled.append(req)
             self._counters["deadline_misses"] += 1
             rb_events.emit("deadline_miss", rid=req.rid, kind=kind,
@@ -1206,7 +1596,7 @@ class ServingEngine:
         # a round thread that outlives the budget sends the stop itself
         # when its current device call returns (the seam carries one
         # call at a time: a stop sent from here could cut into it)
-        self._stop_pending = True
+        self._stop_pending.set()
         if timeout is None:
             timeout = self.config.dispatch_timeout_s or 5.0
         t = self._round_thread
@@ -1297,6 +1687,9 @@ class ServingEngine:
             self._kv_staging[rid] = nbytes
             self._counters["handoffs"] += 1
             self._counters["handoff_bytes"] += nbytes
+            if self._tracer is not None:
+                self._tracer.instant(rid, "kv_export", bytes=nbytes,
+                                     rows=rows)
             out[rid] = payload
         return out
 
@@ -1402,9 +1795,9 @@ class ServingEngine:
         if count:
             self._counters["handoff_fallbacks"] += 1
 
-    @staticmethod
-    def _record(req: Request) -> Dict[str, Any]:
-        """A request as a drain-state (v3) record."""
+    def _record(self, req: Request) -> Dict[str, Any]:
+        """A request as a drain-state (v3) record, with its trace context
+        (id and spans so far) when tracing is on."""
         return {"rid": req.rid,
                 "prompt": np.asarray(req.prompt).tolist(),
                 "generated": [int(t) for t in req.generated],
@@ -1417,7 +1810,8 @@ class ServingEngine:
                 "ttft_deadline_ms": req.ttft_deadline_ms,
                 "deadline_ms": req.deadline_ms,
                 "adapter_id": req.adapter_id,
-                "trace": None}
+                "trace": (self._tracer.context(req.rid)
+                          if self._tracer is not None else None)}
 
     def release_requests(self, request_ids: List[int]
                          ) -> List[Dict[str, Any]]:
@@ -1433,6 +1827,8 @@ class ServingEngine:
             req = self._requests.get(rid)
             if req is None or req.state not in ("running", "waiting"):
                 continue
+            if self._tracer is not None:
+                self._tracer.instant(req.rid, "handoff_out")
             recs.append(dict(self._record(req), submit_t=req.submit_t,
                              first_token_t=req.first_token_t,
                              last_token_t=req.last_token_t))
@@ -1454,6 +1850,8 @@ class ServingEngine:
             req._first_dev = None
             req.state = "migrated"
             del self._requests[req.rid]
+            if self._tracer is not None:
+                self._tracer.end(req.rid)
         return recs
 
     def drain(self, save_dir: Optional[str] = None,
@@ -1480,6 +1878,11 @@ class ServingEngine:
         tag_dir = os.path.join(save_dir, tag)
         os.makedirs(tag_dir, exist_ok=True)
         integrity.invalidate(tag_dir)      # rewriting in place: torn-able
+        if self._tracer is not None:
+            # before the records take their trace contexts: the drain
+            # point itself rides the migrated trace
+            for req in live:
+                self._tracer.instant(req.rid, "drained", tag=tag)
         state = {
             "version": DRAIN_STATE_VERSION,
             "rng_counter": self._rng_counter,
@@ -1566,6 +1969,14 @@ class ServingEngine:
             self._requests[req.rid] = req
             if payload is not None:
                 self._attach_kv_payload(req, payload)
+            if self._tracer is not None:
+                # stitch: the drained trace id and spans (a v3 record), so
+                # a merged export shows one trace across replicas
+                self._tracer.adopt(req.rid, rec.get("trace"))
+                self._tracer.instant(req.rid, "migrated_in",
+                                     source=source or "",
+                                     kv=payload is not None)
+            req._trace_wait_t0 = req.submit_t    # restore() re-stamped it
             # live-handoff stamps (release_requests records only)
             for key in ("submit_t", "first_token_t", "last_token_t"):
                 if rec.get(key) is not None:
@@ -1623,8 +2034,10 @@ class ServingEngine:
         self._itl_ms: List[float] = []
         self._dispatches = {"prefills": 0, "decode_steps": 0,
                             "verify_steps": 0}
-        self._counters = {"shed": 0, "deadline_misses": 0, "handoffs": 0,
-                          "handoff_bytes": 0, "handoff_fallbacks": 0}
+        self._counters = {"shed": 0, "deadline_misses": 0, "degraded": 0,
+                          "recoveries": 0, "recovery_ms": 0.0,
+                          "handoffs": 0, "handoff_bytes": 0,
+                          "handoff_fallbacks": 0}
         self._lat = {"spec_steps": 0, "spec_proposed": 0, "spec_accepted": 0,
                      "prefill_chunks": 0, "prefill_chunk_tokens": 0,
                      "cow_forks": 0}
@@ -1633,6 +2046,13 @@ class ServingEngine:
         if self._lora:
             p = self.adapter_slots
             p.hits = p.evictions = p.page_ins = 0
+        # the phase ring, the stall latch and the tracer's sync count are
+        # window-scoped too
+        self._phases.clear()
+        self._round_tokens = 0
+        self._phase_stall_events = 0
+        if self._tracer is not None:
+            self._tracer.device_syncs = 0
 
     def stats(self) -> Dict[str, float]:
         """TTFT p50/p99 (ms, measured at the round boundary where the first
@@ -1642,7 +2062,9 @@ class ServingEngine:
         steps, verify steps), the pool's resident bytes with the KV and
         weight quantization it serves (``kv_cache_bits``,
         ``weight_bits``), the reliability counters (shed,
-        deadline_misses, cancelled, queue_depth), the speculation counters
+        deadline_misses, cancelled, queue_depth, recoveries, recovery_ms,
+        and degraded, 0 by design: no second decode backend), the
+        speculation counters
         (``spec_steps`` per decoding request and round, ``spec_proposed``,
         ``spec_accepted``, ``spec_accept_rate``), the chunking and fork
         counters (prefill_chunks, prefill_chunk_tokens, cow_forks), the

@@ -1,6 +1,6 @@
 """Checkpoint integrity chain: per-tag manifest, commit marker, walk-back.
-A copy of ``deepspeed_tpu/robustness/integrity.py`` (stdlib only), without
-its fault-injection seams (ROADMAP A7).
+A copy of ``deepspeed_tpu/robustness/integrity.py`` (host only), with its
+``ckpt_io`` fault-injection seam in ``atomic_write``.
 
 Every committed tag carries:
 
@@ -66,9 +66,12 @@ def file_digest(path: str, chunk: int = 1 << 20) -> str:
 def atomic_write(path: str, data: str, *, what: str) -> None:
     """The atomic small-file write of the checkpoint chain (tmp + fsync +
     rename), shared by the manifest, marker, meta, latest and pointer
-    writers, each with the same bounded retry on transient errors."""
+    writers, each with the same bounded retry on transient errors and the
+    same ``ckpt_io`` fault-injection seam."""
+    from deepspeed_tpu_torch.robustness import faults as rb_faults
 
     def do():
+        rb_faults.io_seam("ckpt_io", path)
         tmp = f"{path}.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             f.write(data)

@@ -45,12 +45,16 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.robustness import events as rb_events
+from deepspeed_tpu_torch.robustness import faults as rb_faults
 from deepspeed_tpu_torch.robustness import integrity
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 LATEST_FILE = "latest"
 DTYPES_FILE = "dtypes.json"
+#: meta.json's version key (JAX's meta carries none; readers of either
+#: package read the keys they need and ignore this one)
+META_SCHEMA = 1
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -262,6 +266,12 @@ def finalize_tag(save_dir: str, tag: str, *, save_latest: bool = True,
     ckpt_path = os.path.join(save_dir, str(tag))
     if write_integrity:
         integrity.write_manifest(ckpt_path, checksums=checksums)
+        # corrupt_payload fault seam: bitrot AFTER the manifest hash
+        rb_faults.mutate_seam(ckpt_path)
+        # torn_save fault seam: a "crash" between payload and commit
+        # marker, outside any retry (a torn save is a process death, not
+        # a transient error)
+        rb_faults.io_seam("ckpt_commit", ckpt_path)
         integrity.write_commit_marker(ckpt_path)
     if save_latest:
         integrity.atomic_write(os.path.join(save_dir, LATEST_FILE), str(tag),
@@ -291,6 +301,7 @@ def save_checkpoint(save_dir: str, tag: str, state, *,
     at the engine's ``wait``."""
     engine = engine or CheckpointEngine()
     ckpt_path = os.path.join(save_dir, str(tag))
+    rb_faults.io_seam("ckpt_save", ckpt_path)      # whole-save abort seam
     os.makedirs(ckpt_path, exist_ok=True)
     # overwriting a tag in place: drop its commit marker first so a crash
     # mid-overwrite reads as torn, never as the OLD save's marker vouching
@@ -299,7 +310,8 @@ def save_checkpoint(save_dir: str, tag: str, state, *,
     integrity.invalidate(ckpt_path, drop_manifest=not write_integrity)
 
     def finalize():
-        meta = {"tag": str(tag), "client_state": client_state or {},
+        meta = {"schema": META_SCHEMA, "tag": str(tag),
+                "client_state": client_state or {},
                 "config": config_dict or {}, "world_size": 1,
                 "framework_version": "deepspeed_tpu_torch-0.1"}
         integrity.atomic_write(os.path.join(ckpt_path, "meta.json"),

@@ -108,6 +108,7 @@ from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 from deepspeed_tpu_torch.parallel import context as par_ctx
 from deepspeed_tpu_torch.parallel.mesh import (BATCH_AXES, Mesh, build_mesh,
                                                plan_from_config)
+from deepspeed_tpu_torch.robustness import faults as rb_faults
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
 from deepspeed_tpu_torch.runtime import fp16 as fp16_mod
 from deepspeed_tpu_torch.runtime import zero as zero_mod
@@ -190,6 +191,14 @@ class Engine:
         self.model = model
         if isinstance(getattr(model, "config", None), TransformerConfig):
             check_trainable(model.config)
+
+        # deterministic fault injection armed from the config: the
+        # injector is process-global, so a rebuilt engine with the same
+        # schedule keeps its counters (robustness/faults.py)
+        self.fault_injector = None
+        if config.robustness.faults.enabled:
+            self.fault_injector = rb_faults.install_from_config(
+                config.robustness.faults)
 
         self.compute_dtype = config.compute_dtype
         self._fp16 = config.fp16.enabled
@@ -499,7 +508,6 @@ class Engine:
         micro_rows = local["input_ids"].shape[0] // gas
         mbs = {k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])
                for k, v in local.items()}
-        layouts = self._layouts()
         eager = not (self._sched.deferred or self._onebit)
         counts = None
         if eager and "labels" in batch:
@@ -513,11 +521,11 @@ class Engine:
                 row=(n % dp) * micro_rows,
                 label_count=None if counts is None else counts[n // dp])
             if eager:
-                grads = self._part.reduce_grads(grads, layouts)
+                grads = self._part.reduce_grads(grads, self.state["params"])
             acc = self._accumulate(acc, grads)
             losses.append(loss)
         if self._sched.deferred:
-            acc = self._part.reduce_grads(acc, layouts)
+            acc = self._part.reduce_grads(acc, self.state["params"])
         return acc, self._part.mean_over_ranks(self._mean_loss(losses))
 
     def _accum_micro_grads(self, batch):
@@ -746,7 +754,7 @@ class Engine:
         if self._part is not None and not (self._sched.deferred
                                            or self._onebit):
             with self._step_context():
-                grads = self._part.reduce_grads(grads, self._layouts())
+                grads = self._part.reduce_grads(grads, self.state["params"])
         self._grad_buffer = self._accumulate(self._grad_buffer, grads)
         self._losses.append(loss)
         self.micro_steps += 1
@@ -764,7 +772,8 @@ class Engine:
         with self._step_context():
             if self._part is not None:
                 if self._sched.deferred:
-                    grads = self._part.reduce_grads(grads, self._layouts())
+                    grads = self._part.reduce_grads(grads,
+                                                    self.state["params"])
                 loss = self._part.mean_over_ranks(loss)
             metrics = self._apply_grads(grads, loss)
         self._grad_buffer, self._losses = None, []

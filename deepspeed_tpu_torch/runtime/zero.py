@@ -35,6 +35,7 @@ import torch
 
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm import schedule as comm_sched
+from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, Mesh, MeshPlan
 from deepspeed_tpu_torch.parallel.partitioning import (Spec, entry_axes,
                                                        from_entries,
@@ -229,11 +230,15 @@ class Partition:
                                      self.mesh)]
 
     # --- the step's collectives -------------------------------------------
-    def reduce_grads(self, grads, layouts) -> List[torch.Tensor]:
+    def reduce_grads(self, grads, params) -> List[torch.Tensor]:
         """Every leaf's local grad -> its grad-spec slice, the mean over
-        the data-parallel ranks."""
-        return comm_sched.boundary_reduce(grads, layouts, self.plan,
-                                          self.mesh, self.inv_dp)
+        the data-parallel ranks, rounded to its param leaf's dtype (a
+        bf16 param's grad is bf16 at every stage, as JAX's is and as
+        stage 3's gather backward hands it over)."""
+        return comm_sched.boundary_reduce(
+            grads, self.in_order(params),
+            [p.dtype for p in tree_leaves(params)], self.plan, self.mesh,
+            self.inv_dp)
 
     def _sharded_over(self, spec: Spec) -> Tuple[str, ...]:
         return tuple(a for a in sorted(spec_axes(spec))

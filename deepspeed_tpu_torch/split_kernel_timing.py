@@ -59,7 +59,8 @@ def main() -> int:
         a, b = a.double().ravel(), b.double().ravel()
         return float((a - b).norm() / b.norm())
 
-    out = {"checkout": root, "card": torch.cuda.get_device_name(0)}
+    out = {"schema": 1, "checkout": root,
+           "card": torch.cuda.get_device_name(0)}
     if args.rows:
         pieces = da.decode_pieces
         da.decode_pieces = lambda MB, bs, rows=args.rows: pieces(MB, bs, rows)

@@ -89,7 +89,7 @@ def main() -> int:
                                          srv.model.config, srv.pools, tab,
                                          lens), 10)
     print("STEPS " + json.dumps({
-        "checkout": root, "train_step_ms": train_ms,
+        "schema": 1, "checkout": root, "train_step_ms": train_ms,
         "train_issue_ms": train_issue_ms, "decode_step_ms": decode_ms,
         "decode_issue_ms": decode_issue_ms}), flush=True)
     return 0

@@ -341,6 +341,86 @@ def _tp2_handoff(rank, d):
     return out
 
 
+def _tp2_recover(rank, d):
+    """Round recovery on a tp=2 engine: rank 0's injector fails the
+    dispatch of round attempt 1 and raises a BackendFault at attempt 2;
+    each recovery is one seam call, so every rank zeroes its pools (in
+    place: no round thread is alive, so no second pool), and the streams
+    equal tp=1's without faults."""
+    from deepspeed_tpu_torch.robustness import faults
+    load = reqs(seed=3)
+
+    def drive(srv):
+        faults.install(faults.FaultInjector(faults.FaultSchedule([
+            {"kind": "decode_dispatch", "at": 1},
+            {"kind": "backend_fault", "at": 2}], seed=0)))
+        try:
+            before = dict(srv.pools)
+            out = _run(srv, load)
+            fired = [f["kind"] for f in faults.active().fired]
+        finally:
+            faults.clear()
+        st = srv.stats()
+        return {"streams": out, "recoveries": st["recoveries"],
+                "degraded": st["degraded"], "fired": fired,
+                "pools_kept": all(srv.pools[k] is v
+                                  for k, v in before.items())}
+    got = on_mesh(rank, MeshPlan(tensor=2), drive, CFG, d["params"])
+    if rank == 0:
+        got["tp1"] = _run(engine(CFG, d["params"]), load)
+    return got
+
+
+def _tp2_recover_blocked_decode(rank, d):
+    """A decode op that blocks inside its seam call, as a collective that
+    never completes would: the watchdog gives up on the round, and the
+    recovery cannot take the seam from the stuck thread within
+    ``dispatch_timeout_s``, so the engine latches and the hang reaches
+    the caller in bounded time. Rank 0 then lets the op go, and close()
+    stops the other rank."""
+    import threading
+    import time
+    from deepspeed_tpu_torch.inference import serving as serving_mod
+    timeout = 1.0
+    srv = engine(CFG, d["params"], mesh=MeshPlan(tensor=2),
+                 dispatch_timeout_s=timeout)
+    if rank:
+        srv.run_worker()
+        return None
+    ops = serving_mod.ServingEngine._OPS
+    decode, release, block = ops[serving_mod._DECODE], threading.Event(), []
+
+    def blocking(self, ints, t):
+        if block:
+            release.wait(120)
+        return decode(self, ints, t)
+    srv._OPS = {**ops, serving_mod._DECODE: blocking}
+    try:
+        for p, k in reqs(seed=3):
+            srv.add_request(p, k)
+        srv.step()                # warm-up round: the watchdog is not armed
+        block.append(True)
+        t0 = time.perf_counter()
+        try:
+            srv.step()
+            raised = None
+        except DecodeDispatchHang as e:
+            raised = type(e).__name__
+        waited = time.perf_counter() - t0
+        try:
+            srv.step()
+            latched = None
+        except RuntimeError as e:
+            latched = str(e)
+        release.set()
+        return {"raised": raised, "waited_s": waited, "latched": latched,
+                "recoveries": srv.stats()["recoveries"],
+                "closed": srv.close(timeout=60)}
+    finally:
+        release.set()
+        srv.close(timeout=60)
+
+
 GROUP2 = {"basic": _tp2_basic, "preempt_prefix": _tp2_preempt_prefix,
           "spec_chunked": _tp2_spec_chunked, "drain": _tp2_drain_resume,
           "lora": _tp2_lora, "int8": _tp2_int8,
@@ -409,6 +489,11 @@ def _play(scenarios, rank, d):
 
 def group2(rank, world, d):
     return _play(GROUP2, rank, d)
+
+
+def group_recover(rank, world, d):
+    return _play({"recover": _tp2_recover,
+                  "blocked_decode": _tp2_recover_blocked_decode}, rank, d)
 
 
 def group4(rank, world, d):

@@ -144,6 +144,23 @@ def _stage(p0, stage, bs):
     return rec
 
 
+def _bf16_masters(p0, bs):
+    """bf16 compute, f32 masters, stages 0 and 3, two steps: each stage's
+    masters made whole (collective). A bf16 param's reduced grad is bf16
+    at every stage, so the two agree bit for bit."""
+    out = {}
+    for stage in (0, 3):
+        e = engine(p0, conf(stage, bf16={"enabled": True}))
+        losses(e, bs)
+        with par_ctx.parallel_context(e.mesh):
+            out[stage] = {
+                k: e._part.whole(t.detach(), e._part.layouts[k].ospec)
+                .numpy().copy()
+                for k, t in ckpt_mod.flatten(
+                    e.state["opt"]["master"]).items()}
+    return out
+
+
 def _threshold(p0, bs):
     c = conf(3)
     c["zero_optimization"]["stage3_param_persistence_threshold"] = 4096
@@ -258,6 +275,7 @@ def group_zero(rank, world, p0, dir_a, dir_b):
     bs = batches(5)
     rec = {f"stage{s}": _stage(p0, s, bs[:3]) for s in range(4)}
     rec["threshold"] = _threshold(p0, bs)
+    rec["bf16_masters"] = _bf16_masters(p0, bs[:2])
     for gas, deferred in ((2, False), (2, True), (1, True), (1, False)):
         rec[f"gas{gas}_{'deferred' if deferred else 'eager'}"] = _gas(
             p0, bs[:3], gas, deferred)

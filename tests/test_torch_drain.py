@@ -7,9 +7,10 @@ smaller engine refused, capacity compared in tokens, the per-request
 check, an unregistered adapter); the handoff cases of
 ``tests/unit/test_disagg.py::TestKvHandoff`` (f32, an int8 pool, a
 mid-chunk handoff, onto a live prefix cache, geometry mismatch, a torn
-payload, rows outside the protocol); and ``attach_preemption``. The
-port has no fleet roles (ROADMAP A7): its sources are colocated engines
-stepped until every request has its first token."""
+payload, rows outside the protocol); and ``attach_preemption``. Here
+the sources are colocated engines
+stepped until every request has its first token (the prefill-role
+handoff through the router is held in ``tests/test_torch_fleet.py``)."""
 
 import json
 import os
@@ -451,7 +452,7 @@ def test_deferred_features_still_raise(params):
     """Tensor / expert parallel serving is served since A6h, on the ranks
     of a process group (none here: refused before anything is built; a
     dense model refuses an expert degree); request tracing, round
-    recovery and fleet roles stay A7."""
+    recovery and fleet roles are served since A7."""
     pm = pt.make_model(pt.TransformerConfig(**CFG, dtype=torch.float32))
     for config, why in (({"tensor_parallel": 2}, "process group"),
                         ({"expert_parallel": 2}, "MoE")):
@@ -461,8 +462,8 @@ def test_deferred_features_still_raise(params):
                 device="cpu")
     for field, value in (("request_trace", True), ("round_retries", 2),
                          ("role", "decode")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            _port_srv(params, **{field: value})
+        assert getattr(_port_srv(params, **{field: value}).config,
+                       field) == value
 
 
 def test_bf16_payload_in_either_layout_lands_bit_for_bit(params):

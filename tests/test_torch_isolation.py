@@ -57,7 +57,10 @@ def test_forbidden_prefix_rule():
             "parallel/partitioning.py", "parallel/launch.py",
             "inference/seam.py", "runtime/fp16.py", "ops/lamb.py",
             "comm/comm.py", "comm/schedule.py", "comm/compressed.py",
-            "ops/onebit.py", "runtime/zero.py"} <= names
+            "ops/onebit.py", "runtime/zero.py", "inference/router.py",
+            "inference/fleet.py", "elasticity/rendezvous.py",
+            "robustness/faults.py", "telemetry/request_trace.py",
+            "telemetry/exposition.py"} <= names
 
 
 # spawned ranks re-import their module: the sharded-serving rank programs
@@ -67,7 +70,9 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "test_torch_tp_serving_cuda.py",
     ROOT / "tests" / "test_torch_fp16_cuda.py",
     ROOT / "tests" / "_torch_zero_workers.py",
-    ROOT / "tests" / "test_torch_zero_cuda.py"],
+    ROOT / "tests" / "test_torch_zero_cuda.py",
+    ROOT / "tests" / "_torch_fleet_stub.py",
+    ROOT / "tests" / "test_torch_fleet_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

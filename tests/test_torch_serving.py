@@ -93,15 +93,24 @@ def test_eos_truncates_and_frees_blocks(jax_run):
 
 
 def test_deferred_serving_features_raise():
+    """The one JAX serving field the port refuses is the decode-backend
+    micro-bench (the port has one decode backend); the fleet's fields are
+    served since A7."""
     model = make_model(TransformerConfig(**CFG, dtype=torch.float32))
-    for field, value, item in (("trace_events", 8, "A7"),
-                               ("request_trace", True, "A7"),
-                               ("role", "prefill", "A7"),
-                               ("round_retries", 2, "A7")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            deepspeed_tpu_torch.init_serving(
-                model, serving={**SERVING, field: value},
-                dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError, match="one decode backend"):
+        deepspeed_tpu_torch.init_serving(
+            model, serving={**SERVING, "backend_bench_iters": 3},
+            dtype=torch.float32, device="cpu")
+    for field, value in (("trace_events", 8), ("request_trace", True),
+                         ("role", "prefill"), ("round_retries", 1)):
+        srv = deepspeed_tpu_torch.init_serving(
+            model, serving={**SERVING, field: value}, dtype=torch.float32,
+            device="cpu")
+        assert getattr(srv.config, field) == value
+    with pytest.raises(ValueError, match="prefill | decode | both"):
+        deepspeed_tpu_torch.init_serving(
+            model, serving={**SERVING, "role": "replica"},
+            dtype=torch.float32, device="cpu")
 
 
 def test_temperature_sampling_is_seeded():

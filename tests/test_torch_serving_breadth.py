@@ -438,15 +438,15 @@ def test_jsonl_monitor_writes_what_jax_writes(tmp_path):
 
 def test_watchdog_raises_and_engine_refuses_later_rounds(ref):
     """A round that outlives dispatch_timeout_s raises DecodeDispatchHang
-    to the caller (no recovery); the engine then refuses every round,
-    naming that error. A timeout that is not hit leaves the stream as
-    without one."""
+    to the caller once no recovery retry is left (``round_retries=0``);
+    the engine then refuses every round, naming that error. A timeout
+    that is not hit leaves the stream as without one."""
     load = [(np.arange(7, dtype=np.int32), 12)]
     plain = _streams(_port_srv(ref).run(list(load)))
     armed = _port_srv(ref, dispatch_timeout_s=30.0)
     _assert_same(_streams(armed.run(list(load))), plain, "watchdog on")
 
-    srv = _port_srv(ref, dispatch_timeout_s=0.2)
+    srv = _port_srv(ref, dispatch_timeout_s=0.2, round_retries=0)
     srv.add_request(np.arange(7, dtype=np.int32), 40)
     srv.step()                    # warm: the watchdog arms after this
     release = threading.Event()
@@ -488,8 +488,7 @@ def test_round_error_reaches_the_caller_unchanged(ref):
 # ---------------------------------------------------------------------------
 
 # a value away from each deferred field's default
-_AWAY = {"request_trace": True, "trace_replica": "r1", "trace_events": 8,
-         "role": "decode", "backend_bench_iters": 3}
+_AWAY = {"backend_bench_iters": 3}
 
 
 def test_every_jax_serving_field_is_served_or_refused(ref):
@@ -504,7 +503,9 @@ def test_every_jax_serving_field_is_served_or_refused(ref):
     port_defaults = {f.name: f.default
                      for f in dataclasses.fields(port_serving.ServingConfig)}
     for name in ("spec_tokens", "spec_ngram", "spec_proposer",
-                 "adapter_slots", "lora_rank", "lora_targets"):
+                 "adapter_slots", "lora_rank", "lora_targets",
+                 "round_retries", "request_trace", "trace_replica",
+                 "trace_events", "role"):
         assert name in served and port_defaults[name] == jax_fields[name]
     for name in deferred:
         # the JAX default is accepted, anything else names its item
@@ -514,8 +515,8 @@ def test_every_jax_serving_field_is_served_or_refused(ref):
                else "ROADMAP A")
         with pytest.raises(NotImplementedError, match=why):
             port_serving.serving_config({name: _AWAY[name]})
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        port_serving.ServingConfig(round_retries=2)
+    with pytest.raises(ValueError, match="prefill | decode | both"):
+        port_serving.ServingConfig(role="replica")
     with pytest.raises(ValueError, match="paged decode kernel"):
         port_serving.serving_config({"decode_backend": "xla"})
     for backend in ("auto", "pallas"):

@@ -11,7 +11,7 @@ greedy, token for token.
 
 Not ported from that file: the collective-census pin and the
 replicated-pool corpus (HLO analyzers, ROADMAP A11, last if at all) and
-the failover ordering (the router, ROADMAP A7).
+the failover ordering (the router's, held by ``tests/test_torch_router.py``).
 """
 
 import json

@@ -576,12 +576,13 @@ def test_engine_surface_outside_the_slice():
         device="cpu")
     assert Config.load({"checkpoint": {"load_universal": True}}
                        ).checkpoint.load_universal
-    # training over a tensor axis is A9's, serving over a data axis A7's
+    # training over a tensor axis and serving over a data axis are A9's
+    # (JAX's engine shards one engine's batch over data)
     with pytest.raises(NotImplementedError, match="A9"):
         deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
                                        device="cpu",
                                        mesh=Mesh(MeshPlan(tensor=2)))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A9"):
         deepspeed_tpu_torch.init_serving(model, mesh=MeshPlan(data=2),
                                          device="cpu")
     with pytest.raises(ValueError, match="global batch"):

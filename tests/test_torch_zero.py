@@ -231,6 +231,24 @@ def test_stage3_persistence_threshold_keeps_small_leaves_whole(runs):
     assert any(got[k] != shapes[k] for k in shapes)
 
 
+def test_bf16_masters_equal_bit_for_bit_at_every_stage(runs):
+    """bf16 compute with f32 masters at 2 ranks: after 2 AdamW steps the
+    masters of stage 3 equal stage 0's bit for bit on every leaf and
+    rank. Stage 3's gather backward hands a sharded leaf its summed grad
+    cast to bf16, and stages 0-2 round their reduced grads to the param's
+    dtype as JAX does (ROADMAP C6: before that, stage 0 kept the f32 sum
+    and its masters moved apart; stages 1-2 reduce as stage 0 does,
+    which the card's phase 16 holds too)."""
+    for rank in runs["zero"]:
+        got = rank["bf16_masters"]
+        for stage in (3,):
+            assert set(got[stage]) == set(got[0])
+            for k, want in got[0].items():
+                assert want.dtype == np.float32
+                np.testing.assert_array_equal(got[stage][k], want,
+                                              err_msg=f"stage {stage} {k}")
+
+
 def test_gas2_eager_and_deferred_match_jax(runs):
     want = runs["jax"]["gas2"]
     for r in runs["zero"]:
