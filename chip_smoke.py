@@ -259,6 +259,30 @@ Phases, each of which raises on failure (exit code != 0):
    Chrome trace written and read back, the router's Prometheus text
    parsed back. (e) ``FleetController`` over a 2-slot replica: the burst
    scales up, the lull scales down, none lost, the streams equal.
+18. the capacity tier (after phase 17): (a) the host C++ (CPU-Adam,
+   CPU-Adagrad, aio) built from ``deepspeed_tpu_torch/csrc/host/`` with
+   their g++ flags printed, which IO path a handle takes (io_uring or
+   the thread pool), and the fused CPU-Adam's host bytes per second over
+   the model's 852.6 M values. (b) the llama-1b training cell (full
+   width and depth, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 2
+   steps from one set of seeded weights: the on-device run, then (i)
+   ``offload_optimizer.device=cpu`` (the chunk-streamed pinned tier),
+   (ii) ``use_cpu_adam`` (the host C++ update), (iii) ``device=nvme``
+   (the chunk files) and (iv) ``offload_param`` nvme (ZeRO-Infinity
+   layer streaming). For each: step ms, the card's peak over the steps,
+   the bytes of state on the card / host / disk equal to the config's
+   law, losses within 2e-2 of the on-device run's, B1 = 2 x 16 x 3 and
+   B2 = B3 = 16 x 3 (launch counts zeroed just before the steps), the
+   host libraries' calls and the chunk files' reads and writes equal to
+   their counts; the peak below the on-device run's by at least the
+   optimizer state's 12 bytes a param under (i)-(iii), and lower still
+   under (iv). The nvme tier writes into ``offload_scratch/`` in the
+   checkout (its free space and filesystem type printed first; removed
+   after the phase). (c) f32 at llama-1b width, 2 layers: each route's
+   masters after 3 steps within 1e-6 relative L2 of the on-device run's
+   (for (iv) with its layers rounded to bf16 after each update, as the
+   layer store keeps them); a save under (iii) and (iv) resumed bit for
+   bit.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -4486,6 +4510,390 @@ def fleet_phase(smi: str, served, drift: float):
     return rec
 
 
+# --------------------------------------------------------------------------
+# the capacity tier (phase 18)
+# --------------------------------------------------------------------------
+
+CAPACITY_STEPS = 3                   # 1 + 2
+# the nvme tier's directory: inside the checkout, gitignored, emptied after
+CAPACITY_SCRATCH = "offload_scratch"
+CAPACITY_F32 = dict(layers=2, S=512, B=2)
+
+
+def _filesystem(path):
+    """(type, mount point, free bytes) of the filesystem holding ``path``
+    (the longest mount point of /proc/mounts that contains it)."""
+    real, best = os.path.realpath(path), ("?", "/")
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 3:
+                continue
+            mnt = parts[1].replace("\\040", " ")
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[1]):
+                best = (parts[2], mnt)
+    return best[0], best[1], shutil.disk_usage(path).free
+
+
+def _capacity_configs(path, base, eps=None):
+    """The on-device run and routes (i)-(iv), each on ``base``."""
+    opt = dict(base["optimizer"])
+    if eps is not None:
+        opt = {"type": opt["type"], "params": dict(opt["params"], eps=eps)}
+    base = dict(base, optimizer=opt)
+
+    def swap(**kw):
+        return dict(base, zero_optimization={"stage": 1,
+                                             "offload_optimizer": kw})
+    nvme = {"device": "nvme", "nvme_path": path}
+    return {"on_device": base,
+            "(i) pinned": swap(device="cpu"),
+            "(ii) cpu_adam": swap(device="cpu", use_cpu_adam=True),
+            "(iii) nvme": swap(**nvme),
+            "(iv) infinity": dict(base, zero_optimization={
+                "stage": 3, "offload_param": nvme,
+                "offload_optimizer": nvme})}
+
+
+def _seeded_params(cfg, seed=0):
+    """The on-device engine's seeded f32 init (``Engine._init_state``'s
+    draw), as a JAX-layout tree of numpy arrays."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = cfg_model(cfg).init(gen, torch.device("cuda"), dtype=torch.float32)
+    out = {k: v.cpu().numpy() for k, v in p.items() if k != "layers"}
+    out["layers"] = {k: v.cpu().numpy() for k, v in p["layers"].items()}
+    return out
+
+
+def cfg_model(cfg, name="llama-1b"):
+    from deepspeed_tpu_torch import make_model
+    return make_model(cfg, name)
+
+
+def _capacity_run(name, cfg, config, batches, params=None,
+                  after_step=None):
+    """``initialize`` -> ``train_batch`` over ``batches`` with the launch
+    counts zeroed just before the steps (the host libraries' calls just
+    before the engine is built); returns (engine, record)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import _build, host_build
+    _free()
+    host_build.reset_call_counts()
+    t0 = time.perf_counter()
+    engine = initialize(model=cfg_model(cfg), config=dict(config),
+                        params=params)[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()      # the steps' peak
+    _build.reset_launch_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        if after_step is not None:
+            after_step(engine)
+    rec = {"init_s": init_s, "step_ms": step_ms, "losses": losses,
+           "launches": {k: v for k, v in _build.launch_counts().items()
+                        if k in FLASH_KERNELS},
+           "host_calls": {k: v for k, v in host_build.call_counts().items()
+                          if v},
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bytes": engine.offload_bytes()}
+    return engine, rec
+
+
+def _capacity_laws(route, engine, n):
+    """The bytes of state by tier the config says: 2 a param of bf16
+    params and 12 of f32 masters, m and v, each where its route keeps it
+    (the swappers' chunks padded to whole chunks)."""
+    law = {"device": 14 * n, "host": 0, "disk": 0}
+    if route in ("(i) pinned", "(iii) nvme"):
+        sw = engine._swapper
+        law = {"device": 2 * n, "host": 0, "disk": 0}
+        law["host" if route == "(i) pinned" else "disk"] = \
+            12 * sw.n_chunks * sw.chunk
+    elif route == "(ii) cpu_adam":
+        law = {"device": 2 * n, "host": 12 * n, "disk": 0}
+    elif route == "(iv) infinity":
+        ex = engine._infinity
+        nl = sum(t.numel() for t in ex.nl_params.values())
+        cached = min(ex.cfg.num_layers, ex._cache_layers)
+        law = {"device": 14 * nl, "host": cached * 2 * ex.chunk,
+               "disk": ex.cfg.num_layers * 14 * ex.chunk}
+    return law
+
+
+def _capacity_io(route, engine, rec, steps):
+    """The host libraries' calls against what the route must have made:
+    the fused update once a step, and every chunk read and written once a
+    step (the swapper's first writes at init; the executor's layer chunks
+    by its cache rule)."""
+    calls, checks = rec["host_calls"], {}
+    if route == "(ii) cpu_adam":
+        checks["cpu_adam_calls"] = (
+            calls.get("dstpu_adam_step_bf16", 0) == steps
+            and calls.get("dstpu_sq_norm_bf16", 0) == steps)
+    if route == "(iii) nvme":
+        n = engine._swapper.n_chunks
+        checks["aio_preads"] = calls.get("dstpu_aio_pread", 0) == n * steps
+        checks["aio_pwrites"] = \
+            calls.get("dstpu_aio_pwrite", 0) == n * (steps + 1)
+    if route == "(iv) infinity":
+        ex = engine._infinity
+        L, c = ex.cfg.num_layers, min(ex.cfg.num_layers, ex._cache_layers)
+        want = {"opt_read": L * (steps - 1), "opt_write": L * steps,
+                "param_write": L * (steps + 1),
+                # step 1's forward reads every layer; each sweep after
+                # that (the backward, the update, and each later step's
+                # forward) reads the L - c layers the cache does not hold
+                "param_read": L + 2 * (L - c) + 3 * (L - c) * (steps - 1)}
+        rec["store_io"], rec["store_io_want"] = dict(ex.store.io), want
+        checks["store_io"] = ex.store.io == want
+        checks["aio_preads"] = calls.get("dstpu_aio_pread", 0) == \
+            want["opt_read"] + want["param_read"]
+        checks["aio_pwrites"] = calls.get("dstpu_aio_pwrite", 0) == \
+            want["opt_write"] + want["param_write"]
+    return checks
+
+
+def _round_layers(engine):
+    """The on-device reference of the layer executor: after each update
+    the layers' params are rounded to bf16, as its store keeps them (the
+    f32 masters carry the precision)."""
+    with torch.no_grad():
+        for t in engine.state["params"]["layers"].values():
+            t.copy_(t.to(torch.bfloat16).float())
+
+
+def _masters_of(engine):
+    """Every f32 master of an engine, flat in the leaf order (the layer
+    executor's: layer by layer, each layer's leaves in sorted order; the
+    others: the param tree's)."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    if engine._infinity is not None:
+        ex = engine._infinity
+        n = ex.layer_params
+        layers = [ex.store.read("opt", i)[0][:n].float()
+                  for i in range(ex.cfg.num_layers)]
+        return torch.cat(layers + [ex.nl_opt[k]["master"].cpu().ravel()
+                                   for k in sorted(ex.nl_opt)])
+    if engine._swapper is not None:
+        st = engine._swapper.export_state()
+        if "master" in st:
+            return torch.from_numpy(st["master"])
+        flat = np.concatenate([st[f"chunk_{i}"][0] for i in range(len(st))])
+        return torch.from_numpy(flat[:engine._swapper.num_params])
+    opt = engine.state["opt"]
+    masters = opt.get("master") or engine.state["params"]
+    return torch.cat([t.detach().float().cpu().ravel()
+                      for t in tree_leaves(masters)])
+
+
+def _executor_order(engine):
+    """The on-device masters in the layer executor's order."""
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    m = engine.state["opt"]["master"]
+    names = sorted(m["layers"])
+    L = m["layers"][names[0]].shape[0]
+    parts = [m["layers"][n][i].reshape(-1) for i in range(L) for n in names]
+    parts += [m[k].reshape(-1) for k in sorted(m) if k != "layers"]
+    return torch.cat([p.detach().float().cpu() for p in parts])
+
+
+def capacity_f32_checks(path, checks):
+    """Phase 18 (c): llama-1b width at 2 layers in f32, 3 steps of each
+    route (and the host CPU-Adagrad beside the on-device Adagrad) against
+    the on-device run (the layer executor's with its layers rounded to
+    bf16 after each update): every master within 1e-6 relative L2; then a save under (iii) and (iv), one more step, and a fresh
+    engine that loads the tag and takes that step: the same loss and
+    masters bit for bit."""
+    from deepspeed_tpu_torch import llama_config
+    k = CAPACITY_F32
+    cfg = llama_config("1b", num_layers=k["layers"], max_seq_len=k["S"],
+                       dtype=torch.float32, remat=True,
+                       remat_policy="dots_saveable")
+    base = dict(TRAIN_CONFIG, train_batch_size=k["B"],
+                bf16={"enabled": False})
+    params = _seeded_params(cfg)
+    params["layers"] = {n: torch.from_numpy(v).to(torch.bfloat16).float()
+                        .numpy() for n, v in params["layers"].items()}
+    rng = np.random.default_rng(3)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        0, VOCAB, (k["B"], k["S"]), dtype=np.int32)).cuda()}
+        for _ in range(4)]
+    confs = _capacity_configs(path, base, eps=1e-3)
+    adagrad = {"type": "adagrad", "params": {"lr": 1e-3, "eps": 1e-3}}
+    confs["(ii) cpu_adagrad"] = dict(confs["(ii) cpu_adam"],
+                                     optimizer=adagrad)
+    ref = {}
+    for name, conf in (("swap", confs["on_device"]),
+                       ("adagrad", dict(confs["on_device"],
+                                        optimizer=adagrad))):
+        plain = _capacity_run(f"f32 on_device {name}", cfg, conf,
+                              batches[:3], params=params)[0]
+        ref[name] = _masters_of(plain)
+        del plain
+    rounded_conf = dict(confs["on_device"], optimizer={
+        "type": "adamw", "params": dict(confs["on_device"]["optimizer"]
+                                        ["params"], use_master_weights=True)})
+    plain = _capacity_run("f32 on_device bf16 layers", cfg, rounded_conf,
+                          batches[:3], params=params,
+                          after_step=_round_layers)[0]
+    ref["infinity"] = _executor_order(plain)
+    del plain
+    out = {}
+    for route in ("(i) pinned", "(ii) cpu_adam", "(ii) cpu_adagrad",
+                  "(iii) nvme", "(iv) infinity"):
+        eng, rec = _capacity_run(f"f32 {route}", cfg, confs[route],
+                                 batches[:3], params=params)
+        want = ref[{"(iv) infinity": "infinity",
+                    "(ii) cpu_adagrad": "adagrad"}.get(route, "swap")]
+        err = rel_l2(_masters_of(eng), want)
+        out[route] = {"masters_rel_l2": err, "losses": rec["losses"],
+                      "host_calls": rec["host_calls"]}
+        checks[f"f32 {route} masters"] = err <= 1e-6
+        fn = {"(ii) cpu_adam": "dstpu_adam_step_f32",
+              "(ii) cpu_adagrad": "dstpu_adagrad_step_f32"}.get(route)
+        if fn:
+            checks[f"f32 {route} host calls"] = \
+                rec["host_calls"].get(fn, 0) == 3
+        if route in ("(iii) nvme", "(iv) infinity"):
+            ck = os.path.join(path, "ckpt")
+            eng.save_checkpoint(ck, tag="t")
+            want_loss = float(eng.train_batch(batches[3])["loss"])
+            want_m = _masters_of(eng)
+            eng.close()
+            fresh = _capacity_run(f"f32 {route} resumed", cfg,
+                                  confs[route], [], params=params)[0]
+            fresh.load_checkpoint(ck)
+            got_loss = float(fresh.train_batch(batches[3])["loss"])
+            same = got_loss == want_loss and torch.equal(
+                _masters_of(fresh), want_m)
+            out[route]["resume_bit_for_bit"] = same
+            checks[f"f32 {route} resume"] = same
+            fresh.close()
+            shutil.rmtree(ck, ignore_errors=True)
+        else:
+            eng.close()
+        del eng
+    log("phase 18 (c) f32 2 layers " + json.dumps(out))
+    return out
+
+
+def capacity_phase(smi: str):
+    """Phase 18: the capacity tier. (a) the host libraries built from
+    ``deepspeed_tpu_torch/csrc/host/`` with their g++ flags, and the fused
+    CPU-Adam's host traffic over the model's 852.6 M values (after (b)'s
+    route (ii), on its buffers). (b) llama-1b at full width and depth, B=8
+    S=2048 bf16, 1 + 2 steps on the on-device run and then routes (i)
+    chunk-streamed pinned tier, (ii) host CPU-Adam, (iii) the nvme swap,
+    (iv) ZeRO-Infinity layer streaming (nvme), each from the on-device
+    run's seeded weights: step ms, the card's peak over the steps, the state's bytes on
+    the card / host / disk against the config's law, losses within 2e-2
+    of the on-device run's, B1 = 2 x L x steps and B2 = B3 = L x steps,
+    the host libraries' calls and the files' reads and writes against
+    their counts, io_uring or the thread pool; the peak below the on-device
+    run's by the optimizer state's bytes under (i)-(iii) and lower still
+    under (iv). (c) ``capacity_f32_checks``. The nvme tier writes into
+    ``offload_scratch/`` inside the checkout (its free space and
+    filesystem type printed first), deleted after the phase."""
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.ops import aio, host_build
+    from deepspeed_tpu_torch.ops.cpu_adam import adam_step_flat
+    t_phase = time.perf_counter()
+    checks, rec = {}, {"card": smi}
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, CAPACITY_SCRATCH)
+    os.makedirs(path, exist_ok=True)
+    fs, mnt, free = _filesystem(path)
+    rec["disk"] = {"path": path, "fs": fs, "mount": mnt, "free_bytes": free,
+                   "tmpfs": fs == "tmpfs"}
+    log("phase 18 disk " + json.dumps(rec["disk"]))
+    # (a) the host libraries
+    t0 = time.perf_counter()
+    libs = host_build.build_all(force=True)
+    rec["build"] = {"seconds": time.perf_counter() - t0,
+                    "flags": {n: [host_build.CXX] + lib.flags
+                              for n, lib in host_build.LIBRARIES.items()},
+                    "libraries": {n: str(p) for n, p in libs.items()},
+                    "uses_io_uring": aio.uses_io_uring()}
+    log("phase 18 (a) host build " + json.dumps(rec["build"]))
+    # (b) the cell
+    S, L = 2048, 16
+    cfg = llama_config("1b", max_seq_len=S, remat=True,
+                       remat_policy="dots_saveable", loss_chunk=S)
+    params = _seeded_params(cfg, TRAIN_CONFIG["seed"])
+    n = sum(a.size for k, a in params.items() if k != "layers") + sum(
+        a.size for a in params["layers"].values())
+    ids = np.random.default_rng(0).integers(0, VOCAB, (8, S), dtype=np.int32)
+    batches = [{"input_ids": torch.from_numpy(ids).cuda()}] * CAPACITY_STEPS
+    want_launch = {"flash_fwd": 2 * L * CAPACITY_STEPS,
+                   "flash_bwd_dq": L * CAPACITY_STEPS,
+                   "flash_bwd_dkv": L * CAPACITY_STEPS}
+    runs, launches = {}, {k: 0 for k in FLASH_KERNELS}
+    for route, conf in _capacity_configs(path, TRAIN_CONFIG).items():
+        t_route = time.perf_counter()
+        eng, r = _capacity_run(route, cfg, conf, batches, params=params)
+        r["law"] = _capacity_laws(route, eng, n)
+        checks[f"{route} bytes"] = r["bytes"] == r["law"]
+        checks[f"{route} launches"] = r["launches"] == want_launch
+        checks.update({f"{route} {k}": v for k, v in
+                       _capacity_io(route, eng, r, CAPACITY_STEPS).items()})
+        for k in FLASH_KERNELS:
+            launches[k] += r["launches"][k]
+        if route == "(ii) cpu_adam":
+            cpu = eng._swapper.cpu
+            t1 = time.perf_counter()
+            adam_step_flat(cpu.master, cpu.m, cpu.v, eng._swapper._gbuf,
+                           step_num=CAPACITY_STEPS + 1, lr=1e-4,
+                           out=eng._swapper._pbuf)
+            sec = time.perf_counter() - t1
+            traffic = n * (12 + 12 + 2 + 2)
+            rec["cpu_adam_sweep"] = {
+                "values": n, "ms": sec * 1e3, "host_bytes": traffic,
+                "host_GBps": traffic / sec / 1e9,
+                "threads": torch.get_num_threads()}
+            log("phase 18 (a) cpu_adam sweep " +
+                json.dumps(rec["cpu_adam_sweep"]))
+        eng.close()
+        del eng
+        if hasattr(torch._C, "_host_emptyCache"):
+            torch._C._host_emptyCache()
+        r["route_s"] = time.perf_counter() - t_route
+        runs[route] = r
+        log(f"phase 18 (b) {route} " + json.dumps(r))
+    dev = runs["on_device"]
+    opt_bytes = 12 * n
+    for route, r in runs.items():
+        if route == "on_device":
+            continue
+        r["losses_rel_vs_on_device"] = [
+            abs(a - b) / abs(b) for a, b in zip(r["losses"], dev["losses"])]
+        checks[f"{route} losses"] = max(r["losses_rel_vs_on_device"]) <= 2e-2
+        drop = (dev["peak_mem_gib"] - r["peak_mem_gib"]) * 2 ** 30
+        r["peak_drop_bytes"] = drop
+        checks[f"{route} peak"] = drop >= opt_bytes
+    checks["(iv) below (i)-(iii)"] = runs["(iv) infinity"]["peak_mem_gib"] < \
+        min(runs[r]["peak_mem_gib"] for r in runs
+            if r not in ("on_device", "(iv) infinity"))
+    rec["routes"] = runs
+    t_f32 = time.perf_counter()
+    rec["f32"] = capacity_f32_checks(path, checks)
+    rec["f32_s"] = time.perf_counter() - t_f32
+    shutil.rmtree(path, ignore_errors=True)
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    failed = [k for k, v in checks.items() if not v]
+    log(f"phase 18: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    if failed:
+        raise RuntimeError(f"phase 18: failed {failed}")
+    return rec
+
+
 def ptxas_report(log: str):
     """[{function, registers, spill_stores, spill_loads, smem_bytes}] from
     ``nvcc -Xptxas -v`` output (smem: ptxas's static shared memory; the
@@ -4692,6 +5100,7 @@ def main() -> int:
         raise RuntimeError(f"a serving round was recovered before phase "
                            f"17: {recovered}")
     p17 = fleet_phase(card, served, bf16_drift)
+    p18 = capacity_phase(card)
     # B1-B3 held at a ZeRO rank's shapes too
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
@@ -4783,6 +5192,12 @@ def main() -> int:
         for path, counts in p17["launches"].items():
             entry["launches"] += counts[entry["name"]]
             entry["launches_by_path"][path] = counts[entry["name"]]
+    # phase 18: the llama-1b cell on the on-device run and routes (i)-(iv)
+    for entry in line["kernels"]:
+        n = p18["launches"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["capacity"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

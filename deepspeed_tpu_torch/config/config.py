@@ -9,7 +9,9 @@ and ``stage3_param_persistence_threshold``), ``gradient_clipping``,
 ``transformer.fused_backward``, ``pipeline`` (``in_flight``,
 ``prefetch``, ``fuse_steps``), ``comm`` (the gradient-reduction
 schedule), ``mesh`` (explicit axes), ``checkpoint``, ``seed`` and
-``steps_per_print``. Unknown keys warn, as in JAX. The JAX sections the
+``steps_per_print``, and the capacity tier's ``zero_optimization.
+offload_param`` / ``offload_optimizer`` and ``aio`` (at one rank).
+Unknown keys warn, as in JAX. The JAX sections the
 port lacks are known: each raises ``NotImplementedError`` naming its
 ROADMAP item when the config turns it on, and is ignored while it is
 off.
@@ -76,17 +78,71 @@ class BF16Config(ConfigModel):
 
 
 @dataclasses.dataclass
+class OffloadDeviceConfig(ConfigModel):
+    """``offload_param`` / ``offload_optimizer`` (JAX's keys): ``device``
+    none | cpu | nvme; ``nvme_path`` where the nvme tier writes;
+    ``buffer_size`` the optimizer swap's chunk in bytes;
+    ``pipeline_read`` / ``pipeline_write`` (both off: the drained swapper
+    and executor, for bit-for-bit bisection); ``max_in_cpu`` the bytes of
+    the layer executor's host cache of param chunks; ``use_cpu_adam`` the
+    optimizer on the host's cores (``ops/cpu_adam.py``).
+    ``buffer_count``, ``pin_memory``, ``fast_init`` and ``ratio`` are kept
+    for the JSON surface (the port's tiers pin host memory where CUDA is
+    there and size their own rings)."""
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = 100_000_000
+    pin_memory: bool = False
+    pipeline_read: bool = True
+    pipeline_write: bool = True
+    fast_init: bool = False
+    max_in_cpu: int = 1_000_000_000
+    ratio: float = 1.0
+    use_cpu_adam: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return self.device not in ("none", None)
+
+    def validate(self):
+        if self.device not in ("none", None, "cpu", "nvme"):
+            raise ConfigError(f"offload device must be none, cpu or nvme, "
+                              f"got {self.device!r}")
+        if self.buffer_size < 4:
+            raise ConfigError("offload buffer_size must be >= 4 bytes")
+
+
+@dataclasses.dataclass
+class AIOConfig(ConfigModel):
+    """``aio``: the native IO handles of the nvme tiers. The tiers open
+    two, one ring for prefetch reads and one for write-behind;
+    ``read_queue_depth`` / ``write_queue_depth`` size them (None:
+    ``queue_depth``). ``single_submit`` and ``overlap_events`` are kept
+    for the JSON surface."""
+    block_size: int = 1_048_576
+    queue_depth: int = 8
+    thread_count: int = 1
+    single_submit: bool = False
+    overlap_events: bool = True
+    read_queue_depth: Optional[int] = None
+    write_queue_depth: Optional[int] = None
+
+
+@dataclasses.dataclass
 class ZeroConfig(ConfigModel):
     """``zero_optimization``: the stage (0..3, ``runtime/zero.py``), the
     stage-3 persistence threshold (a leaf of at most that many values
-    stays whole on every rank), and the offload sections, which raise
-    when set (ROADMAP A8). JAX's bucket and prefetch knobs warn as
-    unknown keys: XLA sizes its collectives, and so does the eager port's
-    per-leaf schedule."""
+    stays whole on every rank), and the offload sections
+    (``runtime/swap_tensor.py``, ``runtime/infinity.py``; at one rank:
+    offload over ranks is ROADMAP A8d). JAX's bucket and prefetch knobs
+    warn as unknown keys: XLA sizes its collectives, and so does the
+    eager port's per-leaf schedule."""
     stage: int = 0
     stage3_param_persistence_threshold: int = 100_000
-    offload_param: Dict[str, Any] = config_field({})
-    offload_optimizer: Dict[str, Any] = config_field({})
+    offload_param: OffloadDeviceConfig = config_field(OffloadDeviceConfig)
+    offload_optimizer: OffloadDeviceConfig = config_field(
+        OffloadDeviceConfig)
 
     def validate(self):
         if self.stage not in (0, 1, 2, 3):
@@ -96,11 +152,12 @@ class ZeroConfig(ConfigModel):
             raise ConfigError("zero_optimization."
                               "stage3_param_persistence_threshold must be "
                               ">= 0")
-        for name in ("offload_param", "offload_optimizer"):
-            if (getattr(self, name) or {}).get("device", "none") \
-                    not in ("none", None):
-                _deferred(f"zero_optimization.{name}",
-                          "A8 (ZeRO-Offload / Infinity)")
+        if self.offload_param.enabled and self.stage != 3:
+            raise ConfigError("offload_param requires zero stage 3")
+
+    @property
+    def offloaded(self) -> bool:
+        return self.offload_param.enabled or self.offload_optimizer.enabled
 
 
 @dataclasses.dataclass
@@ -199,6 +256,14 @@ def _deferred(what: str, item: str):
                               f"{item}")
 
 
+def raise_offload_over_ranks(world: int):
+    """The offload tiers run at one rank; more is ROADMAP A8d."""
+    raise NotImplementedError(
+        f"offload_param / offload_optimizer over {world} ranks is not "
+        "ported yet: ROADMAP A8d (offload over ranks: the layer executor's "
+        "mesh, the swapper's chunk sharding); the port offloads at one rank")
+
+
 def _enabled(s: Dict[str, Any]) -> bool:
     return bool(s.get("enabled", False))
 
@@ -287,6 +352,7 @@ class Config(ConfigModel):
     comm: CommConfig = config_field(CommConfig)
     mesh: MeshConfig = config_field(MeshConfig)
     robustness: RobustnessConfig = config_field(RobustnessConfig)
+    aio: AIOConfig = config_field(AIOConfig)
 
     @classmethod
     def load(cls, source) -> "Config":
@@ -315,6 +381,11 @@ class Config(ConfigModel):
             logger.warning("config: fp16 and bf16 both enabled — using fp16 "
                            "(disable one explicitly to silence)")
             self.bf16 = BF16Config(enabled=False)
+        ranks = 1
+        for n in self.mesh.axes.values():
+            ranks *= max(1, int(n))
+        if self.zero_optimization.offloaded and ranks > 1:
+            raise_offload_over_ranks(ranks)
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve the batch triad train = micro x gas x dp, as JAX does."""

@@ -43,8 +43,14 @@ class ConfigModel:
                 continue
             kwargs[name] = _coerce(hints.get(name), value, f"{path}{key}.")
         obj = cls(**kwargs)  # type: ignore[call-arg]
+        object.__setattr__(obj, "_explicit_keys", frozenset(kwargs))
         obj.validate()
         return obj
+
+    def was_set(self, field_name: str) -> bool:
+        """Whether the user's dict gave this field (a section built from
+        its defaults says False for every field)."""
+        return field_name in getattr(self, "_explicit_keys", ())
 
     def validate(self) -> None:
         """Override for cross-field checks."""

@@ -1,6 +1,6 @@
 """Adam and AdamW, a port of ``deepspeed_tpu/ops/adam.py`` (``adam``,
-``adamw``, ``fused_adam_update``; the 1-bit and host-offloaded variants
-belong to ROADMAP A3 / A8).
+``adamw``, ``fused_adam_update``; the 1-bit variants are
+``ops/onebit.py``, the host update ``ops/cpu_adam.py``).
 
 The state has the JAX names: ``step``, ``exp_avg``, ``exp_avg_sq`` and the
 f32 ``master`` (None when the params are f32 and masters are off), so a

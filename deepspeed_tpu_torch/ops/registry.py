@@ -1,7 +1,10 @@
 """Optimizer registry, a port of ``deepspeed_tpu/ops/registry.py``: the
 config's optimizer name -> its builder, JAX's table. The names the JAX
-package knows are all accepted by the config; the host-offloaded
-variants raise when built, naming their ROADMAP item (A8). The 1-bit
+package knows are all accepted by the config. The host-offloaded names
+build the device optimizer they stand for, as in JAX (``cpuadam`` ->
+AdamW, ``cpuadagrad`` -> Adagrad); the host update itself is the
+``offload_optimizer.use_cpu_adam`` route (``runtime/swap_tensor.py``).
+The 1-bit
 family (``ops/onebit.py``) composes with ``compression_training`` and
 MoQ in JAX; those config sections raise naming A11."""
 
@@ -9,12 +12,6 @@ SUPPORTED_OPTIMIZERS = {
     "adam", "adamw", "fusedadam", "sgd", "lamb", "fusedlamb", "adagrad",
     "onebitadam", "onebitlamb", "zerooneadam", "lion", "cpuadam", "cpuadagrad",
 }
-
-_DEFERRED = {
-    "cpuadam": "A8 (host-offloaded optimizers)",
-    "cpuadagrad": "A8 (host-offloaded optimizers)",
-}
-
 
 def get_optimizer_builder(name: str):
     from deepspeed_tpu_torch.ops.adam import adam, adamw
@@ -26,10 +23,8 @@ def get_optimizer_builder(name: str):
     table = {"adam": adam, "fusedadam": adam, "adamw": adamw, "sgd": sgd,
              "lamb": lamb, "fusedlamb": lamb, "adagrad": adagrad,
              "lion": lion, "onebitadam": onebit_adam,
-             "onebitlamb": onebit_lamb, "zerooneadam": zero_one_adam}
+             "onebitlamb": onebit_lamb, "zerooneadam": zero_one_adam,
+             "cpuadam": adamw, "cpuadagrad": adagrad}
     if name in table:
         return table[name]
-    if name in _DEFERRED:
-        raise NotImplementedError(f"optimizer '{name}' is not ported yet: "
-                                  f"ROADMAP {_DEFERRED[name]}")
     raise ValueError(f"unknown optimizer '{name}'")

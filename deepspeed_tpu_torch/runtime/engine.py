@@ -69,6 +69,32 @@ A checkpoint is universal: each leaf is gathered whole and rank 0 writes
 what a one-rank save writes, and a load keeps each rank's slice, so any
 world size and stage loads it.
 
+The capacity tier (``zero_optimization.offload_optimizer`` /
+``offload_param``, at one rank; JAX's routing, ``_offload_route``):
+
+- ``offload_optimizer.device=nvme`` (Adam family): the f32 state in
+  chunk files, streamed through the card each step
+  (``runtime/swap_tensor.NVMeOptimizerSwapper``);
+- ``device=cpu`` with ``use_cpu_adam`` (Adam family or Adagrad): the
+  state in pinned host memory, updated by the host C++
+  (``HostAdamSwapper``);
+- ``device=cpu`` (Adam family): the chunk-streamed swapper over pinned
+  host buffers ("pinned"; "host" on the CPU);
+- ``device=cpu`` with any other optimizer (or a client one): the state
+  kept in pinned host memory and moved to the card for the update and
+  back (JAX's eager round trip);
+- any ``offload_param``: the layer-streamed executor
+  (``runtime/infinity.InfinityExecutor``), which then owns the params and
+  the optimizer state; ``train_batch``, ``eval_batch`` and the
+  checkpoints go through it (mixed cpu / nvme tiers keep their chunks on
+  nvme, as in JAX).
+
+Under the swappers ``state["opt"]`` is None and a checkpoint carries the
+swapped state as ``optswap.npz`` inside the tag (the integrity manifest
+covers it); an executor's tag holds its chunks, ``infinity_shapes.json``,
+``infinity_small.npz`` and ``infinity_meta.json``. Offload on more than
+one rank raises naming ROADMAP A8d.
+
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
@@ -92,6 +118,7 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm.schedule import GradSchedule
 from deepspeed_tpu_torch.config import Config
+from deepspeed_tpu_torch.config.config import raise_offload_over_ranks
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
@@ -116,6 +143,38 @@ from deepspeed_tpu_torch.runtime.dataloader import DataLoader, PrefetchLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import get_scheduler
 
 logger = logging.getLogger("deepspeed_tpu_torch")
+
+_ADAM_FAMILY = ("adam", "adamw", "cpuadam", "fusedadam")
+
+
+def _opt_name(config) -> str:
+    return (config.optimizer.name if config.optimizer else "adamw").lower()
+
+
+def _move_tree(tree, fn):
+    """``fn`` over a nested dict's tensors (other leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: _move_tree(v, fn) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _copy_back(host, dev):
+    """The updated state ``dev`` written back into its host residence
+    ``host`` (tensors in place; the step count and other leaves taken)."""
+    if isinstance(dev, dict):
+        return {k: _copy_back(host[k], v) for k, v in dev.items()}
+    if isinstance(host, torch.Tensor) and host is not dev:
+        host.copy_(dev, non_blocking=True)
+        return host
+    return dev
+
+
+def _to_host(tree):
+    """An optimizer state in host memory, pinned where CUDA is there (the
+    eager round trip's residence)."""
+    pin = torch.cuda.is_available()
+    return _move_tree(tree, lambda t: t.detach().to(
+        "cpu").pin_memory() if pin and t.device.type != "cpu" else t)
 
 
 def initialize(args=None, model=None, config=None, config_params=None,
@@ -263,13 +322,26 @@ class Engine:
                 hierarchical=self._sched.hierarchical)
         self.last_grad_bytes = 0
 
-        if state is None:
+        self._swapper = self._infinity = None
+        self._offload = self._offload_route(optimizer is not None)
+        if self._offload == "infinity":
+            if state is not None:
+                raise ValueError("initialize(state=...) with offload_param: "
+                                 "the layer executor loads a checkpoint "
+                                 "(load_checkpoint) instead")
+            self.state = None
+            self._infinity = self._build_infinity(params)
+        elif state is None:
             self.state = self._init_state(params)
         else:
+            if self._offload in ("nvme", "pinned", "host", "cpu_adam"):
+                raise ValueError("initialize(state=...) with a swapped "
+                                 "optimizer state: load a checkpoint")
             self.state = self._adopt_state(state)
         # train_batch calls, as JAX counts them (skipped steps included;
         # state["step"] is the applied-update count)
-        self.global_steps = self.state["step"] + self.skipped_steps
+        self.global_steps = (0 if self.state is None
+                             else self.state["step"] + self.skipped_steps)
         self.micro_steps = (self.global_steps
                             * config.gradient_accumulation_steps)
         self._dataloader = None
@@ -282,6 +354,145 @@ class Engine:
         # the 1-bit phase is a host decision on the applied-update count
         self._onebit_applied = (self.state["opt"]["step"] if self._onebit
                                 else 0)
+
+    # --- the capacity tier ------------------------------------------------
+    def _offload_route(self, client_optimizer: bool) -> Optional[str]:
+        """JAX's routing of the offload sections (``engine.py:247-421``):
+        "infinity", "nvme", "cpu_adam", "pinned" / "host" (the chunk-
+        streamed swapper's storage), "eager" or None."""
+        zc = self.config.zero_optimization
+        off_o, off_p = zc.offload_optimizer, zc.offload_param
+        if not (off_o.enabled or off_p.enabled):
+            return None
+        if self.plan.world_size > 1:
+            raise_offload_over_ranks(self.plan.world_size)
+        name = _opt_name(self.config)
+        if off_p.enabled:
+            if not isinstance(getattr(self.model, "config", None),
+                              TransformerConfig):
+                raise ValueError("offload_param requires a transformer "
+                                 "ModelSpec (layer streaming)")
+            nvme = "nvme" in (off_p.device, off_o.device)
+            if nvme and not (off_p.nvme_path or off_o.nvme_path):
+                raise ValueError("offload_param.device=nvme requires "
+                                 "nvme_path")
+            if name not in ("adam", "adamw"):
+                raise ValueError("layer-streamed offload supports the Adam "
+                                 f"family only (got '{name}')")
+            if client_optimizer:
+                raise ValueError("layer-streamed offload requires a "
+                                 "config-built optimizer, not a client one")
+            return "infinity"
+        if off_o.device == "nvme":
+            if not off_o.nvme_path:
+                raise ValueError("offload_optimizer.device=nvme requires "
+                                 "offload_optimizer.nvme_path")
+            if name not in _ADAM_FAMILY:
+                raise ValueError("offload_optimizer.device=nvme supports the "
+                                 f"Adam family only (got '{name}'): the "
+                                 "flat-chunk swap update is AdamW")
+            if client_optimizer:
+                raise ValueError("offload_optimizer.device=nvme requires a "
+                                 "config-built optimizer, not a client one")
+            return "nvme"
+        if off_o.use_cpu_adam:
+            if (name not in _ADAM_FAMILY + ("adagrad", "cpuadagrad")
+                    or client_optimizer):
+                raise ValueError(
+                    "offload_optimizer.use_cpu_adam requires a config-built "
+                    f"Adam-family or Adagrad optimizer (got '{name}'"
+                    f"{', client-supplied' if client_optimizer else ''})")
+            return "cpu_adam"
+        if name in _ADAM_FAMILY and not client_optimizer:
+            return "pinned" if self.device.type == "cuda" else "host"
+        return "eager"
+
+    def _opt_params(self):
+        """(name, the optimizer section's params with JAX's defaults)."""
+        p = dict(self.config.optimizer.params) if self.config.optimizer \
+            else {}
+        name = _opt_name(self.config)
+        adagrad = name in ("adagrad", "cpuadagrad")
+        return name, dict(
+            betas=tuple(p.get("betas", (0.9, 0.999))),
+            eps=p.get("eps", 1e-10 if adagrad else 1e-8),
+            weight_decay=p.get("weight_decay",
+                               0.01 if name in ("adamw", "cpuadam") else 0.0),
+            adam_w_mode=(name in ("adamw", "cpuadam")
+                         or p.get("adam_w_mode", False)),
+            bias_correction=p.get("bias_correction", True))
+
+    def _build_swapper(self, leaves):
+        from deepspeed_tpu_torch.runtime.swap_tensor import (
+            HostAdamSwapper, NVMeOptimizerSwapper)
+        off = self.config.zero_optimization.offload_optimizer
+        name, kw = self._opt_params()
+        if self._offload == "cpu_adam":
+            return HostAdamSwapper(
+                leaves, device=self.device, compute_dtype=self.compute_dtype,
+                optim="adagrad" if name in ("adagrad", "cpuadagrad")
+                else "adam", **kw)
+        return NVMeOptimizerSwapper(
+            leaves, device=self.device, nvme_path=off.nvme_path,
+            storage=self._offload, chunk_elems=max(1, off.buffer_size // 4),
+            pipeline=bool(off.pipeline_read or off.pipeline_write),
+            aio_config=self.config.aio, betas=kw["betas"], eps=kw["eps"],
+            weight_decay=kw["weight_decay"], adam_w_mode=kw["adam_w_mode"],
+            bias_correction=kw["bias_correction"])
+
+    def _build_infinity(self, params):
+        from deepspeed_tpu_torch.runtime.infinity import InfinityExecutor
+        zc = self.config.zero_optimization
+        off_p, off_o = zc.offload_param, zc.offload_optimizer
+        if "nvme" in (off_p.device, off_o.device):
+            backend = "nvme"
+        else:
+            backend = "pinned" if self.device.type == "cuda" else "host"
+        _, kw = self._opt_params()
+        lr = (self._schedule if self._schedule is not None
+              else (self._base_lr if self._base_lr is not None else 1e-3))
+        f = self.config.fp16
+        return InfinityExecutor(
+            dataclasses.replace(self.model.config, dtype=self.compute_dtype),
+            device=self.device, seed=self.config.seed, params=params,
+            nvme_path=off_p.nvme_path or off_o.nvme_path, lr=lr,
+            grad_clip=self.config.gradient_clipping or 0.0, backend=backend,
+            param_cache_bytes=off_p.max_in_cpu,
+            gas=self.config.gradient_accumulation_steps,
+            fp16=dataclasses.asdict(f) if f.enabled else None,
+            use_cpu_adam=off_o.use_cpu_adam,
+            pipeline=bool((off_p.pipeline_read or off_p.pipeline_write)
+                          and (off_o.pipeline_read or off_o.pipeline_write)),
+            aio_config=self.config.aio, **kw)
+
+    def offload_bytes(self) -> Dict[str, int]:
+        """Bytes of training state by tier: on the card (params, and
+        optimizer state where it stays there), in host memory and on
+        disk."""
+        if self._infinity is not None:
+            ex = self._infinity
+            return {"device": ex.device_bytes(),
+                    "host": ex.store.host_bytes()
+                    + sum(t.numel() * t.element_size()
+                          for t in ex._param_cache.values()),
+                    "disk": ex.store.disk_bytes()}
+        params = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(self.state["params"]))
+        opt = [t for t in tree_leaves(self.state["opt"] or {})
+               if isinstance(t, torch.Tensor)]
+        on_card = sum(t.numel() * t.element_size() for t in opt
+                      if t.device.type == self.device.type)
+        host = sum(t.numel() * t.element_size() for t in opt) - on_card
+        if self._swapper is not None:
+            host += self._swapper.host_bytes()
+        return {"device": params + on_card, "host": host,
+                "disk": self._swapper.disk_bytes() if self._swapper else 0}
+
+    def close(self) -> None:
+        """Stop the offload tiers' threads and delete their files."""
+        for tier in (self._swapper, self._infinity):
+            if tier is not None:
+                tier.close()
 
     @property
     def world_size(self) -> int:
@@ -320,8 +531,12 @@ class Engine:
                                          dtype=torch.float32)
             if keep is not None:
                 params32 = self._map_paths(params32, keep)
-        if part is None:
+        if self._offload in ("nvme", "pinned", "host", "cpu_adam"):
+            opt_state = None
+        elif part is None:
             opt_state = self.optimizer.init(params32)
+            if self._offload == "eager":
+                opt_state = _to_host(opt_state)
         else:
             views = iter([part.opt_view(lay, p) for lay, p in zip(
                 part.in_order(params32), tree_leaves(params32))])
@@ -331,6 +546,11 @@ class Engine:
         del params32
         for p in tree_leaves(params):
             p.requires_grad_(True)
+        if opt_state is None:
+            # the swapped masters start from the compute-dtype params, as
+            # JAX's swappers do
+            self._swapper = self._build_swapper(tree_leaves(params))
+            self._swapper.initialize(tree_leaves(params))
         return {"params": params, "opt": opt_state, "step": 0,
                 **self._fp16_state()}
 
@@ -576,8 +796,16 @@ class Engine:
             return
         if self._part is None:
             it = iter(grads)
-            self.optimizer.update(tree_map(lambda _: next(it), params),
-                                  self.state["opt"], params)
+            opt = self.state["opt"]
+            if self._offload == "eager":
+                # JAX's eager round trip: the state lives in pinned host
+                # memory and comes to the card for the update
+                opt = _move_tree(opt, lambda t: t.to(self.device,
+                                                     non_blocking=True))
+            self.optimizer.update(tree_map(lambda _: next(it), params), opt,
+                                  params)
+            if self._offload == "eager":
+                self.state["opt"] = _copy_back(self.state["opt"], opt)
             return
         part, layouts = self._part, self._layouts()
         leaves = tree_leaves(params)
@@ -598,6 +826,8 @@ class Engine:
         any), then the global norm, clipping, the optimizer update (in
         place, masters written back into the params) unless the step
         overflowed, and the scaler's update."""
+        if self._swapper is not None:
+            return self._swap_apply(grads, mean_loss)
         ls = None
         overflow = torch.zeros((), dtype=torch.bool, device=self.device)
         if self._fp16:
@@ -632,12 +862,52 @@ class Engine:
             metrics["loss_scale"] = ls.scale
         return metrics
 
+    def _swap_apply(self, grads, mean_loss):
+        """JAX's ``_nvme_apply``: the swapper's step (the norm, clip and
+        overflow over what it holds), then the scaler's update on the
+        host's overflow flag. An overflowed step writes nothing."""
+        self.last_grad_bytes = sum(g.numel() * g.element_size()
+                                   for g in grads)
+        ls = None
+        scale = 1.0
+        if self._fp16:
+            ls = fp16_mod.LossScaleState(**self.state["loss_scale"])
+            scale = float(ls.scale)
+        gnorm, overflow = self._swapper.step(
+            grads, tree_leaves(self.state["params"]), lr=self.get_lr(),
+            step_num=self.state["step"] + 1,
+            clip=self.config.gradient_clipping, grad_scale=scale)
+        if not overflow:
+            self.state["step"] += 1
+        flag = torch.tensor(overflow, device=self.device)
+        metrics = {"loss": mean_loss,
+                   "grad_norm": torch.tensor(gnorm, dtype=torch.float32,
+                                             device=self.device),
+                   "overflow": flag}
+        if self._fp16:
+            f = self.config.fp16
+            new = fp16_mod.update_loss_scale(
+                ls, flag, dynamic=f.dynamic,
+                scale_window=f.loss_scale_window,
+                min_scale=f.min_loss_scale, max_hysteresis=f.hysteresis,
+                consecutive_hysteresis=f.consecutive_hysteresis)
+            self.state["loss_scale"] = new._asdict()
+            self.state["skipped"] += flag.to(torch.int32)
+            metrics["loss_scale"] = ls.scale
+        return metrics
+
     def train_batch(self, batch) -> Dict[str, Any]:
         """One global batch (train_batch_size rows) -> one optimizer step.
         Returns {"loss", "grad_norm", "overflow"} (and "loss_scale" under
         fp16) as 0-dim device tensors. Nothing is fetched to the host,
         except under fp16 the overflow flag: one read a step, before the
         in-place update."""
+        if self._infinity is not None:
+            # host-driven: the executor's metrics are host values already
+            metrics = self._infinity.train_batch(batch)
+            self.global_steps += 1
+            self.micro_steps += self.config.gradient_accumulation_steps
+            return metrics
         batch = self._device_batch(batch)
         rows = batch["input_ids"].shape[0]
         if rows != self.config.train_batch_size:
@@ -656,6 +926,8 @@ class Engine:
         """The loss of a batch of any size, without gradients (and without
         dropout). On more than one rank every rank evaluates the whole
         batch (collective at stage 3, whose layers gather)."""
+        if self._infinity is not None:
+            return self._infinity.eval_batch(batch)
         with self._step_context():
             return self.model.loss_fn(self.state["params"],
                                       self._device_batch(batch))
@@ -673,17 +945,25 @@ class Engine:
 
     @property
     def params(self):
+        if self._infinity is not None:
+            raise ValueError("offload_param: the layers live in the "
+                             "executor's store (engine._infinity), not in "
+                             "one param tree")
         return self.state["params"]
 
     @property
     def skipped_steps(self) -> int:
         """Steps skipped on an fp16 overflow (a read of the device
         counter; 0 without fp16)."""
+        if self._infinity is not None:
+            return self._infinity.skipped_steps
         if "skipped" not in self.state:
             return 0
         return int(self.state["skipped"])
 
     def get_loss_scale(self) -> float:
+        if self._infinity is not None:
+            return self._infinity._scale if self._fp16 else 1.0
         if self._fp16:
             return float(self.state["loss_scale"]["scale"])
         return 1.0
@@ -728,6 +1008,10 @@ class Engine:
         the label count of every rank's micro-batch together: with
         explicit labels, one all-reduce of the count); the grads wait for
         ``backward``. Returns the loss."""
+        if self._infinity is not None:
+            raise ValueError("offload_param: the layer executor steps "
+                             "through train_batch (the 3-call API needs "
+                             "the whole param tree)")
         n = len(self._losses)
         batch = self._device_batch(batch)
         row = count = None
@@ -811,6 +1095,16 @@ class Engine:
             client_state.setdefault("data_position",
                                     self._dataloader.state_dict())
         ck = self.config.checkpoint
+        if self._infinity is not None:
+            return self._save_infinity_checkpoint(save_dir, str(tag),
+                                                  client_state, save_latest)
+        if self._swapper is not None:
+            # the swapped state is part of the training state: written
+            # before the save finalizes, so the manifest covers it
+            tag_dir = os.path.join(save_dir, str(tag))
+            os.makedirs(tag_dir, exist_ok=True)
+            np.savez(os.path.join(tag_dir, "optswap.npz"),
+                     **self._swapper.export_state())
         engine = None
         if ck.async_save:
             if self._ckpt_engine is None:
@@ -905,9 +1199,69 @@ class Engine:
         a function of ``global_steps``, so it always continues where the
         save stopped. Returns (load_dir, client_state)."""
         self.wait_checkpoint()
+        if self._infinity is not None:
+            return ckpt_mod.load_with_walk_back(
+                load_dir, tag,
+                lambda t: self._load_infinity_checkpoint(load_dir, t))
         return ckpt_mod.load_with_walk_back(
             load_dir, tag,
             lambda t: self._load_resolved(load_dir, t, load_optimizer_states))
+
+    def _save_infinity_checkpoint(self, save_dir, tag, client_state,
+                                  save_latest):
+        """The executor's chunks copied into the tag, its small state (the
+        embedding / head params and optimizer state) as
+        ``infinity_small.npz`` with a dtype manifest
+        (``infinity_meta.json``: bf16 as uint16 bits), then the integrity
+        chain."""
+        from deepspeed_tpu_torch.robustness import integrity
+        path = os.path.join(save_dir, tag)
+        os.makedirs(path, exist_ok=True)
+        integrity.invalidate(path)
+        small = self._infinity.save_checkpoint(path)
+        client_state["applied_steps"] = small.pop("applied_steps")
+        if "loss_scale" in small:
+            client_state["loss_scale"] = small.pop("loss_scale")
+        flat = ckpt_mod.flatten({"nl_params": small["nl_params"],
+                                 "nl_opt": small["nl_opt"]})
+        dtypes = {k: ckpt_mod.dtype_name(v.dtype) for k, v in flat.items()}
+        np.savez(os.path.join(path, "infinity_small.npz"),
+                 **{k.replace("/", "__"): ckpt_mod.to_numpy_bits(v)
+                    for k, v in flat.items()})
+        integrity.atomic_write(
+            os.path.join(path, "infinity_meta.json"),
+            json.dumps({"schema": ckpt_mod.META_SCHEMA, "dtypes": dtypes,
+                        "client_state": client_state}, default=str),
+            what="infinity meta write")
+        ck = self.config.checkpoint
+        ckpt_mod.finalize_tag(save_dir, tag, save_latest=save_latest,
+                              write_integrity=ck.integrity,
+                              checksums=ck.integrity_checksums,
+                              keep_last_k=ck.keep_last_k)
+        return path
+
+    def _load_infinity_checkpoint(self, load_dir, tag):
+        path = os.path.join(load_dir, str(tag))
+        with open(os.path.join(path, "infinity_meta.json")) as f:
+            meta = json.load(f)
+        small = {}
+        with np.load(os.path.join(path, "infinity_small.npz")) as z:
+            for k in z.files:
+                key = k.replace("__", "/")
+                _set_leaf(small, key, ckpt_mod.from_numpy_bits(
+                    z[k], meta["dtypes"][key]), make=True)
+        cs = meta["client_state"]
+        small["applied_steps"] = cs.get("applied_steps", 0)
+        if "loss_scale" in cs:
+            small["loss_scale"] = cs["loss_scale"]
+        self._infinity.load_checkpoint(path, small)
+        self._infinity.skipped_steps = int(cs.get("skipped_steps", 0))
+        self.global_steps = int(cs.get("global_steps", 0))
+        self.micro_steps = int(cs.get("micro_steps", 0))
+        if self._dataloader is not None and "data_position" in cs \
+                and hasattr(self._dataloader, "load_state_dict"):
+            self._dataloader.load_state_dict(cs["data_position"])
+        return load_dir, cs
 
     def _load_resolved(self, load_dir: str, tag: str,
                        load_optimizer_states: bool):
@@ -939,6 +1293,9 @@ class Engine:
                     leaf.copy_(src)
                 else:
                     _set_leaf(self.state, name, int(src))
+        if self._swapper is not None and load_optimizer_states:
+            with np.load(os.path.join(ckpt_path, "optswap.npz")) as z:
+                self._swapper.import_state({k: z[k] for k in z.files})
         if self._onebit:
             self._onebit_applied = self.state["opt"]["step"]
         self.global_steps = int(client_state.get("global_steps", 0))
@@ -961,7 +1318,7 @@ class Engine:
         path = os.path.join(save_dir, name)
         if not path.endswith(".npz"):
             path += ".npz"
-        params = ckpt_mod.flatten(self.state["params"])
+        params = ckpt_mod.flatten(self.params)
         if self._part is not None:
             with par_ctx.parallel_context(self.mesh):
                 params = {k: self._part.whole(

@@ -2,7 +2,9 @@
 ``deepspeed_tpu/utils/ckpt_tools.py`` over the port's payload metadata
 (the ``.npy`` headers and ``dtypes.json``; no tensor data is read).
 
-  inspect  — tags, step counters, config, param / optimizer summary
+  inspect  — tags, step counters, config, param / optimizer summary (a
+             layer-streamed tag: its chunks; a swapped optimizer state:
+             ``optswap.npz``)
   validate — would the state restore onto mesh axes A x B x ...? (every
              param needs a dim divisible by each mesh axis it could shard
              over: shape arithmetic, the JAX tool's rule unchanged)
@@ -88,6 +90,20 @@ def cmd_inspect(args) -> int:
         zero = (cfg.get("zero_optimization") or {}).get("stage")
         mesh = (cfg.get("mesh") or {}).get("axes")
         print(f"  zero stage: {zero}   mesh axes: {mesh}")
+    tag_dir = os.path.join(ckpt_dir, tag)
+    inf = os.path.join(tag_dir, "infinity_shapes.json")
+    if os.path.exists(inf):
+        with open(inf) as f:
+            m = json.load(f)
+        print(f"  infinity chunks: {m['num_layers']} layers x "
+              f"chunk {m['chunk']} elems")
+        return 0
+    swap = os.path.join(tag_dir, "optswap.npz")
+    if os.path.exists(swap):
+        with np.load(swap) as z:
+            n = sum(int(np.prod(z[k].shape)) for k in z.files)
+        print(f"  swapped optimizer state: {len(z.files)} arrays, "
+              f"{n / 1e6:.2f}M f32 values (optswap.npz)")
     try:
         leaves = _leaves(ckpt_dir, tag)
     except (OSError, ValueError) as e:

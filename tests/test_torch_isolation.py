@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-from deepspeed_tpu_torch.ops import _build
+from deepspeed_tpu_torch.ops import _build, host_build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "deepspeed_tpu_torch"
@@ -60,7 +60,9 @@ def test_forbidden_prefix_rule():
             "ops/onebit.py", "runtime/zero.py", "inference/router.py",
             "inference/fleet.py", "elasticity/rendezvous.py",
             "robustness/faults.py", "telemetry/request_trace.py",
-            "telemetry/exposition.py"} <= names
+            "telemetry/exposition.py", "ops/host_build.py",
+            "ops/cpu_adam.py", "ops/cpu_adagrad.py", "ops/aio.py",
+            "runtime/swap_tensor.py", "runtime/infinity.py"} <= names
 
 
 # spawned ranks re-import their module: the sharded-serving rank programs
@@ -72,7 +74,8 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "_torch_zero_workers.py",
     ROOT / "tests" / "test_torch_zero_cuda.py",
     ROOT / "tests" / "_torch_fleet_stub.py",
-    ROOT / "tests" / "test_torch_fleet_cuda.py"],
+    ROOT / "tests" / "test_torch_fleet_cuda.py",
+    ROOT / "tests" / "test_torch_offload_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
@@ -145,3 +148,42 @@ def test_chip_smoke_alone_fails(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+_CPP_TYPE = {"float*": ctypes.c_void_p, "uint16_t*": ctypes.c_void_p,
+             "void*": ctypes.c_void_p, "char*": ctypes.c_char_p,
+             "int64_t": ctypes.c_int64, "float": ctypes.c_float,
+             "int": ctypes.c_int, "unsigned": ctypes.c_uint}
+
+
+@pytest.mark.parametrize("lib", sorted(host_build.LIBRARIES),
+                         ids=lambda n: n)
+def test_host_library_signatures_match_cpp(lib):
+    """The host C++ is the port's own copy (``csrc/host/``, the same bytes
+    as the JAX package's sources, built with JAX's flags), and every
+    binding's argtypes match its C signature; no path of the port points
+    at the repo's root ``csrc/``."""
+    hl = host_build.LIBRARIES[lib]
+    assert hl.source.parent == PORT / "csrc" / "host"
+    sub = {"dstpu_cpu_adam": "adam", "dstpu_cpu_adagrad": "adagrad",
+           "dstpu_aio": "aio"}[lib]
+    assert hl.source.read_bytes() == (ROOT / "csrc" / sub /
+                                      f"{lib}.cpp").read_bytes()
+    assert hl.flags == (host_build.AIO_FLAGS if lib == "dstpu_aio"
+                        else ["-O3", "-march=native", "-fopenmp", "-shared",
+                              "-fPIC"])
+    src = re.sub(r"\s+", " ", hl.source.read_text())
+    for fn, (argtypes, _) in hl.signatures.items():
+        m = re.search(rf"\b{fn}\(([^)]*)\)", src)
+        assert m, fn
+        params = [re.sub(r"\bconst\b", "", p).strip()
+                  for p in m.group(1).split(",")]
+        types = [p.rsplit(" ", 1)[0].replace(" ", "") + ("*" if "*" in p
+                                                          else "")
+                 for p in params]
+        types = [t.replace("**", "*") for t in types]
+        assert [_CPP_TYPE[t] for t in types] == argtypes, fn
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "parent.parent.parent" not in text and \
+            '"csrc", "adam"' not in text, path

@@ -1,8 +1,8 @@
 """The port's single-rank optimizers (SGD, Adagrad, Lion, LAMB) against
 the JAX package's: 5 updates on fixed grads held leaf for leaf (state and
 params, with and without f32 masters), each config name through
-``initialize`` -> ``train_batch`` engine against engine, and the names
-that still raise.
+``initialize`` -> ``train_batch`` engine against engine, and the
+host-offloaded names (which build their device optimizer, as in JAX).
 
 Tolerances as ``test_torch_training.py``'s Adam parity: relative L2 <=
 1e-5 at f32, <= 2e-2 for bf16 params; engine losses within 1e-5 relative.
@@ -191,8 +191,16 @@ def test_engine_names_match_jax_engine(name, params):
 @pytest.mark.parametrize("name,item", [
     ("cpuadam", "A8"), ("cpuadagrad", "A8")])
 def test_unported_names_raise_naming_their_item(name, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        get_optimizer_builder(name)
+    """The host-offloaded names, ported with ``item`` (ROADMAP A8), build
+    the device optimizer they stand for, as JAX's registry does
+    (``cpuadam`` -> AdamW, ``cpuadagrad`` -> Adagrad); the host update
+    itself is ``offload_optimizer.use_cpu_adam``
+    (``tests/test_torch_offload.py``)."""
+    from deepspeed_tpu.ops.registry import get_optimizer_builder as jax_reg
+    alias = {"cpuadam": "adamw", "cpuadagrad": "adagrad"}[name]
+    assert get_optimizer_builder(name) is get_optimizer_builder(alias)
+    assert jax_reg(name) is jax_reg(alias)
+    assert callable(get_optimizer_builder(name)().update)
 
 
 def test_large_leaf_norm_is_exact_on_the_cpu():

@@ -402,14 +402,14 @@ def test_lr_schedule_matches_jax(name, params):
 
 
 def test_registry_names_its_roadmap_item():
-    """The single-rank optimizers and the 1-bit family build
-    (tests/test_torch_optimizers.py and test_torch_onebit.py hold them
-    against JAX); the host-offloaded variants raise naming A8."""
+    """The single-rank optimizers, the 1-bit family and the host-offloaded
+    names build (tests/test_torch_optimizers.py, test_torch_onebit.py and
+    test_torch_offload.py hold them against JAX); an unknown name
+    raises."""
     for name in ("lamb", "fusedlamb", "lion", "sgd", "adagrad",
-                 "onebitadam", "onebitlamb", "zerooneadam"):
+                 "onebitadam", "onebitlamb", "zerooneadam", "cpuadam",
+                 "cpuadagrad"):
         assert callable(get_optimizer_builder(name)().update)
-    with pytest.raises(NotImplementedError, match="A8"):
-        get_optimizer_builder("cpuadam")
     with pytest.raises(ValueError):
         get_optimizer_builder("nope")
 
@@ -447,10 +447,13 @@ def test_batch_triad_solves_as_jax():
 
 
 @pytest.mark.parametrize("section,item", [
+    # offload runs at one rank: an explicit mesh of more is ROADMAP A8d
     ({"zero_optimization": {"stage": 3,
-                            "offload_param": {"device": "nvme"}}}, "A8"),
+                            "offload_param": {"device": "nvme"}},
+      "mesh": {"axes": {"fsdp": 2}}}, "A8d"),
     ({"zero_optimization": {"stage": 3,
-                            "offload_optimizer": {"device": "cpu"}}}, "A8"),
+                            "offload_optimizer": {"device": "cpu"}},
+      "mesh": {"axes": {"data": 2}}}, "A8d"),
     ({"pipeline": {"stages": 2}}, "A9"),
     ({"tensor_parallel": {"tp_size": 2}}, "A9"),
     ({"comms_logger": {"enabled": True}}, "A9"),
