@@ -216,14 +216,14 @@ Phases, each of which raises on failure (exit code != 0):
    over gloo (``parallel/launch.run_group``). First B1-B3 in bf16 against
    their plain versions at a rank's shapes (B = 4, S = 2048, as phase 0's
    cases). Then on the ranks: (a) every comm-facade collective on CUDA
-   tensors against its expected value; (b) llama-1b at full width and
-   depth, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a
-   rank), ZeRO stages 0-3, 3 steps each, the launch counts zeroed just
+   tensors against its expected value; (b) llama-1b at full width, 8 of
+   its 16 layers, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4
+   rows a rank), ZeRO stages 0-3, 2 steps each, the launch counts zeroed just
    before: losses within 2e-2 of stage 0's, the f32 masters' change over
    the steps within 1e-6 of stage 0's and equal to it bit for bit (a bf16
    param's reduced grad is rounded to bf16 at every stage, as JAX's and
-   as stage 3's gather backward gives it), B1 = 2 x 3 x L and B2 = B3 =
-   3 x L on every rank, the ZeRO memory laws on each rank's bytes of params, grads
+   as stage 3's gather backward gives it), B1 = 2 x 2 x L and B2 = B3 =
+   2 x L on every rank, the ZeRO memory laws on each rank's bytes of params, grads
    and optimizer state, peak memory, step times (two processes on one
    card: not a data-parallel speed); (c) f32 at 2 layers, S = 1024:
    stages 0-3 through the kernels against stage 0 through their plain
@@ -263,16 +263,16 @@ Phases, each of which raises on failure (exit code != 0):
    CPU-Adagrad, aio) built from ``deepspeed_tpu_torch/csrc/host/`` with
    their g++ flags printed, which IO path a handle takes (io_uring or
    the thread pool), and the fused CPU-Adam's host bytes per second over
-   the model's 852.6 M values. (b) the llama-1b training cell (full
-   width and depth, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 2
+   the model's values. (b) the llama-1b training cell (full width, 8 of
+   its 16 layers, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 2
    steps from one set of seeded weights: the on-device run, then (i)
    ``offload_optimizer.device=cpu`` (the chunk-streamed pinned tier),
    (ii) ``use_cpu_adam`` (the host C++ update), (iii) ``device=nvme``
    (the chunk files) and (iv) ``offload_param`` nvme (ZeRO-Infinity
    layer streaming). For each: step ms, the card's peak over the steps,
    the bytes of state on the card / host / disk equal to the config's
-   law, losses within 2e-2 of the on-device run's, B1 = 2 x 16 x 3 and
-   B2 = B3 = 16 x 3 (launch counts zeroed just before the steps), the
+   law, losses within 2e-2 of the on-device run's, B1 = 2 x 8 x 3 and
+   B2 = B3 = 8 x 3 (launch counts zeroed just before the steps), the
    host libraries' calls and the chunk files' reads and writes equal to
    their counts; the peak below the on-device run's by at least the
    optimizer state's 12 bytes a param under (i)-(iii), and lower still
@@ -283,6 +283,30 @@ Phases, each of which raises on failure (exit code != 0):
    (for (iv) with its layers rounded to bf16 after each update, as the
    layer store keeps them); a save under (iii) and (iv) resumed bit for
    bit.
+19. model-parallel training (after phase 18). First B1 and B2 + B3 in
+   bf16 against their plain versions at the MoE cell's shape (B=2,
+   S=2048, 32/8 heads of 128, rep 4) and at a tensor=2 rank's (16/16
+   heads of 128), with their bounds and SDPA's times. (a) Mixtral 8x7b
+   at full width (hidden 4096, 32/8 heads, 8 experts of 14336, top-2,
+   vocab 32000), 2 of its 32 layers, one card: bf16 with f32 masters,
+   AdamW, B=2, S=2048, dots_saveable, aux weight 0.01, capacity 640 an
+   expert; 1 warm-up + 3 steps: step ms (CUDA events, median), tok/s,
+   MFU over the active params (tok/s x (6 N_active + 12 L H S) / 989
+   TF/s), the card's peak, each layer's aux loss and dropped fraction;
+   B1 = 2 x 3 x 2 (the replay), B2 = B3 = 3 x 2. Then two processes
+   sharing the card over gloo (not a parallel speed): (b) expert=2,
+   Mixtral width, 1 layer, 4 experts and 1 row a rank; (c) tensor=2,
+   llama-7b width (32/32 heads of 128, FFN 11008), 8 layers, B=2,
+   S=2048, with ``transformer.tp_overlap_chunks`` 0 and 4: the same
+   losses bit for bit; each rank's bytes of params, grads and optimizer
+   state equal to the law (the expert stacks halved at expert=2; the
+   column, row and vocab leaves halved at tensor=2, the norms whole),
+   and its B1 = 2 x 2 x L, B2 = B3 = 2 x L over 2 steps after a warm-up.
+   (d) f32 at 2 layers, S=512, SGD with momentum: expert=2 (capacity
+   0.5: tokens drop) and tensor=2 against the same run at world 1,
+   losses within 1e-5 and params after 3 steps within 1e-5 relative L2;
+   one f32 MoE step's grads through the kernels within 1e-4 of the
+   plain path.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -3623,8 +3647,8 @@ def phase15(smi: str, served, bf16_train):
 # multi-rank training (phase 16)
 # --------------------------------------------------------------------------
 
-ZERO_LAYERS = 16          # llama-1b's full depth (the cut, if the run nears
-ZERO_STEPS = 3            # its limit, is of depth, never of width)
+ZERO_LAYERS = 8           # llama-1b's width, 8 of its 16 layers, 2 steps
+ZERO_STEPS = 2            # (the run's time limit cuts depth, never width)
 ZERO_SEQ = 2048
 ZERO_SHARED = ("two processes on one card over gloo: not a data-parallel "
                "speed")
@@ -3675,8 +3699,9 @@ def _zero_collectives(rank):
     return out
 
 
-def _zero_whole_params(engine):
-    """{path: whole f32 CPU tensor} of an engine's params (collective)."""
+def _zero_whole_params(engine, device="cpu"):
+    """{path: whole f32 tensor on ``device``} of an engine's params
+    (collective)."""
     from deepspeed_tpu_torch.parallel import parallel_context
     from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
     out = {}
@@ -3685,7 +3710,7 @@ def _zero_whole_params(engine):
             if engine._part is not None:
                 t = engine._part.whole(t.detach(),
                                        engine._part.layouts[k].pspec)
-            out[k] = t.detach().float().cpu()
+            out[k] = t.detach().to(device, torch.float32)
     return out
 
 
@@ -3888,12 +3913,12 @@ def zero_training_phase(smi: str):
     """Phase 16: multi-rank training, two processes sharing the card over
     gloo. First, here, B1-B3 in bf16 against their plain versions at a
     rank's shapes (B = 4, S = 2048). Then on the ranks: (a) every facade
-    collective on CUDA tensors; (b) llama-1b at full width and depth,
-    bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows a rank),
-    ZeRO stages 0-3, 3 steps each: losses within 2e-2 of stage 0's, the
-    f32 masters' change over the 3 steps within 1e-6 relative L2 of stage
-    0's and equal to it bit for bit (a stage that skipped an update or
-    lost rows moves its masters by another third or more), B1 = 2 x
+    collective on CUDA tensors; (b) llama-1b at full width, 8 of its 16
+    layers, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows
+    a rank), ZeRO stages 0-3, 2 steps each: losses within 2e-2 of stage
+    0's, the f32 masters' change over the 2 steps within 1e-6 relative L2
+    of stage 0's and equal to it bit for bit (a stage that skipped an
+    update or lost rows moves its masters by another half or more), B1 = 2 x
     steps x L and B2 = B3 = steps x L on
     each rank, the memory laws, peak memory and step times; (c) f32 at 2
     layers, S = 1024: stages 0-3 through the kernels against stage 0
@@ -4515,6 +4540,7 @@ def fleet_phase(smi: str, served, drift: float):
 # --------------------------------------------------------------------------
 
 CAPACITY_STEPS = 3                   # 1 + 2
+CAPACITY_LAYERS = 8                  # llama-1b's width, 8 of its 16 layers
 # the nvme tier's directory: inside the checkout, gitignored, emptied after
 CAPACITY_SCRATCH = "offload_scratch"
 CAPACITY_F32 = dict(layers=2, S=512, B=2)
@@ -4786,8 +4812,9 @@ def capacity_f32_checks(path, checks):
 def capacity_phase(smi: str):
     """Phase 18: the capacity tier. (a) the host libraries built from
     ``deepspeed_tpu_torch/csrc/host/`` with their g++ flags, and the fused
-    CPU-Adam's host traffic over the model's 852.6 M values (after (b)'s
-    route (ii), on its buffers). (b) llama-1b at full width and depth, B=8
+    CPU-Adam's host traffic over the model's values (after (b)'s route
+    (ii), on its buffers). (b) llama-1b at full width, 8 of its 16
+    layers (the run's time limit cuts depth, never width), B=8
     S=2048 bf16, 1 + 2 steps on the on-device run and then routes (i)
     chunk-streamed pinned tier, (ii) host CPU-Adam, (iii) the nvme swap,
     (iv) ZeRO-Infinity layer streaming (nvme), each from the on-device
@@ -4822,8 +4849,8 @@ def capacity_phase(smi: str):
                     "uses_io_uring": aio.uses_io_uring()}
     log("phase 18 (a) host build " + json.dumps(rec["build"]))
     # (b) the cell
-    S, L = 2048, 16
-    cfg = llama_config("1b", max_seq_len=S, remat=True,
+    S, L = 2048, CAPACITY_LAYERS
+    cfg = llama_config("1b", num_layers=L, max_seq_len=S, remat=True,
                        remat_policy="dots_saveable", loss_chunk=S)
     params = _seeded_params(cfg, TRAIN_CONFIG["seed"])
     n = sum(a.size for k, a in params.items() if k != "layers") + sum(
@@ -4891,6 +4918,339 @@ def capacity_phase(smi: str):
         f"checks {json.dumps(checks)}")
     if failed:
         raise RuntimeError(f"phase 18: failed {failed}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# model-parallel training (phase 19)
+# --------------------------------------------------------------------------
+
+MP_SEQ = 2048
+MOE_STEPS = 3             # after 1 warm-up step
+MP_STEPS = 2              # the two-rank runs, after 1 warm-up step
+TP_LAYERS = 8             # llama-7b width, cut to 8 of its 32 layers
+MOE_CONFIG = {"train_batch_size": 2,
+              "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
+              "bf16": {"enabled": True},
+              "transformer": {"fused_backward": True}, "seed": 0}
+MP_F32 = dict(max_seq_len=512, dtype=torch.float32)       # at 2 layers
+# SGD with momentum for the f32 identities: linear in the grads, so runs
+# that sum their grads in another order agree to rounding, where Adam's
+# first steps (nearly the grads' signs) flip elements whose grad is 0 to
+# within rounding
+MP_SGD = {"type": "sgd", "params": {"lr": 1e-2, "momentum": 0.9}}
+MP_F32_CONFIG = {"train_batch_size": 2, "optimizer": MP_SGD,
+                 "bf16": {"enabled": False}, "seed": 0}
+EP2 = {"moe": {"enabled": True, "expert_parallel_size": 2}}
+TP2 = {"tensor_parallel": {"tp_size": 2}}
+
+
+def _mixtral_train(layers, **over):
+    from deepspeed_tpu_torch.models.transformer import mixtral_config
+    kw = dict(num_layers=layers, max_seq_len=MP_SEQ, remat=True,
+              remat_policy="dots_saveable", loss_chunk=MP_SEQ,
+              moe_aux_loss_weight=0.01)
+    kw.update(over)
+    return mixtral_config("8x7b", **kw)
+
+
+def _llama7b_train(layers, **over):
+    from deepspeed_tpu_torch import llama_config
+    kw = dict(num_layers=layers, max_seq_len=MP_SEQ, remat=True,
+              remat_policy="dots_saveable", loss_chunk=MP_SEQ)
+    kw.update(over)
+    return llama_config("7b", **kw)
+
+
+def active_params(cfg) -> int:
+    """The params a token's forward multiplies by: attention, the gate,
+    top_k of the experts' FFNs, and the head (the embedding is a
+    lookup)."""
+    H, hd = cfg.hidden_size, cfg.dim_per_head
+    attn = H * cfg.num_heads * hd * 2 + H * cfg.kv_heads * hd * 2
+    ffn = 3 * H * cfg.ffn_dim * (cfg.top_k if cfg.num_experts > 1 else 1)
+    gate = H * cfg.num_experts if cfg.num_experts > 1 else 0
+    return cfg.num_layers * (attn + ffn + gate) + H * cfg.vocab_size
+
+
+def _routing(engine, batch):
+    """Each MoE layer's aux loss and dropped fraction on ``batch`` with
+    the training capacity (one pass without a graph)."""
+    from deepspeed_tpu_torch.moe import record_routing
+    from deepspeed_tpu_torch.parallel import parallel_context
+    with torch.no_grad(), parallel_context(engine.mesh), \
+            record_routing() as rec:
+        engine.model.loss_fn(engine.params, batch, train=True)
+    return [{k: float(v) for k, v in r.items()} for r in rec]
+
+
+def moe_cell(smi: str):
+    """(a) Mixtral 8x7b at full width, 2 of its 32 layers, one card:
+    bf16 with f32 masters, AdamW, B=2, S=2048, dots_saveable, aux weight
+    0.01, no gate noise, capacity ceil(4096 / 8 x 1.25) = 640."""
+    cfg = _mixtral_train(2)
+    engine, batch, rec = _train(cfg, "mixtral-8x7b 2 layers", MOE_CONFIG,
+                                MOE_STEPS)
+    n, L = MOE_STEPS, cfg.num_layers
+    B, S = MOE_CONFIG["train_batch_size"], MP_SEQ
+    n_active = active_params(cfg)
+    flops_per_token = 6.0 * n_active + 12.0 * L * cfg.hidden_size * S
+    rec.update(
+        card=smi, n_active=n_active,
+        mfu_active=rec["tokens_per_s"] * flops_per_token
+        / PEAK_FLOPS[torch.bfloat16],
+        mfu_formula="tok/s x (6 N_active + 12 L H S) / 989e12",
+        capacity=int(np.ceil(B * S / cfg.num_experts
+                             * cfg.capacity_factor)),
+        routing=_routing(engine, batch))
+    del rec["mfu"]          # over all params: not the MoE's work
+    log(f"phase 19 (a) MoE training [{smi}] " + json.dumps(rec))
+    _check_run("phase 19 (a)", rec, {"flash_bwd_dq": n * L,
+                                     "flash_bwd_dkv": n * L,
+                                     "flash_fwd": 2 * n * L})
+    del engine, batch
+    _free()
+    return rec
+
+
+def _leaf_bytes(cfg, halved, itemsize):
+    """A rank's bytes of a tree of ``cfg``'s leaves at ``itemsize`` a
+    value: the leaves ``halved(path)`` names cut in two, the rest whole."""
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    from deepspeed_tpu_torch.models.transformer import init_params
+    meta = init_params(cfg, None, "meta", dtype=torch.float32)
+    return sum(t.numel() // (2 if halved(k) else 1) * itemsize
+               for k, t in ckpt_mod.flatten(meta).items())
+
+
+def _mp_run(cfg, config, batches, name, mesh=None):
+    """initialize -> one train_batch a batch (the first a warm-up): the
+    losses, each step's wall ms, this rank's launches (zeroed after the
+    warm-up), bytes and peak memory. ``mesh``: the engine's (None: the
+    plan of the config over the process group)."""
+    from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.ops import _build
+    torch.cuda.reset_peak_memory_stats()
+    engine, *_ = initialize(model=make_model(cfg, name), config=dict(config),
+                            mesh=mesh)
+    losses = [float(engine.train_batch(batches[0])["loss"])]
+    _build.reset_launch_counts()
+    step_ms = []
+    for b in batches[1:]:
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    rec = {"losses": losses, "step_ms_wall": step_ms,
+           "launches": _build.launch_counts(), "bytes": _zero_bytes(engine),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "plan": engine.plan.describe()}
+    return engine, rec
+
+
+def _f32_identity(rank, cfg, config, batches, name):
+    """(d) An f32 run of 3 steps over the ranks, then on rank 0 the same
+    run at world 1 (``single_mesh``, the whole batch): the losses of
+    both, the largest loss difference and the params' relative L2 (the
+    ranks' params made whole on the card first)."""
+    from deepspeed_tpu_torch.parallel import single_mesh
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    engine, rec = _mp_run(cfg, config, batches, name)
+    params = _zero_whole_params(engine, "cuda")
+    del engine
+    if rank:
+        del params
+        _free()
+        return None
+    _free()
+    engine, one = _mp_run(cfg, {k: v for k, v in config.items()
+                                if k not in ("moe", "tensor_parallel")},
+                          batches, name, mesh=single_mesh())
+    # leaf by leaf on the card, in f32 (the leaves reach 0.94 B values)
+    err = 0.0
+    for k, t in ckpt_mod.flatten(engine.state["params"]).items():
+        want = t.detach().float()
+        err = max(err, float(torch.linalg.vector_norm(params.pop(k) - want)
+                             / torch.linalg.vector_norm(want)))
+    del engine
+    _free()
+    return {"losses": rec["losses"], "losses_world1": one["losses"],
+            "plan": rec["plan"],
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                zip(rec["losses"], one["losses"])),
+            "params_rel_l2": err}
+
+
+def _mp_rank(rank, world):
+    """One rank of phase 19 (b)-(d), both ranks on cuda:0 over gloo: (b)
+    expert=2, (c) tensor=2 with and without the chunked row-parallel sum,
+    (d) the f32 runs of the identities. Returns every rank's record (on
+    rank 0)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {}
+    # (b) Mixtral width, 1 layer, 4 experts a rank, B=1 a rank
+    cfg = _mixtral_train(1)
+    eb = _zero_batches(2, MP_SEQ, 1 + MP_STEPS, seed=0)
+    engine, rec["ep2"] = _mp_run(cfg, dict(MOE_CONFIG, **EP2), eb,
+                                 "mixtral-8x7b 1 layer")
+    del engine
+    _free()
+    # (c) llama-7b width, 8 layers, B=2 shared by the tensor ranks
+    cfg = _llama7b_train(TP_LAYERS)
+    tb = _zero_batches(2, MP_SEQ, 1 + MP_STEPS, seed=1)
+    for chunks in (0, 4):
+        engine, rec[f"tp2_chunks{chunks}"] = _mp_run(
+            cfg, dict(MOE_CONFIG, transformer={
+                "fused_backward": True, "tp_overlap_chunks": chunks},
+                **TP2), tb, "llama-7b 8 layers")
+        del engine
+        _free()
+    # (d) f32 at 2 layers, S=512: expert=2 where tokens drop, tensor=2,
+    # each against world 1 (on rank 0)
+    b32 = _zero_batches(2, MP_F32["max_seq_len"], 3, seed=2)
+    rec["f32_ep2"] = _f32_identity(
+        rank, _mixtral_train(2, capacity_factor=0.5, **MP_F32),
+        dict(MP_F32_CONFIG, **EP2), b32, "mixtral f32")
+    rec["f32_tp2"] = _f32_identity(
+        rank, _llama7b_train(2, **MP_F32), dict(MP_F32_CONFIG, **TP2), b32,
+        "llama-7b f32")
+    out = [None] * world
+    dist.all_gather_object(out, rec)
+    return out if rank == 0 else None
+
+
+def _moe_grads_vs_plain():
+    """(d) One f32 MoE step's loss and grads at Mixtral width, 2 layers,
+    S=512, B=2 (capacity 0.5: tokens drop), through the kernels and
+    through their plain versions: {leaf: relative L2}, the loss pair and
+    the kernels' launches."""
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    cfg = _mixtral_train(2, capacity_factor=0.5, **MP_F32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
+    leaves = list(ckpt_mod.flatten(params).items())
+    for _, t in leaves:
+        t.requires_grad_(True)
+    batch = _zero_batches(2, MP_F32["max_seq_len"], 1, seed=3)[0]
+    out = {}
+    _build.reset_launch_counts()
+    for ref in (False, True):
+        loss = tf.lm_loss(params, batch, cfg, reference=ref, train=True)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        out[ref] = (float(loss), grads)
+        if not ref:
+            launches = _build.launch_counts()
+    errs = {k: rel_l2(g, w) for (k, _), g, w in
+            zip(leaves, out[False][1], out[True][1])}
+    losses = (out[False][0], out[True][0])
+    del params, leaves, out
+    _free()
+    return errs, losses, launches
+
+
+def _laws(ranks):
+    """Each rank's bytes of params (bf16), f32 optimizer state (masters,
+    m, v) and f32 grads against the law: at expert=2 the expert stacks
+    halved; at tensor=2 the column, row and vocab leaves halved, the
+    norms whole."""
+    checks = {}
+    ep_cfg, tp_cfg = _mixtral_train(1), _llama7b_train(TP_LAYERS)
+    for what, cfg, halved in (
+            ("ep2", ep_cfg, lambda k: "moe_w_" in k),
+            ("tp2_chunks0", tp_cfg,
+             lambda k: "norm" not in k and "ln" not in k)):
+        want = {"params": _leaf_bytes(cfg, halved, 2),
+                "opt": _leaf_bytes(cfg, halved, 12),
+                "grads": _leaf_bytes(cfg, halved, 4)}
+        for i, r in enumerate(ranks):
+            checks[f"({'b' if what == 'ep2' else 'c'}) rank {i} {what} "
+                   "bytes of params, opt, grads == the law"] = \
+                r[what]["bytes"] == want
+    return checks
+
+
+def model_parallel_phase(smi: str):
+    """Phase 19: MoE training at one rank, over the expert axis, and
+    tensor-parallel training, with their kernel cases."""
+    from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    _free()
+    bf = torch.bfloat16
+    cases = {
+        "moe": ("Mixtral MoE cell B=2 S=2048", 2, MP_SEQ, 32, 8, 128, bf),
+        "tp2": ("llama-7b tensor=2 rank B=2 S=2048", 2, MP_SEQ, 16, 16, 128,
+                bf)}
+    fwd_cases = [flash_case(*c) for c in cases.values()]
+    bwd_cases = [bwd_case(*c) for c in cases.values()]
+    _free()
+    checks = {}
+    moe = moe_cell(smi)
+    la = moe["launches"]
+    checks["(a) B1 == 2 x steps x L, B2 == B3 == steps x L"] = \
+        la["flash_fwd"] == 2 * MOE_STEPS * 2 and \
+        la["flash_bwd_dq"] == la["flash_bwd_dkv"] == MOE_STEPS * 2
+    checks["(a) tokens dropped are a fraction in [0, 1)"] = all(
+        0 <= r["dropped_fraction"] < 1 for r in moe["routing"])
+    ranks = run_group(_mp_rank, 2, timeout_s=900)
+    L_tp = TP_LAYERS
+    for i, r in enumerate(ranks):
+        for what, L in (("ep2", 1), ("tp2_chunks0", L_tp),
+                        ("tp2_chunks4", L_tp)):
+            x = r[what]
+            la = x["launches"]
+            part = "b" if what == "ep2" else "c"
+            checks[f"({part}) rank {i} {what} finite"] = \
+                all(np.isfinite(x["losses"]))
+            checks[f"({part}) rank {i} {what} B1 == 2 x steps x L"] = \
+                la["flash_fwd"] == 2 * MP_STEPS * L
+            checks[f"({part}) rank {i} {what} B2 == B3 == steps x L"] = \
+                la["flash_bwd_dq"] == la["flash_bwd_dkv"] == MP_STEPS * L
+        checks[f"(c) rank {i} tp_overlap_chunks 4 == 0, bit for bit"] = \
+            r["tp2_chunks4"]["losses"] == r["tp2_chunks0"]["losses"]
+    checks.update(_laws(ranks))
+    # (d) the f32 identities (on rank 0), and the one-rank MoE step's
+    # grads against the plain path
+    ident = {}
+    for what in ("ep2", "tp2"):
+        got = ranks[0][f"f32_{what}"]
+        ident[what] = got
+        checks[f"(d) f32 {what} == world 1: losses 1e-5, params 1e-5"] = \
+            got["loss_rel_err"] <= 1e-5 and got["params_rel_l2"] <= 1e-5
+    errs, (loss_k, loss_p), la = _moe_grads_vs_plain()
+    checks["(d) f32 MoE grads through the kernels within 1e-4 of the plain "
+           "path"] = max(errs.values()) <= 1e-4 and \
+        abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    checks["(d) f32 MoE step launched B1-B3"] = \
+        la["flash_fwd"] > 0 and la["flash_bwd_dq"] > 0
+    ident["moe_grads_vs_plain"] = {"max_rel_l2": max(errs.values()),
+                                   "losses": [loss_k, loss_p]}
+    launches = {
+        "moe_training": {k: moe["launches"][k] for k in FLASH_KERNELS},
+        "expert_parallel": {k: sum(r["ep2"]["launches"][k] for r in ranks)
+                            for k in FLASH_KERNELS},
+        "tensor_parallel": {k: sum(r[f"tp2_chunks{c}"]["launches"][k]
+                                   for r in ranks for c in (0, 4))
+                            for k in FLASH_KERNELS}}
+    rec = {"card": smi, "timing": ZERO_SHARED, "moe": moe,
+           "ranks": ranks, "identities": ident,
+           "flash_cases": fwd_cases, "bwd_cases": bwd_cases,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 19 (b, c) [{smi}; {ZERO_SHARED}] " + json.dumps({
+        what: {k: [r[what][k] for r in ranks]
+               for k in ("losses", "step_ms_wall", "peak_mem_gib", "bytes",
+                         "launches", "plan")}
+        for what in ("ep2", "tp2_chunks0", "tp2_chunks4")}))
+    log(f"phase 19 (d) [{smi}] " + json.dumps(ident))
+    log(f"phase 19: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 19: failed {failed}")
     return rec
 
 
@@ -5101,9 +5461,13 @@ def main() -> int:
                            f"17: {recovered}")
     p17 = fleet_phase(card, served, bf16_drift)
     p18 = capacity_phase(card)
-    # B1-B3 held at a ZeRO rank's shapes too
+    p19 = model_parallel_phase(card)
+    # B1-B3 held at a ZeRO rank's shapes too, and at the MoE cell's and a
+    # tensor=2 rank's (D=128)
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
+    flash += p19["flash_cases"]
+    bwd += p19["bwd_cases"]
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -5198,6 +5562,13 @@ def main() -> int:
         if n:
             entry["launches"] += n
             entry["launches_by_path"]["capacity"] = n
+    # phase 19: the MoE cell, and every rank of expert=2 and tensor=2
+    for entry in line["kernels"][:4]:
+        for path, counts in p19["launches"].items():
+            n = counts.get(entry["name"], 0)
+            if n:
+                entry["launches"] += n
+                entry["launches_by_path"][path] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

@@ -11,8 +11,9 @@ of size 1 is no call at all, and a tuple of axes runs one call per axis
 (major axis first for a scatter, minor first for a gather, so the pieces
 land in JAX's row-major order over the tuple). Every collective of the
 port goes through here: the model's tensor- and expert-axis reductions
-(``parallel/context.all_reduce``), ZeRO's gradient reductions and
-parameter gathers, and the 1-bit optimizers' wire.
+(``parallel/context.all_reduce`` when serving; its autograd collectives,
+``copy_to_tensor`` and the rest, in training), ZeRO's gradient
+reductions and parameter gathers, and the 1-bit optimizers' wire.
 
 Each call adds to a plain count of calls and bytes (the input's bytes)
 for its (op, axis), so a test can check the schedule

@@ -9,8 +9,11 @@ and ``stage3_param_persistence_threshold``), ``gradient_clipping``,
 ``transformer.fused_backward``, ``pipeline`` (``in_flight``,
 ``prefetch``, ``fuse_steps``), ``comm`` (the gradient-reduction
 schedule), ``mesh`` (explicit axes), ``checkpoint``, ``seed`` and
-``steps_per_print``, and the capacity tier's ``zero_optimization.
-offload_param`` / ``offload_optimizer`` and ``aio`` (at one rank).
+``steps_per_print``, the capacity tier's ``zero_optimization.
+offload_param`` / ``offload_optimizer`` and ``aio`` (at one rank), and
+model parallelism: ``tensor_parallel.tp_size``, ``moe`` (its
+``expert_parallel_size`` lays out the ``expert`` axis) and
+``transformer.tp_overlap_chunks``.
 Unknown keys warn, as in JAX. The JAX sections the
 port lacks are known: each raises ``NotImplementedError`` naming its
 ROADMAP item when the config turns it on, and is ignored while it is
@@ -165,12 +168,61 @@ class TransformerTuningConfig(ConfigModel):
     """``transformer``: model-level levers the engine applies by
     rebuilding the model config (``dataclasses.replace``)."""
     fused_backward: bool = False
+    # the row-parallel projections' tensor-axis sum cut into this many
+    # all_reduce calls along the sequence (0 / 1: one;
+    # ``parallel/partitioning.row_parallel_matmul``)
     tp_overlap_chunks: int = 0
 
     def validate(self):
-        if self.tp_overlap_chunks > 1:
-            _deferred("transformer.tp_overlap_chunks",
-                      "A9 (tensor-parallel overlap)")
+        if self.tp_overlap_chunks < 0:
+            raise ConfigError("transformer.tp_overlap_chunks must be >= 0")
+
+
+@dataclasses.dataclass
+class TensorParallelConfig(ConfigModel):
+    """``tensor_parallel``: the ``tensor`` axis's degree. ``seq_parallel``
+    (activations split along the sequence on that axis) is ROADMAP A9."""
+    ALIASES = {"size": "tp_size", "tp": "tp_size"}
+    tp_size: int = 1
+    seq_parallel: bool = False
+
+    def validate(self):
+        if self.tp_size < 1:
+            raise ConfigError("tensor_parallel.tp_size must be >= 1")
+        if self.seq_parallel:
+            _deferred("tensor_parallel.seq_parallel",
+                      "A9 (sequence parallelism)")
+
+
+@dataclasses.dataclass
+class SequenceParallelConfig(ConfigModel):
+    """``sequence_parallel``: ring attention over a ``seq`` axis, ROADMAP
+    A9 above size 1."""
+    ALIASES = {"size": "sp_size"}
+    sp_size: int = 1
+    mode: str = "ring"
+
+    def validate(self):
+        if self.sp_size > 1:
+            _deferred("sequence_parallel", "A9 (ring attention)")
+
+
+@dataclasses.dataclass
+class MoEConfig(ConfigModel):
+    """``moe``, JAX's fields. As in JAX, the engine reads
+    ``expert_parallel_size`` (the ``expert`` axis of ``plan_from_config``,
+    when ``enabled``); the model's own config carries the gating fields."""
+    enabled: bool = False
+    expert_parallel_size: int = 1
+    num_experts: int = 1
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    eval_capacity_factor: float = 2.0
+    min_capacity: int = 4
+    noisy_gate_policy: Optional[str] = None
+    drop_tokens: bool = True
+    use_residual: bool = False
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass
@@ -268,19 +320,9 @@ def _enabled(s: Dict[str, Any]) -> bool:
     return bool(s.get("enabled", False))
 
 
-def _any_size(*keys):
-    return lambda s: any((s.get(k) or 1) > 1 for k in keys)
-
-
 # JAX sections this slice does not run: (on(section dict), ROADMAP item)
 _DEFERRED = {
-    "tensor_parallel": (lambda s: _any_size("tp_size", "size", "tp")(s)
-                        or bool(s.get("seq_parallel")),
-                        "A9 (tensor parallelism)"),
-    "sequence_parallel": (_any_size("sp_size", "size"),
-                          "A9 (ring attention)"),
     "comms_logger": (_enabled, "A9 (comm logging)"),
-    "moe": (_enabled, "A9 (MoE training)"),
     "telemetry": (_enabled, "A11 (telemetry)"),
     "flops_profiler": (_enabled, "A11 (profiling)"),
     "tensorboard": (_enabled, "A11 (monitor)"),
@@ -351,6 +393,11 @@ class Config(ConfigModel):
     checkpoint: CheckpointConfig = config_field(CheckpointConfig)
     comm: CommConfig = config_field(CommConfig)
     mesh: MeshConfig = config_field(MeshConfig)
+    tensor_parallel: TensorParallelConfig = config_field(
+        TensorParallelConfig)
+    sequence_parallel: SequenceParallelConfig = config_field(
+        SequenceParallelConfig)
+    moe: MoEConfig = config_field(MoEConfig)
     robustness: RobustnessConfig = config_field(RobustnessConfig)
     aio: AIOConfig = config_field(AIOConfig)
 

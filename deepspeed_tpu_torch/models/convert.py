@@ -84,9 +84,10 @@ def _lead(a) -> int:
 
 
 def param_specs(tree: Dict[str, Any], cfg: TransformerConfig,
-                quantized: bool = False):
+                quantized: bool = False, rules=None):
     """The mesh spec of every leaf of an unfused (possibly int8) param
-    tree under JAX's serving rules (``parallel/partitioning.RULES``)."""
+    tree under JAX's serving rules (``parallel/partitioning.RULES``), or
+    under ``rules`` (a training table of ``make_rules``)."""
     layers = tree["layers"]
     fused = {"wqkv", "w_in_gate"} & set(layers)
     if fused:
@@ -96,7 +97,7 @@ def param_specs(tree: Dict[str, Any], cfg: TransformerConfig,
     quantized = quantized or any(isinstance(v, dict)
                                  for v in layers.values())
     axes = quantized_logical_axes(cfg) if quantized else logical_axes(cfg)
-    specs = spec_tree(axes)
+    specs = spec_tree(axes, rules)
     missing = ({k for k in tree if k != "layers"} - set(specs)) | (
         set(layers) - set(specs["layers"]))
     if missing:
@@ -107,13 +108,16 @@ def param_specs(tree: Dict[str, Any], cfg: TransformerConfig,
 
 def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
                       device, dtype: torch.dtype, mesh=None,
-                      quantize: bool = False) -> Dict[str, Any]:
+                      quantize: bool = False,
+                      rules=None) -> Dict[str, Any]:
     """JAX params (numpy arrays, or anything ``np.asarray`` takes) -> the
     port's params on ``device``, float leaves cast to ``dtype``. With a
     ``mesh`` of more than one rank, each leaf is this rank's slice
-    (``param_specs``), cut before the copy. ``quantize``: the float
-    layer stacks arrive int8 (``quantize_leaf``, after the cast, one
-    layer at a time on the device)."""
+    (``param_specs``: the serving table, or ``rules``, a training table
+    of ``parallel.partitioning.make_rules`` for a ZeRO stage with or
+    without the tensor axis), cut before the copy. ``quantize``: the
+    float layer stacks arrive int8 (``quantize_leaf``, after the cast,
+    one layer at a time on the device)."""
     unknown = (set(tree) - _TOP) | (set(tree.get("layers", {})) - _LAYER)
     if unknown:
         raise NotImplementedError(
@@ -130,7 +134,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
         specs = {"layers": {}}
         mesh = None
     else:
-        specs = param_specs(tree, cfg, quantized=quantize)
+        specs = param_specs(tree, cfg, quantized=quantize, rules=rules)
     out = {k: _leaf(v, device, dtype, specs.get(k), mesh, k)
            for k, v in tree.items() if k != "layers"}
     out["layers"] = {k: _layer_leaf(v, device, dtype,

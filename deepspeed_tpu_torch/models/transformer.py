@@ -65,10 +65,14 @@ cast to the compute dtype with the scale on the result rows
 
 MoE (``num_experts > 1``, ``mixtral_config``): the layer's FFN is the
 expert FFN of ``moe/sharded_moe.moe_ffn`` (top-k gating with capacity,
-and with ``use_residual`` JAX's PR-MoE mix with a dense MLP); the serving
-forward only: training a MoE model raises (ROADMAP A9).
+and with ``use_residual`` JAX's PR-MoE mix with a dense MLP). Training
+(``lm_loss(train=True)``) routes with ``capacity_factor``, draws the gate
+noise from a generator seeded by the layer's seed, and adds
+``moe_aux_loss_weight`` times the sum of the layers' aux losses to the
+loss, as JAX's ``lm_loss``; serving and eval route with
+``eval_capacity_factor`` and no noise.
 
-Sharding (tensor / expert parallel serving): each rank holds the slice of
+Sharding (tensor / expert parallelism): each rank holds the slice of
 every leaf that JAX's rules give its device (``logical_axes``,
 ``parallel/partitioning``), and the model calls ``torch.distributed``
 where GSPMD would insert a collective, reading the ambient mesh
@@ -79,12 +83,19 @@ lookup, then an ``all_reduce``), vocab-sharded logits assembled by an
 ``all_reduce`` of a zero-filled full-vocab buffer, and the MoE combine
 (over ``tensor`` and ``expert``). A rank's head counts are its shard's
 (the projections' widths); its pools hold ``kv_heads / tp`` heads.
-Without a mesh (or at tp = ep = 1) no collective runs.
+Without a mesh (or at tp = ep = 1) no collective runs. Serving reduces
+in place. Where autograd records (training: the params need grads) the
+same sums are collectives autograd differentiates: the inputs of the column-parallel projections (``wq``,
+``wk``, ``wv``, ``w_in``, ``w_gate``, the head) enter through
+``copy_to_tensor``, the row-parallel outputs, the embedding and the
+logits leave through ``reduce_from_tensor``, and with
+``tp_overlap_chunks > 1`` the row-parallel sum is cut along the sequence
+(``parallel/partitioning.row_parallel_matmul``).
 
 What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions, windows and MoE training. The
-port's config has no parallel-block form (GPT-J / NeoX), so its dropout
-sites are the sequential block's two.
+ROADMAP item: alibi / learned positions and windows. The port's config
+has no parallel-block form (GPT-J / NeoX), so its dropout sites are the
+sequential block's two.
 """
 
 import dataclasses
@@ -112,7 +123,10 @@ from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
 from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
                                                   axis_size,
                                                   batch_row,
-                                                  gather_params)
+                                                  copy_to_tensor,
+                                                  gather_params,
+                                                  reduce_from_tensor)
+from deepspeed_tpu_torch.parallel.partitioning import row_parallel_matmul
 
 Params = Dict[str, Any]
 _NEG = -1e30                    # JAX's mask fill: exp(-1e30 - max) is 0
@@ -163,7 +177,7 @@ class TransformerConfig:
     # per-expert capacity ceil(T / E * factor) >= min_capacity
     # (eval_capacity_factor when serving), PR-MoE's dense residual mix
     # (use_residual); the aux loss weight and the gate noise belong to
-    # training (ROADMAP A9)
+    # training
     num_experts: int = 1
     top_k: int = 2
     capacity_factor: float = 1.25
@@ -175,6 +189,9 @@ class TransformerConfig:
     moe_aux_loss_weight: float = 0.01
     # dropout on the attention and FFN outputs (the training path only)
     dropout_rate: float = 0.0
+    # the row-parallel projections' tensor-axis sum in this many pieces
+    # along the sequence (``transformer.tp_overlap_chunks``; 0 / 1: one)
+    tp_overlap_chunks: int = 0
     # outside this slice (must stay at their defaults)
     attn_windows: Optional[Tuple[int, ...]] = None
     sparse_attention: Optional[Dict[str, Any]] = None
@@ -268,17 +285,6 @@ def mixtral_config(size: str = "8x7b", **overrides) -> TransformerConfig:
     base.update(dims)
     base.update(overrides)
     return TransformerConfig(**base)
-
-
-def check_trainable(cfg: TransformerConfig) -> None:
-    """The training path's refusal of a MoE model: the aux loss in the
-    objective, the gate noise and the expert backward are not ported."""
-    if cfg.num_experts > 1:
-        raise NotImplementedError(
-            f"training a MoE model (num_experts={cfg.num_experts}) is not "
-            "ported yet: ROADMAP A9 (MoE training: the aux loss, gate "
-            "noise, the expert backward, token splitting under TP); the "
-            "MoE serving forward is ported")
 
 
 # --------------------------------------------------------------------------
@@ -546,10 +552,26 @@ def _w(h, w):
     return h @ w.to(h.dtype)
 
 
-def _w_row(h, w, delta=None):
+def _graph(*ts) -> bool:
+    """Autograd records an op on ``ts``: the training path's collectives
+    then differentiate (serving, whose params need no grad, reduces in
+    place)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
+def _to_tensor_region(h):
+    """A replicated activation entering column-parallel projections: with
+    a graph, ``copy_to_tensor`` (its grad summed over ``tensor``)."""
+    return copy_to_tensor(h) if _graph(h) else h
+
+
+def _w_row(h, w, delta=None, chunks: int = 0):
     """The row-parallel twin of ``_w`` (``wo``, ``w_out``: their IN dim
     is sharded over ``tensor``): this rank's partial product, summed over
-    the tensor axis by one ``all_reduce``. An int8 leaf's per-out-channel
+    the tensor axis by one ``all_reduce`` (in place when serving; with a
+    graph, or with ``chunks`` > 1, through ``row_parallel_matmul``,
+    ``chunks`` pieces along the sequence). An int8 leaf's per-out-channel
     scale multiplies after the sum (it factors out of the contraction, as
     JAX's ``_wrow`` applies it). ``delta``: the LoRA ``o`` delta's partial
     sums (its A is sharded on heads too), reduced in the same
@@ -557,6 +579,11 @@ def _w_row(h, w, delta=None):
     scale = None
     if isinstance(w, dict):
         w, scale = w["q"], w["scale"]
+    if delta is None and (_graph(h, w) or chunks > 1):
+        y = row_parallel_matmul(h, w.to(h.dtype), chunks=chunks)
+        if scale is not None:
+            y = y * scale.reshape(scale.shape[-1:]).to(h.dtype)
+        return y
     y = h @ w.to(h.dtype)
     if delta is not None and axis_size("tensor") > 1:
         n = y.shape[-1]
@@ -868,7 +895,8 @@ def _dropout(x, cfg: TransformerConfig, seed: Optional[int], salt: int):
 def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                       mask=None, attend: Optional[Callable] = None,
                       row_dtype=None, reference: bool = False, lora=None,
-                      dropout_seed: Optional[int] = None):
+                      dropout_seed: Optional[int] = None,
+                      train: bool = False, aux: Optional[list] = None):
     """One pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)).
 
     Without ``attend``: full-sequence (prefill) attention; returns
@@ -887,11 +915,14 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
 
     ``dropout_seed``: the layer's mask seed on the training path; dropout
     (salt 0 on the attention output, 1 on the FFN output) before each
-    residual add, where JAX's is. None: no dropout."""
+    residual add, where JAX's is, and on a MoE layer with ``train`` the
+    gate noise's generator (salt 2). None: no dropout, no noise.
+    ``train``: a MoE layer routes with the training capacity; ``aux``: a
+    list the MoE layer appends its aux loss to."""
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     p = _maybe_dequant(p, cfg)
-    h = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
+    h = _to_tensor_region(_norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg))
     if "wqkv" in p:
         q, k, v = _w(h, p["wqkv"]).split([nh * hd, nkv * hd, nkv * hd],
                                          dim=-1)
@@ -925,37 +956,51 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     attn_flat = attn.reshape(B, S, nh * hd)
     attn_out = _w_row(attn_flat, p["wo"],
                       delta=(_lora_delta(attn_flat, tabs["o"], aidx)
-                             if "o" in tabs else None))
+                             if "o" in tabs else None),
+                      chunks=cfg.tp_overlap_chunks)
     x = x + _dropout(attn_out, cfg, dropout_seed, 0)
     h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
-    out = _moe_mlp(h, p, cfg) if "wg" in p else _mlp(h, p, cfg)
+    if "wg" in p:
+        gen = None
+        if train and dropout_seed is not None and cfg.noisy_gate_policy:
+            gen = torch.Generator(device=x.device).manual_seed(
+                mask_seed(dropout_seed, 2))
+        out, layer_aux = _moe_mlp(h, p, cfg, train=train, generator=gen)
+        if aux is not None:
+            aux.append(layer_aux)
+    else:
+        out = _mlp(h, p, cfg)
     return x + _dropout(out, cfg, dropout_seed, 1), new_kv
 
 
 def _mlp(h, p, cfg: TransformerConfig):
     """The dense MLP: column-parallel up (and gate), row-parallel down."""
+    h = _to_tensor_region(h)
     if "w_in_gate" in p:
         up, gate = _w(h, p["w_in_gate"]).chunk(2, dim=-1)
     else:
         up = _w(h, p["w_in"])
         gate = _w(h, p["w_gate"]) if "w_gate" in p else None
-    return _w_row(_activation(up, gate, cfg), p["w_out"])
+    return _w_row(_activation(up, gate, cfg), p["w_out"],
+                  chunks=cfg.tp_overlap_chunks)
 
 
-def _moe_mlp(h, p, cfg: TransformerConfig):
-    """JAX's MoE branch of ``transformer_layer`` (serving: no gate noise,
-    ``eval_capacity_factor``): the expert FFN, and under ``use_residual``
-    (PR-MoE) its mix with the dense MLP by the softmax of ``h @
-    moe_coef``."""
+def _moe_mlp(h, p, cfg: TransformerConfig, train: bool = False,
+             generator=None):
+    """JAX's MoE branch of ``transformer_layer``: the expert FFN (with
+    ``train``, the training capacity and ``generator``'s gate noise;
+    else ``eval_capacity_factor`` and no noise), and under
+    ``use_residual`` (PR-MoE) its mix with the dense MLP by the softmax
+    of ``h @ moe_coef``. Returns (out, aux loss)."""
     moe = {"wg": p["wg"], "w_in": p["moe_w_in"], "w_out": p["moe_w_out"]}
     if "moe_w_gate" in p:
         moe["w_gate"] = p["moe_w_gate"]
-    out, _ = moe_ffn(moe, h, cfg, train=False)
+    out, aux = moe_ffn(moe, h, cfg, generator=generator, train=train)
     if "w_in" not in p:
-        return out
+        return out, aux
     coef = torch.softmax((h @ p["moe_coef"].to(h.dtype)).float(), dim=-1)
     return (_mlp(h, p, cfg) * coef[..., 0:1].to(h.dtype)
-            + out * coef[..., 1:2].to(h.dtype))
+            + out * coef[..., 1:2].to(h.dtype)), aux
 
 
 def _layers(params: Params) -> List[Params]:
@@ -980,21 +1025,36 @@ def _head(params):
     return params["tok_embed"].t() if head is None else head
 
 
-def lm_head_logits(x, params):
-    """Final projection to f32 vocab logits, the head cast to x's dtype.
-    Under a tensor axis the head holds this rank's vocab columns: the
-    local logits go into a zero-filled full-vocab buffer at the rank's
-    offset, and an ``all_reduce`` assembles the whole row on every rank
-    (one non-zero term an entry: exact)."""
-    local = _w(x, _head(params)).float()
+def _vocab_logits(x, head, vocab: Optional[int] = None):
+    """f32 logits of x through a [H, V_local] head. Under a tensor axis
+    the head holds this rank's vocab columns: the local logits go into a
+    zero-filled full-vocab buffer at the rank's offset, and an
+    ``all_reduce`` assembles the whole row on every rank (one non-zero
+    term an entry: exact); with a graph, x enters through
+    ``copy_to_tensor`` and the buffer leaves through
+    ``reduce_from_tensor``. A head of all ``vocab`` columns (ZeRO-3's
+    table gives the untied head's vocab dim no tensor axis: its embed dim
+    took ``fsdp``) is the plain product on every tensor rank."""
     tp = axis_size("tensor")
-    if tp == 1:
-        return local
+    if tp == 1 or head.shape[-1] == vocab:
+        return _w(x, head).float()
+    i = axis_index("tensor")
+    if _graph(x, head):
+        local = _w(copy_to_tensor(x), head).float()
+        Vl = local.shape[-1]
+        return reduce_from_tensor(F.pad(local, (i * Vl, (tp - 1 - i) * Vl)))
+    local = _w(x, head).float()
     Vl = local.shape[-1]
     full = local.new_zeros(local.shape[:-1] + (Vl * tp,))
-    i = axis_index("tensor")
     full[..., i * Vl:(i + 1) * Vl] = local
     return all_reduce(full, "tensor")
+
+
+def lm_head_logits(x, params, vocab: Optional[int] = None):
+    """Final projection to f32 vocab logits, the head cast to x's dtype
+    (vocab-parallel under a tensor axis: ``_vocab_logits``; ``vocab``:
+    the model's vocabulary size)."""
+    return _vocab_logits(x, _head(params), vocab)
 
 
 def _embed(params, ids, cfg: TransformerConfig):
@@ -1014,28 +1074,38 @@ def _embed(params, ids, cfg: TransformerConfig):
     mine = (local >= 0) & (local < Vl)
     x = F.embedding(torch.where(mine, local, torch.zeros_like(local)), table)
     x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    if _graph(table):
+        return reduce_from_tensor(x).to(cfg.dtype)
     return all_reduce(x, "tensor").to(cfg.dtype)
 
 
 def forward(params: Params, input_ids, cfg: TransformerConfig, *,
             attention_mask=None, positions=None, return_kv: bool = False,
             return_hidden: bool = False, reference: bool = False,
-            dropout_seed: Optional[int] = None):
+            dropout_seed: Optional[int] = None, train: bool = False,
+            return_aux: bool = False):
     """input_ids [B, S] -> f32 logits [B, S, V]; with ``return_kv`` also
     the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd];
     with ``return_hidden`` the final-normed hidden states [B, S, H]
     instead of logits (the chunked loss projects them chunk by chunk).
-    ``dropout_seed``: the training path's mask seed (None: no dropout)."""
+    ``dropout_seed``: the training path's mask seed (None: no dropout);
+    ``train``: MoE layers route with the training capacity (and draw
+    their gate noise from the seed); ``return_aux``: (out, the sum of the
+    MoE layers' aux losses), as JAX's."""
+    aux: list = []
     x, kvs = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
                      positions=positions, reference=reference,
-                     keep_kv=return_kv, dropout_seed=dropout_seed)
+                     keep_kv=return_kv, dropout_seed=dropout_seed,
+                     train=train, aux=aux)
+    total = (torch.stack(aux).sum() if aux
+             else x.new_zeros((), dtype=torch.float32))
     if return_hidden:
-        return x
-    logits = lm_head_logits(x, params)
+        return (x, total) if return_aux else x
+    logits = lm_head_logits(x, params, cfg.vocab_size)
     if return_kv:
-        return logits, (torch.stack([k for k, _ in kvs]),
-                         torch.stack([v for _, v in kvs]))
-    return logits
+        logits = (logits, (torch.stack([k for k, _ in kvs]),
+                           torch.stack([v for _, v in kvs])))
+    return (logits, total) if return_aux else logits
 
 
 # matmul outputs: what JAX's ``dots_saveable`` keeps (a matmul of a 3-D
@@ -1129,13 +1199,16 @@ def _remat_policy(cfg: TransformerConfig, device=None):
 
 def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
             reference=False, on_layer_kv: Optional[Callable] = None,
-            keep_kv: bool = False, dropout_seed: Optional[int] = None):
+            keep_kv: bool = False, dropout_seed: Optional[int] = None,
+            train: bool = False, aux: Optional[list] = None):
     """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
     v)`` consumes each layer's K/V as soon as it exists (the paged prefill
     writes them straight into the pool); ``keep_kv`` returns them. With
     gradients on, each layer runs under the config's remat policy.
-    ``dropout_seed``: layer i's masks come from ``mask_seed(dropout_seed,
-    i)`` (None: no dropout)."""
+    ``dropout_seed``: layer i's masks (and gate noise) come from
+    ``mask_seed(dropout_seed, i)`` (None: no dropout); ``train`` and
+    ``aux``: as ``transformer_layer``'s (each MoE layer's aux loss
+    appended to ``aux``)."""
     B, S = input_ids.shape
     x = _embed(params, input_ids, cfg)
     if positions is None:
@@ -1143,7 +1216,7 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
                   else None)
 
-    def layer(x_in, lp, i):
+    def layer(x_in, lp, i, box=None):
         seed = None if dropout_seed is None else mask_seed(dropout_seed, i)
         # ZeRO-3: the layer's whole weights, gathered inside the remat
         # checkpoint (they replay in the backward and live only while the
@@ -1151,15 +1224,26 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
         lp = gather_params(lp, "layers/")
         return transformer_layer(x_in, lp, cfg, positions=positions,
                                  mask=attention_mask, reference=reference,
-                                 dropout_seed=seed)
+                                 dropout_seed=seed, train=train, aux=box)
+
+    def remat(x_in, lp, i):
+        box: list = []
+        out = layer(x_in, lp, i, box)[0]
+        return (out, box[0]) if box else out
 
     kvs = []
     for i, lp in enumerate(_layers(params)):
         if context_fn is not None and on_layer_kv is None and not keep_kv:
-            x = checkpoint(lambda a, b, i=i: layer(a, b, i)[0], x, lp,
-                           use_reentrant=False, context_fn=context_fn)
+            out = checkpoint(remat, x, lp, i, use_reentrant=False,
+                             context_fn=context_fn)
+            if isinstance(out, tuple):
+                x, layer_aux = out
+                if aux is not None:
+                    aux.append(layer_aux)
+            else:
+                x = out
             continue
-        x, (k, v) = layer(x, lp, i)
+        x, (k, v) = layer(x, lp, i, aux)
         if on_layer_kv is not None:
             on_layer_kv(i, k, v)
         elif keep_kv:
@@ -1205,13 +1289,15 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100,
 
 def chunked_cross_entropy(x, head, labels, chunk: int,
                           ignore_index: int = -100, tied_embed: bool = False,
-                          count=None):
+                          count=None, vocab: Optional[int] = None):
     """CE over sequence chunks: each chunk's f32 logits [B, c, V] exist
     only inside a ``torch.utils.checkpoint`` (the head matmul re-runs in
     the backward). x: [B, S, H] final hidden (normed); head: [H, V], or
     with ``tied_embed`` the [V, H] embedding table. c is the largest
     divisor of S that is <= chunk, as in JAX. ``count`` as in
-    ``cross_entropy_loss``."""
+    ``cross_entropy_loss``. A vocab-sharded head (a tensor axis) gives
+    each chunk's whole-vocab logits as ``lm_head_logits`` does
+    (``vocab``: the model's vocabulary size)."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -1220,7 +1306,7 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
         head = head.t()
 
     def body(xc, lc, w):
-        return _nll_sum(_w(xc, w).float(), lc, ignore_index)[0]
+        return _nll_sum(_vocab_logits(xc, w, vocab), lc, ignore_index)[0]
 
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = 0
@@ -1247,32 +1333,39 @@ def lm_labels(batch):
 
 def lm_loss(params: Params, batch, cfg: TransformerConfig,
             reference: bool = False, dropout_seed: Optional[int] = None,
-            label_count=None):
+            label_count=None, train: bool = False):
     """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
     input_ids [B, S]; optional labels (default: the ids shifted left, -100
-    at the end) and attention_mask [B, S] (a key mask in attention). A
-    MoE model raises (``check_trainable``). ``dropout_seed``: the training
-    step's mask seed (JAX's ``dropout_rng`` with ``deterministic=False``);
-    None, as in eval, drops nothing. ``label_count``: the count to divide
-    the summed token losses by (default: this batch's labels; a
-    data-parallel rank gives the global batch's, ``runtime/engine``)."""
-    check_trainable(cfg)
+    at the end) and attention_mask [B, S] (a key mask in attention).
+    ``dropout_seed``: the training step's mask seed (JAX's ``dropout_rng``
+    with ``deterministic=False``); None, as in eval, drops nothing.
+    ``label_count``: the count to divide the summed token losses by
+    (default: this batch's labels; a data-parallel rank gives the global
+    batch's, ``runtime/engine``). ``train``: MoE layers route with the
+    training capacity (JAX's ``deterministic=False``). A MoE model adds
+    ``moe_aux_loss_weight`` times the sum of its layers' aux losses, as
+    JAX's ``lm_loss``."""
     # ZeRO-3: the embedding, the head and the final norm, gathered once a
     # pass (each layer gathers its own in ``_hidden``)
     params = gather_params(params)
     ids = batch["input_ids"]
     labels = lm_labels(batch)
     mask = batch.get("attention_mask")
+    kw = dict(attention_mask=mask, reference=reference,
+              dropout_seed=dropout_seed, train=train, return_aux=True)
     if cfg.loss_chunk and cfg.loss_chunk > 0:
-        x = forward(params, ids, cfg, attention_mask=mask, return_hidden=True,
-                    reference=reference, dropout_seed=dropout_seed)
+        x, aux = forward(params, ids, cfg, return_hidden=True, **kw)
         tied = params.get("lm_head") is None
         head = params["tok_embed"] if tied else params["lm_head"]
-        return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
-                                     tied_embed=tied, count=label_count)
-    logits = forward(params, ids, cfg, attention_mask=mask,
-                     reference=reference, dropout_seed=dropout_seed)
-    return cross_entropy_loss(logits, labels, count=label_count)
+        loss = chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
+                                     tied_embed=tied, count=label_count,
+                                     vocab=cfg.vocab_size)
+    else:
+        logits, aux = forward(params, ids, cfg, **kw)
+        loss = cross_entropy_loss(logits, labels, count=label_count)
+    if cfg.num_experts > 1:
+        loss = loss + cfg.moe_aux_loss_weight * aux
+    return loss
 
 
 # --------------------------------------------------------------------------
@@ -1698,9 +1791,10 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
         name=name,
         init=lambda generator, device, dtype=None, keep=None:
             init_params(cfg, generator, device, dtype=dtype, keep=keep),
-        loss_fn=lambda params, batch, dropout_seed=None, label_count=None:
-            lm_loss(params, batch, cfg, dropout_seed=dropout_seed,
-                    label_count=label_count),
+        loss_fn=lambda params, batch, dropout_seed=None, label_count=None,
+            train=False: lm_loss(params, batch, cfg,
+                                 dropout_seed=dropout_seed,
+                                 label_count=label_count, train=train),
         apply=lambda params, input_ids, **kw:
             forward(params, input_ids, cfg, **kw),
         init_paged_cache=lambda num_blocks, block_size, dtype=None,

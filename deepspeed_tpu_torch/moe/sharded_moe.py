@@ -11,19 +11,37 @@ number of tokens routed together: ``ceil(T / E * factor)``, at least
 ``min_capacity``, with ``eval_capacity_factor`` when not training; with
 ``drop_tokens=False`` it is T (nothing drops).
 
-Under expert parallelism each rank holds ``E / ep`` consecutive experts
-(``moe_w_*`` [E_local, ...]), and under tensor parallelism a slice of
-their FFN width. Tokens are NOT split: every rank routes all T tokens
-(the same gating on the same inputs), computes its experts' outputs at
-their capacity slots and its part of each token's combine, and one
-``all_reduce`` over the tensor and expert axes sums the parts. JAX
-reaches the same function through GSPMD's all-to-alls; ``moe/mappings``'s
-token split under TP is a sharding constraint with no numeric effect
-there, and is not copied: splitting tokens before gating would change T,
-hence the capacity and the drops. The combine is summed over the k
-choices in f32 in choice order, so with k <= 2 the expert-parallel sum
-equals the unsharded one bit for bit (two non-zero terms; adding zeros
-is exact).
+Serving (no batch split): under expert parallelism each rank holds ``E /
+ep`` consecutive experts (``moe_w_*`` [E_local, ...]), and under tensor
+parallelism a slice of their FFN width. Tokens are NOT split: every rank
+routes all T tokens (the same gating on the same inputs), computes its
+experts' outputs at their capacity slots and its part of each token's
+combine, and one in-place ``all_reduce`` over the tensor and expert axes
+sums the parts. The combine is summed over the k choices in f32 in choice
+order, so with k <= 2 the expert-parallel sum equals the unsharded one bit
+for bit (two non-zero terms; adding zeros is exact).
+
+Training (``train=True``; ``parallel.context.batch_rows`` says each
+rank of the batch axes holds its own rows; autograd records where the
+params need grads): JAX's ``moe_ffn``
+sees the global batch through GSPMD, so T, the capacity and each token's
+place in the cumsum order are those of the whole micro-batch. The port
+gathers the micro-batch's tokens over the batch axes (data, fsdp,
+expert) in rank order, which is the global order, before the gate
+(``gather_along``; its backward sums the grads onto each rank's rows),
+routes them all on every rank, runs its experts over their slots, and
+combines only the rows of its expert group (the ranks that differ only
+along ``expert``); a ``reduce_scatter`` over ``expert`` sums the group's
+partial outputs onto each rank's own rows (``scatter_along``). Under a
+tensor axis the dispatched tokens and the combine weights enter through
+``copy_to_tensor`` (each rank's FFN slice gives a partial grad) and the
+partial outputs are summed onto the rank's sequence piece and gathered
+back (``moe/mappings``). The aux loss is the whole micro-batch's on every
+rank: the engine averages the ranks' losses and grads, so it counts
+once. The gate noise (``Jitter`` / ``RSample``) is drawn from a
+``torch.Generator`` the model seeds by (seed, step, micro-batch, layer),
+so the remat replay redraws it exactly; it cannot match ``jax.random``
+value for value.
 
 JAX computes the dispatch and the expert products as einsums outside any
 Pallas kernel; here they are a scatter, ``bmm`` and a gather: there is no
@@ -36,7 +54,28 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.parallel.context import all_reduce, axis_index
+import contextlib
+
+from deepspeed_tpu_torch.moe.mappings import gather_tokens
+from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
+                                                  axis_size, copy_to_tensor,
+                                                  gather_along, scatter_along,
+                                                  split_axes)
+
+_RECORD: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Collect each ``moe_ffn`` call's aux loss and dropped fraction (0-dim
+    tensors, detached, in call order) for the block: ``with
+    record_routing() as rec: ...``; ``rec`` is a list of dicts."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
 
 
 def _capacity(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -124,21 +163,35 @@ def top_k_gating(logits, k: int, capacity: int, *, generator=None,
 def moe_ffn(moe_params, x, cfg, *, generator=None, train: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE feed-forward over x [B, S, H] (all B * S tokens routed
-    together); ``moe_params``: {"wg": [H, E], "w_in": [E_l, H, F_l],
+    together, or on the training path the whole micro-batch's: see the
+    module note); ``moe_params``: {"wg": [H, E], "w_in": [E_l, H, F_l],
     "w_out": [E_l, F_l, H], optional "w_gate": [E_l, H, F_l]} with this
-    rank's experts and FFN slice. Returns (y [B, S, H], aux loss)."""
+    rank's experts and FFN slice. ``generator`` draws the gate noise of
+    training. Returns (y [B, S, H], aux loss)."""
+    graph = torch.is_grad_enabled() and (x.requires_grad or any(
+        t.requires_grad for t in moe_params.values()))
+    axes = split_axes()
+    tp = axis_size("tensor")
     B, S, H = x.shape
-    T = B * S
-    tokens = x.reshape(T, H)
+    xs = gather_along(x, axes, dim=0) if axes else x
+    Bg = xs.shape[0]
+    T = Bg * S
+    tokens = xs.reshape(T, H)
     wg = moe_params["wg"]
     E = wg.shape[-1]
     cf = cfg.capacity_factor if train else cfg.eval_capacity_factor
     C = _capacity(T, E, cf, cfg.min_capacity)
     if not cfg.drop_tokens:
         C = T
-    picks, aux, _ = route(tokens.float() @ wg.float(), cfg.top_k, C,
-                          generator=generator,
-                          noise_policy=cfg.noisy_gate_policy, train=train)
+    picks, aux, metrics = route(tokens.float() @ wg.float(), cfg.top_k, C,
+                                generator=generator,
+                                noise_policy=cfg.noisy_gate_policy,
+                                train=train)
+    if _RECORD is not None:
+        _RECORD.append({"aux": aux.detach(),
+                        "dropped_fraction": metrics["dropped_fraction"]})
+    if graph and tp > 1:
+        tokens = copy_to_tensor(tokens)
     w_in = moe_params["w_in"]
     E_l = w_in.shape[0]
     e0 = axis_index("expert") * E_l
@@ -162,11 +215,35 @@ def moe_ffn(moe_params, x, cfg, *, generator=None, train: bool = False
     else:
         act = F.gelu(up, approximate="tanh")        # jax.nn.gelu's default
     out = torch.bmm(act, moe_params["w_out"].to(x.dtype)).view(E_l * C, H)
+    # the rows this rank combines: its expert group's (the whole batch
+    # when the rows are not split)
+    grp = Bg
+    if axes:
+        grp = Bg // math.prod(axis_size(a) for a in axes if a != "expert")
+    t0 = (axis_index("data") * axis_size("fsdp") + axis_index("fsdp")) \
+        * grp * S if axes else 0
+    rows = slice(t0, t0 + grp * S)
     # the combine in f32, choice by choice: each product of the weight
     # (in x's dtype, as JAX casts the combine) and the slot's output
-    y = torch.zeros((T, H), dtype=torch.float32, device=x.device)
+    y = torch.zeros((grp * S, H), dtype=torch.float32, device=x.device)
     for (f, mine), (_, _, w, _) in zip(flat, picks):
-        wk = torch.where(mine, w, torch.zeros_like(w)).to(x.dtype).float()
-        y = y + wk[:, None] * out[f].float()
-    all_reduce(y, "tensor", "expert")
-    return y.to(x.dtype).reshape(B, S, H), aux
+        wk = torch.where(mine, w, torch.zeros_like(w))[rows]
+        if graph and tp > 1:
+            wk = copy_to_tensor(wk)
+        y = y + wk.to(x.dtype).float()[:, None] * out[f[rows]].float()
+    y = y.view(grp, S, H)
+    if "expert" in axes:
+        y = scatter_along(y, "expert", dim=0)
+    elif not axes and axis_size("expert") > 1:
+        if graph:
+            raise ValueError(
+                "moe_ffn with a graph over an expert axis needs the rows "
+                "split over the batch axes (parallel.context.batch_rows), "
+                "as the engine's training step gives them")
+        all_reduce(y, "expert")
+    if tp > 1:
+        if graph:
+            y = gather_tokens(scatter_along(y, "tensor", dim=1), dim=1)
+        else:
+            all_reduce(y, "tensor")
+    return y.to(x.dtype), aux

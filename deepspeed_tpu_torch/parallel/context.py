@@ -15,6 +15,26 @@ gathers each layer's shards where the layer runs, ``gather_params``) and
 where this rank's rows start in the one-rank run's micro-batch
 (``batch_row``: dropout seeds each row's mask by its row there, so a
 data-parallel run drops what the one-rank run drops).
+
+The training path reaches the ``tensor`` and batch axes through
+collectives autograd can differentiate (Megatron's conventions: a tensor
+group's ranks hold the same rows and count their loss once, the ranks of
+a batch axis hold their own rows and their losses add up):
+
+- ``copy_to_tensor``: identity forward, ``all_reduce`` over ``tensor``
+  backward (the input of a column-parallel projection: each rank's
+  partial grad of a replicated activation is summed);
+- ``reduce_from_tensor``: ``all_reduce`` forward, identity backward (the
+  output of a row-parallel projection);
+- ``gather_along``: an ``all_gather`` along a dim over axes, whose
+  backward is the ``reduce_scatter`` (the tokens a MoE layer gathers
+  over the batch axes);
+- ``scatter_along``: the ``reduce_scatter`` forward, ``all_gather``
+  backward (each rank's rows of a summed MoE output).
+
+Each goes through the comm facade, so its counts of calls and bytes hold,
+and each is the identity where its axes have size 1. The serving path
+keeps the in-place ``all_reduce``: it keeps no graph.
 """
 
 import contextlib
@@ -22,11 +42,12 @@ from typing import Callable, Optional
 
 import torch
 
-from deepspeed_tpu_torch.parallel.mesh import Mesh
+from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, Mesh
 
 _MESH: Optional[Mesh] = None
 _GATHER: Optional[Callable] = None
 _ROW: int = 0
+_SPLIT: bool = False
 
 
 def set_parallel_context(mesh: Optional[Mesh]) -> None:
@@ -75,6 +96,83 @@ def all_reduce(x: torch.Tensor, *axes: str) -> torch.Tensor:
     return x
 
 
+def _live(axes) -> tuple:
+    return tuple(a for a in axes if axis_size(a) > 1)
+
+
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deepspeed_tpu_torch.comm import comm
+        return comm.all_reduce(g.clone(), "tensor")
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        from deepspeed_tpu_torch.comm import comm
+        return comm.all_reduce(x.clone(), "tensor")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        from deepspeed_tpu_torch.comm import comm
+        ctx.axes, ctx.dim = axes, dim
+        return comm.all_gather(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deepspeed_tpu_torch.comm import comm
+        return comm.reduce_scatter(g, ctx.axes, dim=ctx.dim), None, None
+
+
+class _ScatterAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim):
+        from deepspeed_tpu_torch.comm import comm
+        ctx.axes, ctx.dim = axes, dim
+        return comm.reduce_scatter(x, axes, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from deepspeed_tpu_torch.comm import comm
+        return comm.all_gather(g, ctx.axes, dim=ctx.dim), None, None
+
+
+def copy_to_tensor(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward sums the grad over ``tensor``."""
+    return _CopyToTensor.apply(x) if axis_size("tensor") > 1 else x
+
+
+def reduce_from_tensor(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over ``tensor`` (a new tensor); identity backward."""
+    return _ReduceFromTensor.apply(x) if axis_size("tensor") > 1 else x
+
+
+def gather_along(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` along ``axes`` concatenated along ``dim`` in
+    coordinate order (row-major over the axes); the backward sums the
+    grad over the axes and keeps this rank's piece."""
+    axes = _live((axes,) if isinstance(axes, str) else axes)
+    return _GatherAlong.apply(x, axes, dim) if axes else x
+
+
+def scatter_along(x: torch.Tensor, axes, dim: int = 0) -> torch.Tensor:
+    """``x`` summed over ``axes``, this rank's piece along ``dim``; the
+    backward gathers the pieces' grads."""
+    axes = _live((axes,) if isinstance(axes, str) else axes)
+    return _ScatterAlong.apply(x, axes, dim) if axes else x
+
+
 @contextlib.contextmanager
 def param_gather(fn: Optional[Callable]):
     """Publish ZeRO-3's ``fn(tree, prefix)`` for the block: it returns
@@ -97,13 +195,21 @@ def gather_params(tree, prefix: str = ""):
 @contextlib.contextmanager
 def batch_rows(start: int):
     """This rank's micro-batch is rows ``start``.. of the one-rank run's,
-    for the block."""
-    global _ROW
-    prev, _ROW = _ROW, start
+    for the block: the batch axes split the rows (``split_axes``)."""
+    global _ROW, _SPLIT
+    prev, _ROW = (_ROW, _SPLIT), start
+    _SPLIT = True
     try:
         yield
     finally:
-        _ROW = prev
+        _ROW, _SPLIT = prev
+
+
+def split_axes() -> tuple:
+    """Inside ``batch_rows``: the batch axes of size > 1 whose ranks hold
+    their own rows (a MoE layer gathers the micro-batch over them);
+    elsewhere ()."""
+    return _live(BATCH_AXES) if _SPLIT else ()
 
 
 def batch_row() -> int:

@@ -11,9 +11,11 @@ the JAX device of the same index: rank ``r`` of a plan with ``expert =
 E`` and ``tensor = T`` is at ``(r // T, r % T)``, and the ranks of one
 tensor group are adjacent.
 
-Training runs the ``data`` and ``fsdp`` axes (ZeRO, ``runtime/zero.py``;
-``plan_from_config`` puts the data-parallel degree on ``data`` for ZeRO
-stage <= 2 and on ``fsdp`` for stage 3); serving runs ``expert`` and
+Training runs every axis: ``data`` and ``fsdp`` (ZeRO,
+``runtime/zero.py``; ``plan_from_config`` puts the data-parallel degree
+on ``data`` for ZeRO stage <= 2 and on ``fsdp`` for stage 3), ``expert``
+(a batch axis whose ranks also hold their own experts) and ``tensor``
+(Megatron's column and row cuts); serving runs ``expert`` and
 ``tensor``. ``pipe`` and ``seq`` (pipeline and ring attention) are
 ROADMAP A9.
 """
@@ -73,25 +75,43 @@ class MeshPlan:
 
 
 def plan_from_config(config, world_size: int) -> MeshPlan:
-    """JAX's ``plan_from_config`` for the axes the port trains: explicit
-    ``mesh.axes`` wins (their product must be the world size); otherwise
-    the whole world is data-parallel, on ``data`` for ZeRO stage <= 2
-    and on ``fsdp`` for stage 3."""
+    """JAX's ``plan_from_config``: explicit ``mesh.axes`` wins (their
+    product must be the world size; ``expert`` defaults to
+    ``moe.expert_parallel_size`` when ``moe`` is enabled); otherwise
+    ``tensor_parallel.tp_size`` takes the tensor axis, the rest is the
+    data-parallel degree, of which ``moe.expert_parallel_size`` (when
+    ``moe`` is enabled) goes to ``expert`` and the remainder to ``data``
+    for ZeRO stage <= 2 or to ``fsdp`` for stage 3. The pipeline and
+    sequence degrees are 1: their sections raise (ROADMAP A9)."""
     explicit = dict(config.mesh.axes or {})
+    moe = getattr(config, "moe", None)
+    moe_on = bool(moe is not None and moe.enabled)
     if explicit:
         unknown = set(explicit) - set(AXIS_ORDER) - {"pipe", "seq"}
         if unknown:
             raise ValueError(f"mesh.axes names unknown axes "
                              f"{sorted(unknown)}; the axes are "
                              f"{AXIS_ORDER + ('pipe', 'seq')}")
-        plan = MeshPlan(**{k: int(v) for k, v in explicit.items()})
+        axes = {k: int(v) for k, v in explicit.items()}
+        axes.setdefault("expert", moe.expert_parallel_size if moe_on else 1)
+        plan = MeshPlan(**axes)
         if plan.world_size != world_size:
             raise ValueError(f"mesh.axes product {plan.world_size} != world "
                              f"size {world_size}")
         return plan
+    tp = max(1, config.tensor_parallel.tp_size)
+    if world_size % tp != 0:
+        raise ValueError(f"world size {world_size} not divisible by "
+                         f"pipe(1)*tensor({tp})*seq(1)")
+    dp = world_size // tp
+    ep = max(1, moe.expert_parallel_size) if moe_on else 1
+    if dp % ep != 0:
+        raise ValueError(f"expert_parallel_size {ep} must divide dp degree "
+                         f"{dp}")
+    dp //= ep
     if config.zero_optimization.stage >= 3:
-        return MeshPlan(fsdp=world_size)
-    return MeshPlan(data=world_size)
+        return MeshPlan(fsdp=dp, expert=ep, tensor=tp)
+    return MeshPlan(data=dp, expert=ep, tensor=tp)
 
 
 class Topology:

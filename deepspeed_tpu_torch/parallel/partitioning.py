@@ -15,6 +15,11 @@ the tuple's order (JAX's ``PartitionSpec(("fsdp", "tensor"))``).
 A spec here is JAX's ``PartitionSpec`` as a plain tuple: one entry a
 dim, None (replicated), an axis name or a tuple of names; trailing Nones
 dropped.
+
+``row_parallel_matmul`` is JAX's chunked tensor-parallel out-projection
+(``transformer.tp_overlap_chunks``): the product cut along the sequence
+dim, each piece's matmul followed by its own ``all_reduce`` over
+``tensor``.
 """
 
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -22,6 +27,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.parallel import context as _ctx
 from deepspeed_tpu_torch.parallel.mesh import Mesh
 
 MeshAxis = Union[str, Tuple[str, ...], None]
@@ -200,3 +206,55 @@ def sharded_bytes(tree: Any) -> int:
     if isinstance(tree, dict):
         return sum(sharded_bytes(v) for v in tree.values())
     return 0
+
+
+class _RowParallelChunked(torch.autograd.Function):
+    """The forward in ``chunks`` pieces along dim -2, each piece's matmul
+    then its ``all_reduce``; the backward is the plain matmul's (JAX pins
+    it with ``custom_vjp``: a chunked transpose would split the weight
+    grad's sequence contraction into partial sums, a reordering)."""
+
+    @staticmethod
+    def forward(ctx, x, w, chunks):
+        from deepspeed_tpu_torch.comm import comm
+        ctx.save_for_backward(x, w)
+        dim, size = x.dim() - 2, x.shape[-2] // chunks
+        # each piece reduced in a copy: a remat policy that keeps matmul
+        # outputs hands its replay the product it saved, which must not
+        # be the reduced one
+        return torch.cat([comm.all_reduce(
+            (x.narrow(dim, i * size, size) @ w).clone(), "tensor")
+            for i in range(chunks)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(ctx.needs_input_grad[0])
+            wr = w.detach().requires_grad_(ctx.needs_input_grad[1])
+            wanted = [t for t in (xr, wr) if t.requires_grad]
+            got = iter(torch.autograd.grad(xr @ wr, wanted, g))
+        return (next(got) if xr.requires_grad else None,
+                next(got) if wr.requires_grad else None, None)
+
+
+def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor, *,
+                        chunks: int = 0) -> torch.Tensor:
+    """``x @ w`` for a row-parallel weight (its in dim sharded over
+    ``tensor``), summed over the tensor axis, with the sum cut into
+    ``chunks`` independent ``all_reduce`` calls along the sequence dim
+    (-2): the largest divisor of it that is at most ``chunks``. Each
+    output element sums the same partials in the same order as the
+    unchunked path, and the backward is the plain matmul's (the
+    reduction's backward is the identity, ``reduce_from_tensor``), so
+    values and grads equal the unchunked path's bit for bit. Without a
+    tensor axis it is the plain matmul; with one but ``chunks`` <= 1, the
+    matmul and one reduction."""
+    if _ctx.axis_size("tensor") == 1:
+        return x @ w
+    c = min(int(chunks or 0), x.shape[-2]) if x.dim() >= 2 else 0
+    while c > 1 and x.shape[-2] % c:
+        c -= 1
+    if c <= 1:
+        return _ctx.reduce_from_tensor(x @ w)
+    return _RowParallelChunked.apply(x, w, c)

@@ -49,9 +49,15 @@ which each layer's masks are drawn (``models/transformer._dropout``);
 
 More than one rank (the default group of more than one process, or
 ``initialize(mesh=...)``): the plan comes from ``parallel.mesh.
-plan_from_config`` (stage <= 2 on ``data``, stage 3 on ``fsdp``) and
-``runtime/zero.Partition`` keeps each rank's slice of params, grads and
-optimizer state. ``train_batch`` takes the global batch on every rank;
+plan_from_config`` (``tensor_parallel.tp_size`` on ``tensor``,
+``moe.expert_parallel_size`` on ``expert``, the rest on ``data`` at stage
+<= 2 or ``fsdp`` at stage 3) and ``runtime/zero.Partition`` keeps each
+rank's slice of params, grads and optimizer state. The ranks of a batch
+axis (data, fsdp, expert) take their own rows; a tensor group's ranks
+share theirs and run Megatron's column and row cuts of every layer (the
+model's ``copy_to_tensor`` / ``reduce_from_tensor``); a MoE layer gathers
+the micro-batch over the batch axes before its gate, as JAX's gates the
+global batch (``moe/sharded_moe.py``). ``train_batch`` takes the global batch on every rank;
 each rank computes the grads of its contiguous rows (JAX's batch
 sharding over ``BATCH_AXES``), reduced when the schedule says
 (``comm/schedule.py``); the global norm counts every element once, LAMB's
@@ -98,8 +104,8 @@ one rank raises naming ROADMAP A8d.
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
-training over a ``tensor`` or ``expert`` axis (A9), and the config
-sections ``config/config.py`` lists.
+the config sections ``config/config.py`` lists (pipeline stages and
+ring attention among them, A9).
 """
 
 import collections
@@ -122,7 +128,6 @@ from deepspeed_tpu_torch.config.config import raise_offload_over_ranks
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
-                                                    check_trainable,
                                                     lm_labels, logical_axes,
                                                     make_model, mask_seed)
 from deepspeed_tpu_torch.ops.onebit import PhasedOptimizer
@@ -228,28 +233,23 @@ class Engine:
             mesh = build_mesh(plan_from_config(config,
                                                comm.get_world_size()))
         self.mesh, self.plan = mesh, mesh.plan
-        for axis in ("tensor", "expert"):
-            if self.mesh.size(axis) > 1:
-                raise NotImplementedError(
-                    f"training over a {axis} axis of size "
-                    f"{self.mesh.size(axis)} is not ported yet: ROADMAP A9 "
-                    "(tensor-parallel and MoE training)")
         config.resolve_batch_size(self.plan.dp_world_size)
         if self.plan.world_size > 1:
             logger.info(zero_mod.describe(config.zero_optimization,
                                           self.plan))
 
         # the `transformer` section rebuilds the model config, as in JAX
-        if config.transformer.fused_backward:
+        tcfg = config.transformer
+        if tcfg.fused_backward or tcfg.tp_overlap_chunks > 1:
             if isinstance(getattr(model, "config", None), TransformerConfig):
                 model = make_model(dataclasses.replace(
-                    model.config, fused_backward=True), name=model.name)
+                    model.config, fused_backward=tcfg.fused_backward,
+                    tp_overlap_chunks=int(tcfg.tp_overlap_chunks)),
+                    name=model.name)
             else:
                 logger.warning("`transformer` config section ignored: model "
                                "is not a transformer ModelSpec")
         self.model = model
-        if isinstance(getattr(model, "config", None), TransformerConfig):
-            check_trainable(model.config)
 
         # deterministic fault injection armed from the config: the
         # injector is process-global, so a rebuilt engine with the same
@@ -633,15 +633,22 @@ class Engine:
         return _Staged(dev, done)
 
     def _dropout_kw(self, micro: int) -> Dict[str, int]:
-        """The loss function's dropout seed for micro-batch ``micro`` of
-        this step, for a model with ``dropout_rate > 0`` (else nothing):
-        fixed by (config seed, step, micro-batch), so a replayed layer, a
-        repeated run and a resumed one draw the same masks."""
-        if not getattr(getattr(self.model, "config", None), "dropout_rate",
-                       0.0):
-            return {}
-        return {"dropout_seed": mask_seed(self.config.seed,
-                                          self.global_steps, micro)}
+        """The loss function's training keywords for micro-batch ``micro``
+        of this step: a MoE model routes with the training capacity
+        (``train``); a model with ``dropout_rate > 0`` or a MoE model with
+        gate noise gets the seed of its masks and noise, fixed by (config
+        seed, step, micro-batch), so a replayed layer, a repeated run and
+        a resumed one draw the same masks and noise."""
+        mcfg = getattr(self.model, "config", None)
+        kw = {}
+        moe = getattr(mcfg, "num_experts", 1) > 1
+        if moe:
+            kw["train"] = True
+        if getattr(mcfg, "dropout_rate", 0.0) or (
+                moe and getattr(mcfg, "noisy_gate_policy", None)):
+            kw["dropout_seed"] = mask_seed(self.config.seed,
+                                           self.global_steps, micro)
+        return kw
 
     def _micro_grads(self, mb, micro: int = 0, row: Optional[int] = None,
                      label_count=None):
@@ -656,9 +663,10 @@ class Engine:
         leaves = tree_leaves(self.state["params"])
         kw = self._dropout_kw(micro)
         with contextlib.ExitStack() as ctx:
-            if row is not None and kw:
-                # the backward's remat replay redraws the masks: both
-                # passes run in the rows' context
+            if row is not None:
+                # the rows are this rank's (a MoE layer gathers the
+                # micro-batch's); the backward's remat replay redraws the
+                # masks: both passes run in the rows' context
                 ctx.enter_context(par_ctx.batch_rows(row))
             if label_count is not None:
                 kw["label_count"] = label_count

@@ -23,6 +23,15 @@ puts on the device at the rank's mesh coordinates:
   layer's whole weights live only while it runs (the reference's
   fetch / release). The embedding and the head are gathered once a pass.
 
+Over the model axes: a leaf sharded over ``expert`` (an expert stack)
+has its grad summed over data x fsdp only, every other leaf over data x
+fsdp x expert (``expert`` is a batch axis); no grad is summed over
+``tensor`` (a leaf sharded there holds its own slice's grad, and a leaf
+replicated there has the same grad on every tensor rank: the model's
+``copy_to_tensor`` / ``reduce_from_tensor`` see to it). The global norm
+adds the shards' sums over the axes that shard each leaf, so each element
+counts once.
+
 The collectives go through the comm facade by axis name; when they run
 is the schedule's (``comm/schedule.py``).
 """
@@ -36,7 +45,8 @@ import torch
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm import schedule as comm_sched
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
-from deepspeed_tpu_torch.parallel.mesh import BATCH_AXES, Mesh, MeshPlan
+from deepspeed_tpu_torch.parallel.mesh import (AXIS_ORDER, BATCH_AXES, Mesh,
+                                               MeshPlan)
 from deepspeed_tpu_torch.parallel.partitioning import (Spec, entry_axes,
                                                        from_entries,
                                                        make_rules, mesh_axes,
@@ -272,9 +282,10 @@ class Partition:
 
     def any_rank(self, flag: torch.Tensor) -> torch.Tensor:
         """A bool flag true on every rank when it is true on any (the
-        fp16 overflow: every rank skips the same step)."""
+        fp16 overflow, each rank's over its shards of the grads: every
+        rank skips the same step)."""
         f = flag.to(torch.float32).reshape(1)
-        comm.all_reduce(f, BATCH_AXES, op="max")
+        comm.all_reduce(f, AXIS_ORDER, op="max")
         return f[0] > 0
 
     def mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
@@ -303,9 +314,15 @@ class Partition:
     # --- stage 3 ------------------------------------------------------------
     def gatherer(self):
         """``parallel.context.param_gather``'s function: ``fn(tree,
-        prefix)`` with every param sharded over a batch axis made whole
-        by ``GatherShard`` (the stacked "layers" subtree passes through at
-        the top: each layer gathers its own slices, prefix "layers/")."""
+        prefix)`` with every param sharded over ``fsdp`` made whole along
+        that axis by ``GatherShard`` (the stacked "layers" subtree passes
+        through at the top: each layer gathers its own slices, prefix
+        "layers/"). Shards over ``expert`` and ``tensor`` stay: the model
+        runs on them. A dim split over (fsdp, tensor) together (the
+        stage-3 table's vocab) holds interleaved pieces of the tensor
+        ranks' slices, so it is gathered over both and cut to this rank's
+        contiguous tensor slice; the backward's sum over ``tensor`` adds
+        exact zeros outside each rank's slice."""
         def gather(tree, prefix: str = ""):
             out = {}
             for k, v in tree.items():
@@ -316,10 +333,18 @@ class Partition:
                     continue
                 shift = v.dim() - len(lay.shape)     # -1 for a layer slice
                 for d, e in enumerate(spec_entries(lay.pspec)):
-                    axes = tuple(a for a in e if a in BATCH_AXES
-                                 and self.mesh.size(a) > 1)
-                    if axes and d + shift >= 0:
-                        v = GatherShard.apply(v, axes, d + shift, self.mesh)
+                    live = tuple(a for a in e if self.mesh.size(a) > 1)
+                    if "fsdp" not in live or d + shift < 0:
+                        continue
+                    dim = d + shift
+                    if live == ("fsdp",):
+                        v = GatherShard.apply(v, live, dim, self.mesh)
+                        continue
+                    whole = GatherShard.apply(v, live, dim, self.mesh)
+                    n = self.mesh.size("tensor")
+                    part = whole.shape[dim] // n
+                    v = whole.narrow(dim, self.mesh.index("tensor") * part,
+                                     part)
                 out[k] = v
             return out
         return gather

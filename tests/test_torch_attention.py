@@ -26,6 +26,8 @@ from deepspeed_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_fwd,
     flash_attention_reference)
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 TOL = {np.float32: 1e-5, "bfloat16": 2e-2}
 
 

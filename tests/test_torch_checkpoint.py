@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.runtime.dataloader import random_token_batches
 from deepspeed_tpu_torch.runtime.engine import load_16bit_model
 from deepspeed_tpu_torch.utils import ckpt_tools, zero_to_fp32
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 VOCAB, S, B = 512, 64, 4
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

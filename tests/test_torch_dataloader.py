@@ -22,6 +22,8 @@ from deepspeed_tpu.runtime import dataloader as jdl
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.runtime import dataloader as tdl
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 VOCAB, S = 512, 64
 
 

@@ -37,6 +37,8 @@ from deepspeed_tpu_torch.robustness import integrity
 from deepspeed_tpu_torch.robustness.preemption import (Preempted,
                                                        PreemptionHandler)
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_disagg.py's _cfg and _serving (no role), at f32
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=128, position_type="rotary",

@@ -20,6 +20,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import convert, transformer as tt
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 DIMS = dict(vocab_size=256, num_layers=2, max_seq_len=64, hidden_size=64,
             num_heads=4, num_kv_heads=2, intermediate_size=128)
 RATE = 0.1

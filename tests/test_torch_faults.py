@@ -25,6 +25,7 @@ from deepspeed_tpu_torch.robustness import integrity
 
 from tests import _torch_fleet_common as C
 from tests import _torch_tp_workers as TPW
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 JAX, PORT = C.package("jax"), C.package("port")
 

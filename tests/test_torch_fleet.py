@@ -18,6 +18,7 @@ import pytest
 from deepspeed_tpu_torch.inference.router import ReplicaHandle
 
 from tests import _torch_fleet_common as C
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 JAX, PORT = C.package("jax"), C.package("port")
 # the router-level events held equal between the packages

@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.telemetry import exposition as pexp
 from deepspeed_tpu_torch.telemetry import request_trace as prt
 
 from tests import _torch_fleet_common as C
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 JAX, PORT = C.package("jax"), C.package("port")
 _TIMES = ("ts", "dur")

@@ -29,6 +29,8 @@ from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.models import convert, transformer as tt
 from deepspeed_tpu_torch.runtime import fp16 as port_fp16
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 DIMS = dict(vocab_size=256, num_layers=2, max_seq_len=32, hidden_size=64,
             num_heads=4, num_kv_heads=2, intermediate_size=128)
 

@@ -17,6 +17,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import transformer as pt
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_serving.py's _cfg, at f32
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",

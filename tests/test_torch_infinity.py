@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.runtime import infinity as port_inf
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 V, S, B, GAS = 256, 32, 4, 2
 DIMS = dict(vocab_size=V, num_layers=2, max_seq_len=S, hidden_size=64,
             num_heads=4, num_kv_heads=2, intermediate_size=128)

@@ -75,7 +75,9 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "test_torch_zero_cuda.py",
     ROOT / "tests" / "_torch_fleet_stub.py",
     ROOT / "tests" / "test_torch_fleet_cuda.py",
-    ROOT / "tests" / "test_torch_offload_cuda.py"],
+    ROOT / "tests" / "test_torch_offload_cuda.py",
+    ROOT / "tests" / "_torch_mp_workers.py",
+    ROOT / "tests" / "test_torch_moe_training_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

@@ -25,6 +25,8 @@ from deepspeed_tpu_torch.inference import lora as plora
 from deepspeed_tpu_torch.models import transformer as pt
 from deepspeed_tpu_torch.robustness import events as rb_events
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 RANK = 4
 # tests/unit/test_lora_serving.py's _cfg and _serving, at f32
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,

@@ -15,6 +15,8 @@ import torch
 from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import convert, transformer as pt
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 CFG = dict(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
            num_kv_heads=2, intermediate_size=512, max_seq_len=128,
            position_type="rotary", activation="silu_glu", norm_type="rmsnorm",
@@ -225,11 +227,12 @@ def test_deferred_model_features_raise():
     for bad in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             pt.TransformerConfig(**{**CFG, **bad})
-    # a MoE model serves; training one raises, naming A9
+    # a MoE model serves and trains (its loss carries the aux term)
     moe = pt.TransformerConfig(**{**CFG, "num_experts": 4})
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        pt.lm_loss({}, {"input_ids": torch.zeros((1, 4), dtype=torch.long)},
-                   moe)
+    p = pt.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    loss = pt.lm_loss(p, {"input_ids": torch.zeros((1, 4), dtype=torch.long)},
+                      moe, train=True)
+    assert torch.isfinite(loss)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         convert.params_from_numpy({"tok_embed": np.zeros((4, 4)),
                                    "layers": {"bq": np.zeros((2, 4))}},

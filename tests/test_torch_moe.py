@@ -24,6 +24,8 @@ from deepspeed_tpu.moe import sharded_moe as jmoe
 from deepspeed_tpu_torch.models import convert, transformer as pt
 from deepspeed_tpu_torch.moe import sharded_moe as pmoe
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_tp_serving.py's _cfg(num_experts=4, top_k=2)
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",
@@ -229,15 +231,22 @@ def test_moe_weight_bits_matches_jax(monkeypatch):
 
 
 def test_moe_training_raises():
-    """MoE training (aux loss, gate noise, the backward) stays A9."""
+    """What of MoE training is still left out raises: pipeline stages
+    (ROADMAP A9) and the layer-streamed offload, which streams dense
+    layers only, as JAX's. MoE training itself runs
+    (``tests/test_torch_moe_training.py``)."""
     model = pt.make_model(pt.TransformerConfig(**CFG, dtype=torch.float32))
+    conf = {"train_batch_size": 2,
+            "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}}
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         deepspeed_tpu_torch.initialize(
-            model=model, config={"train_batch_size": 2, "optimizer": {
-                "type": "adamw", "params": {"lr": 1e-3}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        model.loss_fn({}, {"input_ids": torch.zeros((1, 8),
-                                                     dtype=torch.long)})
+            model=model, config=dict(conf, pipeline={"stages": 2}),
+            device="cpu")
+    with pytest.raises(ValueError, match="MoE"):
+        deepspeed_tpu_torch.initialize(
+            model=model, config=dict(conf, zero_optimization={
+                "stage": 3, "offload_param": {"device": "cpu"}}),
+            device="cpu")
 
 
 def test_mixtral_config_matches_jax():

@@ -34,6 +34,8 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops import host_build
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 V, S, B = 256, 32, 4
 DIMS = dict(vocab_size=V, num_layers=2, max_seq_len=S, hidden_size=64,
             num_heads=4, num_kv_heads=2, intermediate_size=128)

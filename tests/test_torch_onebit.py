@@ -31,6 +31,7 @@ from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 from deepspeed_tpu_torch.parallel.launch import run_group
 
 from tests import _torch_zero_workers as W
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 RTOL, ATOL = 2e-4, 1e-5
 

@@ -23,6 +23,8 @@ from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops import optimizers as port_opt
 from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 
 def rel_l2(got, want):
     got = np.asarray(got, np.float64).ravel()

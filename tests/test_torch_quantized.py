@@ -20,6 +20,8 @@ from deepspeed_tpu_torch.inference.kv_cache import pool_bytes
 from deepspeed_tpu_torch.models import transformer as pt
 from deepspeed_tpu_torch.ops import quantizer as pq
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_serving.py's _cfg, at f32
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",

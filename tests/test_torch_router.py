@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from tests import _torch_fleet_common as C
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 PACKAGES = {n: C.package(n) for n in ("jax", "port")}
 PROMPT = np.arange(4, dtype=np.int32)

@@ -27,6 +27,8 @@ from deepspeed_tpu_torch.inference.scheduler import AdmissionRejected
 from deepspeed_tpu_torch.models import convert, transformer as pt
 from deepspeed_tpu_torch.robustness import events as port_events
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_serving.py's _cfg at f32, and its _serving defaults
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",

@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.ops import _build
 from deepspeed_tpu_torch.ops import flash_attention as port_flash
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 

@@ -26,6 +26,8 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.models import convert, transformer as pt
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",
            activation="silu_glu", norm_type="rmsnorm", tie_embeddings=False)

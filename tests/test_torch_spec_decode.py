@@ -23,6 +23,8 @@ from deepspeed_tpu.models import transformer as jt
 from deepspeed_tpu_torch.inference import spec_decode as pspec
 from deepspeed_tpu_torch.models import transformer as pt
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 # tests/unit/test_spec_decode.py's _cfg and _serving, at f32
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
            num_kv_heads=2, max_seq_len=256, position_type="rotary",

@@ -27,6 +27,8 @@ from deepspeed_tpu.ops import sparse_attention as jsa
 from deepspeed_tpu_torch.ops import decode_attention as tda
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 TOL = 1e-5
 
 

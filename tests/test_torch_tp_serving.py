@@ -40,6 +40,7 @@ from deepspeed_tpu_torch.parallel.launch import run_group
 from deepspeed_tpu_torch.parallel.partitioning import spec_tree
 
 from tests import _torch_tp_workers as W
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 
 def _jcfg(**overrides):

@@ -33,6 +33,8 @@ from deepspeed_tpu_torch.ops import optimizers as port_opt
 from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 from deepspeed_tpu_torch.runtime import lr_schedules as port_lr
 
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
+
 VOCAB, S, B = 256, 64, 2
 
 
@@ -455,11 +457,11 @@ def test_batch_triad_solves_as_jax():
                             "offload_optimizer": {"device": "cpu"}},
       "mesh": {"axes": {"data": 2}}}, "A8d"),
     ({"pipeline": {"stages": 2}}, "A9"),
-    ({"tensor_parallel": {"tp_size": 2}}, "A9"),
+    ({"tensor_parallel": {"tp_size": 2, "seq_parallel": True}}, "A9"),
     ({"comms_logger": {"enabled": True}}, "A9"),
     ({"telemetry": {"enabled": True}}, "A11"),
-    ({"moe": {"enabled": True}}, "A9"),
-    ({"transformer": {"tp_overlap_chunks": 4}}, "A9"),
+    ({"sequence_parallel": {"sp_size": 2}}, "A9"),
+    ({"sequence_parallel": {"size": 4}}, "A9"),
 ])
 def test_out_of_slice_sections_raise(section, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -579,12 +581,13 @@ def test_engine_surface_outside_the_slice():
         device="cpu")
     assert Config.load({"checkpoint": {"load_universal": True}}
                        ).checkpoint.load_universal
-    # training over a tensor axis and serving over a data axis are A9's
-    # (JAX's engine shards one engine's batch over data)
+    # ring attention and serving over a data axis are A9's (JAX's engine
+    # shards one engine's batch over data); training over a tensor axis
+    # runs since A9's first part
     with pytest.raises(NotImplementedError, match="A9"):
-        deepspeed_tpu_torch.initialize(model=model, config=dict(conf),
-                                       device="cpu",
-                                       mesh=Mesh(MeshPlan(tensor=2)))
+        deepspeed_tpu_torch.initialize(
+            model=model, config=dict(conf, sequence_parallel={"sp_size": 2}),
+            device="cpu", mesh=Mesh(MeshPlan(tensor=2)))
     with pytest.raises(NotImplementedError, match="A9"):
         deepspeed_tpu_torch.init_serving(model, mesh=MeshPlan(data=2),
                                          device="cpu")

@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.parallel.partitioning import make_rules, spec_tree
 from deepspeed_tpu_torch.runtime import zero as port_zero
 
 from tests import _torch_zero_workers as W
+from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 RTOL, ATOL = 2e-4, 1e-5
 
