@@ -73,7 +73,7 @@ Phases, each of which raises on failure (exit code != 0):
    BigBird layout, loss and every grad through B5-B7 against the plain
    versions, in f32 (dots_saveable and dots_and_attn: both replay B5)
    and bf16;
-10. resumable training (after phase 6): llama-1b at full width, 4
+10. resumable training (after phase 6): llama-1b at full width, 2
    layers, B=8 S=2048, bf16 with f32 masters, dots_with_no_batch_dims,
    data from ``random_token_batches`` through an attached
    ``DataLoader``: ``train_batches`` 3 steps (in_flight 2, prefetch), an
@@ -178,7 +178,8 @@ Phases, each of which raises on failure (exit code != 0):
    x prefills and B4 = L x decode steps (reported to rank 0), (b)'s
    ``pool_bytes x 2 == pool_bytes_logical`` and layer bytes halved but
    for the replicated norms, (c)'s expert stacks halved, the agreement
-   with the one-card streams (reported), and f32 at 2 layers token for
+   with the one-card streams (reported: (b) runs 16 of llama-7b's 32
+   layers and (c) 4 of Mixtral's), and f32 at 2 layers token for
    token equal to the unsharded engine. Times of (b) and (c) are of two
    processes sharing one card: not a tensor-parallel speed.
 15. after the sparse training cross-check. (a) a block-sparse model
@@ -200,7 +201,7 @@ Phases, each of which raises on failure (exit code != 0):
    serving phase's load on f16 pools (B1 = 4 x prefills, B4 = 4 x decode
    steps exactly), its agreement with the same weights in bf16. (d) SGD
    (momentum), Adagrad, Lion and LAMB over llama-1b's leaves at 2 layers:
-   3 updates on the card within 1e-5 of the same updates on CPU copies,
+   2 updates on the card within 1e-5 of the same updates on CPU copies,
    update ms beside their bound. (e) dropout 0.1 at llama-1b width, 2
    layers, B=8, S=2048: the keep fraction within 5 sigma of 0.9, grads
    under dots_saveable equal to those without remat for one seed, a step
@@ -216,7 +217,7 @@ Phases, each of which raises on failure (exit code != 0):
    over gloo (``parallel/launch.run_group``). First B1-B3 in bf16 against
    their plain versions at a rank's shapes (B = 4, S = 2048, as phase 0's
    cases). Then on the ranks: (a) every comm-facade collective on CUDA
-   tensors against its expected value; (b) llama-1b at full width, 8 of
+   tensors against its expected value; (b) llama-1b at full width, 4 of
    its 16 layers, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4
    rows a rank), ZeRO stages 0-3, 2 steps each, the launch counts zeroed just
    before: losses within 2e-2 of stage 0's, the f32 masters' change over
@@ -228,7 +229,8 @@ Phases, each of which raises on failure (exit code != 0):
    card: not a data-parallel speed); (c) f32 at 2 layers, S = 1024:
    stages 0-3 through the kernels against stage 0 through their plain
    versions on each rank's rows (losses within 1e-5, params within
-   1e-4); (d) onebitadam at 2 layers: its warm-up equal to Adam, the
+   1e-4; 2 steps each); (d) onebitadam at 2 layers: its warm-up (2
+   steps) equal to Adam, the
    compressed phase's wire about 1/32 of the dense all-reduce; (e) a
    stage-3 save at world 2 loaded here at world 1, stage 0, the next loss
    equal;
@@ -263,7 +265,7 @@ Phases, each of which raises on failure (exit code != 0):
    CPU-Adagrad, aio) built from ``deepspeed_tpu_torch/csrc/host/`` with
    their g++ flags printed, which IO path a handle takes (io_uring or
    the thread pool), and the fused CPU-Adam's host bytes per second over
-   the model's values. (b) the llama-1b training cell (full width, 8 of
+   the model's values. (b) the llama-1b training cell (full width, 4 of
    its 16 layers, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 2
    steps from one set of seeded weights: the on-device run, then (i)
    ``offload_optimizer.device=cpu`` (the chunk-streamed pinned tier),
@@ -271,15 +273,15 @@ Phases, each of which raises on failure (exit code != 0):
    (the chunk files) and (iv) ``offload_param`` nvme (ZeRO-Infinity
    layer streaming). For each: step ms, the card's peak over the steps,
    the bytes of state on the card / host / disk equal to the config's
-   law, losses within 2e-2 of the on-device run's, B1 = 2 x 8 x 3 and
-   B2 = B3 = 8 x 3 (launch counts zeroed just before the steps), the
+   law, losses within 2e-2 of the on-device run's, B1 = 2 x 4 x 3 and
+   B2 = B3 = 4 x 3 (launch counts zeroed just before the steps), the
    host libraries' calls and the chunk files' reads and writes equal to
    their counts; the peak below the on-device run's by at least the
    optimizer state's 12 bytes a param under (i)-(iii), and lower still
    under (iv). The nvme tier writes into ``offload_scratch/`` in the
    checkout (its free space and filesystem type printed first; removed
    after the phase). (c) f32 at llama-1b width, 2 layers: each route's
-   masters after 3 steps within 1e-6 relative L2 of the on-device run's
+   masters after 2 steps within 1e-6 relative L2 of the on-device run's
    (for (iv) with its layers rounded to bf16 after each update, as the
    layer store keeps them); a save under (iii) and (iv) resumed bit for
    bit.
@@ -296,17 +298,57 @@ Phases, each of which raises on failure (exit code != 0):
    B1 = 2 x 3 x 2 (the replay), B2 = B3 = 3 x 2. Then two processes
    sharing the card over gloo (not a parallel speed): (b) expert=2,
    Mixtral width, 1 layer, 4 experts and 1 row a rank; (c) tensor=2,
-   llama-7b width (32/32 heads of 128, FFN 11008), 8 layers, B=2,
+   llama-7b width (32/32 heads of 128, FFN 11008), 4 layers, B=2,
    S=2048, with ``transformer.tp_overlap_chunks`` 0 and 4: the same
    losses bit for bit; each rank's bytes of params, grads and optimizer
    state equal to the law (the expert stacks halved at expert=2; the
    column, row and vocab leaves halved at tensor=2, the norms whole),
-   and its B1 = 2 x 2 x L, B2 = B3 = 2 x L over 2 steps after a warm-up.
-   (d) f32 at 2 layers, S=512, SGD with momentum: expert=2 (capacity
-   0.5: tokens drop) and tensor=2 against the same run at world 1,
-   losses within 1e-5 and params after 3 steps within 1e-5 relative L2;
+   and its B1 = 2 x L, B2 = B3 = L over 1 step after a warm-up.
+   (d) f32 at S=512, SGD with momentum: expert=2 (Mixtral width, 1
+   layer, capacity 0.5: tokens drop) and tensor=2 (llama-7b width, 2
+   layers) against the same run at world 1,
+   losses within 1e-5 and params after 2 steps within 1e-5 relative L2;
    one f32 MoE step's grads through the kernels within 1e-4 of the
    plain path.
+20. pipeline, ring attention, data-mesh generate, the comms logger
+   (after phase 19). First the kernels' times at the ring's shapes
+   (llama-1b's heads, 32/8 of 64, S=16384 in two pieces of 8192, bf16
+   and f32): B1 and B2 / B3 on a causal and a non-causal pair, the
+   causal ring's three pairs summed, beside one call over the whole
+   sequence, SDPA and the bound. Then two processes sharing the card
+   over gloo (their point-to-point as a broadcast over the group of two
+   ring neighbours; not a parallel speed), the comms logger on: (a)
+   pipe=2, llama-1b width, 8 layers, B=8 S=2048 in M=4 micro-batches,
+   bf16 + f32 masters, AdamW, ZeRO-1, dots_saveable, 1 + 2 steps: each
+   stage's bytes of params / optimizer state / grads equal to the law
+   (its 4 layers, the other leaves whole), B1 = 3 x M x L/P a step on
+   stage 0 (the forward tick, the backward tick's recompute and its
+   remat replay) and 2 x M x L/P on the last stage (one pass under
+   autograd and its replay), B2 = B3 = M x L/P, 2 (M + 2) ppermutes
+   over pipe a step, the bubble (P - 1) / (M + P - 1), peak memory; (c)
+   seq=2, llama-1b width, 8 layers, B=1 S=16384 (8192 a rank), 1 + 2
+   steps: rank j's B1 = 2 (j + 1) L and B2 = B3 = (j + 1) L a step;
+   then ``ring_attention_local`` at those attention shapes in bf16 and
+   f32: rank j's B1 = B2 = B3 = j + 1 a call, bit for bit on repeat,
+   each rank's wall time, and the gathered O, dQ, dK, dV, and one B1 /
+   B2 / B3 call over the whole sequence, each within 2e-2 (bf16) / 1e-4
+   (f32) of the plain version (chunked by query rows); (b) f32 at
+   2 layers, S=512: pipe=2 and seq=2 against world 1, losses and params
+   after 2 steps within 1e-5; (d) ``InferenceEngine.generate`` on
+   data=2, llama-7b width, 4 layers, 4 prompts of 512 (2 a rank), 32
+   new tokens: B1 = 4 a rank (one prefill), and at f32 and 2 layers the
+   stream token-identical to one rank's; (e) each rank's logger summary
+   of (a) and (c), its calls and bytes equal to the facade's counts.
+
+Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
+seconds) when it ends, and the script a ``"total"`` one before the
+kernels line; every result line is followed by ``part_s {"phase":
+..., "part": ..., "s": ...}``, the seconds since the phase's previous
+part (in a process of a gloo group: rank 0's since its start). From
+the start, three processes of this script (``--flex-warmup i``)
+compile flex_attention for the sparse cases while the build runs,
+filling the Inductor and Triton caches the sparse phase's own compiles
+then read; the script waits for them before the first timed phase.
 
 The script puts its own directory first on ``sys.path``, so it runs from
 any working directory and under ``python -P``; in a directory without
@@ -319,6 +361,7 @@ torch, numpy and the port only.
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -340,8 +383,39 @@ TOL = {torch.bfloat16: 2e-2, torch.float16: 2e-2, torch.float32: 1e-4}
 VOCAB = 32000
 
 
+# the phase clock's running phase and the end of its last part (in a rank
+# process: its start)
+_CLOCK = {"phase": "rank", "t": time.perf_counter()}
+
+
+def mark_part(label: str) -> None:
+    """One ``part_s {"phase": ..., "part": label, "s": ...}`` line: the
+    wall seconds since the phase began or its last part ended (in a
+    process of a gloo group, rank 0's only)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
+    now = time.perf_counter()
+    print("part_s " + json.dumps({"phase": _CLOCK["phase"], "part": label,
+                                  "s": now - _CLOCK["t"]}), flush=True)
+    _CLOCK["t"] = now
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a result line ends a part of the phase clock."""
     print(msg, flush=True)
+    if not msg.startswith(("phase_s", "part_s", "{")):
+        mark_part(msg.split(" {")[0].split(" [")[0][:60])
+
+
+def timed(phase: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, then one ``phase_s`` line: its wall seconds."""
+    t0 = time.perf_counter()
+    _CLOCK.update(phase=phase, t=t0)
+    out = fn(*args, **kw)
+    log("phase_s " + json.dumps({"phase": phase,
+                                 "s": time.perf_counter() - t0}))
+    return out
 
 
 def rel_l2(got, want) -> float:
@@ -727,7 +801,30 @@ def _flex_yardstick(cfg, S, causal, q, k, v, do, o, grads):
     visible is full, one with some is partial and masked by position. Its
     O and grads are held against the kernels' (rel L2 < 2e-2: the same
     function). Returns (forward ms, whole backward ms, errors)."""
-    from torch.nn.attention.flex_attention import BlockMask, flex_attention
+    from torch.nn.attention.flex_attention import flex_attention
+    bm = _flex_block_mask(cfg, S, causal)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    # the forward timed as training runs it (one compile serves both)
+    fwd_ms = cuda_ms(lambda: flex(qt, kt, vt, block_mask=bm))
+    out = flex(qt, kt, vt, block_mask=bm)
+    dot = do.transpose(1, 2).contiguous()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                 retain_graph=True))
+    lib = (out,) + torch.autograd.grad(out, (qt, kt, vt), dot)
+    errs = {p: rel_l2(a.detach().transpose(1, 2), b)
+            for p, a, b in zip(("o", "dq", "dk", "dv"), lib, (o,) + grads)}
+    if not max(errs.values()) < 2e-2:
+        raise RuntimeError(f"flex_attention yardstick: rel L2 {errs} vs "
+                           "the kernels")
+    return fwd_ms, bwd_ms, errs
+
+
+def _flex_block_mask(cfg, S, causal):
+    """The layout's BlockMask for flex_attention (tiles of 128 x 128, the
+    layout's blocks inside them by ``mask_mod``)."""
+    from torch.nn.attention.flex_attention import BlockMask
     F, blk = 128, cfg.block
     lay = torch.from_numpy(cfg.make_layout(S)).cuda()
     if causal:
@@ -747,24 +844,8 @@ def _flex_yardstick(cfg, S, causal, q, k, v, do, o, grads):
         seen = lay[qi // blk, ki // blk]
         return seen & (ki <= qi) if causal else seen
 
-    bm = BlockMask.from_kv_blocks(*kv_table(partial), *kv_table(full),
-                                  BLOCK_SIZE=F, mask_mod=mask_mod)
-    flex = torch.compile(flex_attention, dynamic=False)
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                  for t in (q, k, v))
-    # the forward timed as training runs it (one compile serves both)
-    fwd_ms = cuda_ms(lambda: flex(qt, kt, vt, block_mask=bm))
-    out = flex(qt, kt, vt, block_mask=bm)
-    dot = do.transpose(1, 2).contiguous()
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                                 retain_graph=True))
-    lib = (out,) + torch.autograd.grad(out, (qt, kt, vt), dot)
-    errs = {p: rel_l2(a.detach().transpose(1, 2), b)
-            for p, a, b in zip(("o", "dq", "dk", "dv"), lib, (o,) + grads)}
-    if not max(errs.values()) < 2e-2:
-        raise RuntimeError(f"flex_attention yardstick: rel L2 {errs} vs "
-                           "the kernels")
-    return fwd_ms, bwd_ms, errs
+    return BlockMask.from_kv_blocks(*kv_table(partial), *kv_table(full),
+                                    BLOCK_SIZE=F, mask_mod=mask_mod)
 
 
 def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
@@ -846,8 +927,10 @@ def sparse_case(name, mode, kw, B, S, N, D, dtype, causal=True, seed=0,
                 lambda: bwd("dkv", cut["only"], work["only"])),
             "dkv_ms_all_others": cuda_ms(
                 lambda: bwd("dkv", cut["rest"], work["rest"]))}
+    mark_part(f"sparse {name}: kernels, plain versions")
     lib_fwd, lib_bwd, lib_err = _flex_yardstick(cfg, S, causal, q, k, v, do,
                                                 o, got)
+    mark_part(f"sparse {name}: flex_attention")
     del got
     # second yardstick: SDPA with the layout as a dense boolean mask
     keep = _layout_mask(cfg, S, causal)
@@ -967,41 +1050,129 @@ def sparse_empty_case(dtype, B=1, S=4096, N=4, D=64, block=128, seed=0):
     return rec
 
 
-def sparse_kernel_phase():
+def _sparse_cases():
+    """The sparse kernel phase's layouts and shapes: (name, mode, layout
+    kwargs, B, S, N, D, dtype, sparse_case keywords)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("llama-1b training BigBird B=2 S=8192", "bigbird", BIGBIRD_128,
+         2, 8192, 32, 64, bf, {"dense": True}),
+        ("bench BigBird S=32768", "bigbird", BIGBIRD_128, 1, 32768, 4, 64,
+         bf, {}),
+        ("bench Fixed S=4096", "fixed",
+         dict(block=128, num_local_blocks=4, num_global_blocks=1),
+         2, 4096, 4, 64, bf, {}),
+        ("bench BSLongformer S=8192 D=128", "bslongformer",
+         dict(block=128, num_sliding_window_blocks=3), 1, 8192, 4, 128, bf,
+         {}),
+        ("BigBird non-causal S=8192", "bigbird", BIGBIRD_128, 1, 8192, 4,
+         64, bf, {"causal": False}),
+        ("BigBird f32 block 64 S=4096", "bigbird",
+         dict(BIGBIRD_128, block=64), 1, 4096, 4, 64, f32, {}),
+        # the sparse serving prefill (phase 15 a) at its longest bucket:
+        # B = 1, llama-1b's 32 heads after the K/V repeat, 63 blocks
+        (f"llama-1b served BigBird B=1 S={SERVED_SPARSE_S}", "bigbird",
+         BIGBIRD_128, 1, SERVED_SPARSE_S, 32, 64, bf, {}),
+    ]
+
+
+def _flex_setup():
+    """flex_attention, the yardstick, compiles through Inductor and
+    Triton: in-process (no compile workers), its caches beside the
+    kernels' build, shared by this process and the warm-up processes; its
+    backward without donated buffers, so a backward compiled in one
+    process serves the timing loop's ``retain_graph`` calls in another."""
     import torch._dynamo
+    import torch._functorch.config
     import torch._inductor.config
     from deepspeed_tpu_torch.ops import _build
-    # flex_attention, the yardstick, compiles through Inductor and Triton:
-    # in this process (no compile workers), caches beside the kernels'
-    # build, once per case
     os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
                           str(_build.BUILD_DIR / "inductor"))
     os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
     torch._inductor.config.compile_threads = 1
     torch._dynamo.config.recompile_limit = 64
-    bf, f32 = torch.bfloat16, torch.float32
-    for dtype in (bf, f32):
+    torch._functorch.config.donated_buffer = False
+
+
+# the sparse cases (indices into _sparse_cases) each warm-up process
+# compiles flex_attention for: about 40 s of compiles each on an H100 host
+FLEX_WARMUP_GROUPS = ((0, 2), (1, 3), (4, 5, 6))
+
+
+def start_flex_warmup():
+    """Start one process per FLEX_WARMUP_GROUPS entry (this script with
+    ``--flex-warmup i``) that compiles flex_attention's forward and
+    backward for its sparse cases, so the sparse phase's compiles find
+    Inductor's and Triton's caches filled (a graph does not depend on the
+    layout's values). They only fill caches: the sparse phase compiles,
+    runs and checks flex itself. They run beside the build, and the
+    script waits for them before anything is timed
+    (``wait_flex_warmup``)."""
+    import atexit
+    from deepspeed_tpu_torch.ops import _build
+    _flex_setup()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i in range(len(FLEX_WARMUP_GROUPS)):
+        with open(_build.BUILD_DIR / f"flex_warmup_{i}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--flex-warmup",
+                 str(i)], stdout=out, stderr=subprocess.STDOUT,
+                env=dict(os.environ)))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def wait_flex_warmup(procs, timeout_s=240.0):
+    """Wait for the warm-up processes (one still running after
+    ``timeout_s`` is ended) and log their exit codes: a failed warm-up
+    costs compile time only."""
+    end = time.perf_counter() + timeout_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+    log("flex warm-up exit codes " + json.dumps([p.wait() for p in procs]))
+
+
+def flex_warmup(index: int) -> int:
+    """One warm-up process: flex_attention's forward and backward at the
+    shapes of the sparse cases of FLEX_WARMUP_GROUPS[index], on random
+    inputs."""
+    from torch.nn.attention.flex_attention import flex_attention
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _flex_setup()
+    cases = _sparse_cases()
+    for j in FLEX_WARMUP_GROUPS[index]:
+        name, mode, kw, B, S, N, D, dtype, extra = cases[j]
+        t0 = time.perf_counter()
+        cfg = sa.get_sparsity_config(mode, **kw)
+        bm = _flex_block_mask(cfg, S, extra.get("causal", True))
+        flex = torch.compile(flex_attention, dynamic=False)
+        qt, kt, vt, dot = (torch.randn((B, N, S, D), device="cuda",
+                                       dtype=dtype) for _ in range(4))
+        qt, kt, vt = (t.requires_grad_() for t in (qt, kt, vt))
+        out = flex(qt, kt, vt, block_mask=bm)
+        # as the yardstick's first backward (its timing loop) runs
+        torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        torch.cuda.synchronize()
+        print(f"flex warm-up {name}: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        del qt, kt, vt, dot, out, bm
+        torch.cuda.empty_cache()
+    return 0
+
+
+def sparse_kernel_phase():
+    _flex_setup()
+    for dtype in (torch.bfloat16, torch.float32):
         sparse_empty_case(dtype)
-    return [
-        sparse_case("llama-1b training BigBird B=2 S=8192", "bigbird",
-                    BIGBIRD_128, 2, 8192, 32, 64, bf, dense=True),
-        sparse_case("bench BigBird S=32768", "bigbird", BIGBIRD_128,
-                    1, 32768, 4, 64, bf),
-        sparse_case("bench Fixed S=4096", "fixed",
-                    dict(block=128, num_local_blocks=4, num_global_blocks=1),
-                    2, 4096, 4, 64, bf),
-        sparse_case("bench BSLongformer S=8192 D=128", "bslongformer",
-                    dict(block=128, num_sliding_window_blocks=3),
-                    1, 8192, 4, 128, bf),
-        sparse_case("BigBird non-causal S=8192", "bigbird", BIGBIRD_128,
-                    1, 8192, 4, 64, bf, causal=False),
-        sparse_case("BigBird f32 block 64 S=4096", "bigbird",
-                    dict(BIGBIRD_128, block=64), 1, 4096, 4, 64, f32),
-        # the sparse serving prefill (phase 15 a) at its longest bucket:
-        # B = 1, llama-1b's 32 heads after the K/V repeat, 63 blocks
-        sparse_case(f"llama-1b served BigBird B=1 S={SERVED_SPARSE_S}",
-                    "bigbird", BIGBIRD_128, 1, SERVED_SPARSE_S, 32, 64, bf),
-    ]
+    return [sparse_case(name, mode, kw, B, S, N, D, dtype, **extra)
+            for name, mode, kw, B, S, N, D, dtype, extra in _sparse_cases()]
 
 
 # --------------------------------------------------------------------------
@@ -2365,7 +2536,8 @@ def _shard_kernels_vs_plain(srv):
 
 def _sharded_rank(rank, world, kind, layers, prompts, f32_prompts):
     """One rank of phase 14 (b) (kind "tp": llama-7b at tensor=2) or (c)
-    ("ep": Mixtral 8 layers at expert=2), both ranks on cuda:0 over gloo.
+    ("ep": Mixtral at expert=2), ``layers`` deep, both ranks on cuda:0
+    over gloo.
     bf16 at the serving geometry: a warm-up request on a first serving
     engine, then the load on a fresh one over the same weights, each
     rank's launch counts zeroed just before it (rank 0 drives the load,
@@ -2480,6 +2652,12 @@ def _layer_bytes_unsharded(cfg, itemsize=2):
     return total, experts * itemsize
 
 
+# the two-rank serving loads' depth (the run's time limit cuts depth,
+# never width): llama-7b 16 of its 32 layers, Mixtral 4 of its 32
+TP_SERVE_LAYERS = 16
+EP_SERVE_LAYERS = 4
+
+
 def sharded_serving_phase(smi: str, served, plain_step):
     """Phase 14: (a) MoE on one card (Mixtral 8 layers bf16, the serving
     load, B1 / B4 counts, the decode step beside phase 4's, and the f32
@@ -2515,9 +2693,10 @@ def sharded_serving_phase(smi: str, served, plain_step):
     rec["launches_by_part"] = {"moe_one_card": dict(launches)}
     f32_prompts = prompts[:4]
     for kind, what, ref, cfg in (
-            ("tp", "(b) llama-7b tensor=2", base_gens, llama_config("7b")),
-            ("ep", "(c) Mixtral 8 layers expert=2", moe_gens,
-             _mixtral(MOE_LAYERS, torch.bfloat16).config)):
+            ("tp", f"(b) llama-7b {TP_SERVE_LAYERS} layers tensor=2",
+             base_gens, llama_config("7b", num_layers=TP_SERVE_LAYERS)),
+            ("ep", f"(c) Mixtral {EP_SERVE_LAYERS} layers expert=2",
+             moe_gens, _mixtral(EP_SERVE_LAYERS, torch.bfloat16).config)):
         _free()
         t0 = time.perf_counter()
         r = run_group(_sharded_rank, 2, kind, cfg.num_layers, prompts,
@@ -2932,7 +3111,7 @@ def training_cross_check(S=512, sparse=None):
 # resumable training
 # --------------------------------------------------------------------------
 
-RESUME_LAYERS = 4
+RESUME_LAYERS = 2
 
 
 def _tree_bytes(engine) -> int:
@@ -2969,7 +3148,7 @@ def _bit_diff(a, b):
 
 
 def resume_phase(smi: str, S: int = 2048, B: int = 8):
-    """llama-1b at full width, 4 layers, B=8 S=2048 (bf16, f32 masters,
+    """llama-1b at full width, 2 layers, B=8 S=2048 (bf16, f32 masters,
     AdamW, dots_with_no_batch_dims, chunked loss, fused backward), data
     from random_token_batches through an attached DataLoader. Leg 1:
     train_batches for 3 steps (in_flight 2, prefetch), an async
@@ -3441,6 +3620,7 @@ def f16_serving(smi: str, served):
     return rec
 
 
+OPT_STEPS = 2             # updates on the card and on the CPU copies
 OPT_CHECKS = (("sgd", {"lr": 1e-2, "momentum": 0.9}),
               ("adagrad", {"lr": 1e-2}),
               ("lion", {"lr": 1e-4, "weight_decay": 0.1}),
@@ -3496,7 +3676,7 @@ def _c3_cost(p0, grads):
 
 def optimizer_checks(smi: str):
     """(d) SGD (momentum), Adagrad, Lion and LAMB over llama-1b's leaves
-    at 2 layers, f32: 3 updates on the card against the same updates on
+    at 2 layers, f32: 2 updates on the card against the same updates on
     CPU copies (every param and state leaf within 1e-5 relative L2), and
     one update's ms beside the bytes it must move (params, grads and
     state read once, params and state written once) over the card's
@@ -3513,7 +3693,8 @@ def optimizer_checks(smi: str):
     gen = torch.Generator(device="cuda").manual_seed(0)
     p0 = tf.init_params(cfg, gen, "cuda", dtype=torch.float32)
     grads = [tree_map(lambda t: torch.randn(
-        t.shape, generator=gen, device="cuda") * 1e-2, p0) for _ in range(3)]
+        t.shape, generator=gen, device="cuda") * 1e-2, p0)
+        for _ in range(OPT_STEPS)]
     n_params = sum(t.numel() for t in tree_leaves(p0))
     recs = {}
     for name, kw in OPT_CHECKS:
@@ -3536,7 +3717,7 @@ def optimizer_checks(smi: str):
                      warmup=1)
         moved = (2 * nbytes(*tree_leaves(dev)) + nbytes(*tree_leaves(
             grads[0])) + 2 * nbytes(*state_leaves))
-        recs[name] = dict(kw=kw, steps=3, max_rel_l2_vs_cpu=err,
+        recs[name] = dict(kw=kw, steps=OPT_STEPS, max_rel_l2_vs_cpu=err,
                           leaves=len(pairs), update_ms=ms,
                           bound_ms=moved / HBM_BYTES_PER_S * 1e3)
         if not err <= 1e-5:
@@ -3647,12 +3828,13 @@ def phase15(smi: str, served, bf16_train):
 # multi-rank training (phase 16)
 # --------------------------------------------------------------------------
 
-ZERO_LAYERS = 8           # llama-1b's width, 8 of its 16 layers, 2 steps
+ZERO_LAYERS = 4           # llama-1b's width, 4 of its 16 layers, 2 steps
 ZERO_STEPS = 2            # (the run's time limit cuts depth, never width)
 ZERO_SEQ = 2048
 ZERO_SHARED = ("two processes on one card over gloo: not a data-parallel "
                "speed")
 ZERO_F32 = dict(num_layers=2, max_seq_len=1024, dtype=torch.float32)
+ZERO_F32_STEPS = 2        # each f32 run of (c) and (d)
 
 
 def _zero_collectives(rank):
@@ -3779,6 +3961,9 @@ def _zero_run(cfg, config, batches, reference=False, masters=False):
     if masters:
         rec["masters_delta"] = {k: t - before[k] for k, t in
                                 _zero_masters(engine).items()}
+    mark_part(f"zero run {config.get('zero_optimization')} "
+         f"{config.get('optimizer', {}).get('type')} {len(batches)} steps "
+         f"{'plain' if reference else ''}")
     return engine, rec
 
 
@@ -3839,7 +4024,7 @@ def _zero_rank(rank, world, layers, steps, S, ckpt_dir):
     # the plain versions of the kernels at this rank's shapes (4 rows of
     # the same batches), stage 0: the yardstick of every stage below
     engine, plain = _zero_run(cfg32, dict(conf32, zero_optimization={
-        "stage": 0}), b32, reference=True)
+        "stage": 0}), b32[:ZERO_F32_STEPS], reference=True)
     whole = _zero_whole_params(engine)
     rec["f32_plain_stage0"] = plain
     del engine
@@ -3848,7 +4033,7 @@ def _zero_rank(rank, world, layers, steps, S, ckpt_dir):
         engine, r = _zero_run(cfg32, dict(
             conf32, zero_optimization={
                 "stage": stage, "stage3_param_persistence_threshold": 0}),
-            b32)
+            b32[:ZERO_F32_STEPS])
         p = _zero_whole_params(engine)
         r["params_rel_l2_vs_plain"] = max(rel_l2(p[k], whole[k])
                                           for k in whole)
@@ -3862,7 +4047,8 @@ def _zero_rank(rank, world, layers, steps, S, ckpt_dir):
                 optimizer={"type": "adam", "params": {"lr": 1e-4}})
     onebit = dict(adam, optimizer={
         "type": "onebitadam", "params": {"lr": 1e-4, "freeze_step": 100}})
-    for name, conf, n in (("adam", adam, 3), ("onebit_warm", onebit, 3)):
+    for name, conf, n in (("adam", adam, ZERO_F32_STEPS),
+                          ("onebit_warm", onebit, ZERO_F32_STEPS)):
         engine, r = _zero_run(cfg32, conf, b32[:n])
         rec[name] = r
         del engine
@@ -3913,7 +4099,7 @@ def zero_training_phase(smi: str):
     """Phase 16: multi-rank training, two processes sharing the card over
     gloo. First, here, B1-B3 in bf16 against their plain versions at a
     rank's shapes (B = 4, S = 2048). Then on the ranks: (a) every facade
-    collective on CUDA tensors; (b) llama-1b at full width, 8 of its 16
+    collective on CUDA tensors; (b) llama-1b at full width, 4 of its 16
     layers, bf16 with f32 masters, AdamW, global B = 8, S = 2048 (4 rows
     a rank), ZeRO stages 0-3, 2 steps each: losses within 2e-2 of stage
     0's, the f32 masters' change over the 2 steps within 1e-6 relative L2
@@ -3978,8 +4164,8 @@ def zero_training_phase(smi: str):
                 max(abs(a - b) / abs(b) for a, b in
                     zip(x["losses"], plain["losses"])) <= 1e-5 and \
                 x["params_rel_l2_vs_plain"] <= 1e-4
-            checks[f"(c) rank {i} f32 stage {s} B1 == 2 x 3 x 2"] = \
-                x["launches"]["flash_fwd"] == 12
+            checks[f"(c) rank {i} f32 stage {s} B1 == 2 x steps x 2"] = \
+                x["launches"]["flash_fwd"] == 2 * ZERO_F32_STEPS * 2
         checks[f"(d) rank {i} onebit warm-up == adam"] = max(
             abs(a - b) / abs(b) for a, b in zip(
                 r["onebit_warm"]["losses"], r["adam"]["losses"])) <= 1e-5
@@ -3987,7 +4173,8 @@ def zero_training_phase(smi: str):
                                                          "bf16").items()})
     comp = ranks[0]["onebit_compressed"]
     wire = comp["wire"]
-    dense = ranks[0]["adam"]["wire"]["all_reduce"]["data"]["bytes"] / 3
+    dense = ranks[0]["adam"]["wire"]["all_reduce"]["data"]["bytes"] \
+        / ZERO_F32_STEPS
     packed = wire["all_gather"]["data"]["bytes"] / 2   # 2 compressed steps
     checks["(d) compressed path taken"] = comp["compressed"]
     checks["(d) compressed wire ~ 1/32 of dense"] = \
@@ -4540,10 +4727,10 @@ def fleet_phase(smi: str, served, drift: float):
 # --------------------------------------------------------------------------
 
 CAPACITY_STEPS = 3                   # 1 + 2
-CAPACITY_LAYERS = 8                  # llama-1b's width, 8 of its 16 layers
+CAPACITY_LAYERS = 4                  # llama-1b's width, 4 of its 16 layers
 # the nvme tier's directory: inside the checkout, gitignored, emptied after
 CAPACITY_SCRATCH = "offload_scratch"
-CAPACITY_F32 = dict(layers=2, S=512, B=2)
+CAPACITY_F32 = dict(layers=2, S=512, B=2, steps=2)
 
 
 def _filesystem(path):
@@ -4628,6 +4815,7 @@ def _capacity_run(name, cfg, config, batches, params=None,
                           if v},
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "bytes": engine.offload_bytes()}
+    mark_part(f"capacity run {name}")
     return engine, rec
 
 
@@ -4730,7 +4918,7 @@ def _executor_order(engine):
 
 
 def capacity_f32_checks(path, checks):
-    """Phase 18 (c): llama-1b width at 2 layers in f32, 3 steps of each
+    """Phase 18 (c): llama-1b width at 2 layers in f32, 2 steps of each
     route (and the host CPU-Adagrad beside the on-device Adagrad) against
     the on-device run (the layer executor's with its layers rounded to
     bf16 after each update): every master within 1e-6 relative L2; then a save under (iii) and (iv), one more step, and a fresh
@@ -4759,14 +4947,14 @@ def capacity_f32_checks(path, checks):
                        ("adagrad", dict(confs["on_device"],
                                         optimizer=adagrad))):
         plain = _capacity_run(f"f32 on_device {name}", cfg, conf,
-                              batches[:3], params=params)[0]
+                              batches[:k["steps"]], params=params)[0]
         ref[name] = _masters_of(plain)
         del plain
     rounded_conf = dict(confs["on_device"], optimizer={
         "type": "adamw", "params": dict(confs["on_device"]["optimizer"]
                                         ["params"], use_master_weights=True)})
     plain = _capacity_run("f32 on_device bf16 layers", cfg, rounded_conf,
-                          batches[:3], params=params,
+                          batches[:k["steps"]], params=params,
                           after_step=_round_layers)[0]
     ref["infinity"] = _executor_order(plain)
     del plain
@@ -4774,7 +4962,7 @@ def capacity_f32_checks(path, checks):
     for route in ("(i) pinned", "(ii) cpu_adam", "(ii) cpu_adagrad",
                   "(iii) nvme", "(iv) infinity"):
         eng, rec = _capacity_run(f"f32 {route}", cfg, confs[route],
-                                 batches[:3], params=params)
+                                 batches[:k["steps"]], params=params)
         want = ref[{"(iv) infinity": "infinity",
                     "(ii) cpu_adagrad": "adagrad"}.get(route, "swap")]
         err = rel_l2(_masters_of(eng), want)
@@ -4785,7 +4973,7 @@ def capacity_f32_checks(path, checks):
               "(ii) cpu_adagrad": "dstpu_adagrad_step_f32"}.get(route)
         if fn:
             checks[f"f32 {route} host calls"] = \
-                rec["host_calls"].get(fn, 0) == 3
+                rec["host_calls"].get(fn, 0) == k["steps"]
         if route in ("(iii) nvme", "(iv) infinity"):
             ck = os.path.join(path, "ckpt")
             eng.save_checkpoint(ck, tag="t")
@@ -4799,6 +4987,7 @@ def capacity_f32_checks(path, checks):
             same = got_loss == want_loss and torch.equal(
                 _masters_of(fresh), want_m)
             out[route]["resume_bit_for_bit"] = same
+            mark_part(f"f32 {route} save, step, load, step")
             checks[f"f32 {route} resume"] = same
             fresh.close()
             shutil.rmtree(ck, ignore_errors=True)
@@ -4813,7 +5002,7 @@ def capacity_phase(smi: str):
     """Phase 18: the capacity tier. (a) the host libraries built from
     ``deepspeed_tpu_torch/csrc/host/`` with their g++ flags, and the fused
     CPU-Adam's host traffic over the model's values (after (b)'s route
-    (ii), on its buffers). (b) llama-1b at full width, 8 of its 16
+    (ii), on its buffers). (b) llama-1b at full width, 4 of its 16
     layers (the run's time limit cuts depth, never width), B=8
     S=2048 bf16, 1 + 2 steps on the on-device run and then routes (i)
     chunk-streamed pinned tier, (ii) host CPU-Adam, (iii) the nvme swap,
@@ -4927,13 +5116,14 @@ def capacity_phase(smi: str):
 
 MP_SEQ = 2048
 MOE_STEPS = 3             # after 1 warm-up step
-MP_STEPS = 2              # the two-rank runs, after 1 warm-up step
-TP_LAYERS = 8             # llama-7b width, cut to 8 of its 32 layers
+MP_STEPS = 1              # the two-rank runs, after 1 warm-up step
+TP_LAYERS = 4             # llama-7b width, cut to 4 of its 32 layers
 MOE_CONFIG = {"train_batch_size": 2,
               "optimizer": {"type": "adamw", "params": {"lr": 1e-4}},
               "bf16": {"enabled": True},
               "transformer": {"fused_backward": True}, "seed": 0}
 MP_F32 = dict(max_seq_len=512, dtype=torch.float32)       # at 2 layers
+MP_F32_STEPS = 2          # each run of an f32 identity (phases 19, 20)
 # SGD with momentum for the f32 identities: linear in the grads, so runs
 # that sum their grads in another order agree to rounding, where Adam's
 # first steps (nearly the grads' signs) flip elements whose grad is 0 to
@@ -5023,18 +5213,24 @@ def _leaf_bytes(cfg, halved, itemsize):
                for k, t in ckpt_mod.flatten(meta).items())
 
 
-def _mp_run(cfg, config, batches, name, mesh=None):
+def _mp_run(cfg, config, batches, name, mesh=None, logged=False):
     """initialize -> one train_batch a batch (the first a warm-up): the
     losses, each step's wall ms, this rank's launches (zeroed after the
     warm-up), bytes and peak memory. ``mesh``: the engine's (None: the
-    plan of the config over the process group)."""
+    plan of the config over the process group). ``logged``: the comms
+    logger and the facade's counts are zeroed after the warm-up too, and
+    the record carries both (``logger``)."""
     from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.ops import _build
     torch.cuda.reset_peak_memory_stats()
     engine, *_ = initialize(model=make_model(cfg, name), config=dict(config),
                             mesh=mesh)
     losses = [float(engine.train_batch(batches[0])["loss"])]
     _build.reset_launch_counts()
+    if logged:
+        comm.comms_logger.reset()
+        comm.reset_counts()
     step_ms = []
     for b in batches[1:]:
         t1 = time.perf_counter()
@@ -5045,14 +5241,20 @@ def _mp_run(cfg, config, batches, name, mesh=None):
            "launches": _build.launch_counts(), "bytes": _zero_bytes(engine),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "plan": engine.plan.describe()}
+    if logged:
+        rec["logger"] = {"summary": comm.comms_logger.summary(),
+                         "counts": dict(comm.comms_logger.counts),
+                         "bytes": dict(comm.comms_logger.bytes),
+                         "facade": comm.counts()}
+    mark_part(f"run {name} {rec['plan']} {len(batches)} steps")
     return engine, rec
 
 
 def _f32_identity(rank, cfg, config, batches, name):
-    """(d) An f32 run of 3 steps over the ranks, then on rank 0 the same
-    run at world 1 (``single_mesh``, the whole batch): the losses of
-    both, the largest loss difference and the params' relative L2 (the
-    ranks' params made whole on the card first)."""
+    """(d) An f32 run of one step a batch over the ranks, then on rank 0
+    the same run at world 1 (``single_mesh``, the whole batch): the
+    losses of both, the largest loss difference and the params' relative
+    L2 (the ranks' params made whole on the card first)."""
     from deepspeed_tpu_torch.parallel import single_mesh
     from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
     engine, rec = _mp_run(cfg, config, batches, name)
@@ -5064,7 +5266,8 @@ def _f32_identity(rank, cfg, config, batches, name):
         return None
     _free()
     engine, one = _mp_run(cfg, {k: v for k, v in config.items()
-                                if k not in ("moe", "tensor_parallel")},
+                                if k not in ("moe", "tensor_parallel",
+                                             "pipeline", "sequence_parallel")},
                           batches, name, mesh=single_mesh())
     # leaf by leaf on the card, in f32 (the leaves reach 0.94 B values)
     err = 0.0
@@ -5097,21 +5300,21 @@ def _mp_rank(rank, world):
                                  "mixtral-8x7b 1 layer")
     del engine
     _free()
-    # (c) llama-7b width, 8 layers, B=2 shared by the tensor ranks
+    # (c) llama-7b width, TP_LAYERS layers, B=2 shared by the tensor ranks
     cfg = _llama7b_train(TP_LAYERS)
     tb = _zero_batches(2, MP_SEQ, 1 + MP_STEPS, seed=1)
     for chunks in (0, 4):
         engine, rec[f"tp2_chunks{chunks}"] = _mp_run(
             cfg, dict(MOE_CONFIG, transformer={
                 "fused_backward": True, "tp_overlap_chunks": chunks},
-                **TP2), tb, "llama-7b 8 layers")
+                **TP2), tb, f"llama-7b {TP_LAYERS} layers")
         del engine
         _free()
-    # (d) f32 at 2 layers, S=512: expert=2 where tokens drop, tensor=2,
-    # each against world 1 (on rank 0)
-    b32 = _zero_batches(2, MP_F32["max_seq_len"], 3, seed=2)
+    # (d) f32 at S=512: expert=2 where tokens drop (1 layer), tensor=2 (2
+    # layers), each against world 1 (on rank 0)
+    b32 = _zero_batches(2, MP_F32["max_seq_len"], MP_F32_STEPS, seed=2)
     rec["f32_ep2"] = _f32_identity(
-        rank, _mixtral_train(2, capacity_factor=0.5, **MP_F32),
+        rank, _mixtral_train(1, capacity_factor=0.5, **MP_F32),
         dict(MP_F32_CONFIG, **EP2), b32, "mixtral f32")
     rec["f32_tp2"] = _f32_identity(
         rank, _llama7b_train(2, **MP_F32), dict(MP_F32_CONFIG, **TP2), b32,
@@ -5251,6 +5454,412 @@ def model_parallel_phase(smi: str):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"phase 19: failed {failed}")
+    return rec
+
+
+# --------------------------------------------------------------------------
+# phase 20: the pipeline (1F1B over pipe), ring attention over seq,
+# data-mesh generate and the comms logger
+# --------------------------------------------------------------------------
+
+PP_LAYERS = 8             # llama-1b width, 8 of its 16 layers
+PP_M = 4                  # micro-batches a step (gradient_accumulation_steps)
+PP_STEPS = 2              # after 1 warm-up step
+RING_LAYERS = 8           # llama-1b width, 8 of its 16 layers
+RING_SEQ = 16384          # 8192 positions a rank
+DP_LAYERS = 4             # llama-7b width, 4 of its 32 layers
+DP_PROMPT, DP_NEW = 512, 32
+PP_CONFIG = dict(TRAIN_CONFIG, gradient_accumulation_steps=PP_M,
+                 pipeline={"stages": 2}, comms_logger={"enabled": True})
+SEQ_CONFIG = dict(TRAIN_CONFIG, train_batch_size=1,
+                  sequence_parallel={"sp_size": 2},
+                  comms_logger={"enabled": True})
+PP_F32 = dict(max_seq_len=512, dtype=torch.float32)        # at 2 layers
+
+
+def _llama1b_train(layers, S, **over):
+    from deepspeed_tpu_torch import llama_config
+    kw = dict(num_layers=layers, max_seq_len=S, remat=True,
+              remat_policy="dots_saveable", loss_chunk=2048)
+    kw.update(over)
+    return llama_config("1b", **kw)
+
+
+def _dp_generate(rank):
+    """(d) ``InferenceEngine.generate`` on a data=2 mesh: llama-7b width,
+    DP_LAYERS layers, bf16, 4 prompts of DP_PROMPT (2 a rank), DP_NEW new
+    tokens: wall ms and this rank's launches (zeroed after a warm-up);
+    then f32 at 2 layers, the data=2 stream against one rank's (on rank
+    0)."""
+    from deepspeed_tpu_torch import init_inference, llama_config, make_model
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.parallel import MeshPlan
+    prompts = np.random.default_rng(7).integers(
+        0, VOCAB, (4, DP_PROMPT), dtype=np.int64)
+    cfg = llama_config("7b", num_layers=DP_LAYERS,
+                       max_seq_len=DP_PROMPT + DP_NEW)
+    eng = init_inference(make_model(cfg, "llama-7b"),
+                         config={"kv_cache_bits": 0}, mesh=MeshPlan(data=2))
+    eng.generate(prompts, 2)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, DP_NEW)
+    torch.cuda.synchronize()
+    rec = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+           "launches": _build.launch_counts(),
+           "shape": list(out.shape),
+           "in_vocab": bool(((out >= 0) & (out < VOCAB)).all()),
+           "prompts_kept": bool((out[:, :DP_PROMPT].cpu().numpy()
+                                 == prompts).all()),
+           "rows": [eng._data_rows(4).start, eng._data_rows(4).stop]}
+    del eng
+    _free()
+    cfg32 = llama_config("7b", num_layers=2, max_seq_len=DP_PROMPT + DP_NEW,
+                         dtype=torch.float32)
+    eng = init_inference(make_model(cfg32, "llama-7b f32"),
+                         dtype=torch.float32, config={"kv_cache_bits": 0},
+                         mesh=MeshPlan(data=2))
+    split = eng.generate(prompts, DP_NEW).cpu().numpy()
+    del eng
+    _free()
+    if rank == 0:
+        one = init_inference(make_model(cfg32, "llama-7b f32"),
+                             dtype=torch.float32, config={"kv_cache_bits": 0})
+        whole = one.generate(prompts, DP_NEW).cpu().numpy()
+        del one
+        _free()
+        rec["f32_token_identical"] = bool((whole == split).all())
+        rec["f32_agreement"] = float((whole == split).mean())
+    return rec
+
+
+def _pp_rank(rank, world):
+    """One rank of phase 20 (a)-(e), both ranks on cuda:0 over gloo: (a)
+    pipe=2, (c) seq=2, (b) the f32 identities of both, (d) data=2
+    generate; the comms logger on throughout. Returns every rank's record
+    (on rank 0)."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.parallel import MeshPlan, build_mesh
+    from deepspeed_tpu_torch.parallel.pipeline import bubble_fraction
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    comm.configure(enabled=True)
+    rec = {}
+    # (a) llama-1b width, 8 layers, B=8 S=2048 in 4 micro-batches, pipe=2
+    bs = _zero_batches(8, ZERO_SEQ, 1 + PP_STEPS, seed=0)
+    engine, rec["pipe"] = _mp_run(_llama1b_train(PP_LAYERS, ZERO_SEQ),
+                                  PP_CONFIG, bs, "llama-1b", logged=True)
+    rec["pipe"]["bubble"] = bubble_fraction(PP_M, engine.plan.pipe)
+    rec["pipe"]["transport"] = engine.mesh.p2p
+    rec["pipe"]["stage"] = engine.mesh.index("pipe")
+    del engine, bs
+    _free()
+    # (c) llama-1b width, 8 layers, B=1 S=16384, seq=2
+    bs = _zero_batches(1, RING_SEQ, 1 + PP_STEPS, seed=1)
+    engine, rec["ring"] = _mp_run(_llama1b_train(RING_LAYERS, RING_SEQ),
+                                  SEQ_CONFIG, bs, "llama-1b", logged=True)
+    rec["ring"]["seq_index"] = engine.mesh.index("seq")
+    del engine, bs
+    _free()
+    # (c) the ring itself at those attention shapes, against one call
+    seq2 = build_mesh(MeshPlan(seq=2))
+    rec["ring_case"] = {str(dt)[6:]: _ring_local_case(rank, seq2, dt)
+                        for dt in (torch.bfloat16, torch.float32)}
+    # (b) f32 at 2 layers, S=512: pipe=2 and seq=2 against world 1
+    cfg32 = _llama1b_train(2, 512, loss_chunk=0, **PP_F32)
+    rec["f32_pipe"] = _f32_identity(
+        rank, cfg32, dict(MP_F32_CONFIG, train_batch_size=8,
+                          gradient_accumulation_steps=PP_M,
+                          pipeline={"stages": 2}),
+        _zero_batches(8, 512, MP_F32_STEPS, seed=2), "llama-1b f32")
+    rec["f32_seq"] = _f32_identity(
+        rank, cfg32, dict(MP_F32_CONFIG, sequence_parallel={"sp_size": 2}),
+        _zero_batches(2, 512, MP_F32_STEPS, seed=3), "llama-1b f32")
+    # (d)
+    rec["dp"] = _dp_generate(rank)
+    comm.configure(enabled=False)
+    out = [None] * world
+    dist.all_gather_object(out, rec)
+    return out if rank == 0 else None
+
+
+def _chunked_plain(q, k, v, do, sm, qb=1024):
+    """The plain version of causal attention and its backward, in f32, a
+    block of ``qb`` query rows at a time (a [B, S, S] score matrix at
+    S=16384 does not fit): O, LSE [B, N, S, 1], dQ, dK, dV."""
+    B, S, N, D = q.shape
+    Nkv = k.shape[2]
+    rep = N // Nkv
+    kf, vf = k.float(), v.float()
+    o = torch.empty((B, S, N, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, N, S, 1), dtype=torch.float32, device=q.device)
+    dq = torch.empty_like(o)
+    dk = torch.zeros((B, S, Nkv, D), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    cols = torch.arange(S, device=q.device)
+    for s0 in range(0, S, qb):
+        rows = torch.arange(s0, s0 + qb, device=q.device)
+        qg = q[:, s0:s0 + qb].float().reshape(B, qb, Nkv, rep, D)
+        dog = do[:, s0:s0 + qb].float().reshape(B, qb, Nkv, rep, D)
+        s = torch.einsum("bsgrd,btgd->bgrst", qg, kf) * sm
+        s = s.masked_fill(~(rows[:, None] >= cols[None]), -1e30)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        del s
+        lsum = p.sum(-1, keepdim=True)
+        p = p / lsum
+        ob = torch.einsum("bgrst,btgd->bsgrd", p, vf)
+        o[:, s0:s0 + qb] = ob.reshape(B, qb, N, D)
+        lse[:, :, s0:s0 + qb] = (m + torch.log(lsum)).reshape(B, N, qb, 1)
+        delta = (dog * ob).sum(-1).permute(0, 2, 3, 1)[..., None]
+        ds = p * (torch.einsum("bsgrd,btgd->bgrst", dog, vf) - delta) * sm
+        dq[:, s0:s0 + qb] = torch.einsum("bgrst,btgd->bsgrd", ds,
+                                         kf).reshape(B, qb, N, D)
+        dk += torch.einsum("bgrst,bsgrd->btgd", ds, qg)
+        dv += torch.einsum("bgrst,bsgrd->btgd", p, dog)
+        del p, ds
+    return o, lse, dq, dk, dv
+
+
+def _ring_inputs(dtype, S=RING_SEQ, B=1, N=32, Nkv=8, D=64):
+    """(c)'s attention inputs at the seq=2 run's shapes (llama-1b's
+    heads), the same on every process: q, k, v, dO."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, do = (torch.randn((B, S, N, D), generator=g, device="cuda",
+                         dtype=dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, Nkv, D), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _ring_local_case(rank, mesh, dtype):
+    """(c) ``ring_attention_local`` on the two seq=2 ranks at the
+    training run's attention shapes (S=RING_SEQ, RING_SEQ / 2 a rank):
+    this rank's launches of one call (causal: rank j runs j + 1 pairs),
+    two calls bit for bit, and the wall time of a forward and of a
+    forward + backward on this rank (two processes sharing the card over
+    gloo: the pairs' kernels and the exchanges of K/V and dK/dV) over
+    ``mesh`` (seq=2). On rank
+    0, the gathered O, dQ, dK and dV against one B1 / B2 / B3 call over
+    the whole sequence and against the plain version (chunked by query
+    rows)."""
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+    from deepspeed_tpu_torch.ops.ring_attention import ring_attention_local
+    q, k, v, do = _ring_inputs(dtype)
+    S, D = q.shape[1], q.shape[3]
+    sm, Sl = 1.0 / math.sqrt(D), S // 2
+    mine = slice(rank * Sl, (rank + 1) * Sl)
+
+    def call(backward=True):
+        piece = [t[:, mine].clone().requires_grad_(backward)
+                 for t in (q, k, v)]
+        with torch.set_grad_enabled(backward):
+            o = ring_attention_local(*piece, causal=True, sm_scale=sm,
+                                     mesh=mesh)
+        if not backward:
+            return [o]
+        o.backward(do[:, mine])
+        return [o.detach()] + [p.grad for p in piece]
+
+    _build.reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    rec = {"launches": _build.launch_counts(),
+           "bitwise_repeat": all(torch.equal(a, b)
+                                 for a, b in zip(got, call())),
+           "fwd_ms": cuda_ms(lambda: call(False), iters=5),
+           "fwd_bwd_ms": cuda_ms(call, iters=5)}
+    whole = [comm.all_gather(t.contiguous(), "seq", dim=1, mesh=mesh)
+             for t in got]
+    del got
+    if rank == 0:
+        o_one, lse_one = flash_attention_fwd(q, k, v, causal=True,
+                                             sm_scale=sm)
+        one = [o_one, *flash_attention_bwd(q, k, v, o_one, lse_one, do,
+                                           causal=True, sm_scale=sm)]
+        o_p, _, *g_p = _chunked_plain(q, k, v, do, sm)
+        plain = [o_p, *g_p]
+        names = ("o", "dq", "dk", "dv")
+        rec["ring_vs_plain"] = {n: rel_l2(a, b)
+                                for n, a, b in zip(names, whole, plain)}
+        rec["one_vs_plain"] = {n: rel_l2(a, b)
+                               for n, a, b in zip(names, one, plain)}
+        rec["ring_vs_one"] = {n: rel_l2(a, b)
+                              for n, a, b in zip(names, whole, one)}
+        rec["max_abs_err"] = max(max_abs(a, b) for a, b in zip(whole, plain))
+        del one, plain, o_p, g_p, o_one, lse_one
+    del whole, q, k, v, do
+    _free()
+    return rec
+
+
+def ring_timing_case(dtype):
+    """(c) The kernels' times at the ring's shapes: B1 and B2 / B3 on one
+    (query piece, key piece) pair of S / 2 each, causal (the diagonal)
+    and not (a past piece), the causal ring's three pairs summed, beside
+    one call over the whole sequence, SDPA and the bound."""
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                         flash_attention_fwd)
+    q, k, v, do = _ring_inputs(dtype)
+    B, S, N, D = q.shape
+    sm, Sl = 1.0 / math.sqrt(D), S // 2
+    qp, kp, vp, dop = (t[:, :Sl].contiguous() for t in (q, k, v, do))
+    rec = {"shape": f"B={B} S={S} Nq={N} Nkv={k.shape[2]} D={D} "
+                    f"{str(dtype)[6:]} causal, pairs of {Sl}"}
+    for name, causal in (("diag", True), ("past", False)):
+        o, lse = flash_attention_fwd(qp, kp, vp, causal=causal, sm_scale=sm)
+        rec[f"pair_{name}_fwd_ms"] = cuda_ms(lambda: flash_attention_fwd(
+            qp, kp, vp, causal=causal, sm_scale=sm), iters=5)
+        rec[f"pair_{name}_bwd_ms"] = cuda_ms(lambda: flash_attention_bwd(
+            qp, kp, vp, o, lse, dop, causal=causal, sm_scale=sm), iters=5)
+    # rank 0 runs its diagonal, rank 1 a past piece and its diagonal
+    for what in ("fwd", "bwd"):
+        rec[f"pairs_{what}_ms"] = (2 * rec[f"pair_diag_{what}_ms"]
+                                   + rec[f"pair_past_{what}_ms"])
+    o_one, lse_one = flash_attention_fwd(q, k, v, causal=True, sm_scale=sm)
+    g_one = flash_attention_bwd(q, k, v, o_one, lse_one, do, causal=True,
+                                sm_scale=sm)
+    rec["one_fwd_ms"] = cuda_ms(
+        lambda: flash_attention_fwd(q, k, v, causal=True, sm_scale=sm),
+        iters=5)
+    rec["one_bwd_ms"] = cuda_ms(lambda: flash_attention_bwd(
+        q, k, v, o_one, lse_one, do, causal=True, sm_scale=sm), iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec["sdpa_fwd_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=sm, enable_gqa=True), iters=5)
+    # the pairs' work is the one call's (a causal ring skips the future
+    # piece): the same bound
+    fwd_flops = 4 * B * N * D * S * S / 2
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = bound(
+        nbytes(q, k, v, o_one) + lse_one.numel() * 4, fwd_flops, dtype)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = bound(
+        nbytes(q, k, v, o_one, do, *g_one) + lse_one.numel() * 4,
+        2.5 * fwd_flops, dtype)
+    del q, k, v, do, qp, kp, vp, dop, o, lse, o_one, lse_one, g_one
+    _free()
+    return rec
+
+
+def pipeline_ring_phase(smi: str):
+    """Phase 20: pipeline parallelism, ring attention, data-mesh generate
+    and the comms logger (module docstring, item 20)."""
+    from deepspeed_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    _free()
+    checks = {}
+    kcases = {str(dt)[6:]: ring_timing_case(dt)
+              for dt in (torch.bfloat16, torch.float32)}
+    ranks = run_group(_pp_rank, 2, timeout_s=900)
+    n, L = PP_STEPS, PP_LAYERS
+    cfg = _llama1b_train(PP_LAYERS, ZERO_SEQ)
+    want = {"params": _leaf_bytes(cfg, lambda k: k.startswith("layers/"), 2),
+            "opt": _leaf_bytes(cfg, lambda k: k.startswith("layers/"), 12),
+            "grads": _leaf_bytes(cfg, lambda k: k.startswith("layers/"), 4)}
+    for i, r in enumerate(ranks):
+        p, g = r["pipe"], r["ring"]
+        checks[f"(a) rank {i} finite"] = all(np.isfinite(p["losses"]))
+        checks[f"(a) rank {i} bytes of params, opt, grads == the law"] = \
+            p["bytes"] == want
+        # each micro-batch of a stage's L / 2 layers: the forward tick,
+        # the backward tick's recompute and dots_saveable's replay of it;
+        # the last stage forwards once, under autograd, and replays
+        fwds = 2 if p["stage"] == 1 else 3
+        checks[f"(a) rank {i} B1 == {fwds} x M x L / P a step"] = \
+            p["launches"]["flash_fwd"] == fwds * PP_M * L // 2 * n
+        checks[f"(a) rank {i} B2 == B3 == M x L / P a step"] = \
+            p["launches"]["flash_bwd_dq"] == p["launches"]["flash_bwd_dkv"] \
+            == PP_M * L // 2 * n
+        checks[f"(a) rank {i} bubble == (P - 1) / (M + P - 1)"] = \
+            p["bubble"] == 1 / (PP_M + 1)
+        checks[f"(c) rank {i} finite"] = all(np.isfinite(g["losses"]))
+        j = g["seq_index"]
+        # rank j of a causal ring runs j + 1 pairs a layer; the remat
+        # replays the forward
+        checks[f"(c) rank {i} B1 == 2 x (j + 1) x L a step"] = \
+            g["launches"]["flash_fwd"] == 2 * (j + 1) * RING_LAYERS * n
+        checks[f"(c) rank {i} B2 == B3 == (j + 1) x L a step"] = \
+            g["launches"]["flash_bwd_dq"] == g["launches"]["flash_bwd_dkv"] \
+            == (j + 1) * RING_LAYERS * n
+        for what, x in (("(a)", p), ("(c)", g)):
+            lg = x["logger"]
+            flat = {f"{op}[{ax}]": v for op, d in lg["facade"].items()
+                    for ax, v in d.items()}
+            checks[f"(e) rank {i} {what} logger == the facade's counts"] = \
+                set(flat) == set(lg["counts"]) and all(
+                    lg["counts"][k] == v["calls"]
+                    and lg["bytes"][k] == v["bytes"]
+                    for k, v in flat.items())
+        checks[f"(a) rank {i} ppermutes == 2 x (M + 2) a step"] = \
+            p["logger"]["counts"].get("ppermute[pipe]") == \
+            2 * (PP_M + 2) * n
+        for name, c in r["ring_case"].items():
+            checks[f"(c) rank {i} {name} ring call: B1 = B2 = B3 = j + 1"] \
+                = c["launches"]["flash_fwd"] == c["launches"][
+                    "flash_bwd_dq"] == c["launches"]["flash_bwd_dkv"] == j + 1
+            checks[f"(c) rank {i} {name} ring call bit for bit on repeat"] \
+                = c["bitwise_repeat"]
+        d = r["dp"]
+        checks[f"(d) rank {i} shape, in vocab, prompts kept"] = \
+            d["shape"] == [4, DP_PROMPT + DP_NEW] and d["in_vocab"] \
+            and d["prompts_kept"]
+        checks[f"(d) rank {i} rows"] = d["rows"] == [2 * i, 2 * i + 2]
+        checks[f"(d) rank {i} B1 == L (one prefill)"] = \
+            d["launches"]["flash_fwd"] == DP_LAYERS
+    checks["(b) f32 pipe=2 == world 1: losses 1e-5, params 1e-5"] = \
+        ranks[0]["f32_pipe"]["loss_rel_err"] <= 1e-5 and \
+        ranks[0]["f32_pipe"]["params_rel_l2"] <= 1e-5
+    checks["(b) f32 seq=2 == world 1: losses 1e-5, params 1e-5"] = \
+        ranks[0]["f32_seq"]["loss_rel_err"] <= 1e-5 and \
+        ranks[0]["f32_seq"]["params_rel_l2"] <= 1e-5
+    checks["(d) f32 data=2 generate token-identical to one rank"] = \
+        ranks[0]["dp"]["f32_token_identical"]
+    for name, c in ranks[0]["ring_case"].items():
+        tol = TOL[getattr(torch, name)]
+        checks[f"(c) {name} ring (gathered O, dQ, dK, dV) vs plain within "
+               f"{tol}"] = max(c["ring_vs_plain"].values()) <= tol
+        checks[f"(c) {name} one call vs plain within {tol}"] = \
+            max(c["one_vs_plain"].values()) <= tol
+        kcases[name].update(
+            {k: c[k] for k in ("ring_vs_plain", "one_vs_plain",
+                               "ring_vs_one", "max_abs_err")},
+            ring_rank_ms={w: [r["ring_case"][name][w] for r in ranks]
+                          for w in ("fwd_ms", "fwd_bwd_ms")})
+    launches = {
+        "pipeline": {k: sum(r["pipe"]["launches"][k] for r in ranks)
+                     for k in FLASH_KERNELS},
+        "ring": {k: sum(r["ring"]["launches"][k] for r in ranks)
+                 for k in FLASH_KERNELS},
+        "dp_generate": {k: sum(r["dp"]["launches"].get(k, 0) for r in ranks)
+                        for k in FLASH_KERNELS}}
+    rec = {"card": smi, "timing": ZERO_SHARED, "ranks": ranks,
+           "kernel_cases": kcases, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 20 (c) ring kernel cases [{smi}] " + json.dumps(kcases))
+    for what in ("pipe", "ring"):
+        log(f"phase 20 ({'a' if what == 'pipe' else 'c'}) {what} [{smi}; "
+            f"{ZERO_SHARED}] " + json.dumps({
+                k: [r[what][k] for r in ranks]
+                for k in ("losses", "step_ms_wall", "peak_mem_gib", "bytes",
+                          "launches", "plan")
+                + (("bubble", "transport") if what == "pipe" else ())}))
+        for i, r in enumerate(ranks):
+            log(f"phase 20 (e) comms logger rank {i} {what}:\n"
+                + r[what]["logger"]["summary"])
+    log(f"phase 20 (b) f32 [{smi}] " + json.dumps(
+        {k: ranks[0][k] for k in ("f32_pipe", "f32_seq")}))
+    log(f"phase 20 (d) data=2 generate [{smi}; {ZERO_SHARED}] "
+        + json.dumps([r["dp"] for r in ranks]))
+    log(f"phase 20: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 20: failed {failed}")
     return rec
 
 
@@ -5426,42 +6035,52 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     recovered = _watch_recoveries()
+    t_start = time.perf_counter()
 
-    build_s, build_info = build_phase()
+    warmers = start_flex_warmup()
+    build_s, build_info = timed("build", build_phase)
+    timed("flex_warmup_wait", wait_flex_warmup, warmers)
 
-    flash, decode, bwd = kernel_phase()
-    flash16, decode16, bwd16 = kernel_phase_f16()
-    sparse = sparse_kernel_phase()
-    srv, st, launches, served = serving_phase()
-    times = step_times(srv)
-    _, drift = cross_check(srv)
+    flash, decode, bwd = timed("kernels", kernel_phase)
+    flash16, decode16, bwd16 = timed("kernels_f16", kernel_phase_f16)
+    sparse = timed("sparse_kernels", sparse_kernel_phase)
+    srv, st, launches, served = timed("serving", serving_phase)
+    times = timed("serving_step_times", step_times, srv)
+    _, drift = timed("cross_check", cross_check, srv)
     bf16_drift = max(drift["bf16_kernels_vs_f32_plain"].values())
-    breadth = serving_breadth_phase(srv, card, bf16_drift)
+    breadth = timed("11_serving_breadth", serving_breadth_phase, srv, card,
+                    bf16_drift)
     del srv
     gc.collect()
     torch.cuda.empty_cache()
-    quant = quantized_spec_phase(card, bf16_drift, served)
-    lora = lora_handoff_phase(card, served, times["decode_step_16x1000_ms"])
+    quant = timed("12_quantized_spec", quantized_spec_phase, card,
+                  bf16_drift, served)
+    lora = timed("13_lora_handoff", lora_handoff_phase, card, served,
+                 times["decode_step_16x1000_ms"])
     _free()
-    sharded = sharded_serving_phase(card, served,
-                                    times["decode_step_16x1000_ms"])
-    train = training_phase(
-        next(c for c in flash if c["case"].startswith("llama-1b training")),
-        bwd[0])
-    training_cross_check()
-    resume = resume_phase(card)
-    sparse_train = sparse_training_phase(sparse[0])
-    training_cross_check(S=2048, sparse=SPARSE_MODEL)
-    p15 = phase15(card, served, train)
-    p16 = zero_training_phase(card)
+    sharded = timed("14_sharded_serving", sharded_serving_phase, card,
+                    served, times["decode_step_16x1000_ms"])
+    train = timed("training", training_phase,
+                  next(c for c in flash
+                       if c["case"].startswith("llama-1b training")),
+                  bwd[0])
+    timed("training_cross_check", training_cross_check)
+    resume = timed("10_resume", resume_phase, card)
+    sparse_train = timed("sparse_training", sparse_training_phase,
+                         sparse[0])
+    timed("sparse_cross_check", training_cross_check, S=2048,
+          sparse=SPARSE_MODEL)
+    p15 = timed("15_breadth", phase15, card, served, train)
+    p16 = timed("16_zero_training", zero_training_phase, card)
     # serving engines recover a failed round by default: no phase before
     # the fleet's fault soak injects a fault, so none may have recovered
     if recovered:
         raise RuntimeError(f"a serving round was recovered before phase "
                            f"17: {recovered}")
-    p17 = fleet_phase(card, served, bf16_drift)
-    p18 = capacity_phase(card)
-    p19 = model_parallel_phase(card)
+    p17 = timed("17_fleet", fleet_phase, card, served, bf16_drift)
+    p18 = timed("18_capacity", capacity_phase, card)
+    p19 = timed("19_model_parallel", model_parallel_phase, card)
+    p20 = timed("20_pipeline_ring", pipeline_ring_phase, card)
     # B1-B3 held at a ZeRO rank's shapes too, and at the MoE cell's and a
     # tensor=2 rank's (D=128)
     flash.append(p16["flash_case"])
@@ -5563,12 +6182,15 @@ def main() -> int:
             entry["launches"] += n
             entry["launches_by_path"]["capacity"] = n
     # phase 19: the MoE cell, and every rank of expert=2 and tensor=2
-    for entry in line["kernels"][:4]:
-        for path, counts in p19["launches"].items():
-            n = counts.get(entry["name"], 0)
-            if n:
-                entry["launches"] += n
-                entry["launches_by_path"][path] = n
+    # phase 20: every rank of pipe=2 (pipeline), of seq=2 (ring) and of
+    # the data=2 generate
+    for p in (p19, p20):
+        for entry in line["kernels"][:4]:
+            for path, counts in p["launches"].items():
+                n = counts.get(entry["name"], 0)
+                if n:
+                    entry["launches"] += n
+                    entry["launches_by_path"][path] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),
@@ -5584,6 +6206,8 @@ def main() -> int:
             "fp16_training": p15["f16_by_path"]["training"][name],
             "f16_serving": p15["f16_by_path"]["serving"][name]}
         line["kernels"].append(entry)
+    log("phase_s " + json.dumps({"phase": "total",
+                                 "s": time.perf_counter() - t_start}))
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),
@@ -5592,4 +6216,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--flex-warmup"]:
+        sys.exit(flex_warmup(int(sys.argv[2])))
     sys.exit(main())

@@ -87,8 +87,16 @@ def hierarchical_spec(grad_spec: Spec, shape: Sequence[int],
 
 
 def deferred_supported(plan: MeshPlan) -> Tuple[bool, str]:
-    """JAX's gate: expert-data routing folds the data axis at dispatch
-    time, so it cannot defer (pipe and seq cannot exist in a port plan)."""
+    """JAX's gate: the axes that restructure the step itself cannot
+    defer (the pipeline's schedule, ring attention's ``seq``
+    exchanges, expert-data routing, which folds the data axis at
+    dispatch time)."""
+    if plan.pipe > 1:
+        return False, ("pipeline parallelism wraps the step in its own "
+                       "manual mesh region")
+    if plan.seq > 1:
+        return False, ("ring attention's seq-axis collectives cannot nest "
+                       "inside a manual-data region")
     if plan.expert > 1:
         return False, ("expert-data routing folds the data axis at "
                        "dispatch time")
@@ -134,7 +142,9 @@ def reduce_grad(g: torch.Tensor, pspec: Spec, gspec: Spec,
                 hspec: Optional[Spec], plan: MeshPlan, mesh,
                 inv_dp: float, dtype: torch.dtype) -> torch.Tensor:
     """One leaf's local f32 grad (laid out as its param shard ``pspec``)
-    -> its ``gspec`` slice summed over every batch axis, times ``inv_dp``.
+    -> its ``gspec`` slice summed over every batch axis and over ``seq``
+    (each rank's loss is its piece of the sequences' tokens over the
+    whole count), times ``inv_dp``.
     Axes the param is sharded on were summed by ZeRO-3's gather backward.
     ``hspec``: the leaf's hierarchical spec (None: the flat reduction).
     ``dtype``: the param's; a narrower float rounds the summed grad to it
@@ -159,6 +169,8 @@ def reduce_grad(g: torch.Tensor, pspec: Spec, gspec: Spec,
             if a in todo:
                 g = comm.reduce_scatter(g, a, dim=d)
                 todo.remove(a)
+    if plan.seq > 1:
+        todo.append("seq")
     for a in todo:
         comm.all_reduce(g, a)
     if dtype.is_floating_point and dtype.itemsize < g.element_size():

@@ -6,12 +6,13 @@ What the port runs: the batch triad (``resolve_batch_size``, the same
 solve against the data-parallel degree), ``optimizer``, ``scheduler``,
 ``bf16``, ``fp16`` (the loss scaler), ``zero_optimization`` (the stage
 and ``stage3_param_persistence_threshold``), ``gradient_clipping``,
-``transformer.fused_backward``, ``pipeline`` (``in_flight``,
-``prefetch``, ``fuse_steps``), ``comm`` (the gradient-reduction
-schedule), ``mesh`` (explicit axes), ``checkpoint``, ``seed`` and
-``steps_per_print``, the capacity tier's ``zero_optimization.
-offload_param`` / ``offload_optimizer`` and ``aio`` (at one rank), and
-model parallelism: ``tensor_parallel.tp_size``, ``moe`` (its
+``transformer.fused_backward``, ``pipeline`` (``stages``,
+``in_flight``, ``prefetch``, ``fuse_steps``), ``comm`` (the
+gradient-reduction schedule), ``comms_logger``, ``mesh`` (explicit
+axes), ``checkpoint``, ``seed`` and ``steps_per_print``, the capacity
+tier's ``zero_optimization.offload_param`` / ``offload_optimizer`` and
+``aio`` (at one rank), and model parallelism: ``tensor_parallel.
+tp_size``, ``sequence_parallel.sp_size``, ``moe`` (its
 ``expert_parallel_size`` lays out the ``expert`` axis) and
 ``transformer.tp_overlap_chunks``.
 Unknown keys warn, as in JAX. The JAX sections the
@@ -181,7 +182,8 @@ class TransformerTuningConfig(ConfigModel):
 @dataclasses.dataclass
 class TensorParallelConfig(ConfigModel):
     """``tensor_parallel``: the ``tensor`` axis's degree. ``seq_parallel``
-    (activations split along the sequence on that axis) is ROADMAP A9."""
+    is accepted as in JAX, whose config declares it and no code reads
+    it."""
     ALIASES = {"size": "tp_size", "tp": "tp_size"}
     tp_size: int = 1
     seq_parallel: bool = False
@@ -189,22 +191,21 @@ class TensorParallelConfig(ConfigModel):
     def validate(self):
         if self.tp_size < 1:
             raise ConfigError("tensor_parallel.tp_size must be >= 1")
-        if self.seq_parallel:
-            _deferred("tensor_parallel.seq_parallel",
-                      "A9 (sequence parallelism)")
 
 
 @dataclasses.dataclass
 class SequenceParallelConfig(ConfigModel):
-    """``sequence_parallel``: ring attention over a ``seq`` axis, ROADMAP
-    A9 above size 1."""
+    """``sequence_parallel``: the ``seq`` axis's degree (each rank holds a
+    piece of every sequence; attention runs as a ring,
+    ``ops/ring_attention.py``). ``mode`` is kept for the JSON surface:
+    JAX's routing runs the ring whatever it says."""
     ALIASES = {"size": "sp_size"}
     sp_size: int = 1
     mode: str = "ring"
 
     def validate(self):
-        if self.sp_size > 1:
-            _deferred("sequence_parallel", "A9 (ring attention)")
+        if self.sp_size < 1:
+            raise ConfigError("sequence_parallel.sp_size must be >= 1")
 
 
 @dataclasses.dataclass
@@ -227,25 +228,34 @@ class MoEConfig(ConfigModel):
 
 @dataclasses.dataclass
 class PipelineConfig(ConfigModel):
-    """``pipeline``: the async step loop of ``Engine.train_batches``.
-    ``in_flight`` bounds how many steps the host issues ahead of the card;
-    ``prefetch`` copies batch N+1 to the device (from pinned memory, on a
-    side stream) while step N runs; ``fuse_steps`` is accepted and has no
-    effect (JAX fuses K steps into one program; the eager port has no
-    single-dispatch step until ROADMAP S2). Pipeline stages raise
-    (ROADMAP A9)."""
+    """``pipeline``: ``stages`` is the ``pipe`` axis's degree (the 1F1B
+    schedule of ``parallel/pipeline.py``, with
+    ``gradient_accumulation_steps`` micro-batches); ``partition_method``,
+    ``micro_batches``, ``activation_checkpoint_interval`` and
+    ``schedule`` are accepted as in JAX, whose config declares them and
+    no code reads them (layers split evenly; the schedule is 1F1B).
+    The async step loop of ``Engine.train_batches``: ``in_flight`` bounds
+    how many steps the host issues ahead of the card; ``prefetch`` copies
+    batch N+1 to the device (from pinned memory, on a side stream) while
+    step N runs; ``fuse_steps`` is accepted and has no effect (JAX fuses
+    K steps into one program; the eager port has no single-dispatch step
+    until ROADMAP S2)."""
     stages: int = 1
+    partition_method: str = "parameters"
+    micro_batches: Optional[int] = None
+    activation_checkpoint_interval: int = 0
+    schedule: str = "1f1b"
     in_flight: int = 2
     prefetch: bool = True
     fuse_steps: int = 1
 
     def validate(self):
+        if self.stages < 1:
+            raise ConfigError("pipeline.stages must be >= 1")
         if self.in_flight < 1:
             raise ConfigError("pipeline.in_flight must be >= 1")
         if self.fuse_steps < 1:
             raise ConfigError("pipeline.fuse_steps must be >= 1")
-        if self.stages > 1:
-            _deferred("pipeline.stages", "A9 (pipeline parallelism)")
 
 
 @dataclasses.dataclass
@@ -294,6 +304,18 @@ class CommConfig(ConfigModel):
 
 
 @dataclasses.dataclass
+class CommsLoggerConfig(ConfigModel):
+    """``comms_logger``, JAX's fields: the engine configures
+    ``comm.comms_logger`` from it (``prof_all`` records every op, else
+    only ``prof_ops``); ``debug`` is accepted."""
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = config_field([])
+
+
+@dataclasses.dataclass
 class MeshConfig(ConfigModel):
     """``mesh``: explicit axes (``{"data": 2, "fsdp": 2}``) instead of the
     plan ``parallel.mesh.plan_from_config`` derives;
@@ -322,7 +344,6 @@ def _enabled(s: Dict[str, Any]) -> bool:
 
 # JAX sections this slice does not run: (on(section dict), ROADMAP item)
 _DEFERRED = {
-    "comms_logger": (_enabled, "A9 (comm logging)"),
     "telemetry": (_enabled, "A11 (telemetry)"),
     "flops_profiler": (_enabled, "A11 (profiling)"),
     "tensorboard": (_enabled, "A11 (monitor)"),
@@ -397,6 +418,7 @@ class Config(ConfigModel):
         TensorParallelConfig)
     sequence_parallel: SequenceParallelConfig = config_field(
         SequenceParallelConfig)
+    comms_logger: CommsLoggerConfig = config_field(CommsLoggerConfig)
     moe: MoEConfig = config_field(MoEConfig)
     robustness: RobustnessConfig = config_field(RobustnessConfig)
     aio: AIOConfig = config_field(AIOConfig)

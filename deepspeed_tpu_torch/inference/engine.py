@@ -28,6 +28,15 @@ fusion is off at tp > 1 (the concat would interleave head shards).
 ``forward`` and ``generate`` are collective then: every rank calls them
 with the same inputs (the serving engine drives its ranks itself).
 
+On a ``data`` (and ``fsdp``) mesh, as JAX's engine shards a batch over
+``data`` when the data degree divides it (``_batch_spec``): ``forward``
+and ``generate`` give each data rank its contiguous rows, every rank
+returns the whole output (an ``all_gather`` over ``data``), and a batch
+the degree does not divide is replicated (every rank computes all of
+it). ``fsdp`` holds no serving shard (the serving rules are JAX's
+``make_rules(0)``): its ranks replicate. Sampled decode draws each rank's
+rows from that rank's ``rng``.
+
 ``init_inference`` runs on the card: ``device=None`` means "cuda" and
 raises when CUDA is missing. Pass ``device="cpu"`` for the plain PyTorch
 versions of the kernels (the tests do).
@@ -41,6 +50,7 @@ import torch
 from deepspeed_tpu_torch.inference import generation
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models.convert import params_from_numpy
 from deepspeed_tpu_torch.models.transformer import (fuse_layer_stack,
                                                     logical_axes,
@@ -141,12 +151,11 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
             raise ValueError(f"expert_parallel={ep} but the mesh's expert "
                              f"axis has size {plan.expert}")
         tp, ep = plan.tensor, plan.expert
-    if plan.data > 1 or plan.fsdp > 1:
-        raise NotImplementedError(
-            f"serving on a mesh with data={plan.data}, fsdp={plan.fsdp} is "
-            "not ported yet: ROADMAP A9 (parallelism breadth: JAX shards one "
-            "engine's batch over the data axis; replicas, one engine each, "
-            "serve behind inference.router)")
+    if plan.pipe > 1 or plan.seq > 1:
+        raise ValueError(
+            f"inference on a mesh with pipe={plan.pipe}, seq={plan.seq}: "
+            "the inference engine runs the data, fsdp, expert and tensor "
+            "axes (JAX's InferenceEngine plans data x expert x tensor)")
     mcfg = model.config
     if ep > 1:
         if mcfg.num_experts <= 1:
@@ -246,8 +255,16 @@ class InferenceEngine:
         ``apply`` (e.g. ``attention_mask``). Collective on a mesh of more
         than one rank."""
         ids = torch.as_tensor(input_ids).long().to(self.device)
+        B = ids.shape[0]
+        rows = self._data_rows(B)
+        if rows is not None:
+            ids = ids[rows]
+            kwargs = {k: (v[rows] if isinstance(v, torch.Tensor)
+                          and v.dim() and v.shape[0] == B else v)
+                      for k, v in kwargs.items()}
         with torch.no_grad(), parallel_context(self.mesh):
-            return self.model.apply(self.params, ids, **kwargs)
+            out = self.model.apply(self.params, ids, **kwargs)
+            return out if rows is None else comm.all_gather(out, "data")
 
     __call__ = forward
 
@@ -260,7 +277,23 @@ class InferenceEngine:
         Collective on a mesh of more than one rank (every rank samples
         the same greedy tokens; sampled decode draws on each rank's
         ``rng``)."""
+        ids = torch.as_tensor(input_ids)
+        rows = self._data_rows(ids.shape[0]) if ids.dim() == 2 else None
+        if rows is not None:
+            ids = ids[rows]
         with parallel_context(self.mesh):
-            return generation.generate(self, input_ids,
-                                       max_new_tokens=max_new_tokens,
-                                       temperature=temperature, rng=rng)
+            out = generation.generate(self, ids,
+                                      max_new_tokens=max_new_tokens,
+                                      temperature=temperature, rng=rng)
+            return out if rows is None else comm.all_gather(out, "data")
+
+    def _data_rows(self, batch_size: int) -> Optional[slice]:
+        """This rank's rows of a batch the data degree divides (JAX's
+        ``_batch_spec``: ``P("data")``); None: the batch is whole on
+        every rank (no data axis, or a batch it does not divide)."""
+        dp = self.mesh.size("data")
+        if dp <= 1 or batch_size % dp:
+            return None
+        n = batch_size // dp
+        i = self.mesh.index("data")
+        return slice(i * n, (i + 1) * n)

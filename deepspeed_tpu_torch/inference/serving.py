@@ -398,6 +398,7 @@ class ServingEngine:
         # the engine's resolved degrees (a dense model on an expert mesh
         # serves at ep = 1), as JAX's serving engine reads them
         self.mesh = engine.mesh
+        _refuse_data_axis(self.mesh.plan)
         self.tp, self.ep = int(engine.tp), int(engine.ep)
         self.rank = self.mesh.rank
         self._seam = (DeviceSeam(self.mesh, self.device)
@@ -2122,6 +2123,21 @@ class ServingEngine:
             out["tok_per_sec"] = float(total / span) if span > 0 else 0.0
             out["generated_tokens"] = float(total)
         return out
+
+
+def _refuse_data_axis(plan) -> None:
+    """A serving engine runs tensor and expert meshes: JAX's
+    ``ServingEngine`` has no data-split path (its block pools shard over
+    ``tensor`` only and its slots are one host state,
+    ``deepspeed_tpu/inference/serving.py:440-457``)."""
+    if plan is not None and (plan.data > 1 or plan.fsdp > 1):
+        raise NotImplementedError(
+            f"serving on a mesh with data={plan.data}, fsdp={plan.fsdp}: "
+            "JAX's ServingEngine has no data-split path (its block pools "
+            "shard over tensor only and its slots are one host state: "
+            "deepspeed_tpu/inference/serving.py:440-457); replicas, one "
+            "engine each, serve behind inference.router, and "
+            "InferenceEngine.generate splits a batch over data")
 
 
 def init_serving(model, config=None, serving: Optional[dict] = None,

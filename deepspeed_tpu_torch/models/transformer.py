@@ -118,6 +118,7 @@ from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
                                                      flash_attention)
 from deepspeed_tpu_torch.ops.quantizer import (int8_matmul, quantize_rows,
                                                weight_matmul)
+from deepspeed_tpu_torch.ops.ring_attention import ring_attention_local
 from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
 from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
@@ -125,7 +126,9 @@ from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
                                                   batch_row,
                                                   copy_to_tensor,
                                                   gather_params,
-                                                  reduce_from_tensor)
+                                                  reduce_from_tensor,
+                                                  seq_offset,
+                                                  seq_parallel_degree)
 from deepspeed_tpu_torch.parallel.partitioning import row_parallel_matmul
 
 Params = Dict[str, Any]
@@ -646,6 +649,12 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     key mask included, goes through the GQA-native flash kernels (B1-B3),
     which compute the JAX dense branch's function.
 
+    Over a ``seq`` axis of more than one rank (q / k / v this rank's
+    piece of the sequence) attention is the ring
+    (``ops/ring_attention.ring_attention_local``: B1-B3 per pair of
+    pieces), ahead of the sparse branch, as in JAX; under a key mask too
+    (JAX's XLA branch takes that case; the rows that see a key agree).
+
     A query row that sees no key (a causal row whose visible keys are all
     masked: left padding) gets O = 0 here, as JAX's Pallas flash kernel
     gives on the TPU (and B2/B3 rely on its p = 0). JAX's XLA branch gives
@@ -655,6 +664,13 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     sparse config with a key mask, which JAX sends to XLA on every
     backend. Every row that sees a key agrees with both."""
     sm = _sm_scale(cfg, q.shape[-1])
+    if seq_parallel_degree() > 1:
+        # the rank holds a piece of the sequence: the ring over ``seq``,
+        # ahead of the sparse branch, as JAX routes it
+        return ring_attention_local(q, k, v, causal=causal, sm_scale=sm,
+                                    kv_mask=mask,
+                                    fused_backward=cfg.fused_backward,
+                                    reference=reference)
     if cfg.sparse_attention and mask is None:
         if q.dtype == torch.float16:
             raise ValueError("sparse_attention kernels take no float16 (B5-B7 "
@@ -884,10 +900,19 @@ def _dropout(x, cfg: TransformerConfig, seed: Optional[int], salt: int):
     rows = x.reshape((x.shape[0], -1) if x.dim() > 1 else (1, -1))
     u = torch.empty(rows.shape, dtype=torch.float32, device=x.device)
     start = batch_row()
+    # over ``seq`` a row here is a piece of the one-rank run's row: draw
+    # the whole row and keep the piece
+    sp = seq_parallel_degree() if x.dim() > 2 else 1
+    n = rows.shape[1]
+    piece = seq_offset(n) if sp > 1 else 0
     for r in range(rows.shape[0]):
         gen = torch.Generator(device=x.device).manual_seed(
             mask_seed(seed, salt, start + r))
-        torch.rand(rows.shape[1:], generator=gen, out=u[r])
+        if sp > 1:
+            u[r] = torch.rand((n * sp,), generator=gen,
+                              device=x.device)[piece:piece + n]
+        else:
+            torch.rand(rows.shape[1:], generator=gen, out=u[r])
     mask = (u < keep).reshape(x.shape)
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
@@ -1197,22 +1222,18 @@ def _remat_policy(cfg: TransformerConfig, device=None):
     return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
-def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
-            reference=False, on_layer_kv: Optional[Callable] = None,
-            keep_kv: bool = False, dropout_seed: Optional[int] = None,
-            train: bool = False, aux: Optional[list] = None):
-    """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
-    v)`` consumes each layer's K/V as soon as it exists (the paged prefill
-    writes them straight into the pool); ``keep_kv`` returns them. With
-    gradients on, each layer runs under the config's remat policy.
-    ``dropout_seed``: layer i's masks (and gate noise) come from
-    ``mask_seed(dropout_seed, i)`` (None: no dropout); ``train`` and
-    ``aux``: as ``transformer_layer``'s (each MoE layer's aux loss
-    appended to ``aux``)."""
-    B, S = input_ids.shape
-    x = _embed(params, input_ids, cfg)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
+                reference=False, on_layer_kv: Optional[Callable] = None,
+                keep_kv: bool = False, dropout_seed: Optional[int] = None,
+                train: bool = False, aux: Optional[list] = None,
+                first_layer: int = 0):
+    """The stacked ``layers`` ([L, ...] leaves) over x [B, S, H]: returns
+    (x, the kept K/V). With gradients on, each layer runs under the
+    config's remat policy. Layer i of the stack is the model's layer
+    ``first_layer + i`` (a pipeline stage's run of layers): its dropout
+    masks (and gate noise) come from ``mask_seed(dropout_seed,
+    first_layer + i)``. ``on_layer_kv``, ``keep_kv``, ``train`` and
+    ``aux``: as ``_hidden``'s."""
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
                   else None)
 
@@ -1232,7 +1253,8 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
         return (out, box[0]) if box else out
 
     kvs = []
-    for i, lp in enumerate(_layers(params)):
+    for j, lp in enumerate(_layers({"layers": layers})):
+        i = first_layer + j
         if context_fn is not None and on_layer_kv is None and not keep_kv:
             out = checkpoint(remat, x, lp, i, use_reentrant=False,
                              context_fn=context_fn)
@@ -1248,6 +1270,32 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
             on_layer_kv(i, k, v)
         elif keep_kv:
             kvs.append((k, v))
+    return x, kvs
+
+
+def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
+            reference=False, on_layer_kv: Optional[Callable] = None,
+            keep_kv: bool = False, dropout_seed: Optional[int] = None,
+            train: bool = False, aux: Optional[list] = None):
+    """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
+    v)`` consumes each layer's K/V as soon as it exists (the paged prefill
+    writes them straight into the pool); ``keep_kv`` returns them. With
+    gradients on, each layer runs under the config's remat policy.
+    ``dropout_seed``: layer i's masks (and gate noise) come from
+    ``mask_seed(dropout_seed, i)`` (None: no dropout); ``train`` and
+    ``aux``: as ``transformer_layer``'s (each MoE layer's aux loss
+    appended to ``aux``)."""
+    B, S = input_ids.shape
+    x = _embed(params, input_ids, cfg)
+    if positions is None:
+        # over ``seq`` the ids are this rank's piece: its global positions
+        start = seq_offset(S) if seq_parallel_degree() > 1 else 0
+        positions = torch.arange(start, start + S,
+                                 device=x.device)[None].expand(B, S)
+    x, kvs = layer_stack(x, params["layers"], cfg, positions=positions,
+                         attention_mask=attention_mask, reference=reference,
+                         on_layer_kv=on_layer_kv, keep_kv=keep_kv,
+                         dropout_seed=dropout_seed, train=train, aux=aux)
     x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
               cfg)
     return x, kvs
@@ -1331,6 +1379,21 @@ def lm_labels(batch):
     return labels
 
 
+def head_loss(params: Params, x, labels, cfg: TransformerConfig,
+              label_count=None):
+    """The CE of the final-normed hidden states x [B, S, H] through the
+    head (chunked with ``loss_chunk``), over ``label_count`` (None: the
+    labels' own count)."""
+    if cfg.loss_chunk and cfg.loss_chunk > 0:
+        tied = params.get("lm_head") is None
+        head = params["tok_embed"] if tied else params["lm_head"]
+        return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
+                                     tied_embed=tied, count=label_count,
+                                     vocab=cfg.vocab_size)
+    return cross_entropy_loss(lm_head_logits(x, params, cfg.vocab_size),
+                              labels, count=label_count)
+
+
 def lm_loss(params: Params, batch, cfg: TransformerConfig,
             reference: bool = False, dropout_seed: Optional[int] = None,
             label_count=None, train: bool = False):
@@ -1353,16 +1416,8 @@ def lm_loss(params: Params, batch, cfg: TransformerConfig,
     mask = batch.get("attention_mask")
     kw = dict(attention_mask=mask, reference=reference,
               dropout_seed=dropout_seed, train=train, return_aux=True)
-    if cfg.loss_chunk and cfg.loss_chunk > 0:
-        x, aux = forward(params, ids, cfg, return_hidden=True, **kw)
-        tied = params.get("lm_head") is None
-        head = params["tok_embed"] if tied else params["lm_head"]
-        loss = chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
-                                     tied_embed=tied, count=label_count,
-                                     vocab=cfg.vocab_size)
-    else:
-        logits, aux = forward(params, ids, cfg, **kw)
-        loss = cross_entropy_loss(logits, labels, count=label_count)
+    x, aux = forward(params, ids, cfg, return_hidden=True, **kw)
+    loss = head_loss(params, x, labels, cfg, label_count)
     if cfg.num_experts > 1:
         loss = loss + cfg.moe_aux_loss_weight * aux
     return loss

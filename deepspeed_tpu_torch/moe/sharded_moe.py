@@ -60,6 +60,8 @@ from deepspeed_tpu_torch.moe.mappings import gather_tokens
 from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
                                                   axis_size, copy_to_tensor,
                                                   gather_along, scatter_along,
+                                                  seq_offset,
+                                                  seq_parallel_degree,
                                                   split_axes)
 
 _RECORD: Optional[list] = None
@@ -172,6 +174,13 @@ def moe_ffn(moe_params, x, cfg, *, generator=None, train: bool = False
         t.requires_grad for t in moe_params.values()))
     axes = split_axes()
     tp = axis_size("tensor")
+    # over ``seq`` the rank holds a piece of each sequence: the layer
+    # routes the whole sequences (JAX's gate sees the global tokens) and
+    # keeps its piece of the output; each rank's aux is 1 / sp of the
+    # whole's, so the sum over ``seq`` counts it once
+    sp, Sl = seq_parallel_degree(), x.shape[1]
+    if sp > 1:
+        x = gather_along(x, "seq", dim=1)
     B, S, H = x.shape
     xs = gather_along(x, axes, dim=0) if axes else x
     Bg = xs.shape[0]
@@ -246,4 +255,6 @@ def moe_ffn(moe_params, x, cfg, *, generator=None, train: bool = False
             y = gather_tokens(scatter_along(y, "tensor", dim=1), dim=1)
         else:
             all_reduce(y, "tensor")
+    if sp > 1:
+        y, aux = y.narrow(1, seq_offset(Sl), Sl), aux / sp
     return y.to(x.dtype), aux

@@ -1,3 +1,3 @@
-from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor
+from deepspeed_tpu_torch.monitor.monitor import JSONLMonitor, MonitorMaster
 
-__all__ = ["JSONLMonitor"]
+__all__ = ["JSONLMonitor", "MonitorMaster"]

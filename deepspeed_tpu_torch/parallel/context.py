@@ -35,6 +35,12 @@ a batch axis hold their own rows and their losses add up):
 Each goes through the comm facade, so its counts of calls and bytes hold,
 and each is the identity where its axes have size 1. The serving path
 keeps the in-place ``all_reduce``: it keeps no graph.
+
+Over ``seq`` (sequence parallelism) each rank holds a contiguous piece
+of every sequence: ``seq_parallel_degree`` (JAX's name) routes the
+model's attention to the ring, ``seq_offset`` is where this rank's piece
+starts (rotary positions, dropout masks); over ``pipe`` the engine runs
+the pipeline schedule and a stage's index is ``axis_index("pipe")``.
 """
 
 import contextlib
@@ -82,6 +88,18 @@ def axis_size(axis: str) -> int:
 def axis_index(axis: str) -> int:
     """This rank's coordinate along ``axis`` (0 without a mesh)."""
     return 0 if _MESH is None else _MESH.index(axis)
+
+
+def seq_parallel_degree() -> int:
+    """The ambient mesh's ``seq`` degree (1 without a mesh)."""
+    return axis_size("seq")
+
+
+def seq_offset(local_len: int) -> int:
+    """Where this rank's piece of a sequence starts, for a piece of
+    ``local_len`` positions (the pieces are contiguous, in ``seq``
+    coordinate order)."""
+    return axis_index("seq") * local_len
 
 
 def all_reduce(x: torch.Tensor, *axes: str) -> torch.Tensor:

@@ -34,26 +34,28 @@ MeshAxis = Union[str, Tuple[str, ...], None]
 Spec = Tuple[MeshAxis, ...]
 
 
-def make_rules(zero_stage: int, tp: bool = True,
+def make_rules(zero_stage: int, tp: bool = True, pipe: bool = False,
                fsdp_axis: str = "fsdp",
                tensor_axis: str = "tensor") -> Dict[str, MeshAxis]:
-    """JAX's ``make_rules`` without its ``pipe`` option (ROADMAP A9).
-    Stage <= 2: params replicated across data-parallel ranks, the logical
-    axes map to ``tensor`` only. Stage 3: ``embed`` shards over ``fsdp``,
-    ``vocab`` over (fsdp, tensor), and without a tensor axis ``mlp``,
-    ``heads`` and ``qkv`` over ``fsdp`` too (the first of them in a leaf
-    takes it: a mesh axis shards one dim of a leaf)."""
+    """JAX's ``make_rules``. Stage <= 2: params replicated across
+    data-parallel ranks, the logical axes map to ``tensor`` only. Stage 3:
+    ``embed`` shards over ``fsdp``, ``vocab`` over (fsdp, tensor), and
+    without a tensor axis ``mlp``, ``heads`` and ``qkv`` over ``fsdp`` too
+    (the first of them in a leaf takes it: a mesh axis shards one dim of a
+    leaf). ``pipe``: the stacked ``layers`` dim shards over ``pipe`` (each
+    pipeline stage holds its contiguous run of layers)."""
     t = tensor_axis if tp else None
+    layers = "pipe" if pipe else None
     if zero_stage >= 3:
         return {"vocab": (fsdp_axis, t) if t else fsdp_axis,
                 "embed": fsdp_axis,
                 "mlp": t if t else fsdp_axis,
                 "heads": t if t else fsdp_axis,
                 "qkv": t if t else fsdp_axis,
-                "kv": None, "expert": "expert", "layers": None,
+                "kv": None, "expert": "expert", "layers": layers,
                 "unmodeled": None}
     return {"vocab": t, "embed": None, "mlp": t, "heads": t, "qkv": t,
-            "kv": None, "expert": "expert", "layers": None,
+            "kv": None, "expert": "expert", "layers": layers,
             "unmodeled": None}
 
 

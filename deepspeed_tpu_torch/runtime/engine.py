@@ -101,11 +101,29 @@ covers it); an executor's tag holds its chunks, ``infinity_shapes.json``,
 ``infinity_small.npz`` and ``infinity_meta.json``. Offload on more than
 one rank raises naming ROADMAP A8d.
 
+Pipeline and sequence parallelism (JAX's ``pipe`` and ``seq`` axes):
+
+- ``pipeline.stages`` > 1 wraps the model (``models/pipeline_wrapper``):
+  each stage holds its layers, ``gradient_accumulation_steps`` is the
+  number of micro-batches, and one call of the pipelined loss takes the
+  whole batch through the 1F1B schedule (``parallel/pipeline.py``); the
+  ranks of the batch axes take their rows of every micro-batch, each
+  micro-batch's CE over its whole label count;
+- ``sequence_parallel.sp_size`` > 1: each rank of a ``seq`` group takes
+  its piece of every sequence (labels shifted on the whole sequences
+  first), attention runs as a ring (``ops/ring_attention.py``), each
+  rank's loss is its tokens over the whole count, and the grads and the
+  loss are summed over ``seq``.
+
+JAX's errors are raised as JAX raises them: pipe with seq, a model that
+is not a transformer under pipe, layers the stages do not divide, and
+the layer-streamed offload with pipe, seq or expert. The
+``comms_logger`` section switches ``comm.comms_logger`` on.
+
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
-the config sections ``config/config.py`` lists (pipeline stages and
-ring attention among them, A9).
+the config sections ``config/config.py`` lists.
 """
 
 import collections
@@ -127,6 +145,7 @@ from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.config.config import raise_offload_over_ranks
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
+from deepspeed_tpu_torch.models.pipeline_wrapper import make_pipelined_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     lm_labels, logical_axes,
                                                     make_model, mask_seed)
@@ -251,6 +270,31 @@ class Engine:
                                "is not a transformer ModelSpec")
         self.model = model
 
+        # pipeline wrapping (JAX: the PipelineEngine construction); the
+        # micro-batches are the accumulation steps, consumed by one call
+        self._pp_mode = self.plan.pipe > 1
+        if self._pp_mode and self.plan.seq > 1:
+            raise ValueError("pipe>1 with seq>1 is not supported: ring "
+                             "attention cannot nest inside the pipelined "
+                             "manual mesh region")
+        if self._pp_mode:
+            if not isinstance(getattr(model, "config", None),
+                              TransformerConfig):
+                raise ValueError("pipeline parallelism requires a transformer "
+                                 "ModelSpec (stacked-layer params)")
+            self.model = make_pipelined_model(
+                model.config, self.mesh,
+                num_microbatches=config.gradient_accumulation_steps,
+                name=f"{model.name}-pp{self.plan.pipe}")
+            logger.info(f"pipeline mode: {self.plan.pipe} stages, "
+                        f"{config.gradient_accumulation_steps} microbatches")
+        # comms-logger wiring (JAX: the comms_logger section configures the
+        # logger at engine init)
+        if config.comms_logger.enabled:
+            cl = config.comms_logger
+            comm.configure(enabled=True, verbose=cl.verbose,
+                           prof_ops=() if cl.prof_all else cl.prof_ops)
+
         # deterministic fault injection armed from the config: the
         # injector is process-global, so a rebuilt engine with the same
         # schedule keeps its counters (robustness/faults.py)
@@ -364,6 +408,10 @@ class Engine:
         off_o, off_p = zc.offload_optimizer, zc.offload_param
         if not (off_o.enabled or off_p.enabled):
             return None
+        if off_p.enabled and (self.plan.pipe > 1 or self.plan.seq > 1
+                              or self.plan.expert > 1):
+            raise ValueError("layer-streamed offload shards over "
+                             "data/fsdp/tensor (pipe/seq/expert must be 1)")
         if self.plan.world_size > 1:
             raise_offload_over_ranks(self.plan.world_size)
         name = _opt_name(self.config)
@@ -646,8 +694,15 @@ class Engine:
             kw["train"] = True
         if getattr(mcfg, "dropout_rate", 0.0) or (
                 moe and getattr(mcfg, "noisy_gate_policy", None)):
-            kw["dropout_seed"] = mask_seed(self.config.seed,
-                                           self.global_steps, micro)
+            if self._pp_mode:
+                # the pipeline's micro-batches draw what the one-stage
+                # run's micro-batches draw
+                kw["micro_seeds"] = [
+                    mask_seed(self.config.seed, self.global_steps, i)
+                    for i in range(self.config.gradient_accumulation_steps)]
+            else:
+                kw["dropout_seed"] = mask_seed(self.config.seed,
+                                               self.global_steps, micro)
         return kw
 
     def _micro_grads(self, mb, micro: int = 0, row: Optional[int] = None,
@@ -697,13 +752,55 @@ class Engine:
     def _mean_loss(losses):
         return losses[0] if len(losses) == 1 else torch.stack(losses).mean()
 
+    def _seq_labels(self, batch):
+        """Over ``seq``: the batch with its labels made explicit, shifted
+        on the whole sequences before each rank takes its piece (JAX's
+        labels are the global ids shifted)."""
+        if self.plan.seq > 1 and "labels" not in batch:
+            batch = dict(batch, labels=lm_labels(batch))
+        return batch
+
     def _local_rows(self, batch):
         """This rank's contiguous rows of the global batch (the batch dim
-        sharded over ``BATCH_AXES``, as JAX shards it)."""
+        sharded over ``BATCH_AXES``, as JAX shards it), and over ``seq``
+        its piece of every sequence (JAX's ``P(BATCH_AXES, "seq")``)."""
         if self._part is None:
             return batch
-        return {k: self._part.slice_of(v, (BATCH_AXES,))
-                for k, v in batch.items()}
+        spec = (BATCH_AXES, "seq") if self.plan.seq > 1 else (BATCH_AXES,)
+        return {k: self._part.slice_of(v, spec[:v.dim()])
+                for k, v in self._seq_labels(batch).items()}
+
+    def _pipe_rows(self, batch):
+        """Pipeline mode: this rank's rows of each of the batch's M
+        micro-batches (micro-batch i is rows [i * mb, (i + 1) * mb) of the
+        global batch, as JAX's pipelined loss cuts it; the batch axes
+        split each micro-batch's rows), as M * mb / dp rows."""
+        M = self.config.gradient_accumulation_steps
+        dp, d = self.plan.dp_world_size, self._dp_index()
+        out = {}
+        for k, v in batch.items():
+            mb = v.reshape((M, v.shape[0] // M) + v.shape[1:])
+            n = mb.shape[1] // dp
+            out[k] = mb[:, d * n:(d + 1) * n].reshape(
+                (M * n,) + v.shape[1:])
+        return out
+
+    def _pipe_grads(self, batch):
+        """Pipeline mode: loss and grads of this rank's rows of all M
+        micro-batches from one call of the pipelined loss (the 1F1B
+        schedule), each micro-batch's CE over its whole label count (every
+        data-parallel rank's rows) over dp; reduced over the batch
+        axes."""
+        M = self.config.gradient_accumulation_steps
+        counts = self._denominators(
+            (lm_labels(batch) != -100).reshape(M, -1).sum(1))
+        local = self._pipe_rows(batch)
+        rows = local["input_ids"].shape[0] // M
+        loss, grads = self._micro_grads(local,
+                                        row=self._dp_index() * rows,
+                                        label_count=counts)
+        grads = self._part.reduce_grads(grads, self.state["params"])
+        return grads, self._part.mean_over_ranks(loss)
 
     def _dp_index(self) -> int:
         """This rank's piece of the batch dim (``BATCH_AXES`` raveled)."""
@@ -730,8 +827,11 @@ class Engine:
         draws that, and on the eager schedule its loss is divided by that
         micro-batch's label count (JAX's global token mean; without
         explicit labels every rank's count is the same)."""
+        if self._pp_mode:
+            return self._pipe_grads(batch)
         gas = self.config.gradient_accumulation_steps
         dp, d = self.plan.dp_world_size, self._dp_index()
+        batch = self._seq_labels(batch)
         local = self._local_rows(batch)
         micro_rows = local["input_ids"].shape[0] // gas
         mbs = {k: v.reshape((gas, v.shape[0] // gas) + v.shape[1:])
@@ -936,9 +1036,19 @@ class Engine:
         batch (collective at stage 3, whose layers gather)."""
         if self._infinity is not None:
             return self._infinity.eval_batch(batch)
+        batch = self._device_batch(batch)
         with self._step_context():
-            return self.model.loss_fn(self.state["params"],
-                                      self._device_batch(batch))
+            if self.plan.seq > 1:
+                # each rank its piece of every sequence, over the whole
+                # count of labels; the pieces' losses add up over seq
+                batch = self._seq_labels(batch)
+                count = (batch["labels"] != -100).sum().clamp_min(1).float()
+                local = {k: self._part.slice_of(v, (None, "seq"))
+                         for k, v in batch.items()}
+                loss = self.model.loss_fn(self.state["params"], local,
+                                          label_count=count)
+                return comm.all_reduce(loss.reshape(1).clone(), "seq")[0]
+            return self.model.loss_fn(self.state["params"], batch)
 
     # ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -1014,8 +1124,11 @@ class Engine:
         """Loss and grads of one micro-batch (train_micro_batch_size_per_gpu
         rows; on more than one rank, this rank's, and the loss divided by
         the label count of every rank's micro-batch together: with
-        explicit labels, one all-reduce of the count); the grads wait for
-        ``backward``. Returns the loss."""
+        explicit labels, one all-reduce of the count; over ``seq`` the
+        rank's rows are whole sequences, of which it takes its piece);
+        the grads wait for ``backward``. In pipeline mode the whole
+        global batch, all its micro-batches in one call, as JAX's.
+        Returns the loss."""
         if self._infinity is not None:
             raise ValueError("offload_param: the layer executor steps "
                              "through train_batch (the 3-call API needs "
@@ -1024,7 +1137,20 @@ class Engine:
         batch = self._device_batch(batch)
         row = count = None
         with self._step_context():
-            if self._part is not None:
+            if self._pp_mode:
+                # the pipelined loss takes the whole global batch (its M
+                # micro-batches) in one call, as JAX's
+                self._pending = self._pipe_grads(batch)
+                return self._pending[1]
+            if self.plan.seq > 1:
+                batch = self._seq_labels(batch)
+                batch = {k: self._part.slice_of(v, (None, "seq"))
+                         for k, v in batch.items()}
+                local = (batch["labels"] != -100).sum().reshape(1)
+                count = self._denominators(par_ctx.all_reduce(
+                    local, *BATCH_AXES, "seq"))[0]
+                row = self._dp_index() * batch["input_ids"].shape[0]
+            elif self._part is not None:
                 row = self._dp_index() * batch["input_ids"].shape[0]
                 if "labels" in batch:
                     local = (batch["labels"] != -100).sum().reshape(1)
@@ -1041,6 +1167,13 @@ class Engine:
         over the ranks now unless the schedule defers them to ``step``."""
         if self._pending is None:
             raise RuntimeError("backward() called without forward()")
+        if self._pp_mode:
+            # reduced and averaged over the ranks already (_pipe_grads)
+            grads, loss = self._pending
+            self._pending = None
+            self._grad_buffer, self._losses = grads, [loss]
+            self.micro_steps += self.config.gradient_accumulation_steps
+            return loss
         loss, grads = self._pending
         self._pending = None
         if self._part is not None and not (self._sched.deferred
@@ -1053,7 +1186,10 @@ class Engine:
         return loss
 
     def is_gradient_accumulation_boundary(self) -> bool:
-        return len(self._losses) >= self.config.gradient_accumulation_steps
+        # pipeline mode: one forward consumes all the micro-batches
+        needed = (1 if self._pp_mode
+                  else self.config.gradient_accumulation_steps)
+        return len(self._losses) >= needed
 
     def step(self):
         """At the accumulation boundary, the update ``train_batch``
@@ -1062,7 +1198,7 @@ class Engine:
             return None
         grads, loss = self._grad_buffer, self._mean_loss(self._losses)
         with self._step_context():
-            if self._part is not None:
+            if self._part is not None and not self._pp_mode:
                 if self._sched.deferred:
                     grads = self._part.reduce_grads(grads,
                                                     self.state["params"])

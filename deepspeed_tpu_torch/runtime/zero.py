@@ -25,8 +25,13 @@ puts on the device at the rank's mesh coordinates:
 
 Over the model axes: a leaf sharded over ``expert`` (an expert stack)
 has its grad summed over data x fsdp only, every other leaf over data x
-fsdp x expert (``expert`` is a batch axis); no grad is summed over
-``tensor`` (a leaf sharded there holds its own slice's grad, and a leaf
+fsdp x expert (``expert`` is a batch axis); every leaf's grad is summed
+over ``seq`` (each rank differentiates its piece of the sequences); the
+stacked layers are sliced over ``pipe`` (each stage holds its layers;
+the data / fsdp partition of ZeRO applies inside a stage's slice) and
+the grads of the leaves every stage holds whole are summed over ``pipe``
+by the pipeline schedule itself (``parallel/pipeline.py``); no grad is
+summed over ``tensor`` (a leaf sharded there holds its own slice's grad, and a leaf
 replicated there has the same grad on every tensor rank: the model's
 ``copy_to_tensor`` / ``reduce_from_tensor`` see to it). The global norm
 adds the shards' sums over the axes that shard each leaf, so each element
@@ -196,7 +201,8 @@ class Partition:
                  hierarchical: bool = False):
         self.plan, self.mesh, self.zero_cfg = plan, mesh, zero_cfg
         self.stage = zero_cfg.stage
-        self.rules = make_rules(self.stage, tp=plan.tensor > 1)
+        self.rules = make_rules(self.stage, tp=plan.tensor > 1,
+                                pipe=plan.pipe > 1)
         self._logical = _flat_axes(logical_axes)
         self._hier = hierarchical
         self.layouts: Dict[str, LeafLayout] = {}
@@ -289,9 +295,11 @@ class Partition:
         return f[0] > 0
 
     def mean_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
-        """A per-rank scalar (the loss) averaged over the data-parallel
-        ranks."""
+        """A per-rank scalar (the loss) summed over ``seq`` (each rank's
+        is its piece of the sequences') and averaged over the
+        data-parallel ranks."""
         x = x.detach().float().reshape(1).clone()
+        comm.all_reduce(x, "seq")
         return comm.all_reduce(x, BATCH_AXES, op="mean")[0]
 
     def gather_updated(self, params, layouts) -> None:

@@ -420,8 +420,8 @@ def test_parallel_context_and_plan():
     """The ambient mesh: published and restored by parallel_context (and
     set_parallel_context, JAX's name), read by the model's collectives;
     without one every axis has size 1 and nothing is reduced. A plan's
-    label is JAX's; the data axis (training's) is a plan's too, and
-    pipe / seq raise naming A9."""
+    label is JAX's; the data, pipe and seq axes (training's) are a
+    plan's too."""
     from deepspeed_tpu_torch.parallel import context
     assert context.axis_size("tensor") == 1 and context.current_plan() is None
     x = torch.ones(3)
@@ -441,5 +441,7 @@ def test_parallel_context_and_plan():
     assert MeshPlan().describe() == "single"
     assert MeshPlan(data=2, fsdp=2).dp_world_size == 4
     assert MeshPlan(data=2).describe() == "data=2"
-    with pytest.raises(NotImplementedError, match="A9"):
-        MeshPlan(pipe=2)
+    assert (MeshPlan(pipe=2, seq=2).describe(),
+            MeshPlan(pipe=2, seq=2).world_size) == ("pipe=2xseq=2", 4)
+    with pytest.raises(ValueError, match="degrees are >= 1"):
+        MeshPlan(pipe=0)

@@ -20,12 +20,12 @@ relative L2 <= 1e-5.
 
 Then the pieces: ``row_parallel_matmul`` and ``drop_tokens`` /
 ``gather_tokens`` (values and grads, inside the 2-rank group),
-``plan_from_config`` against JAX's, and the parts of A9 that still
-raise.
+``plan_from_config`` against JAX's, and the rest of A9 at world 1.
 """
 
 import concurrent.futures
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -318,9 +318,14 @@ def test_params_from_numpy_cuts_the_training_tables():
                                   "seq_parallel", "comms_logger",
                                   "serving_data_mesh", "offload"])
 def test_the_rest_of_a9_still_raises(what):
-    """Pipeline stages, ring attention (``sequence_parallel``),
-    ``tensor_parallel.seq_parallel``, the comms logger and serving on a
-    data mesh stay ROADMAP A9; offload over ranks stays A8d."""
+    """The rest of A9 runs since it was ported: at world 1 the pipeline,
+    sequence and tensor degrees raise JAX's plan error (the degree does
+    not divide the world; the multi-rank runs are in
+    ``test_torch_pipeline.py`` and ``test_torch_ring_attention.py``), the
+    comms logger section switches the logger on, and serving on a data
+    mesh raises naming JAX's ServingEngine, which has no data-split path;
+    offload over ranks stays A8d."""
+    from deepspeed_tpu_torch.comm import comm
     model = tt.make_model(tt.llama_config("tiny", dtype=torch.float32,
                                           **W.DIMS))
     bad = {"pipeline": {"pipeline": {"stages": 2}},
@@ -332,11 +337,25 @@ def test_the_rest_of_a9_still_raises(what):
                "stage": 3, "offload_param": {"device": "cpu"}},
                "mesh": {"axes": {"tensor": 2}}}}
     if what == "serving_data_mesh":
-        with pytest.raises(NotImplementedError, match="A9"):
-            deepspeed_tpu_torch.init_serving(model, mesh=MeshPlan(data=2),
-                                             device="cpu")
+        with pytest.raises(NotImplementedError, match="serving.py:440-457"):
+            deepspeed_tpu_torch.init_serving(
+                model, mesh=Mesh(MeshPlan(data=2)), device="cpu")
         return
-    with pytest.raises(NotImplementedError,
-                       match="A8d" if what == "offload" else "A9"):
+    if what == "offload":
+        with pytest.raises(NotImplementedError, match="A8d"):
+            deepspeed_tpu_torch.initialize(model=model, config=bad[what],
+                                           device="cpu")
+        return
+    if what == "comms_logger":
+        try:
+            deepspeed_tpu_torch.initialize(model=model, config=bad[what],
+                                           device="cpu")
+            assert comm.comms_logger.enabled
+        finally:
+            comm.configure(enabled=False)
+        return
+    degree = {"pipeline": "pipe(2)", "sequence_parallel": "seq(2)",
+              "seq_parallel": "tensor(2)"}[what]
+    with pytest.raises(ValueError, match=re.escape(degree)):
         deepspeed_tpu_torch.initialize(model=model, config=bad[what],
                                        device="cpu")
