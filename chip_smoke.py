@@ -339,6 +339,28 @@ Phases, each of which raises on failure (exit code != 0):
    new tokens: B1 = 4 a rank (one prefill), and at f32 and 2 layers the
    stream token-identical to one rank's; (e) each rank's logger summary
    of (a) and (c), its calls and bytes equal to the facade's counts.
+21. the model families (after phase 20). Every bias and norm leaf is
+   drawn from the seed (nonzero). First B1-B3 at GPT-2 1.3b's shapes
+   (32/32 heads of 64: the 1024 bucket, B=8 S=1024 training) and
+   BERT-large's bidirectional padded batch (B=8 S=512, 16/16 heads of
+   64, bf16 and f32), and B4 at GPT-2 1.3b's decode, each against its
+   plain version. (a) GPT-2 1.3b (``gpt2_config("1.3b")``: 24 layers,
+   H 2048, vocab 50257, learned positions, tied head) served in bf16:
+   16 requests of 64..896 tokens, 32 new each: B1 = prefills x 24, B4 =
+   decode steps x 24, TTFT, ITL and tok/s; (b) the same config trained
+   at B=8 S=1024, 1 + 2 steps: B2 = B3 = 24 and B1 = 2 x 24 a step
+   (dots_saveable), step time, tok/s, MFU, peak memory; (c) BERT-large
+   from its ``config.json`` fields (post-LN, bidirectional, two token
+   types): a padded B=8 S=512 forward (B1 = 24) and 2 training steps
+   with the key mask (B2 = B3 = 24, B1 = 2 x 24 a step); (d) Pythia-1.4b
+   (parallel block, rotary_dim 32, D 128: B1 and B4 on every layer),
+   GPT-Neo-1.3B (global and 256-token local layers alternating,
+   ``attn_scale`` 1.0: B1 on the global layers only, B4 = 0) and
+   BLOOM-1b7 (ALiBi, vocab 250880: B1 = B4 = 0) at 4 layers each, 4
+   requests of 300..900 tokens served; (e) f32 at 2 layers for each of
+   the five: a greedy stream through the paged protocol token-identical
+   to the plain versions', and ``lm_loss`` and its grads within 1e-5 /
+   1e-4.
 
 Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
 seconds) when it ends, and the script a ``"total"`` one before the
@@ -463,13 +485,15 @@ def nbytes(*ts) -> int:
 # kernel phases
 # --------------------------------------------------------------------------
 
-def _attn_inputs(B, S, N, Nkv, D, dtype, masked, seed):
+def _attn_inputs(B, S, N, Nkv, D, dtype, masked, seed, causal=True):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, do = (torch.randn((B, S, N, D), generator=g, device="cuda",
                          dtype=dtype) for _ in range(2))
     k, v = (torch.randn((B, S, Nkv, D), generator=g, device="cuda",
                         dtype=dtype) for _ in range(2))
-    keep = torch.tril(torch.ones((S, S), dtype=torch.bool, device="cuda"))
+    keep = torch.ones((S, S), dtype=torch.bool, device="cuda")
+    if causal:
+        keep = torch.tril(keep)
     keep = keep[None].expand(B, S, S)
     mask = None
     if masked:                      # right padding, and key 0 masked: the
@@ -480,19 +504,22 @@ def _attn_inputs(B, S, N, Nkv, D, dtype, masked, seed):
     return q, k, v, do, mask, keep
 
 
-def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
+def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0,
+               causal=True):
     """B1 against the plain version: O by relative L2, LSE by relative L2
     over the rows that see a key (a fully masked row's M_FLOOR = -1e20
     would swamp any error in the others), fully masked rows exactly O = 0
     and LSE = M_FLOOR, a second launch bit for bit; then timed beside the
-    plain version, SDPA's forward and the bound."""
+    plain version, SDPA's forward and the bound. ``causal`` False: the
+    encoders' bidirectional attention."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         M_FLOOR, flash_attention_fwd, flash_attention_reference)
     q, k, v, _, mask, keep = _attn_inputs(B, S, N, Nkv, D, dtype, masked,
-                                          seed)
-    o, lse = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
-    ro, rlse = flash_attention_reference(q, k, v, causal=True, kv_mask=mask)
-    again = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
+                                          seed, causal)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_mask=mask)
+    ro, rlse = flash_attention_reference(q, k, v, causal=causal,
+                                         kv_mask=mask)
+    again = flash_attention_fwd(q, k, v, causal=causal, kv_mask=mask)
     torch.cuda.synchronize()
     if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
         raise RuntimeError(f"flash_fwd {name}: non-finite output")
@@ -512,10 +539,10 @@ def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     if not all(bitwise.values()):
         raise RuntimeError(f"flash_fwd {name}: two launches differ {bitwise}")
     del again
-    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
+    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=causal,
                                              kv_mask=mask))
     plain_ms = cuda_ms(lambda: flash_attention_reference(
-        q, k, v, causal=True, kv_mask=mask), iters=3, warmup=1)
+        q, k, v, causal=causal, kv_mask=mask), iters=3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if masked:
@@ -523,14 +550,15 @@ def flash_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
         library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=am,
                                           enable_gqa=True))
     else:
-        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                           enable_gqa=True))
     pairs = float(keep.sum()) * N            # (query head, key) pairs visible
     flops = 4.0 * D * pairs
     moved = nbytes(q, k, v, o, lse) + (0 if mask is None else B * S)
     bound_ms, bound_by = bound(moved, flops, dtype)
     rec = dict(case=name, shape=f"B={B} S={S} Nq={N} Nkv={Nkv} D={D} "
-               f"{str(dtype).split('.')[-1]} causal"
+               f"{str(dtype).split('.')[-1]} "
+               + ("causal" if causal else "bidirectional")
                + (" kv_mask" if masked else ""),
                rel_l2=err, rel_l2_lse=err_lse, fully_masked_positions=dead,
                max_abs_err=max_abs(o, ro), bitwise_repeat=bitwise,
@@ -622,23 +650,24 @@ def decode_case(name, S, Nq, Nkv, D, bs, MB, lens, dtype, seed=0):
     return rec
 
 
-def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
+def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0,
+             causal=True):
     """B2 (dQ) and B3 (dK/dV), fused and unfused delta, against the plain
     backward on the same inputs, and a second launch against the first
     (bit for bit); then each kernel timed alone, beside its plain part,
     and B2 + B3 beside SDPA's backward (which computes dQ, dK and dV in
-    one call)."""
+    one call). ``causal`` False: the encoders' bidirectional attention."""
     from deepspeed_tpu_torch.ops.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_reference,
         flash_attention_fwd)
     q, k, v, do, mask, keep = _attn_inputs(B, S, N, Nkv, D, dtype, masked,
-                                           seed)
-    o, lse = flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
-    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True,
+                                           seed, causal)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, kv_mask=mask)
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal,
                                          kv_mask=mask)
     errs, max_err = {}, {"dq": 0.0, "dkv": 0.0}
     for fused in (False, True):
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                   kv_mask=mask, fused=fused)
         torch.cuda.synchronize()
         for part, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -651,12 +680,12 @@ def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
                                    f"{err:.3g} ({part}) vs the plain version")
             kern = "dq" if part == "dq" else "dkv"
             max_err[kern] = max(max_err[kern], max_abs(a, b))
-        if masked and not torch.all(got[0][:, 0] == 0):
+        if masked and causal and not torch.all(got[0][:, 0] == 0):
             raise RuntimeError(f"flash_bwd {name}: the fully masked row has "
                                "a nonzero dQ")
     # deterministic: a second launch of B2 and of B3, right after the
     # first, gives the same dQ, dK and dV bit for bit (no atomics)
-    again = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                 kv_mask=mask, fused=True)
     torch.cuda.synchronize()
     bitwise = {p: bool(torch.equal(a, b))
@@ -669,11 +698,11 @@ def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     recs = {}
     for part, products in (("dq", 3), ("dkv", 4)):
         ms = {f: cuda_ms(lambda: flash_attention_bwd(
-            q, k, v, o, lse, do, causal=True, kv_mask=mask, fused=f,
+            q, k, v, o, lse, do, causal=causal, kv_mask=mask, fused=f,
             parts=(part,))) for f in (True, False)}
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
-            q, k, v, o, lse, do, causal=True, kv_mask=mask, parts=(part,)),
-            iters=3, warmup=1)
+            q, k, v, o, lse, do, causal=causal, kv_mask=mask,
+            parts=(part,)), iters=3, warmup=1)
         outs = (q,) if part == "dq" else (k, v)       # dQ; dK, dV
         # the fused kernel (the training path's) reads O for delta
         moved = nbytes(q, do, k, v, lse, o, *outs) \
@@ -691,13 +720,14 @@ def bwd_case(name, B, S, N, Nkv, D, dtype, masked=False, seed=0):
     if masked:
         out = sdpa(qt, kt, vt, attn_mask=keep[:, None], enable_gqa=True)
     else:
-        out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        out = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
     dot = do.transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     del out, qt, kt, vt
     shape = (f"B={B} S={S} Nq={N} Nkv={Nkv} D={D} "
-             f"{str(dtype).split('.')[-1]} causal"
+             f"{str(dtype).split('.')[-1]} "
+             + ("causal" if causal else "bidirectional")
              + (" kv_mask" if masked else ""))
     # B2 + B3, the pair that SDPA's one backward call replaces
     pair_ms = recs["dq"]["ms"] + recs["dkv"]["ms"]
@@ -2825,26 +2855,30 @@ TRAIN_CONFIG = {
     "transformer": {"fused_backward": True}, "seed": 0}
 
 
-def _train(cfg, name, config, steps, after_step=None):
+def _train(cfg, name, config, steps, after_step=None, params=None,
+           extra=None):
     """``initialize`` -> ``train_batch`` on one fixed batch: 1 warm-up
     step, then ``steps`` timed steps with the launch counts zeroed just
     before them; ``after_step(engine)`` runs after each step (inside the
-    timed loop: it must not wait on the card). Returns (engine, batch,
-    record)."""
+    timed loop: it must not wait on the card). ``params``: a tree to
+    start from instead of the seeded init; ``extra``: more batch entries
+    (an ``attention_mask``). Returns (engine, batch, record)."""
     from deepspeed_tpu_torch import initialize, make_model
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.optimizers import tree_leaves
     B, S = config["train_batch_size"], cfg.max_seq_len
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine, *_ = initialize(model=make_model(cfg, name), config=dict(config))
+    engine, *_ = initialize(model=make_model(cfg, name), config=dict(config),
+                            params=params)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
     log(f"training: {name} {n_params / 1e9:.4f}B params, B={B} S={S}, "
         f"{str(engine.compute_dtype).split('.')[-1]} + f32 masters, init "
         f"{time.perf_counter() - t0:.1f}s")
-    ids = np.random.default_rng(0).integers(0, VOCAB, (B, S), dtype=np.int32)
-    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    ids = np.random.default_rng(0).integers(
+        0, min(VOCAB, cfg.vocab_size), (B, S), dtype=np.int32)
+    batch = {"input_ids": torch.from_numpy(ids).cuda(), **(extra or {})}
     t0 = time.perf_counter()
     losses = [engine.train_batch(batch)["loss"]]          # warm-up
     if after_step is not None:
@@ -5988,6 +6022,375 @@ def build_phase():
     return seconds, info
 
 
+# --------------------------------------------------------------------------
+# phase 21: the model families
+# --------------------------------------------------------------------------
+
+# the published config.json fields of the families phase 21 drives beside
+# GPT-2 1.3b (the port's ``gpt2_config("1.3b")``), read by
+# ``models.hf_import.hf_config_to_transformer``
+FAMILY_HF = {
+    "bert-large": dict(model_type="bert", vocab_size=30522,
+                       hidden_size=1024, num_hidden_layers=24,
+                       num_attention_heads=16, intermediate_size=4096,
+                       max_position_embeddings=512, type_vocab_size=2,
+                       layer_norm_eps=1e-12),
+    "pythia-1.4b": dict(model_type="gpt_neox", vocab_size=50304,
+                        hidden_size=2048, num_hidden_layers=24,
+                        num_attention_heads=16, intermediate_size=8192,
+                        max_position_embeddings=2048, rotary_pct=0.25,
+                        rotary_emb_base=10000, layer_norm_eps=1e-5,
+                        use_parallel_residual=True,
+                        tie_word_embeddings=False),
+    "gpt-neo-1.3b": dict(model_type="gpt_neo", vocab_size=50257,
+                         hidden_size=2048, num_layers=24, num_heads=16,
+                         max_position_embeddings=2048,
+                         attention_types=[[["global", "local"], 12]],
+                         window_size=256, layer_norm_epsilon=1e-5),
+    "bloom-1b7": dict(model_type="bloom", vocab_size=250880,
+                      hidden_size=2048, n_layer=24, n_head=16,
+                      layer_norm_epsilon=1e-5),
+}
+FAMILY_LAYERS = 4         # Pythia, GPT-Neo, BLOOM: 4 of their 24 layers
+FAMILY_STEPS = 2          # training steps after 1 warm-up step
+FAMILY_SERVING = dict(max_seqs=16, block_size=64, max_model_len=1024,
+                      decode_quantum=8)
+FAMILY_NEW = 32           # new tokens a request (GPT-2 1.3b)
+BERT_B, BERT_S = 8, 512
+# (e) f32 identities: 2 layers, a 300-token greedy prompt (past GPT-Neo's
+# 256-token window), a B=2 S=256 loss
+ID_LAYERS, ID_PROMPT, ID_NEW, ID_B, ID_S = 2, 300, 12, 2, 256
+
+
+def _is_bias_or_norm(name: str) -> bool:
+    leaf = name.rsplit("/", 1)[-1]
+    return leaf.startswith("b") or leaf.endswith(("_bias", "_scale"))
+
+
+def _family_cfg(name, layers=None, **over):
+    """A family's config from its ``config.json`` fields (GPT-2 1.3b from
+    ``gpt2_config``), cut to ``layers`` (GPT-Neo's window pattern with
+    it)."""
+    from deepspeed_tpu_torch.models.hf_import import hf_config_to_transformer
+    from deepspeed_tpu_torch.models.transformer import gpt2_config
+    cfg = (gpt2_config("1.3b") if name == "gpt2-1.3b"
+           else hf_config_to_transformer(FAMILY_HF[name]))
+    if layers is not None:
+        over["num_layers"] = layers
+        if cfg.attn_windows:
+            over["attn_windows"] = cfg.attn_windows[:layers]
+    return dataclasses.replace(cfg, **over)
+
+
+def _family_params(cfg, seed, dtype):
+    """The seeded init on the card with every bias and norm leaf redrawn
+    nonzero (biases N(0, 0.02), norm scales 1 + N(0, 0.02)): the init
+    makes them 0 and 1, where a dropped bias would go unseen."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    p = tt.init_params(cfg, gen, "cuda", dtype=dtype)
+    leaves = [(k, v) for k, v in p.items() if k != "layers"]
+    leaves += [("layers/" + k, v) for k, v in p["layers"].items()]
+    for name, t in leaves:
+        if _is_bias_or_norm(name):
+            t.normal_(1.0 if name.endswith("_scale") else 0.0, 0.02,
+                      generator=gen)
+    return p
+
+
+def _serve_family(name, cfg, prompts, n_new, seed=0):
+    """``init_serving`` (bf16, float pool) on ``_family_params``, one
+    warm-up request, then ``prompts`` with the launch counts zeroed just
+    before them. Every stream must keep its prompt and add ``n_new``
+    in-vocab tokens, and the pool must be empty after. Returns (stats,
+    launches)."""
+    from deepspeed_tpu_torch import init_serving, make_model
+    from deepspeed_tpu_torch.ops import _build
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = init_serving(make_model(cfg, name), config={"kv_cache_bits": 0},
+                       serving=FAMILY_SERVING,
+                       params=_family_params(cfg, seed, torch.bfloat16),
+                       dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    srv.run([(prompts[0][:64], 4)])                         # warm-up
+    srv.reset_stats()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = srv.run([(p, n_new) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _build.launch_counts()
+    st = srv.stats()
+    V = cfg.vocab_size
+    for (rid, out), p in zip(sorted(outs.items()), prompts):
+        gen = out[len(p):]
+        if not np.array_equal(out[:len(p)], p) or gen.size != n_new \
+                or gen.min() < 0 or gen.max() >= V:
+            raise RuntimeError(f"{name}: request {rid} returned {gen.size} "
+                               f"tokens in [{gen.min()}, {gen.max()}]")
+    if len(outs) != len(prompts) or srv.allocator.used_blocks:
+        raise RuntimeError(f"{name}: {len(outs)} of {len(prompts)} "
+                           f"finished, {srv.allocator.used_blocks} blocks "
+                           "held")
+    st.update(wall_s=wall, init_s=init_s,
+              tokens_per_s=n_new * len(prompts) / wall,
+              decode_backend=srv.decode_backend,
+              backend_reason=srv.backend_bench["reason"],
+              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del srv
+    _free()
+    return st, launches
+
+
+def _greedy_paged(params, cfg, prompt, n, reference):
+    """One slot's greedy stream through the paged protocol the serving
+    engine runs (``prefill_paged``, then ``decode_step_paged``): the
+    kernels (B1, B4 where the route takes them) or, with ``reference``,
+    their plain versions."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    bs, L = 64, len(prompt)
+    P = -(-L // bs) * bs
+    MB = -(-(P + n) // bs)
+    pools = tt.init_paged_cache(cfg, MB + 1, bs, device="cuda")
+    tables = torch.arange(1, MB + 1, dtype=torch.int32, device="cuda")[None]
+    ids = torch.zeros((1, P), dtype=torch.long, device="cuda")
+    ids[0, :L] = torch.as_tensor(prompt, device="cuda")
+    with torch.no_grad():
+        logits = tt.prefill_paged(params, ids, cfg, pools,
+                                  tables[0, :P // bs], length=L,
+                                  reference=reference)
+        toks = [int(logits[0].argmax())]
+        lens = torch.tensor([L], dtype=torch.int32, device="cuda")
+        for _ in range(n - 1):
+            logits = tt.decode_step_paged(
+                params, torch.tensor([toks[-1]], device="cuda"), cfg, pools,
+                tables, lens, reference=reference)
+            toks.append(int(logits[0].argmax()))
+            lens = lens + 1
+    return toks
+
+
+def _family_identity(name, rng):
+    """(e) f32, 2 layers: the greedy stream through the kernels
+    token-identical to the plain versions', and ``lm_loss`` and every
+    leaf's grad (B=2, S=256; BERT's batch padded) within 1e-5 / 1e-4 of
+    the plain versions' (a grad's relative L2 over max(|plain|, 1e-3 x
+    the whole grad's norm): a key bias's grad is zero up to rounding)."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
+    cfg = _family_cfg(name, ID_LAYERS, dtype=torch.float32)
+    params = _family_params(cfg, 5, torch.float32)
+    prompt = rng.integers(0, cfg.vocab_size, ID_PROMPT).astype(np.int32)
+    streams = {ref: _greedy_paged(params, cfg, prompt, ID_NEW, ref)
+               for ref in (False, True)}
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (ID_B, ID_S))
+                           ).cuda()
+    batch = {"input_ids": ids}
+    if not cfg.causal:
+        mask = torch.ones((ID_B, ID_S), dtype=torch.int32, device="cuda")
+        mask[1, ID_S - 40:] = 0
+        batch["attention_mask"] = mask
+    leaves = list(ckpt_mod.flatten(params).values())
+    for t in leaves:
+        t.requires_grad_(True)
+    out = {}
+    for ref in (False, True):
+        loss = tt.lm_loss(params, batch, cfg, reference=ref)
+        out[ref] = (loss.item(), torch.autograd.grad(loss, leaves))
+    (lk, gk), (lp, gp) = out[False], out[True]
+    total = float(torch.sqrt(sum(g.double().square().sum() for g in gp)))
+    grad_err = max(float((a.double() - b.double()).norm()
+                         / max(float(b.double().norm()), 1e-3 * total))
+                   for a, b in zip(gk, gp))
+    del params, leaves, out, gk, gp
+    _free()
+    return {"token_identical": streams[False] == streams[True],
+            "stream": streams[False],
+            "loss_rel_err": abs(lk - lp) / abs(lp), "grad_rel_l2": grad_err}
+
+
+def model_families_phase(smi: str):
+    """Phase 21: the model families (module docstring, item 21)."""
+    from deepspeed_tpu_torch import init_inference, make_model
+    from deepspeed_tpu_torch.ops import _build
+    t_phase = time.perf_counter()
+    _free()
+    bf, f32 = torch.bfloat16, torch.float32
+    checks, launches, rec = {}, {}, {"card": smi}
+    # the kernels at the phase's shapes: GPT-2 1.3b's 32/32 heads of 64
+    # (prefill bucket, decode, training) and BERT-large's bidirectional
+    # padded batch (16/16 heads of 64)
+    flash = [flash_case("gpt2-1.3b S=1024", 1, 1024, 32, 32, 64, bf),
+             flash_case(f"bert-large B={BERT_B} S={BERT_S} bidirectional "
+                        "kv_mask", BERT_B, BERT_S, 16, 16, 64, bf,
+                        masked=True, causal=False),
+             flash_case(f"bert-large f32 B={BERT_B} S={BERT_S} "
+                        "bidirectional kv_mask", BERT_B, BERT_S, 16, 16, 64,
+                        f32, masked=True, causal=False)]
+    decode = [decode_case("gpt2-1.3b 32/32 D=64 16 slots", 16, 32, 32, 64,
+                          64, 16, [0, 1, 63, 64, 65, 200, 333, 500, 640,
+                                   777, 896, 900, 927, 960, 1000, 1024], bf)]
+    bwd = [bwd_case("gpt2-1.3b training B=8 S=1024", 8, 1024, 32, 32, 64,
+                    bf),
+           bwd_case(f"bert-large B={BERT_B} S={BERT_S} bidirectional "
+                    "kv_mask", BERT_B, BERT_S, 16, 16, 64, bf, masked=True,
+                    causal=False),
+           bwd_case(f"bert-large f32 B={BERT_B} S={BERT_S} bidirectional "
+                    "kv_mask", BERT_B, BERT_S, 16, 16, 64, f32, masked=True,
+                    causal=False)]
+    _free()
+    rng = np.random.default_rng(21)
+
+    # (a) GPT-2 1.3b served: 16 requests of 64..896 tokens, 32 new each
+    cfg = _family_cfg("gpt2-1.3b")
+    L = cfg.num_layers
+    lengths = [(64, 192, 320, 448, 576, 704, 832, 896)[i % 8]
+               for i in range(16)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    st, ln = _serve_family("gpt2-1.3b", cfg, prompts, FAMILY_NEW)
+    launches["gpt2_serving"] = ln
+    rec["a"] = st
+    checks["(a) B1 == prefills x 24"] = \
+        ln["flash_fwd"] == st["prefills"] * L and st["prefills"] == 16
+    checks["(a) B4 == decode steps x 24"] = \
+        ln["paged_decode"] == st["decode_steps"] * L > 0
+    checks["(a) decode route: the paged kernel"] = \
+        st["decode_backend"] == "pallas"
+    log(f"phase 21 (a) gpt2-1.3b serving [{smi}] " + json.dumps(
+        {k: st.get(k) for k in ("p50_ttft_ms", "p99_ttft_ms", "p50_itl_ms",
+                                "p99_itl_ms", "tokens_per_s", "wall_s",
+                                "prefills", "decode_steps", "decode_backend",
+                                "peak_mem_gib", "init_s")}
+        | {"launches": {k: ln[k] for k in FLASH_KERNELS + ("paged_decode",)}}))
+
+    # (b) the same config trained, B=8 S=1024, 1 + 2 steps
+    tcfg = dataclasses.replace(cfg, max_seq_len=1024, remat=True,
+                               remat_policy="dots_saveable", loss_chunk=1024)
+    engine, _, tr = _train(tcfg, "gpt2-1.3b", TRAIN_CONFIG, FAMILY_STEPS,
+                           params=_family_params(tcfg, 1, f32))
+    del engine
+    _free()
+    n = FAMILY_STEPS
+    launches["gpt2_training"] = tr["launches"]
+    rec["b"] = tr
+    checks["(b) losses finite"] = bool(np.all(np.isfinite(tr["losses"])))
+    checks["(b) B2 == B3 == 24 a step"] = \
+        tr["launches"]["flash_bwd_dq"] == tr["launches"]["flash_bwd_dkv"] \
+        == n * L
+    checks["(b) B1 == 2 x 24 a step (dots_saveable replays it)"] = \
+        tr["launches"]["flash_fwd"] == 2 * n * L
+    log(f"phase 21 (b) gpt2-1.3b training [{smi}] " + json.dumps(
+        {k: tr[k] for k in ("step_ms_cuda_median", "step_ms_wall",
+                            "tokens_per_s", "mfu", "peak_mem_gib", "losses",
+                            "n_params", "launches")}))
+
+    # (c) BERT-large: a padded forward, then 2 training steps
+    bcfg = _family_cfg("bert-large", dtype=bf, remat=True,
+                       remat_policy="dots_saveable")
+    BL = bcfg.num_layers
+    eng = init_inference(make_model(bcfg, "bert-large"),
+                         config={"kv_cache_bits": 0}, dtype=bf,
+                         params=_family_params(bcfg, 2, bf))
+    ids = torch.from_numpy(rng.integers(0, bcfg.vocab_size,
+                                        (BERT_B, BERT_S))).cuda()
+    mask = (torch.arange(BERT_S, device="cuda")[None, :]
+            < torch.tensor([BERT_S - 37 * i for i in range(BERT_B)],
+                           device="cuda")[:, None]).to(torch.int32)
+    types = torch.from_numpy(rng.integers(0, 2, (BERT_B, BERT_S))).cuda()
+    eng.forward(ids[:1, :64], attention_mask=mask[:1, :64])     # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = eng.forward(ids, attention_mask=mask, token_type_ids=types)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    ln = _build.launch_counts()
+    launches["bert_forward"] = ln
+    checks["(c) forward: finite [8, 512, 30522] logits"] = \
+        tuple(logits.shape) == (BERT_B, BERT_S, bcfg.vocab_size) \
+        and bool(torch.isfinite(logits).all())
+    checks["(c) forward: B1 == 24 (bidirectional, key mask)"] = \
+        ln["flash_fwd"] == BL and ln["paged_decode"] == 0
+    del eng, logits
+    _free()
+    bcfg_t = dataclasses.replace(bcfg, max_seq_len=BERT_S)
+    engine, _, bt = _train(bcfg_t, "bert-large",
+                           dict(TRAIN_CONFIG, train_batch_size=BERT_B),
+                           FAMILY_STEPS, params=_family_params(bcfg, 3, f32),
+                           extra={"attention_mask": mask})
+    del engine
+    _free()
+    launches["bert_training"] = bt["launches"]
+    rec["c"] = {"forward_ms_wall": fwd_ms, "training": bt}
+    checks["(c) training: losses finite"] = \
+        bool(np.all(np.isfinite(bt["losses"])))
+    checks["(c) training: B2 == B3 == 24, B1 == 2 x 24 a step"] = \
+        bt["launches"]["flash_bwd_dq"] == bt["launches"]["flash_bwd_dkv"] \
+        == n * BL and bt["launches"]["flash_fwd"] == 2 * n * BL
+    log(f"phase 21 (c) bert-large [{smi}] " + json.dumps(
+        {"forward_ms_wall": fwd_ms, "forward_launches": ln}
+        | {k: bt[k] for k in ("step_ms_cuda_median", "tokens_per_s", "mfu",
+                              "peak_mem_gib", "losses", "launches")}))
+
+    # (d) Pythia-1.4b, GPT-Neo-1.3B, BLOOM-1b7 at 4 layers, served: 4
+    # requests of 300..900 tokens (past GPT-Neo's 256-token window), 16
+    # new each
+    rec["d"] = {}
+    for name, b1_layers, b4 in (("pythia-1.4b", FAMILY_LAYERS, True),
+                                ("gpt-neo-1.3b", FAMILY_LAYERS // 2, False),
+                                ("bloom-1b7", 0, False)):
+        fcfg = _family_cfg(name, FAMILY_LAYERS)
+        prompts = [rng.integers(0, fcfg.vocab_size, k).astype(np.int32)
+                   for k in (300, 520, 700, 900)]
+        st, ln = _serve_family(name, fcfg, prompts, 16)
+        launches[name] = ln
+        rec["d"][name] = st
+        checks[f"(d) {name}: B1 == prefills x {b1_layers}"] = \
+            ln["flash_fwd"] == st["prefills"] * b1_layers \
+            and st["prefills"] == 4
+        want_b4 = st["decode_steps"] * FAMILY_LAYERS if b4 else 0
+        checks[f"(d) {name}: B4 == "
+               f"{f'decode steps x {FAMILY_LAYERS}' if b4 else 0}"] = \
+            ln["paged_decode"] == want_b4
+        checks[f"(d) {name}: decode route"] = \
+            st["decode_backend"] == ("pallas" if b4 else "xla")
+        log(f"phase 21 (d) {name} {FAMILY_LAYERS} layers [{smi}] "
+            + json.dumps({k: st.get(k) for k in (
+                "p50_ttft_ms", "p50_itl_ms", "tokens_per_s", "prefills",
+                "decode_steps", "decode_backend", "backend_reason")}
+                | {"launches": {k: ln[k] for k in
+                                FLASH_KERNELS + ("paged_decode",)}}))
+
+    # (e) f32, 2 layers: the kernels against their plain versions
+    rec["e"] = {}
+    for name in ("gpt2-1.3b", "bert-large", "pythia-1.4b", "gpt-neo-1.3b",
+                 "bloom-1b7"):
+        r = _family_identity(name, rng)
+        rec["e"][name] = r
+        checks[f"(e) {name}: greedy stream token-identical"] = \
+            r["token_identical"]
+        checks[f"(e) {name}: loss 1e-5, grads 1e-4"] = \
+            r["loss_rel_err"] <= 1e-5 and r["grad_rel_l2"] <= 1e-4
+    log(f"phase 21 (e) f32 {ID_LAYERS} layers [{smi}] " + json.dumps(
+        {k: {kk: v[kk] for kk in ("token_identical", "loss_rel_err",
+                                  "grad_rel_l2")}
+         for k, v in rec["e"].items()}))
+    rec.update(flash_cases=flash, decode_cases=decode, bwd_cases=bwd,
+               launches=launches, phase_s=time.perf_counter() - t_phase)
+    total = {k: sum(v.get(k, 0) for v in launches.values())
+             for k in FLASH_KERNELS + ("paged_decode",)}
+    log(f"phase 21: {rec['phase_s']:.1f}s, launches {json.dumps(total)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 21: failed {failed}")
+    return rec
+
+
 def kernel_line(name, replaces, launches, cases, main, variant=None):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -6081,12 +6484,15 @@ def main() -> int:
     p18 = timed("18_capacity", capacity_phase, card)
     p19 = timed("19_model_parallel", model_parallel_phase, card)
     p20 = timed("20_pipeline_ring", pipeline_ring_phase, card)
-    # B1-B3 held at a ZeRO rank's shapes too, and at the MoE cell's and a
-    # tensor=2 rank's (D=128)
+    p21 = timed("21_model_families", model_families_phase, card)
+    # B1-B3 held at a ZeRO rank's shapes too, at the MoE cell's and a
+    # tensor=2 rank's (D=128), and at GPT-2 1.3b's and BERT-large's; B4 at
+    # GPT-2 1.3b's decode
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
-    flash += p19["flash_cases"]
-    bwd += p19["bwd_cases"]
+    flash += p19["flash_cases"] + p21["flash_cases"]
+    bwd += p19["bwd_cases"] + p21["bwd_cases"]
+    decode += p21["decode_cases"]
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -6184,7 +6590,9 @@ def main() -> int:
     # phase 19: the MoE cell, and every rank of expert=2 and tensor=2
     # phase 20: every rank of pipe=2 (pipeline), of seq=2 (ring) and of
     # the data=2 generate
-    for p in (p19, p20):
+    # phase 21: GPT-2 1.3b served and trained, BERT-large's forward and
+    # training, Pythia / GPT-Neo / BLOOM served
+    for p in (p19, p20, p21):
         for entry in line["kernels"][:4]:
             for path, counts in p["launches"].items():
                 n = counts.get(entry["name"], 0)

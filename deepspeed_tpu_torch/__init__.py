@@ -3,7 +3,9 @@ Hopper (H100).
 
 The JAX package ``deepspeed_tpu`` stays beside it as the reference; this
 package imports nothing from it and never imports jax. It serves
-llama-family models: continuous batching over a paged KV pool, with the
+llama-family models and the other transformer families (GPT-2, OPT,
+BLOOM, GPT-Neo, GPT-J, GPT-NeoX, BERT-style encoders; HF checkpoints from
+local files through ``models.hf_import``): continuous batching over a paged KV pool, with the
 flash-forward (prefill) and paged-decode kernels written by hand in CUDA
 (``csrc/``), chunked prefill, a copy-on-write prefix cache, deadlines and
 admission watermarks, one-shot ``generate`` on a contiguous cache,
@@ -25,10 +27,10 @@ of the kernels instead.
 
 from deepspeed_tpu_torch.inference import (InferenceConfig, ServingConfig,
                                            init_inference, init_serving)
-from deepspeed_tpu_torch.models import (TransformerConfig, llama_config,
-                                        make_model)
+from deepspeed_tpu_torch.models import (TransformerConfig, gpt2_config,
+                                        llama_config, make_model)
 from deepspeed_tpu_torch.runtime import initialize
 
 __all__ = ["InferenceConfig", "ServingConfig", "TransformerConfig",
-           "init_inference", "init_serving", "initialize", "llama_config",
-           "make_model"]
+           "gpt2_config", "init_inference", "init_serving", "initialize",
+           "llama_config", "make_model"]

@@ -52,7 +52,8 @@ from deepspeed_tpu_torch.inference import generation
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models.convert import params_from_numpy
-from deepspeed_tpu_torch.models.transformer import (fuse_layer_stack,
+from deepspeed_tpu_torch.models.transformer import (check_family_mesh,
+                                                    fuse_layer_stack,
                                                     logical_axes,
                                                     make_model,
                                                     quantize_leaf,
@@ -182,6 +183,7 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
             f"{ep} is not ported yet: ROADMAP A10b (a block-sparse model on "
             "a mesh: a layout that differs per head would be sliced by each "
             "rank's heads)")
+    check_family_mesh(mcfg, plan.world_size)
     if not isinstance(mesh, Mesh):
         mesh = build_mesh(plan)
     return mesh, tp, ep
@@ -252,10 +254,16 @@ class InferenceEngine:
     def forward(self, input_ids, **kwargs):
         """Full-sequence f32 logits [B, S, V] (the prefill path: the flash
         kernel on the card). Extra kwargs pass through to the model's
-        ``apply`` (e.g. ``attention_mask``). Collective on a mesh of more
-        than one rank."""
+        ``apply``: ``attention_mask``, ``token_type_ids`` (an encoder's
+        segment ids) and ``positions`` are moved to the engine's device
+        (arrays or tensors). Collective on a mesh of more than one
+        rank."""
         ids = torch.as_tensor(input_ids).long().to(self.device)
         B = ids.shape[0]
+        kwargs = {k: (torch.as_tensor(v).to(self.device)
+                      if k in ("attention_mask", "token_type_ids",
+                               "positions") and v is not None else v)
+                  for k, v in kwargs.items()}
         rows = self._data_rows(B)
         if rows is not None:
             ids = ids[rows]

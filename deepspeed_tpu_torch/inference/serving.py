@@ -547,13 +547,21 @@ class ServingEngine:
 
     def _select_backend(self):
         """The decode route and why, as JAX's ``_select_backend`` records
-        it (and its ``decode_backend_selected`` event): an int8 pool reads
-        the gathered view in plain torch ops ("xla", JAX's name for that
-        route), whatever ``decode_backend`` asks; a float pool runs the
-        paged decode kernel, the port's one kernel backend ("pallas")."""
+        it (and its ``decode_backend_selected`` event): an int8 pool, and
+        a model with ALiBi or ``attn_windows``, read the gathered view in
+        plain torch ops ("xla", JAX's name for that route), whatever
+        ``decode_backend`` asks; a float pool runs the paged decode
+        kernel, the port's one kernel backend ("pallas"). An
+        ``attn_scale`` override stays on the kernel (B4 takes the scale;
+        JAX's gate sends it to XLA)."""
         forced = self.config.decode_backend
-        if self.model.config.kv_cache_bits == 8:
+        mcfg = self.model.config
+        unavailable = None
+        if mcfg.kv_cache_bits == 8:
             unavailable = "int8 KV pool (fused-dequant XLA read)"
+        elif mcfg.position_type == "alibi" or mcfg.attn_windows:
+            unavailable = "kernel-unsupported attention variant"
+        if unavailable is not None:
             bench = {"backend": "xla",
                      "reason": (f"pallas unavailable ({unavailable})"
                                 if forced == "pallas" else unavailable)}

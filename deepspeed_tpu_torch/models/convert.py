@@ -9,7 +9,11 @@ unfused (wq/wk/wv, w_in/w_gate) and fused by ``fuse_layer_stack``
 the int8 stacks of ``quantize_layer_stack``: a {"q", "scale"} leaf keeps
 its int8 payload and its f32 scales. MoE trees carry the gate ``wg``, the
 expert stacks ``moe_w_in`` / ``moe_w_out`` / ``moe_w_gate`` and PR-MoE's
-``moe_coef``.
+``moe_coef``. The model families carry the layer biases (bq / bk / bv or
+the fused bqkv, bo, b_in, b_out), ``pos_embed``, ``tok_type_embed``,
+``embed_norm_scale`` / ``_bias`` and ``lm_head_bias``. The tree must hold
+exactly the config's leaves (``logical_axes``, JAX's ``init_params`` set);
+a family's leaves on a mesh of more than one rank raise naming A11.
 
 With a ``mesh`` (tensor / expert parallel serving) each leaf is cut to
 this rank's slice by JAX's sharding rules before it is copied, so a rank
@@ -22,16 +26,22 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                    check_family_mesh,
                                                     logical_axes,
                                                     quantize_leaf,
                                                     quantized_logical_axes)
 from deepspeed_tpu_torch.parallel.partitioning import own_shard, spec_tree
 
 _TOP = {"tok_embed", "layers", "final_norm_scale", "final_norm_bias",
-        "lm_head"}
+        "lm_head", "pos_embed", "tok_type_embed", "lm_head_bias",
+        "embed_norm_scale", "embed_norm_bias"}
 _LAYER = {"ln1_scale", "ln2_scale", "ln1_bias", "ln2_bias", "wq", "wk", "wv",
           "wqkv", "wo", "w_in", "w_gate", "w_in_gate", "w_out", "wg",
-          "moe_w_in", "moe_w_out", "moe_w_gate", "moe_coef"}
+          "moe_w_in", "moe_w_out", "moe_w_gate", "moe_coef", "bq", "bk",
+          "bv", "bqkv", "bo", "b_in", "b_out"}
+# a fused leaf stands for the unfused leaves of ``fuse_layer_stack``
+_FUSED = {"wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv"),
+          "w_in_gate": ("w_in", "w_gate")}
 
 
 def _leaf(a, device, dtype, spec=None, mesh=None, what="leaf"
@@ -121,9 +131,10 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
     unknown = (set(tree) - _TOP) | (set(tree.get("layers", {})) - _LAYER)
     if unknown:
         raise NotImplementedError(
-            f"parameters {sorted(unknown)} belong to a model family this "
-            "slice does not serve (learned positions, projection biases): "
-            "see ROADMAP A11")
+            f"parameters {sorted(unknown)} belong to a model the port does "
+            "not serve (its transformer families take the leaves of JAX's "
+            "init_params): see ROADMAP A11")
+    _check_leaf_set(tree, cfg)
     layers = tree["layers"]
     L = cfg.num_layers
     for name, a in layers.items():
@@ -134,6 +145,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
         specs = {"layers": {}}
         mesh = None
     else:
+        check_family_mesh(cfg, mesh.world_size)
         specs = param_specs(tree, cfg, quantized=quantize, rules=rules)
     out = {k: _leaf(v, device, dtype, specs.get(k), mesh, k)
            for k, v in tree.items() if k != "layers"}
@@ -142,6 +154,33 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
                                     "layers/" + k, quantize)
                      for k, v in layers.items()}
     return out
+
+
+def _check_leaf_set(tree, cfg: TransformerConfig) -> None:
+    """The tree's leaves are the config's (``logical_axes``: JAX's
+    ``init_params`` set), with fused leaves standing for their parts: a
+    missing or extra leaf raises, naming it, where it would otherwise fail
+    deep in a forward or be dropped silently."""
+    want = logical_axes(cfg)
+
+    def names(d, fused):
+        out = set()
+        for k in d:
+            out |= set(_FUSED[k]) if fused and k in _FUSED else {k}
+        return out
+
+    have_top = names(tree, False) - {"layers"}
+    have_layers = names(tree.get("layers", {}), True)
+    missing = sorted((set(want) - {"layers"} - have_top)
+                     | {"layers/" + k for k in set(want["layers"])
+                        - have_layers})
+    extra = sorted((have_top - set(want))
+                   | {"layers/" + k for k in have_layers
+                      - set(want["layers"])})
+    if missing or extra:
+        raise ValueError(f"the tree's leaves do not match this config's "
+                         f"(JAX's init_params set): missing {missing}, "
+                         f"extra {extra}")
 
 
 def _host_int(v) -> int:

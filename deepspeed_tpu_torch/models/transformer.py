@@ -1,7 +1,14 @@
-"""Decoder-only llama-family transformer, PyTorch port of the dense
-pre-norm path of ``deepspeed_tpu/models/transformer.py``, with the paged
-serving protocol (block pools + block tables) and the contiguous cache of
-one-shot generation.
+"""The transformer families, PyTorch port of
+``deepspeed_tpu/models/transformer.py``, with the paged serving protocol
+(block pools + block tables) and the contiguous cache of one-shot
+generation: llama-shaped decoders (rotary, rmsnorm, GLU), and, with JAX's
+config fields and leaves, GPT-2 / OPT / CLIP's text tower (learned
+positions, layernorm with every bias), BLOOM (ALiBi, an embedding norm),
+GPT-Neo (per-layer local windows, an unscaled softmax), GPT-J and GPT-NeoX
+(the parallel block, partial and interleaved rotary, a head bias) and the
+encoders BERT / RoBERTa / DistilBERT (bidirectional, post-LN blocks,
+token types, no final norm). ``models/hf_import`` loads their HF
+checkpoints.
 
 Parameters keep the JAX layout at every boundary: a dict with the same
 names, ``[in, out]`` matrices and the stacked leading ``L`` dim of
@@ -11,8 +18,11 @@ over). Both the unfused (wq/wk/wv, w_in/w_gate) and the inference-fused
 
 Attention goes through the two hand-written kernels: the flash forward
 (``ops/flash_attention``) for every full-sequence pass (the paged
-prefill, the contiguous ``prefill``) and the paged decode kernel
-(``ops/decode_attention``) for each single-token paged decode step. On
+prefill, the contiguous ``prefill``; causal or not, with a key mask) and
+the paged decode kernel (``ops/decode_attention``) for each single-token
+paged decode step. ALiBi and a local window take plain torch attention
+(``plain_attention``, and the gathered pool view in decode), per layer,
+because JAX runs both on XLA: no kernel adds a score bias or a band. On
 CUDA tensors they launch their kernels; ``reference=True`` calls their
 plain versions by name instead (for comparisons), and CPU tensors always
 take the plain versions. Two attention paths are plain torch ops because
@@ -92,10 +102,12 @@ logits leave through ``reduce_from_tensor``, and with
 ``tp_overlap_chunks > 1`` the row-parallel sum is cut along the sequence
 (``parallel/partitioning.row_parallel_matmul``).
 
-What this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: alibi / learned positions and windows. The port's config
-has no parallel-block form (GPT-J / NeoX), so its dropout sites are the
-sequential block's two.
+What the port leaves out raises ``NotImplementedError`` naming its
+ROADMAP item: a model family's leaves or layer features on a mesh of more
+than one rank (``check_family_mesh``, A11), and a block-sparse model with
+ALiBi or local windows (A11). A position past the learned table clamps
+to its last row, as JAX's gather does, so no out-of-range index reaches
+the card.
 """
 
 import dataclasses
@@ -151,11 +163,26 @@ class TransformerConfig:
     head_dim: Optional[int] = None              # None -> hidden // heads
     intermediate_size: Optional[int] = None     # None -> 4*hidden / 8/3 (glu)
     max_seq_len: int = 1024
-    position_type: str = "learned"              # this slice: rotary | none
+    position_type: str = "learned"              # learned | rotary | alibi | none
     activation: str = "gelu"                    # gelu | silu_glu | gelu_glu | ...
     norm_type: str = "layernorm"                # layernorm | rmsnorm
     norm_eps: float = 1e-5
+    # a layernorm after the token embedding (BLOOM's, BERT's)
+    embed_norm: bool = False
+    # encoders (BERT / RoBERTa / DistilBERT): bidirectional attention,
+    # post-LN blocks, segment (token-type) embeddings
     causal: bool = True
+    norm_style: str = "pre"                     # pre | post
+    type_vocab_size: int = 0                    # > 0: tok_type_embed
+    # GPT-J / GPT-NeoX: x + attn(ln1(x)) + mlp(ln2(x)) in one residual,
+    # rotary over the first rotary_dim dims, GPT-J's interleaved pairs
+    parallel_block: bool = False
+    rotary_dim: Optional[int] = None
+    rotary_interleaved: bool = False
+    head_bias: bool = False                     # lm_head_bias (GPT-J)
+    qkv_bias: bool = True                       # layernorm models' biases
+    attn_out_bias: Optional[bool] = None        # bo without bq/bk/bv (Neo)
+    final_norm: bool = True                     # False: BERT (post-LN)
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
     attn_scale: Optional[float] = None          # None -> 1/sqrt(head_dim)
@@ -195,7 +222,8 @@ class TransformerConfig:
     # the row-parallel projections' tensor-axis sum in this many pieces
     # along the sequence (``transformer.tp_overlap_chunks``; 0 / 1: one)
     tp_overlap_chunks: int = 0
-    # outside this slice (must stay at their defaults)
+    # per-layer local-attention windows (length num_layers; 0 = global):
+    # key j is visible to query i iff i - j < window
     attn_windows: Optional[Tuple[int, ...]] = None
     sparse_attention: Optional[Dict[str, Any]] = None
 
@@ -206,12 +234,19 @@ class TransformerConfig:
         if self.weight_only_bits not in (0, 8):
             raise ValueError(f"weight_only_bits={self.weight_only_bits}: 0 "
                              "or 8 (int8)")
+        if self.position_type not in ("learned", "rotary", "alibi", "none"):
+            raise ValueError(f"position_type={self.position_type!r}: "
+                             "learned, rotary, alibi or none")
+        if self.norm_style not in ("pre", "post"):
+            raise ValueError(f"norm_style={self.norm_style!r}: pre or post")
+        if self.attn_windows and len(self.attn_windows) != self.num_layers:
+            raise ValueError(f"attn_windows has {len(self.attn_windows)} "
+                             f"entries for {self.num_layers} layers")
         deferred = {
-            "attn_windows": (bool(self.attn_windows),
-                             "A11 (local-attention windows)"),
-            "position_type": (self.position_type not in ("rotary", "none"),
-                              "A11 (learned / alibi positions)"),
-            "causal": (not self.causal, "A11 (encoder models)"),
+            "sparse_attention": (
+                bool(self.sparse_attention) and (
+                    self.position_type == "alibi" or bool(self.attn_windows)),
+                "A11 (a block-sparse model with ALiBi or local windows)"),
         }
         for name, (bad, item) in deferred.items():
             if bad:
@@ -246,6 +281,22 @@ class TransformerConfig:
             d = int(8 * self.hidden_size / 3)
             return 256 * ((d + 255) // 256)
         return 4 * self.hidden_size
+
+
+def gpt2_config(size: str = "125m", **overrides) -> TransformerConfig:
+    """GPT-2 (learned positions, gelu, layernorm with every bias, tied
+    head), JAX's ``gpt2_config``."""
+    dims = {
+        "125m": dict(hidden_size=768, num_layers=12, num_heads=12),
+        "350m": dict(hidden_size=1024, num_layers=24, num_heads=16),
+        "760m": dict(hidden_size=1536, num_layers=24, num_heads=16),
+        "1.3b": dict(hidden_size=2048, num_layers=24, num_heads=32),
+    }[size]
+    base = dict(vocab_size=50257, max_seq_len=1024, position_type="learned",
+                activation="gelu", norm_type="layernorm", tie_embeddings=True)
+    base.update(dims)
+    base.update(overrides)
+    return TransformerConfig(**base)
 
 
 def llama_config(size: str = "7b", **overrides) -> TransformerConfig:
@@ -345,16 +396,59 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     if cfg.norm_type == "layernorm":
         draws += [("ln1_bias", lambda: const((L, H), 0.0)),
                   ("ln2_bias", lambda: const((L, H), 0.0))]
+        draws += [(name, lambda n=n: const((L, n), 0.0))
+                  for name, n in _layer_biases(cfg, dense_mlp)]
     layers = {name: keep("layers/" + name, fn()) for name, fn in draws}
-    params: Params = {
-        "tok_embed": keep("tok_embed", normal((cfg.vocab_size, H))),
-        "layers": layers,
-        "final_norm_scale": keep("final_norm_scale", const((H,), 1.0))}
-    if cfg.norm_type == "layernorm":
-        params["final_norm_bias"] = keep("final_norm_bias", const((H,), 0.0))
+    params: Params = {"tok_embed": keep("tok_embed",
+                                        normal((cfg.vocab_size, H))),
+                      "layers": layers}
+    if cfg.final_norm:
+        params["final_norm_scale"] = keep("final_norm_scale",
+                                          const((H,), 1.0))
+        if cfg.norm_type == "layernorm":
+            params["final_norm_bias"] = keep("final_norm_bias",
+                                             const((H,), 0.0))
     if not cfg.tie_embeddings:
         params["lm_head"] = keep("lm_head", normal((H, cfg.vocab_size)))
+    # the family leaves, drawn after those of earlier slices
+    if cfg.position_type == "learned":
+        params["pos_embed"] = keep("pos_embed",
+                                   normal((cfg.max_seq_len, H), 0.01))
+    if cfg.type_vocab_size:
+        params["tok_type_embed"] = keep(
+            "tok_type_embed", normal((cfg.type_vocab_size, H), 0.01))
+    if cfg.head_bias and not cfg.tie_embeddings:
+        params["lm_head_bias"] = keep("lm_head_bias",
+                                      const((cfg.vocab_size,), 0.0))
+    if cfg.embed_norm:
+        params["embed_norm_scale"] = keep("embed_norm_scale",
+                                          const((H,), 1.0))
+        if cfg.norm_type == "layernorm":
+            params["embed_norm_bias"] = keep("embed_norm_bias",
+                                             const((H,), 0.0))
     return params
+
+
+def _layer_biases(cfg: TransformerConfig, dense_mlp: bool):
+    """The layer stack's bias leaves and their widths, JAX's rule: a
+    layernorm model carries bq / bk / bv with ``qkv_bias``, bo with
+    ``qkv_bias`` or ``attn_out_bias``, and b_in / b_out on a dense MLP."""
+    if cfg.norm_type != "layernorm":
+        return []
+    nq, nkv = cfg.num_heads * cfg.dim_per_head, cfg.kv_heads * cfg.dim_per_head
+    out = []
+    if cfg.qkv_bias:
+        out += [("bq", nq), ("bk", nkv), ("bv", nkv)]
+    if cfg.qkv_bias or cfg.attn_out_bias:
+        out.append(("bo", cfg.hidden_size))
+    if dense_mlp:
+        out += [("b_in", cfg.ffn_dim), ("b_out", cfg.hidden_size)]
+    return out
+
+
+_BIAS_AXES = {"bq": ("layers", "qkv"), "bk": ("layers", "qkv"),
+              "bv": ("layers", "qkv"), "bo": ("layers", "unmodeled"),
+              "b_in": ("layers", "mlp"), "b_out": ("layers", "unmodeled")}
 
 
 def logical_axes(cfg: TransformerConfig) -> Params:
@@ -386,13 +480,65 @@ def logical_axes(cfg: TransformerConfig) -> Params:
     if cfg.norm_type == "layernorm":
         layers["ln1_bias"] = ("layers", "unmodeled")
         layers["ln2_bias"] = ("layers", "unmodeled")
-    axes: Params = {"tok_embed": ("vocab", "embed"), "layers": layers,
-                    "final_norm_scale": ("unmodeled",)}
-    if cfg.norm_type == "layernorm":
-        axes["final_norm_bias"] = ("unmodeled",)
+        for name, _ in _layer_biases(cfg, "w_in" in layers):
+            layers[name] = _BIAS_AXES[name]
+    axes: Params = {"tok_embed": ("vocab", "embed"), "layers": layers}
+    if cfg.final_norm:
+        axes["final_norm_scale"] = ("unmodeled",)
+        if cfg.norm_type == "layernorm":
+            axes["final_norm_bias"] = ("unmodeled",)
     if not cfg.tie_embeddings:
         axes["lm_head"] = ("embed", "vocab")
+    if cfg.position_type == "learned":
+        axes["pos_embed"] = (None, "embed")
+    if cfg.type_vocab_size:
+        axes["tok_type_embed"] = (None, "embed")
+    if cfg.head_bias and not cfg.tie_embeddings:
+        axes["lm_head_bias"] = ("vocab",)
+    if cfg.embed_norm:
+        axes["embed_norm_scale"] = ("unmodeled",)
+        if cfg.norm_type == "layernorm":
+            axes["embed_norm_bias"] = ("unmodeled",)
     return axes
+
+
+def family_leaves(cfg: TransformerConfig) -> List[str]:
+    """The leaves of this config that llama-shaped decoders lack (biases,
+    position and token-type tables, the embedding norm, the head bias),
+    and the layer features they lack (ALiBi, windows, post-LN, the
+    parallel block, partial or interleaved rotary, bidirectional
+    attention, no final norm). A mesh of more than one rank refuses
+    them (``check_family_mesh``)."""
+    axes = logical_axes(cfg)
+    base = {"ln1_scale", "ln2_scale", "ln1_bias", "ln2_bias", "wq", "wk",
+            "wv", "wo", "w_in", "w_out", "w_gate", "wg", "moe_w_in",
+            "moe_w_out", "moe_w_gate", "moe_coef"}
+    out = [f"layers/{k}" for k in axes["layers"] if k not in base]
+    out += [k for k in axes if k not in ("tok_embed", "layers", "lm_head",
+                                         "final_norm_scale",
+                                         "final_norm_bias")]
+    features = {"alibi": cfg.position_type == "alibi",
+                "attn_windows": bool(cfg.attn_windows),
+                "norm_style=post": cfg.norm_style == "post",
+                "parallel_block": cfg.parallel_block,
+                "rotary_dim": bool(cfg.rotary_dim),
+                "rotary_interleaved": cfg.rotary_interleaved,
+                "causal=False": not cfg.causal,
+                "final_norm=False": not cfg.final_norm}
+    return out + [k for k, on in features.items() if on]
+
+
+def check_family_mesh(cfg: TransformerConfig, world_size: int) -> None:
+    """A model family's leaves or features on a mesh of more than one
+    rank raise naming ROADMAP A11: their logical axes are JAX's, but the
+    row-parallel biases (added once after the reduction), the vocab-sharded
+    head bias, ALiBi's per-rank head slopes and the ring's band and bias
+    are not ported."""
+    extra = family_leaves(cfg)
+    if world_size > 1 and extra:
+        raise NotImplementedError(
+            f"{extra} on a mesh of {world_size} ranks is not ported yet: "
+            "ROADMAP A11 (model families on a mesh)")
 
 
 def quantized_logical_axes(cfg: TransformerConfig,
@@ -435,15 +581,20 @@ def _local_kv_heads(cfg: TransformerConfig) -> int:
 
 def fuse_layer_stack(params: Params) -> Params:
     """Inference weight fusion, as the JAX ``fuse_layer_stack``: wq/wk/wv
-    -> wqkv and w_in/w_gate -> w_in_gate (one GEMM instead of three / two
-    per layer). A MoE stack stays unfused, as in JAX (PR-MoE reads
-    w_in / w_gate in its residual branch)."""
+    -> wqkv (bq/bk/bv -> bqkv) and w_in/w_gate -> w_in_gate (one GEMM
+    instead of three / two per layer; not with a b_in, as in JAX). A MoE
+    stack stays unfused, as in JAX (PR-MoE reads w_in / w_gate in its
+    residual branch). The biases stay float through
+    ``quantize_layer_stack`` (2-dim leaves)."""
     if "wg" in params["layers"]:
         return params
     L = dict(params["layers"])
     if "wq" in L:
         L["wqkv"] = torch.cat([L.pop("wq"), L.pop("wk"), L.pop("wv")], dim=-1)
-    if "w_gate" in L and "w_in" in L:
+        if "bq" in L:
+            L["bqkv"] = torch.cat([L.pop("bq"), L.pop("bk"), L.pop("bv")],
+                                  dim=-1)
+    if "w_gate" in L and "w_in" in L and "b_in" not in L:
         L["w_in_gate"] = torch.cat([L.pop("w_in"), L.pop("w_gate")], dim=-1)
     return {**params, "layers": L}
 
@@ -458,6 +609,11 @@ def unfuse_layer_stack(params: Params, cfg: TransformerConfig) -> Params:
         L["wq"] = w[..., :nh * hd]
         L["wk"] = w[..., nh * hd:(nh + nkv) * hd]
         L["wv"] = w[..., (nh + nkv) * hd:]
+        if "bqkv" in L:
+            b = L.pop("bqkv")
+            L["bq"] = b[..., :nh * hd]
+            L["bk"] = b[..., nh * hd:(nh + nkv) * hd]
+            L["bv"] = b[..., (nh + nkv) * hd:]
     if "w_in_gate" in L:
         w = L.pop("w_in_gate")
         half = w.shape[-1] // 2
@@ -510,23 +666,52 @@ def _norm(x, scale, bias, cfg: TransformerConfig):
     return y.to(x.dtype)
 
 
-def rotary_embed(x, positions, theta: float):
-    """x: [B, S, N, D]; positions: [B, S]. Rotates the pairs (d, d + D/2)
-    (llama). The frequencies use the JAX formula exactly,
-    ``exp(-arange(half) * log(theta) / half)`` in f32 (``theta ** (-2i/D)``
-    rounds differently)."""
-    D = x.shape[-1]
-    half = D // 2
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes, JAX's ``alibi_slopes`` (BLOOM's rule: a
+    geometric series from the closest power of two, the odd terms of the
+    next series filling a head count that is not one), f32 [n_heads]."""
+    def pow2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+    if math.log2(n_heads).is_integer():
+        vals = pow2(n_heads)
+    else:
+        cp2 = 2 ** int(math.floor(math.log2(n_heads)))
+        vals = pow2(cp2) + pow2(2 * cp2)[0::2][: n_heads - cp2]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
+
+
+def rotary_embed(x, positions, theta: float, rotary_dim: Optional[int] = None,
+                 interleaved: bool = False):
+    """x: [B, S, N, D]; positions: [B, S]. Rotates the pairs (d, d + r/2)
+    of the first r = ``rotary_dim`` (default D) dims (llama, GPT-NeoX's
+    partial rotary), or with ``interleaved`` the pairs (2d, 2d + 1)
+    (GPT-J's rotate-every-two); dims past r pass through. The frequencies
+    use the JAX formula exactly, ``exp(-arange(r/2) * log(theta) / (r/2))``
+    in f32 (``theta ** (-2i/r)`` rounds differently)."""
+    B, S, N, D = x.shape
+    rd = rotary_dim if rotary_dim else D
+    if rd % 2:
+        raise ValueError(f"rotary_dim must be even, got {rd} (the rotation "
+                         "pairs dims)")
+    half = rd // 2
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device)
                       * (math.log(theta) / half))
     angles = positions.float()[:, :, None] * freqs[None, None, :]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1 = x[..., :half].float()
-    x2 = x[..., half:].float()
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    if interleaved:
+        x1 = x[..., 0:rd:2].float()
+        x2 = x[..., 1:rd:2].float()
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                          dim=-1).reshape(B, S, N, rd)
+    else:
+        x1 = x[..., :half].float()
+        x2 = x[..., half:rd].float()
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    out = out.to(x.dtype)
+    return out if rd == D else torch.cat([out, x[..., rd:]], dim=-1)
 
 
 def _activation(x, gate, cfg: TransformerConfig):
@@ -637,10 +822,67 @@ def _lora_delta(h, ab, idx):
     return torch.bmm(torch.bmm(h, ga), gb)
 
 
+def _window(cfg: TransformerConfig, i: int) -> Optional[int]:
+    """Layer i's local-attention window, None for a global layer (JAX's
+    unrolled ``cfg.attn_windows[i] or None``)."""
+    return (cfg.attn_windows[i] or None) if cfg.attn_windows else None
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(nq: int, device) -> torch.Tensor:
+    """``alibi_slopes(nq)`` on ``device``, made once (not a host-to-device
+    copy a layer a step)."""
+    return alibi_slopes(nq, device=device)
+
+
+def _alibi_term(nq: int, rel, shape):
+    """ALiBi's additive score term: the head slopes, viewed as ``shape``
+    (which places the heads), times ``rel`` (key position minus query
+    position, f32)."""
+    return _slopes_on(nq, rel.device).reshape(shape) * rel
+
+
+def plain_attention(q, k, v, mask=None, *, causal: bool, cfg: TransformerConfig,
+                    window: Optional[int] = None):
+    """JAX's XLA branch of ``attention`` in plain torch ops: K/V repeated
+    over the query-head group, f32 scores times the scale, ALiBi's
+    ``slope * (k - q)``, then the causal, band (``i - j < window``) and
+    key masks filled with -1e30, the softmax, and P V in q's dtype. ALiBi
+    and local windows run here, on the card too, because JAX runs them on
+    XLA (its flash kernel has no score bias and no band): no kernel of
+    the port adds either."""
+    B, S, Nq, D = q.shape
+    rep = Nq // k.shape[2]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scores = torch.einsum("bsnd,btnd->bnst", q, k).float() * _sm_scale(cfg, D)
+    pos = torch.arange(S, device=q.device)
+    if cfg.position_type == "alibi":
+        rel = (pos[None, :] - pos[:, None]).float()
+        scores = scores + _alibi_term(Nq, rel, (1, Nq, 1, 1))
+    if causal:
+        scores = scores.masked_fill(~(pos[None, :] <= pos[:, None]), _NEG)
+    if window:
+        scores = scores.masked_fill(
+            ~((pos[:, None] - pos[None, :]) < window), _NEG)
+    if mask is not None:
+        scores = scores.masked_fill(~(mask != 0)[:, None, None, :], _NEG)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bnst,btnd->bsnd", probs, v)
+
+
 def attention(q, k, v, mask=None, *, causal: bool = True,
-              cfg: TransformerConfig, reference: bool = False):
+              cfg: TransformerConfig, reference: bool = False,
+              window: Optional[int] = None):
     """q: [B,S,Nq,D], k/v: [B,S,Nkv,D] -> [B,S,Nq,D]. mask: optional [B, S]
-    key-padding mask.
+    key-padding mask; ``causal`` False for an encoder (the kernels take
+    it, with the key mask). ``window``: this layer's local window (None:
+    global).
+
+    ALiBi and a window take ``plain_attention`` (JAX's XLA branch), per
+    layer: a global layer of a windowed model keeps the flash kernel, as
+    JAX's unrolled stack does.
 
     As in JAX: a ``sparse_attention`` config without a key mask repeats K/V
     over the query-head group (query head h reads kv head h // rep; autograd
@@ -663,6 +905,9 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     on JAX's CPU backend (its Pallas opt-in agrees with the port), and the
     sparse config with a key mask, which JAX sends to XLA on every
     backend. Every row that sees a key agrees with both."""
+    if cfg.position_type == "alibi" or window:
+        return plain_attention(q, k, v, mask, causal=causal, cfg=cfg,
+                               window=window)
     sm = _sm_scale(cfg, q.shape[-1])
     if seq_parallel_degree() > 1:
         # the rank holds a piece of the sequence: the ring over ``seq``,
@@ -722,8 +967,18 @@ def _decode_pv(probs, cv, kv_scale, dtype):
     return (out * ps[..., None]).to(dtype)
 
 
+def _col(v, device):
+    """A decode cursor as a column over the rows: a [B] tensor becomes
+    [B, 1] (the paged path's per-slot lengths), a host int stays an int
+    (one-shot decode: every row at one position)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device).long()[:, None]
+    return v
+
+
 def _decode_attention(q, ck, cv, index, cfg: TransformerConfig,
-                      kv_row, kv_scale=None, kv_suffix=None):
+                      kv_row, kv_scale=None, kv_suffix=None,
+                      window: Optional[int] = None):
     """Single-token GQA attention against a contiguous KV buffer, JAX's
     ``_decode_attention`` in plain torch ops: JAX runs it on XLA, not on a
     Pallas kernel (its contiguous kernel was deleted), so there is no
@@ -731,39 +986,53 @@ def _decode_attention(q, ck, cv, index, cfg: TransformerConfig,
 
     q: [B, 1, Nq, D]; ck/cv: [B, Nkv, T, D]; index: the current position,
     a host int (one-shot decode: every row at the same one) or a [B]
-    tensor (the paged int8 path's per-slot lengths). kv_row: the CURRENT
-    token's (k, v) [B, Nkv, 1, D], kept out of the buffer: its score joins
-    the softmax separately and the caller writes the row afterwards
-    (buffer rows at >= the prefix length are stale). kv_scale: the int8
-    buffer's (k_scale, v_scale) [B, Nkv, T] (int8 math, see
+    tensor (the paged gathered path's per-slot lengths). kv_row: the
+    CURRENT token's (k, v) [B, Nkv, 1, D], kept out of the buffer: its
+    score joins the softmax separately and the caller writes the row
+    afterwards (buffer rows at >= the prefix length are stale). kv_scale:
+    the int8 buffer's (k_scale, v_scale) [B, Nkv, T] (int8 math, see
     ``_int8_scores`` / ``_decode_pv``). kv_suffix: (sk, sv, count), the
     two-level decode's segment rows [B, Nkv, Ssuf, D] in the compute
     dtype, of which the first ``count`` are valid; the buffer then holds
-    ``index - count`` rows."""
+    ``index - count`` rows. ALiBi adds ``slope * (t - index)`` to the
+    buffer's and the suffix's scores (the fresh row's distance is 0);
+    ``window`` keeps the rows t with ``index - t < window``."""
     B, _, Nq, D = q.shape
     Nkv, T = ck.shape[1], ck.shape[2]
     rep = Nq // Nkv
     sm = _sm_scale(cfg, D)
+    dev = q.device
     qg = q.reshape(B, Nkv, rep, D)
     k_row, v_row = kv_row
-    prefix_len = index if kv_suffix is None else index - kv_suffix[2]
+    idx = _col(index, dev)
+    prefix_len = idx if kv_suffix is None else idx - kv_suffix[2]
+    alibi = cfg.position_type == "alibi"
     if kv_scale is not None:
         scores = _int8_scores(qg, ck, kv_scale[0])
     else:
         scores = torch.einsum("bgrd,bgtd->bgrt", qg, ck).float()
     scores = scores * sm
-    if isinstance(prefix_len, torch.Tensor):
-        keep = (torch.arange(T, device=q.device)[None, :]
-                < prefix_len.long()[:, None])[:, None, None, :]
-    else:
-        keep = torch.arange(T, device=q.device) < prefix_len
-    parts = [scores.masked_fill(~keep, _NEG)]
+    t = torch.arange(T, device=dev)[None, :]
+    if alibi:
+        scores = scores + _alibi_term(Nq, (t - idx).float()[:, None, None, :],
+                                      (1, Nkv, rep, 1))
+    keep = t < prefix_len                                        # [B|1, T]
+    if window:
+        keep = keep & (idx - t < window)
+    parts = [scores.masked_fill(~keep[:, None, None, :], _NEG)]
     if kv_suffix is not None:
         sk, sv, count = kv_suffix
+        n = sk.shape[2]
         s_suf = torch.einsum("bgrd,bgtd->bgrt", qg,
                              sk.to(qg.dtype)).float() * sm
-        skeep = torch.arange(sk.shape[2], device=q.device) < count
-        parts.append(s_suf.masked_fill(~skeep, _NEG))
+        u = prefix_len + torch.arange(n, device=dev)[None, :]  # absolute
+        if alibi:
+            s_suf = s_suf + _alibi_term(Nq, (u - idx).float()[:, None, None, :],
+                                        (1, Nkv, rep, 1))
+        skeep = torch.arange(n, device=dev)[None, :] < count
+        if window:
+            skeep = skeep & (idx - u < window)
+        parts.append(s_suf.masked_fill(~skeep[:, None, None, :], _NEG))
     s_self = torch.einsum("bgrd,bgtd->bgrt", qg,
                           k_row.to(qg.dtype)).float() * sm
     probs = torch.softmax(torch.cat(parts + [s_self], dim=-1), dim=-1)
@@ -789,52 +1058,68 @@ def _pool_view(pool, idx):
 
 def _paged_attention(q, pool_k, pool_v, tables, index,
                      cfg: TransformerConfig, kv_row, kv_scale=None,
-                     reference: bool = False):
+                     reference: bool = False, window: Optional[int] = None):
     """Attention against one layer's block pool slices ([NB, Nkv, bs, D])
     through the block tables [S, MB]; index: per-slot sequence lengths
     [S]. A span of T > 1 tokens per slot (chunked prefill, a prefix-cache
     hit's tail, the speculative verify step) takes
     ``_paged_span_attention``, plain torch ops as in JAX, where the Pallas
     kernel is single-token only. One token per slot on a float pool goes
-    through the paged decode kernel (B4). On an int8 pool (kv_scale: the
-    layer's (k_scale, v_scale) [NB, Nkv, bs]) it reads the gathered view
-    with the int8 math of ``_decode_attention``, as JAX's int8 pool does
-    (its kernel reads float pools only)."""
+    through the paged decode kernel (B4), with the config's scale
+    (``attn_scale`` too: B4 takes ``sm_scale``, where JAX's Pallas gate
+    refuses an override). The gathered view, read with the math of
+    ``_decode_attention``, serves what JAX's ``_paged_attention`` sends
+    to XLA: an int8 pool (kv_scale: the layer's (k_scale, v_scale) [NB,
+    Nkv, bs]; B4 reads float pools only), ALiBi (a score bias B4 lacks),
+    and a model with ``attn_windows`` (JAX's decode passes every layer a
+    traced window, so its global layers read the view too; ``window`` is
+    this layer's, None for a global one)."""
     if q.shape[1] > 1:
         return _paged_span_attention(q, pool_k, pool_v, tables, index, cfg,
-                                     kv_row, kv_scale=kv_scale)
-    if kv_scale is not None:
+                                     kv_row, kv_scale=kv_scale,
+                                     window=window)
+    if kv_scale is not None or _gathered_decode(cfg):
         idx = tables.long()
-        sc = tuple(_pool_view(s, idx) for s in kv_scale)
+        sc = (None if kv_scale is None
+              else tuple(_pool_view(s, idx) for s in kv_scale))
         return _decode_attention(q, _pool_view(pool_k, idx),
                                  _pool_view(pool_v, idx), index, cfg,
-                                 kv_row=kv_row, kv_scale=sc)
+                                 kv_row=kv_row, kv_scale=sc, window=window)
     fn = paged_decode_reference if reference else paged_decode_attention
     return fn(q, pool_k, pool_v, tables, index, kv_row=kv_row,
               sm_scale=_sm_scale(cfg, q.shape[-1]))
 
 
+def _gathered_decode(cfg: TransformerConfig) -> bool:
+    """A float pool's single-token decode reads the gathered view, not B4:
+    ALiBi or ``attn_windows`` (JAX's XLA route for both)."""
+    return cfg.position_type == "alibi" or bool(cfg.attn_windows)
+
+
 def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
-                          cfg: TransformerConfig, kv_row, kv_scale=None):
+                          cfg: TransformerConfig, kv_row, kv_scale=None,
+                          window: Optional[int] = None):
     """T-token attention for a span appended at each slot's cursor, JAX's
     ``_paged_span_attention``. q: [S, T, Nq, D]; kv_row: the span's fresh
     (k, v) [S, Nkv, T, D]; prior_lens: [S] rows already in the pool.
     Position ``prior + t`` attends the pool prefix [0, prior), the span
     rows u <= t and itself: scores over the gathered pool view under the
     per-slot prefix mask, scores over the span under the causal ``u <= t``
-    mask, one softmax over both. Masked entries are -1e30, so they weigh
-    exactly 0 and each position sees the single-token chain's logits (to
-    reduction-order rounding: the softmax is wider). int8 pools (kv_scale:
-    (k_scale, v_scale) [NB, Nkv, bs]): the pool read runs the int8 math
-    of ``_decode_attention`` batched over T; the span's own fresh rows are
-    read as floats, where single steps would re-read them quantized (JAX's
-    relaxation too)."""
+    mask, one softmax over both (ALiBi's ``slope * (key - query)`` added
+    to both, ``window`` banding both). Masked entries are -1e30, so they
+    weigh exactly 0 and each position sees the single-token chain's
+    logits (to reduction-order rounding: the softmax is wider). int8 pools
+    (kv_scale: (k_scale, v_scale) [NB, Nkv, bs]): the pool read runs the
+    int8 math of ``_decode_attention`` batched over T; the span's own
+    fresh rows are read as floats, where single steps would re-read them
+    quantized (JAX's relaxation too)."""
     S, T, Nq, D = q.shape
     _, Nkv, bs, _ = pool_k.shape
     MB = tables.shape[1]
     rep, Tp = Nq // Nkv, MB * bs
     chunk_k, chunk_v = kv_row
     sm = _sm_scale(cfg, D)
+    dev = q.device
     idx = tables.long()
     qg = q.transpose(1, 2).reshape(S, Nkv, rep, T, D)
     vk = _pool_view(pool_k, idx)
@@ -845,13 +1130,26 @@ def _paged_span_attention(q, pool_k, pool_v, tables, prior_lens,
     else:
         sp = torch.einsum("bgrtd,bgsd->bgrts", qg, vk).float()
     sp = sp * sm
-    keep = (torch.arange(Tp, device=q.device)[None, :]
-            < prior_lens.long()[:, None])                       # [S, Tp]
-    sp = sp.masked_fill(~keep[:, None, None, None, :], _NEG)
+    tp = torch.arange(Tp, device=dev)
+    t = torch.arange(T, device=dev)
+    pos = prior_lens.long()[:, None] + t[None, :]                # [S, T]
+    alibi = cfg.position_type == "alibi"
+    if alibi:
+        rel = (tp[None, None, :] - pos[:, :, None]).float()      # [S, T, Tp]
+        sp = sp + _alibi_term(Nq, rel[:, None, None], (1, Nkv, rep, 1, 1))
+    keep = (tp[None, None, :] < prior_lens.long()[:, None, None])
+    if window:
+        keep = keep & (pos[:, :, None] - tp[None, None, :] < window)
+    sp = sp.masked_fill(~keep[:, None, None], _NEG)            # [S, T, Tp]
     sq = torch.einsum("bgrtd,bgud->bgrtu", qg,
                       chunk_k.to(qg.dtype)).float() * sm
-    t = torch.arange(T, device=q.device)
-    sq = sq.masked_fill(~(t[None, :] <= t[:, None]), _NEG)      # [t, u]
+    if alibi:
+        rel_c = (t[None, :] - t[:, None]).float()                # u - t
+        sq = sq + _alibi_term(Nq, rel_c, (1, Nkv, rep, 1, 1))
+    causal = t[None, :] <= t[:, None]                            # [t, u]
+    if window:
+        causal = causal & (t[:, None] - t[None, :] < window)
+    sq = sq.masked_fill(~causal, _NEG)
     probs = torch.softmax(torch.cat([sp, sq], dim=-1), dim=-1)
     vv = _pool_view(pool_v, idx)
     if kv_scale is not None:
@@ -917,12 +1215,26 @@ def _dropout(x, cfg: TransformerConfig, seed: Optional[int], salt: int):
     return torch.where(mask, x / keep, torch.zeros_like(x)).to(x.dtype)
 
 
+def _bias(y, p, name):
+    """y + p[name] in y's dtype (JAX adds each bias after its matmul, cast
+    to the activation dtype); y when the layer has no such bias."""
+    b = p.get(name)
+    return y if b is None else y + b.to(y.dtype)
+
+
 def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
                       mask=None, attend: Optional[Callable] = None,
                       row_dtype=None, reference: bool = False, lora=None,
                       dropout_seed: Optional[int] = None,
-                      train: bool = False, aux: Optional[list] = None):
-    """One pre-norm block: x + attn(ln1(x)); x + mlp(ln2(x)).
+                      train: bool = False, aux: Optional[list] = None,
+                      window: Optional[int] = None):
+    """One block, JAX's ``transformer_layer``: pre-norm x + attn(ln1(x));
+    x + mlp(ln2(x)), or post-norm (``norm_style="post"``, BERT) ln1(x +
+    attn(x)), then ln2(h + mlp(h)), or the parallel block
+    (``parallel_block``, GPT-J / NeoX) x + attn(ln1(x)) + mlp(ln2(x)). Each
+    projection adds its bias where the layer has one (bq / bk / bv or the
+    fused bqkv, bo, b_in, b_out), after its matmul (bo and b_out after the
+    row-parallel sum).
 
     Without ``attend``: full-sequence (prefill) attention; returns
     (x, (k, v)) with the post-rotary k, v [B, S, nkv, hd] that seed a
@@ -931,12 +1243,13 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     NOT written here. The fresh rows join the softmax separately and are
     returned as (k_row, v_row) [B, nkv, S, hd] in ``row_dtype`` for the
     caller to write after all layers (writing them first would count them
-    twice).
+    twice). ``window``: this layer's local window (None: global).
 
     ``lora=({proj: (A, B)}, idx)``: one layer's adapter slot tables and
     the per-row adapter slot; each projection in the dict gains the
     gathered low-rank delta (``_lora_delta``) where JAX adds it: q, k, v
-    after their projections, o on the flattened attention output.
+    after their projections and biases, o on the flattened attention
+    output (before bo).
 
     ``dropout_seed``: the layer's mask seed on the training path; dropout
     (salt 0 on the attention output, 1 on the FFN output) before each
@@ -947,12 +1260,16 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     B, S, H = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.dim_per_head
     p = _maybe_dequant(p, cfg)
-    h = _to_tensor_region(_norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg))
+    post = cfg.norm_style == "post"
+    h = x if post else _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
+    h = _to_tensor_region(h)
     if "wqkv" in p:
-        q, k, v = _w(h, p["wqkv"]).split([nh * hd, nkv * hd, nkv * hd],
-                                         dim=-1)
+        q, k, v = _bias(_w(h, p["wqkv"]), p, "bqkv").split(
+            [nh * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q, k, v = _w(h, p["wq"]), _w(h, p["wk"]), _w(h, p["wv"])
+        q = _bias(_w(h, p["wq"]), p, "bq")
+        k = _bias(_w(h, p["wk"]), p, "bk")
+        v = _bias(_w(h, p["wv"]), p, "bv")
     tabs, aidx = lora if lora is not None else ({}, None)
     if "q" in tabs:
         q = q + _lora_delta(h, tabs["q"], aidx)
@@ -966,8 +1283,10 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     k = k.reshape(B, S, nkv, hd)
     v = v.reshape(B, S, nkv, hd)
     if cfg.position_type == "rotary":
-        q = rotary_embed(q, positions, cfg.rope_theta)
-        k = rotary_embed(k, positions, cfg.rope_theta)
+        q = rotary_embed(q, positions, cfg.rope_theta, cfg.rotary_dim,
+                         cfg.rotary_interleaved)
+        k = rotary_embed(k, positions, cfg.rope_theta, cfg.rotary_dim,
+                         cfg.rotary_interleaved)
     if attend is not None:
         k_row = k.transpose(1, 2).to(row_dtype).contiguous()
         v_row = v.transpose(1, 2).to(row_dtype).contiguous()
@@ -976,15 +1295,22 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     else:
         attn = attention(q.contiguous(), k.contiguous(), v.contiguous(),
                          mask, causal=cfg.causal, cfg=cfg,
-                         reference=reference)
+                         reference=reference, window=window)
         new_kv = (k, v)
     attn_flat = attn.reshape(B, S, nh * hd)
-    attn_out = _w_row(attn_flat, p["wo"],
-                      delta=(_lora_delta(attn_flat, tabs["o"], aidx)
-                             if "o" in tabs else None),
-                      chunks=cfg.tp_overlap_chunks)
-    x = x + _dropout(attn_out, cfg, dropout_seed, 0)
-    h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
+    attn_out = _bias(_w_row(attn_flat, p["wo"],
+                            delta=(_lora_delta(attn_flat, tabs["o"], aidx)
+                                   if "o" in tabs else None),
+                            chunks=cfg.tp_overlap_chunks), p, "bo")
+    if cfg.parallel_block:
+        # both sublayers read the block's input x (GPT-J's import fills
+        # both norms with its one ln_1)
+        h = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
+    else:
+        x = x + _dropout(attn_out, cfg, dropout_seed, 0)
+        if post:
+            x = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
+        h = x if post else _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
     if "wg" in p:
         gen = None
         if train and dropout_seed is not None and cfg.noisy_gate_policy:
@@ -995,19 +1321,26 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
             aux.append(layer_aux)
     else:
         out = _mlp(h, p, cfg)
-    return x + _dropout(out, cfg, dropout_seed, 1), new_kv
+    if cfg.parallel_block:
+        return (x + _dropout(attn_out, cfg, dropout_seed, 0)
+                + _dropout(out, cfg, dropout_seed, 1)), new_kv
+    x = x + _dropout(out, cfg, dropout_seed, 1)
+    if post:
+        x = _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
+    return x, new_kv
 
 
 def _mlp(h, p, cfg: TransformerConfig):
-    """The dense MLP: column-parallel up (and gate), row-parallel down."""
+    """The dense MLP: column-parallel up (and gate), row-parallel down,
+    with b_in after the up projection and b_out after the sum."""
     h = _to_tensor_region(h)
     if "w_in_gate" in p:
         up, gate = _w(h, p["w_in_gate"]).chunk(2, dim=-1)
     else:
-        up = _w(h, p["w_in"])
+        up = _bias(_w(h, p["w_in"]), p, "b_in")
         gate = _w(h, p["w_gate"]) if "w_gate" in p else None
-    return _w_row(_activation(up, gate, cfg), p["w_out"],
-                  chunks=cfg.tp_overlap_chunks)
+    return _bias(_w_row(_activation(up, gate, cfg), p["w_out"],
+                        chunks=cfg.tp_overlap_chunks), p, "b_out")
 
 
 def _moe_mlp(h, p, cfg: TransformerConfig, train: bool = False,
@@ -1078,11 +1411,14 @@ def _vocab_logits(x, head, vocab: Optional[int] = None):
 def lm_head_logits(x, params, vocab: Optional[int] = None):
     """Final projection to f32 vocab logits, the head cast to x's dtype
     (vocab-parallel under a tensor axis: ``_vocab_logits``; ``vocab``:
-    the model's vocabulary size)."""
-    return _vocab_logits(x, _head(params), vocab)
+    the model's vocabulary size), plus the f32 ``lm_head_bias`` where the
+    model has one (GPT-J)."""
+    logits = _vocab_logits(x, _head(params), vocab)
+    bias = params.get("lm_head_bias")
+    return logits if bias is None else logits + bias.float()
 
 
-def _embed(params, ids, cfg: TransformerConfig):
+def _tokens(params, ids, cfg: TransformerConfig):
     """Token embeddings in the compute dtype. F.embedding, not an index:
     its backward sums a token's rows in a fixed order on the CPU and the
     card, where the index's backward (an accumulating index_put) adds f32
@@ -1104,8 +1440,48 @@ def _embed(params, ids, cfg: TransformerConfig):
     return all_reduce(x, "tensor").to(cfg.dtype)
 
 
+def _rows_of(table, idx):
+    """table[idx] by F.embedding with the index clamped into the table, as
+    JAX's gather clamps it: a position past ``max_seq_len`` (a forward or a
+    generate that runs past the table) reads the last row and never sends
+    an out-of-range index to the device."""
+    return F.embedding(idx.long().clamp(0, table.shape[0] - 1), table)
+
+
+def _embed(params, ids, cfg: TransformerConfig, positions=None,
+           token_type_ids=None, token_types: bool = True):
+    """The embedding block, JAX's: token rows, plus the learned position
+    rows at ``positions`` (default 0 .. S - 1), plus the token-type rows
+    (``token_type_ids``, default all 0) when the model has
+    ``tok_type_embed`` and ``token_types`` (JAX's decode paths add none),
+    then ``embed_norm``, each term in the compute dtype."""
+    x = _tokens(params, ids, cfg)
+    if cfg.position_type == "learned":
+        if positions is None:
+            positions = torch.arange(ids.shape[1], device=ids.device)[None]
+        x = x + _rows_of(params["pos_embed"], positions).to(cfg.dtype)
+    if token_types and "tok_type_embed" in params:
+        tt = (torch.zeros_like(ids) if token_type_ids is None
+              else torch.as_tensor(token_type_ids, device=ids.device))
+        x = x + _rows_of(params["tok_type_embed"], tt).to(cfg.dtype)
+    if cfg.embed_norm:
+        x = _norm(x, params["embed_norm_scale"],
+                  params.get("embed_norm_bias"), cfg)
+    return x
+
+
+def final_norm(x, params, cfg: TransformerConfig):
+    """The final norm, where the model has one (BERT's post-LN blocks end
+    normed: ``final_norm=False``)."""
+    if not cfg.final_norm:
+        return x
+    return _norm(x, params["final_norm_scale"],
+                 params.get("final_norm_bias"), cfg)
+
+
 def forward(params: Params, input_ids, cfg: TransformerConfig, *,
-            attention_mask=None, positions=None, return_kv: bool = False,
+            attention_mask=None, positions=None, token_type_ids=None,
+            return_kv: bool = False,
             return_hidden: bool = False, reference: bool = False,
             dropout_seed: Optional[int] = None, train: bool = False,
             return_aux: bool = False):
@@ -1113,15 +1489,18 @@ def forward(params: Params, input_ids, cfg: TransformerConfig, *,
     the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd];
     with ``return_hidden`` the final-normed hidden states [B, S, H]
     instead of logits (the chunked loss projects them chunk by chunk).
+    ``positions`` [B, S]: the rotary angles' and the learned table's rows
+    (default 0 .. S - 1); ``token_type_ids`` [B, S]: an encoder's segment
+    ids (default 0).
     ``dropout_seed``: the training path's mask seed (None: no dropout);
     ``train``: MoE layers route with the training capacity (and draw
     their gate noise from the seed); ``return_aux``: (out, the sum of the
     MoE layers' aux losses), as JAX's."""
     aux: list = []
     x, kvs = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
-                     positions=positions, reference=reference,
-                     keep_kv=return_kv, dropout_seed=dropout_seed,
-                     train=train, aux=aux)
+                     positions=positions, token_type_ids=token_type_ids,
+                     reference=reference, keep_kv=return_kv,
+                     dropout_seed=dropout_seed, train=train, aux=aux)
     total = (torch.stack(aux).sum() if aux
              else x.new_zeros((), dtype=torch.float32))
     if return_hidden:
@@ -1232,7 +1611,7 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
     config's remat policy. Layer i of the stack is the model's layer
     ``first_layer + i`` (a pipeline stage's run of layers): its dropout
     masks (and gate noise) come from ``mask_seed(dropout_seed,
-    first_layer + i)``. ``on_layer_kv``, ``keep_kv``, ``train`` and
+    first_layer + i)``, its window from ``attn_windows[first_layer + i]``. ``on_layer_kv``, ``keep_kv``, ``train`` and
     ``aux``: as ``_hidden``'s."""
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
                   else None)
@@ -1245,7 +1624,8 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
         lp = gather_params(lp, "layers/")
         return transformer_layer(x_in, lp, cfg, positions=positions,
                                  mask=attention_mask, reference=reference,
-                                 dropout_seed=seed, train=train, aux=box)
+                                 dropout_seed=seed, train=train, aux=box,
+                                 window=_window(cfg, i))
 
     def remat(x_in, lp, i):
         box: list = []
@@ -1274,31 +1654,31 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
 
 
 def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
-            reference=False, on_layer_kv: Optional[Callable] = None,
+            token_type_ids=None, reference=False,
+            on_layer_kv: Optional[Callable] = None,
             keep_kv: bool = False, dropout_seed: Optional[int] = None,
             train: bool = False, aux: Optional[list] = None):
-    """Embedding, the layer stack and the final norm. ``on_layer_kv(i, k,
-    v)`` consumes each layer's K/V as soon as it exists (the paged prefill
-    writes them straight into the pool); ``keep_kv`` returns them. With
-    gradients on, each layer runs under the config's remat policy.
-    ``dropout_seed``: layer i's masks (and gate noise) come from
-    ``mask_seed(dropout_seed, i)`` (None: no dropout); ``train`` and
-    ``aux``: as ``transformer_layer``'s (each MoE layer's aux loss
-    appended to ``aux``)."""
+    """Embedding (``_embed``), the layer stack and the final norm.
+    ``on_layer_kv(i, k, v)`` consumes each layer's K/V as soon as it
+    exists (the paged prefill writes them straight into the pool);
+    ``keep_kv`` returns them. With gradients on, each layer runs under
+    the config's remat policy. ``dropout_seed``: layer i's masks (and
+    gate noise) come from ``mask_seed(dropout_seed, i)`` (None: no
+    dropout); ``train`` and ``aux``: as ``transformer_layer``'s (each MoE
+    layer's aux loss appended to ``aux``)."""
     B, S = input_ids.shape
-    x = _embed(params, input_ids, cfg)
     if positions is None:
         # over ``seq`` the ids are this rank's piece: its global positions
         start = seq_offset(S) if seq_parallel_degree() > 1 else 0
         positions = torch.arange(start, start + S,
-                                 device=x.device)[None].expand(B, S)
+                                 device=input_ids.device)[None].expand(B, S)
+    x = _embed(params, input_ids, cfg, positions=positions,
+               token_type_ids=token_type_ids)
     x, kvs = layer_stack(x, params["layers"], cfg, positions=positions,
                          attention_mask=attention_mask, reference=reference,
                          on_layer_kv=on_layer_kv, keep_kv=keep_kv,
                          dropout_seed=dropout_seed, train=train, aux=aux)
-    x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
-              cfg)
-    return x, kvs
+    return final_norm(x, params, cfg), kvs
 
 
 # --------------------------------------------------------------------------
@@ -1337,7 +1717,8 @@ def cross_entropy_loss(logits, labels, ignore_index: int = -100,
 
 def chunked_cross_entropy(x, head, labels, chunk: int,
                           ignore_index: int = -100, tied_embed: bool = False,
-                          count=None, vocab: Optional[int] = None):
+                          count=None, vocab: Optional[int] = None,
+                          bias=None):
     """CE over sequence chunks: each chunk's f32 logits [B, c, V] exist
     only inside a ``torch.utils.checkpoint`` (the head matmul re-runs in
     the backward). x: [B, S, H] final hidden (normed); head: [H, V], or
@@ -1345,7 +1726,10 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
     divisor of S that is <= chunk, as in JAX. ``count`` as in
     ``cross_entropy_loss``. A vocab-sharded head (a tensor axis) gives
     each chunk's whole-vocab logits as ``lm_head_logits`` does
-    (``vocab``: the model's vocabulary size)."""
+    (``vocab``: the model's vocabulary size). ``bias``: the head's [V]
+    bias (GPT-J's ``lm_head_bias``), added to each chunk's f32 logits as
+    ``lm_head_logits`` adds it (JAX's chunked loss leaves it out: its
+    chunked and full losses differ for such a model)."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -1353,17 +1737,21 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
     if tied_embed:
         head = head.t()
 
-    def body(xc, lc, w):
-        return _nll_sum(_vocab_logits(xc, w, vocab), lc, ignore_index)[0]
+    def body(xc, lc, w, b=None):
+        logits = _vocab_logits(xc, w, vocab)
+        if b is not None:
+            logits = logits + b.float()
+        return _nll_sum(logits, lc, ignore_index)[0]
 
     tot = x.new_zeros((), dtype=torch.float32)
     cnt = 0
     for i in range(S // c):
         xc, lc = x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
-            tot = tot + checkpoint(body, xc, lc, head, use_reentrant=False)
+            tot = tot + checkpoint(body, xc, lc, head, bias,
+                                   use_reentrant=False)
         else:
-            tot = tot + body(xc, lc, head)
+            tot = tot + body(xc, lc, head, bias)
         cnt = cnt + (lc != ignore_index).sum()
     return _mean_over(tot, cnt, count)
 
@@ -1389,7 +1777,8 @@ def head_loss(params: Params, x, labels, cfg: TransformerConfig,
         head = params["tok_embed"] if tied else params["lm_head"]
         return chunked_cross_entropy(x, head, labels, cfg.loss_chunk,
                                      tied_embed=tied, count=label_count,
-                                     vocab=cfg.vocab_size)
+                                     vocab=cfg.vocab_size,
+                                     bias=params.get("lm_head_bias"))
     return cross_entropy_loss(lm_head_logits(x, params, cfg.vocab_size),
                               labels, count=label_count)
 
@@ -1504,14 +1893,8 @@ def prefill_paged(params: Params, input_ids, cfg: TransformerConfig,
     return lm_head_logits(x[:, length - 1], params)
 
 
-def _embed_rows(params, tokens, cfg):
-    return _embed(params, tokens, cfg)
-
-
 def _final_logits(x, params, cfg):
-    x = _norm(x, params["final_norm_scale"], params.get("final_norm_bias"),
-              cfg)
-    return lm_head_logits(x, params)
+    return lm_head_logits(final_norm(x, params, cfg), params)
 
 
 def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
@@ -1524,10 +1907,12 @@ def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
     ``(adapter_pool, aidx)``, the pool ``{proj: {"a": [L, NS, In, r],
     "b": [L, NS, r, Out]}}`` and each slot's adapter slot [S]; each
     layer takes its row of the pool."""
-    x = _embed_rows(params, tokens, cfg)                        # [S, T, H]
     T = tokens.shape[1]
     positions = (seq_lens.long()[:, None]
                  + torch.arange(T, device=tokens.device)[None, :])
+    # JAX's decode paths add no token-type rows
+    x = _embed(params, tokens, cfg, positions=positions,
+               token_types=False)                               # [S, T, H]
     int8 = cfg.kv_cache_bits == 8
     row_dtype = cfg.dtype if int8 else pools["k"].dtype
     k_rows, v_rows = [], []
@@ -1542,7 +1927,8 @@ def _paged_rows(params, tokens, cfg, pools, block_tables, seq_lens,
             x, lp, cfg, positions=positions, row_dtype=row_dtype,
             attend=lambda q, kv, i=i, sc=sc: _paged_attention(
                 q, pools["k"][i], pools["v"][i], block_tables, seq_lens,
-                cfg, kv, kv_scale=sc, reference=reference), lora=lora_i)
+                cfg, kv, kv_scale=sc, reference=reference,
+                window=_window(cfg, i)), lora=lora_i)
         k_rows.append(k_row)
         v_rows.append(v_row)
     return x, torch.stack(k_rows), torch.stack(v_rows)
@@ -1698,9 +2084,10 @@ def _contiguous_step(params, token, cfg, cache, read_len, index, row_dtype,
     if token.dim() == 1:
         token = token[:, None]
     B = token.shape[0]
-    x = _embed_rows(params, token, cfg)                         # [B, 1, H]
     positions = torch.full((B, 1), index, dtype=torch.long,
                            device=token.device)
+    x = _embed(params, token, cfg, positions=positions,
+               token_types=False)                               # [B, 1, H]
     T = cache["k"].shape[3]
     W = read_len if read_len and read_len < T else T
     k_rows, v_rows = [], []
@@ -1712,9 +2099,10 @@ def _contiguous_step(params, token, cfg, cache, read_len, index, row_dtype,
                else (suffix["k"][i], suffix["v"][i], suffix["count"]))
         x, (k_row, v_row) = transformer_layer(
             x, lp, cfg, positions=positions, row_dtype=row_dtype,
-            attend=lambda q, kv, ck=ck, cv=cv, sc=sc, sfx=sfx:
+            attend=lambda q, kv, ck=ck, cv=cv, sc=sc, sfx=sfx, i=i:
                 _decode_attention(q, ck, cv, index, cfg, kv_row=kv,
-                                  kv_scale=sc, kv_suffix=sfx))
+                                  kv_scale=sc, kv_suffix=sfx,
+                                  window=_window(cfg, i)))
         k_rows.append(k_row[:, :, 0])
         v_rows.append(v_row[:, :, 0])
     return (_final_logits(x, params, cfg)[:, 0, :], torch.stack(k_rows),

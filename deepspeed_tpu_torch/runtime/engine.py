@@ -147,6 +147,7 @@ from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.pipeline_wrapper import make_pipelined_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
+                                                    check_family_mesh,
                                                     lm_labels, logical_axes,
                                                     make_model, mask_seed)
 from deepspeed_tpu_torch.ops.onebit import PhasedOptimizer
@@ -252,6 +253,8 @@ class Engine:
             mesh = build_mesh(plan_from_config(config,
                                                comm.get_world_size()))
         self.mesh, self.plan = mesh, mesh.plan
+        if isinstance(getattr(model, "config", None), TransformerConfig):
+            check_family_mesh(model.config, self.plan.world_size)
         config.resolve_batch_size(self.plan.dp_world_size)
         if self.plan.world_size > 1:
             logger.info(zero_mod.describe(config.zero_optimization,

@@ -256,6 +256,12 @@ class InfinityExecutor:
         if model_cfg.attn_windows:
             raise ValueError("layer-streamed offload does not thread "
                              "per-layer attn_windows")
+        family = tt.family_leaves(model_cfg)
+        if family:
+            raise NotImplementedError(
+                f"{family} under ZeRO-Infinity layer streaming is not ported "
+                "yet: ROADMAP A11 (the executor's embedding backward, final "
+                "norm and head take a llama-shaped model's leaves)")
         self.cfg = model_cfg
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"

@@ -331,8 +331,18 @@ def test_routing_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="store"):
         e.params
     e.close()
+    # layer streaming threads no per-layer window (JAX's refusal), and a
+    # model family's leaves wait for A11
+    with pytest.raises(ValueError, match="attn_windows"):
+        deepspeed_tpu_torch.initialize(
+            model=tt.make_model(dataclasses.replace(
+                TCFG, attn_windows=(16,) * TCFG.num_layers)),
+            config=_conf(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
-        dataclasses.replace(TCFG, attn_windows=(16, 16))   # no such model
+        deepspeed_tpu_torch.initialize(
+            model=tt.make_model(dataclasses.replace(
+                TCFG, norm_type="layernorm")),
+            config=_conf(tmp_path), device="cpu")
     moe = dataclasses.replace(TCFG, num_experts=4, top_k=2)
     with pytest.raises((NotImplementedError, ValueError)):
         deepspeed_tpu_torch.initialize(model=tt.make_model(moe),

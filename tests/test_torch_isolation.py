@@ -62,7 +62,8 @@ def test_forbidden_prefix_rule():
             "robustness/faults.py", "telemetry/request_trace.py",
             "telemetry/exposition.py", "ops/host_build.py",
             "ops/cpu_adam.py", "ops/cpu_adagrad.py", "ops/aio.py",
-            "runtime/swap_tensor.py", "runtime/infinity.py"} <= names
+            "runtime/swap_tensor.py", "runtime/infinity.py",
+            "models/hf_import.py"} <= names
 
 
 # spawned ranks re-import their module: the sharded-serving rank programs
@@ -77,7 +78,8 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "test_torch_fleet_cuda.py",
     ROOT / "tests" / "test_torch_offload_cuda.py",
     ROOT / "tests" / "_torch_mp_workers.py",
-    ROOT / "tests" / "test_torch_moe_training_cuda.py"],
+    ROOT / "tests" / "test_torch_moe_training_cuda.py",
+    ROOT / "tests" / "test_torch_families_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

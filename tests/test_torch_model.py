@@ -224,16 +224,27 @@ def test_paged_cache_on_the_cpu_when_asked():
 
 
 def test_deferred_model_features_raise():
+    # the model families are ported; a block-sparse model with ALiBi or
+    # local windows is not
+    sparse = {"sparse_attention": {"mode": "bigbird", "block": 16}}
     for bad in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
+        pt.TransformerConfig(**{**CFG, **bad})
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            pt.TransformerConfig(**{**CFG, **bad})
+            pt.TransformerConfig(**{**CFG, **bad, **sparse})
     # a MoE model serves and trains (its loss carries the aux term)
     moe = pt.TransformerConfig(**{**CFG, "num_experts": 4})
     p = pt.init_params(moe, torch.Generator().manual_seed(0), "cpu")
     loss = pt.lm_loss(p, {"input_ids": torch.zeros((1, 4), dtype=torch.long)},
                       moe, train=True)
     assert torch.isfinite(loss)
+    # a leaf of no model the port serves raises naming its item; a family
+    # leaf this config lacks (an rmsnorm model has no bq) is a mismatch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        convert.params_from_numpy({"tok_embed": np.zeros((4, 4)),
+                                   "layers": {"conv_in": np.zeros((2, 4))}},
+                                  pt.TransformerConfig(**CFG), device="cpu",
+                                  dtype=torch.float32)
+    with pytest.raises(ValueError, match="extra .*layers/bq"):
         convert.params_from_numpy({"tok_embed": np.zeros((4, 4)),
                                    "layers": {"bq": np.zeros((2, 4))}},
                                   pt.TransformerConfig(**CFG), device="cpu",
