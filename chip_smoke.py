@@ -361,6 +361,34 @@ Phases, each of which raises on failure (exit code != 0):
    the five: a greedy stream through the paged protocol token-identical
    to the plain versions', and ``lm_loss`` and its grads within 1e-5 /
    1e-4.
+22. the training extras (after phase 21), on the dense training cell
+   (llama-1b, B=8, S=2048, bf16 + f32 masters, AdamW, ZeRO-1,
+   dots_saveable). First B1-B3 at the runs' new sequences (the
+   curriculum's S=264, off every tile, and random-LTD's 1024 kept
+   tokens) against their plain versions. Each run ``initialize`` ->
+   ``train_batch`` with the launch counts zeroed before its first step,
+   printing step ms, tok/s, MFU over the work done and peak memory: (a)
+   the seqlen curriculum over 4 steps (fixed_linear 512 -> 2048,
+   difficulty_step 256: S = 1024, 1280, 1792, 2048); (b) random-LTD, 1024
+   of 2048 tokens on layers 1 .. 14; (c) progressive layer drop (theta
+   0.5, gamma 0.1) over 6 steps, the kept layers read from the engine's
+   host draws; (d) 8-bit weight fake-quant and 50 % sparse pruning on
+   every layer matmul from the second step, 8-bit activations from the
+   third, with the sort of ``w_in`` (184.5 M values) and the whole
+   transform timed; (e) a student of 8 of the 16 layers
+   (``student_params_from_teacher``) distilled from the bf16 teacher;
+   (f) MoQ 16 -> 8 bits with the eigenvalue probe at 4 of the 16 layers,
+   probes at steps 0 and 2. Launch laws, exact: B1 = 2 x the layers run a
+   step and B2 = B3 = the layers run (dots_saveable replays B1), the
+   teacher's 16 forward-only B1 a step, the probe's 2 (max_iter + 1)
+   passes each a training pass; (g) f32 at 2 layers (random-LTD 3, the
+   student 1 of 2), B=2, S=512, 3 SGD steps of each run through the
+   kernels against the same run through the plain versions, every
+   extra acting from step 1 (PLD's coins drop layer 1 at steps 1 and 2,
+   activation quant from step 1): the same draws, every step's loss
+   within 1e-5 and grads within 1e-4, the launch counts zeroed before
+   each side, the kernel side's B1-B3 equal to its law and the plain
+   side's launches 0.
 
 Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
 seconds) when it ends, and the script a ``"total"`` one before the
@@ -380,7 +408,9 @@ line, and as its last line ``{"ok": true, "device": {...}}``. Imports
 torch, numpy and the port only.
 """
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -6391,6 +6421,530 @@ def model_families_phase(smi: str):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 22: the training extras
+# --------------------------------------------------------------------------
+
+EXTRAS_STEPS = 4          # each run's steps (the curriculum's four stages)
+EXTRAS_PLD_STEPS = 6      # (c): the seeded coins drop layers at steps 4, 5
+EXTRAS_MOQ_LAYERS = 4     # (f): llama-1b's width, 4 of its 16 layers
+EXTRAS_MOQ_ITERS = 2      # (f): the probe's power iterations (+ 1 product)
+EXTRAS_STUDENT = tuple(range(0, 16, 2))     # (e): the teacher's layers kept
+EXTRAS_ID_STEPS = 3       # the f32 identities' steps
+EXTRAS_ID_S = 512
+
+
+def _extras_grp(params, modules, offset):
+    return {"shared_parameters": {"enabled": True, "schedule_offset": offset},
+            "different_groups": {"g": {"params": params,
+                                       "modules": modules}}}
+
+
+def _extras_sections(S):
+    """Each run's config sections (``S``: the batch's sequence)."""
+    return {
+        "a_curriculum": {"curriculum_learning": {
+            "enabled": True, "min_difficulty": S // 4, "max_difficulty": S,
+            "schedule_config": {"total_curriculum_step": EXTRAS_STEPS,
+                                "difficulty_step": S // 8}}},
+        "b_random_ltd": {"data_efficiency": {
+            "enabled": True, "data_routing": {"random_ltd": {
+                "enabled": True, "min_value": S // 2, "max_value": S // 2,
+                "seq_step": S // 8}}}},
+        "c_pld": {"progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                             "gamma": 0.1}},
+        "d_compression": {"compression_training": {
+            "weight_quantization": _extras_grp({"target_bits": 8},
+                                               ["layers/w"], 1),
+            "sparse_pruning": _extras_grp({"dense_ratio": 0.5},
+                                          ["layers/w"], 1),
+            "activation_quantization": _extras_grp({"bits": 8}, ["*"], 3)}},
+        "e_distillation": {},
+        "f_moq": {"quantize_training": {
+            "enabled": True,
+            "quantize_bits": {"start_bits": 16, "target_bits": 8},
+            "quantize_schedule": {"quantize_period": 1},
+            "eigenvalue": {"enabled": True, "max_iter": EXTRAS_MOQ_ITERS,
+                           "gas_boundary_resolution": 2}}},
+    }
+
+
+def _pass_flops(cfg, n_params, B, layer_S, S, fwd_only=False):
+    """A training pass's FLOPs (bench.py's 6N + 12 L H S a token) over the
+    work done: the non-layer params over B x S tokens, each run layer's
+    params and attention over its own ``layer_S`` tokens a row; a
+    forward alone a third."""
+    n_layer = (n_params - cfg.vocab_size * cfg.hidden_size
+               * (1 if cfg.tie_embeddings else 2)) / cfg.num_layers
+    flops = 6.0 * (n_params - n_layer * cfg.num_layers) * B * S
+    for s in layer_S:
+        flops += 6.0 * n_layer * B * s + 12.0 * cfg.hidden_size * B * s * s
+    return flops / 3.0 if fwd_only else flops
+
+
+def _extras_run(name, spec, config, batch, steps, params=None):
+    """``initialize`` -> ``steps`` x ``train_batch`` with the launch counts
+    zeroed just before the first (no warm-up step: a schedule starts at
+    step 1); each step's CUDA-event ms and the engine's draws and
+    curriculum length after it."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, *_ = initialize(model=spec, config=dict(config), params=params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    marks, losses, draws, seqs = [], [], [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(engine.train_batch(batch)["loss"])
+        b.record()
+        marks.append((a, b))
+        draws.append(list(engine.step_draws))
+        if engine._curriculum is not None:
+            seqs.append(engine._curriculum.get_current_difficulty())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = dict(init_s=init_s, wall_s=wall,
+               step_ms_cuda=[a.elapsed_time(b) for a, b in marks],
+               losses=[float(x) for x in losses],
+               launches=_build.launch_counts(), draws=draws, seqs=seqs,
+               n_params=sum(t.numel() for t in tree_leaves(engine.params)),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    rec["step_ms_cuda_median"] = float(np.median(rec["step_ms_cuda"]))
+    mark_part(f"22 {name}")
+    return engine, rec
+
+
+def _extras_rates(rec, tokens, flops):
+    rec["tokens_per_s"] = tokens / rec["wall_s"]
+    rec["mfu"] = flops / rec["wall_s"] / PEAK_FLOPS[torch.bfloat16]
+    rec["flops"] = flops
+
+
+@contextlib.contextmanager
+def _plain_lm_loss():
+    """Every ``lm_loss`` of the block through the plain versions of the
+    kernels (the engines' model specs and MoQ's probe call it by name)."""
+    from deepspeed_tpu_torch.models import transformer as tt
+    orig = tt.lm_loss
+    tt.lm_loss = functools.partial(orig, reference=True)
+    try:
+        yield
+    finally:
+        tt.lm_loss = orig
+
+
+ACT_FLIP_TOL = 1e-3       # (g): a flip's unrounded levels, this near
+
+
+class _ActQuantTape:
+    """The activation fake-quant of the (g) d_compression identity
+    (``transformer.fake_quant``, called by name; 8-bit, symmetric, one
+    scale a tensor). It rounds x / scale, so the last-bit differences
+    between B1-B3 and their plain versions carry some values across a
+    rounding boundary, and each such flip is a whole level's jump that
+    spreads through every later grad. "record" keeps each call's
+    unrounded levels, levels and output (the kernel side); "replay"
+    hands each call the recorded output, after checking that its own
+    levels differ from the recorded ones only by flips: one level apart,
+    both unrounded values within ACT_FLIP_TOL of the boundary between
+    (``faults`` lists every call that breaks this)."""
+
+    def __init__(self):
+        self.mode, self.calls, self.i = "record", [], 0
+        self.flips, self.values, self.faults = 0, 0, []
+
+    def __call__(self, x, bits=8, symmetric=True, num_groups=1):
+        from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
+        if bits != 8 or not symmetric:
+            raise ValueError("the tape takes 8-bit symmetric fake-quant")
+        qt = quantize(x, bits=bits, symmetric=True, num_groups=num_groups)
+        u = x.detach().float().reshape(qt.q.shape) / qt.scale
+        xq = dequantize(qt).to(x.dtype)
+        if self.mode == "record":
+            self.calls.append((u, qt.q, xq))
+        elif self.i >= len(self.calls) \
+                or self.calls[self.i][0].shape != u.shape:
+            self.faults.append(f"call {self.i}: no recorded call of shape "
+                               f"{tuple(u.shape)}")
+        else:
+            uk, qk, xq = self.calls[self.i]
+            diff = qk != qt.q
+            n = int(diff.sum())
+            if n:
+                a, b = qk[diff].float(), qt.q[diff].float()
+                mid = (a + b) / 2
+                ok = (((a - b).abs() == 1)
+                      & ((uk[diff] - mid).abs() <= ACT_FLIP_TOL)
+                      & ((u[diff] - mid).abs() <= ACT_FLIP_TOL))
+                if not bool(ok.all()):
+                    self.faults.append(f"call {self.i}: {int((~ok).sum())}"
+                                       f" of {n} differing levels are not "
+                                       "boundary flips")
+            self.flips += n
+            self.values += u.numel()
+        self.i += 1
+        return x + (xq - x).detach()
+
+
+def _rel_errs(k, pl):
+    """Per step: the loss's relative error and the grads' (leaf by leaf,
+    relative L2 over max(|plain|, 1e-3 x the whole grad's norm))."""
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(k["losses"],
+                                                    pl["losses"])]
+    grad_err = []
+    for sk, sp in zip(k["grads"], pl["grads"]):
+        total = float(torch.sqrt(sum(g.double().square().sum() for g in sp)))
+        grad_err.append(max(
+            float((a.double() - b.double()).norm()
+                  / max(float(b.double().norm()), 1e-3 * total))
+            for a, b in zip(sk, sp)))
+    return loss_err, grad_err
+
+
+def _extras_identity(name, sections):
+    """(g) f32, 2 layers (random-LTD 3: its layers 1 .. L - 2; the
+    distilled student 1 of its teacher's 2), B=2, S=512, SGD, 3 steps:
+    the run through the kernels against the same run through the plain
+    versions, the launch counts zeroed just before each side. Per step:
+    ``_rel_errs`` (grads captured at the update). The kernel side's
+    B1-B3 launches against the law of its draws (B1 = 2 x the layers run
+    + the teacher's forward, B2 = B3 = the layers run, the probe's
+    passes each a training pass), the plain side's launches (all
+    kernels; must be 0). d_compression's plain side takes the kernel
+    side's activation levels (``_ActQuantTape``), and a third run, the
+    plain versions on their own levels, gives the errors the flips make
+    (reported, not held)."""
+    from unittest import mock
+
+    from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.compression import (make_distillation_loss,
+                                                 student_params_from_teacher)
+    from deepspeed_tpu_torch.models import params_from_numpy
+    from deepspeed_tpu_torch.models import transformer as tt
+    from deepspeed_tpu_torch.ops import _build
+    f32 = torch.float32
+    layers = {"b_random_ltd": 3, "e_distillation": 2}.get(name, ID_LAYERS)
+    cfg = _llama1b_train(layers, EXTRAS_ID_S, dtype=f32,
+                         loss_chunk=EXTRAS_ID_S)
+    sections = dict(sections)
+    if name == "a_curriculum":
+        # S = 264, off every tile, then 512
+        sections = {"curriculum_learning": {
+            "enabled": True, "min_difficulty": 8, "max_difficulty": 512,
+            "schedule_type": "fixed_discrete", "schedule_config": {
+                "difficulty": [264, 512], "max_step": [1, 2]}}}
+    config = {"train_batch_size": ID_B, "bf16": {"enabled": False},
+              "optimizer": MP_SGD, "zero_optimization": {"stage": 1},
+              "seed": 0, **sections}
+    params = _seeded_params(cfg, 22)
+    rng = np.random.default_rng(22)
+    batches = [{"input_ids": torch.from_numpy(rng.integers(
+        0, VOCAB, (ID_B, EXTRAS_ID_S), dtype=np.int32)).cuda()}
+        for _ in range(EXTRAS_ID_STEPS)]
+    tape = _ActQuantTape() if name == "d_compression" else None
+    sides = {"kernels": False, "plain": True}
+    if tape is not None:
+        sides["plain_own_levels"] = True
+    out = {}
+    for side, ref in sides.items():
+        spec, p = make_model(cfg, "llama-1b"), params
+        if name == "e_distillation":
+            scfg = dataclasses.replace(cfg, num_layers=1)
+            teacher = params_from_numpy(params, cfg, device="cuda",
+                                        dtype=f32)
+            spec = dataclasses.replace(
+                make_model(scfg, "llama-1b-student"),
+                loss_fn=make_distillation_loss(scfg, teacher, cfg,
+                                               reference=ref))
+            p = student_params_from_teacher(params, [1])
+        with contextlib.ExitStack() as ctx:
+            if ref:
+                ctx.enter_context(_plain_lm_loss())
+            if tape is not None and side != "plain_own_levels":
+                tape.mode, tape.i = ("replay" if ref else "record"), 0
+                ctx.enter_context(mock.patch.object(tt, "fake_quant", tape))
+            engine, *_ = initialize(model=spec, config=dict(config),
+                                    params=p)
+            grads, probes, apply = [], [], engine._apply_grads
+
+            def capture(g, loss, apply=apply, grads=grads):
+                grads.append([x.detach().clone() for x in g])
+                return apply(g, loss)
+            engine._apply_grads = capture
+            if engine._moq is not None:
+                def probe(batch, run=engine._moq_probe, probes=probes):
+                    probes.append(len(probes))
+                    return run(batch)
+                engine._moq_probe = probe
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            losses, draws = [], []
+            for b in batches:
+                losses.append(float(engine.train_batch(b)["loss"]))
+                draws.append(list(engine.step_draws))
+            torch.cuda.synchronize()
+            counts = _build.launch_counts()
+        out[side] = dict(losses=losses, grads=grads, draws=draws,
+                         counts=counts, probes=len(probes),
+                         layers=engine.model.config.num_layers,
+                         act_quant_on=bool(engine._act_quant_on))
+        del engine
+        _free()
+    k, pl = out["kernels"], out["plain"]
+    loss_err, grad_err = _rel_errs(k, pl)
+    # the law of the kernel side's draws
+    run = [sum(sum(d["pld_keep"]) if "pld_keep" in d else k["layers"]
+               for d in step) if step else k["layers"]
+           for step in k["draws"]]
+    teacher = layers if name == "e_distillation" else 0
+    passes = k["probes"] * 2 * (EXTRAS_MOQ_ITERS + 1)
+    b1 = sum(2 * r + teacher for r in run) + passes * 2 * k["layers"]
+    b23 = sum(run) + passes * k["layers"]
+    got = k["counts"]
+    rec = {"losses": k["losses"], "loss_rel_err": loss_err,
+           "grad_rel_l2": grad_err, "draws_equal": k["draws"] ==
+           pl["draws"], "layers": layers, "layers_run": run,
+           "probes": k["probes"], "law": {"B1": b1, "B2": b23, "B3": b23},
+           "launches": {n: got[n] for n in FLASH_KERNELS},
+           "law_ok": (got["flash_fwd"] == b1 and got["flash_bwd_dq"] == b23
+                      and got["flash_bwd_dkv"] == b23),
+           "plain_launches": sum(sum(o["counts"].values()) for s, o in
+                                 out.items() if s != "kernels"),
+           "act_quant_on": k["act_quant_on"] and pl["act_quant_on"]}
+    if tape is not None:
+        if tape.i != len(tape.calls):
+            tape.faults.append(f"{len(tape.calls)} calls recorded, "
+                               f"{tape.i} replayed")
+        own = _rel_errs(k, out["plain_own_levels"])
+        rec.update(act_calls=len(tape.calls), act_flips=tape.flips,
+                   act_values=tape.values, act_faults=tape.faults[:4],
+                   own_levels_loss_rel_err=own[0],
+                   own_levels_grad_rel_l2=own[1])
+    return rec
+
+
+def training_extras_phase(smi: str):
+    """Phase 22: the training extras (module docstring, item 22)."""
+    from deepspeed_tpu_torch import make_model
+    from deepspeed_tpu_torch.compression import (compress,
+                                                 make_distillation_loss)
+    from deepspeed_tpu_torch.models import params_from_numpy
+    t_phase = time.perf_counter()
+    _free()
+    bf = torch.bfloat16
+    checks, launches, rec = {}, {}, {"card": smi}
+    B, S, L = TRAIN_CONFIG["train_batch_size"], 2048, 16
+    # B1-B3 at the runs' new sequences: the curriculum's S = 264 (off
+    # every tile; the f32 identity's first step) and random-LTD's 1024
+    flash = [flash_case("llama-1b curriculum B=8 S=264", 8, 264, 32, 8, 64,
+                        bf),
+             flash_case("llama-1b random-LTD kept B=8 S=1024", 8, 1024, 32,
+                        8, 64, bf)]
+    bwd = [bwd_case("llama-1b curriculum B=8 S=264", 8, 264, 32, 8, 64, bf),
+           bwd_case("llama-1b random-LTD kept B=8 S=1024", 8, 1024, 32, 8,
+                    64, bf)]
+    _free()
+    sections = _extras_sections(S)
+    cfg = _llama1b_train(L, S)
+    ids = np.random.default_rng(22).integers(0, VOCAB, (B, S),
+                                             dtype=np.int32)
+    batch = {"input_ids": torch.from_numpy(ids).cuda()}
+    spec = make_model(cfg, "llama-1b")
+
+    def law(name, got, b1, b23):
+        ok = (got["flash_fwd"] == b1 and got["flash_bwd_dq"] == b23
+              and got["flash_bwd_dkv"] == b23)
+        checks[f"({name[0]}) B1 == {b1}, B2 == B3 == {b23}"] = ok
+
+    def report(name, r, **extra):
+        launches[name] = r["launches"]
+        rec[name] = r
+        checks[f"({name[0]}) losses finite"] = \
+            bool(np.all(np.isfinite(r["losses"])))
+        log(f"phase 22 ({name}) [{smi}] " + json.dumps(
+            {k: r[k] for k in ("step_ms_cuda", "step_ms_cuda_median",
+                               "tokens_per_s", "mfu", "peak_mem_gib",
+                               "losses", "init_s")}
+            | {"launches": {k: r["launches"][k] for k in FLASH_KERNELS}}
+            | extra))
+
+    # (a) the seqlen curriculum: S = 1024, 1280, 1792, 2048
+    config = dict(TRAIN_CONFIG, **sections["a_curriculum"])
+    engine, r = _extras_run("a_curriculum", spec, config, batch,
+                            EXTRAS_STEPS)
+    del engine
+    _free()
+    _extras_rates(r, B * sum(r["seqs"]), sum(
+        _pass_flops(cfg, r["n_params"], B, [s] * L, s) for s in r["seqs"]))
+    checks["(a) S = 1024, 1280, 1792, 2048"] = \
+        r["seqs"] == [1024, 1280, 1792, 2048]
+    law("a_curriculum", r["launches"], 2 * L * EXTRAS_STEPS,
+        L * EXTRAS_STEPS)
+    report("a_curriculum", r, seqs=r["seqs"])
+
+    # (b) random-LTD: layers 1 .. 14 on 1024 of the 2048 tokens
+    config = dict(TRAIN_CONFIG, **sections["b_random_ltd"])
+    engine, r = _extras_run("b_random_ltd", spec, config, batch,
+                            EXTRAS_STEPS)
+    del engine
+    _free()
+    keep = S // 2
+    _extras_rates(r, B * S * EXTRAS_STEPS, EXTRAS_STEPS * _pass_flops(
+        cfg, r["n_params"], B, [S] + [keep] * (L - 2) + [S], S))
+    checks["(b) every step keeps 1024 tokens"] = \
+        r["draws"] == [[{"ltd_keep": keep}]] * EXTRAS_STEPS
+    law("b_random_ltd", r["launches"], 2 * L * EXTRAS_STEPS,
+        L * EXTRAS_STEPS)
+    report("b_random_ltd", r, kept_tokens=keep)
+
+    # (c) progressive layer drop: theta 0.5, gamma 0.1
+    config = dict(TRAIN_CONFIG, **sections["c_pld"])
+    engine, r = _extras_run("c_pld", spec, config, batch, EXTRAS_PLD_STEPS)
+    del engine
+    _free()
+    kept = [sum(d[0]["pld_keep"]) for d in r["draws"]]
+    _extras_rates(r, B * S * EXTRAS_PLD_STEPS, sum(
+        _pass_flops(cfg, r["n_params"], B, [S] * k, S) for k in kept))
+    checks["(c) layers dropped"] = sum(kept) < L * EXTRAS_PLD_STEPS
+    law("c_pld", r["launches"], 2 * sum(kept), sum(kept))
+    report("c_pld", r, kept_layers=kept)
+
+    # (d) compression: 8-bit weights and 50 % sparse on every layer
+    # matmul from the second step, 8-bit activations from the third
+    config = dict(TRAIN_CONFIG, **sections["d_compression"])
+    engine, r = _extras_run("d_compression", spec, config, batch,
+                            EXTRAS_STEPS)
+    checks["(d) activation quant on"] = \
+        engine._act_quant_on and engine.model.config.activation_quant_bits == 8
+    w_in = engine.params["layers"]["w_in"]
+    with torch.no_grad():
+        sort_ms = cuda_ms(lambda: torch.sort(w_in.float().abs().reshape(-1)),
+                          iters=3, warmup=1)
+        transform_ms = cuda_ms(lambda: engine._compression.apply(
+            engine.params, 10 ** 9), iters=3, warmup=1)
+        out = engine._compression.apply(engine.params, 10 ** 9)
+        dense = float((out["layers"]["w_in"] != 0).float().mean())
+    del engine, out
+    _free()
+    _extras_rates(r, B * S * EXTRAS_STEPS, EXTRAS_STEPS * _pass_flops(
+        cfg, r["n_params"], B, [S] * L, S))
+    # the threshold's 8-bit level is kept whole (ties: >=)
+    checks["(d) w_in about half dense"] = 0.5 <= dense < 0.55
+    law("d_compression", r["launches"], 2 * L * EXTRAS_STEPS,
+        L * EXTRAS_STEPS)
+    report("d_compression", r, w_in_sort_ms=sort_ms,
+           transform_ms=transform_ms, w_in_values=w_in.numel(),
+           w_in_dense=dense)
+
+    # (e) layer reduction to 8 of 16 layers, distilled from the 16-layer
+    # teacher (frozen, bf16)
+    teacher_np = _seeded_params(cfg, 0)
+    teacher = params_from_numpy(teacher_np, cfg, device="cuda", dtype=bf)
+    student_np = compress.student_params_from_teacher(
+        teacher_np, list(EXTRAS_STUDENT))
+    del teacher_np
+    # the config's ``transformer`` section would make the engine rebuild
+    # the spec from its config (dropping the distillation loss, as JAX's
+    # does): fused_backward goes into the student's config instead
+    scfg = dataclasses.replace(cfg, num_layers=len(EXTRAS_STUDENT),
+                               fused_backward=True)
+    kd = dataclasses.replace(make_model(scfg, "llama-1b-student"),
+                             loss_fn=make_distillation_loss(scfg, teacher,
+                                                            cfg))
+    config = {k: v for k, v in TRAIN_CONFIG.items() if k != "transformer"}
+    engine, r = _extras_run("e_distillation", kd, config, batch,
+                            EXTRAS_STEPS, params=student_np)
+    del engine, teacher, student_np, kd
+    _free()
+    Ls = len(EXTRAS_STUDENT)
+    t_params = r["n_params"] + (L - Ls) * (
+        r["n_params"] - 2 * cfg.vocab_size * cfg.hidden_size) / Ls
+    _extras_rates(r, B * S * EXTRAS_STEPS, EXTRAS_STEPS * (
+        _pass_flops(scfg, r["n_params"], B, [S] * Ls, S)
+        + _pass_flops(cfg, t_params, B, [S] * L, S, fwd_only=True)))
+    law("e_distillation", r["launches"], (2 * Ls + L) * EXTRAS_STEPS,
+        Ls * EXTRAS_STEPS)
+    report("e_distillation", r, student_layers=Ls, teacher_layers=L)
+
+    # (f) MoQ 16 -> 8 bits with the eigenvalue probe, 4 layers
+    mcfg = _llama1b_train(EXTRAS_MOQ_LAYERS, S)
+    config = dict(TRAIN_CONFIG, **sections["f_moq"])
+    engine, r = _extras_run("f_moq", make_model(mcfg, "llama-1b"), config,
+                            batch, EXTRAS_STEPS)
+    moq = engine._moq
+    probes = 2                        # steps 0 and 2 (every 2 x period)
+    checks["(f) probes at steps 0 and 2"] = moq._last_ev_step == 2
+    bits = moq.bits(EXTRAS_STEPS).tolist()
+    scales = moq._period_scale.tolist()
+    del engine
+    _free()
+    Lm, passes = EXTRAS_MOQ_LAYERS, 2 * (EXTRAS_MOQ_ITERS + 1)
+    _extras_rates(r, B * S * EXTRAS_STEPS, (EXTRAS_STEPS + probes * passes)
+                  * _pass_flops(mcfg, r["n_params"], B, [S] * Lm, S))
+    law("f_moq", r["launches"],
+        2 * Lm * (EXTRAS_STEPS + probes * passes),
+        Lm * (EXTRAS_STEPS + probes * passes))
+    report("f_moq", r, layers=Lm, probe_passes=probes * passes,
+           period_scales=scales, bits_after=bits)
+
+    # (g) f32 identities: each run through the kernels and the plain
+    # versions
+    rec["g"] = {}
+    id_sections = _extras_sections(EXTRAS_ID_S)
+    # steps 1 and 2 must drop a layer of two (the seeded coins drop
+    # layer 1 at both), and every transform must be on from step 1
+    id_sections["c_pld"] = {"progressive_layer_drop": {
+        "enabled": True, "theta": 0.1, "gamma": 5.0}}
+    act = id_sections["d_compression"]["compression_training"][
+        "activation_quantization"]
+    act["shared_parameters"]["schedule_offset"] = 2
+    for name, sec in id_sections.items():
+        ident = _extras_identity(name, sec)
+        rec["g"][name] = ident
+        checks[f"(g) {name}: every step's loss 1e-5, grads 1e-4"] = \
+            max(ident["loss_rel_err"]) <= 1e-5 \
+            and max(ident["grad_rel_l2"]) <= 1e-4
+        checks[f"(g) {name}: the same draws"] = ident["draws_equal"]
+        law = ident["law"]
+        checks[f"(g) {name}: kernels B1 == {law['B1']}, B2 == B3 == "
+               f"{law['B2']}"] = ident["law_ok"]
+        checks[f"(g) {name}: plain run launched no kernel"] = \
+            ident["plain_launches"] == 0
+    checks["(g) c_pld: a layer dropped"] = \
+        sum(rec["g"]["c_pld"]["layers_run"]) < ID_LAYERS * EXTRAS_ID_STEPS
+    comp = rec["g"]["d_compression"]
+    checks["(g) d_compression: activation quant on"] = \
+        comp["act_quant_on"] and comp["act_calls"] > 0
+    checks["(g) d_compression: activation levels equal but for boundary "
+           "flips"] = not comp["act_faults"]
+    log(f"phase 22 (g) f32 [{smi}] " + json.dumps(
+        {k: {kk: v[kk] for kk in ("layers", "layers_run", "probes",
+                                  "loss_rel_err", "grad_rel_l2",
+                                  "draws_equal", "launches", "law",
+                                  "plain_launches", "act_calls",
+                                  "act_flips", "act_values", "act_faults",
+                                  "own_levels_loss_rel_err",
+                                  "own_levels_grad_rel_l2") if kk in v}
+         for k, v in rec["g"].items()}))
+    rec.update(flash_cases=flash, bwd_cases=bwd, launches=launches,
+               phase_s=time.perf_counter() - t_phase)
+    total = {k: sum(v.get(k, 0) for v in launches.values())
+             for k in FLASH_KERNELS}
+    log(f"phase 22: {rec['phase_s']:.1f}s, launches {json.dumps(total)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 22: failed {failed}")
+    return rec
+
+
 def kernel_line(name, replaces, launches, cases, main, variant=None):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -6485,13 +7039,14 @@ def main() -> int:
     p19 = timed("19_model_parallel", model_parallel_phase, card)
     p20 = timed("20_pipeline_ring", pipeline_ring_phase, card)
     p21 = timed("21_model_families", model_families_phase, card)
+    p22 = timed("22_training_extras", training_extras_phase, card)
     # B1-B3 held at a ZeRO rank's shapes too, at the MoE cell's and a
     # tensor=2 rank's (D=128), and at GPT-2 1.3b's and BERT-large's; B4 at
     # GPT-2 1.3b's decode
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
-    flash += p19["flash_cases"] + p21["flash_cases"]
-    bwd += p19["bwd_cases"] + p21["bwd_cases"]
+    flash += p19["flash_cases"] + p21["flash_cases"] + p22["flash_cases"]
+    bwd += p19["bwd_cases"] + p21["bwd_cases"] + p22["bwd_cases"]
     decode += p21["decode_cases"]
 
     main_flash = flash[1]      # the 1024 bucket
@@ -6599,6 +7154,12 @@ def main() -> int:
                 if n:
                     entry["launches"] += n
                     entry["launches_by_path"][path] = n
+    # phase 22: the six training-extras runs (a)-(f) at llama-1b width
+    for entry in line["kernels"][:4]:
+        n = sum(c.get(entry["name"], 0) for c in p22["launches"].values())
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["training_extras"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

@@ -20,7 +20,9 @@ injection, request tracing). It trains dense models on one card
 through ``initialize`` ->
 ``Engine.train_batch``, with the flash backward (dQ and dK/dV kernels)
 in CUDA as well, and trains a block-sparse model (``sparse_attention``
-layouts) through three more CUDA kernels (forward, dQ, dK/dV). Entry
+layouts) through three more CUDA kernels (forward, dQ, dK/dV), with
+DeepSpeed's compression (QAT, pruning, layer reduction, distillation),
+MoQ, the seqlen curriculum, random-LTD and progressive layer drop. Entry
 points run on the card; ``device="cpu"`` runs the plain PyTorch versions
 of the kernels instead.
 """

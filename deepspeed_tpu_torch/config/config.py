@@ -14,7 +14,10 @@ tier's ``zero_optimization.offload_param`` / ``offload_optimizer`` and
 ``aio`` (at one rank), and model parallelism: ``tensor_parallel.
 tp_size``, ``sequence_parallel.sp_size``, ``moe`` (its
 ``expert_parallel_size`` lays out the ``expert`` axis) and
-``transformer.tp_overlap_chunks``.
+``transformer.tp_overlap_chunks``, and the training extras:
+``compression_training``, ``quantize_training`` (MoQ),
+``curriculum_learning``, ``data_efficiency.data_routing.random_ltd`` and
+``progressive_layer_drop``.
 Unknown keys warn, as in JAX. The JAX sections the
 port lacks are known: each raises ``NotImplementedError`` naming its
 ROADMAP item when the config turns it on, and is ignored while it is
@@ -325,6 +328,57 @@ class MeshConfig(ConfigModel):
     allow_split_physical_axes: bool = False
 
 
+@dataclasses.dataclass
+class CurriculumConfig(ConfigModel):
+    """``curriculum_learning`` (JAX's keys and defaults): the seqlen
+    curriculum's schedule (``runtime/data_pipeline.CurriculumScheduler``)."""
+    enabled: bool = False
+    curriculum_type: str = "seqlen"
+    min_difficulty: int = 8
+    max_difficulty: int = 1024
+    schedule_type: str = "fixed_linear"
+    schedule_config: Dict[str, Any] = config_field({})
+
+
+@dataclasses.dataclass
+class PLDConfig(ConfigModel):
+    """``progressive_layer_drop``: theta(t) = (1 - theta) exp(-gamma t) +
+    theta, ``theta`` the keep-probability floor."""
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
+@dataclasses.dataclass
+class DataEfficiencyConfig(ConfigModel):
+    """``data_efficiency``: ``data_routing.random_ltd`` drives random-LTD
+    (``RandomLTDScheduler``'s keys); ``data_sampling`` and ``seed`` are
+    kept for the JSON surface, as in JAX's engine."""
+    enabled: bool = False
+    seed: int = 1234
+    data_sampling: Dict[str, Any] = config_field({})
+    data_routing: Dict[str, Any] = config_field({})
+
+
+@dataclasses.dataclass
+class CompressionConfig(ConfigModel):
+    """``compression_training``: weight / activation quantization, the
+    sparse, row, head and channel pruning masks and layer reduction, each
+    a section of the reference's schema (``compression/compress.py``)."""
+    weight_quantization: Dict[str, Any] = config_field({})
+    activation_quantization: Dict[str, Any] = config_field({})
+    sparse_pruning: Dict[str, Any] = config_field({})
+    row_pruning: Dict[str, Any] = config_field({})
+    head_pruning: Dict[str, Any] = config_field({})
+    channel_pruning: Dict[str, Any] = config_field({})
+    layer_reduction: Dict[str, Any] = config_field({})
+
+    def any_enabled(self) -> bool:
+        return any(isinstance(v, dict) and (
+            v.get("enabled") or (v.get("shared_parameters") or {})
+            .get("enabled")) for v in dataclasses.asdict(self).values())
+
+
 def _deferred(what: str, item: str):
     raise NotImplementedError(f"config {what} is not ported yet: ROADMAP "
                               f"{item}")
@@ -350,17 +404,8 @@ _DEFERRED = {
     "wandb": (_enabled, "A11 (monitor)"),
     "csv_monitor": (_enabled, "A11 (monitor)"),
     "json_monitor": (_enabled, "A11 (monitor)"),
-    "curriculum_learning": (_enabled, "A11 (data pipeline)"),
-    "progressive_layer_drop": (_enabled, "A11 (progressive layer drop)"),
-    "data_efficiency": (_enabled, "A11 (data pipeline)"),
     "elasticity": (_enabled, "A11 (elasticity)"),
     "autotuning": (_enabled, "A11 (autotuning)"),
-    "quantize_training": (_enabled, "A11 (MoQ)"),
-    "compression_training": (
-        lambda s: any(isinstance(v, dict) and (
-            v.get("enabled") or (v.get("shared_parameters") or {})
-            .get("enabled")) for v in s.values()),
-        "A11 (compression)"),
 }
 
 
@@ -422,6 +467,14 @@ class Config(ConfigModel):
     moe: MoEConfig = config_field(MoEConfig)
     robustness: RobustnessConfig = config_field(RobustnessConfig)
     aio: AIOConfig = config_field(AIOConfig)
+    # the training extras (``runtime/engine``)
+    curriculum_learning: CurriculumConfig = config_field(CurriculumConfig)
+    progressive_layer_drop: PLDConfig = config_field(PLDConfig)
+    data_efficiency: DataEfficiencyConfig = config_field(DataEfficiencyConfig)
+    compression_training: CompressionConfig = config_field(CompressionConfig)
+    # MoQ: start_bits -> target_bits over quantize_period steps, optionally
+    # eigenvalue-scheduled per layer (``runtime/quantize.py``)
+    quantize_training: Dict[str, Any] = config_field({})
 
     @classmethod
     def load(cls, source) -> "Config":

@@ -64,6 +64,16 @@ Dropout (``dropout_rate > 0``): JAX's ``_dropout`` on the attention and
 FFN outputs before each residual add, on the training path only
 (``dropout_seed`` given, see ``_dropout``).
 
+The training extras (JAX's fields): ``activation_quant_bits`` fake-quantizes
+(straight-through) the post-norm activations before the attention and
+MLP matmuls; on the training path (``lm_loss(train=True)``) random-LTD
+runs layers 1 .. L - 2 on the kept tokens of ``ltd_select`` (each kept
+token at its true position, the key mask gathered with it, B1-B3 at S =
+keep), and progressive layer drop skips the layers ``pld_keep`` marks
+(a dropped layer launches nothing). Both take their draws as inputs
+(``ltd_draws``, ``pld_coins``: host generators keyed by the caller's
+seed), never ``jax.random``'s bits.
+
 Weights are cast to the activation dtype at every matmul, as ``_wmat`` /
 ``_wrow`` / ``lm_head_logits`` do in JAX, so f32 parameters (a trainer's
 storage) run under a bf16 compute config. int8 weights
@@ -115,6 +125,7 @@ import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -128,8 +139,8 @@ from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
                                                      flash_attention)
-from deepspeed_tpu_torch.ops.quantizer import (int8_matmul, quantize_rows,
-                                               weight_matmul)
+from deepspeed_tpu_torch.ops.quantizer import (fake_quant, int8_matmul,
+                                               quantize_rows, weight_matmul)
 from deepspeed_tpu_torch.ops.ring_attention import ring_attention_local
 from deepspeed_tpu_torch.ops.sparse_attention import (get_sparsity_config,
                                                       sparse_attention)
@@ -226,6 +237,14 @@ class TransformerConfig:
     # key j is visible to query i iff i - j < window
     attn_windows: Optional[Tuple[int, ...]] = None
     sparse_attention: Optional[Dict[str, Any]] = None
+    # the training extras (JAX's fields): random-LTD on layers 1 .. L - 2
+    # at random_ltd_keep tokens, the STE fake-quant of the post-norm
+    # activations at activation_quant_bits (0: off), progressive layer
+    # drop (layer i kept with probability 1 - (i + 1) / L * (1 - theta))
+    random_ltd: bool = False
+    random_ltd_keep: int = 0
+    activation_quant_bits: int = 0
+    progressive_layer_drop: bool = False
 
     def __post_init__(self):
         if self.kv_cache_bits not in (0, 8):
@@ -1262,6 +1281,8 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
     p = _maybe_dequant(p, cfg)
     post = cfg.norm_style == "post"
     h = x if post else _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
+    if cfg.activation_quant_bits:
+        h = fake_quant(h, bits=cfg.activation_quant_bits)
     h = _to_tensor_region(h)
     if "wqkv" in p:
         q, k, v = _bias(_w(h, p["wqkv"]), p, "bqkv").split(
@@ -1311,6 +1332,8 @@ def transformer_layer(x, p, cfg: TransformerConfig, *, positions,
         if post:
             x = _norm(x, p["ln1_scale"], p.get("ln1_bias"), cfg)
         h = x if post else _norm(x, p["ln2_scale"], p.get("ln2_bias"), cfg)
+    if cfg.activation_quant_bits:
+        h = fake_quant(h, bits=cfg.activation_quant_bits)
     if "wg" in p:
         gen = None
         if train and dropout_seed is not None and cfg.noisy_gate_policy:
@@ -1484,7 +1507,7 @@ def forward(params: Params, input_ids, cfg: TransformerConfig, *,
             return_kv: bool = False,
             return_hidden: bool = False, reference: bool = False,
             dropout_seed: Optional[int] = None, train: bool = False,
-            return_aux: bool = False):
+            return_aux: bool = False, layer_keep=None, ltd_select=None):
     """input_ids [B, S] -> f32 logits [B, S, V]; with ``return_kv`` also
     the per-layer post-rotary (k, v), each stacked [L, B, S, nkv, hd];
     with ``return_hidden`` the final-normed hidden states [B, S, H]
@@ -1495,12 +1518,14 @@ def forward(params: Params, input_ids, cfg: TransformerConfig, *,
     ``dropout_seed``: the training path's mask seed (None: no dropout);
     ``train``: MoE layers route with the training capacity (and draw
     their gate noise from the seed); ``return_aux``: (out, the sum of the
-    MoE layers' aux losses), as JAX's."""
+    MoE layers' aux losses), as JAX's; ``layer_keep`` / ``ltd_select``:
+    the training extras' draws (``layer_stack``)."""
     aux: list = []
     x, kvs = _hidden(params, input_ids, cfg, attention_mask=attention_mask,
                      positions=positions, token_type_ids=token_type_ids,
                      reference=reference, keep_kv=return_kv,
-                     dropout_seed=dropout_seed, train=train, aux=aux)
+                     dropout_seed=dropout_seed, train=train, aux=aux,
+                     layer_keep=layer_keep, ltd_select=ltd_select)
     total = (torch.stack(aux).sum() if aux
              else x.new_zeros((), dtype=torch.float32))
     if return_hidden:
@@ -1605,38 +1630,58 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
                 reference=False, on_layer_kv: Optional[Callable] = None,
                 keep_kv: bool = False, dropout_seed: Optional[int] = None,
                 train: bool = False, aux: Optional[list] = None,
-                first_layer: int = 0):
+                first_layer: int = 0, layer_keep=None,
+                ltd_select: Optional[Dict[int, torch.Tensor]] = None):
     """The stacked ``layers`` ([L, ...] leaves) over x [B, S, H]: returns
     (x, the kept K/V). With gradients on, each layer runs under the
     config's remat policy. Layer i of the stack is the model's layer
     ``first_layer + i`` (a pipeline stage's run of layers): its dropout
     masks (and gate noise) come from ``mask_seed(dropout_seed,
     first_layer + i)``, its window from ``attn_windows[first_layer + i]``. ``on_layer_kv``, ``keep_kv``, ``train`` and
-    ``aux``: as ``_hidden``'s."""
+    ``aux``: as ``_hidden``'s. The training extras (ignored where K/V are
+    kept): ``layer_keep[i]`` false drops model layer i (progressive layer
+    drop: the layer is the identity and launches nothing);
+    ``ltd_select[i]`` [B, keep] runs layer i on those tokens only
+    (random-LTD, ``runtime/data_pipeline.random_ltd_layer``), gather, layer
+    and scatter rematerialized as one unit."""
+    from deepspeed_tpu_torch.runtime.data_pipeline import random_ltd_layer
     context_fn = (_remat_policy(cfg, x.device) if torch.is_grad_enabled()
                   else None)
+    serving = on_layer_kv is not None or keep_kv
 
-    def layer(x_in, lp, i, box=None):
+    def layer(x_in, lp, i, box=None, sel=None):
         seed = None if dropout_seed is None else mask_seed(dropout_seed, i)
         # ZeRO-3: the layer's whole weights, gathered inside the remat
         # checkpoint (they replay in the backward and live only while the
         # layer runs)
         lp = gather_params(lp, "layers/")
-        return transformer_layer(x_in, lp, cfg, positions=positions,
-                                 mask=attention_mask, reference=reference,
-                                 dropout_seed=seed, train=train, aux=box,
-                                 window=_window(cfg, i))
 
-    def remat(x_in, lp, i):
+        def run(xs, positions=positions, mask=attention_mask):
+            return transformer_layer(xs, lp, cfg, positions=positions,
+                                     mask=mask, reference=reference,
+                                     dropout_seed=seed, train=train, aux=box,
+                                     window=_window(cfg, i))
+        if sel is None:
+            return run(x_in)
+        return random_ltd_layer(x_in, run, sel, positions=positions,
+                                mask=attention_mask)
+
+    def remat(x_in, lp, i, sel=None):
         box: list = []
-        out = layer(x_in, lp, i, box)[0]
+        out = layer(x_in, lp, i, box, sel)[0]
         return (out, box[0]) if box else out
 
     kvs = []
     for j, lp in enumerate(_layers({"layers": layers})):
         i = first_layer + j
-        if context_fn is not None and on_layer_kv is None and not keep_kv:
-            out = checkpoint(remat, x, lp, i, use_reentrant=False,
+        sel = None
+        if not serving:
+            if layer_keep is not None and not layer_keep[i]:
+                continue
+            if ltd_select is not None:
+                sel = ltd_select.get(i)
+        if context_fn is not None and not serving:
+            out = checkpoint(remat, x, lp, i, sel, use_reentrant=False,
                              context_fn=context_fn)
             if isinstance(out, tuple):
                 x, layer_aux = out
@@ -1645,7 +1690,7 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
             else:
                 x = out
             continue
-        x, (k, v) = layer(x, lp, i, aux)
+        x, (k, v) = layer(x, lp, i, aux, sel)
         if on_layer_kv is not None:
             on_layer_kv(i, k, v)
         elif keep_kv:
@@ -1653,11 +1698,48 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
     return x, kvs
 
 
+def pld_keep_probs(theta: float, num_layers: int) -> np.ndarray:
+    """Progressive layer drop's keep probability of each layer, JAX's f32
+    1 - (i + 1) / L * (1 - theta): the deeper, the likelier dropped."""
+    i = np.arange(num_layers, dtype=np.float32)
+    return (np.float32(1.0) - (i + np.float32(1.0)) / np.float32(num_layers)
+            * (np.float32(1.0) - np.float32(theta))).astype(np.float32)
+
+
+def pld_coins(theta: float, num_layers: int, key) -> List[bool]:
+    """Which layers a training pass keeps: layer i's coin from a numpy
+    generator keyed by (``key``..., 7919 + i) against its keep
+    probability. Host draws: no device sync."""
+    probs = pld_keep_probs(theta, num_layers)
+    return [bool(np.random.default_rng([*key, 7919 + i]).random() < probs[i])
+            for i in range(num_layers)]
+
+
+def ltd_draws(cfg: TransformerConfig, rows: int, seq_len: int, keep: int,
+              key, device, row0: int = 0) -> Dict[int, torch.Tensor]:
+    """Random-LTD's kept tokens of layers 1 .. L - 2 ({layer: [rows, keep]
+    sorted int64 on ``device``}), each drawn on the host by
+    ``data_pipeline.ltd_selection`` keyed by (``key``..., layer) and the
+    global row (``row0`` + r), moved in one copy. Empty when ``keep`` is
+    not below ``seq_len`` or the model has fewer than 3 layers."""
+    from deepspeed_tpu_torch.runtime.data_pipeline import ltd_selection
+    mids = list(range(1, cfg.num_layers - 1))
+    if keep >= seq_len or not mids:
+        return {}
+    host = np.stack([ltd_selection((*key, i), rows, seq_len, keep, row0)
+                     for i in mids])
+    t = torch.from_numpy(host)
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return dict(zip(mids, t.unbind(0)))
+
+
 def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
             token_type_ids=None, reference=False,
             on_layer_kv: Optional[Callable] = None,
             keep_kv: bool = False, dropout_seed: Optional[int] = None,
-            train: bool = False, aux: Optional[list] = None):
+            train: bool = False, aux: Optional[list] = None,
+            layer_keep=None, ltd_select=None):
     """Embedding (``_embed``), the layer stack and the final norm.
     ``on_layer_kv(i, k, v)`` consumes each layer's K/V as soon as it
     exists (the paged prefill writes them straight into the pool);
@@ -1665,7 +1747,8 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     the config's remat policy. ``dropout_seed``: layer i's masks (and
     gate noise) come from ``mask_seed(dropout_seed, i)`` (None: no
     dropout); ``train`` and ``aux``: as ``transformer_layer``'s (each MoE
-    layer's aux loss appended to ``aux``)."""
+    layer's aux loss appended to ``aux``); ``layer_keep`` and
+    ``ltd_select``: as ``layer_stack``'s."""
     B, S = input_ids.shape
     if positions is None:
         # over ``seq`` the ids are this rank's piece: its global positions
@@ -1677,7 +1760,8 @@ def _hidden(params, input_ids, cfg, *, attention_mask=None, positions=None,
     x, kvs = layer_stack(x, params["layers"], cfg, positions=positions,
                          attention_mask=attention_mask, reference=reference,
                          on_layer_kv=on_layer_kv, keep_kv=keep_kv,
-                         dropout_seed=dropout_seed, train=train, aux=aux)
+                         dropout_seed=dropout_seed, train=train, aux=aux,
+                         layer_keep=layer_keep, ltd_select=ltd_select)
     return final_norm(x, params, cfg), kvs
 
 
@@ -1785,7 +1869,8 @@ def head_loss(params: Params, x, labels, cfg: TransformerConfig,
 
 def lm_loss(params: Params, batch, cfg: TransformerConfig,
             reference: bool = False, dropout_seed: Optional[int] = None,
-            label_count=None, train: bool = False):
+            label_count=None, train: bool = False, pld_theta=None,
+            pld_keep=None, ltd_select=None):
     """Causal-LM loss: predict token t+1 from the prefix <= t. ``batch``:
     input_ids [B, S]; optional labels (default: the ids shifted left, -100
     at the end) and attention_mask [B, S] (a key mask in attention).
@@ -1796,15 +1881,36 @@ def lm_loss(params: Params, batch, cfg: TransformerConfig,
     batch's, ``runtime/engine``). ``train``: MoE layers route with the
     training capacity (JAX's ``deterministic=False``). A MoE model adds
     ``moe_aux_loss_weight`` times the sum of its layers' aux losses, as
-    JAX's ``lm_loss``."""
+    JAX's ``lm_loss``.
+
+    The training extras act only with ``train``, as JAX's act only with
+    ``deterministic=False``: random-LTD (``cfg.random_ltd`` with
+    ``random_ltd_keep`` below S) on ``ltd_select`` ({layer: [B, keep]}),
+    drawn from ``dropout_seed`` (0 without one) when not given; else
+    progressive layer drop (``cfg.progressive_layer_drop`` and
+    ``pld_theta``) keeping the layers ``pld_keep`` marks, drawn by
+    ``pld_coins`` when not given."""
     # ZeRO-3: the embedding, the head and the final norm, gathered once a
     # pass (each layer gathers its own in ``_hidden``)
     params = gather_params(params)
     ids = batch["input_ids"]
     labels = lm_labels(batch)
     mask = batch.get("attention_mask")
+    layer_keep = None
+    if not train:
+        ltd_select = None
+    elif ltd_select is None and cfg.random_ltd \
+            and 0 < cfg.random_ltd_keep < ids.shape[1]:
+        ltd_select = ltd_draws(cfg, ids.shape[0], ids.shape[1],
+                               cfg.random_ltd_keep, (dropout_seed or 0,),
+                               ids.device)
+    if train and not ltd_select and cfg.progressive_layer_drop \
+            and pld_theta is not None:
+        layer_keep = (pld_keep if pld_keep is not None else pld_coins(
+            pld_theta, cfg.num_layers, (dropout_seed or 0,)))
     kw = dict(attention_mask=mask, reference=reference,
-              dropout_seed=dropout_seed, train=train, return_aux=True)
+              dropout_seed=dropout_seed, train=train, return_aux=True,
+              layer_keep=layer_keep, ltd_select=ltd_select or None)
     x, aux = forward(params, ids, cfg, return_hidden=True, **kw)
     loss = head_loss(params, x, labels, cfg, label_count)
     if cfg.num_experts > 1:
@@ -2235,9 +2341,10 @@ def make_model(cfg: TransformerConfig, name: str = "transformer") -> ModelSpec:
         init=lambda generator, device, dtype=None, keep=None:
             init_params(cfg, generator, device, dtype=dtype, keep=keep),
         loss_fn=lambda params, batch, dropout_seed=None, label_count=None,
-            train=False: lm_loss(params, batch, cfg,
-                                 dropout_seed=dropout_seed,
-                                 label_count=label_count, train=train),
+            train=False, **extras: lm_loss(params, batch, cfg,
+                                           dropout_seed=dropout_seed,
+                                           label_count=label_count,
+                                           train=train, **extras),
         apply=lambda params, input_ids, **kw:
             forward(params, input_ids, cfg, **kw),
         init_paged_cache=lambda num_blocks, block_size, dtype=None,

@@ -1,24 +1,30 @@
-"""int8 quantization for serving, PyTorch port of the serving half of
-``deepspeed_tpu/ops/quantizer.py``: per-row int8 for KV-cache storage
-(``quantize_rows``), per-out-channel int8 for weights
-(``quantize_channels``), the weight-only matmul with its scale in the
-epilogue (``weight_matmul``), and the exact int8 x int8 -> int32
-contraction the int8 attention math runs on (``int8_matmul``).
+"""Quantization, PyTorch port of ``deepspeed_tpu/ops/quantizer.py``: for
+serving, per-row int8 for KV-cache storage (``quantize_rows``),
+per-out-channel int8 for weights (``quantize_channels``), the
+weight-only matmul with its scale in the epilogue (``weight_matmul``),
+and the exact int8 x int8 -> int32 contraction the int8 attention math
+runs on (``int8_matmul``); for compression and MoQ, grouped int8 / int4
+``quantize`` / ``dequantize`` (symmetric or with a zero point; int4 two
+nibbles a byte, ``pack_int4`` / ``unpack_int4``), the straight-through
+``fake_quant`` (QAT's forward: x + (xq - x) with the difference
+detached) and ``quantize_tree`` / ``dequantize_tree``.
 
 The numerics are JAX's: ``torch.round`` and ``jnp.round`` both round half
 to even, the clip ranges and scale floors are the same, and every
 division is the same IEEE f32 division, so identical inputs give
 identical int8 payloads and scales.
 
-The rest of the JAX module (``quantize`` / ``dequantize``, int4 packing,
-``fake_quant``, ``quantize_tree``) belongs to compression: ROADMAP A11.
-
 JAX contracts int8 x int8 into int32 on the MXU (XLA, not a Pallas
 kernel), and so does this module with plain torch ops: there is no kernel
 to port (a Hopper kernel for the int8 read is ROADMAP R8).
 """
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
+
+from deepspeed_tpu_torch.ops.optimizers import tree_map
 
 # An f32 sum of int8 x int8 products is exact while it stays below 2^24:
 # 127^2 * 1024 = 16,516,096 < 16,777,216. ``int8_matmul`` contracts in
@@ -80,3 +86,109 @@ def int8_matmul(a, b):
         part = part.to(torch.int32)
         out = part if out is None else out + part
     return out
+
+
+@dataclasses.dataclass
+class QuantizedTensor:
+    """A quantized payload with its per-group scale (and zero point when
+    asymmetric), JAX's container: ``q`` int8 [groups, n] (int4: uint8
+    [groups, n / 2], two nibbles a byte), ``scale`` / ``zero`` f32
+    [groups, 1], the original ``shape`` and the dtype ``dequantize``
+    returns."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    zero: Optional[torch.Tensor]
+    bits: int
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.bfloat16
+
+
+def _grouped(x, num_groups: int):
+    n = x.numel()
+    if n % num_groups:
+        raise ValueError(f"size {n} not divisible by num_groups {num_groups}")
+    return x.reshape(num_groups, n // num_groups)
+
+
+def quantize(x, bits: int = 8, symmetric: bool = True,
+             num_groups: int = 1) -> QuantizedTensor:
+    """int8 or int4 with a scale per group of the flattened ``x`` (and a
+    zero point with ``symmetric=False``), JAX's arithmetic in f32."""
+    if bits not in (4, 8):
+        raise ValueError("bits must be 4 or 8")
+    g = _grouped(x.float(), num_groups)
+    qmax = 2 ** (bits - 1) - 1          # 127 / 7
+    qmin = -(2 ** (bits - 1))           # -128 / -8
+    if symmetric:
+        amax = g.abs().amax(dim=1, keepdim=True)
+        scale = torch.clamp_min(amax / qmax, 1e-12)
+        q = torch.clamp(torch.round(g / scale), qmin, qmax).to(torch.int8)
+        zero = None
+    else:
+        lo = g.amin(dim=1, keepdim=True)
+        hi = g.amax(dim=1, keepdim=True)
+        scale = torch.clamp_min((hi - lo) / (2 ** bits - 1), 1e-12)
+        zero = torch.round(-lo / scale) + qmin
+        q = torch.clamp(torch.round(g / scale) + zero, qmin,
+                        qmax).to(torch.int8)
+    if bits == 4:
+        q = pack_int4(q)
+    return QuantizedTensor(q=q, scale=scale, zero=zero, bits=bits,
+                           shape=tuple(x.shape), dtype=x.dtype)
+
+
+def dequantize(qt: QuantizedTensor):
+    q = unpack_int4(qt.q) if qt.bits == 4 else qt.q
+    g = q.float()
+    if qt.zero is not None:
+        g = g - qt.zero
+    return (g * qt.scale).reshape(qt.shape).to(qt.dtype)
+
+
+def pack_int4(q):
+    """[G, N] int8 in [-8, 7] -> [G, N / 2] uint8 (element 2j in the low
+    nibble, 2j + 1 in the high one)."""
+    if q.shape[1] % 2:
+        raise ValueError("int4 packing needs an even group size")
+    u = (q.to(torch.int32) & 0xF).to(torch.uint8)
+    return u[:, 0::2] | (u[:, 1::2] << 4)
+
+
+def unpack_int4(p):
+    lo = (p & 0xF).to(torch.int8)
+    hi = ((p >> 4) & 0xF).to(torch.int8)
+    lo = torch.where(lo >= 8, lo - 16, lo)          # sign-extend
+    hi = torch.where(hi >= 8, hi - 16, hi)
+    G, M = p.shape
+    return torch.stack([lo, hi], dim=2).reshape(G, 2 * M)
+
+
+def fake_quant(x, bits: int = 8, symmetric: bool = True,
+               num_groups: int = 1):
+    """Quantize-dequantize with the straight-through gradient: the
+    forward sees the quantized values, the gradient passes unchanged."""
+    qt = quantize(x, bits=bits, symmetric=symmetric, num_groups=num_groups)
+    xq = dequantize(qt).to(x.dtype)
+    return x + (xq - x).detach()
+
+
+def quantize_tree(params, bits: int = 8, symmetric: bool = True,
+                  group_size: int = 128, min_size: int = 4096):
+    """Every matmul-sized leaf of a (nested dict) param tree quantized for
+    storage, groups of about ``group_size``; small leaves (norms, biases)
+    stay float."""
+    def one(x):
+        if not isinstance(x, torch.Tensor) or x.numel() < min_size \
+                or x.dim() < 2:
+            return x
+        n = x.numel()
+        groups = max(1, n // group_size)
+        while n % groups:
+            groups -= 1
+        return quantize(x, bits=bits, symmetric=symmetric, num_groups=groups)
+    return tree_map(one, params)
+
+
+def dequantize_tree(params):
+    return tree_map(lambda x: dequantize(x) if isinstance(
+        x, QuantizedTensor) else x, params)

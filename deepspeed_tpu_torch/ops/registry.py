@@ -6,7 +6,9 @@ AdamW, ``cpuadagrad`` -> Adagrad); the host update itself is the
 ``offload_optimizer.use_cpu_adam`` route (``runtime/swap_tensor.py``).
 The 1-bit
 family (``ops/onebit.py``) composes with ``compression_training`` and
-MoQ in JAX; those config sections raise naming A11."""
+MoQ in JAX; on its compressed path (pure data parallel at stage 0) the
+port's engine raises for either, naming ROADMAP A11 (training extras
+under 1-bit and offload)."""
 
 SUPPORTED_OPTIMIZERS = {
     "adam", "adamw", "fusedadam", "sgd", "lamb", "fusedlamb", "adagrad",

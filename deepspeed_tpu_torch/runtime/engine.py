@@ -120,6 +120,27 @@ is not a transformer under pipe, layers the stages do not divide, and
 the layer-streamed offload with pipe, seq or expert. The
 ``comms_logger`` section switches ``comm.comms_logger`` on.
 
+The training extras, JAX's wiring (``_init_extras``, ``_step_extras``):
+``compression_training`` (the ``compression`` transform applied to the
+params inside each micro-batch's loss and in ``eval_batch`` at the
+applied-update count, the activation-quantized model from its offset,
+the layer-reduced student built at init), ``quantize_training`` (MoQ's
+per-layer bits inside each loss, its eigenvalue probe refreshed on the
+step's batch), ``curriculum_learning`` (the batch cut to the step's
+difficulty), ``data_efficiency.data_routing.random_ltd`` and
+``progressive_layer_drop``. Their random choices are host draws keyed by
+(``config.seed``, the step, the global micro-batch, the layer, the global
+row: ``_ltd_draw``, ``_pld_draw``), so a rank of a data-parallel world
+draws what one rank draws and no draw waits on the card; the last
+step's are in ``step_draws``. At ZeRO-3 the masks and scales see whole
+leaves (gathered once a micro-batch). What they do not compose with
+raises ``NotImplementedError``: compression or MoQ on the 1-bit
+compressed path, any extra under the layer-streamed executor (ROADMAP
+A11, training extras under 1-bit and offload), compression or MoQ over
+the tensor, expert, seq or pipe axes and random-LTD over seq (A11,
+training extras on the model-parallel axes); MoQ, PLD and random-LTD
+under pipeline parallelism raise JAX's ValueErrors.
+
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
@@ -149,7 +170,8 @@ from deepspeed_tpu_torch.models.pipeline_wrapper import make_pipelined_model
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     check_family_mesh,
                                                     lm_labels, logical_axes,
-                                                    make_model, mask_seed)
+                                                    ltd_draws, make_model,
+                                                    mask_seed, pld_coins)
 from deepspeed_tpu_torch.ops.onebit import PhasedOptimizer
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
                                                 global_grad_norm,
@@ -272,6 +294,7 @@ class Engine:
                 logger.warning("`transformer` config section ignored: model "
                                "is not a transformer ModelSpec")
         self.model = model
+        self._init_extras(config)
 
         # pipeline wrapping (JAX: the PipelineEngine construction); the
         # micro-batches are the accumulation steps, consumed by one call
@@ -371,6 +394,7 @@ class Engine:
 
         self._swapper = self._infinity = None
         self._offload = self._offload_route(optimizer is not None)
+        self._refuse_extras()
         if self._offload == "infinity":
             if state is not None:
                 raise ValueError("initialize(state=...) with offload_param: "
@@ -401,6 +425,253 @@ class Engine:
         # the 1-bit phase is a host decision on the applied-update count
         self._onebit_applied = (self.state["opt"]["step"] if self._onebit
                                 else 0)
+
+    # --- the training extras ----------------------------------------------
+    def _init_extras(self, config: Config) -> None:
+        """JAX's wiring of the five sections (``engine.py:486-563,
+        644-698``), with its refusals: compression (the transform, the
+        activation-quant switch, the layer-reduced student), MoQ, the
+        seqlen curriculum, progressive layer drop and random-LTD."""
+        def transformer(what):
+            if not isinstance(getattr(self.model, "config", None),
+                              TransformerConfig):
+                raise ValueError(f"{what} requires a transformer ModelSpec")
+
+        pipe = self.plan.pipe > 1
+        self._compression = None
+        self._act_quant, self._act_quant_on = None, False
+        if config.compression_training.any_enabled():
+            from deepspeed_tpu_torch.compression import init_compression
+            comp = init_compression(
+                dataclasses.asdict(config.compression_training))
+            self._compression = comp if comp.rules else None
+            self._act_quant = comp.activation_quant
+            lr = comp.layer_reduction
+            if self._act_quant or lr:
+                transformer("activation_quantization/layer_reduction")
+            if lr is not None:
+                keep = lr["keep_number"]
+                self.model = make_model(dataclasses.replace(
+                    self.model.config, num_layers=keep),
+                    name=f"{self.model.name}-student{keep}")
+                logger.info(f"layer reduction: student keeps {keep} layers")
+                if lr["teacher_layer"]:
+                    logger.warning(
+                        "layer_reduction.teacher_layer is informational "
+                        "here: initialize the student from a trained "
+                        "teacher with compression.student_params_from_"
+                        "teacher(...) (initialize(params=...))")
+            if self._act_quant and self._act_quant[1] <= 0:
+                self._rebuild_act_quant()
+        self._moq = None
+        if config.quantize_training.get("enabled"):
+            transformer("quantize_training (MoQ)")
+            if pipe:
+                raise ValueError("quantize_training (MoQ) with pipeline "
+                                 "parallelism is not supported")
+            from deepspeed_tpu_torch.runtime.quantize import build_moq
+            self._moq = build_moq(config.quantize_training,
+                                  self.model.config.num_layers)
+        self._curriculum = None
+        if config.curriculum_learning.enabled:
+            from deepspeed_tpu_torch.runtime.data_pipeline import (
+                CurriculumScheduler)
+            if config.curriculum_learning.curriculum_type != "seqlen":
+                raise ValueError("curriculum_type must be 'seqlen' (the "
+                                 "reference's only in-engine curriculum)")
+            self._curriculum = CurriculumScheduler(dataclasses.asdict(
+                config.curriculum_learning))
+        self._pld = None
+        if config.progressive_layer_drop.enabled:
+            transformer("progressive_layer_drop")
+            if pipe:
+                raise ValueError("progressive_layer_drop with pipeline "
+                                 "parallelism is not supported")
+            if not self.model.config.progressive_layer_drop:
+                self.model = make_model(dataclasses.replace(
+                    self.model.config, progressive_layer_drop=True),
+                    name=self.model.name)
+            self._pld = (config.progressive_layer_drop.theta,
+                         config.progressive_layer_drop.gamma)
+        self._ltd = None
+        self._ltd_keep = None
+        routing = config.data_efficiency.data_routing or {}
+        if config.data_efficiency.enabled and \
+                routing.get("random_ltd", {}).get("enabled"):
+            from deepspeed_tpu_torch.runtime.data_pipeline import (
+                RandomLTDScheduler)
+            transformer("random_ltd")
+            if pipe:
+                raise ValueError("random_ltd with pipeline parallelism is "
+                                 "not supported")
+            self._ltd = RandomLTDScheduler(routing)
+        # this step's host decisions (``_step_extras``); None between steps
+        self._extras = None
+        # the draws of the last train_batch, one dict a micro-batch
+        self.step_draws = []
+
+    def _refuse_extras(self) -> None:
+        """What the port does not compose the extras with: the 1-bit
+        compressed path and the offload executor (compression, MoQ; every
+        extra under the layer-streamed executor), and the model-parallel
+        axes whose slices the masks and scales would see in part."""
+        on = [n for n, v in (
+            ("compression_training", self._compression is not None
+             or self._act_quant), ("quantize_training", self._moq),
+            ("curriculum_learning", self._curriculum),
+            ("progressive_layer_drop", self._pld),
+            ("random_ltd", self._ltd)) if v]
+        if not on:
+            return
+        weights = [n for n in on if n in ("compression_training",
+                                          "quantize_training")]
+        label = "ROADMAP A11 (training extras under 1-bit and offload)"
+        if self._offload == "infinity":
+            raise NotImplementedError(
+                f"{', '.join(on)} with the layer-streamed offload executor "
+                f"is not ported yet: {label}")
+        if self._onebit and weights:
+            raise NotImplementedError(
+                f"{', '.join(weights)} on the 1-bit compressed path is not "
+                f"ported yet: {label}")
+        axes = [a for a in ("tensor", "expert", "seq", "pipe")
+                if self.mesh.size(a) > 1]
+        if (weights and axes) or (self._ltd and "seq" in axes):
+            raise NotImplementedError(
+                f"{', '.join(on)} over the {'/'.join(axes)} axes is not "
+                "ported yet: ROADMAP A11 (training extras on the "
+                "model-parallel axes)")
+
+    def _rebuild_act_quant(self) -> None:
+        """The activation-quantized model (JAX's one rebuild)."""
+        bits = self._act_quant[0]
+        self.model = make_model(dataclasses.replace(
+            self.model.config, activation_quant_bits=bits),
+            name=self.model.name)
+        self._act_quant_on = True
+        logger.info(f"activation quantization active: {bits}-bit STE on "
+                    "post-norm activations")
+
+    def _step_extras(self, batch):
+        """JAX's per-step host work (``engine.py:1484-1513``), before the
+        grads: the activation-quant switch at its offset, the curriculum's
+        truncation, LTD's kept tokens, PLD's theta(t) = (1 - theta_min)
+        exp(-gamma t) + theta_min, MoQ's eigenvalue refresh and bits.
+        Returns the (truncated) batch; the decisions wait in
+        ``self._extras`` for ``_micro_grads``."""
+        t = self.global_steps
+        if self._act_quant and not self._act_quant_on \
+                and t + 1 >= self._act_quant[1]:
+            self._rebuild_act_quant()
+        if self._curriculum is not None:
+            from deepspeed_tpu_torch.runtime.data_pipeline import (
+                apply_seqlen_curriculum)
+            batch = apply_seqlen_curriculum(
+                batch, self._curriculum.update_difficulty(t + 1))
+        ex = {}
+        if self._ltd is not None:
+            S = batch["input_ids"].shape[1]
+            self._ltd_keep = self._ltd.kept_tokens(t + 1, S)
+            if self._ltd_keep < S:
+                ex["ltd_keep"] = self._ltd_keep
+        if self._pld is not None:
+            theta_min, gamma = self._pld
+            ex["pld_theta"] = float(np.float32(
+                (1.0 - theta_min) * np.exp(-gamma * t) + theta_min))
+        if self._moq is not None:
+            if self._moq.wants_eigenvalues(t) and self.state is not None:
+                self._moq.update_eigenvalues(self._moq_probe(batch), t)
+            ex["moq_bits"] = self._moq.bits(t)
+        self._extras = ex
+        self.step_draws = []
+        return batch
+
+    def _pld_draw(self, theta: float, micro: int):
+        """PLD's keep vector of micro-batch ``micro`` of this step: host
+        coins keyed by (config seed, step, micro-batch)."""
+        return pld_coins(theta, self.model.config.num_layers,
+                         (self.config.seed, self.global_steps, micro))
+
+    def _ltd_draw(self, rows: int, seq_len: int, keep: int, micro: int,
+                  row0: int):
+        """Random-LTD's kept tokens of this rank's ``rows`` rows (global
+        rows ``row0``..) of micro-batch ``micro``, keyed by (config seed,
+        step, micro-batch, layer, global row)."""
+        return ltd_draws(self.model.config, rows, seq_len, keep,
+                         (self.config.seed, self.global_steps, micro),
+                         self.device, row0=row0)
+
+    def _extras_kw(self, mb, micro: int, row: Optional[int]):
+        """The loss's keywords for this step's LTD or PLD draws (LTD wins,
+        as in JAX), recorded in ``step_draws``."""
+        ex = self._extras
+        if not ex:
+            return {}
+        kw, draw = {}, {}
+        if "ltd_keep" in ex:
+            ids = mb["input_ids"]
+            kw["ltd_select"] = self._ltd_draw(ids.shape[0], ids.shape[1],
+                                              ex["ltd_keep"], micro,
+                                              row or 0)
+            draw["ltd_keep"] = ex["ltd_keep"]
+        elif "pld_theta" in ex:
+            kw["pld_theta"] = ex["pld_theta"]
+            kw["pld_keep"] = self._pld_draw(ex["pld_theta"], micro)
+            draw["pld_keep"] = list(kw["pld_keep"])
+        if kw:
+            kw["train"] = True
+            self.step_draws.append(draw)
+        return kw
+
+    def _whole_params(self, params):
+        """At ZeRO-3, the param tree gathered whole (differentiable: the
+        grads go back to the shards through the gathers); else itself."""
+        if self._part is None or self._part.stage < 3:
+            return params
+        gather = self._part.gatherer()
+        whole = gather(params)
+        whole["layers"] = gather(params["layers"], "layers/")
+        return whole
+
+    def _forward_params(self, params, moq: bool = True):
+        """The params the loss sees: the compression transform at the
+        applied-update count, then MoQ at this step's bits (JAX's
+        ``micro_grads``); at ZeRO-3 on the whole leaves (the masks and
+        scales are the whole leaf's, as in JAX). Returns (params, whole):
+        ``whole`` when the model must not gather again."""
+        bits = (self._extras or {}).get("moq_bits") if moq else None
+        if self._compression is None and bits is None:
+            return params, False
+        p = self._whole_params(params)
+        if self._compression is not None:
+            p = self._compression.apply(p, self.state["step"])
+        if bits is not None:
+            p = self._moq.apply(p, bits)
+        return p, p is not params and self._part is not None \
+            and self._part.stage >= 3
+
+    def _moq_probe(self, batch):
+        """MoQ's per-layer curvature on this step's batch (JAX probes the
+        global batch with the model's eval loss): each rank probes its
+        rows, the difference passes' grads averaged over the ranks; at
+        ZeRO-3 on the whole layers."""
+        params = self.state["params"]
+        local = self._local_rows(batch) if self._part is not None else batch
+        reduce = None
+        if self._part is not None:
+            def reduce(grads):
+                return [comm.all_reduce(g, BATCH_AXES, op="mean")
+                        for g in grads]
+        gen = torch.Generator(self.device).manual_seed(
+            mask_seed(self.config.seed, self.global_steps, 0x6D6F71))
+        with self._step_context(), contextlib.ExitStack() as ctx:
+            if self._part is not None and self._part.stage >= 3:
+                with torch.no_grad():
+                    params = self._whole_params(params)
+                ctx.enter_context(par_ctx.param_gather(None))
+            return self._moq.layer_eigenvalues(
+                lambda p, b: self.model.loss_fn(p, b), params, local,
+                generator=gen, reduce=reduce)
 
     # --- the capacity tier ------------------------------------------------
     def _offload_route(self, client_optimizer: bool) -> Optional[str]:
@@ -720,6 +991,7 @@ class Engine:
         (``_label_counts``; None: this micro-batch's own count)."""
         leaves = tree_leaves(self.state["params"])
         kw = self._dropout_kw(micro)
+        kw.update(self._extras_kw(mb, micro, row))
         with contextlib.ExitStack() as ctx:
             if row is not None:
                 # the rows are this rank's (a MoE layer gathers the
@@ -728,7 +1000,11 @@ class Engine:
                 ctx.enter_context(par_ctx.batch_rows(row))
             if label_count is not None:
                 kw["label_count"] = label_count
-            loss = self.model.loss_fn(self.state["params"], mb, **kw)
+            params, whole = self._forward_params(self.state["params"])
+            if whole:
+                # the leaves are whole already: no gather in the layers
+                ctx.enter_context(par_ctx.param_gather(None))
+            loss = self.model.loss_fn(params, mb, **kw)
             target = loss
             if self._fp16:
                 target = fp16_mod.scale_loss(
@@ -1025,9 +1301,13 @@ class Engine:
             raise ValueError(f"train_batch takes a global batch of "
                              f"{self.config.train_batch_size} rows, got "
                              f"{rows}")
-        with self._step_context():
-            grads, mean_loss = self._accum_micro_grads(batch)
-            metrics = self._apply_grads(grads, mean_loss)
+        batch = self._step_extras(batch)
+        try:
+            with self._step_context():
+                grads, mean_loss = self._accum_micro_grads(batch)
+                metrics = self._apply_grads(grads, mean_loss)
+        finally:
+            self._extras = None
         self.global_steps += 1
         self.micro_steps += self.config.gradient_accumulation_steps
         return metrics
@@ -1051,7 +1331,12 @@ class Engine:
                 loss = self.model.loss_fn(self.state["params"], local,
                                           label_count=count)
                 return comm.all_reduce(loss.reshape(1).clone(), "seq")[0]
-            return self.model.loss_fn(self.state["params"], batch)
+            # JAX's eval step applies the compression transform (not MoQ)
+            params, whole = self._forward_params(self.state["params"],
+                                                 moq=False)
+            with par_ctx.param_gather(None) if whole \
+                    else contextlib.nullcontext():
+                return self.model.loss_fn(params, batch)
 
     # ------------------------------------------------------------------
     def get_lr(self) -> float:

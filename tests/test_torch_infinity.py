@@ -351,9 +351,11 @@ def test_routing_and_refusals(tmp_path):
     conf["optimizer"] = {"type": "sgd", "params": {"lr": 1e-3}}
     with pytest.raises(ValueError, match="Adam family"):
         _port(conf, params)
-    with pytest.raises(NotImplementedError, match="A11"):
-        Config.load(dict(_conf(tmp_path), compression_training={
-            "weight_quantization": {"shared_parameters": {"enabled": True}}}))
+    with pytest.raises(NotImplementedError,
+                       match="A11 .training extras under 1-bit and offload"):
+        _port(dict(_conf(tmp_path), compression_training={
+            "weight_quantization": {"shared_parameters": {"enabled": True}}}),
+            params)
     with pytest.raises(NotImplementedError, match="A8d"):
         Config.load(dict(_conf(tmp_path), mesh={"axes": {"fsdp": 2}}))
     # close() deletes an executor's chunk directory

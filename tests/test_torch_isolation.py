@@ -63,7 +63,9 @@ def test_forbidden_prefix_rule():
             "telemetry/exposition.py", "ops/host_build.py",
             "ops/cpu_adam.py", "ops/cpu_adagrad.py", "ops/aio.py",
             "runtime/swap_tensor.py", "runtime/infinity.py",
-            "models/hf_import.py"} <= names
+            "models/hf_import.py", "compression/compress.py",
+            "runtime/data_pipeline.py", "runtime/eigenvalue.py",
+            "runtime/quantize.py"} <= names
 
 
 # spawned ranks re-import their module: the sharded-serving rank programs
@@ -79,7 +81,9 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "test_torch_offload_cuda.py",
     ROOT / "tests" / "_torch_mp_workers.py",
     ROOT / "tests" / "test_torch_moe_training_cuda.py",
-    ROOT / "tests" / "test_torch_families_cuda.py"],
+    ROOT / "tests" / "test_torch_families_cuda.py",
+    ROOT / "tests" / "_torch_extras_workers.py",
+    ROOT / "tests" / "test_torch_training_extras_cuda.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]
