@@ -178,8 +178,8 @@ Phases, each of which raises on failure (exit code != 0):
    x prefills and B4 = L x decode steps (reported to rank 0), (b)'s
    ``pool_bytes x 2 == pool_bytes_logical`` and layer bytes halved but
    for the replicated norms, (c)'s expert stacks halved, the agreement
-   with the one-card streams (reported: (b) runs 16 of llama-7b's 32
-   layers and (c) 4 of Mixtral's), and f32 at 2 layers token for
+   with the one-card streams (reported: (b) runs 8 of llama-7b's 32
+   layers and (c) 2 of Mixtral's), and f32 at 2 layers token for
    token equal to the unsharded engine. Times of (b) and (c) are of two
    processes sharing one card: not a tensor-parallel speed.
 15. after the sparse training cross-check. (a) a block-sparse model
@@ -318,15 +318,15 @@ Phases, each of which raises on failure (exit code != 0):
    sequence, SDPA and the bound. Then two processes sharing the card
    over gloo (their point-to-point as a broadcast over the group of two
    ring neighbours; not a parallel speed), the comms logger on: (a)
-   pipe=2, llama-1b width, 8 layers, B=8 S=2048 in M=4 micro-batches,
+   pipe=2, llama-1b width, 4 layers, B=8 S=2048 in M=4 micro-batches,
    bf16 + f32 masters, AdamW, ZeRO-1, dots_saveable, 1 + 2 steps: each
    stage's bytes of params / optimizer state / grads equal to the law
-   (its 4 layers, the other leaves whole), B1 = 3 x M x L/P a step on
+   (its 2 layers, the other leaves whole), B1 = 3 x M x L/P a step on
    stage 0 (the forward tick, the backward tick's recompute and its
    remat replay) and 2 x M x L/P on the last stage (one pass under
    autograd and its replay), B2 = B3 = M x L/P, 2 (M + 2) ppermutes
    over pipe a step, the bubble (P - 1) / (M + P - 1), peak memory; (c)
-   seq=2, llama-1b width, 8 layers, B=1 S=16384 (8192 a rank), 1 + 2
+   seq=2, llama-1b width, 4 layers, B=1 S=16384 (8192 a rank), 1 + 2
    steps: rank j's B1 = 2 (j + 1) L and B2 = B3 = (j + 1) L a step;
    then ``ring_attention_local`` at those attention shapes in bf16 and
    f32: rank j's B1 = B2 = B3 = j + 1 a call, bit for bit on repeat,
@@ -389,6 +389,29 @@ Phases, each of which raises on failure (exit code != 0):
    within 1e-5 and grads within 1e-4, the launch counts zeroed before
    each side, the kernel side's B1-B3 equal to its law and the plain
    side's launches 0.
+23. the model families and the block-sparse model on a mesh (after phase
+   22). First B1-B4 at a Pythia-1.4b tensor=2 rank's shapes (8/8 heads
+   of 128: the 1024 bucket, B=4 S=2048 training, 8 decode slots) and B5
+   at the BigBird model's rank (16 query heads of 64 after the repeat of
+   its 4 kv heads, phase 15 (a)'s longest bucket), each against its
+   plain version. Then one two-rank gloo group on the card plays every
+   part (laws and identities, not a parallel speed): (a) Pythia-1.4b at
+   full width (``config.json`` fields: H 2048, 16 heads of 128,
+   ``rotary_dim`` 32, parallel block, biases, vocab 50304), cut to 4
+   layers, at tensor=2: 8 requests of 64..1024 tokens, 32 new each (a
+   rank's B1 = prefills x 4, B4 = decode steps x 4), then trained at
+   B=4 S=2048, 1 + 2 steps (B1 = 2 x 4, B2 = B3 = 4 a step); each
+   rank's bytes of params (served and trained), optimizer state and
+   grads equal to the law: column, row and vocab leaves halved, row
+   biases and norms whole; (b) BLOOM-1b7 width at tensor=2, 2 layers:
+   bf16 logits within 2e-2 of world 1's, B1 = B4 = 0 (ALiBi at the
+   rank's head offset, plain); (c) the BigBird llama-1b-width model at
+   tensor=2, 4 layers, on phase 15 (a)'s load: a rank's B5 = prefills x
+   4, B4 = decode steps x 4, B1 = 0; (d) f32 at 2 layers: Pythia, BLOOM
+   and BERT-large at tensor=2 and BERT-large at data=2 under ZeRO-3, 2
+   SGD steps each against world 1 (losses and params within 1e-5), and
+   Pythia's and BLOOM's greedy streams at tensor=2 token-identical to
+   world 1's.
 
 Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
 seconds) when it ends, and the script a ``"total"`` one before the
@@ -1136,6 +1159,14 @@ def _sparse_cases():
     ]
 
 
+# phase 23's B5 case: a tensor=2 rank of the BigBird llama-1b-width model
+# at phase 15 (a)'s longest bucket, 16 query heads after the repeat of its
+# 4 kv heads (index 7 of the flex warm-up's cases)
+FM_SPARSE_CASE = (f"llama-1b BigBird tensor=2 rank B=1 S={SERVED_SPARSE_S}",
+                  "bigbird", BIGBIRD_128, 1, SERVED_SPARSE_S, 16, 64,
+                  torch.bfloat16, {})
+
+
 def _flex_setup():
     """flex_attention, the yardstick, compiles through Inductor and
     Triton: in-process (no compile workers), its caches beside the
@@ -1156,7 +1187,7 @@ def _flex_setup():
 
 # the sparse cases (indices into _sparse_cases) each warm-up process
 # compiles flex_attention for: about 40 s of compiles each on an H100 host
-FLEX_WARMUP_GROUPS = ((0, 2), (1, 3), (4, 5, 6))
+FLEX_WARMUP_GROUPS = ((0, 2, 7), (1, 3), (4, 5, 6))
 
 
 def start_flex_warmup():
@@ -1206,7 +1237,7 @@ def flex_warmup(index: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _flex_setup()
-    cases = _sparse_cases()
+    cases = _sparse_cases() + [FM_SPARSE_CASE]
     for j in FLEX_WARMUP_GROUPS[index]:
         name, mode, kw, B, S, N, D, dtype, extra = cases[j]
         t0 = time.perf_counter()
@@ -2713,9 +2744,9 @@ def _layer_bytes_unsharded(cfg, itemsize=2):
 
 
 # the two-rank serving loads' depth (the run's time limit cuts depth,
-# never width): llama-7b 16 of its 32 layers, Mixtral 4 of its 32
-TP_SERVE_LAYERS = 16
-EP_SERVE_LAYERS = 4
+# never width): llama-7b 8 of its 32 layers, Mixtral 2 of its 32
+TP_SERVE_LAYERS = 8
+EP_SERVE_LAYERS = 2
 
 
 def sharded_serving_phase(smi: str, served, plain_step):
@@ -5277,19 +5308,21 @@ def _leaf_bytes(cfg, halved, itemsize):
                for k, t in ckpt_mod.flatten(meta).items())
 
 
-def _mp_run(cfg, config, batches, name, mesh=None, logged=False):
+def _mp_run(cfg, config, batches, name, mesh=None, logged=False,
+            params=None):
     """initialize -> one train_batch a batch (the first a warm-up): the
     losses, each step's wall ms, this rank's launches (zeroed after the
     warm-up), bytes and peak memory. ``mesh``: the engine's (None: the
     plan of the config over the process group). ``logged``: the comms
     logger and the facade's counts are zeroed after the warm-up too, and
-    the record carries both (``logger``)."""
+    the record carries both (``logger``). ``params``: a whole tree to
+    start from instead of the seeded init (each rank takes its slice)."""
     from deepspeed_tpu_torch import initialize, make_model
     from deepspeed_tpu_torch.comm import comm
     from deepspeed_tpu_torch.ops import _build
     torch.cuda.reset_peak_memory_stats()
     engine, *_ = initialize(model=make_model(cfg, name), config=dict(config),
-                            mesh=mesh)
+                            mesh=mesh, params=params)
     losses = [float(engine.train_batch(batches[0])["loss"])]
     _build.reset_launch_counts()
     if logged:
@@ -5314,30 +5347,41 @@ def _mp_run(cfg, config, batches, name, mesh=None, logged=False):
     return engine, rec
 
 
-def _f32_identity(rank, cfg, config, batches, name):
+def _f32_identity(rank, cfg, config, batches, name, params=None):
     """(d) An f32 run of one step a batch over the ranks, then on rank 0
     the same run at world 1 (``single_mesh``, the whole batch): the
     losses of both, the largest loss difference and the params' relative
-    L2 (the ranks' params made whole on the card first)."""
+    L2 (the ranks' params made whole on the card first). ``params``: the
+    whole tree both runs start from (None: the seeded init)."""
     from deepspeed_tpu_torch.parallel import single_mesh
     from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
-    engine, rec = _mp_run(cfg, config, batches, name)
-    params = _zero_whole_params(engine, "cuda")
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in tree.items()}
+
+    def start():
+        # a fresh copy a run: an engine trains a whole leaf of the tree it
+        # was given in place (only a sliced leaf is a copy)
+        return None if params is None else clone(params)
+    engine, rec = _mp_run(cfg, config, batches, name, params=start())
+    whole = _zero_whole_params(engine, "cuda")
     del engine
     if rank:
-        del params
+        del whole
         _free()
         return None
     _free()
     engine, one = _mp_run(cfg, {k: v for k, v in config.items()
                                 if k not in ("moe", "tensor_parallel",
                                              "pipeline", "sequence_parallel")},
-                          batches, name, mesh=single_mesh())
+                          batches, name, mesh=single_mesh(),
+                          params=start())
     # leaf by leaf on the card, in f32 (the leaves reach 0.94 B values)
     err = 0.0
     for k, t in ckpt_mod.flatten(engine.state["params"]).items():
         want = t.detach().float()
-        err = max(err, float(torch.linalg.vector_norm(params.pop(k) - want)
+        err = max(err, float(torch.linalg.vector_norm(whole.pop(k) - want)
                              / torch.linalg.vector_norm(want)))
     del engine
     _free()
@@ -5526,10 +5570,10 @@ def model_parallel_phase(smi: str):
 # data-mesh generate and the comms logger
 # --------------------------------------------------------------------------
 
-PP_LAYERS = 8             # llama-1b width, 8 of its 16 layers
+PP_LAYERS = 4             # llama-1b width, 4 of its 16 layers
 PP_M = 4                  # micro-batches a step (gradient_accumulation_steps)
 PP_STEPS = 2              # after 1 warm-up step
-RING_LAYERS = 8           # llama-1b width, 8 of its 16 layers
+RING_LAYERS = 4           # llama-1b width, 4 of its 16 layers
 RING_SEQ = 16384          # 8192 positions a rank
 DP_LAYERS = 4             # llama-7b width, 4 of its 32 layers
 DP_PROMPT, DP_NEW = 512, 32
@@ -5611,7 +5655,7 @@ def _pp_rank(rank, world):
     torch.backends.cuda.matmul.allow_tf32 = False
     comm.configure(enabled=True)
     rec = {}
-    # (a) llama-1b width, 8 layers, B=8 S=2048 in 4 micro-batches, pipe=2
+    # (a) llama-1b width, 4 layers, B=8 S=2048 in 4 micro-batches, pipe=2
     bs = _zero_batches(8, ZERO_SEQ, 1 + PP_STEPS, seed=0)
     engine, rec["pipe"] = _mp_run(_llama1b_train(PP_LAYERS, ZERO_SEQ),
                                   PP_CONFIG, bs, "llama-1b", logged=True)
@@ -5620,7 +5664,7 @@ def _pp_rank(rank, world):
     rec["pipe"]["stage"] = engine.mesh.index("pipe")
     del engine, bs
     _free()
-    # (c) llama-1b width, 8 layers, B=1 S=16384, seq=2
+    # (c) llama-1b width, 4 layers, B=1 S=16384, seq=2
     bs = _zero_batches(1, RING_SEQ, 1 + PP_STEPS, seed=1)
     engine, rec["ring"] = _mp_run(_llama1b_train(RING_LAYERS, RING_SEQ),
                                   SEQ_CONFIG, bs, "llama-1b", logged=True)
@@ -6945,6 +6989,319 @@ def training_extras_phase(smi: str):
     return rec
 
 
+# --------------------------------------------------------------------------
+# phase 23: the model families and the block-sparse model on a mesh
+# --------------------------------------------------------------------------
+
+FM_LAYERS = 4             # Pythia-1.4b, the BigBird model: 4 of their layers
+FM_BLOOM_LAYERS = 2       # BLOOM-1b7 width, 2 of its 24 layers
+FM_STEPS = 2              # Pythia's training steps after 1 warm-up step
+FM_NEW = 32
+FM_B, FM_S = 4, 2048
+FM_SERVING = dict(max_seqs=8, block_size=64, max_model_len=1088,
+                  decode_quantum=8)
+FM_ID_B, FM_ID_S, FM_ID_NEW = 2, 256, 12
+
+
+def _fm_batches(cfg, B, S, n, seed, masked=False):
+    """``n`` batches of in-vocab ids on the card; ``masked``: each row r
+    of the batch padded past S - 37 r (a key mask)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"input_ids": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S), dtype=np.int32)).cuda()}
+        if masked:
+            b["attention_mask"] = (
+                torch.arange(S, device="cuda")[None, :]
+                < torch.tensor([S - 37 * r for r in range(B)],
+                               device="cuda")[:, None]).to(torch.int32)
+        out.append(b)
+    return out
+
+
+def _fm_halved(path: str) -> bool:
+    """Which leaves a tensor=2 rank holds half of: every column, row and
+    vocab leaf; the row biases (``bo``, ``b_out``) and the norms stay
+    whole."""
+    leaf = path.rsplit("/", 1)[-1]
+    return not (leaf in ("bo", "b_out") or leaf.startswith("ln")
+                or "norm" in leaf)
+
+
+def _fm_serve(rank, cfg, name, prompts, n_new, serving, plan, params=None,
+              seed=0, before=None):
+    """A warm-up request on a first serving engine, then ``prompts`` on a
+    fresh one over the same weights (every rank's launch counts zeroed
+    just before; rank 0 drives, the other serves its device calls).
+    Every rank: its launches and resident param bytes; rank 0: the
+    generated streams (checked) and the stats."""
+    from deepspeed_tpu_torch import init_serving, make_model
+    from deepspeed_tpu_torch.inference.serving import ServingEngine
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.parallel import sharded_bytes
+    dtype = cfg.dtype
+    warm = init_serving(make_model(cfg, name), config={"kv_cache_bits": 0},
+                        serving=serving, params=params, dtype=dtype,
+                        seed=seed, mesh=plan)
+    if rank == 0:
+        warm.run([(prompts[0][:64], 4)])
+        warm.close()
+    else:
+        warm.run_worker()
+    srv = ServingEngine(warm.engine, warm.config, seed=seed)
+    del warm
+    rec = {"param_bytes": sharded_bytes(srv.engine.params)}
+    if before is not None:
+        before()
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    if rank == 0:
+        t0 = time.perf_counter()
+        outs = srv.run([(p, n_new) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gens = [np.asarray(outs[k][len(p):])
+                for k, p in zip(sorted(outs), prompts)]
+        bad = [i for i, g in enumerate(gens) if g.size != n_new
+               or g.min() < 0 or g.max() >= cfg.vocab_size]
+        if bad:
+            raise RuntimeError(f"phase 23 {name}: requests {bad} returned "
+                               f"{[gens[i].size for i in bad]} tokens or "
+                               f"tokens past the vocabulary of "
+                               f"{cfg.vocab_size}")
+        st = srv.stats()
+        rec.update(streams=[outs[k] for k in sorted(outs)], wall_s=wall,
+                   held_blocks_after=srv.allocator.used_blocks,
+                   decode_backend=srv.decode_backend,
+                   **{k: st.get(k) for k in (
+                       "p50_ttft_ms", "p50_itl_ms", "tok_per_sec",
+                       "prefills", "decode_steps", "preemptions", "tp",
+                       "recoveries")})
+        srv.close()
+    else:
+        srv.run_worker()
+    rec["launches"] = _build.launch_counts()
+    del srv
+    _free()
+    return rec
+
+
+def _fm_streams(rank, cfg, name, prompts, plan):
+    """f32 greedy streams at ``plan`` (every rank) and, on rank 0, at
+    world 1 on the same seeded weights: whether they are identical."""
+    params = _family_params(cfg, 7, torch.float32)
+    got = _fm_serve(rank, cfg, name, prompts, FM_ID_NEW, FM_SERVING, plan,
+                    params=params)
+    if rank:
+        del params
+        _free()
+        return None
+    one = _fm_serve(0, cfg, name, prompts, FM_ID_NEW, FM_SERVING, None,
+                    params=params)
+    del params
+    _free()
+    return all(np.array_equal(a, b)
+               for a, b in zip(got["streams"], one["streams"]))
+
+
+def _fm_rank(rank, world, prompts, sparse_prompts, bloom_ids):
+    """One rank of phase 23 (a)-(d), both ranks on cuda:0 over gloo.
+    Returns every rank's record (on rank 0)."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch import init_inference, llama_config, make_model
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.parallel import MeshPlan
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf, f32 = torch.bfloat16, torch.float32
+    tp2 = MeshPlan(tensor=2)
+    rec = {}
+    # (a) Pythia-1.4b at full width, 4 layers, tensor=2: served, trained
+    cfg = _family_cfg("pythia-1.4b", FM_LAYERS)
+    rec["a_serving"] = _fm_serve(rank, cfg, "pythia-1.4b", prompts, FM_NEW,
+                                 FM_SERVING, tp2,
+                                 params=_family_params(cfg, 0, bf))
+    mark_part("(a) pythia-1.4b served at tensor=2")
+    tcfg = dataclasses.replace(cfg, max_seq_len=FM_S, remat=True,
+                               remat_policy="dots_saveable", loss_chunk=FM_S)
+    engine, rec["a_training"] = _mp_run(
+        tcfg, dict(TRAIN_CONFIG, train_batch_size=FM_B, **TP2),
+        _fm_batches(tcfg, FM_B, FM_S, 1 + FM_STEPS, 1), "pythia-1.4b",
+        params=_family_params(tcfg, 1, f32))
+    del engine
+    _free()
+    # (b) BLOOM-1b7 width, 2 layers, tensor=2: bf16 logits against world 1
+    bcfg = _family_cfg("bloom-1b7", FM_BLOOM_LAYERS)
+    bparams = _family_params(bcfg, 2, bf)
+    ids = torch.as_tensor(bloom_ids).cuda()
+    eng = init_inference(make_model(bcfg, "bloom-1b7"),
+                         config={"kv_cache_bits": 0}, dtype=bf,
+                         params=bparams, mesh=tp2)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    logits = eng.forward(ids)
+    torch.cuda.synchronize()
+    rec["b"] = {"launches": _build.launch_counts(),
+                "finite": bool(torch.isfinite(logits).all()),
+                "shape": list(logits.shape)}
+    del eng
+    _free()
+    if rank == 0:
+        one = init_inference(make_model(bcfg, "bloom-1b7"),
+                             config={"kv_cache_bits": 0}, dtype=bf,
+                             params=bparams)
+        rec["b"]["rel_l2_vs_world1"] = rel_l2(logits, one.forward(ids))
+        del one
+    del logits, bparams
+    _free()
+    mark_part("(b) bloom-1b7 logits at tensor=2")
+    # (c) the BigBird llama-1b-width model, 4 layers, tensor=2, phase 15
+    # (a)'s load
+    scfg = llama_config("1b", num_layers=FM_LAYERS, max_seq_len=8192,
+                        sparse_attention=SPARSE_MODEL)
+    rec["c"] = _fm_serve(rank, scfg, "llama-1b BigBird", sparse_prompts, 32,
+                         SPARSE_SERVING, tp2, before=_clear_sparse_tables)
+    rec["c"].pop("streams", None)
+    mark_part("(c) BigBird llama-1b served at tensor=2")
+    # (d) f32, 2 layers, against world 1
+    ident = {}
+    for name, plan_cfg, masked in (
+            ("pythia-1.4b", TP2, False), ("bloom-1b7", TP2, False),
+            ("bert-large", TP2, True),
+            ("bert-large", {"zero_optimization": {"stage": 3}}, True)):
+        c = _family_cfg(name, ID_LAYERS, dtype=f32, max_seq_len=FM_ID_S)
+        what = name + (" ZeRO-3" if "zero_optimization" in plan_cfg
+                       else " tensor=2")
+        ident[what] = _f32_identity(
+            rank, c, dict(MP_F32_CONFIG, **plan_cfg),
+            _fm_batches(c, FM_ID_B, FM_ID_S, MP_F32_STEPS, 3, masked), name,
+            params=_family_params(c, 4, f32))
+    rng = np.random.default_rng(23)
+    for name in ("pythia-1.4b", "bloom-1b7"):
+        c = _family_cfg(name, ID_LAYERS, dtype=f32)
+        ps = [rng.integers(0, c.vocab_size, n).astype(np.int32)
+              for n in (100, 300)]
+        ident[f"{name} streams"] = _fm_streams(rank, c, name, ps, tp2)
+    rec["d"] = ident
+    mark_part("(d) f32 identities")
+    out = [None] * world
+    dist.all_gather_object(out, rec)
+    return out if rank == 0 else None
+
+
+def families_mesh_phase(smi: str):
+    """Phase 23: the families and the block-sparse model on a mesh."""
+    from deepspeed_tpu_torch.parallel.launch import run_group
+    t_phase = time.perf_counter()
+    _free()
+    bf = torch.bfloat16
+    pyth = ("pythia-1.4b tensor=2 rank", 8, 8, 128)
+    flash = [flash_case(f"{pyth[0]} S=1024", 1, 1024, *pyth[1:], bf),
+             flash_case(f"{pyth[0]} training B={FM_B} S={FM_S}", FM_B, FM_S,
+                        *pyth[1:], bf)]
+    bwd = [bwd_case(f"{pyth[0]} training B={FM_B} S={FM_S}", FM_B, FM_S,
+                    *pyth[1:], bf)]
+    decode = [decode_case(f"{pyth[0]} 8/8 D=128 8 slots", 8, 8, 8, 128, 64,
+                          17, [0, 63, 64, 200, 513, 900, 1024, 1056], bf)]
+    sparse = [sparse_case(*FM_SPARSE_CASE[:8], **FM_SPARSE_CASE[8])]
+    _free()
+    rng = np.random.default_rng(230)
+    lengths = (64, 192, 320, 448, 576, 704, 832, 1024)
+    prompts = [rng.integers(0, 50304, n).astype(np.int32) for n in lengths]
+    srng = np.random.default_rng(SPARSE_PROMPT_SEED)
+    sparse_prompts = [srng.integers(0, VOCAB, size=int(n)).astype(np.int32)
+                      for n in sparse_prompt_lengths(srng)]
+    bloom_ids = rng.integers(0, 250880, (1, 512)).astype(np.int64)
+    ranks = run_group(_fm_rank, 2, prompts, sparse_prompts, bloom_ids,
+                      timeout_s=900)
+    checks, L = {}, FM_LAYERS
+    cfg = _family_cfg("pythia-1.4b", FM_LAYERS)
+    tcfg = dataclasses.replace(cfg, max_seq_len=FM_S)
+    st_a, st_c = ranks[0]["a_serving"], ranks[0]["c"]
+    serve_law = _leaf_bytes(cfg, _fm_halved, 2)
+    train_law = {"params": _leaf_bytes(tcfg, _fm_halved, 2),
+                 "opt": _leaf_bytes(tcfg, _fm_halved, 12),
+                 "grads": _leaf_bytes(tcfg, _fm_halved, 4)}
+    for i, r in enumerate(ranks):
+        la = r["a_serving"]["launches"]
+        checks[f"(a) rank {i} B1 == prefills x {L}"] = \
+            la["flash_fwd"] == st_a["prefills"] * L and \
+            st_a["prefills"] == len(prompts)
+        checks[f"(a) rank {i} B4 == decode steps x {L}"] = \
+            la["paged_decode"] == st_a["decode_steps"] * L > 0
+        checks[f"(a) rank {i} served param bytes == the law"] = \
+            r["a_serving"]["param_bytes"] == serve_law
+        tr = r["a_training"]
+        checks[f"(a) rank {i} training finite"] = \
+            bool(np.all(np.isfinite(tr["losses"])))
+        checks[f"(a) rank {i} B1 == 2 x {L}, B2 == B3 == {L} a step"] = \
+            tr["launches"]["flash_fwd"] == 2 * FM_STEPS * L and \
+            tr["launches"]["flash_bwd_dq"] == \
+            tr["launches"]["flash_bwd_dkv"] == FM_STEPS * L
+        checks[f"(a) rank {i} bytes of params, opt, grads == the law"] = \
+            tr["bytes"] == train_law
+        checks[f"(b) rank {i} B1 == B4 == 0, finite logits"] = \
+            r["b"]["launches"]["flash_fwd"] == 0 and \
+            r["b"]["launches"]["paged_decode"] == 0 and r["b"]["finite"]
+        lc = r["c"]["launches"]
+        checks[f"(c) rank {i} B5 == prefills x {L}, B4 == decode steps x "
+               f"{L}, B1 == 0"] = \
+            lc["sparse_fwd"] == st_c["prefills"] * L and \
+            st_c["prefills"] == len(sparse_prompts) and \
+            lc["paged_decode"] == st_c["decode_steps"] * L and \
+            lc["flash_fwd"] == 0
+    checks["(a) decode route: the paged kernel"] = \
+        st_a["decode_backend"] == "pallas"
+    checks["(a, c) pools empty after"] = \
+        st_a["held_blocks_after"] == 0 == st_c["held_blocks_after"]
+    checks["(b) bf16 logits within 2e-2 of world 1"] = \
+        ranks[0]["b"]["rel_l2_vs_world1"] <= 2e-2
+    ident = ranks[0]["d"]
+    for what, got in ident.items():
+        if what.endswith("streams"):
+            checks[f"(d) f32 {what} token-identical to world 1"] = got
+        else:
+            checks[f"(d) f32 {what} == world 1: losses 1e-5, params 1e-5"] \
+                = got["loss_rel_err"] <= 1e-5 and \
+                got["params_rel_l2"] <= 1e-5
+    launches = {
+        "families_mesh": {k: sum(
+            r[part]["launches"].get(k, 0) for r in ranks
+            for part in ("a_serving", "a_training", "c"))
+            for k in FLASH_KERNELS + ("paged_decode", "sparse_fwd")}}
+    rec = {"card": smi, "timing": ZERO_SHARED, "flash_cases": flash,
+           "bwd_cases": bwd, "decode_cases": decode, "sparse_cases": sparse,
+           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+    log(f"phase 23 (a) pythia-1.4b tensor=2 [{smi}; {ZERO_SHARED}] "
+        + json.dumps({
+            "serving": {k: st_a.get(k) for k in (
+                "p50_ttft_ms", "p50_itl_ms", "tok_per_sec", "prefills",
+                "decode_steps", "wall_s", "decode_backend")},
+            "serving_launches": [r["a_serving"]["launches"] for r in ranks],
+            "param_bytes": [r["a_serving"]["param_bytes"] for r in ranks],
+            "param_bytes_law": serve_law,
+            "training": {k: [r["a_training"][k] for r in ranks] for k in (
+                "losses", "step_ms_wall", "peak_mem_gib", "bytes",
+                "launches", "plan")},
+            "training_bytes_law": train_law}))
+    log(f"phase 23 (b) bloom-1b7 tensor=2 [{smi}] " + json.dumps(
+        [r["b"] for r in ranks]))
+    log(f"phase 23 (c) BigBird llama-1b tensor=2 [{smi}] " + json.dumps(
+        {"ranks": [{k: r["c"][k] for k in ("launches", "param_bytes")}
+                   for r in ranks]}
+        | {k: st_c.get(k) for k in ("p50_ttft_ms", "p50_itl_ms",
+                                    "tok_per_sec", "prefills",
+                                    "decode_steps", "wall_s")}))
+    log(f"phase 23 (d) f32 {ID_LAYERS} layers [{smi}] " + json.dumps(ident))
+    log(f"phase 23: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
+        f"checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 23: failed {failed}")
+    return rec
+
+
 def kernel_line(name, replaces, launches, cases, main, variant=None):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -7040,14 +7397,18 @@ def main() -> int:
     p20 = timed("20_pipeline_ring", pipeline_ring_phase, card)
     p21 = timed("21_model_families", model_families_phase, card)
     p22 = timed("22_training_extras", training_extras_phase, card)
+    p23 = timed("23_families_mesh", families_mesh_phase, card)
     # B1-B3 held at a ZeRO rank's shapes too, at the MoE cell's and a
     # tensor=2 rank's (D=128), and at GPT-2 1.3b's and BERT-large's; B4 at
     # GPT-2 1.3b's decode
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
-    flash += p19["flash_cases"] + p21["flash_cases"] + p22["flash_cases"]
-    bwd += p19["bwd_cases"] + p21["bwd_cases"] + p22["bwd_cases"]
-    decode += p21["decode_cases"]
+    flash += p19["flash_cases"] + p21["flash_cases"] + p22["flash_cases"] \
+        + p23["flash_cases"]
+    bwd += p19["bwd_cases"] + p21["bwd_cases"] + p22["bwd_cases"] \
+        + p23["bwd_cases"]
+    decode += p21["decode_cases"] + p23["decode_cases"]
+    sparse += p23["sparse_cases"]
 
     main_flash = flash[1]      # the 1024 bucket
     main_decode = decode[0]    # 16 slots of llama-7b
@@ -7160,6 +7521,13 @@ def main() -> int:
         if n:
             entry["launches"] += n
             entry["launches_by_path"]["training_extras"] = n
+    # phase 23: every rank of Pythia served and trained at tensor=2 and of
+    # the BigBird model served at tensor=2
+    for entry in line["kernels"][:5]:
+        n = p23["launches"]["families_mesh"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["families_mesh"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

@@ -26,7 +26,11 @@ divides, a dense model on an expert mesh serves at ep = 1 (every rank a
 full replica), the tensor degree must divide ``kv_heads``, and the GEMM
 fusion is off at tp > 1 (the concat would interleave head shards).
 ``forward`` and ``generate`` are collective then: every rank calls them
-with the same inputs (the serving engine drives its ranks itself).
+with the same inputs (the serving engine drives its ranks itself). A
+model family (biases, learned positions, ALiBi at the rank's head
+offset, a vocab-sharded head bias) and a block-sparse model (B5 on the
+rank's head shard, the layout shared by every head as JAX's) serve on
+any of these meshes.
 
 On a ``data`` (and ``fsdp``) mesh, as JAX's engine shards a batch over
 ``data`` when the data degree divides it (``_batch_spec``): ``forward``
@@ -52,8 +56,7 @@ from deepspeed_tpu_torch.inference import generation
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models.convert import params_from_numpy
-from deepspeed_tpu_torch.models.transformer import (check_family_mesh,
-                                                    fuse_layer_stack,
+from deepspeed_tpu_torch.models.transformer import (fuse_layer_stack,
                                                     logical_axes,
                                                     make_model,
                                                     quantize_leaf,
@@ -177,13 +180,6 @@ def _resolve_mesh(model, config: InferenceConfig, mesh):
             f"tensor parallel degree {tp} does not divide kv_heads="
             f"{mcfg.kv_heads}: the KV pools shard on the kv-head dim, so "
             "each rank must hold whole heads")
-    if mcfg.sparse_attention and (tp > 1 or ep > 1):
-        raise NotImplementedError(
-            f"a block-sparse model at tensor_parallel={tp}, expert_parallel="
-            f"{ep} is not ported yet: ROADMAP A10b (a block-sparse model on "
-            "a mesh: a layout that differs per head would be sliced by each "
-            "rank's heads)")
-    check_family_mesh(mcfg, plan.world_size)
     if not isinstance(mesh, Mesh):
         mesh = build_mesh(plan)
     return mesh, tp, ep

@@ -117,9 +117,8 @@ decode step writes the pending token's row and samples a new pending
 token. Host-side ``generated`` absorbs the pending chain at the round
 boundary from the one token fetch.
 
-What this port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: a block-sparse model on a mesh (A10b). A block-sparse
-model serves as JAX's does: its whole-prompt prefills run the block-sparse
+A block-sparse model serves as JAX's does, on one rank or at tensor /
+expert parallel > 1 (B5 on the rank's head shard): its whole-prompt prefills run the block-sparse
 kernel (B5) over the bucket, a multiple of the layout's block; its decode
 steps and spans (chunked and warm prefills) attend densely. The port
 samples from a ``torch.Generator`` where JAX folds a counter into a key:

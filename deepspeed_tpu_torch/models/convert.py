@@ -12,12 +12,14 @@ expert stacks ``moe_w_in`` / ``moe_w_out`` / ``moe_w_gate`` and PR-MoE's
 ``moe_coef``. The model families carry the layer biases (bq / bk / bv or
 the fused bqkv, bo, b_in, b_out), ``pos_embed``, ``tok_type_embed``,
 ``embed_norm_scale`` / ``_bias`` and ``lm_head_bias``. The tree must hold
-exactly the config's leaves (``logical_axes``, JAX's ``init_params`` set);
-a family's leaves on a mesh of more than one rank raise naming A11.
+exactly the config's leaves (``logical_axes``, JAX's ``init_params`` set).
 
 With a ``mesh`` (tensor / expert parallel serving) each leaf is cut to
 this rank's slice by JAX's sharding rules before it is copied, so a rank
-moves only its shard to the device.
+moves only its shard to the device; a family's leaves too. A dim that
+its mesh axes do not divide (GPT-2's vocabulary of 50257 over tensor=2)
+raises ``ValueError`` naming the leaf, as JAX's ``device_put`` of it
+raises.
 """
 
 from typing import Any, Dict
@@ -26,7 +28,6 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
-                                                    check_family_mesh,
                                                     logical_axes,
                                                     quantize_leaf,
                                                     quantized_logical_axes)
@@ -145,7 +146,6 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig, *,
         specs = {"layers": {}}
         mesh = None
     else:
-        check_family_mesh(cfg, mesh.world_size)
         specs = param_specs(tree, cfg, quantized=quantize, rules=rules)
     out = {k: _leaf(v, device, dtype, specs.get(k), mesh, k)
            for k, v in tree.items() if k != "layers"}

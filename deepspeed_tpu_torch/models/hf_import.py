@@ -9,7 +9,10 @@ loading).
 ``load_hf_params`` returns ONE whole tree of numpy arrays in the JAX
 layout (the same tree as JAX's ``load_hf_params`` with ``shardings=None``),
 checked leaf for leaf against the port's own ``init_params`` shapes;
-``models/convert.params_from_numpy`` moves it to the card (or the CPU).
+``models/convert.params_from_numpy`` moves it to the card (or the CPU),
+and with ``mesh=`` cuts a rank's slice of every leaf of any family before
+the copy, so an imported family serves or trains on a tensor, expert,
+data or fsdp mesh straight from the one tree.
 The same tables run backwards export a tree to an HF-layout state dict
 (Llama and GPT-2 layouts), ``hf_config_to_transformer`` builds the port's
 config from a ``config.json``, ``load_peft_adapter`` reads a PEFT LoRA
@@ -573,7 +576,7 @@ _SKIP = (r"(rotary_emb\.inv_freq|\.attn\.(bias|masked_bias)$"
          r"|\.attention\.(bias|masked_bias|rotary_emb)"
          r"|pooler\.dense\.|cls\.|position_ids$"
          # full-CLIP extras: the vision tower (JAX's models/clip_vision.py,
-         # not ported yet: ROADMAP A11); projections are out of scope
+         # not ported yet: ROADMAP A, item 7); projections are out of scope
          r"|^vision_model\.|^visual_projection\."
          r"|^text_projection\.|^logit_scale$"
          # DistilBERT MLM/classification heads: hidden states +

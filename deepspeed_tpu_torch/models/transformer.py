@@ -112,12 +112,27 @@ logits leave through ``reduce_from_tensor``, and with
 ``tp_overlap_chunks > 1`` the row-parallel sum is cut along the sequence
 (``parallel/partitioning.row_parallel_matmul``).
 
+The families run on every mesh axis, as JAX's do through GSPMD. Over
+``tensor``: the column biases (``bq`` / ``bk`` / ``bv``, ``b_in``) are
+sliced with their columns, the row biases (``bo``, ``b_out``) are whole
+and added once, after the row-parallel sum; the vocab-sharded
+``lm_head_bias`` takes its place in the assembled logits
+(``_full_vocab``); ALiBi's slopes are those of the model's heads at the
+rank's head offset (``_alibi_term``). Over ``seq``: learned positions
+and token types are read at the rank's global positions; a windowed
+layer gathers K/V over ``seq`` and runs JAX's band softmax on the rank's
+query rows (``_seq_gathered_attention``), and so does an ALiBi layer
+under a key mask (JAX's XLA branch); an ALiBi layer without one takes
+the ring without the bias, as JAX's ring does (ROADMAP C11). A
+block-sparse model with ALiBi runs the sparse kernels without the bias
+(JAX's routing, ROADMAP C12), and its windowed layers the dense band.
+
 What the port leaves out raises ``NotImplementedError`` naming its
-ROADMAP item: a model family's leaves or layer features on a mesh of more
-than one rank (``check_family_mesh``, A11), and a block-sparse model with
-ALiBi or local windows (A11). A position past the learned table clamps
-to its last row, as JAX's gather does, so no out-of-range index reaches
-the card.
+ROADMAP item: under ``pipe`` a family's token types, embedding norm,
+``final_norm=False`` or local windows, which JAX's pipeline drops
+(``check_family_mesh``, A11 (the leaves JAX's pipeline drops)). A
+position past the learned table clamps to its last row, as JAX's gather
+does, so no out-of-range index reaches the card.
 """
 
 import dataclasses
@@ -134,6 +149,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from deepspeed_tpu_torch.accelerator import resolve_device
+from deepspeed_tpu_torch.comm.comm import all_gather as comm_all_gather
 from deepspeed_tpu_torch.moe.sharded_moe import moe_ffn
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
@@ -148,6 +164,7 @@ from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
                                                   axis_size,
                                                   batch_row,
                                                   copy_to_tensor,
+                                                  gather_along,
                                                   gather_params,
                                                   reduce_from_tensor,
                                                   seq_offset,
@@ -261,17 +278,6 @@ class TransformerConfig:
         if self.attn_windows and len(self.attn_windows) != self.num_layers:
             raise ValueError(f"attn_windows has {len(self.attn_windows)} "
                              f"entries for {self.num_layers} layers")
-        deferred = {
-            "sparse_attention": (
-                bool(self.sparse_attention) and (
-                    self.position_type == "alibi" or bool(self.attn_windows)),
-                "A11 (a block-sparse model with ALiBi or local windows)"),
-        }
-        for name, (bad, item) in deferred.items():
-            if bad:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet: "
-                    f"ROADMAP {item}")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError(f"dropout_rate={self.dropout_rate}: in [0, 1)")
         if self.num_experts > 1 and not 1 <= self.top_k <= self.num_experts:
@@ -526,8 +532,7 @@ def family_leaves(cfg: TransformerConfig) -> List[str]:
     position and token-type tables, the embedding norm, the head bias),
     and the layer features they lack (ALiBi, windows, post-LN, the
     parallel block, partial or interleaved rotary, bidirectional
-    attention, no final norm). A mesh of more than one rank refuses
-    them (``check_family_mesh``)."""
+    attention, no final norm)."""
     axes = logical_axes(cfg)
     base = {"ln1_scale", "ln2_scale", "ln1_bias", "ln2_bias", "wq", "wk",
             "wv", "wo", "w_in", "w_out", "w_gate", "wg", "moe_w_in",
@@ -547,17 +552,28 @@ def family_leaves(cfg: TransformerConfig) -> List[str]:
     return out + [k for k, on in features.items() if on]
 
 
-def check_family_mesh(cfg: TransformerConfig, world_size: int) -> None:
-    """A model family's leaves or features on a mesh of more than one
-    rank raise naming ROADMAP A11: their logical axes are JAX's, but the
-    row-parallel biases (added once after the reduction), the vocab-sharded
-    head bias, ALiBi's per-rank head slopes and the ring's band and bias
-    are not ported."""
-    extra = family_leaves(cfg)
-    if world_size > 1 and extra:
+def pipe_dropped(cfg: TransformerConfig) -> List[str]:
+    """What JAX's pipeline leaves out of this config: its ``embed_fn``
+    adds only the token and learned-position rows (no token types, no
+    embedding norm), its stage scan passes no window, and its head reads
+    ``final_norm_scale`` whatever ``final_norm`` says
+    (``deepspeed_tpu/models/pipeline_wrapper.py``)."""
+    dropped = {"tok_type_embed": bool(cfg.type_vocab_size),
+               "embed_norm": cfg.embed_norm,
+               "final_norm=False": not cfg.final_norm,
+               "attn_windows": bool(cfg.attn_windows)}
+    return [k for k, on in dropped.items() if on]
+
+
+def check_family_mesh(cfg: TransformerConfig, plan) -> None:
+    """A family runs on every mesh axis; over ``pipe`` (``plan.pipe`` >
+    1) the features JAX's pipeline drops (``pipe_dropped``) raise naming
+    their ROADMAP label, where JAX would compute another model."""
+    dropped = pipe_dropped(cfg)
+    if plan.pipe > 1 and dropped:
         raise NotImplementedError(
-            f"{extra} on a mesh of {world_size} ranks is not ported yet: "
-            "ROADMAP A11 (model families on a mesh)")
+            f"{dropped} over pipe={plan.pipe} is not ported: JAX's pipeline "
+            "drops them. ROADMAP A11 (the leaves JAX's pipeline drops)")
 
 
 def quantized_logical_axes(cfg: TransformerConfig,
@@ -855,36 +871,46 @@ def _slopes_on(nq: int, device) -> torch.Tensor:
 
 
 def _alibi_term(nq: int, rel, shape):
-    """ALiBi's additive score term: the head slopes, viewed as ``shape``
-    (which places the heads), times ``rel`` (key position minus query
-    position, f32)."""
-    return _slopes_on(nq, rel.device).reshape(shape) * rel
+    """ALiBi's additive score term: the slopes of this rank's ``nq``
+    heads, viewed as ``shape`` (which places the heads), times ``rel``
+    (key position minus query position, f32). The slopes are those of
+    the model's ``nq * tp`` heads (BLOOM's series depends on the head
+    count) at the rank's head offset ``axis_index("tensor") * nq``, as
+    JAX's GSPMD program sees every head."""
+    tp = axis_size("tensor")
+    slopes = _slopes_on(nq * tp, rel.device)
+    if tp > 1:
+        off = axis_index("tensor") * nq
+        slopes = slopes[off:off + nq]
+    return slopes.reshape(shape) * rel
 
 
 def plain_attention(q, k, v, mask=None, *, causal: bool, cfg: TransformerConfig,
-                    window: Optional[int] = None):
+                    window: Optional[int] = None, q_offset: int = 0):
     """JAX's XLA branch of ``attention`` in plain torch ops: K/V repeated
     over the query-head group, f32 scores times the scale, ALiBi's
     ``slope * (k - q)``, then the causal, band (``i - j < window``) and
     key masks filled with -1e30, the softmax, and P V in q's dtype. ALiBi
     and local windows run here, on the card too, because JAX runs them on
     XLA (its flash kernel has no score bias and no band): no kernel of
-    the port adds either."""
-    B, S, Nq, D = q.shape
+    the port adds either. ``q_offset``: the position of q's first row
+    among k's (a ``seq`` rank's query rows against the gathered keys)."""
+    B, Sq, Nq, D = q.shape
     rep = Nq // k.shape[2]
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     scores = torch.einsum("bsnd,btnd->bnst", q, k).float() * _sm_scale(cfg, D)
-    pos = torch.arange(S, device=q.device)
+    qpos = torch.arange(q_offset, q_offset + Sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
     if cfg.position_type == "alibi":
-        rel = (pos[None, :] - pos[:, None]).float()
+        rel = (kpos[None, :] - qpos[:, None]).float()
         scores = scores + _alibi_term(Nq, rel, (1, Nq, 1, 1))
     if causal:
-        scores = scores.masked_fill(~(pos[None, :] <= pos[:, None]), _NEG)
+        scores = scores.masked_fill(~(kpos[None, :] <= qpos[:, None]), _NEG)
     if window:
         scores = scores.masked_fill(
-            ~((pos[:, None] - pos[None, :]) < window), _NEG)
+            ~((qpos[:, None] - kpos[None, :]) < window), _NEG)
     if mask is not None:
         scores = scores.masked_fill(~(mask != 0)[:, None, None, :], _NEG)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -899,22 +925,30 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     it, with the key mask). ``window``: this layer's local window (None:
     global).
 
-    ALiBi and a window take ``plain_attention`` (JAX's XLA branch), per
-    layer: a global layer of a windowed model keeps the flash kernel, as
-    JAX's unrolled stack does.
+    The route, JAX's order per layer:
 
-    As in JAX: a ``sparse_attention`` config without a key mask repeats K/V
-    over the query-head group (query head h reads kv head h // rep; autograd
-    of the repeat sums dK/dV over the group) and goes through the
-    block-sparse kernels (B5-B7). Everything else, a sparse config with a
-    key mask included, goes through the GQA-native flash kernels (B1-B3),
-    which compute the JAX dense branch's function.
-
-    Over a ``seq`` axis of more than one rank (q / k / v this rank's
-    piece of the sequence) attention is the ring
-    (``ops/ring_attention.ring_attention_local``: B1-B3 per pair of
-    pieces), ahead of the sparse branch, as in JAX; under a key mask too
-    (JAX's XLA branch takes that case; the rows that see a key agree).
+    - over a ``seq`` axis of more than one rank (q / k / v this rank's
+      piece of the sequence): a windowed layer, and an ALiBi layer under
+      a key mask, gather K/V over ``seq`` and run ``plain_attention`` on
+      the rank's query rows at their global positions (JAX's XLA branch:
+      the band, or the bias, over the whole sequence); everything else
+      is the ring (``ops/ring_attention.ring_attention_local``: B1-B3 per
+      pair of pieces), ahead of the sparse branch, as in JAX; under a
+      key mask too (JAX's XLA branch takes that case; the rows that see a
+      key agree), and for ALiBi without a mask, which JAX's ring runs
+      without the bias (ROADMAP C11);
+    - a window takes ``plain_attention`` (JAX's XLA branch, the band): a
+      global layer of a windowed model keeps its kernel, as JAX's
+      unrolled stack does;
+    - a ``sparse_attention`` config without a key mask repeats K/V over
+      the query-head group (query head h reads kv head h // rep; autograd
+      of the repeat sums dK/dV over the group) and goes through the
+      block-sparse kernels (B5-B7), ALiBi's bias left out as JAX's sparse
+      branch leaves it out (ROADMAP C12);
+    - ALiBi takes ``plain_attention`` (the bias);
+    - everything else, a sparse config with a key mask included, goes
+      through the GQA-native flash kernels (B1-B3), which compute the JAX
+      dense branch's function.
 
     A query row that sees no key (a causal row whose visible keys are all
     masked: left padding) gets O = 0 here, as JAX's Pallas flash kernel
@@ -924,17 +958,21 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
     on JAX's CPU backend (its Pallas opt-in agrees with the port), and the
     sparse config with a key mask, which JAX sends to XLA on every
     backend. Every row that sees a key agrees with both."""
-    if cfg.position_type == "alibi" or window:
-        return plain_attention(q, k, v, mask, causal=causal, cfg=cfg,
-                               window=window)
+    alibi = cfg.position_type == "alibi"
     sm = _sm_scale(cfg, q.shape[-1])
     if seq_parallel_degree() > 1:
+        if window or (alibi and mask is not None):
+            return _seq_gathered_attention(q, k, v, mask, causal=causal,
+                                           cfg=cfg, window=window)
         # the rank holds a piece of the sequence: the ring over ``seq``,
         # ahead of the sparse branch, as JAX routes it
         return ring_attention_local(q, k, v, causal=causal, sm_scale=sm,
                                     kv_mask=mask,
                                     fused_backward=cfg.fused_backward,
                                     reference=reference)
+    if window:
+        return plain_attention(q, k, v, mask, causal=causal, cfg=cfg,
+                               window=window)
     if cfg.sparse_attention and mask is None:
         if q.dtype == torch.float16:
             raise ValueError("sparse_attention kernels take no float16 (B5-B7 "
@@ -949,9 +987,28 @@ def attention(q, k, v, mask=None, *, causal: bool = True,
         return sparse_attention(q, k, v, get_sparsity_config(mode, **sa),
                                 causal=causal, sm_scale=sm,
                                 reference=reference)
+    if alibi:
+        return plain_attention(q, k, v, mask, causal=causal, cfg=cfg)
     return flash_attention(q, k, v, causal=causal, sm_scale=sm, kv_mask=mask,
                            fused_backward=cfg.fused_backward,
                            reference=reference)
+
+
+def _seq_gathered_attention(q, k, v, mask=None, *, causal: bool,
+                            cfg: TransformerConfig,
+                            window: Optional[int] = None):
+    """Over ``seq``: this rank's query rows against the whole sequence's
+    keys, JAX's XLA branch (the softmax over every key, with the band or
+    ALiBi's bias): K/V (and the key mask) gathered over ``seq`` in
+    coordinate order, then ``plain_attention`` with the rows at their
+    global positions. The gather's backward sums dK/dV over ``seq`` and
+    keeps the rank's piece."""
+    k_all = gather_along(k, "seq", dim=1)
+    v_all = gather_along(v, "seq", dim=1)
+    if mask is not None:
+        mask = comm_all_gather(mask.contiguous(), "seq", dim=1)
+    return plain_attention(q, k_all, v_all, mask, causal=causal, cfg=cfg,
+                           window=window, q_offset=seq_offset(q.shape[1]))
 
 
 def _quant_q(q32):
@@ -1431,14 +1488,34 @@ def _vocab_logits(x, head, vocab: Optional[int] = None):
     return all_reduce(full, "tensor")
 
 
+def _full_vocab(bias, vocab: int):
+    """The head's f32 bias over the whole vocabulary. Under a tensor axis
+    a vocab-sharded bias [V / tp] goes into a zero-filled [V] row at the
+    rank's offset, summed over ``tensor`` (one non-zero term an entry:
+    exact; with a graph through ``reduce_from_tensor``, whose identity
+    backward hands each rank its slice of the replicated grad)."""
+    bias = bias.float()
+    tp = axis_size("tensor")
+    if tp == 1 or bias.shape[-1] == vocab:
+        return bias
+    i, Vl = axis_index("tensor"), bias.shape[-1]
+    full = F.pad(bias, (i * Vl, (tp - 1 - i) * Vl))
+    if _graph(bias):
+        return reduce_from_tensor(full)
+    return all_reduce(full, "tensor")
+
+
 def lm_head_logits(x, params, vocab: Optional[int] = None):
     """Final projection to f32 vocab logits, the head cast to x's dtype
     (vocab-parallel under a tensor axis: ``_vocab_logits``; ``vocab``:
     the model's vocabulary size), plus the f32 ``lm_head_bias`` where the
-    model has one (GPT-J)."""
+    model has one (GPT-J; vocab-sharded under a tensor axis:
+    ``_full_vocab``)."""
     logits = _vocab_logits(x, _head(params), vocab)
     bias = params.get("lm_head_bias")
-    return logits if bias is None else logits + bias.float()
+    if bias is None:
+        return logits
+    return logits + _full_vocab(bias, logits.shape[-1])
 
 
 def _tokens(params, ids, cfg: TransformerConfig):
@@ -1812,8 +1889,9 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
     each chunk's whole-vocab logits as ``lm_head_logits`` does
     (``vocab``: the model's vocabulary size). ``bias``: the head's [V]
     bias (GPT-J's ``lm_head_bias``), added to each chunk's f32 logits as
-    ``lm_head_logits`` adds it (JAX's chunked loss leaves it out: its
-    chunked and full losses differ for such a model)."""
+    ``lm_head_logits`` adds it, vocab-sharded or not (JAX's chunked loss
+    leaves it out: its chunked and full losses differ for such a
+    model)."""
     B, S, _ = x.shape
     c = min(chunk, S)
     while S % c:
@@ -1824,7 +1902,7 @@ def chunked_cross_entropy(x, head, labels, chunk: int,
     def body(xc, lc, w, b=None):
         logits = _vocab_logits(xc, w, vocab)
         if b is not None:
-            logits = logits + b.float()
+            logits = logits + _full_vocab(b, logits.shape[-1])
         return _nll_sum(logits, lc, ignore_index)[0]
 
     tot = x.new_zeros((), dtype=torch.float32)

@@ -141,6 +141,14 @@ the tensor, expert, seq or pipe axes and random-LTD over seq (A11,
 training extras on the model-parallel axes); MoQ, PLD and random-LTD
 under pipeline parallelism raise JAX's ValueErrors.
 
+The model families (biases, learned positions and token types, ALiBi,
+windows, post-LN, the parallel block, a head bias) train on every axis
+of the mesh, each rank on its rows, its piece of the sequence or its
+slice of the leaves, as JAX's GSPMD program does; over ``pipe`` what
+JAX's pipeline drops (token types, the embedding norm,
+``final_norm=False``, windows) raises naming ROADMAP A11 (the leaves
+JAX's pipeline drops).
+
 Runs on the card: ``device=None`` means "cuda" and raises without CUDA;
 ``device="cpu"`` runs the plain PyTorch versions of the kernels. What the
 port leaves out raises ``NotImplementedError`` naming its ROADMAP item:
@@ -276,7 +284,7 @@ class Engine:
                                                comm.get_world_size()))
         self.mesh, self.plan = mesh, mesh.plan
         if isinstance(getattr(model, "config", None), TransformerConfig):
-            check_family_mesh(model.config, self.plan.world_size)
+            check_family_mesh(model.config, self.plan)
         config.resolve_batch_size(self.plan.dp_world_size)
         if self.plan.world_size > 1:
             logger.info(zero_mod.describe(config.zero_optimization,

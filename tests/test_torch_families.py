@@ -16,7 +16,8 @@ dropped ``+ bo`` would pass. The JAX side runs its XLA attention
 - greedy ``generate`` and paged serving streams token-identical to JAX's;
 - fused and int8 layer stacks with biases as JAX's;
 - positions past the learned table clamp as JAX's gather does;
-- a family's leaves on a mesh of more than one rank raise naming A11.
+- a family on a mesh slices its leaves by JAX's rules; what still raises
+  names its ROADMAP label.
 """
 
 import dataclasses
@@ -453,30 +454,65 @@ def test_windows_route_per_layer_and_alibi_slopes(monkeypatch):
 
 
 def test_refusal_on_a_mesh_larger_than_one_rank():
-    """A family's leaves on a mesh of more than one rank raise naming A11
-    in ``params_from_numpy``, ``init_inference`` (before any process
-    group is touched) and ``initialize``; a llama-shaped model's leaves
-    are not refused, and the config takes what it once deferred."""
+    """A family on a mesh now runs (tests/test_torch_families_mesh.py holds
+    it against JAX): ``params_from_numpy`` cuts a rank's slice of every
+    family leaf by JAX's rules, the config builds a block-sparse model
+    with ALiBi or windows. What still raises, before any process group is
+    touched: a vocabulary the tensor axis does not divide (``ValueError``
+    naming the leaf, as JAX's ``device_put`` raises), what JAX's pipeline
+    drops over ``pipe`` and the training extras on the model-parallel
+    axes (``NotImplementedError`` naming their ROADMAP labels)."""
     mesh = Mesh(MeshPlan(tensor=2))
-    params = _seeded("gpt2")
-    with pytest.raises(NotImplementedError, match="A11"):
-        convert.params_from_numpy(params, _pcfg("gpt2"), device="cpu",
-                                  dtype=torch.float32, mesh=mesh)
-    model = pt.make_model(_pcfg("gptj"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        deepspeed_tpu_torch.init_inference(model, config={
-            "tensor_parallel": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    got = convert.params_from_numpy(_seeded("gpt2"), _pcfg("gpt2"),
+                                    device="cpu", dtype=torch.float32,
+                                    mesh=mesh)
+    H, V, L = BASE["hidden_size"], BASE["vocab_size"], BASE["num_layers"]
+    assert tuple(got["tok_embed"].shape) == (V // 2, H)
+    assert tuple(got["pos_embed"].shape) == (BASE["max_seq_len"], H)
+    assert tuple(got["layers"]["bq"].shape) == (L, H // 2)
+    assert tuple(got["layers"]["b_in"].shape) == (L, 2 * H)
+    assert tuple(got["layers"]["bo"].shape) == (L, H)
+    assert tuple(got["layers"]["b_out"].shape) == (L, H)
+    odd = jt.TransformerConfig(**{**BASE, **FAMILIES["gpt2"],
+                                  "vocab_size": V + 1},
+                               dtype=jnp.float32)
+    tree = jax.tree.map(np.asarray, jt.init_params(jax.random.PRNGKey(0),
+                                                   odd))
+    with pytest.raises(ValueError, match="tok_embed"):
+        convert.params_from_numpy(tree, _pcfg("gpt2", vocab_size=V + 1),
+                                  device="cpu", dtype=torch.float32,
+                                  mesh=mesh)
+    with pytest.raises(NotImplementedError,
+                       match="A11 \\(the leaves JAX's pipeline drops\\)"):
         deepspeed_tpu_torch.initialize(
-            model=pt.make_model(_pcfg("bert")), mesh=Mesh(MeshPlan(data=2)),
-            config={"train_batch_size": 4, "optimizer": {
-                "type": "adamw", "params": {"lr": 1e-3}}}, device="cpu")
+            model=pt.make_model(_pcfg("bert")), mesh=Mesh(MeshPlan(pipe=2)),
+            config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
+                    "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
+            device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="A11 \\(training extras on the model-parallel"):
+        deepspeed_tpu_torch.initialize(
+            model=pt.make_model(_pcfg("gpt2")), mesh=mesh, config={
+                "train_batch_size": 4,
+                "optimizer": {"type": "sgd", "params": {"lr": 0.1}},
+                "compression_training": {"weight_quantization": {
+                    "shared_parameters": {"enabled": True},
+                    "different_groups": {"wq1": {
+                        "params": {"start_bits": 8, "target_bits": 8},
+                        "modules": ["wq"]}}}}}, device="cpu")
     assert pt.family_leaves(pt.llama_config("tiny")) == []
     assert "alibi" in pt.family_leaves(_pcfg("bloom"))
-    pt.check_family_mesh(pt.llama_config("tiny"), 4)
+    assert pt.pipe_dropped(_pcfg("bert")) == [
+        "tok_type_embed", "embed_norm", "final_norm=False"]
+    assert pt.pipe_dropped(_pcfg("gpt_neo")) == ["attn_windows"]
+    for name in FAMILIES:
+        pt.check_family_mesh(_pcfg(name), MeshPlan(tensor=2, data=2))
+    pt.check_family_mesh(_pcfg("gptj"), MeshPlan(pipe=2))
     for bad in (dict(position_type="sinusoid"), dict(norm_style="mid"),
                 dict(attn_windows=(0,))):
         with pytest.raises(ValueError):
             _pcfg("gpt2", **bad)
-    with pytest.raises(NotImplementedError, match="A11"):
-        _pcfg("bloom", sparse_attention={"mode": "bigbird", "block": 16})
+    for over in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
+        cfg = _pcfg("gpt2", sparse_attention={"mode": "bigbird",
+                                              "block": 16}, **over)
+        assert cfg.sparse_attention["mode"] == "bigbird"

@@ -224,13 +224,16 @@ def test_paged_cache_on_the_cpu_when_asked():
 
 
 def test_deferred_model_features_raise():
-    # the model families are ported; a block-sparse model with ALiBi or
-    # local windows is not
+    # the model families are ported, and a block-sparse model with ALiBi
+    # or local windows builds (JAX's routing); over pipe, the windows JAX's
+    # pipeline drops raise naming their ROADMAP label
+    from deepspeed_tpu_torch.parallel.mesh import MeshPlan
     sparse = {"sparse_attention": {"mode": "bigbird", "block": 16}}
-    for bad in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
-        pt.TransformerConfig(**{**CFG, **bad})
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            pt.TransformerConfig(**{**CFG, **bad, **sparse})
+    for over in (dict(position_type="alibi"), dict(attn_windows=(0, 8))):
+        cfg = pt.TransformerConfig(**{**CFG, **over, **sparse})
+        assert cfg.sparse_attention == sparse["sparse_attention"]
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        pt.check_family_mesh(cfg, MeshPlan(pipe=2))
     # a MoE model serves and trains (its loss carries the aux term)
     moe = pt.TransformerConfig(**{**CFG, "num_experts": 4})
     p = pt.init_params(moe, torch.Generator().manual_seed(0), "cpu")

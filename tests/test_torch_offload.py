@@ -107,10 +107,18 @@ def _port_masters(te):
 
 # JAX's engine of each route, run once (3 steps on _batches()): losses and
 # final masters. The nvme run carries the fault test's schedule (a
-# transient read fault it must absorb identically).
+# transient read fault it must absorb identically), and runs drained
+# (``pipeline_read`` / ``pipeline_write`` off): JAX's pipelined swapper
+# reads the next chunks into a host buffer that its CPU ``device_put`` may
+# alias, so its masters depend on the heap's alignment and the thread
+# timing (ROADMAP C10, ``test_jax_pipelined_swapper_races_on_an_aliased_
+# read_buffer``). The drained swapper is the same math, and the port's
+# pipelined and drained runs agree bit for bit
+# (``test_pipelined_and_drained_swapper_identical``).
 _JAX = {}
 READ_FAULT = [{"kind": "io_error", "op": "aio_read", "at": 3, "times": 2,
                "errno": "EIO"}]
+DRAINED = {"pipeline_read": False, "pipeline_write": False}
 
 
 def _jax_run(route, tmp_path_factory):
@@ -124,6 +132,7 @@ def _jax_run(route, tmp_path_factory):
                         "adagrad"),
         "eager": ({"device": "cpu"}, "sgd")}[route]
     if route == "nvme":
+        offload.update(DRAINED)
         offload["nvme_path"] = str(tmp_path_factory.mktemp("jax_nvme"))
         injector = jf.install(jf.FaultInjector(jf.FaultSchedule(READ_FAULT)))
     try:
@@ -421,6 +430,43 @@ def test_pipelined_and_drained_swapper_identical(tmp_path):
     (la, sa), (lb, sb) = runs
     assert la == lb
     assert all(np.array_equal(sa[k], sb[k]) for k in sa)
+
+
+def _aligned_like(buf, offset):
+    """A float32 array of ``buf``'s shape starting ``offset`` bytes past a
+    64-byte boundary."""
+    raw = np.empty(buf.size * 4 + 128, np.uint8)
+    at = (-raw.ctypes.data) % 64 + offset
+    return raw[at:at + buf.size * 4].view(np.float32).reshape(buf.shape)
+
+
+def test_jax_pipelined_swapper_races_on_an_aliased_read_buffer(tmp_path):
+    """ROADMAP C10, a reference defect. JAX's pipelined swapper
+    ``device_put``s its reused numpy read buffer i % 2, dispatches chunk
+    i's update asynchronously, and its read thread then fills the same
+    buffer with chunk i + 2 (``deepspeed_tpu/runtime/swap_tensor.py``,
+    ``step``), without waiting for the transfer. JAX's CPU ``device_put``
+    of a 64-byte-aligned array is zero-copy (of another, an asynchronous
+    copy that the next read can still overtake), so whether chunk i's
+    update reads its own state or chunk i + 2's depends on where the heap
+    put the buffer and on the timing. The swapper's own sequence, on its
+    own sharding and an aligned buffer: the array put on the device turns
+    into chunk 2's state once chunk 2 is read."""
+    offload = {"device": "nvme", "buffer_size": CHUNK_BYTES,
+               "nvme_path": str(tmp_path)}
+    je, *_ = deepspeed_tpu.initialize(
+        model=jt.make_model(JCFG), config=_conf(offload, "adamw"),
+        devices=jax.devices()[:1])
+    sw = je._swapper
+    assert sw.pipeline and sw.n_chunks == 3
+    je.train_batch(_batches(1)[0])
+    buf = _aligned_like(sw._read_bufs[0], 0)
+    chunk0 = sw._read_file(0, buf).copy()
+    on_device = jax.device_put(buf, sw._buf_sharding)
+    chunk2 = sw._read_file(2, buf).copy()
+    sw.close()
+    assert not np.array_equal(chunk0, chunk2)
+    assert np.array_equal(np.asarray(on_device), chunk2)
 
 
 @pytest.mark.parametrize("route", ["nvme", "cpu_adam"])

@@ -451,13 +451,34 @@ def test_indivisible_seq_raises():
 
 
 def test_serving_a_sparse_model_raises():
-    """Serving a sparse model is ported (tests/test_torch_sparse_serving.py
-    holds it against JAX's engine); what still raises: a sparse model on
-    a mesh (ROADMAP A10b) and a prefill bucket the layout's block does not
-    divide (JAX's ``ValueError``)."""
+    """Serving a sparse model is ported, at one rank and on a mesh
+    (tests/test_torch_sparse_serving.py holds both against JAX's engine).
+    On a tensor axis each rank runs B5-B7 on its own heads with the
+    layout every head shares (JAX's layouts are per-head-shared): the
+    forward and the grads of each half of the heads, through the port's
+    wrappers, are the halves of JAX's on all four heads. What still
+    raises: a prefill bucket the layout's block does not divide (JAX's
+    ``ValueError``), and a tensor degree without its process group."""
+    jc, tc = _configs("bigbird", block=16, **dict(LAYOUTS)["bigbird"])
+    q, k, v, w = _qkv(23, B=1, N=4)
+
+    def f(q_, k_, v_):
+        return jnp.sum(jsa.sparse_attention(q_, k_, v_, jc, causal=True)
+                       * jnp.asarray(w))
+    want_o = _np(jsa.sparse_attention(_j(q), _j(k), _j(v), jc, causal=True))
+    want_g = jax.grad(f, argnums=(0, 1, 2))(_j(q), _j(k), _j(v))
+    for r in range(2):
+        heads = slice(2 * r, 2 * r + 2)
+        leaves = [_t(a[:, :, heads]).requires_grad_() for a in (q, k, v)]
+        o = tsa.sparse_attention(*leaves, tc, causal=True)
+        got_g = torch.autograd.grad((o * _t(w[:, :, heads])).sum(), leaves)
+        assert rel_l2(_np(o), want_o[:, :, heads]) <= TOL["float32"]
+        for name, a, b in zip("qkv", got_g, want_g):
+            assert rel_l2(_np(a), _np(b)[:, :, heads]) <= TOL["float32"], \
+                f"rank {r} d{name}"
     _, tcfg = _model_cfgs()
     model = tt.make_model(tcfg)
-    with pytest.raises(NotImplementedError, match="A10b"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         deepspeed_tpu_torch.init_serving(
             model, config={"tensor_parallel": 2}, serving=dict(max_seqs=1),
             device="cpu", dtype=torch.float32)

@@ -10,8 +10,9 @@ whole prompts over several buckets, on the int8 pool, for a chunked
 load (dense spans in both) and for a warm prefix-cache load; ``prefill_paged``'s last logits
 within 1e-5 relative L2; ``generate`` token-identical; a bucket that is
 not a multiple of the block raises the same ``ValueError`` in both; a
-sparse model on a mesh raises naming ROADMAP A10b; the layout's tables
-are built once a bucket.
+sparse model served at tensor=2 and at expert=2 (a 2-rank gloo group)
+gives JAX's tensor=2 streams; the layout's tables are built once a
+bucket.
 """
 
 import jax
@@ -23,9 +24,13 @@ import torch
 import deepspeed_tpu
 import deepspeed_tpu_torch
 from deepspeed_tpu.models import transformer as jt
+from deepspeed_tpu.parallel import MeshPlan as JaxPlan
+from deepspeed_tpu.parallel import build_mesh as jax_build_mesh
 from deepspeed_tpu_torch.models import convert, transformer as pt
 from deepspeed_tpu_torch.ops import sparse_attention as tsa
+from deepspeed_tpu_torch.parallel.launch import run_group
 
+from tests import _torch_families_mesh_workers as FM
 from tests import _torch_cpu  # noqa: F401  (torch threads under xdist)
 
 CFG = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
@@ -193,9 +198,45 @@ def test_bucket_not_a_multiple_of_the_block_raises(ref):
         _port_srv(ref, prompt_bucket=8, block_size=8).run(list(load))
 
 
+_MESH_RUNS = {}
+
+
+def _mesh_streams():
+    """Both layouts' models served at tensor=2 and at expert=2 on one
+    spawned 2-rank gloo group (``_torch_families_mesh_workers.
+    group_sparse``), once a module: {(layout, mesh): streams}."""
+    if not _MESH_RUNS:
+        cases = {}
+        for name, layout in LAYOUTS.items():
+            jm = jt.make_model(jt.TransformerConfig(
+                **CFG, dtype=jnp.float32, attention_impl="xla",
+                sparse_attention=layout))
+            params = jax.tree.map(np.asarray, jax.device_get(
+                jax.jit(jm.init)(jax.random.PRNGKey(0))))
+            cases[name] = (dict(CFG, sparse_attention=layout), params,
+                           SERVING, _load(4, (9, 37, 20)))
+        _MESH_RUNS.update(run_group(FM.group_sparse, 2, cases, threads=1,
+                                    timeout_s=600))
+    return _MESH_RUNS
+
+
 def test_sparse_model_on_a_mesh_raises(ref):
-    layout = ref[0]
-    with pytest.raises(NotImplementedError, match="A10b"):
+    """A sparse model now serves on a mesh (ROADMAP A10b): at tensor=2
+    each rank runs B5 on its two heads with the layout every head shares,
+    at expert=2 (a dense model) each rank is a whole replica; both
+    streams equal JAX's engine on a tensor=2 mesh of two virtual devices,
+    token for token. What raises now is what any model on a mesh
+    raises: a tensor degree without the process group it needs."""
+    layout, jm, params = ref
+    load = _load(4, (9, 37, 20))
+    mesh = jax_build_mesh(JaxPlan(tensor=2), devices=jax.devices()[:2])
+    want = _streams(deepspeed_tpu.init_serving(
+        jm, config={"kv_cache_bits": 0}, serving=SERVING, dtype=jnp.float32,
+        params=params, mesh=mesh).run(list(load)))
+    runs = _mesh_streams()
+    for plan in ("tensor=2", "expert=2"):
+        _assert_same(runs[layout, plan], want, f"{layout} {plan}")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         deepspeed_tpu_torch.init_serving(
             _port_model(layout), config={"tensor_parallel": 2},
             serving=SERVING, dtype=torch.float32, device="cpu")
