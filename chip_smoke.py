@@ -412,6 +412,30 @@ Phases, each of which raises on failure (exit code != 0):
    SGD steps each against world 1 (losses and params within 1e-5), and
    Pythia's and BLOOM's greedy streams at tensor=2 token-identical to
    world 1's.
+24. the training extras on the model-parallel axes and on the 1-bit path
+   (its kernel cases before phase 23, its runs at the end of phase 23's
+   group, its checks after). First B1-B3 at a tensor=2 rank's llama-1b
+   shapes (16/4 heads of 64, B=4 S=2048) and at random-LTD's kept pieces
+   at seq=2 (1024 rows, the rank's own piece causal, the other's whole),
+   each against its plain version. Then llama-1b width (H 2048, 32/8
+   heads of 64, F 5632, vocab 32000) cut to 4 of its 16 layers, bf16 +
+   f32 masters, 1 warm-up + 2 counted steps a run: (a) compression at
+   tensor=2 (8-bit weights on every layer matmul, 50 % sparse w_in /
+   w_out, half of wo's heads pruned), B=4 S=2048: B1 = 2 x 4, B2 = B3 = 4
+   a step; (b) MoQ 16 -> 8 from step 1 with its probe (2 power
+   iterations) at tensor=2, B=2 S=2048, the probe at step 1: B1 = 2 x 4
+   a step + the probe's 6 passes x 2 x 4; (c) random-LTD at seq=2,
+   S=4096, 2048 kept on layers 1 and 2 (each rank's 1024 kept rows
+   through the ring): rank j's B1 = 2 (j + 1) x 4, B2 = B3 = (j + 1) x 4
+   a step; (d) compression at pipe=2 (4 micro-batches of B=8 S=2048:
+   stage 0's B1 = 24, stage 1's 16, B2 = B3 = 8 a step), and compression
+   + MoQ on the 1-bit compressed path at data=2 (freeze_step 1: the
+   counted steps compressed; B1 = 2 x 4, B2 = B3 = 4 a step); (e) f32 at 2 layers (random-LTD 3), B=2 S=512, 2 SGD
+   steps of compression at tensor=2 and pipe=2, MoQ at tensor=2 and
+   random-LTD at seq=2, each against the same run at world 1 on every
+   rank: losses and params within 1e-5, every mask a rank applied in the
+   first step equal to its slice of world 1's bit for bit, MoQ's period
+   scales within 1e-3 and its bits identical.
 
 Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
 seconds) when it ends, and the script a ``"total"`` one before the
@@ -7185,6 +7209,8 @@ def _fm_rank(rank, world, prompts, sparse_prompts, bloom_ids):
         ident[f"{name} streams"] = _fm_streams(rank, c, name, ps, tp2)
     rec["d"] = ident
     mark_part("(d) f32 identities")
+    # phase 24 in the same group (one group start less)
+    rec["extras_mesh"] = _xm_rank(rank)
     out = [None] * world
     dist.all_gather_object(out, rec)
     return out if rank == 0 else None
@@ -7272,7 +7298,8 @@ def families_mesh_phase(smi: str):
             for k in FLASH_KERNELS + ("paged_decode", "sparse_fwd")}}
     rec = {"card": smi, "timing": ZERO_SHARED, "flash_cases": flash,
            "bwd_cases": bwd, "decode_cases": decode, "sparse_cases": sparse,
-           "launches": launches, "phase_s": time.perf_counter() - t_phase}
+           "launches": launches, "phase_s": time.perf_counter() - t_phase,
+           "extras_mesh": [r["extras_mesh"] for r in ranks]}
     log(f"phase 23 (a) pythia-1.4b tensor=2 [{smi}; {ZERO_SHARED}] "
         + json.dumps({
             "serving": {k: st_a.get(k) for k in (
@@ -7294,11 +7321,297 @@ def families_mesh_phase(smi: str):
                                     "tok_per_sec", "prefills",
                                     "decode_steps", "wall_s")}))
     log(f"phase 23 (d) f32 {ID_LAYERS} layers [{smi}] " + json.dumps(ident))
-    log(f"phase 23: {rec['phase_s']:.1f}s, launches {json.dumps(launches)}, "
-        f"checks {json.dumps(checks)}")
+    log(f"phase 23: {rec['phase_s']:.1f}s (phase 24's ranks "
+        f"{max(r['s'] for r in rec['extras_mesh']):.1f}s of it), launches "
+        f"{json.dumps(launches)}, checks {json.dumps(checks)}")
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise RuntimeError(f"phase 23: failed {failed}")
+    return rec
+
+
+XM_LAYERS = 4             # llama-1b width, 4 of its 16 layers: (a)-(d)
+XM_STEPS = 2              # each run's steps after 1 warm-up step
+XM_B, XM_S = 4, 2048      # (a) at tensor=2
+XM_MOQ_B = 2              # (b) at tensor=2
+XM_LTD_B, XM_LTD_S, XM_LTD_KEEP = 2, 4096, 2048     # (c) at seq=2
+XM_PP_B = 8               # (d) at pipe=2 (PP_M micro-batches) and data=2
+XM_MOQ_ITERS = 2          # (b): the probe's power iterations (+ 1 product)
+XM_ID_S = 512             # (e): f32 at 2 layers (random-LTD 3), B=2
+XM_ID_STEPS = 2
+
+
+def _xm_grp(params, modules):
+    return {"shared_parameters": {"enabled": True, "schedule_offset": 0},
+            "different_groups": {"g": {"params": params,
+                                       "modules": modules}}}
+
+
+# (a), (d), (e): 8-bit weights on every layer matmul, the MLP's weights
+# 50 % sparse, half of wo's heads pruned (each a leaf a model axis cuts)
+XM_COMP = {"compression_training": {
+    "weight_quantization": _xm_grp({"target_bits": 8}, ["layers/w"]),
+    "sparse_pruning": _xm_grp({"dense_ratio": 0.5}, ["w_in", "w_out"]),
+    "head_pruning": _xm_grp({"dense_ratio": 0.5, "num_heads": 32},
+                            ["layers/wo"])}}
+# (b), (e): 16 -> 8 bits from step 1, the probe at step 1 (the first
+# counted step of (b): the warm-up step runs no probe)
+XM_MOQ = {"quantize_training": {
+    "enabled": True, "quantize_bits": {"start_bits": 16, "target_bits": 8},
+    "quantize_schedule": {"quantize_period": 1, "schedule_offset": 1},
+    "eigenvalue": {"enabled": True, "max_iter": XM_MOQ_ITERS,
+                   "gas_boundary_resolution": 2}}}
+
+
+def _xm_ltd(keep, step):
+    return {"data_efficiency": {"enabled": True, "data_routing": {
+        "random_ltd": {"enabled": True, "min_value": keep,
+                       "max_value": keep, "seq_step": step}}}}
+
+
+def _xm_world1(config):
+    """A config's one-rank twin (the model axes dropped; gas kept)."""
+    return {k: v for k, v in config.items()
+            if k not in ("tensor_parallel", "sequence_parallel", "pipeline")}
+
+
+def _xm_identity(cfg, config, batches, name):
+    """(e) f32: the run on the mesh of ``config`` (collective), then on
+    every rank the same run at world 1 (``single_mesh``, the seeded init,
+    the whole batches): the largest loss difference, the params' relative
+    L2 (made whole on the card), whether every mask this rank applied in
+    the first step equals its slice of world 1's bit for bit, and MoQ's
+    period scales and bits."""
+    from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.parallel import single_mesh
+
+    def run(conf, mesh):
+        engine, *_ = initialize(model=make_model(cfg, name),
+                                config=dict(conf), mesh=mesh)
+        losses, masks = [], None
+        for i, b in enumerate(batches):
+            engine.mask_record = {} if i == 0 else None
+            losses.append(float(engine.train_batch(b)["loss"]))
+            if i == 0:
+                masks = engine.mask_record
+        engine.mask_record = None
+        return engine, losses, masks
+    engine, losses, masks = run(config, None)
+    whole = _zero_whole_params(engine, "cuda")
+    one, losses1, masks1 = run(_xm_world1(config), single_mesh())
+    rec = {"plan": engine.plan.describe(), "losses": losses,
+           "losses_world1": losses1,
+           "loss_rel_err": max(abs(a - b) / abs(b)
+                               for a, b in zip(losses, losses1)),
+           "masks": len(masks or {}),
+           "masks_equal": set(masks or {}) == set(masks1 or {}) and all(
+               torch.equal(m, (engine._model_split(path).local(masks1[
+                   path, kind]) if engine._model_split(path) is not None
+                   else masks1[path, kind]))
+               for (path, kind), m in (masks or {}).items())}
+    err = 0.0
+    for k, t in _zero_whole_params(one, "cuda").items():
+        err = max(err, rel_l2(whole.pop(k), t))
+    rec["params_rel_l2"] = err
+    if engine._moq is not None:
+        rec["period_scale"] = engine._moq._period_scale.tolist()
+        rec["period_scale_world1"] = one._moq._period_scale.tolist()
+        rec["bits_equal"] = bool(np.array_equal(
+            engine._moq.bits(XM_ID_STEPS), one._moq.bits(XM_ID_STEPS)))
+    del engine, one, masks, masks1
+    _free()
+    return rec
+
+
+def _xm_rank(rank):
+    """Phase 24's part of one rank of phase 23's two-rank group (both
+    ranks on cuda:0 over gloo): (a)-(e). Returns this rank's record."""
+    bf, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    rec = {}
+    _CLOCK.update(phase="24_extras_mesh", t=t0)
+    cfg = _llama1b_train(XM_LAYERS, XM_S)
+    # (a) compression at tensor=2
+    engine, rec["a_comp_tp2"] = _mp_run(
+        cfg, dict(TRAIN_CONFIG, train_batch_size=XM_B, **TP2, **XM_COMP),
+        _zero_batches(XM_B, XM_S, 1 + XM_STEPS, seed=40), "llama-1b")
+    del engine
+    _free()
+    # (b) MoQ with its probe at tensor=2 (the probe at step 1, inside the
+    # counted steps)
+    engine, r = _mp_run(
+        cfg, dict(TRAIN_CONFIG, train_batch_size=XM_MOQ_B, **TP2, **XM_MOQ),
+        _zero_batches(XM_MOQ_B, XM_S, 1 + XM_STEPS, seed=41), "llama-1b")
+    r["bits"] = engine._moq.bits(1 + XM_STEPS).tolist()
+    r["period_scale"] = engine._moq._period_scale.tolist()
+    r["last_probe"] = engine._moq._last_ev_step
+    rec["b_moq_tp2"] = r
+    del engine
+    _free()
+    # (c) random-LTD at seq=2: 2048 of 4096 tokens kept, each rank's 1024
+    # kept rows through the ring on layers 1 and 2
+    engine, r = _mp_run(
+        _llama1b_train(XM_LAYERS, XM_LTD_S),
+        dict(TRAIN_CONFIG, train_batch_size=XM_LTD_B,
+             sequence_parallel={"sp_size": 2},
+             **_xm_ltd(XM_LTD_KEEP, XM_LTD_KEEP // 2)),
+        _zero_batches(XM_LTD_B, XM_LTD_S, 1 + XM_STEPS, seed=42),
+        "llama-1b")
+    r["draws"] = engine.step_draws
+    r["seq_index"] = engine.mesh.index("seq")
+    rec["c_ltd_sp2"] = r
+    del engine
+    _free()
+    # (d) compression at pipe=2 (PP_M micro-batches), then compression and
+    # MoQ on the 1-bit compressed path at data=2
+    engine, r = _mp_run(
+        cfg, dict(TRAIN_CONFIG, train_batch_size=XM_PP_B,
+                  gradient_accumulation_steps=PP_M, pipeline={"stages": 2},
+                  **XM_COMP),
+        _zero_batches(XM_PP_B, XM_S, 1 + XM_STEPS, seed=43), "llama-1b")
+    r["stage"] = engine.mesh.index("pipe")
+    rec["d_comp_pp2"] = r
+    del engine
+    _free()
+    moq = {"quantize_training": dict(XM_MOQ["quantize_training"],
+                                     eigenvalue={"enabled": False})}
+    engine, r = _mp_run(
+        cfg, dict(TRAIN_CONFIG, train_batch_size=XM_PP_B,
+                  zero_optimization={"stage": 0}, optimizer={
+                      "type": "onebitadam",
+                      "params": {"lr": 1e-4, "freeze_step": 1}},
+                  **XM_COMP, **moq),
+        _zero_batches(XM_PP_B, XM_S, 1 + XM_STEPS, seed=44), "llama-1b")
+    r["onebit"] = engine._onebit
+    r["phase"] = engine.optimizer.phase_for(engine._onebit_applied - 1)
+    rec["d_onebit_dp2"] = r
+    del engine
+    _free()
+    # (e) f32 identities against world 1
+    cfg32 = _llama1b_train(2, XM_ID_S, loss_chunk=0, **PP_F32)
+    ident = {}
+    for what, c, conf, B in (
+            ("compression tensor=2", cfg32, dict(MP_F32_CONFIG, **TP2,
+                                                 **XM_COMP), 2),
+            ("MoQ tensor=2", cfg32, dict(MP_F32_CONFIG, **TP2, **XM_MOQ),
+             2),
+            ("random-LTD seq=2", _llama1b_train(3, XM_ID_S, loss_chunk=0,
+                                                **PP_F32),
+             dict(MP_F32_CONFIG, sequence_parallel={"sp_size": 2},
+                  **_xm_ltd(XM_ID_S // 2, XM_ID_S // 4)), 2),
+            ("compression pipe=2", cfg32, dict(
+                MP_F32_CONFIG, gradient_accumulation_steps=2,
+                pipeline={"stages": 2}, **XM_COMP), 2)):
+        ident[what] = _xm_identity(
+            c, conf, _zero_batches(B, XM_ID_S, XM_ID_STEPS, seed=45),
+            "llama-1b f32")
+    rec["e"] = ident
+    mark_part("(e) f32 identities")
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def extras_mesh_kernels():
+    """Phase 24's kernel cases: B1-B3 at a tensor=2 rank's llama-1b
+    shapes (16/4 heads of 64, the (a) runs' B=4 S=2048) and at random-LTD's
+    kept pieces at seq=2 (2048 of 4096 tokens: a rank's 1024 rows, its own
+    piece causal, the other's whole), each against its plain version."""
+    bf = torch.bfloat16
+    rank = "llama-1b tensor=2 rank"
+    kept = f"llama-1b random-LTD kept piece seq=2 B={XM_LTD_B} S=1024"
+    flash = [flash_case(f"{rank} B={XM_B} S={XM_S}", XM_B, XM_S, 16, 4, 64,
+                        bf),
+             flash_case(kept, XM_LTD_B, 1024, 32, 8, 64, bf),
+             flash_case(f"{kept} (past piece)", XM_LTD_B, 1024, 32, 8, 64,
+                        bf, causal=False)]
+    bwd = [bwd_case(f"{rank} B={XM_B} S={XM_S}", XM_B, XM_S, 16, 4, 64, bf),
+           bwd_case(kept, XM_LTD_B, 1024, 32, 8, 64, bf)]
+    _free()
+    return {"flash_cases": flash, "bwd_cases": bwd}
+
+
+def extras_mesh_phase(smi: str, ranks, kernels):
+    """Phase 24: the training extras on the model-parallel axes and on the
+    1-bit path (module docstring, item 24): the checks of what every rank
+    of phase 23's group ran."""
+    checks, L = {}, XM_LAYERS
+    n = XM_STEPS
+    probe = 2 * (XM_MOQ_ITERS + 1)
+    for i, r in enumerate(ranks):
+        for part in ("a_comp_tp2", "b_moq_tp2", "c_ltd_sp2", "d_comp_pp2",
+                     "d_onebit_dp2"):
+            checks[f"{part} rank {i} finite"] = \
+                bool(np.all(np.isfinite(r[part]["losses"])))
+        la = r["a_comp_tp2"]["launches"]
+        checks[f"(a) rank {i} B1 == 2 x {L}, B2 == B3 == {L} a step"] = \
+            la["flash_fwd"] == 2 * n * L and \
+            la["flash_bwd_dq"] == la["flash_bwd_dkv"] == n * L
+        lb, b = r["b_moq_tp2"]["launches"], r["b_moq_tp2"]
+        checks[f"(b) rank {i} B1 == 2 x {L} a step + the probe's {probe} "
+               f"passes x 2 x {L}"] = \
+            b["last_probe"] == 1 and \
+            lb["flash_fwd"] == 2 * n * L + probe * 2 * L and \
+            lb["flash_bwd_dq"] == lb["flash_bwd_dkv"] == n * L + probe * L
+        c = r["c_ltd_sp2"]
+        j = c["seq_index"]
+        checks[f"(c) rank {i} (seq {j}) B1 == 2 x {j + 1} x {L}, B2 == "
+               f"B3 == {j + 1} x {L} a step"] = \
+            c["launches"]["flash_fwd"] == 2 * (j + 1) * n * L and \
+            c["launches"]["flash_bwd_dq"] == \
+            c["launches"]["flash_bwd_dkv"] == (j + 1) * n * L and \
+            c["draws"] == [{"ltd_keep": XM_LTD_KEEP}]
+        d = r["d_comp_pp2"]
+        per = (3 if d["stage"] == 0 else 2) * PP_M * L // 2
+        checks[f"(d) rank {i} (stage {d['stage']}) B1 == {per}, B2 == B3 "
+               f"== {PP_M * L // 2} a step"] = \
+            d["launches"]["flash_fwd"] == per * n and \
+            d["launches"]["flash_bwd_dq"] == \
+            d["launches"]["flash_bwd_dkv"] == PP_M * L // 2 * n
+        o = r["d_onebit_dp2"]
+        checks[f"(d) rank {i} 1-bit compressed phase, B1 == 2 x {L}, B2 "
+               f"== B3 == {L} a step"] = \
+            o["onebit"] and o["phase"] == "comp" and \
+            o["launches"]["flash_fwd"] == 2 * n * L and \
+            o["launches"]["flash_bwd_dq"] == \
+            o["launches"]["flash_bwd_dkv"] == n * L
+        for what, got in r["e"].items():
+            checks[f"(e) rank {i} f32 {what} == world 1: losses 1e-5, "
+                   f"params 1e-5"] = \
+                got["loss_rel_err"] <= 1e-5 and got["params_rel_l2"] <= 1e-5
+            if got["masks"]:
+                checks[f"(e) rank {i} {what}: {got['masks']} masks == "
+                       f"world 1's slices bit for bit"] = got["masks_equal"]
+            if "period_scale" in got:
+                checks[f"(e) rank {i} {what}: period scales within 1e-3 of "
+                       f"world 1's, bits identical"] = got["bits_equal"] and \
+                    rel_l2(torch.tensor(got["period_scale"]),
+                           torch.tensor(got["period_scale_world1"])) <= 1e-3
+    checks["(b) the probe moved the period scales"] = max(
+        abs(s - 1.0) for s in ranks[0]["b_moq_tp2"]["period_scale"]) > 0
+    launches = {"extras_mesh": {k: sum(
+        r[part]["launches"].get(k, 0) for r in ranks
+        for part in ("a_comp_tp2", "b_moq_tp2", "c_ltd_sp2", "d_comp_pp2",
+                     "d_onebit_dp2")) for k in FLASH_KERNELS}}
+    keys = ("losses", "step_ms_wall", "peak_mem_gib", "launches", "plan")
+    for part, what in (("a_comp_tp2", "(a) compression tensor=2"),
+                       ("b_moq_tp2", "(b) MoQ + probe tensor=2"),
+                       ("c_ltd_sp2", "(c) random-LTD seq=2"),
+                       ("d_comp_pp2", "(d) compression pipe=2"),
+                       ("d_onebit_dp2", "(d) compression + MoQ 1-bit data=2")):
+        extra = {k: ranks[0][part][k] for k in ("bits", "period_scale",
+                                                "draws", "phase")
+                 if k in ranks[0][part]}
+        log(f"phase 24 {what} [{smi}; {ZERO_SHARED}] " + json.dumps(
+            {k: [r[part][k] for r in ranks] for k in keys} | extra))
+    log(f"phase 24 (e) f32 [{smi}] " + json.dumps(
+        [r["e"] for r in ranks]))
+    rec = {"card": smi, "timing": ZERO_SHARED, "launches": launches,
+           "phase_s": max(r["s"] for r in ranks), **kernels}
+    log(f"phase 24: {rec['phase_s']:.1f}s in phase 23's group, launches "
+        f"{json.dumps(launches)}, checks {json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 24: failed {failed}")
     return rec
 
 
@@ -7397,16 +7710,19 @@ def main() -> int:
     p20 = timed("20_pipeline_ring", pipeline_ring_phase, card)
     p21 = timed("21_model_families", model_families_phase, card)
     p22 = timed("22_training_extras", training_extras_phase, card)
+    p24k = timed("24_extras_mesh_kernels", extras_mesh_kernels)
     p23 = timed("23_families_mesh", families_mesh_phase, card)
+    p24 = timed("24_extras_mesh", extras_mesh_phase, card,
+                p23["extras_mesh"], p24k)
     # B1-B3 held at a ZeRO rank's shapes too, at the MoE cell's and a
     # tensor=2 rank's (D=128), and at GPT-2 1.3b's and BERT-large's; B4 at
     # GPT-2 1.3b's decode
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
     flash += p19["flash_cases"] + p21["flash_cases"] + p22["flash_cases"] \
-        + p23["flash_cases"]
+        + p23["flash_cases"] + p24["flash_cases"]
     bwd += p19["bwd_cases"] + p21["bwd_cases"] + p22["bwd_cases"] \
-        + p23["bwd_cases"]
+        + p23["bwd_cases"] + p24["bwd_cases"]
     decode += p21["decode_cases"] + p23["decode_cases"]
     sparse += p23["sparse_cases"]
 
@@ -7528,6 +7844,13 @@ def main() -> int:
         if n:
             entry["launches"] += n
             entry["launches_by_path"]["families_mesh"] = n
+    # phase 24: every rank of the extras on tensor=2, seq=2, pipe=2 and
+    # the 1-bit path at data=2
+    for entry in line["kernels"][:4]:
+        n = p24["launches"]["extras_mesh"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["extras_mesh"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),

@@ -14,10 +14,19 @@ head and channel masks, each on the previous rule's output.
 
 The masks keep JAX's granularity: one threshold over the whole stacked
 leaf (all layers together) for the sparse, row and channel masks, one per
-layer over its heads for the head mask. The threshold is JAX's
-``jnp.quantile`` (linear interpolation, its f32 arithmetic, n - 1 rounded
-to f32 as JAX rounds it) over a sort: ``torch.quantile`` refuses more
-than 2^24 values, and llama-1b's ``layers/w_in`` holds 184.5 M.
+layer over its heads for the head mask. On a mesh whose model axes cut a
+leaf (``tensor``, ``expert``, ``pipe``: ``parallel.partitioning.
+model_split``), JAX's GSPMD program still sees the whole leaf, so each
+mask, threshold and scale is computed on the whole leaf (gathered,
+detached, in the one-rank order: a partial norm summed over the ranks
+adds in another order, and a quantile can flip a mask entry at a
+near-tie) and the rank applies its slice of it to its own slice, whose
+gradient stays local; a leaf with only weight quantization takes the
+whole leaf's amax by a max over the ranks (exact) instead. The threshold
+is JAX's ``jnp.quantile`` (linear interpolation, its f32 arithmetic, n -
+1 rounded to f32 as JAX rounds it) over a sort: ``torch.quantile``
+refuses more than 2^24 values, and llama-1b's ``layers/w_in`` holds
+184.5 M.
 
 Activation quantization is not a param transform: the engine rebuilds the
 model with ``activation_quant_bits`` once its ``schedule_offset`` is
@@ -128,30 +137,51 @@ class CompressionTransform:
                 and self.layer_reduction is None:
             raise ValueError("compression config has no enabled section")
 
-    def _leaf_ops(self, path: str, leaf) -> List[_Rule]:
-        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 2 \
-                or leaf.numel() < 64:
+    def _leaf_ops(self, path: str, leaf, shape=None) -> List[_Rule]:
+        """The rules that hit ``leaf``, by its path and by the whole
+        leaf's ``shape`` (default: its own)."""
+        if not isinstance(leaf, torch.Tensor):
+            return []
+        shape = tuple(leaf.shape) if shape is None else shape
+        if len(shape) < 2 or int(np.prod(shape)) < 64:
             return []
         return [r for r in self.rules if _match(path, r.patterns)]
 
-    def apply(self, params, step: int):
+    def apply(self, params, step: int, split=None, record=None):
         """The params the forward sees at (host) ``step``: a rule acts from
-        its ``schedule_offset`` on; before that the leaf passes as it is."""
+        its ``schedule_offset`` on; before that the leaf passes as it is.
+        ``split(path)``: the leaf's ``ModelSplit`` on a mesh (None: the
+        rank holds it whole). ``record``: a dict that receives each mask
+        this rank applies, by (path, rule kind)."""
         def one(path, leaf):
+            sp = split(path) if split is not None else None
+            rules = [r for r in self._leaf_ops(
+                path, leaf, None if sp is None else sp.shape)
+                if step >= r.offset]
+            # the whole leaf, detached, where a mask needs it; a rank's
+            # slice of it is ``out``'s value throughout
+            whole = None
+            if sp is not None and any(r.kind != "weight_quant"
+                                      for r in rules):
+                whole = sp.whole(leaf)
             out = leaf
-            for r in self._leaf_ops(path, leaf):
-                if step < r.offset:
-                    continue
+            for r in rules:
                 if r.kind == "weight_quant":
-                    out = fake_quant(out, bits=r.bits)
-                elif r.kind == "sparse":
-                    out = out * _topk_mask(out, r.dense_ratio)
-                elif r.kind == "row":
-                    out = out * _row_mask(out, r.dense_ratio)
-                elif r.kind == "head":
-                    out = out * _head_mask(out, r.dense_ratio, r.num_heads)
-                elif r.kind == "channel":
-                    out = out * _channel_mask(out, r.dense_ratio)
+                    amax = None
+                    if whole is not None:
+                        amax = whole.float().abs().amax()
+                        whole = fake_quant(whole, bits=r.bits, amax=amax)
+                    elif sp is not None:
+                        amax = sp.max(out.detach().float().abs().amax())
+                    out = fake_quant(out, bits=r.bits, amax=amax)
+                    continue
+                mask = _MASKS[r.kind](out if whole is None else whole, r)
+                if whole is not None:
+                    whole = whole * mask
+                    mask = sp.local(mask)
+                if record is not None:
+                    record[path, r.kind] = mask
+                out = out * mask
             return out
 
         return _map_with_path(one, params)
@@ -224,6 +254,16 @@ def _channel_mask(w, dense_ratio: float):
     norms = (w2 * w2).sum(dim=0).sqrt()                  # [out]
     thresh = quantile(norms, 1.0 - dense_ratio)
     return (norms >= thresh).to(w.dtype)
+
+
+# each mask rule: the mask (in w's dtype, broadcasting against w) of the
+# values ``w`` under rule ``r``
+_MASKS = {
+    "sparse": lambda w, r: _topk_mask(w, r.dense_ratio),
+    "row": lambda w, r: _row_mask(w, r.dense_ratio),
+    "head": lambda w, r: _head_mask(w, r.dense_ratio, r.num_heads),
+    "channel": lambda w, r: _channel_mask(w, r.dense_ratio),
+}
 
 
 def student_params_from_teacher(teacher_params, keep_layers: List[int]):

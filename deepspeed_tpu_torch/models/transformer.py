@@ -69,7 +69,9 @@ The training extras (JAX's fields): ``activation_quant_bits`` fake-quantizes
 MLP matmuls; on the training path (``lm_loss(train=True)``) random-LTD
 runs layers 1 .. L - 2 on the kept tokens of ``ltd_select`` (each kept
 token at its true position, the key mask gathered with it, B1-B3 at S =
-keep), and progressive layer drop skips the layers ``pld_keep`` marks
+keep; over ``seq`` the kept tokens of the whole sequence, each rank its
+contiguous keep / n of them through the ring), and progressive layer
+drop skips the layers ``pld_keep`` marks
 (a dropped layer launches nothing). Both take their draws as inputs
 (``ltd_draws``, ``pld_coins``: host generators keyed by the caller's
 seed), never ``jax.random``'s bits.
@@ -150,7 +152,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm.comm import all_gather as comm_all_gather
-from deepspeed_tpu_torch.moe.sharded_moe import moe_ffn
+from deepspeed_tpu_torch.moe.sharded_moe import layer_scope, moe_ffn
 from deepspeed_tpu_torch.ops.decode_attention import (
     paged_decode_attention, paged_decode_reference)
 from deepspeed_tpu_torch.ops.flash_attention import (FLASH_FWD_OP,
@@ -1738,10 +1740,11 @@ def layer_stack(x, layers: Params, cfg, *, positions, attention_mask=None,
                                      mask=mask, reference=reference,
                                      dropout_seed=seed, train=train, aux=box,
                                      window=_window(cfg, i))
-        if sel is None:
-            return run(x_in)
-        return random_ltd_layer(x_in, run, sel, positions=positions,
-                                mask=attention_mask)
+        with layer_scope(i):
+            if sel is None:
+                return run(x_in)
+            return random_ltd_layer(x_in, run, sel, positions=positions,
+                                    mask=attention_mask)
 
     def remat(x_in, lp, i, sel=None):
         box: list = []

@@ -65,6 +65,10 @@ from deepspeed_tpu_torch.parallel.context import (all_reduce, axis_index,
                                                   split_axes)
 
 _RECORD: Optional[list] = None
+# a ``frozen_routing`` block's expert choices ({layer: [idx [T] per
+# choice]}), and the layer ``layer_scope`` says is running
+_FROZEN: Optional[dict] = None
+_LAYER: Optional[int] = None
 
 
 @contextlib.contextmanager
@@ -78,6 +82,34 @@ def record_routing():
         yield _RECORD
     finally:
         _RECORD = prev
+
+
+@contextlib.contextmanager
+def frozen_routing():
+    """Inside the block each MoE layer keeps the expert choices of its
+    first call there (its capacity slots and drops follow from them), so
+    the loss is smooth in the params around that call's: the function
+    whose derivatives JAX takes through its gate (an argmax has none).
+    MoQ's probe differentiates by a central difference of two gradient
+    passes, which a routing flip between them would break."""
+    global _FROZEN
+    prev, _FROZEN = _FROZEN, {}
+    try:
+        yield
+    finally:
+        _FROZEN = prev
+
+
+@contextlib.contextmanager
+def layer_scope(i: int):
+    """Layer ``i`` of the stack runs in the block (``frozen_routing``'s
+    key; a rematerialized layer replays under its own scope)."""
+    global _LAYER
+    prev, _LAYER = _LAYER, i
+    try:
+        yield
+    finally:
+        _LAYER = prev
 
 
 def _capacity(num_tokens: int, num_experts: int, capacity_factor: float,
@@ -104,12 +136,14 @@ def _noisy(logits, noise_policy, train, generator):
 
 
 def route(logits, k: int, capacity: int, *, generator=None,
-          noise_policy: Optional[str] = None, train: bool = True):
+          noise_policy: Optional[str] = None, train: bool = True,
+          choices=None):
     """The gating decisions per choice: ``(idx [T], pos [T], weight [T],
     keep [T])`` for each of the k choices (expert, slot in its expert,
     normalized combine weight, 0 when dropped; kept or not), the aux loss
-    and the metrics. ``top_k_gating`` lays the same decisions out as
-    JAX's dense tensors."""
+    and the metrics. ``choices``: each choice's experts, given instead
+    of the argmax (``frozen_routing``). ``top_k_gating`` lays the same
+    decisions out as JAX's dense tensors."""
     T, E = logits.shape
     logits = _noisy(logits, noise_policy, train, generator)
     gates = torch.softmax(logits.float(), dim=-1)                # [T, E]
@@ -120,7 +154,8 @@ def route(logits, k: int, capacity: int, *, generator=None,
     metrics: Dict[str, torch.Tensor] = {}
     picks = []
     for choice in range(k):
-        idx = torch.argmax(masked, dim=-1)        # first index on ties
+        idx = (torch.argmax(masked, dim=-1)       # first index on ties
+               if choices is None else choices[choice])
         onehot = F.one_hot(idx, E).float()                       # [T, E]
         if choice == 0:           # the aux loss reads the first choice
             ce = onehot.mean(0)
@@ -192,10 +227,13 @@ def moe_ffn(moe_params, x, cfg, *, generator=None, train: bool = False
     C = _capacity(T, E, cf, cfg.min_capacity)
     if not cfg.drop_tokens:
         C = T
+    frozen = None if _FROZEN is None else _FROZEN.get(_LAYER)
     picks, aux, metrics = route(tokens.float() @ wg.float(), cfg.top_k, C,
                                 generator=generator,
                                 noise_policy=cfg.noisy_gate_policy,
-                                train=train)
+                                train=train, choices=frozen)
+    if _FROZEN is not None and frozen is None:
+        _FROZEN[_LAYER] = [idx.detach() for idx, _, _, _ in picks]
     if _RECORD is not None:
         _RECORD.append({"aux": aux.detach(),
                         "dropped_fraction": metrics["dropped_fraction"]})

@@ -111,16 +111,20 @@ def _grouped(x, num_groups: int):
 
 
 def quantize(x, bits: int = 8, symmetric: bool = True,
-             num_groups: int = 1) -> QuantizedTensor:
+             num_groups: int = 1, amax=None) -> QuantizedTensor:
     """int8 or int4 with a scale per group of the flattened ``x`` (and a
-    zero point with ``symmetric=False``), JAX's arithmetic in f32."""
+    zero point with ``symmetric=False``), JAX's arithmetic in f32.
+    ``amax`` (symmetric): each group's largest magnitude, given instead
+    of taken from ``x`` (a rank's slice of a leaf quantized at the whole
+    leaf's scale)."""
     if bits not in (4, 8):
         raise ValueError("bits must be 4 or 8")
     g = _grouped(x.float(), num_groups)
     qmax = 2 ** (bits - 1) - 1          # 127 / 7
     qmin = -(2 ** (bits - 1))           # -128 / -8
     if symmetric:
-        amax = g.abs().amax(dim=1, keepdim=True)
+        amax = (g.abs().amax(dim=1, keepdim=True) if amax is None
+                else amax.float().reshape(num_groups, 1))
         scale = torch.clamp_min(amax / qmax, 1e-12)
         q = torch.clamp(torch.round(g / scale), qmin, qmax).to(torch.int8)
         zero = None
@@ -164,10 +168,12 @@ def unpack_int4(p):
 
 
 def fake_quant(x, bits: int = 8, symmetric: bool = True,
-               num_groups: int = 1):
+               num_groups: int = 1, amax=None):
     """Quantize-dequantize with the straight-through gradient: the
-    forward sees the quantized values, the gradient passes unchanged."""
-    qt = quantize(x, bits=bits, symmetric=symmetric, num_groups=num_groups)
+    forward sees the quantized values, the gradient passes unchanged.
+    ``amax``: as ``quantize``'s."""
+    qt = quantize(x, bits=bits, symmetric=symmetric, num_groups=num_groups,
+                  amax=amax)
     xq = dequantize(qt).to(x.dtype)
     return x + (xq - x).detach()
 

@@ -16,13 +16,19 @@ A spec here is JAX's ``PartitionSpec`` as a plain tuple: one entry a
 dim, None (replicated), an axis name or a tuple of names; trailing Nones
 dropped.
 
+``model_split`` is how the model axes (``tensor``, ``expert``, ``pipe``)
+cut a leaf as the model sees it (after ZeRO-3's gather over ``fsdp``):
+the training extras compute a mask, a threshold or a scale on the whole
+leaf, as JAX's GSPMD program does, and apply this rank's slice of it.
+
 ``row_parallel_matmul`` is JAX's chunked tensor-parallel out-projection
 (``transformer.tp_overlap_chunks``): the product cut along the sequence
 dim, each piece's matmul followed by its own ``all_reduce`` over
 ``tensor``.
 """
 
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -208,6 +214,105 @@ def sharded_bytes(tree: Any) -> int:
     if isinstance(tree, dict):
         return sum(sharded_bytes(v) for v in tree.values())
     return 0
+
+
+# the mesh axes that cut a leaf into the slice the model computes with
+# (ZeRO's ``data`` and ``fsdp`` cuts are gathered before the model runs)
+MODEL_AXES = ("tensor", "expert", "pipe")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSplit:
+    """How the live model axes cut one leaf: ``shape`` is the whole
+    leaf's, ``dims`` per dim the axes that cut it (row-major, as the
+    spec names them), ``slices`` this rank's slice of the whole."""
+    shape: Tuple[int, ...]
+    dims: Tuple[Tuple[str, ...], ...]
+    slices: Tuple[slice, ...]
+    mesh: Mesh
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return tuple(a for e in self.dims for a in e)
+
+    def whole(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's slice, detached: the values
+        the one-rank run sees (collective over ``axes``)."""
+        out = local.detach()
+        from deepspeed_tpu_torch.comm import comm
+        for d, axes in enumerate(self.dims):
+            if axes:
+                out = comm.all_gather(out, axes, dim=d, mesh=self.mesh)
+        return out
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of ``t``, a tensor of the whole leaf's shape
+        or one that broadcasts against it (its dims aligned to the
+        leaf's last ones; a dim of size 1 is kept), as a copy."""
+        off = len(self.shape) - t.dim()
+        part = t[tuple(slice(None) if t.shape[i] == 1
+                       else self.slices[off + i] for i in range(t.dim()))]
+        # a copy, so the whole leaf's storage can go
+        return part.clone() if part.shape != t.shape else part
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (this rank's statistic) maxed over ``axes``: a copy."""
+        from deepspeed_tpu_torch.comm import comm
+        return comm.all_reduce(t.clone(), self.axes, op="max",
+                               mesh=self.mesh)
+
+
+def model_split(shape: Sequence[int], spec: Spec,
+                mesh: Mesh) -> Optional[ModelSplit]:
+    """How the model axes of more than one rank cut a leaf of ``shape``
+    laid out by ``spec`` (a ZeRO param spec: its ``fsdp`` entries are
+    gathered before the model runs; a dim split over (fsdp, tensor)
+    leaves the rank its contiguous ``tensor`` piece); None when the rank
+    holds the whole leaf."""
+    dims = tuple(tuple(a for a in (entry_axes(spec[d]) if d < len(spec)
+                                   else ())
+                       if a in MODEL_AXES and mesh.size(a) > 1)
+                 for d in range(len(shape)))
+    if not any(dims):
+        return None
+    shape = tuple(int(n) for n in shape)
+    return ModelSplit(shape, dims,
+                      shard_slices(shape, from_entries(dims), mesh), mesh)
+
+
+def sum_groups(groups: Dict[Tuple[str, ...], torch.Tensor],
+               mesh: Optional[Mesh] = None
+               ) -> Dict[Tuple[str, ...], torch.Tensor]:
+    """Each group's tensor summed in place over the axes of its key, one
+    ``all_reduce`` per axis, the groups in sorted order (every rank
+    issues the same collectives)."""
+    from deepspeed_tpu_torch.comm import comm
+    for axes, t in sorted(groups.items()):
+        for a in axes:
+            comm.all_reduce(t, a, mesh=mesh)
+    return groups
+
+
+def shard_sums(values: List[torch.Tensor],
+               splits: Sequence[Optional[ModelSplit]]) -> List[torch.Tensor]:
+    """Per-leaf statistics (``values[i]``: this rank's partial sum over
+    its slice of leaf i) summed over the axes that cut each leaf, so
+    that every element of a leaf counts once and a leaf every rank holds
+    whole counts once (``sum_groups`` of the leaves cut alike)."""
+    out = list(values)
+    idx: Dict[Tuple[str, ...], List[int]] = {}
+    for i, sp in enumerate(splits):
+        if sp is not None:
+            idx.setdefault(sp.axes, []).append(i)
+    if not idx:
+        return out
+    mesh = next(sp.mesh for sp in splits if sp is not None)
+    sums = sum_groups({axes: torch.stack([values[i] for i in ii])
+                       for axes, ii in idx.items()}, mesh)
+    for axes, ii in idx.items():
+        for j, i in enumerate(ii):
+            out[i] = sums[axes][j]
+    return out
 
 
 class _RowParallelChunked(torch.autograd.Function):

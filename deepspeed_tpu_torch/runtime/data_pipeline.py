@@ -181,20 +181,51 @@ def random_ltd_layer(x, layer_fn, select, *args, **kwargs):
     token's true position (``positions`` [B, S] gathered, or the indices
     themselves) and the key mask gathered with the tokens; causality
     among sorted tokens is causality by index, so attention runs at S =
-    keep unchanged. ``select`` None runs the layer on every token."""
-    if select is None or select.shape[1] >= x.shape[1]:
+    keep unchanged. ``select`` None runs the layer on every token.
+
+    Over ``seq`` (x this rank's piece of the sequence, ``select`` kept
+    tokens of the whole sequence, JAX's selection from its global
+    array): the hidden state, the positions and the mask are gathered
+    over ``seq``, the rank runs the layer on its contiguous keep / n of
+    the kept tokens (JAX's ring splits the kept [B, keep] over ``seq`` in
+    order; a ``keep`` that n does not divide raises its ValueError), the
+    outputs are gathered back over ``seq`` and each rank keeps its piece
+    of the sequence."""
+    from deepspeed_tpu_torch.comm.comm import all_gather
+    from deepspeed_tpu_torch.parallel.context import (axis_index,
+                                                      gather_along,
+                                                      seq_parallel_degree)
+    n = seq_parallel_degree()
+    if select is None or select.shape[1] >= x.shape[1] * n:
         return layer_fn(x, *args, **kwargs)
     B, S, H = x.shape
     idx = select.to(device=x.device, dtype=torch.long)
-    sub = x.gather(1, idx[..., None].expand(B, -1, H))
     kwargs = dict(kwargs)
-    pos = kwargs.get("positions")
-    kwargs["positions"] = idx if pos is None else pos.gather(1, idx)
-    if kwargs.get("mask") is not None:
-        kwargs["mask"] = kwargs["mask"].gather(1, idx)
+    pos, mask = kwargs.get("positions"), kwargs.get("mask")
+    mine = idx
+    if n > 1:
+        keep = idx.shape[1]
+        if keep % n:
+            raise ValueError(f"random-LTD over seq: {keep} kept tokens do "
+                             f"not split evenly over the {n} ranks of the "
+                             "seq axis (JAX's ring shard_map refuses them)")
+        x = gather_along(x, "seq", dim=1)
+        if pos is not None:
+            pos = all_gather(pos.contiguous(), "seq", dim=1)
+        if mask is not None:
+            mask = all_gather(mask.contiguous(), "seq", dim=1)
+        mine = idx.narrow(1, axis_index("seq") * (keep // n), keep // n)
+    sub = x.gather(1, mine[..., None].expand(B, -1, H))
+    kwargs["positions"] = mine if pos is None else pos.gather(1, mine)
+    if mask is not None:
+        kwargs["mask"] = mask.gather(1, mine)
     out = layer_fn(sub, *args, **kwargs)
     y = out[0] if isinstance(out, tuple) else out
+    if n > 1:
+        y = gather_along(y, "seq", dim=1)
     full = x.scatter(1, idx[..., None].expand(B, -1, H), y.to(x.dtype))
+    if n > 1:
+        full = full.narrow(1, axis_index("seq") * S, S).contiguous()
     if isinstance(out, tuple):
         return (full,) + tuple(out[1:])
     return full

@@ -18,6 +18,13 @@ H·v. ρ is 2^-12 for f32 (or f64) leaves and 2^-6 for bf16 / f16 ones,
 where a smaller step drowns in the rounding of p ± εv to the leaf's
 dtype. ε stays a device scalar: a probe reads nothing back but the
 Rayleigh quotients.
+
+On a mesh whose model axes cut the probed leaves (``splits``: each
+leaf's ``parallel.partitioning.ModelSplit``), a rank holds a slice of
+each cut leaf and the whole of the others: every norm and dot adds the
+slices' partial sums over the axes that cut each leaf
+(``shard_sums``), so a leaf every rank holds whole counts once, and a
+random direction is the one-rank draw of the whole leaf, sliced.
 """
 
 import logging
@@ -26,6 +33,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
+from deepspeed_tpu_torch.parallel.partitioning import shard_sums
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -39,21 +47,29 @@ def fd_rho(leaves) -> float:
     return RHO_F32 if wide else RHO_LOW
 
 
-def _sq(leaves):
-    return torch.stack([x.detach().float().square().sum() for x in leaves]
-                       ).sum()
+def _sq(leaves, splits=None):
+    """The squared norm of ``leaves`` (on a mesh: of the whole leaves,
+    ``splits`` in the leaves' order)."""
+    sums = [x.detach().float().square().sum() for x in leaves]
+    if splits is not None:
+        sums = shard_sums(sums, splits)
+    return torch.stack(sums).sum()
 
 
 def hessian_vector_product(loss_fn: Callable, params, v,
-                           reduce: Optional[Callable] = None):
+                           reduce: Optional[Callable] = None,
+                           splits=None):
     """H·v of ``loss_fn(params)`` (a scalar) at ``params`` (a dict tree of
     tensors) along ``v`` (the same tree), by the central difference of
     two gradient passes with ε = ρ·‖p‖ / ‖v‖ (ρ: ``fd_rho``).
-    ``reduce(grads)``: applied to each pass's list of grads (a mean over
-    data-parallel ranks). Returns a tree like ``v``, in v's dtypes."""
+    ``reduce(grads)``: applied to each pass's list of grads (the sum over
+    the ranks that hold other rows or pieces of the batch). ``splits``:
+    each leaf's ``ModelSplit`` or None, in ``tree_leaves`` order (the
+    norms are the whole leaves'). Returns a tree like ``v``, in v's
+    dtypes."""
     p_leaves, v_leaves = tree_leaves(params), tree_leaves(v)
     rho = fd_rho(p_leaves)
-    pn, vn = _sq(p_leaves).sqrt(), _sq(v_leaves).sqrt()
+    pn, vn = _sq(p_leaves, splits).sqrt(), _sq(v_leaves, splits).sqrt()
     # a zero point (a freshly zeroed block) steps by rho itself
     eps = rho * torch.where(pn > 0, pn, torch.ones_like(pn)) / vn
 
@@ -74,12 +90,21 @@ def hessian_vector_product(loss_fn: Callable, params, v,
     return tree_map(lambda _: next(it), v)
 
 
-def random_direction(tree, generator: torch.Generator):
+def random_direction(tree, generator: torch.Generator, splits=None):
     """A standard normal tree like ``tree`` (drawn in f32 on each leaf's
-    device, cast to its dtype), leaves in ``tree_leaves`` order."""
-    return tree_map(lambda x: torch.randn(
-        x.shape, generator=generator, dtype=torch.float32,
-        device=x.device).to(x.dtype), tree)
+    device, cast to its dtype), leaves in ``tree_leaves`` order.
+    ``splits`` (each leaf's ``ModelSplit`` or None, in that order): a cut
+    leaf is drawn whole and sliced, so each rank holds its slice of the
+    one-rank draw."""
+    it = iter(splits if splits is not None else [])
+
+    def draw(x):
+        sp = next(it, None)
+        whole = torch.randn(x.shape if sp is None else sp.shape,
+                            generator=generator, dtype=torch.float32,
+                            device=x.device)
+        return (whole if sp is None else sp.local(whole)).to(x.dtype)
+    return tree_map(draw, tree)
 
 
 class Eigenvalue:

@@ -132,14 +132,20 @@ difficulty), ``data_efficiency.data_routing.random_ltd`` and
 (``config.seed``, the step, the global micro-batch, the layer, the global
 row: ``_ltd_draw``, ``_pld_draw``), so a rank of a data-parallel world
 draws what one rank draws and no draw waits on the card; the last
-step's are in ``step_draws``. At ZeRO-3 the masks and scales see whole
-leaves (gathered once a micro-batch). What they do not compose with
-raises ``NotImplementedError``: compression or MoQ on the 1-bit
-compressed path, any extra under the layer-streamed executor (ROADMAP
-A11, training extras under 1-bit and offload), compression or MoQ over
-the tensor, expert, seq or pipe axes and random-LTD over seq (A11,
-training extras on the model-parallel axes); MoQ, PLD and random-LTD
-under pipeline parallelism raise JAX's ValueErrors.
+step's are in ``step_draws``. The masks and scales are the whole leaf's,
+as JAX's GSPMD program computes them: at ZeRO-3 on the leaves gathered
+over ``fsdp`` (once a micro-batch), and where the model axes cut a leaf
+(``tensor``, ``expert``, ``pipe``) on the whole leaf gathered detached,
+each rank applying its slice (``compression/compress.py``; MoQ's
+per-layer amax by a max over the ranks); MoQ's probe draws the one-rank
+direction and adds every norm and dot over the slices. Compression and
+MoQ run on the 1-bit compressed path too, inside each rank's loss at
+the applied-update count, as JAX's ``shard_map`` step runs them. Over
+``seq`` random-LTD keeps tokens of the whole sequence and runs the ring
+over the kept tokens (``runtime/data_pipeline.random_ltd_layer``). Any
+extra under the layer-streamed executor raises ``NotImplementedError``
+(ROADMAP A11, training extras under 1-bit and offload); MoQ, PLD and
+random-LTD under pipeline parallelism raise JAX's ValueErrors.
 
 The model families (biases, learned positions and token types, ALiBi,
 windows, post-LN, the parallel block, a head bias) train on every axis
@@ -169,7 +175,7 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm import comm
-from deepspeed_tpu_torch.comm.schedule import GradSchedule
+from deepspeed_tpu_torch.comm.schedule import GradSchedule, reduce_grad
 from deepspeed_tpu_torch.config import Config
 from deepspeed_tpu_torch.config.config import raise_offload_over_ranks
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
@@ -180,6 +186,7 @@ from deepspeed_tpu_torch.models.transformer import (TransformerConfig,
                                                     lm_labels, logical_axes,
                                                     ltd_draws, make_model,
                                                     mask_seed, pld_coins)
+from deepspeed_tpu_torch.moe.sharded_moe import frozen_routing
 from deepspeed_tpu_torch.ops.onebit import PhasedOptimizer
 from deepspeed_tpu_torch.ops.optimizers import (Optimizer, cast_tree,
                                                 global_grad_norm,
@@ -190,6 +197,8 @@ from deepspeed_tpu_torch.ops.registry import get_optimizer_builder
 from deepspeed_tpu_torch.parallel import context as par_ctx
 from deepspeed_tpu_torch.parallel.mesh import (BATCH_AXES, Mesh, build_mesh,
                                                plan_from_config)
+from deepspeed_tpu_torch.parallel.partitioning import (from_entries,
+                                                       model_split)
 from deepspeed_tpu_torch.robustness import faults as rb_faults
 from deepspeed_tpu_torch.runtime import checkpointing as ckpt_mod
 from deepspeed_tpu_torch.runtime import fp16 as fp16_mod
@@ -400,6 +409,10 @@ class Engine:
                 hierarchical=self._sched.hierarchical)
         self.last_grad_bytes = 0
 
+        # each leaf's cut by the model axes (``_model_split``), and the
+        # masks of the compression transform when a dict is set here
+        self._splits = None
+        self.mask_record = None
         self._swapper = self._infinity = None
         self._offload = self._offload_route(optimizer is not None)
         self._refuse_extras()
@@ -519,36 +532,19 @@ class Engine:
         self.step_draws = []
 
     def _refuse_extras(self) -> None:
-        """What the port does not compose the extras with: the 1-bit
-        compressed path and the offload executor (compression, MoQ; every
-        extra under the layer-streamed executor), and the model-parallel
-        axes whose slices the masks and scales would see in part."""
+        """What the port does not compose the extras with: every extra
+        under the layer-streamed offload executor."""
         on = [n for n, v in (
             ("compression_training", self._compression is not None
              or self._act_quant), ("quantize_training", self._moq),
             ("curriculum_learning", self._curriculum),
             ("progressive_layer_drop", self._pld),
             ("random_ltd", self._ltd)) if v]
-        if not on:
-            return
-        weights = [n for n in on if n in ("compression_training",
-                                          "quantize_training")]
-        label = "ROADMAP A11 (training extras under 1-bit and offload)"
-        if self._offload == "infinity":
+        if on and self._offload == "infinity":
             raise NotImplementedError(
                 f"{', '.join(on)} with the layer-streamed offload executor "
-                f"is not ported yet: {label}")
-        if self._onebit and weights:
-            raise NotImplementedError(
-                f"{', '.join(weights)} on the 1-bit compressed path is not "
-                f"ported yet: {label}")
-        axes = [a for a in ("tensor", "expert", "seq", "pipe")
-                if self.mesh.size(a) > 1]
-        if (weights and axes) or (self._ltd and "seq" in axes):
-            raise NotImplementedError(
-                f"{', '.join(on)} over the {'/'.join(axes)} axes is not "
-                "ported yet: ROADMAP A11 (training extras on the "
-                "model-parallel axes)")
+                "is not ported yet: ROADMAP A11 (training extras under "
+                "1-bit and offload)")
 
     def _rebuild_act_quant(self) -> None:
         """The activation-quantized model (JAX's one rebuild)."""
@@ -617,10 +613,12 @@ class Engine:
             return {}
         kw, draw = {}, {}
         if "ltd_keep" in ex:
+            # over ``seq`` the ids are this rank's piece: the kept tokens
+            # are drawn from the whole sequence
             ids = mb["input_ids"]
-            kw["ltd_select"] = self._ltd_draw(ids.shape[0], ids.shape[1],
-                                              ex["ltd_keep"], micro,
-                                              row or 0)
+            kw["ltd_select"] = self._ltd_draw(
+                ids.shape[0], ids.shape[1] * self.plan.seq, ex["ltd_keep"],
+                micro, row or 0)
             draw["ltd_keep"] = ex["ltd_keep"]
         elif "pld_theta" in ex:
             kw["pld_theta"] = ex["pld_theta"]
@@ -641,45 +639,94 @@ class Engine:
         whole["layers"] = gather(params["layers"], "layers/")
         return whole
 
+    def _model_split(self, path: str):
+        """How the model axes cut leaf ``path`` on this rank
+        (``parallel.partitioning.model_split``; None: the rank holds it
+        whole)."""
+        if self._part is None:
+            return None
+        if self._splits is None:
+            self._splits = {p: model_split(lay.shape, lay.pspec, self.mesh)
+                            for p, lay in self._part.layouts.items()}
+        return self._splits.get(path)
+
     def _forward_params(self, params, moq: bool = True):
         """The params the loss sees: the compression transform at the
         applied-update count, then MoQ at this step's bits (JAX's
-        ``micro_grads``); at ZeRO-3 on the whole leaves (the masks and
-        scales are the whole leaf's, as in JAX). Returns (params, whole):
-        ``whole`` when the model must not gather again."""
+        ``micro_grads``); at ZeRO-3 on the leaves gathered over ``fsdp``,
+        and where the model axes cut a leaf with the whole leaf's masks
+        and scales (as JAX's GSPMD program computes them). The masks each
+        rank applies go into ``mask_record`` when it is a dict. Returns
+        (params, whole): ``whole`` when the model must not gather
+        again."""
         bits = (self._extras or {}).get("moq_bits") if moq else None
         if self._compression is None and bits is None:
             return params, False
         p = self._whole_params(params)
         if self._compression is not None:
-            p = self._compression.apply(p, self.state["step"])
+            p = self._compression.apply(p, self.state["step"],
+                                        split=self._model_split,
+                                        record=self.mask_record)
         if bits is not None:
-            p = self._moq.apply(p, bits)
+            p = self._moq.apply(p, bits, split=self._model_split)
         return p, p is not params and self._part is not None \
             and self._part.stage >= 3
 
     def _moq_probe(self, batch):
         """MoQ's per-layer curvature on this step's batch (JAX probes the
         global batch with the model's eval loss): each rank probes its
-        rows, the difference passes' grads averaged over the ranks; at
-        ZeRO-3 on the whole layers."""
+        rows (over ``seq`` its piece of them, each piece's token losses
+        over the whole count), and each difference pass's grads are
+        reduced as the step's are (``comm.schedule.reduce_grad`` of the
+        leaf as the model sees it); at ZeRO-3 on the whole layers; where
+        the model axes cut a leaf, the direction, norms and dots are the
+        whole leaf's; a MoE layer keeps the probed params' expert choices
+        in every pass (``moe.sharded_moe.frozen_routing``), as JAX's jvp
+        does."""
         params = self.state["params"]
-        local = self._local_rows(batch) if self._part is not None else batch
-        reduce = None
-        if self._part is not None:
+        if self._part is None:
+            local, kw, reduce, splits, row = batch, {}, None, None, None
+        else:
+            batch = self._seq_labels(batch)
+            local = self._local_rows(batch)
+            kw = {}
+            if self.plan.seq > 1:
+                kw["label_count"] = self._denominators(
+                    (batch["labels"] != -100).sum())
+            row = self._dp_index() * local["input_ids"].shape[0]
+            layers = sorted(params["layers"])
+            splits = {k: self._model_split("layers/" + k) for k in layers}
+            # the probe's leaves are whole but for the model axes' cuts
+            specs = [() if splits[k] is None
+                     else from_entries(splits[k].dims) for k in layers]
+            dtypes = [params["layers"][k].dtype for k in layers]
+
             def reduce(grads):
-                return [comm.all_reduce(g, BATCH_AXES, op="mean")
-                        for g in grads]
+                return [reduce_grad(g, s, s, None, self.plan, self.mesh,
+                                    self._part.inv_dp, d)
+                        for g, s, d in zip(grads, specs, dtypes)]
         gen = torch.Generator(self.device).manual_seed(
             mask_seed(self.config.seed, self.global_steps, 0x6D6F71))
         with self._step_context(), contextlib.ExitStack() as ctx:
+            if row is not None:
+                # a MoE layer gathers the rows over the batch axes
+                ctx.enter_context(par_ctx.batch_rows(row))
             if self._part is not None and self._part.stage >= 3:
                 with torch.no_grad():
                     params = self._whole_params(params)
                 ctx.enter_context(par_ctx.param_gather(None))
+
+            def loss_fn(p, b):
+                return self.model.loss_fn(p, b, **kw)
+            if "wg" in params["layers"]:
+                # every pass routes the tokens as the probed params do
+                # (one forward records it)
+                ctx.enter_context(frozen_routing())
+                with torch.no_grad():
+                    loss_fn(params, local)
             return self._moq.layer_eigenvalues(
-                lambda p, b: self.model.loss_fn(p, b), params, local,
-                generator=gen, reduce=reduce)
+                loss_fn, params, local, generator=gen, reduce=reduce,
+                splits=splits)
 
     # --- the capacity tier ------------------------------------------------
     def _offload_route(self, client_optimizer: bool) -> Optional[str]:
@@ -1329,21 +1376,24 @@ class Engine:
             return self._infinity.eval_batch(batch)
         batch = self._device_batch(batch)
         with self._step_context():
-            if self.plan.seq > 1:
-                # each rank its piece of every sequence, over the whole
-                # count of labels; the pieces' losses add up over seq
-                batch = self._seq_labels(batch)
-                count = (batch["labels"] != -100).sum().clamp_min(1).float()
-                local = {k: self._part.slice_of(v, (None, "seq"))
-                         for k, v in batch.items()}
-                loss = self.model.loss_fn(self.state["params"], local,
-                                          label_count=count)
-                return comm.all_reduce(loss.reshape(1).clone(), "seq")[0]
             # JAX's eval step applies the compression transform (not MoQ)
             params, whole = self._forward_params(self.state["params"],
                                                  moq=False)
             with par_ctx.param_gather(None) if whole \
                     else contextlib.nullcontext():
+                if self.plan.seq > 1:
+                    # each rank its piece of every sequence, over the
+                    # whole count of labels; the pieces' losses add up
+                    # over seq
+                    batch = self._seq_labels(batch)
+                    count = (batch["labels"] != -100).sum().clamp_min(
+                        1).float()
+                    local = {k: self._part.slice_of(v, (None, "seq"))
+                             for k, v in batch.items()}
+                    loss = self.model.loss_fn(params, local,
+                                              label_count=count)
+                    return comm.all_reduce(loss.reshape(1).clone(),
+                                           "seq")[0]
                 return self.model.loss_fn(params, batch)
 
     # ------------------------------------------------------------------

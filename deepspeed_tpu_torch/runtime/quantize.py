@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves, tree_map
+from deepspeed_tpu_torch.parallel.partitioning import shard_sums
 from deepspeed_tpu_torch.runtime.eigenvalue import (Eigenvalue,
                                                     hessian_vector_product,
                                                     random_direction)
@@ -32,15 +33,19 @@ from deepspeed_tpu_torch.runtime.eigenvalue import (Eigenvalue,
 logger = logging.getLogger("deepspeed_tpu_torch")
 
 
-def ste_quant_layers(leaf, levels):
+def ste_quant_layers(leaf, levels, amax_max=None):
     """Symmetric fake-quant of each layer of a stacked leaf [L, ...] with
     its own scale: ``levels`` [L] f32 (2^(bits - 1) - 1), JAX's f32 math,
-    the straight-through gradient."""
+    the straight-through gradient. ``amax_max``: on a mesh whose model
+    axes cut the leaf's other dims, the max of the per-layer amax [L]
+    over those ranks (the whole layer's scale)."""
     x32 = leaf.float()
     shape = (leaf.shape[0],) + (1,) * (leaf.dim() - 1)
     lv = levels.reshape(shape)
-    amax = x32.detach().abs().reshape(leaf.shape[0], -1).amax(1).reshape(shape)
-    scale = torch.clamp_min(amax / lv, 1e-12)
+    amax = x32.detach().abs().reshape(leaf.shape[0], -1).amax(1)
+    if amax_max is not None:
+        amax = amax_max(amax)
+    scale = torch.clamp_min(amax.reshape(shape) / lv, 1e-12)
     xq = torch.clamp(torch.round(x32.detach() / scale), -lv, lv)
     xq = (xq * scale).to(leaf.dtype)
     return leaf + (xq - leaf).detach()
@@ -89,36 +94,48 @@ class MoQ:
         logger.info(f"MoQ eigenvalues at step {step}: period scales "
                     f"{np.round(self._period_scale, 2).tolist()}")
 
-    def apply(self, params, bits):
+    def apply(self, params, bits, split=None):
         """The params with each stacked layer leaf ([L, ...], 3 or more
-        dims) fake-quantized at its layer's bits (``bits`` [L], host)."""
+        dims) fake-quantized at its layer's bits (``bits`` [L], host).
+        ``split(path)``: the leaf's ``ModelSplit`` on a mesh (None: whole),
+        whose per-layer amax is maxed over the ranks that cut the layer
+        (MoQ never runs over ``pipe``, which would cut L)."""
         levels = None
         out = dict(params)
         layers = {}
         for k, v in params["layers"].items():
-            if v.dim() < 3 or v.shape[0] != self.num_layers:
+            sp = split("layers/" + k) if split is not None else None
+            shape = sp.shape if sp is not None else tuple(v.shape)
+            if len(shape) < 3 or shape[0] != self.num_layers:
                 layers[k] = v
                 continue
             if levels is None or levels.device != v.device:
                 lv = np.power(np.float32(2.0), np.asarray(bits, np.float32)
                               - np.float32(1.0)) - np.float32(1.0)
                 levels = torch.from_numpy(lv.astype(np.float32)).to(v.device)
-            layers[k] = ste_quant_layers(v, levels)
+            layers[k] = ste_quant_layers(
+                v, levels, None if sp is None else sp.max)
         out["layers"] = layers
         return out
 
     def layer_eigenvalues(self, loss_fn: Callable, params, batch,
                           generator: Optional[torch.Generator] = None,
                           max_iter: Optional[int] = None, v=None,
-                          reduce: Optional[Callable] = None) -> np.ndarray:
+                          reduce: Optional[Callable] = None,
+                          splits: Optional[Dict[str, Any]] = None
+                          ) -> np.ndarray:
         """Each layer's top |eigenvalue| (``loss_fn(params, batch)``, a
         scalar) by one power iteration over the stacked-layer block; ``v``:
         its start (default a normal draw from ``generator``, seed 0);
-        ``reduce``: as ``hessian_vector_product``'s."""
+        ``reduce``: as ``hessian_vector_product``'s; ``splits``: on a mesh,
+        {layer leaf name: its ``ModelSplit`` or None} (every norm and dot
+        the whole leaves', the draw the one-rank draw sliced)."""
         ev = Eigenvalue(
             max_iterations=max_iter or int(self.ev_cfg.get("max_iter", 20)),
             tol=float(self.ev_cfg.get("tol", 1e-2)),
             stability=float(self.ev_cfg.get("stability", 1e-6)))
+        sp = (None if splits is None else
+              [splits.get(k) for k in sorted(params["layers"])])
 
         def block_loss(layer_stack):
             p = dict(params)
@@ -127,27 +144,33 @@ class MoQ:
 
         def hvp(vv):
             return hessian_vector_product(block_loss, params["layers"], vv,
-                                          reduce=reduce)
+                                          reduce=reduce, splits=sp)
 
         def normalize(t):
-            n = (torch.stack([x.float().square().sum()
-                              for x in tree_leaves(t)]).sum()
-                 + ev.stability).sqrt()
+            sums = [x.float().square().sum() for x in tree_leaves(t)]
+            if sp is not None:
+                sums = shard_sums(sums, sp)
+            n = (torch.stack(sums).sum() + ev.stability).sqrt()
             return tree_map(lambda x: (x.float() / n).to(x.dtype), t)
 
         if v is None:
             device = tree_leaves(params["layers"])[0].device
             generator = generator or torch.Generator(device).manual_seed(0)
-            v = random_direction(params["layers"], generator)
+            v = random_direction(params["layers"], generator, splits=sp)
         for _ in range(ev.max_iterations):
             v = normalize(hvp(normalize(v)))
         v = normalize(v)
         hv = hvp(v)
-        num = den = 0
+        nums, dens = [], []
         for x, y in zip(tree_leaves(v), tree_leaves(hv)):
             x64 = x.double().reshape(x.shape[0], -1)
-            num = num + (x64 * y.double().reshape(y.shape[0], -1)).sum(1)
-            den = den + (x64 * x64).sum(1)
+            nums.append((x64 * y.double().reshape(y.shape[0], -1)).sum(1))
+            dens.append((x64 * x64).sum(1))
+        if sp is not None:
+            nums, dens = shard_sums(nums, sp), shard_sums(dens, sp)
+        num = den = 0
+        for a, b in zip(nums, dens):
+            num, den = num + a, den + b
         num, den = num.cpu().numpy(), den.cpu().numpy()
         return np.abs(num) / np.maximum(den, 1e-12)
 

@@ -58,7 +58,8 @@ from deepspeed_tpu_torch.parallel.partitioning import (Spec, entry_axes,
                                                        shard_slices,
                                                        spec_axes,
                                                        spec_entries,
-                                                       sub_slices)
+                                                       sub_slices,
+                                                       sum_groups)
 
 
 def zero_param_spec(spec: Spec, shape: Sequence[int], plan: MeshPlan,
@@ -270,9 +271,7 @@ class Partition:
             s = sum_sq(g)
             groups[key] = s if key not in groups else groups[key] + s
         total = None
-        for key, s in sorted(groups.items()):
-            for a in key:
-                comm.all_reduce(s, a)
+        for key, s in sorted(sum_groups(groups).items()):
             total = s if total is None else total + s
         return total.sqrt()
 

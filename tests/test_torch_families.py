@@ -460,8 +460,11 @@ def test_refusal_on_a_mesh_larger_than_one_rank():
     with ALiBi or windows. What still raises, before any process group is
     touched: a vocabulary the tensor axis does not divide (``ValueError``
     naming the leaf, as JAX's ``device_put`` raises), what JAX's pipeline
-    drops over ``pipe`` and the training extras on the model-parallel
-    axes (``NotImplementedError`` naming their ROADMAP labels)."""
+    drops over ``pipe`` (``NotImplementedError`` naming its ROADMAP
+    label). The training extras on the model-parallel axes, once refused
+    too, build: a rank's compression transform sees each leaf's cut by
+    the tensor axis (``tests/test_torch_extras_mesh.py`` trains them
+    against JAX)."""
     mesh = Mesh(MeshPlan(tensor=2))
     got = convert.params_from_numpy(_seeded("gpt2"), _pcfg("gpt2"),
                                     device="cpu", dtype=torch.float32,
@@ -489,17 +492,20 @@ def test_refusal_on_a_mesh_larger_than_one_rank():
             config={"train_batch_size": 4, "gradient_accumulation_steps": 2,
                     "optimizer": {"type": "adamw", "params": {"lr": 1e-3}}},
             device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="A11 \\(training extras on the model-parallel"):
-        deepspeed_tpu_torch.initialize(
-            model=pt.make_model(_pcfg("gpt2")), mesh=mesh, config={
-                "train_batch_size": 4,
-                "optimizer": {"type": "sgd", "params": {"lr": 0.1}},
-                "compression_training": {"weight_quantization": {
-                    "shared_parameters": {"enabled": True},
-                    "different_groups": {"wq1": {
-                        "params": {"start_bits": 8, "target_bits": 8},
-                        "modules": ["wq"]}}}}}, device="cpu")
+    e, *_ = deepspeed_tpu_torch.initialize(
+        model=pt.make_model(_pcfg("gpt2")), mesh=mesh, config={
+            "train_batch_size": 4,
+            "optimizer": {"type": "sgd", "params": {"lr": 0.1}},
+            "compression_training": {"weight_quantization": {
+                "shared_parameters": {"enabled": True},
+                "different_groups": {"wq1": {
+                    "params": {"start_bits": 8, "target_bits": 8},
+                    "modules": ["wq"]}}}}}, device="cpu")
+    assert [r.kind for r in e._compression.rules] == ["weight_quant"]
+    cut = e._model_split("layers/wq")
+    assert cut.shape == (L, H, H) and cut.dims == ((), (), ("tensor",))
+    assert cut.slices[2] == slice(0, H // 2)
+    assert e._model_split("layers/ln1_scale") is None
     assert pt.family_leaves(pt.llama_config("tiny")) == []
     assert "alibi" in pt.family_leaves(_pcfg("bloom"))
     assert pt.pipe_dropped(_pcfg("bert")) == [

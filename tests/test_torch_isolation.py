@@ -84,7 +84,8 @@ def test_forbidden_prefix_rule():
     ROOT / "tests" / "test_torch_families_cuda.py",
     ROOT / "tests" / "_torch_extras_workers.py",
     ROOT / "tests" / "test_torch_training_extras_cuda.py",
-    ROOT / "tests" / "_torch_families_mesh_workers.py"],
+    ROOT / "tests" / "_torch_families_mesh_workers.py",
+    ROOT / "tests" / "_torch_extras_mesh_workers.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

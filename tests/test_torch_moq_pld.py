@@ -27,6 +27,7 @@ from deepspeed_tpu.runtime import quantize as jq
 from deepspeed_tpu_torch.models import params_from_numpy
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops.optimizers import tree_leaves
+from deepspeed_tpu_torch.moe.sharded_moe import frozen_routing
 from deepspeed_tpu_torch.runtime import eigenvalue as pe
 from deepspeed_tpu_torch.runtime import quantize as pq
 
@@ -77,6 +78,46 @@ def test_hvp_matches_jax_jvp():
     err = rel_l2(np.concatenate([g[k].ravel() for k in sorted(w)]),
                  np.concatenate([w[k].ravel() for k in sorted(w)]))
     assert err <= 5e-4, err
+
+
+def test_moe_hvp_keeps_the_probed_routing_as_jax_jvp_does():
+    """A MoE model (4 experts, top-2, capacity drops): JAX's jvp of its
+    grad keeps the expert choices of the probed params (its argmax has
+    no derivative), while the central difference's two passes route the
+    tokens at p + eps v and p - eps v, where choices flip, so its H·v
+    lands far from JAX's; with the probed params' routing kept in both
+    passes (``moe.sharded_moe.frozen_routing``, as the engine's MoQ probe
+    runs them) it is within 5e-4, the dense model's bar."""
+    jcfg, tcfg = cfgs(layers=2, num_experts=4, top_k=2)
+    p = init_np(jcfg)
+    b = ids(1, 8)
+    tp = params_from_numpy(p, tcfg, device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    v = {k: rng.normal(size=a.shape).astype(np.float32)
+         for k, a in p["layers"].items()}
+
+    def jblock(layers):
+        return jt.lm_loss(dict(jax.tree.map(jnp.asarray, p), layers=layers),
+                          {"input_ids": jnp.asarray(b)}, jcfg)
+    w = np_tree(jax.jvp(jax.grad(jblock),
+                        (jax.tree.map(jnp.asarray, p["layers"]),),
+                        (jax.tree.map(jnp.asarray, v),))[1])
+
+    def tblock(layers):
+        return tt.lm_loss(dict(tp, layers=layers),
+                          {"input_ids": torch.from_numpy(b)}, tcfg)
+
+    def err(hv):
+        g = np_tree(hv)
+        return rel_l2(np.concatenate([g[k].ravel() for k in sorted(w)]),
+                      np.concatenate([w[k].ravel() for k in sorted(w)]))
+    free = err(pe.hessian_vector_product(tblock, tp["layers"], _t(v)))
+    with frozen_routing():
+        with torch.no_grad():
+            tblock(tp["layers"])
+        frozen = err(pe.hessian_vector_product(tblock, tp["layers"], _t(v)))
+    print("MoE H.v against JAX's jvp: routing kept", frozen, "free", free)
+    assert frozen <= 5e-4 < 1e-2 < free, (frozen, free)
 
 
 def test_eigenvalue_power_iteration():
