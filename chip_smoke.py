@@ -266,15 +266,16 @@ Phases, each of which raises on failure (exit code != 0):
    their g++ flags printed, which IO path a handle takes (io_uring or
    the thread pool), and the fused CPU-Adam's host bytes per second over
    the model's values. (b) the llama-1b training cell (full width, 4 of
-   its 16 layers, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 2
-   steps from one set of seeded weights: the on-device run, then (i)
+   its 16 layers, B=8, S=2048, bf16, AdamW, dots_saveable), 1 + 1
+   steps (1 + 2 before phase 25 took its time) from one set of
+   seeded weights: the on-device run, then (i)
    ``offload_optimizer.device=cpu`` (the chunk-streamed pinned tier),
    (ii) ``use_cpu_adam`` (the host C++ update), (iii) ``device=nvme``
    (the chunk files) and (iv) ``offload_param`` nvme (ZeRO-Infinity
    layer streaming). For each: step ms, the card's peak over the steps,
    the bytes of state on the card / host / disk equal to the config's
-   law, losses within 2e-2 of the on-device run's, B1 = 2 x 4 x 3 and
-   B2 = B3 = 4 x 3 (launch counts zeroed just before the steps), the
+   law, losses within 2e-2 of the on-device run's, B1 = 2 x 4 x 2 and
+   B2 = B3 = 4 x 2 (launch counts zeroed just before the steps), the
    host libraries' calls and the chunk files' reads and writes equal to
    their counts; the peak below the on-device run's by at least the
    optimizer state's 12 bytes a param under (i)-(iii), and lower still
@@ -436,6 +437,26 @@ Phases, each of which raises on failure (exit code != 0):
    rank: losses and params within 1e-5, every mask a rank applied in the
    first step equal to its slice of world 1's bit for bit, MoQ's period
    scales within 1e-3 and its bits identical.
+25. the layer executor's compositions and offload over ranks (its kernel
+   cases before phase 23, its rank parts at the end of phase 23's group,
+   the rest and its checks after phase 24). First B1-B3 at a tensor=2
+   rank's llama-1b shapes under the executor (16/4 heads of 64, B=8
+   S=2048) and B1 at GPT-2 1.3b's (32/32 heads of 64, B=8 S=1024), each
+   against its plain version. Then llama-1b width cut to 4 of its 16
+   layers, B=8 S=2048 bf16, the executor on the pinned host tier, 1
+   warm-up + 1 counted step a run: (a) compression (8-bit w_in, 50 %
+   sparse w_out) + MoQ (16 -> 8, one bit a step) inside each streamed
+   layer; (b) the live
+   cache (``stage3_max_live_parameters`` of 2 layers); (c) at fsdp=2 and
+   at tensor=2 (two ranks on the card in phase 23's group); (d) the NVMe
+   optimizer swapper at data=2 (ZeRO stage 1: each rank swaps its half);
+   (e) GPT-2 1.3b width, 4 layers, S=1024, at one rank. Every rank: B1 =
+   2 x 4, B2 = B3 = 4 a step; the state's bytes by tier equal to the law
+   (a mesh rank's layer chunks 1/2 of one rank's), 2 x (4 - live) param
+   chunk copies a step ((b): 2 x 2 fewer), the step ms. (f) f32 at 2
+   layers, B=2 S=512, 2 steps (Adam's eps 1e-3, as phase 18 (c)) at
+   fsdp=2 and tensor=2 against the executor at world 1: losses within
+   1e-5, masters within 1e-6.
 
 Every phase prints ``phase_s {"phase": ..., "s": ...}`` (its wall
 seconds) when it ends, and the script a ``"total"`` one before the
@@ -485,6 +506,9 @@ VOCAB = 32000
 # the phase clock's running phase and the end of its last part (in a rank
 # process: its start)
 _CLOCK = {"phase": "rank", "t": time.perf_counter()}
+# every timed phase's wall seconds, in order (summarized on stderr at the
+# end: the kernels line can push the phase_s lines out of a log's tail)
+_PHASE_S = {}
 
 
 def mark_part(label: str) -> None:
@@ -512,8 +536,8 @@ def timed(phase: str, fn, *args, **kw):
     t0 = time.perf_counter()
     _CLOCK.update(phase=phase, t=t0)
     out = fn(*args, **kw)
-    log("phase_s " + json.dumps({"phase": phase,
-                                 "s": time.perf_counter() - t0}))
+    _PHASE_S[phase] = time.perf_counter() - t0
+    log("phase_s " + json.dumps({"phase": phase, "s": _PHASE_S[phase]}))
     return out
 
 
@@ -4845,7 +4869,7 @@ def fleet_phase(smi: str, served, drift: float):
 # the capacity tier (phase 18)
 # --------------------------------------------------------------------------
 
-CAPACITY_STEPS = 3                   # 1 + 2
+CAPACITY_STEPS = 2                   # 1 + 1
 CAPACITY_LAYERS = 4                  # llama-1b's width, 4 of its 16 layers
 # the nvme tier's directory: inside the checkout, gitignored, emptied after
 CAPACITY_SCRATCH = "offload_scratch"
@@ -4979,10 +5003,12 @@ def _capacity_io(route, engine, rec, steps):
         L, c = ex.cfg.num_layers, min(ex.cfg.num_layers, ex._cache_layers)
         want = {"opt_read": L * (steps - 1), "opt_write": L * steps,
                 "param_write": L * (steps + 1),
-                # step 1's forward reads every layer; each sweep after
-                # that (the backward, the update, and each later step's
-                # forward) reads the L - c layers the cache does not hold
-                "param_read": L + 2 * (L - c) + 3 * (L - c) * (steps - 1)}
+                # step 1's forward reads every layer; its backward and
+                # the update's lazy init, and each later step's forward
+                # and backward, read the L - c layers the cache does not
+                # hold (the update reads the params only to start an
+                # optimizer chunk)
+                "param_read": L + 2 * (L - c) + 2 * (L - c) * (steps - 1)}
         rec["store_io"], rec["store_io_want"] = dict(ex.store.io), want
         checks["store_io"] = ex.store.io == want
         checks["aio_preads"] = calls.get("dstpu_aio_pread", 0) == \
@@ -7209,8 +7235,9 @@ def _fm_rank(rank, world, prompts, sparse_prompts, bloom_ids):
         ident[f"{name} streams"] = _fm_streams(rank, c, name, ps, tp2)
     rec["d"] = ident
     mark_part("(d) f32 identities")
-    # phase 24 in the same group (one group start less)
+    # phases 24 and 25 in the same group (one group start less)
     rec["extras_mesh"] = _xm_rank(rank)
+    rec["infinity_mesh"] = _ix_rank(rank)
     out = [None] * world
     dist.all_gather_object(out, rec)
     return out if rank == 0 else None
@@ -7299,7 +7326,8 @@ def families_mesh_phase(smi: str):
     rec = {"card": smi, "timing": ZERO_SHARED, "flash_cases": flash,
            "bwd_cases": bwd, "decode_cases": decode, "sparse_cases": sparse,
            "launches": launches, "phase_s": time.perf_counter() - t_phase,
-           "extras_mesh": [r["extras_mesh"] for r in ranks]}
+           "extras_mesh": [r["extras_mesh"] for r in ranks],
+           "infinity_mesh": [r["infinity_mesh"] for r in ranks]}
     log(f"phase 23 (a) pythia-1.4b tensor=2 [{smi}; {ZERO_SHARED}] "
         + json.dumps({
             "serving": {k: st_a.get(k) for k in (
@@ -7322,7 +7350,8 @@ def families_mesh_phase(smi: str):
                                     "decode_steps", "wall_s")}))
     log(f"phase 23 (d) f32 {ID_LAYERS} layers [{smi}] " + json.dumps(ident))
     log(f"phase 23: {rec['phase_s']:.1f}s (phase 24's ranks "
-        f"{max(r['s'] for r in rec['extras_mesh']):.1f}s of it), launches "
+        f"{max(r['s'] for r in rec['extras_mesh']):.1f}s of it, phase 25's "
+        f"{max(r['s'] for r in rec['infinity_mesh']):.1f}s), launches "
         f"{json.dumps(launches)}, checks {json.dumps(checks)}")
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -7615,6 +7644,341 @@ def extras_mesh_phase(smi: str, ranks, kernels):
     return rec
 
 
+# --------------------------------------------------------------------------
+# the layer executor's compositions and offload over ranks (phase 25)
+# --------------------------------------------------------------------------
+
+IX_LAYERS = 4             # llama-1b width, 4 of its 16 layers
+IX_B, IX_S = 8, 2048
+IX_STEPS = 1              # counted steps of a run, after 1 warm-up step
+IX_LIVE = 2               # (b): the layers the live cache holds
+IX_GPT2_S = 1024          # (e): GPT-2 1.3b's context
+IX_SWAP_CHUNK = 1 << 26   # (d): the swapper's chunk, in values
+IX_ID = dict(layers=2, S=512, B=2, steps=2)     # (f): the f32 identities
+IX_OPT = {"type": "adamw", "params": {"lr": 1e-4}}
+# (f): Adam's eps 1e-3, as phase 18 (c): at 1e-8 an element whose grad
+# cancels to the last bits moves by lr either way (ROADMAP C18)
+IX_OPT32 = {"type": "adamw", "params": {"lr": 1e-4, "eps": 1e-3}}
+IX_EXTRAS = {
+    "compression_training": {
+        "weight_quantization": {
+            "shared_parameters": {"enabled": True, "schedule_offset": 0},
+            "different_groups": {"g": {"params": {"target_bits": 8},
+                                       "modules": ["w_in"]}}},
+        "sparse_pruning": {
+            "shared_parameters": {"enabled": True, "schedule_offset": 0},
+            "different_groups": {"g": {"params": {"dense_ratio": 0.5},
+                                       "modules": ["w_out"]}}}},
+    "quantize_training": {
+        "enabled": True, "quantize_bits": {"start_bits": 16,
+                                           "target_bits": 8},
+        "quantize_schedule": {"quantize_period": 1, "schedule_offset": 0}}}
+
+
+def _ix_config(B=IX_B, mesh=None, live=0, f32=False, **extra):
+    """The layer executor on the pinned host tier (``offload_param`` and
+    ``offload_optimizer`` cpu), ``mesh`` its axes, ``live`` the params
+    the live cache may hold (``stage3_max_live_parameters``)."""
+    off = {"device": "cpu"}
+    zero = {"stage": 3, "offload_param": off, "offload_optimizer": dict(off)}
+    if live:
+        zero["stage3_max_live_parameters"] = live
+    c = {"train_batch_size": B, "gradient_accumulation_steps": 1,
+         "optimizer": IX_OPT32 if f32 else IX_OPT,
+         "bf16": {"enabled": not f32}, "seed": 0, "zero_optimization": zero}
+    if mesh:
+        c["mesh"] = {"axes": dict(mesh)}
+    c.update(extra)
+    return c
+
+
+def _numpy_tree(p):
+    out = {k: v.detach().float().cpu().numpy() for k, v in p.items()
+           if k != "layers"}
+    out["layers"] = {k: v.detach().float().cpu().numpy()
+                     for k, v in p["layers"].items()}
+    return out
+
+
+def _ix_run(name, cfg, config, batches, params=None, mesh=None):
+    """initialize -> 1 warm-up step -> the launch counts and the param
+    reads zeroed -> the counted steps; returns (engine, record)."""
+    from deepspeed_tpu_torch import initialize, make_model
+    from deepspeed_tpu_torch.ops import _build
+    _free()
+    t0 = time.perf_counter()
+    engine = initialize(model=make_model(cfg, name), config=dict(config),
+                        params=params, mesh=mesh)[0]
+    ex = engine._infinity
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses = [float(engine.train_batch(batches[0])["loss"])]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    reads0 = ex.param_reads
+    step_ms = []
+    for b in batches[1:]:
+        t1 = time.perf_counter()
+        losses.append(float(engine.train_batch(b)["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    rec = {"init_s": init_s, "step_ms": step_ms, "losses": losses,
+           "launches": {k: v for k, v in _build.launch_counts().items()
+                        if k in FLASH_KERNELS},
+           "param_reads": ex.param_reads - reads0,
+           "bytes": engine.offload_bytes(), "chunk": ex.chunk,
+           "whole_chunk": ex.whole_chunk, "offset": ex.shard_offset,
+           "live_layers": ex.live_layers, "layer_values": ex.layer_params,
+           "nl_values": sum(t.numel() for t in ex.nl_params.values()),
+           "plan": engine.plan.describe()}
+    mark_part(f"executor {name} {rec['plan']}")
+    return engine, rec
+
+
+def _ix_law(rec, L, n, shards=1, live=0):
+    """What a run must show: B1 = 2 x L and B2 = B3 = L a step (the
+    forward and the backward's recompute), the pinned tier's L x (2 + 12)
+    x C_whole / shards bytes of layer chunks on the host, the embedding
+    and head's 14 a value and the live layers' bf16 chunks on the card,
+    and 2 x (L - live) param chunk copies a step."""
+    return {"launches": {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n,
+                         "flash_bwd_dkv": L * n},
+            "bytes": {"device": 14 * rec["nl_values"]
+                      + 2 * live * rec["chunk"],
+                      "host": L * 14 * rec["whole_chunk"] // shards,
+                      "disk": 0},
+            "param_reads": 2 * (L - live) * n}
+
+
+def _ix_masters(engine):
+    """Every layer's f32 masters, the whole chunk (collective over the
+    shard axes on a mesh), in the executor's layer order."""
+    from deepspeed_tpu_torch.comm import comm
+    ex = engine._infinity
+    out = []
+    for i in range(ex.cfg.num_layers):
+        opt = ex.store.read("opt", i)[0].contiguous()
+        if ex.mesh is not None:
+            opt = comm.all_gather(opt, ex._chunk_axes, mesh=ex.mesh)
+        out.append(opt[:ex.layer_params].clone())
+    return torch.cat(out)
+
+
+def _ix_identities(rank):
+    """(f) f32 at 2 layers at fsdp=2 and at tensor=2, then (rank 0) the
+    same run at world 1: each mesh's losses and layer masters against
+    it."""
+    from deepspeed_tpu_torch import llama_config
+    from deepspeed_tpu_torch.parallel import single_mesh
+    k = IX_ID
+    cfg = llama_config("1b", num_layers=k["layers"], max_seq_len=k["S"],
+                       dtype=torch.float32)
+    params = _seeded_params(cfg, 3)
+    batches = _zero_batches(k["B"], k["S"], k["steps"], seed=51)
+    got = {}
+    for what, mesh in (("fsdp=2", {"fsdp": 2}), ("tensor=2", {"tensor": 2})):
+        engine, r = _ix_run("llama-1b f32", cfg,
+                            _ix_config(k["B"], mesh=mesh, f32=True),
+                            batches, params=params)
+        got[what] = (r["losses"], _ix_masters(engine))
+        engine.close()
+        del engine
+    if rank:
+        return None
+    one, r1 = _ix_run("llama-1b f32 world 1", cfg,
+                      _ix_config(k["B"], f32=True), batches, params=params,
+                      mesh=single_mesh())
+    want = _ix_masters(one)
+    one.close()
+    del one
+    _free()
+    return {what: {"losses": losses, "losses_world1": r1["losses"],
+                   "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                       zip(losses, r1["losses"])),
+                   "masters_rel_l2": rel_l2(masters, want)}
+            for what, (losses, masters) in got.items()}
+
+
+def _ix_rank(rank):
+    """Phase 25's part of one rank of phase 23's two-rank group (both
+    ranks on cuda:0 over gloo): (c) the executor at fsdp=2 and at
+    tensor=2, (d) the NVMe swapper at data=2, (f) the f32 identities.
+    Returns this rank's record."""
+    t0 = time.perf_counter()
+    _CLOCK.update(phase="25_infinity", t=t0)
+    rec = {}
+    cfg = _llama1b_train(IX_LAYERS, IX_S)
+    params = _seeded_params(cfg, 0)
+    batches = _zero_batches(IX_B, IX_S, 1 + IX_STEPS, seed=50)
+    for part, mesh in (("c_fsdp2", {"fsdp": 2}), ("c_tp2", {"tensor": 2})):
+        engine, rec[part] = _ix_run("llama-1b", cfg, _ix_config(mesh=mesh),
+                                    batches, params=params)
+        engine.close()
+        del engine
+        _free()
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, CAPACITY_SCRATCH, "phase25")
+    os.makedirs(path, exist_ok=True)
+    conf = dict(TRAIN_CONFIG, optimizer=IX_OPT, mesh={"axes": {"data": 2}},
+                zero_optimization={"stage": 1, "offload_optimizer": {
+                    "device": "nvme", "nvme_path": path,
+                    "buffer_size": 4 * IX_SWAP_CHUNK}})
+    engine, r = _mp_run(cfg, conf, batches, "llama-1b", params=params)
+    sw = engine._swapper
+    r.update(held=sw.num_params, chunk=sw.chunk, n_chunks=sw.n_chunks,
+             tiers=engine.offload_bytes(),
+             total=sum(p.numel() for p in engine.state["params"][
+                 "layers"].values()) + sum(
+                 p.numel() for k, p in engine.state["params"].items()
+                 if k != "layers"))
+    rec["d_swap_dp2"] = r
+    engine.close()
+    del engine
+    _free()
+    mark_part("(d) nvme swapper data=2")
+    rec["f"] = _ix_identities(rank)
+    mark_part("(f) f32 identities")
+    rec["s"] = time.perf_counter() - t0
+    return rec
+
+
+def infinity_kernels():
+    """Phase 25's kernel cases: B1-B3 at a tensor=2 rank's llama-1b shapes
+    under the executor (16/4 heads of 64, B=8 S=2048) and B1 at GPT-2
+    1.3b's (32/32 heads of 64, B=8 S=1024), each against its plain
+    version and SDPA."""
+    bf = torch.bfloat16
+    rank = f"llama-1b executor tensor=2 rank B={IX_B} S={IX_S}"
+    flash = [flash_case(rank, IX_B, IX_S, 16, 4, 64, bf),
+             flash_case(f"gpt2-1.3b executor B={IX_B} S={IX_GPT2_S}", IX_B,
+                        IX_GPT2_S, 32, 32, 64, bf)]
+    bwd = [bwd_case(rank, IX_B, IX_S, 16, 4, 64, bf)]
+    _free()
+    return {"flash_cases": flash, "bwd_cases": bwd}
+
+
+def infinity_phase(smi: str, ranks, kernels):
+    """Phase 25: the layer executor's compositions and offload over ranks
+    (module docstring, item 25): the one-rank runs (a), (b), (e), then the
+    checks of what every rank of phase 23's group ran (c), (d), (f)."""
+    from deepspeed_tpu_torch import llama_config
+    t_phase = time.perf_counter()
+    # (d)'s nvme directory, left by the group once its ranks closed
+    shutil.rmtree(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               CAPACITY_SCRATCH), ignore_errors=True)
+    checks, L, n = {}, IX_LAYERS, IX_STEPS
+    cfg = _llama1b_train(IX_LAYERS, IX_S)
+    params = _seeded_params(cfg, 0)
+    batches = _zero_batches(IX_B, IX_S, 1 + IX_STEPS, seed=50)
+    runs = {}
+    # (a) compression + MoQ inside each streamed layer
+    engine, runs["a_comp_moq"] = _ix_run("llama-1b", cfg,
+                                         _ix_config(**IX_EXTRAS), batches,
+                                         params=params)
+    runs["a_comp_moq"]["bits"] = engine._moq.bits(1 + n).tolist()
+    engine.close()
+    del engine
+    # (b) the live cache holding IX_LIVE layers
+    live = IX_LIVE * runs["a_comp_moq"]["layer_values"]
+    engine, runs["b_live"] = _ix_run("llama-1b", cfg, _ix_config(live=live),
+                                     batches, params=params)
+    engine.close()
+    del engine
+    # (e) GPT-2 1.3b width, 4 layers, at one rank
+    gcfg = _family_cfg("gpt2-1.3b", IX_LAYERS, max_seq_len=IX_GPT2_S)
+    gparams = _numpy_tree(_family_params(gcfg, 25, torch.float32))
+    rng = np.random.default_rng(52)
+    gb = [{"input_ids": torch.from_numpy(rng.integers(
+        0, gcfg.vocab_size, (IX_B, IX_GPT2_S), dtype=np.int32)).cuda()}
+        for _ in range(1 + n)]
+    engine, runs["e_gpt2"] = _ix_run("gpt2-1.3b", gcfg, _ix_config(), gb,
+                                     params=gparams)
+    engine.close()
+    del engine, gparams
+    _free()
+    one_host = L * 14 * runs["a_comp_moq"]["whole_chunk"]
+    for part, live_n in (("a_comp_moq", 0), ("b_live", IX_LIVE),
+                         ("e_gpt2", 0)):
+        r = runs[part]
+        r["law"] = _ix_law(r, L, n, live=live_n)
+        checks[f"({part}) finite"] = bool(np.all(np.isfinite(r["losses"])))
+        checks[f"({part}) B1 == 2 x {L}, B2 == B3 == {L} a step"] = \
+            r["launches"] == r["law"]["launches"]
+        checks[f"({part}) bytes by tier == the law"] = \
+            r["bytes"] == r["law"]["bytes"]
+        checks[f"({part}) param reads == 2 x ({L} - {live_n}) a step"] = \
+            r["param_reads"] == r["law"]["param_reads"]
+    checks[f"(a) MoQ's bits at step {1 + n} == 16 - {1 + n}"] = \
+        runs["a_comp_moq"]["bits"] == [16.0 - (1 + n)] * L
+    checks[f"(b) the cache holds {IX_LIVE} layers; reads fall by 2 x "
+           f"{IX_LIVE} a step"] = \
+        runs["b_live"]["live_layers"] == IX_LIVE and \
+        runs["a_comp_moq"]["param_reads"] - runs["b_live"]["param_reads"] \
+        == 2 * IX_LIVE * n
+    for i, r in enumerate(ranks):
+        for part, shards in (("c_fsdp2", 2), ("c_tp2", 2)):
+            c = r[part]
+            law = _ix_law(c, L, n, shards=shards)
+            checks[f"({part}) rank {i} finite"] = \
+                bool(np.all(np.isfinite(c["losses"])))
+            checks[f"({part}) rank {i} B1 == 2 x {L}, B2 == B3 == {L} a "
+                   "step"] = c["launches"] == law["launches"]
+            checks[f"({part}) rank {i} bytes by tier == the law, host == "
+                   "1/2 of one rank's"] = \
+                c["bytes"] == law["bytes"] and \
+                c["bytes"]["host"] * shards == one_host
+            checks[f"({part}) rank {i} param reads == 2 x {L} a step"] = \
+                c["param_reads"] == law["param_reads"]
+        d = r["d_swap_dp2"]
+        checks[f"(d) rank {i} finite"] = bool(np.all(np.isfinite(
+            d["losses"])))
+        checks[f"(d) rank {i} B1 == 2 x {L}, B2 == B3 == {L} a step"] = \
+            d["launches"]["flash_fwd"] == 2 * L * n and \
+            d["launches"]["flash_bwd_dq"] == \
+            d["launches"]["flash_bwd_dkv"] == L * n
+        checks[f"(d) rank {i} swaps half the state: disk == 12 x its "
+               "chunks"] = \
+            d["held"] * 2 == d["total"] and \
+            d["tiers"]["disk"] == 12 * d["n_chunks"] * d["chunk"] and \
+            d["n_chunks"] == -(-d["held"] // d["chunk"])
+    offs = sorted(r["c_fsdp2"]["offset"] for r in ranks)
+    checks["(c) the fsdp ranks hold the two halves"] = \
+        offs == [0, ranks[0]["c_fsdp2"]["whole_chunk"] // 2]
+    for what, got in ranks[0]["f"].items():
+        checks[f"(f) f32 {what} == world 1: losses 1e-5, masters 1e-6"] = \
+            got["loss_rel_err"] <= 1e-5 and got["masters_rel_l2"] <= 1e-6
+    launches = {"infinity": {k: sum(
+        runs[p]["launches"][k] for p in runs) + sum(
+        r[p]["launches"].get(k, 0) for r in ranks
+        for p in ("c_fsdp2", "c_tp2", "d_swap_dp2")) for k in FLASH_KERNELS}}
+    keys = ("losses", "step_ms", "init_s", "launches", "param_reads",
+            "bytes", "plan")
+    for part, what in (("a_comp_moq", "(a) compression + MoQ"),
+                       ("b_live", f"(b) live cache {IX_LIVE} layers"),
+                       ("e_gpt2", "(e) gpt2-1.3b")):
+        log(f"phase 25 {what} [{smi}] " + json.dumps(
+            {k: runs[part][k] for k in keys + ("law",)}
+            | {k: runs[part][k] for k in ("bits",) if k in runs[part]}))
+    for part, what in (("c_fsdp2", "(c) fsdp=2"), ("c_tp2", "(c) tensor=2")):
+        log(f"phase 25 {what} [{smi}; {ZERO_SHARED}] " + json.dumps(
+            {k: [r[part][k] for r in ranks] for k in keys + ("offset",)}))
+    log(f"phase 25 (d) nvme swapper data=2 [{smi}; {ZERO_SHARED}] "
+        + json.dumps({k: [r["d_swap_dp2"][k] for r in ranks] for k in (
+            "losses", "step_ms_wall", "launches", "held", "total", "chunk",
+            "n_chunks", "tiers", "plan")}))
+    log(f"phase 25 (f) f32 [{smi}] " + json.dumps(ranks[0]["f"]))
+    rec = {"card": smi, "timing": ZERO_SHARED, "launches": launches,
+           "runs": runs, "rank_s": max(r["s"] for r in ranks),
+           "phase_s": time.perf_counter() - t_phase, **kernels}
+    log(f"phase 25: {rec['phase_s']:.1f}s here + {rec['rank_s']:.1f}s in "
+        f"phase 23's group, launches {json.dumps(launches)}, checks "
+        f"{json.dumps(checks)}")
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"phase 25: failed {failed}")
+    return rec
+
+
 def kernel_line(name, replaces, launches, cases, main, variant=None):
     rec = {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")}
@@ -7711,18 +8075,21 @@ def main() -> int:
     p21 = timed("21_model_families", model_families_phase, card)
     p22 = timed("22_training_extras", training_extras_phase, card)
     p24k = timed("24_extras_mesh_kernels", extras_mesh_kernels)
+    p25k = timed("25_infinity_kernels", infinity_kernels)
     p23 = timed("23_families_mesh", families_mesh_phase, card)
     p24 = timed("24_extras_mesh", extras_mesh_phase, card,
                 p23["extras_mesh"], p24k)
+    p25 = timed("25_infinity", infinity_phase, card, p23["infinity_mesh"],
+                p25k)
     # B1-B3 held at a ZeRO rank's shapes too, at the MoE cell's and a
     # tensor=2 rank's (D=128), and at GPT-2 1.3b's and BERT-large's; B4 at
     # GPT-2 1.3b's decode
     flash.append(p16["flash_case"])
     bwd.append(p16["bwd_case"])
     flash += p19["flash_cases"] + p21["flash_cases"] + p22["flash_cases"] \
-        + p23["flash_cases"] + p24["flash_cases"]
+        + p23["flash_cases"] + p24["flash_cases"] + p25["flash_cases"]
     bwd += p19["bwd_cases"] + p21["bwd_cases"] + p22["bwd_cases"] \
-        + p23["bwd_cases"] + p24["bwd_cases"]
+        + p23["bwd_cases"] + p24["bwd_cases"] + p25["bwd_cases"]
     decode += p21["decode_cases"] + p23["decode_cases"]
     sparse += p23["sparse_cases"]
 
@@ -7851,6 +8218,13 @@ def main() -> int:
         if n:
             entry["launches"] += n
             entry["launches_by_path"]["extras_mesh"] = n
+    # phase 25: the executor's one-rank runs and every rank of fsdp=2,
+    # tensor=2 and the nvme swapper at data=2
+    for entry in line["kernels"][:4]:
+        n = p25["launches"]["infinity"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry["launches_by_path"]["infinity"] = n
     for name, site, cases, main_case in (
             ("flash_fwd", "deepspeed_tpu/ops/flash_attention.py:220",
              flash16, flash16[1]),
@@ -7868,6 +8242,10 @@ def main() -> int:
         line["kernels"].append(entry)
     log("phase_s " + json.dumps({"phase": "total",
                                  "s": time.perf_counter() - t_start}))
+    print("phase_s summary " + json.dumps(
+        {k: round(v, 1) for k, v in _PHASE_S.items()}
+        | {"total": round(time.perf_counter() - t_start, 1)}),
+        file=sys.stderr, flush=True)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind("cuda:0"),

@@ -140,13 +140,15 @@ class AIOConfig(ConfigModel):
 class ZeroConfig(ConfigModel):
     """``zero_optimization``: the stage (0..3, ``runtime/zero.py``), the
     stage-3 persistence threshold (a leaf of at most that many values
-    stays whole on every rank), and the offload sections
-    (``runtime/swap_tensor.py``, ``runtime/infinity.py``; at one rank:
-    offload over ranks is ROADMAP A8d). JAX's bucket and prefetch knobs
+    stays whole on every rank), ``stage3_max_live_parameters`` (the layer
+    executor's live cache on the card, read only when the key is set, as
+    in JAX), and the offload sections (``runtime/swap_tensor.py``,
+    ``runtime/infinity.py``). JAX's bucket and prefetch knobs
     warn as unknown keys: XLA sizes its collectives, and so does the
     eager port's per-leaf schedule."""
     stage: int = 0
     stage3_param_persistence_threshold: int = 100_000
+    stage3_max_live_parameters: int = 1_000_000_000
     offload_param: OffloadDeviceConfig = config_field(OffloadDeviceConfig)
     offload_optimizer: OffloadDeviceConfig = config_field(
         OffloadDeviceConfig)
@@ -384,14 +386,6 @@ def _deferred(what: str, item: str):
                               f"{item}")
 
 
-def raise_offload_over_ranks(world: int):
-    """The offload tiers run at one rank; more is ROADMAP A8d."""
-    raise NotImplementedError(
-        f"offload_param / offload_optimizer over {world} ranks is not "
-        "ported yet: ROADMAP A8d (offload over ranks: the layer executor's "
-        "mesh, the swapper's chunk sharding); the port offloads at one rank")
-
-
 def _enabled(s: Dict[str, Any]) -> bool:
     return bool(s.get("enabled", False))
 
@@ -503,11 +497,6 @@ class Config(ConfigModel):
             logger.warning("config: fp16 and bf16 both enabled — using fp16 "
                            "(disable one explicitly to silence)")
             self.bf16 = BF16Config(enabled=False)
-        ranks = 1
-        for n in self.mesh.axes.values():
-            ranks *= max(1, int(n))
-        if self.zero_optimization.offloaded and ranks > 1:
-            raise_offload_over_ranks(ranks)
 
     def resolve_batch_size(self, dp_world_size: int) -> None:
         """Solve the batch triad train = micro x gas x dp, as JAX does."""

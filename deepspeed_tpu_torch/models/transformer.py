@@ -718,6 +718,16 @@ def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
+def rotary_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """The rotation frequencies ``exp(-arange(half) * log(theta) / half)``
+    in f32, JAX's formula. The arguments of the exp are bit-equal to
+    JAX's; ``torch.exp`` and XLA's ``exp`` may part in the last bit of
+    the result (ROADMAP C16)."""
+    return torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                   device=device)
+                     * (math.log(theta) / half))
+
+
 def rotary_embed(x, positions, theta: float, rotary_dim: Optional[int] = None,
                  interleaved: bool = False):
     """x: [B, S, N, D]; positions: [B, S]. Rotates the pairs (d, d + r/2)
@@ -732,9 +742,7 @@ def rotary_embed(x, positions, theta: float, rotary_dim: Optional[int] = None,
         raise ValueError(f"rotary_dim must be even, got {rd} (the rotation "
                          "pairs dims)")
     half = rd // 2
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device)
-                      * (math.log(theta) / half))
+    freqs = rotary_freqs(half, theta, x.device)
     angles = positions.float()[:, :, None] * freqs[None, None, :]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -98,8 +98,10 @@ The capacity tier (``zero_optimization.offload_optimizer`` /
 Under the swappers ``state["opt"]`` is None and a checkpoint carries the
 swapped state as ``optswap.npz`` inside the tag (the integrity manifest
 covers it); an executor's tag holds its chunks, ``infinity_shapes.json``,
-``infinity_small.npz`` and ``infinity_meta.json``. Offload on more than
-one rank raises naming ROADMAP A8d.
+``infinity_small.npz`` and ``infinity_meta.json``. Over ranks the
+swappers hold each rank's ZeRO partition and the executor each rank's
+shard of the layer chunks (``runtime/infinity.py``); their checkpoints
+keep the one-rank layout.
 
 Pipeline and sequence parallelism (JAX's ``pipe`` and ``seq`` axes):
 
@@ -142,10 +144,13 @@ direction and adds every norm and dot over the slices. Compression and
 MoQ run on the 1-bit compressed path too, inside each rank's loss at
 the applied-update count, as JAX's ``shard_map`` step runs them. Over
 ``seq`` random-LTD keeps tokens of the whole sequence and runs the ring
-over the kept tokens (``runtime/data_pipeline.random_ltd_layer``). Any
-extra under the layer-streamed executor raises ``NotImplementedError``
-(ROADMAP A11, training extras under 1-bit and offload); MoQ, PLD and
-random-LTD under pipeline parallelism raise JAX's ValueErrors.
+over the kept tokens (``runtime/data_pipeline.random_ltd_layer``). Under
+the layer-streamed executor compression and MoQ run inside each
+streamed layer and the curriculum cuts the batch before it, as in JAX;
+PLD and random-LTD, which JAX's executor never reads, raise
+``NotImplementedError`` (ROADMAP A11, the extras JAX's executor
+ignores); MoQ, PLD and random-LTD under pipeline parallelism raise
+JAX's ValueErrors.
 
 The model families (biases, learned positions and token types, ALiBi,
 windows, post-LN, the parallel block, a head bias) train on every axis
@@ -167,6 +172,7 @@ import dataclasses
 import itertools
 import json
 import logging
+import math
 import os
 from typing import Any, Dict, Optional
 
@@ -177,7 +183,6 @@ from deepspeed_tpu_torch.accelerator import resolve_device
 from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.comm.schedule import GradSchedule, reduce_grad
 from deepspeed_tpu_torch.config import Config
-from deepspeed_tpu_torch.config.config import raise_offload_over_ranks
 from deepspeed_tpu_torch.models.convert import (params_from_numpy,
                                                 state_from_numpy)
 from deepspeed_tpu_torch.models.pipeline_wrapper import make_pipelined_model
@@ -205,6 +210,8 @@ from deepspeed_tpu_torch.runtime import fp16 as fp16_mod
 from deepspeed_tpu_torch.runtime import zero as zero_mod
 from deepspeed_tpu_torch.runtime.dataloader import DataLoader, PrefetchLoader
 from deepspeed_tpu_torch.runtime.lr_schedules import get_scheduler
+from deepspeed_tpu_torch.runtime.swap_tensor import (NVMeOptimizerSwapper,
+                                                     chunk_planes)
 
 logger = logging.getLogger("deepspeed_tpu_torch")
 
@@ -532,19 +539,34 @@ class Engine:
         self.step_draws = []
 
     def _refuse_extras(self) -> None:
-        """What the port does not compose the extras with: every extra
-        under the layer-streamed offload executor."""
-        on = [n for n, v in (
-            ("compression_training", self._compression is not None
-             or self._act_quant), ("quantize_training", self._moq),
-            ("curriculum_learning", self._curriculum),
-            ("progressive_layer_drop", self._pld),
-            ("random_ltd", self._ltd)) if v]
-        if on and self._offload == "infinity":
+        """The extras under the layer-streamed offload executor, as JAX's
+        executor runs them: compression and MoQ inside each streamed layer
+        (MoQ's eigenvalue probe off: the params are not resident), the
+        curriculum on the batch before the executor, activation
+        quantization from step 0 (JAX's executor is built on the rebuilt
+        model). PLD, random-LTD and activation quantization switched on
+        later raise: JAX's executor never reads them (ROADMAP C20)."""
+        if self._offload != "infinity":
+            return
+        on = [n for n, v in (("progressive_layer_drop", self._pld),
+                             ("random_ltd", self._ltd)) if v]
+        if on:
             raise NotImplementedError(
-                f"{', '.join(on)} with the layer-streamed offload executor "
-                "is not ported yet: ROADMAP A11 (training extras under "
-                "1-bit and offload)")
+                f"{', '.join(on)} with the layer-streamed offload executor: "
+                "ROADMAP A11 (the extras JAX's executor ignores): JAX's "
+                "executor trains the model without it (ROADMAP C20)")
+        if self._act_quant and self._act_quant[1] > 0:
+            raise NotImplementedError(
+                "activation_quantization with a schedule_offset > 0 under "
+                "the layer-streamed offload executor: ROADMAP A11 (the "
+                "extras JAX's executor ignores): JAX rebuilds its model at "
+                "the offset, but its executor keeps the model it was built "
+                "with (ROADMAP C20)")
+        if self._moq is not None and self._moq.ev_enabled:
+            logger.warning(
+                "MoQ eigenvalue scheduling requires resident params; "
+                "layer-streamed offload uses the uniform quantize_period "
+                "for every layer")
 
     def _rebuild_act_quant(self) -> None:
         """The activation-quantized model (JAX's one rebuild)."""
@@ -741,8 +763,12 @@ class Engine:
                               or self.plan.expert > 1):
             raise ValueError("layer-streamed offload shards over "
                              "data/fsdp/tensor (pipe/seq/expert must be 1)")
-        if self.plan.world_size > 1:
-            raise_offload_over_ranks(self.plan.world_size)
+        if off_p.enabled and self.plan.world_size > 1 \
+                and not self.config.mesh.axes:
+            # JAX's rule on hardware: never one rank's executor per rank
+            raise ValueError("multi-device layer-streamed offload requires "
+                             "an explicit mesh config: set mesh.axes "
+                             "{'data': N} and/or {'fsdp': N}")
         name = _opt_name(self.config)
         if off_p.enabled:
             if not isinstance(getattr(self.model, "config", None),
@@ -783,6 +809,56 @@ class Engine:
         if name in _ADAM_FAMILY and not client_optimizer:
             return "pinned" if self.device.type == "cuda" else "host"
         return "eager"
+
+    def _swap_layout(self):
+        """[(leaf layout, the shape of the rank's optimizer slice)]: the
+        swapped state's layout over ranks, leaf by leaf."""
+        part, params = self._part, self.state["params"]
+        return [(lay, tuple(part.opt_view(lay, p).shape))
+                for lay, p in zip(part.in_order(params), tree_leaves(params))]
+
+    def _swap_export(self) -> Dict[str, np.ndarray]:
+        """The swapped state in the one-rank layout: over ranks every
+        leaf's planes gathered whole from the partitions (collective)."""
+        state = self._swapper.export_state()
+        if self._part is None:
+            return state
+        local = torch.from_numpy(self._swapper.planes(state))
+        P, off, whole = local.shape[0], 0, []
+        for lay, shape in self._swap_layout():
+            n = math.prod(shape)
+            piece = local[:, off:off + n].reshape((P,) + shape)
+            off += n
+            whole.append(torch.stack([
+                self._part.whole(piece[j].contiguous(), lay.ospec)
+                for j in range(P)]).reshape(P, -1))
+        return self._one_rank_swapper_state(torch.cat(whole, 1).numpy())
+
+    def _one_rank_swapper_state(self, planes):
+        """Whole planes in the layout a one-rank swapper exports."""
+        if isinstance(self._swapper, NVMeOptimizerSwapper):
+            return chunk_planes(planes, self._swapper.chunk)
+        return self._swapper.state_from_planes(planes)
+
+    def _swap_import(self, state: Dict[str, np.ndarray]) -> None:
+        """A one-rank layout's swapped state: over ranks each rank keeps
+        its partition of every leaf's planes."""
+        if self._part is None:
+            self._swapper.import_state(state)
+            return
+        layout = self._swap_layout()
+        planes = self._swapper.planes(
+            state, sum(math.prod(lay.shape) for lay, _ in layout))
+        off, mine = 0, []
+        for lay, _ in layout:
+            n = math.prod(lay.shape)
+            piece = planes[:, off:off + n].reshape((-1,) + tuple(lay.shape))
+            off += n
+            mine.append(np.stack([self._part.slice_of(piece[j], lay.ospec)
+                                  for j in range(piece.shape[0])]).reshape(
+                piece.shape[0], -1))
+        self._swapper.import_state(self._swapper.state_from_planes(
+            np.ascontiguousarray(np.concatenate(mine, 1))))
 
     def _opt_params(self):
         """(name, the optimizer section's params with JAX's defaults)."""
@@ -829,9 +905,16 @@ class Engine:
         lr = (self._schedule if self._schedule is not None
               else (self._base_lr if self._base_lr is not None else 1e-3))
         f = self.config.fp16
+        # the live cache only when the key is set, as in JAX (its default
+        # would keep ~1e9 params' bits on the card unasked)
+        live = (zc.stage3_max_live_parameters
+                if zc.was_set("stage3_max_live_parameters") else 0)
         return InfinityExecutor(
             dataclasses.replace(self.model.config, dtype=self.compute_dtype),
             device=self.device, seed=self.config.seed, params=params,
+            mesh=self.mesh if self.plan.world_size > 1 else None,
+            compression=self._compression, moq=self._moq is not None,
+            max_live_params=live,
             nvme_path=off_p.nvme_path or off_o.nvme_path, lr=lr,
             grad_clip=self.config.gradient_clipping or 0.0, backend=backend,
             param_cache_bytes=off_p.max_in_cpu,
@@ -919,15 +1002,19 @@ class Engine:
                 part.in_order(params32), tree_leaves(params32))])
             opt_state = self.optimizer.init(
                 tree_map(lambda _: next(views), params32))
+            if self._offload == "eager":
+                opt_state = _to_host(opt_state)
         params = cast_tree(params32, self.compute_dtype)
         del params32
         for p in tree_leaves(params):
             p.requires_grad_(True)
         if opt_state is None:
             # the swapped masters start from the compute-dtype params, as
-            # JAX's swappers do
-            self._swapper = self._build_swapper(tree_leaves(params))
-            self._swapper.initialize(tree_leaves(params))
+            # JAX's swappers do; over ranks each rank swaps its ZeRO
+            # partition (every leaf's optimizer slice)
+            held = self._swap_leaves(params)
+            self._swapper = self._build_swapper(held)
+            self._swapper.initialize(held)
         return {"params": params, "opt": opt_state, "step": 0,
                 **self._fp16_state()}
 
@@ -1255,10 +1342,16 @@ class Engine:
                      for lay, g in zip(layouts, grads)])
         p_it = iter([part.opt_view(lay, p)
                      for lay, p in zip(layouts, leaves)])
+        opt = self.state["opt"]
+        if self._offload == "eager":
+            # each rank's optimizer slices round-trip as at one rank
+            opt = _move_tree(opt, lambda t: t.to(self.device,
+                                                 non_blocking=True))
         with leaf_reduction(part.leaf_reducer(layouts)):
             self.optimizer.update(tree_map(lambda _: next(g_it), params),
-                                  self.state["opt"],
-                                  tree_map(lambda _: next(p_it), params))
+                                  opt, tree_map(lambda _: next(p_it), params))
+        if self._offload == "eager":
+            self.state["opt"] = _copy_back(self.state["opt"], opt)
         part.gather_updated(leaves, layouts)
 
     @torch.no_grad()
@@ -1304,10 +1397,20 @@ class Engine:
             metrics["loss_scale"] = ls.scale
         return metrics
 
+    def _swap_leaves(self, params):
+        """The param slices the swapper holds: every leaf, or over ranks
+        each leaf's optimizer slice (a view into the rank's param)."""
+        if self._part is None:
+            return tree_leaves(params)
+        return [self._part.opt_view(lay, p) for lay, p in zip(
+            self._part.in_order(params), tree_leaves(params))]
+
     def _swap_apply(self, grads, mean_loss):
         """JAX's ``_nvme_apply``: the swapper's step (the norm, clip and
-        overflow over what it holds), then the scaler's update on the
-        host's overflow flag. An overflowed step writes nothing."""
+        overflow over what it holds; over ranks the norm over every rank,
+        the update on the rank's partition, the params gathered after),
+        then the scaler's update on the host's overflow flag. An
+        overflowed step writes nothing."""
         self.last_grad_bytes = sum(g.numel() * g.element_size()
                                    for g in grads)
         ls = None
@@ -1315,10 +1418,26 @@ class Engine:
         if self._fp16:
             ls = fp16_mod.LossScaleState(**self.state["loss_scale"])
             scale = float(ls.scale)
+        leaves = tree_leaves(self.state["params"])
+        held, sq, part = leaves, None, self._part
+        if part is not None:
+            layouts = self._layouts()
+            sq = float(self._global_norm(grads)) ** 2
+            grads = [part.grad_view(lay, g).contiguous()
+                     for lay, g in zip(layouts, grads)]
+            views = self._swap_leaves(self.state["params"])
+            held = [v.detach().contiguous() for v in views]
         gnorm, overflow = self._swapper.step(
-            grads, tree_leaves(self.state["params"]), lr=self.get_lr(),
+            grads, held, lr=self.get_lr(),
             step_num=self.state["step"] + 1,
-            clip=self.config.gradient_clipping, grad_scale=scale)
+            clip=self.config.gradient_clipping, grad_scale=scale,
+            sq_total=sq)
+        if part is not None and not overflow:
+            with torch.no_grad():
+                for v, h in zip(views, held):
+                    if h.data_ptr() != v.data_ptr():
+                        v.copy_(h)
+            part.gather_updated(leaves, layouts)
         if not overflow:
             self.state["step"] += 1
         flag = torch.tensor(overflow, device=self.device)
@@ -1345,8 +1464,15 @@ class Engine:
         except under fp16 the overflow flag: one read a step, before the
         in-place update."""
         if self._infinity is not None:
-            # host-driven: the executor's metrics are host values already
-            metrics = self._infinity.train_batch(batch)
+            # host-driven: the executor's metrics are host values already;
+            # the curriculum cuts the batch and MoQ's bits of the step ride
+            # along, as in JAX
+            batch = self._step_extras(batch)
+            try:
+                metrics = self._infinity.train_batch(
+                    batch, moq_bits=self._extras.get("moq_bits"))
+            finally:
+                self._extras = None
             self.global_steps += 1
             self.micro_steps += self.config.gradient_accumulation_steps
             return metrics
@@ -1593,8 +1719,9 @@ class Engine:
             # before the save finalizes, so the manifest covers it
             tag_dir = os.path.join(save_dir, str(tag))
             os.makedirs(tag_dir, exist_ok=True)
-            np.savez(os.path.join(tag_dir, "optswap.npz"),
-                     **self._swapper.export_state())
+            swapped = self._swap_export()
+            if comm.get_rank() == 0 or self._part is None:
+                np.savez(os.path.join(tag_dir, "optswap.npz"), **swapped)
         engine = None
         if ck.async_save:
             if self._ckpt_engine is None:
@@ -1703,12 +1830,20 @@ class Engine:
         embedding / head params and optimizer state) as
         ``infinity_small.npz`` with a dtype manifest
         (``infinity_meta.json``: bf16 as uint16 bits), then the integrity
-        chain."""
+        chain. Over ranks the chunks' save is collective (each gathered
+        whole) and rank 0 writes the rest while the others wait."""
         from deepspeed_tpu_torch.robustness import integrity
         path = os.path.join(save_dir, tag)
-        os.makedirs(path, exist_ok=True)
-        integrity.invalidate(path)
+        rank0 = comm.get_rank() == 0 or self.plan.world_size == 1
+        if rank0:
+            os.makedirs(path, exist_ok=True)
+            integrity.invalidate(path)
+        if self.plan.world_size > 1:
+            comm.barrier()
         small = self._infinity.save_checkpoint(path)
+        if not rank0:
+            comm.barrier()
+            return path
         client_state["applied_steps"] = small.pop("applied_steps")
         if "loss_scale" in small:
             client_state["loss_scale"] = small.pop("loss_scale")
@@ -1728,6 +1863,8 @@ class Engine:
                               write_integrity=ck.integrity,
                               checksums=ck.integrity_checksums,
                               keep_last_k=ck.keep_last_k)
+        if self.plan.world_size > 1:
+            comm.barrier()
         return path
 
     def _load_infinity_checkpoint(self, load_dir, tag):
@@ -1785,7 +1922,7 @@ class Engine:
                     _set_leaf(self.state, name, int(src))
         if self._swapper is not None and load_optimizer_states:
             with np.load(os.path.join(ckpt_path, "optswap.npz")) as z:
-                self._swapper.import_state({k: z[k] for k in z.files})
+                self._swap_import({k: z[k] for k in z.files})
         if self._onebit:
             self._onebit_applied = self.state["opt"]["step"]
         self.global_steps = int(client_state.get("global_steps", 0))

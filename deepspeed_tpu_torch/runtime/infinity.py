@@ -36,8 +36,35 @@ end. ``pipeline=False`` is the drained executor, the same numbers bit for
 bit. fp16 keeps a host loss scaler (JAX's ``_on_overflow`` /
 ``_on_good_step``): an overflowed step writes nothing.
 
-One rank only: a mesh is ROADMAP A8d; a MoE model raises (its experts
-are not streamed, as in JAX).
+The layer's tree passes through the training extras JAX's executor
+applies inside each streamed layer: the compression transform (on the
+one-layer tree ``{"layers": tree}``, so its masks are per layer) and
+MoQ's fake-quant of every leaf of 2 or more dims at the layer's bits of
+the step. ``max_live_params`` (``stage3_max_live_parameters``, only when
+the key is set) keeps up to that many params' worth of layers' bf16
+chunks on the card: the forward and backward skip their copies, and the
+update refreshes them (``param_reads`` counts the copies made).
+
+Over ranks (``mesh``: ``data`` x ``fsdp`` x ``tensor``; ``pipe``, ``seq``
+and ``expert`` raise, as in JAX): each layer's chunk is padded to
+128 x F x TP and cut in F x TP shards over (fsdp, tensor); a rank's
+store holds its shard of every chunk and of its optimizer state. On use
+a chunk is gathered whole by one ``all_gather`` (the comm facade); a
+``tensor`` rank cuts its column / row slices of the leaves by the
+tensor-parallel rules (``parallel/partitioning``) and runs the layer on
+its heads, its collectives through ``parallel/context``. The layer's
+grads are reduce-scattered back to the shards (and summed over
+``data``), the global norm is all-reduced, and each rank's update sweep
+touches its own shards only. The batch splits over (data, fsdp); the
+embedding and head stay whole on every rank, their grads all-reduced
+over the batch axes. Checkpoints keep the whole-chunk layout: a save
+gathers each chunk and rank 0 writes it; a load takes the rank's shard
+of each saved chunk, cut or padded to this run's chunk, so a tag moves
+between fsdp degrees.
+
+A MoE model raises (its experts are not streamed, as in JAX), and so do
+a model with per-layer windows and the leaves JAX's executor drops
+(``executor_dropped``).
 """
 
 import dataclasses
@@ -53,9 +80,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.comm import comm
 from deepspeed_tpu_torch.models import transformer as tt
 from deepspeed_tpu_torch.ops.adam import fused_adam_update
 from deepspeed_tpu_torch.ops.optimizers import _lr_at, sum_of_squares
+from deepspeed_tpu_torch.parallel import context as par_ctx
+from deepspeed_tpu_torch.parallel.partitioning import (make_rules, mesh_axes,
+                                                       shard_slices,
+                                                       spec_axes)
+from deepspeed_tpu_torch.runtime.quantize import ste_quant_traced_bits
 from deepspeed_tpu_torch.robustness import faults as rb_faults
 from deepspeed_tpu_torch.robustness.retry import retry_io
 
@@ -143,10 +176,15 @@ class LayerStore:
                      what="layer-chunk checkpoint copy", path=out)
 
     def load_from(self, src: str, saved_chunk: Optional[int] = None,
-                  pin: bool = False) -> None:
-        """Every chunk of ``src``; a saved chunk of another length (the
-        zero pad past the layer's values) is cut or padded to this one."""
-        saved = saved_chunk or self.chunk
+                  pin: bool = False, whole: Optional[int] = None,
+                  offset: int = 0) -> None:
+        """Every chunk of ``src``: a saved chunk (of ``saved_chunk``
+        values; the zero pad past the layer's values may differ) is cut or
+        padded to the whole chunk of ``whole`` values (default: this
+        store's), and this store keeps its ``chunk`` values from
+        ``offset`` (a rank's shard)."""
+        whole = whole or self.chunk
+        saved = saved_chunk or whole
         for f in sorted(os.listdir(src)):
             if not f.endswith(".bin"):
                 continue
@@ -156,14 +194,16 @@ class LayerStore:
             arr = retry_io(lambda p=p, dt=dt: np.fromfile(p, dt),
                            what="layer-chunk checkpoint read", path=p)
             arr = arr.reshape(-1 if kind == "param" else (_PLANES, saved))
-            n = min(saved, self.chunk)
+            # this shard's values that the saved chunk holds
+            n = max(0, min(saved, offset + self.chunk) - offset)
             shape, dtype = self._shape(kind)
             t = torch.zeros(shape, dtype=dtype, pin_memory=pin)
             src_t = torch.from_numpy(np.ascontiguousarray(arr))
             if kind == "param":
-                t.view(torch.int16)[:n].copy_(src_t.view(torch.int16)[:n])
+                t.view(torch.int16)[:n].copy_(
+                    src_t.view(torch.int16)[offset:offset + n])
             else:
-                t[:, :n].copy_(src_t[:, :n])
+                t[:, :n].copy_(src_t[:, offset:offset + n])
             self.write(kind, int(i), t)
 
     def host_bytes(self) -> int:
@@ -234,6 +274,22 @@ def layer_template(cfg):
     return [(k, tuple(one[k].shape[1:])) for k in sorted(one)]
 
 
+def executor_dropped(cfg) -> List[str]:
+    """What JAX's executor leaves out of the model this config describes
+    (ROADMAP C19): its embedding adds the token and learned-position rows
+    and the embedding norm only (no token types), and its head reads
+    ``final_norm_scale`` whatever ``final_norm`` says (a ``KeyError``
+    without one) and adds no head bias."""
+    out = []
+    if cfg.type_vocab_size:
+        out.append("tok_type_embed")
+    if cfg.head_bias and not cfg.tie_embeddings:
+        out.append("lm_head_bias")
+    if not cfg.final_norm:
+        out.append("final_norm=False")
+    return out
+
+
 class InfinityExecutor:
     """Layer-streamed train / eval of a dense transformer whose layers
     live in a ``LayerStore``. Owns the store, the embedding / head params
@@ -249,19 +305,37 @@ class InfinityExecutor:
                  backend: str = "nvme", param_cache_bytes: int = 0,
                  gas: int = 1, fp16: Optional[Dict[str, Any]] = None,
                  use_cpu_adam: bool = False, pipeline: bool = True,
-                 aio_config=None):
+                 aio_config=None, mesh=None, compression=None,
+                 moq: bool = False, max_live_params: int = 0):
         if model_cfg.num_experts > 1:
             raise ValueError("layer-streamed offload supports dense "
                              "transformers (MoE experts are not streamed)")
         if model_cfg.attn_windows:
             raise ValueError("layer-streamed offload does not thread "
                              "per-layer attn_windows")
-        family = tt.family_leaves(model_cfg)
-        if family:
+        dropped = executor_dropped(model_cfg)
+        if dropped:
             raise NotImplementedError(
-                f"{family} under ZeRO-Infinity layer streaming is not ported "
-                "yet: ROADMAP A11 (the executor's embedding backward, final "
-                "norm and head take a llama-shaped model's leaves)")
+                f"{', '.join(dropped)} under the layer-streamed offload "
+                "executor: ROADMAP A11 (the leaves JAX's executor drops): "
+                "JAX's executor embeds the token and position rows and the "
+                "embedding norm only, reads final_norm_scale whatever "
+                "final_norm says and adds no head bias (ROADMAP C19)")
+        self.mesh = mesh if (mesh is not None
+                             and mesh.plan.world_size > 1) else None
+        F = TP = 1
+        if self.mesh is not None:
+            for ax in ("pipe", "seq", "expert"):
+                if self.mesh.size(ax) > 1:
+                    raise ValueError(f"layer-streamed offload shards over "
+                                     f"data/fsdp/tensor; mesh axis '{ax}' "
+                                     "> 1")
+            F, TP = self.mesh.size("fsdp"), self.mesh.size("tensor")
+        self._F = F
+        self.dp = F * (self.mesh.size("data") if self.mesh else 1)
+        # the shard axes of a chunk, in JAX's order (row-major shard index)
+        self._chunk_axes = tuple(a for a, n in (("fsdp", F), ("tensor", TP))
+                                 if n > 1)
         self.cfg = model_cfg
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
@@ -269,6 +343,8 @@ class InfinityExecutor:
         self.eps, self.wd = eps, weight_decay
         self.awm, self.bc = adam_w_mode, bias_correction
         self.lr, self.clip, self.gas = lr, grad_clip, gas
+        self.compression = compression
+        self.moq = bool(moq)
         self.applied_steps = 0
         self.skipped_steps = 0
         self.fp16 = dict(fp16) if fp16 else None
@@ -287,9 +363,20 @@ class InfinityExecutor:
         self._template = layer_template(model_cfg)
         self._sizes = [math.prod(s) for _, s in self._template]
         numel = sum(self._sizes)
-        self.chunk = -(-numel // 128) * 128
+        align = 128 * F * TP
+        self.whole_chunk = -(-numel // align) * align
+        # what this rank's store keeps of each chunk: values
+        # [shard_offset, shard_offset + chunk) of the whole chunk
+        self.chunk = self.whole_chunk // (F * TP)
+        self.shard_offset = 0
+        if self.mesh is not None:
+            self.shard_offset = self.chunk * (
+                self.mesh.index("fsdp") * TP + self.mesh.index("tensor"))
         self.layer_params = numel
         self.num_params = L * numel
+        self._tp_slices = self._tp_keep = None
+        if TP > 1:
+            self._tensor_cuts()
         self._pin = self.cuda
         self.store = LayerStore(nvme_path, L, self.chunk, backend=backend,
                                 aio_config=aio_config)
@@ -308,16 +395,47 @@ class InfinityExecutor:
                                   if param_cache_bytes else L)
         self._param_cache: Dict[int, torch.Tensor] = {}
         self._cache_lock = threading.Lock()
+        # the live cache: layers' bf16 chunks kept on the card, up to
+        # max_live_params params' worth (JAX's count: whole layers)
+        self._live: Dict[int, torch.Tensor] = {}
+        self.live_layers = (min(L, int(max_live_params) // max(1, numel))
+                            if max_live_params else 0)
+        # param chunk copies to the card (forward, backward, lazy init)
+        self.param_reads = 0
         self._init_params(seed, params)
+
+    def _tensor_cuts(self) -> None:
+        """Each leaf's tensor-parallel slice (JAX's per-layer col / row
+        rules: ``make_rules(0, tp=True)`` without the ``layers`` dim), and
+        the mask over the whole chunk that keeps a replicated leaf's grad
+        on tensor rank 0 only, so the sum over ``tensor`` counts it once
+        (every tensor rank computes it whole)."""
+        axes = tt.logical_axes(self.cfg)["layers"]
+        rules = make_rules(0, tp=True)
+        first = self.mesh.index("tensor") == 0
+        self._tp_slices = {}
+        keep = torch.ones(self.whole_chunk, dtype=torch.float32)
+        off = 0
+        for (name, shape), size in zip(self._template, self._sizes):
+            spec = mesh_axes(axes[name][1:], rules)
+            self._tp_slices[name] = shard_slices(shape, spec, self.mesh,
+                                                 f"layers/{name}")
+            if "tensor" not in spec_axes(spec) and not first:
+                keep[off:off + size] = 0.0
+            off += size
+        self._tp_keep = keep.to(self.device)
 
     # --- init ------------------------------------------------------------
     def _flat_bits(self, leaves) -> torch.Tensor:
-        """One layer's leaves -> its (C,) bf16 chunk on the host."""
+        """One layer's leaves -> this rank's (C,) bf16 chunk on the host
+        (its shard of the whole chunk over fsdp x tensor)."""
         flat = torch.cat([t.reshape(-1).to(torch.bfloat16) for t in leaves])
-        flat = torch.nn.functional.pad(flat, (0, self.chunk - flat.numel()))
+        flat = torch.nn.functional.pad(flat,
+                                       (0, self.whole_chunk - flat.numel()))
         out = torch.empty(self.chunk, dtype=torch.bfloat16,
                           pin_memory=self._pin)
-        return out.copy_(flat)
+        return out.copy_(flat[self.shard_offset:
+                              self.shard_offset + self.chunk])
 
     @torch.no_grad()
     def _init_params(self, seed: int, params) -> None:
@@ -375,33 +493,89 @@ class InfinityExecutor:
                     len(self._param_cache) < self._cache_layers:
                 self._param_cache[i] = bits
 
+    def _param_dev(self, i: int, host=None) -> torch.Tensor:
+        """Layer i's chunk on the card: the live cache's, else a copy of
+        the host chunk (kept live while the budget has room)."""
+        got = self._live.get(i)
+        if got is not None:
+            return got
+        host = host if host is not None else self._get_param(i)
+        self.param_reads += 1
+        dev = host.to(self.device, non_blocking=True)
+        if len(self._live) < self.live_layers:
+            self._live[i] = dev
+        return dev
+
+    def _refresh_live(self, i: int, bits: torch.Tensor) -> None:
+        """After the update: layer i's new chunk on the card where the
+        live cache holds it (or has room)."""
+        if i in self._live or len(self._live) < self.live_layers:
+            self._live[i] = bits.to(self.device, non_blocking=True)
+
     def _stream_params(self, order):
         """(i, layer i's bf16 chunk on the card) over ``order``, with two
-        host reads in flight ahead of the consumer (none when drained)."""
+        host reads in flight ahead of the consumer (none when drained;
+        none for a layer the live cache holds)."""
         order = list(order)
         depth = 2 if self.pipeline else 0
-        futs = {k: self._rpool.submit(self._get_param, k)
-                for k in order[:depth]}
+
+        def submit(k):
+            return (None if k in self._live
+                    else self._rpool.submit(self._get_param, k))
+        futs = {k: submit(k) for k in order[:depth]}
         for pos, i in enumerate(order):
             fut = futs.pop(i, None)
             if depth and pos + depth < len(order):
                 nxt = order[pos + depth]
-                futs[nxt] = self._rpool.submit(self._get_param, nxt)
-            host = fut.result() if fut is not None else self._get_param(i)
-            yield i, host.to(self.device, non_blocking=True)
+                futs[nxt] = submit(nxt)
+            yield i, self._param_dev(
+                i, fut.result() if fut is not None else None)
 
-    def _leaves(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """A layer's chunk (bf16 bits, or their f32 view in the backward)
-        -> its param dict in the compute dtype."""
+    def _whole(self, bits: torch.Tensor) -> torch.Tensor:
+        """A layer's bf16 shard gathered whole over fsdp x tensor (one
+        ``all_gather`` of the bits, as int32 pairs: gloo moves no 16-bit
+        integers; the chunk itself at one rank)."""
+        if not self._chunk_axes:
+            return bits
+        return comm.all_gather(bits.view(torch.int32), self._chunk_axes,
+                               mesh=self.mesh).view(torch.bfloat16)
+
+    def _to_shard(self, grad: torch.Tensor) -> torch.Tensor:
+        """A layer's whole-chunk grad -> this rank's shard of its sum over
+        the ranks: reduce-scattered over fsdp x tensor (a replicated
+        leaf counted once over ``tensor``) and summed over ``data``."""
+        if self.mesh is None:
+            return grad
+        if self._tp_keep is not None:
+            grad = grad * self._tp_keep
+        grad = comm.reduce_scatter(grad, self._chunk_axes, mesh=self.mesh)
+        return comm.all_reduce(grad, "data", mesh=self.mesh)
+
+    def _leaves(self, flat: torch.Tensor, step: int = 0,
+                qbits=None) -> Dict[str, torch.Tensor]:
+        """A layer's whole chunk (bf16 bits, or their f32 view in the
+        backward) -> the param dict this rank's layer runs, in the compute
+        dtype: the compression transform (per layer, JAX's
+        ``{"layers": tree}``), MoQ's fake-quant of the leaves of 2 or more
+        dims at ``qbits``, then a tensor rank's slices."""
         out, off = {}, 0
         for (name, shape), size in zip(self._template, self._sizes):
             out[name] = flat[off:off + size].view(shape).to(self.cfg.dtype)
             off += size
+        if self.compression is not None:
+            out = self.compression.apply({"layers": out}, step)["layers"]
+        if self.moq and qbits is not None:
+            out = {k: (ste_quant_traced_bits(v, qbits) if v.dim() >= 2
+                       else v) for k, v in out.items()}
+        if self._tp_slices is not None:
+            out = {k: v[self._tp_slices[k]] for k, v in out.items()}
         return out
 
-    def _layer(self, x, flat, positions, mask):
-        return tt.transformer_layer(x, self._leaves(flat), self.cfg,
-                                    positions=positions, mask=mask)[0]
+    def _layer(self, x, flat, positions, mask, step: int = 0, qbits=None):
+        with par_ctx.parallel_context(self.mesh):
+            return tt.transformer_layer(
+                x, self._leaves(flat, step, qbits), self.cfg,
+                positions=positions, mask=mask)[0]
 
     # --- the step ----------------------------------------------------------
     def _batch(self, batch):
@@ -415,14 +589,36 @@ class InfinityExecutor:
             if batch.get("attention_mask") is not None else None
         return ids, labels, mask
 
-    def _top_loss(self, nl, x, labels):
+    def _rows(self, g: int, mb: int):
+        """This rank's rows of micro-batch g (mb rows): its piece over
+        the batch axes (data, fsdp), row-major as JAX's batch spec."""
+        if self.mesh is None:
+            return slice(g * mb, (g + 1) * mb)
+        if mb % self.dp:
+            raise ValueError(f"microbatch {mb} not divisible by "
+                             f"data*fsdp={self.dp}")
+        n = mb // self.dp
+        r = self.mesh.index("data") * self._F + self.mesh.index("fsdp")
+        return slice(g * mb + r * n, g * mb + (r + 1) * n)
+
+    def _top_loss(self, nl, x, labels, count=None):
+        """JAX's executor head: the final norm (``final_norm_scale`` and
+        its bias where the model has one) and the chunked CE over the
+        tied or untied head. ``count``: the micro-batch's label count
+        over every rank (this rank's share of the mean)."""
         h = tt._norm(x, nl["final_norm_scale"], nl.get("final_norm_bias"),
                      self.cfg)
         tied = nl.get("lm_head") is None
         head = nl["tok_embed"] if tied else nl["lm_head"]
         c = self.cfg.loss_chunk if self.cfg.loss_chunk else min(1024,
                                                                 x.shape[1])
-        return tt.chunked_cross_entropy(h, head, labels, c, tied_embed=tied)
+        return tt.chunked_cross_entropy(h, head, labels, c, tied_embed=tied,
+                                        count=count)
+
+    def _embed(self, nl, ids):
+        """JAX's executor embedding: the token rows, the learned position
+        rows and the embedding norm (no token types)."""
+        return tt._embed(nl, ids, self.cfg, token_types=False)
 
     def _positions(self, ids):
         B, S = ids.shape
@@ -432,42 +628,61 @@ class InfinityExecutor:
         if self.cuda:
             torch.cuda.synchronize(self.device)
 
-    def train_batch(self, batch) -> Dict[str, Any]:
-        """One optimizer step over ``gas`` micro-batches of ``batch``."""
+    def _qbits(self, moq_bits, i: int):
+        """Layer i's MoQ bit width: the engine's [L] bits of the step, or
+        32 where none came (JAX's dummy, which MoQ still applies)."""
+        if not self.moq:
+            return None
+        return float(moq_bits[i]) if moq_bits is not None else 32.0
+
+    def train_batch(self, batch, moq_bits=None) -> Dict[str, Any]:
+        """One optimizer step over ``gas`` micro-batches of ``batch`` (the
+        global batch on every rank). ``moq_bits``: MoQ's [L] bit widths of
+        this step."""
         cfg, L, gas = self.cfg, self.cfg.num_layers, self.gas
         ids_all, labels_all, mask_all = self._batch(batch)
         mb = ids_all.shape[0] // gas
+        step = self.applied_steps
         stage: List[Optional[torch.Tensor]] = [None] * L
         sq_layer: List[Optional[torch.Tensor]] = [None] * L
         nl_grads = None
-        loss_sum = 0.0
+        losses = []
         scale = self._scale if self.fp16 else 1.0
         nl_names = sorted(self.nl_params)
         nl_leaves = [self.nl_params[k] for k in nl_names]
         for g in range(gas):
-            sl = slice(g * mb, (g + 1) * mb)
+            sl = self._rows(g, mb)
             ids, labels = ids_all[sl], labels_all[sl]
             mask = mask_all[sl] if mask_all is not None else None
+            count = None
+            if self.mesh is not None:
+                whole = labels_all[g * mb:(g + 1) * mb]
+                count = (whole != -100).sum().clamp_min(1).float()
             pos = self._positions(ids)
             with torch.no_grad():
-                x = tt._embed(self.nl_params, ids, cfg)
+                x = self._embed(self.nl_params, ids)
                 acts = [x]
                 for i, bits in self._stream_params(range(L)):
-                    x = self._layer(x, bits, pos, mask)
+                    x = self._layer(x, self._whole(bits), pos, mask, step,
+                                    self._qbits(moq_bits, i))
                     acts.append(x)
                     if not self.pipeline:
                         self._sync()
             xl = acts[L].detach().requires_grad_()
-            scaled = self._top_loss(self.nl_params, xl, labels) * scale
+            scaled = self._top_loss(self.nl_params, xl, labels, count) * scale
             *dnl, dx = torch.autograd.grad(scaled, nl_leaves + [xl],
                                            materialize_grads=True)
-            loss_sum += float(scaled.detach()) / scale
+            losses.append(scaled.detach().reshape(1))
             last = g == gas - 1
             for i, bits in self._stream_params(range(L - 1, -1, -1)):
-                flat32 = bits.float().requires_grad_()
+                flat32 = self._whole(bits).float().requires_grad_()
                 xi = acts[i].detach().requires_grad_()
-                y = self._layer(xi, flat32, pos, mask)
-                dp, dx = torch.autograd.grad(y, (flat32, xi), dx)
+                y = self._layer(xi, flat32, pos, mask, step,
+                                self._qbits(moq_bits, i))
+                # the layer's collectives differentiate on the mesh
+                with par_ctx.parallel_context(self.mesh):
+                    dp, dx = torch.autograd.grad(y, (flat32, xi), dx)
+                dp = self._to_shard(dp)
                 acts[i + 1] = None
                 if stage[i] is not None:
                     dp = dp + stage[i].to(self.device, non_blocking=True)
@@ -475,22 +690,33 @@ class InfinityExecutor:
                     sq_layer[i] = sum_of_squares(dp)
                 stage[i] = self._to_host(dp)
             with torch.enable_grad():
-                x0 = tt._embed(self.nl_params, ids, cfg)
-                (demb,) = torch.autograd.grad(
-                    x0, self.nl_params["tok_embed"], dx)
-            dnl[nl_names.index("tok_embed")] = \
-                dnl[nl_names.index("tok_embed")] + demb
+                x0 = self._embed(self.nl_params, ids)
+                demb = torch.autograd.grad(x0, nl_leaves, dx,
+                                           allow_unused=True,
+                                           materialize_grads=True)
+            dnl = [a + b for a, b in zip(dnl, demb)]
             nl_grads = (dnl if nl_grads is None
                         else [a + b for a, b in zip(nl_grads, dnl)])
         inv = 1.0 / gas
+        sq_l = torch.stack(sq_layer).sum().reshape(1)
+        losses = torch.cat(losses)
+        if self.mesh is not None:
+            # the embedding / head grads and the loss: summed over the
+            # batch axes (each rank holds its rows' share); the layer
+            # shards' squares summed over the shard axes
+            for gr in nl_grads:
+                comm.all_reduce(gr, ("data", "fsdp"), mesh=self.mesh)
+            comm.all_reduce(losses, ("data", "fsdp"), mesh=self.mesh)
+            comm.all_reduce(sq_l, self._chunk_axes, mesh=self.mesh)
         self._sync()
-        sq_total = float(torch.stack(sq_layer).sum()) * inv * inv
+        loss = sum(float(v) / scale for v in losses) / gas
+        sq_total = float(sq_l[0]) * inv * inv
         nl_sq = float(torch.stack([sum_of_squares(gr * inv)
                                    for gr in nl_grads]).sum())
         if self.fp16 and not math.isfinite(sq_total + nl_sq):
             self._on_overflow()
             self.skipped_steps += 1
-            return self._metrics(loss_sum / gas, float("nan"), True, scale)
+            return self._metrics(loss, float("nan"), True, scale)
         gnorm = math.sqrt(sq_total + nl_sq) / scale
         coef = inv / scale
         if self.clip and self.clip > 0 and gnorm > self.clip:
@@ -506,7 +732,7 @@ class InfinityExecutor:
         else:
             self._device_update_sweep(stage, lr_t, coef)
         self._drain_write()
-        return self._metrics(loss_sum / gas, gnorm, False, scale)
+        return self._metrics(loss, gnorm, False, scale)
 
     def _metrics(self, loss, gnorm, overflow, scale):
         out = {"loss": torch.tensor(loss, dtype=torch.float32),
@@ -558,11 +784,13 @@ class InfinityExecutor:
                 fut = self._rpool.submit(read, i + 1) if i + 1 < L else None
             opt = (None if opt_host is None
                    else opt_host.to(self.device, non_blocking=True))
-            bits = self._get_param(i).to(self.device, non_blocking=True)
+            # the params only for a lazy init (master = the bf16 params)
+            bits = self._param_dev(i) if opt is None else None
             opt, new_bits = self._adam_chunk(
                 opt, stage[i].to(self.device, non_blocking=True), bits,
                 lr_t, coef)
             stage[i] = None
+            self._refresh_live(i, new_bits)
             opt_h, bits_h = self._to_host(opt), self._to_host(new_bits)
             done = None
             if self.cuda:
@@ -631,6 +859,7 @@ class InfinityExecutor:
             stage[i] = None
             bits = torch.empty(self.chunk, dtype=torch.bfloat16,
                                pin_memory=self._pin).copy_(opt[0])
+            self._refresh_live(i, bits)
             if self.store.backend != "nvme":
                 opt = opt.clone()          # the store keeps its own chunk
             w = self._write_layer(i, opt, bits)
@@ -657,12 +886,26 @@ class InfinityExecutor:
 
     @torch.no_grad()
     def eval_batch(self, batch):
+        """The loss of a batch (over ranks: each rank's rows, the mean
+        over every rank's labels), at the step's compression and, with
+        MoQ, JAX's 32-bit fake-quant."""
         ids, labels, mask = self._batch(batch)
+        count = None
+        if self.mesh is not None:
+            count = (labels != -100).sum().clamp_min(1).float()
+            sl = self._rows(0, ids.shape[0])
+            ids, labels = ids[sl], labels[sl]
+            mask = mask[sl] if mask is not None else None
         pos = self._positions(ids)
-        x = tt._embed(self.nl_params, ids, self.cfg)
-        for _, bits in self._stream_params(range(self.cfg.num_layers)):
-            x = self._layer(x, bits, pos, mask)
-        return self._top_loss(self.nl_params, x, labels)
+        x = self._embed(self.nl_params, ids)
+        for i, bits in self._stream_params(range(self.cfg.num_layers)):
+            x = self._layer(x, self._whole(bits), pos, mask,
+                            self.applied_steps, self._qbits(None, i))
+        loss = self._top_loss(self.nl_params, x, labels, count)
+        if self.mesh is not None:
+            loss = comm.all_reduce(loss.reshape(1).clone(), ("data", "fsdp"),
+                                   mesh=self.mesh)[0]
+        return loss
 
     def measure_decomposition(self, batch, reps: int = 2) -> Dict[str, float]:
         """What a step's parts cost, measured one at a time with a fence
@@ -673,7 +916,7 @@ class InfinityExecutor:
         one update and one chunk round trip a layer)."""
         L = self.cfg.num_layers
         ids, labels, mask = self._batch(batch)
-        ids = ids[:ids.shape[0] // self.gas]
+        ids = ids[self._rows(0, ids.shape[0] // self.gas)]
         pos = self._positions(ids)
 
         def timed(fn):
@@ -686,9 +929,9 @@ class InfinityExecutor:
             return (time.perf_counter() - t0) / reps * 1e3
 
         host = self._get_param(0)
-        bits = host.to(self.device)
+        bits = self._whole(host.to(self.device))
         with torch.no_grad():
-            x = tt._embed(self.nl_params, ids, self.cfg)
+            x = self._embed(self.nl_params, ids)
 
         def layer():
             with torch.no_grad():
@@ -696,7 +939,8 @@ class InfinityExecutor:
             flat32 = bits.float().requires_grad_()
             xi = x.detach().requires_grad_()
             y = self._layer(xi, flat32, pos, mask)
-            torch.autograd.grad(y, (flat32, xi), torch.ones_like(y))
+            with par_ctx.parallel_context(self.mesh):
+                torch.autograd.grad(y, (flat32, xi), torch.ones_like(y))
 
         grad = torch.zeros(self.chunk, device=self.device)
         dma = timed(lambda: host.to(self.device, non_blocking=True))
@@ -709,7 +953,8 @@ class InfinityExecutor:
                 scratch[0], scratch[1], scratch[2], g, step_num=1,
                 lr=1e-3, grad_scale=1.0))
         else:
-            update = timed(lambda: self._adam_chunk(None, grad, bits, 1e-3,
+            shard = host.to(self.device)
+            update = timed(lambda: self._adam_chunk(None, grad, shard, 1e-3,
                                                     1.0))
         opt_io = 0.0
         if self.store.backend == "nvme" and \
@@ -726,20 +971,29 @@ class InfinityExecutor:
                 "offload_pipeline": self.pipeline}
 
     # --- checkpoints ---------------------------------------------------------
+    def _rank0(self) -> bool:
+        return self.mesh is None or comm.get_rank() == 0
+
     def save_checkpoint(self, path: str) -> Dict[str, Any]:
-        """The chunks into ``path/infinity_chunks`` and the shapes manifest
-        ``infinity_shapes.json`` (``utils/zero_to_fp32`` rebuilds the f32
-        tree from them with no engine); returns the small state the
-        engine saves beside them."""
+        """The chunks into ``path/infinity_chunks`` (whole chunks: over
+        ranks each is gathered and rank 0 writes it; collective) and the
+        shapes manifest ``infinity_shapes.json`` (``utils/zero_to_fp32``
+        rebuilds the f32 tree from them with no engine); returns the small
+        state the engine saves beside them."""
         self._drain_write()
         self._sync()
-        self.store.save_to(os.path.join(path, "infinity_chunks"))
-        with open(os.path.join(path, "infinity_shapes.json"), "w") as f:
-            json.dump({"schema": SHAPES_SCHEMA, "chunk": self.chunk,
-                       "num_layers": self.cfg.num_layers,
-                       "leaf_names": [n for n, _ in self._template],
-                       "leaf_shapes": [list(s) for _, s in self._template]},
-                      f)
+        dst = os.path.join(path, "infinity_chunks")
+        if self.mesh is None:
+            self.store.save_to(dst)
+        else:
+            self._save_gathered(dst)
+        if self._rank0():
+            with open(os.path.join(path, "infinity_shapes.json"), "w") as f:
+                json.dump({"schema": SHAPES_SCHEMA, "chunk": self.whole_chunk,
+                           "num_layers": self.cfg.num_layers,
+                           "leaf_names": [n for n, _ in self._template],
+                           "leaf_shapes": [list(s)
+                                           for _, s in self._template]}, f)
         out = {"nl_params": {k: v.detach().cpu()
                              for k, v in self.nl_params.items()},
                "nl_opt": {k: {p: t.cpu() for p, t in o.items()}
@@ -750,8 +1004,35 @@ class InfinityExecutor:
                                  self._hyst_left]
         return out
 
+    def _save_gathered(self, dst: str) -> None:
+        """Each layer's param and optimizer chunks gathered whole over the
+        shard axes; rank 0 writes them as a one-rank save does."""
+        if self._rank0():
+            os.makedirs(dst, exist_ok=True)
+        for i in range(self.cfg.num_layers):
+            for kind in ("param", "opt"):
+                t = self.store.read(kind, i)
+                if t is None:            # no update yet: on every rank
+                    continue
+                t = t.view(torch.int32) if kind == "param" else t
+                whole = comm.all_gather(t.contiguous(), self._chunk_axes,
+                                        dim=t.dim() - 1, mesh=self.mesh)
+                if not self._rank0():
+                    continue
+                if kind == "param":
+                    whole = whole.view(torch.bfloat16)
+                p = os.path.join(dst, f"{kind}_{i}.bin")
+
+                def do(whole=whole, p=p):
+                    rb_faults.io_seam("nvme_write", p)
+                    _view_bytes(whole).tofile(p)
+                retry_io(do, what="layer-chunk checkpoint write", path=p)
+
     @torch.no_grad()
     def load_checkpoint(self, path: str, small: Dict[str, Any]) -> None:
+        """A tag of any fsdp x tensor degree (whole chunks): each rank
+        keeps its shard of every saved chunk, the zero pad cut or padded
+        to this run's chunk."""
         saved_chunk = None
         manifest = os.path.join(path, "infinity_shapes.json")
         if os.path.exists(manifest):
@@ -763,8 +1044,11 @@ class InfinityExecutor:
                                  f"layers, model has {self.cfg.num_layers}")
         self._drain_write()
         self.store.load_from(os.path.join(path, "infinity_chunks"),
-                             saved_chunk=saved_chunk, pin=self._pin)
+                             saved_chunk=saved_chunk, pin=self._pin,
+                             whole=self.whole_chunk,
+                             offset=self.shard_offset)
         self._param_cache.clear()
+        self._live.clear()
         for k, v in small["nl_params"].items():
             self.nl_params[k].copy_(v)
         for k, o in small["nl_opt"].items():
@@ -778,14 +1062,17 @@ class InfinityExecutor:
 
     def device_bytes(self) -> int:
         """The card's share of the training state: the embedding / head
-        params and their optimizer state."""
+        params and their optimizer state, and the live cache's chunks."""
         return (sum(v.numel() * v.element_size()
                     for v in self.nl_params.values())
                 + sum(t.numel() * 4 for o in self.nl_opt.values()
-                      for t in o.values()))
+                      for t in o.values())
+                + sum(t.numel() * t.element_size()
+                      for t in self._live.values()))
 
     def close(self) -> None:
         self._drain_write()
         self._rpool.shutdown(wait=True)
         self._wpool.shutdown(wait=True)
         self.store.close()
+        self._live.clear()

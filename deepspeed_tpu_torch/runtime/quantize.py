@@ -51,6 +51,17 @@ def ste_quant_layers(leaf, levels, amax_max=None):
     return leaf + (xq - leaf).detach()
 
 
+def ste_quant_traced_bits(x, bits: float):
+    """JAX's ``_ste_quant_traced_bits``: symmetric fake-quant of a whole
+    leaf with one scale at ``bits`` (levels 2^(bits - 1) - 1 in f32), the
+    straight-through gradient. The layer executor's MoQ, one layer's leaf
+    at a time."""
+    lv = np.power(np.float32(2.0), np.float32(bits) - np.float32(1.0)) \
+        - np.float32(1.0)
+    levels = torch.tensor([lv], dtype=torch.float32, device=x.device)
+    return ste_quant_layers(x[None], levels)[0]
+
+
 class MoQ:
     """The quantization-period scheduler and its param transform."""
 

@@ -33,11 +33,19 @@ in place (``ops/cpu_adam.py``, or ``ops/cpu_adagrad.py`` with
 ``optim="adagrad"``) writing the new params, which are copied up.
 
 Both compute the global grad norm over what they hold (the NVMe swapper
-on the card, the host one in the C++ over the wire grads), clip, and
-report an fp16 overflow (a non-finite norm) before touching any state:
-the caller skips the step. ``export_state`` / ``import_state`` use JAX's
-layout (``chunk_i`` (3, C) planes; or ``master``, ``m``, ``v`` /
-``accum`` flat), which a checkpoint keeps as ``optswap.npz``.
+on the card, the host one in the C++ over the wire grads; over ranks the
+caller hands in the squares' sum over every rank, ``sq_total``), clip,
+and report an fp16 overflow (a non-finite norm) before touching any
+state: the caller skips the step. ``export_state`` / ``import_state`` use
+JAX's layout (``chunk_i`` (3, C) planes; or ``master``, ``m``, ``v`` /
+``accum`` flat), which a checkpoint keeps as ``optswap.npz``;
+``planes`` / ``state_from_planes`` turn it into (P, n) planes over the
+leaves in order and back.
+
+Over ranks (ZeRO stage 1-3 on ``data`` / ``fsdp``, JAX's ``_flat_spec``
+sharding of the flat state over the mesh) a rank's swapper holds its
+ZeRO partition only: the engine builds it on each leaf's optimizer slice,
+and a checkpoint gathers the planes whole into the one-rank layout.
 """
 
 import itertools
@@ -72,6 +80,19 @@ def grad_norm_coef(sq_total: float, *, grad_scale: float, clip: float):
     if clip and clip > 0 and gnorm > clip:
         coef *= clip / (gnorm + 1e-6)
     return gnorm, coef
+
+
+def chunk_planes(planes: np.ndarray, chunk: int) -> Dict[str, np.ndarray]:
+    """(P, n) planes cut into zero-padded (P, chunk) chunks ``chunk_i``
+    (the NVMe swapper's layout at ``chunk`` values a chunk)."""
+    P, n = planes.shape
+    out = {}
+    for i in range(max(1, math.ceil(n / chunk))):
+        c = np.zeros((P, chunk), np.float32)
+        part = planes[:, i * chunk:(i + 1) * chunk]
+        c[:, :part.shape[1]] = part
+        out[f"chunk_{i}"] = c
+    return out
 
 
 class NVMeOptimizerSwapper:
@@ -188,12 +209,14 @@ class NVMeOptimizerSwapper:
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], params: List[torch.Tensor], *,
              lr: float, step_num: int, clip: Optional[float] = None,
-             grad_scale: float = 1.0):
+             grad_scale: float = 1.0, sq_total: Optional[float] = None):
         """One AdamW step: ``grads`` (f32, already averaged; under fp16
         still scaled by ``grad_scale``) update the state and, in place,
-        ``params``. Returns (grad norm, overflow); on an overflow nothing
-        is read or written."""
-        total = float(torch.stack([sum_of_squares(g) for g in grads]).sum())
+        ``params``. ``sq_total``: the grads' sum of squares over every
+        rank (default: over ``grads``). Returns (grad norm, overflow); on
+        an overflow nothing is read or written."""
+        total = (float(torch.stack([sum_of_squares(g) for g in grads]).sum())
+                 if sq_total is None else sq_total)
         if not math.isfinite(total):
             return float("nan"), True
         gnorm, coef = grad_norm_coef(total, grad_scale=grad_scale, clip=clip)
@@ -299,6 +322,18 @@ class NVMeOptimizerSwapper:
         return {f"chunk_{i}": self._get(i).numpy().copy()
                 for i in range(self.n_chunks)}
 
+    def planes(self, state: Dict[str, np.ndarray],
+               n: Optional[int] = None) -> np.ndarray:
+        """An exported state (of ``n`` values a plane; default this
+        swapper's) as (3, n) planes over the leaves in order."""
+        flat = np.concatenate([state[f"chunk_{i}"]
+                               for i in range(len(state))], axis=1)
+        return flat[:, :n or self.num_params]
+
+    def state_from_planes(self, planes: np.ndarray) -> Dict[str, np.ndarray]:
+        """(3, n) planes in this swapper's chunk layout (``chunk_i``)."""
+        return chunk_planes(planes, self.chunk)
+
     def import_state(self, chunks: Dict[str, np.ndarray]) -> None:
         if self.cuda:
             torch.cuda.synchronize(self.device)
@@ -393,7 +428,7 @@ class HostAdamSwapper:
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], params: List[torch.Tensor], *,
              lr: float, step_num: int, clip: Optional[float] = None,
-             grad_scale: float = 1.0):
+             grad_scale: float = 1.0, sq_total: Optional[float] = None):
         for g, off, size in zip(grads, self._offsets, self._sizes):
             self._gbuf[off:off + size].copy_(g.reshape(-1),
                                              non_blocking=True)
@@ -403,7 +438,7 @@ class HostAdamSwapper:
         if self._f16:
             self._g32.copy_(self._gbuf)
             gflat = self._g32
-        sq = self.cpu.sq_norm(gflat)
+        sq = self.cpu.sq_norm(gflat) if sq_total is None else sq_total
         if not math.isfinite(sq):
             return float("nan"), True
         gnorm = math.sqrt(sq) / grad_scale
@@ -421,6 +456,15 @@ class HostAdamSwapper:
 
     def export_state(self) -> Dict[str, np.ndarray]:
         return {k: v.numpy().copy() for k, v in self.cpu.state().items()}
+
+    def planes(self, state: Dict[str, np.ndarray],
+               n: Optional[int] = None) -> np.ndarray:
+        """An exported state (of ``n`` values a plane) as (P, n) planes,
+        in ``cpu.state()``'s key order."""
+        return np.stack([state[k] for k in self.cpu.state()])[:, :n]
+
+    def state_from_planes(self, planes: np.ndarray) -> Dict[str, np.ndarray]:
+        return {k: planes[j] for j, k in enumerate(self.cpu.state())}
 
     def import_state(self, state: Dict[str, np.ndarray]) -> None:
         for k, v in self.cpu.state().items():

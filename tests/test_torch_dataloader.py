@@ -240,28 +240,46 @@ def test_forward_backward_step_equals_train_batch():
         e.backward()
 
 
-def test_forward_backward_step_matches_jax():
-    """The JAX engine's 3-call loop (``tests/unit/test_engine.py``
-    ``test_forward_backward_step``: 4 micro-steps at gas 2, so 2 optimizer
-    steps) on the same llama weights and micro-batches: losses within 1e-5,
-    the same step counters and lr, params within 1e-5."""
+def _three_call_loop(eps):
+    """Both engines' 3-call loop (4 micro-steps at gas 2) from the same
+    llama weights; returns (JAX engine, port engine, JAX's accumulated
+    grads of tok_embed / lm_head at each boundary)."""
     jcfg = jt.llama_config("tiny", vocab_size=VOCAB, num_layers=2,
                            max_seq_len=S, dtype=jax.numpy.float32)
-    conf = dict(CONFIG, train_batch_size=8, gradient_accumulation_steps=2)
+    opt = {"type": "adamw", "params": {"lr": 1e-3, "eps": eps}}
+    conf = dict(CONFIG, train_batch_size=8, gradient_accumulation_steps=2,
+                optimizer=opt)
     je, *_ = deepspeed_tpu.initialize(model=jt.make_model(jcfg),
                                       config=dict(conf),
                                       devices=jax.devices()[:1])
     p0 = jax.tree.map(np.asarray,
                       jt.make_model(jcfg).init(jax.random.PRNGKey(42)))
-    te = _port(params=p0, train_batch_size=8, gradient_accumulation_steps=2)
-    for mb in _batches(4, 4, seed=1):
+    te = _port(params=p0, train_batch_size=8, gradient_accumulation_steps=2,
+               optimizer=opt)
+    sums = []
+    for n, mb in enumerate(_batches(4, 4, seed=1)):
         jl = je.forward(mb)
         je.backward(jl)
+        if n % 2:
+            sums.append({k: np.array(je._grad_buffer[k])
+                         for k in ("tok_embed", "lm_head")})
         je.step()
         tl = te.forward(mb)
         te.backward(tl)
         te.step()
         assert abs(float(tl) - float(jl)) <= 1e-5 * abs(float(jl))
+    return je, te, sums
+
+
+def test_forward_backward_step_matches_jax():
+    """The JAX engine's 3-call loop (``tests/unit/test_engine.py``
+    ``test_forward_backward_step``: 4 micro-steps at gas 2, so 2 optimizer
+    steps) on the same llama weights and micro-batches: losses within 1e-5,
+    the same step counters and lr, params within 1e-5. AdamW's eps is
+    1e-3: at 1e-8 an element whose two micro-batch grads cancel takes a
+    sign from the last bits of the sum and moves by lr either way
+    (ROADMAP C18, ``test_adam_eps_1e8_moves_only_cancelling_elements``)."""
+    je, te, _ = _three_call_loop(1e-3)
     assert te.global_steps == je.global_steps == 2
     assert te.micro_steps == je.micro_steps == 4
     assert te.get_lr() == je.get_lr()
@@ -270,6 +288,28 @@ def test_forward_backward_step_matches_jax():
         got = te.params[name].detach().numpy().astype(np.float64)
         want = jp[name].astype(np.float64)
         assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want)
+
+
+def test_adam_eps_1e8_moves_only_cancelling_elements():
+    """ROADMAP C18: at AdamW's eps 1e-8 the same loop parts from JAX's
+    only on elements whose accumulated grad cancels to within 1e-4 of the
+    leaf's RMS grad (and not to an exact 0) at a boundary (there the
+    update is ~lr x the sign of the sum's last bits); everywhere else the
+    params hold within 1e-5, and the cancelling elements are under 0.1 %
+    of each leaf."""
+    je, te, sums = _three_call_loop(1e-8)
+    jp = jax.tree.map(np.asarray, je.params)
+    for name in ("tok_embed", "lm_head"):
+        got = te.params[name].detach().numpy().astype(np.float64)
+        want = jp[name].astype(np.float64)
+        near = np.zeros(want.shape, bool)
+        for g in sums:
+            g = g[name].astype(np.float64)
+            near |= (g != 0) & (np.abs(g) <= 1e-4 * np.sqrt(np.mean(g ** 2)))
+        far = ~near
+        assert near.mean() <= 1e-3, name
+        assert np.linalg.norm((got - want)[far]) <= \
+            1e-5 * np.linalg.norm(want[far]), name
 
 
 def test_initialize_training_data_builds_and_attaches_a_loader(tmp_path):

@@ -316,10 +316,12 @@ def test_fp16_overflow_skips_and_the_scaler_follows_jax(tmp_path,
 
 def test_routing_and_refusals(tmp_path):
     """Every offload_param goes to the executor (mixed cpu / nvme tiers
-    keep their chunks on nvme; cpu alone is the host tier here); what it
-    cannot stream raises: a MoE model, another optimizer, compression
-    (A11), a mesh (A8d); a model with ``attn_windows`` cannot be built in
-    the port at all (A11)."""
+    keep their chunks on nvme; cpu alone is the host tier here); a family
+    model and compression stream (A11, ported: their parity is in
+    ``test_torch_infinity_compose.py``) and a mesh config loads (A8d,
+    ``test_torch_infinity_mesh.py``); what it cannot stream raises: a
+    model with ``attn_windows`` or experts (JAX's refusals), another
+    optimizer, PLD (A11, the extras JAX's executor ignores)."""
     params = None
     e = _port(_conf(tmp_path, param="cpu", opt="nvme"), params)
     assert e._offload == "infinity" and e._infinity.store.backend == "nvme"
@@ -331,18 +333,20 @@ def test_routing_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="store"):
         e.params
     e.close()
-    # layer streaming threads no per-layer window (JAX's refusal), and a
-    # model family's leaves wait for A11
+    # layer streaming threads no per-layer window (JAX's refusal); a
+    # model family streams
     with pytest.raises(ValueError, match="attn_windows"):
         deepspeed_tpu_torch.initialize(
             model=tt.make_model(dataclasses.replace(
                 TCFG, attn_windows=(16,) * TCFG.num_layers)),
             config=_conf(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        deepspeed_tpu_torch.initialize(
-            model=tt.make_model(dataclasses.replace(
-                TCFG, norm_type="layernorm")),
-            config=_conf(tmp_path), device="cpu")
+    fam = deepspeed_tpu_torch.initialize(
+        model=tt.make_model(dataclasses.replace(
+            TCFG, norm_type="layernorm")),
+        config=_conf(tmp_path), device="cpu")[0]
+    assert "ln1_bias" in dict(fam._infinity._template)
+    assert np.isfinite(float(fam.train_batch(_batches(1)[0])["loss"]))
+    fam.close()
     moe = dataclasses.replace(TCFG, num_experts=4, top_k=2)
     with pytest.raises((NotImplementedError, ValueError)):
         deepspeed_tpu_torch.initialize(model=tt.make_model(moe),
@@ -351,13 +355,17 @@ def test_routing_and_refusals(tmp_path):
     conf["optimizer"] = {"type": "sgd", "params": {"lr": 1e-3}}
     with pytest.raises(ValueError, match="Adam family"):
         _port(conf, params)
+    comp = _port(dict(_conf(tmp_path), compression_training={
+        "weight_quantization": {"shared_parameters": {"enabled": True}}}),
+        params)
+    assert comp._infinity.compression is comp._compression
+    comp.close()
     with pytest.raises(NotImplementedError,
-                       match="A11 .training extras under 1-bit and offload"):
-        _port(dict(_conf(tmp_path), compression_training={
-            "weight_quantization": {"shared_parameters": {"enabled": True}}}),
-            params)
-    with pytest.raises(NotImplementedError, match="A8d"):
-        Config.load(dict(_conf(tmp_path), mesh={"axes": {"fsdp": 2}}))
+                       match="A11 .the extras JAX's executor ignores"):
+        _port(dict(_conf(tmp_path), progressive_layer_drop={
+            "enabled": True, "theta": 0.5, "gamma": 0.1}), params)
+    c = Config.load(dict(_conf(tmp_path), mesh={"axes": {"fsdp": 2}}))
+    assert c.mesh.axes == {"fsdp": 2}
     # close() deletes an executor's chunk directory
     assert not [f for f in os.listdir(tmp_path)
                 if f.startswith("dstpu-infinity")]

@@ -171,13 +171,45 @@ def test_forward_with_kv_matches_jax(fused):
     assert rel_l2(v.numpy(), _f32(jv)) <= TOL["float32"]
 
 
-def test_rotary_matches_jax_formula():
+def _jax_freqs(half, theta):
+    return np.asarray(jnp.exp(-jnp.arange(0, half, dtype=jnp.float32)
+                              * (np.log(theta) / half)))
+
+
+def test_rotary_matches_jax_formula(monkeypatch):
+    """The rotation itself, fed JAX's frequencies, agrees with JAX's to
+    1e-6 at positions up to 4000. The frequency vectors of the two
+    packages part in the last bit of the exp only (ROADMAP C16, held by
+    ``test_rotary_freqs_part_only_in_the_exp_last_bit``), which the
+    positions amplify past 1e-6."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 5, 3, 64)).astype(np.float32)
     pos = rng.integers(0, 4000, size=(2, 5))
-    got = pt.rotary_embed(torch.from_numpy(x), torch.from_numpy(pos), 1e4)
     want = jt.rotary_embed(jnp.asarray(x), jnp.asarray(pos), 1e4)
+    monkeypatch.setattr(pt, "rotary_freqs", lambda half, theta, device:
+                        torch.from_numpy(_jax_freqs(half, theta)))
+    got = pt.rotary_embed(torch.from_numpy(x), torch.from_numpy(pos), 1e4)
     assert rel_l2(got.numpy(), np.asarray(want)) <= 1e-6
+
+
+def test_rotary_freqs_part_only_in_the_exp_last_bit():
+    """ROADMAP C16: the exp's arguments are bit-equal in both packages,
+    and each package's frequency lies within one f32 ulp of the exp of
+    those arguments taken in f64; so the two vectors part by at most one
+    ulp an entry, the last bit of ``torch.exp`` against XLA's."""
+    half, theta = 32, 1e4
+    arg_t = (-torch.arange(0, half, dtype=torch.float32)
+             * (np.log(theta) / half)).numpy()
+    arg_j = np.asarray(-jnp.arange(0, half, dtype=jnp.float32)
+                       * (np.log(theta) / half))
+    np.testing.assert_array_equal(arg_t, arg_j)
+    exact = np.exp(arg_j.astype(np.float64))
+    ulp = np.spacing(exact.astype(np.float32)).astype(np.float64)
+    ours = pt.rotary_freqs(half, theta, "cpu").numpy()
+    theirs = _jax_freqs(half, theta)
+    for f in (ours, theirs):
+        assert np.all(np.abs(f.astype(np.float64) - exact) <= ulp)
+    assert np.all(np.abs(ours.astype(np.float64) - theirs) <= ulp)
 
 
 def test_seeded_init_matches_jax_layout():

@@ -255,7 +255,10 @@ def test_gate_noise_seeded_training_only_and_replayed():
     drawn in training only (eval and a seedless call route without it);
     Jitter's factors stay within [0.99, 1.01]; and the remat replay
     redraws the same noise, so the grads under "full" remat equal those
-    without remat bit for bit."""
+    without remat bit for bit. That the noise is drawn shows in the
+    grads: Jitter at seed 5 moves this model's loss by less than one f32
+    ulp, so the loss alone can round to the seedless one (ROADMAP C17,
+    ``test_jitter_noise_routes_as_jax_top_k_gating``)."""
     ids = {"input_ids": torch.from_numpy(
         W.batches(1)[0]["input_ids"][:2, :16])}
     for policy in ("Jitter", "RSample"):
@@ -269,7 +272,12 @@ def test_gate_noise_seeded_training_only_and_replayed():
             ev = tt.lm_loss(p, ids, cfg, dropout_seed=5)
             ev_plain = tt.lm_loss(p, ids, cfg)
         assert float(a) == float(b) and float(a) != float(c)
-        assert float(a) != float(plain) and float(ev) == float(ev_plain)
+        if policy == "Jitter":
+            assert abs(float(a) - float(plain)) <= \
+                np.spacing(np.float32(plain))
+        else:
+            assert float(a) != float(plain)
+        assert float(ev) == float(ev_plain)
         leaves = list(ckpt_mod.flatten(p).values())
         grads = []
         for remat in ("none", "full"):
@@ -279,10 +287,39 @@ def test_gate_noise_seeded_training_only_and_replayed():
             grads.append(torch.autograd.grad(loss, leaves))
         for g0, g1 in zip(*grads):
             assert torch.equal(g0, g1)
+        seedless = torch.autograd.grad(
+            tt.lm_loss(p, ids, cfg, train=True), leaves)
+        assert not all(torch.equal(g0, g1)
+                       for g0, g1 in zip(grads[0], seedless))
     u = pmoe._noisy(torch.ones(64, 8), "Jitter", True,
                     torch.Generator().manual_seed(1))
     assert float(u.min()) >= 0.99 and float(u.max()) <= 1.01
     assert float(u.std()) > 0
+
+
+def test_jitter_noise_routes_as_jax_top_k_gating():
+    """ROADMAP C17: the port's Jitter draws u in [0.99, 1.01] from its
+    generator and routes ``logits * u``; JAX's ``top_k_gating`` on the
+    same noisy logits gives the same dispatch and combine (1e-6). At the
+    gate logits of the tiny model's layer 0 the noise moves the combine
+    weights by up to ~6e-4 without changing a choice, and moves the loss
+    by less than one f32 ulp."""
+    from deepspeed_tpu.moe import sharded_moe as jmoe
+    rng = np.random.default_rng(3)
+    logits = torch.from_numpy(rng.standard_normal((32, 4)).astype(
+        np.float32) * 0.05)
+    u = torch.empty(logits.shape).uniform_(
+        0.99, 1.01, generator=torch.Generator().manual_seed(5))
+    comb, disp, aux, _ = pmoe.top_k_gating(
+        logits, 2, 10, generator=torch.Generator().manual_seed(5),
+        noise_policy="Jitter")
+    jc, jd, jaux, _ = jmoe.top_k_gating(jnp.asarray((logits * u).numpy()),
+                                        2, 10)
+    np.testing.assert_array_equal(disp.numpy(), np.asarray(jd))
+    assert rel_l2(comb.numpy(), np.asarray(jc)) <= 1e-6
+    assert abs(float(aux) - float(jaux)) <= 1e-6
+    plain, *_ = pmoe.top_k_gating(logits, 2, 10)
+    assert float((comb - plain).abs().max()) > 0
 
 
 def test_moe_engine_trains_with_noise_repeatably():

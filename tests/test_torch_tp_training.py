@@ -324,7 +324,9 @@ def test_the_rest_of_a9_still_raises(what):
     ``test_torch_pipeline.py`` and ``test_torch_ring_attention.py``), the
     comms logger section switches the logger on, and serving on a data
     mesh raises naming JAX's ServingEngine, which has no data-split path;
-    offload over ranks stays A8d."""
+    offload on a mesh of ``tensor`` alone at world 1 raises JAX's plan
+    error (the executor over ranks is in ``test_torch_infinity_mesh.py``,
+    A8d)."""
     from deepspeed_tpu_torch.comm import comm
     model = tt.make_model(tt.llama_config("tiny", dtype=torch.float32,
                                           **W.DIMS))
@@ -342,7 +344,8 @@ def test_the_rest_of_a9_still_raises(what):
                 model, mesh=Mesh(MeshPlan(data=2)), device="cpu")
         return
     if what == "offload":
-        with pytest.raises(NotImplementedError, match="A8d"):
+        with pytest.raises(ValueError, match=re.escape(
+                "mesh.axes product 2 != world size 1")):
             deepspeed_tpu_torch.initialize(model=model, config=bad[what],
                                            device="cpu")
         return
